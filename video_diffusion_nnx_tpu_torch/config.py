@@ -1,4 +1,5 @@
-"""YAML config loading and model construction (counterpart of the JAX package's config.py:29-221).
+"""YAML config loading, model and trainer construction (counterpart of the JAX package's config.py:29-221
+and of ``build_from_config`` in its root train.py:17-71).
 
 The YAML schema is the JAX package's: three sections (``unet:``,
 ``diffusion:``, ``trainer:``) merged over the defaults below, and an
@@ -179,3 +180,19 @@ def build_models(config: dict[str, Any], device: str | torch.device = "cuda"):
     diffusion = GaussianDiffusion(unet, **{k: d[k] for k in _DIFFUSION_DEFAULTS})
     diffusion.to(device)
     return unet, diffusion
+
+
+def build_trainer(config: dict[str, Any], device: str | torch.device = "cuda", resume_step: int = 0,
+                  rng_seed: int | None = None):
+    """``(unet, diffusion, trainer)`` from a merged config; seed: ``rng_seed`` > config ``rng_seed`` > 0."""
+    from video_diffusion_nnx_tpu_torch.training.trainer import Trainer
+
+    seed = rng_seed if rng_seed is not None else config.get("rng_seed", 0)
+    unet, diffusion = build_models(config, device=device)
+    t = {**_TRAINER_DEFAULTS, **config.get("trainer", {})}
+    if "dataset_path" not in t:
+        raise KeyError("config section 'trainer' needs a dataset_path")
+    kwargs = {k: t[k] for k in _TRAINER_DEFAULTS if k not in ("resume_training_step", "compilation_cache_dir")}
+    trainer = Trainer(diffusion, dataset_path=t["dataset_path"], rng_seed=seed,
+                      resume_training_step=resume_step, **kwargs)
+    return unet, diffusion, trainer

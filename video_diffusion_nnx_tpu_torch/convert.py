@@ -9,7 +9,8 @@ Two jobs:
   so that part stays with the caller; this module takes plain arrays.
 * :func:`save_checkpoint` / :func:`load_checkpoint` write and read this
   package's own checkpoint file (``torch.save`` of ``{"model": state_dict,
-  "ema_params": state_dict or None}``).
+  "ema_params": state_dict or None, "optimizer": optimizer state or None,
+  "step": int or None}``); the trainer writes one file per step.
 
 Layout rules, from the JAX layouts to PyTorch's:
 
@@ -82,24 +83,38 @@ def state_dict_from_nnx(flat: Mapping[str, np.ndarray], model: nn.Module) -> dic
     return out
 
 
-def save_checkpoint(path: str | Path, model: nn.Module, ema_state: Mapping | None = None) -> Path:
-    """Write ``model``'s state (and an optional EMA state) as this package's checkpoint file."""
+def save_checkpoint(path: str | Path, model: nn.Module, ema_state: Mapping | None = None,
+                    optimizer: Mapping | None = None, step: int | None = None) -> Path:
+    """Write ``model``'s state (and optional EMA and optimizer states) as this package's checkpoint file.
+
+    The file is written beside its final name and renamed, so a reader never
+    sees half of it.
+    """
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     payload = {
         "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
         "ema_params": None if ema_state is None else {k: v.detach().cpu() for k, v in ema_state.items()},
+        "optimizer": optimizer,
+        "step": step,
     }
-    torch.save(payload, path)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(payload, tmp)
+    tmp.replace(path)
     return path
+
+
+def read_checkpoint(path: str | Path) -> dict:
+    """The whole payload of a checkpoint file, on the CPU."""
+    path = Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"no checkpoint file at {path}")
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_checkpoint(model: nn.Module, path: str | Path, load_ema_params: bool = False) -> nn.Module:
     """Load a checkpoint file into ``model``: its ``model`` state, or its EMA state."""
-    path = Path(path)
-    if not path.is_file():
-        raise FileNotFoundError(f"no checkpoint file at {path}")
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    payload = read_checkpoint(path)
     state = payload["ema_params"] if load_ema_params else payload["model"]
     if state is None:
         raise KeyError(f"{path} holds no EMA parameters")

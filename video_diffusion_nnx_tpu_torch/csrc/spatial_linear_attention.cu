@@ -1,4 +1,4 @@
-// Fused spatial linear-attention block, forward, for Hopper (sm_90a).
+// Fused spatial linear-attention block, forward and backward, for Hopper (sm_90a).
 //
 // Replaces three TPU kernels of video_diffusion_nnx_tpu/ops/
 // spatial_linear_attention.py: the one-pass `_kernel` (line 37, through
@@ -46,7 +46,7 @@ constexpr int kMaxAcc = 16;  // (D*D) / kThreads context entries per thread: D <
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sla_context_kernel(
     const T* __restrict__ x, const T* __restrict__ wqkv, float* __restrict__ ctx,
-    int n, int C, int H, int D, int NC) {
+    float* __restrict__ stats, int n, int C, int H, int D, int NC) {
   extern __shared__ float smem[];
   const int KS = D + 1;
   float* xs = smem;                  // (NC, C)  token chunk
@@ -142,6 +142,11 @@ __global__ void __launch_bounds__(kThreads) sla_context_kernel(
   for (int i = 0; i < kMaxAcc; ++i) {
     const int idx = tid + i * nth;
     if (i < nacc && idx < D * D) out[idx] = acc[i] / srun[idx / D];
+  }
+  if (tid < D) {  // the k softmax's max and sum, for the backward
+    const size_t at = ((size_t)frame * H + h) * D + tid;
+    stats[at] = mrun[tid];
+    stats[(size_t)gridDim.x * H * D + at] = srun[tid];
   }
 }
 
@@ -251,15 +256,15 @@ __global__ void __launch_bounds__(kThreads) sla_out_kernel(
 }
 
 template <typename T>
-static int launch_context(const void* x, const void* wqkv, void* ctx, int frames, int n, int c,
-                          int heads, int dim, int chunk, cudaStream_t stream) {
+static int launch_context(const void* x, const void* wqkv, void* ctx, void* stats, int frames,
+                          int n, int c, int heads, int dim, int chunk, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)chunk * c + 2 * (size_t)chunk * (dim + 1) + 3 * dim);
   cudaError_t err = cudaFuncSetAttribute(
       sla_context_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   sla_context_kernel<T><<<dim3(frames, heads), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<float*>(ctx),
-      n, c, heads, dim, chunk);
+      static_cast<float*>(stats), n, c, heads, dim, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -279,15 +284,449 @@ static int launch_out(const void* x, const void* wqkv, const void* wo, const voi
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward, two kernels and the partial-sum reduction.
+//
+// They replace the TPU kernels `_bwd_q_kernel` (line 450, through
+// `_q_path_pallas`) and `_bwd_kv_kernel` (line 534, through
+// `_backward_pallas`); for wide frames they also take the place of
+// `_ctx_stats_kernel` (line 246) and the chunked `_bwd_kv_chunk1_kernel` /
+// `_bwd_kv_chunk2_kernel` (lines 610, 670), since neither kernel here holds
+// a whole frame: both walk it in token chunks.
+//
+// The backward needs the forward's contexts and the k softmax's per-feature
+// max and sum: the forward's context kernel writes both (`stats`), and the
+// autograd function keeps them (at batch 8 of the flagship, 2.6 MB per
+// spatial attention), so nothing is recomputed.
+//
+// Both kernels split each frame's token chunks over `gridDim.y` CTAs (a
+// frame alone would leave most SMs idle: 80 frames at batch 8, 10 for the
+// wide frame), CTA (frame, split) taking a contiguous range of chunks.
+//
+// `sla_bwd_q_kernel` walks its chunks and, per head, recomputes q's softmax
+// and o = q ctx, and emits
+//     dW_o += round(o)^T g,  do = round(g W_o^T),  dctx += round(q)^T do,
+//     dq = p * (dp - sum_D(dp * p)),  dp = do ctx^T * scale,
+//     dW_q += x^T round(dq),  dx_q = round(g + sum_h round(dq) W_q^T).
+// dctx sums over the whole frame: each CTA writes its own partial.
+//
+// `sla_bwd_kv_kernel` runs twice. The k softmax runs over all n tokens, so
+// its VJP needs rho = sum_n ds * s before any dk: pass 0 rebuilds s = exp(k -
+// max) / sum from the saved statistics and sums, per (head, feature), a
+// partial rho over its chunks, with ds = round(dctx) round(v)^T; pass 1 adds
+// the frame's partials up and finishes dk = s * (ds - rho), dv =
+// round(dctx)^T round(s), dW_k, dW_v and dx = round(dx_q + sum_h round(dk)
+// W_k^T + round(dv) W_v^T).
+//
+// Sums across CTAs (dctx, rho, the weight gradients) go through per-CTA
+// float32 partials, added in a fixed order (`reduce_partials_kernel`, or the
+// kv kernel's own loop for rho), so every result is deterministic. Rounding points follow the TPU kernels. The head groups
+// and block-diagonal masks of the TPU kernels are not needed: every loop
+// indexes one head.
+//
+// Bound: like the forward, about 2n(c * HD) FLOPs per projection and frame,
+// and each kernel recomputes or back-propagates four or five of them;
+// tensor-core bound at small c, near the ridge at c = 256. This first
+// version multiplies on the CUDA cores in float32.
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) sla_bwd_q_kernel(
+    const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ wqkv,
+    const T* __restrict__ wo, const float* __restrict__ ctx, T* __restrict__ dxq,
+    float* __restrict__ dctx, float* __restrict__ partial, int n, int C, int H, int D,
+    float scale, int NC) {
+  extern __shared__ float smem[];
+  const int QS = D + 1;
+  float* xs = smem;                  // (NC, C)  token chunk
+  float* gs = xs + (size_t)NC * C;   // (NC, C)  its cotangent
+  float* ys = gs + (size_t)NC * C;   // (NC, C)  float32 sum over heads of dq W_q^T
+  float* ps = ys + (size_t)NC * C;   // (NC, QS) q softmax, then round(dq)
+  float* qc = ps + (size_t)NC * QS;  // (NC, QS) round(p * scale)
+  float* os = qc + (size_t)NC * QS;  // (NC, QS) round(o)
+  float* ds = os + (size_t)NC * QS;  // (NC, QS) round(do)
+  float* cs = ds + (size_t)NC * QS;  // (D, QS)  round(ctx_h)
+
+  const int frame = blockIdx.x, frames = gridDim.x;
+  const int cta = blockIdx.y * frames + frame;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int HD = H * D, W3 = 3 * HD;
+  float* pwq = partial + (size_t)cta * 2 * C * HD;  // dW_q (C, HD)
+  float* pwo = pwq + (size_t)C * HD;                // dW_o (HD, C)
+  float* dc = dctx + (size_t)cta * H * D * D;       // this CTA's dctx partial (H, D, D)
+  for (int i = tid; i < 2 * C * HD; i += nth) pwq[i] = 0.f;
+  for (int i = tid; i < H * D * D; i += nth) dc[i] = 0.f;
+  const int nchunks = (n + NC - 1) / NC, per = (nchunks + gridDim.y - 1) / gridDim.y;
+  const int n_end = min(n, (int)(blockIdx.y + 1) * per * NC);
+
+  for (int n0 = blockIdx.y * per * NC; n0 < n_end; n0 += NC) {
+    const int nc = min(NC, n - n0);
+    const size_t base = ((size_t)frame * n + n0) * C;
+    __syncthreads();
+    for (int i = tid; i < nc * C; i += nth) {
+      xs[i] = to_f(x[base + i]);
+      gs[i] = to_f(g[base + i]);
+      ys[i] = 0.f;
+    }
+    __syncthreads();
+
+    const int RG = (nc + 3) / 4;
+    for (int h = 0; h < H; ++h) {
+      // q projection (float32) and the head's context, rounded.
+      for (int item = tid; item < RG * D; item += nth) {
+        const int rg = item / D, d = item - rg * D;
+        const int col = h * D + d;
+        const int r0 = rg * 4;
+        const float* x0 = xs + (size_t)r0 * C;
+        const float* x1 = xs + (size_t)min(r0 + 1, nc - 1) * C;
+        const float* x2 = xs + (size_t)min(r0 + 2, nc - 1) * C;
+        const float* x3 = xs + (size_t)min(r0 + 3, nc - 1) * C;
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int k = 0; k < C; ++k) {
+          const float w = to_f(wqkv[(size_t)k * W3 + col]);
+          a[0] += x0[k] * w;
+          a[1] += x1[k] * w;
+          a[2] += x2[k] * w;
+          a[3] += x3[k] * w;
+        }
+        for (int u = 0; u < 4; ++u)
+          if (r0 + u < nc) ps[(size_t)(r0 + u) * QS + d] = a[u];
+      }
+      const float* ch = ctx + ((size_t)frame * H + h) * D * D;
+      for (int i = tid; i < D * D; i += nth) cs[(i / D) * QS + i % D] = rnd<T>(ch[i]);
+      __syncthreads();
+
+      // Softmax over each token's D features (float32), and round(p * scale).
+      for (int r = tid; r < nc; r += nth) {
+        float* q = ps + (size_t)r * QS;
+        float m = -INFINITY;
+        for (int d = 0; d < D; ++d) m = fmaxf(m, q[d]);
+        float s = 0.f;
+        for (int d = 0; d < D; ++d) {
+          const float e = expf(q[d] - m);
+          q[d] = e;
+          s += e;
+        }
+        for (int d = 0; d < D; ++d) {
+          q[d] = q[d] / s;
+          qc[(size_t)r * QS + d] = rnd<T>(q[d] * scale);
+        }
+      }
+      __syncthreads();
+
+      // o = round(qc . ctx) and do = round(g W_o,h^T).
+      for (int item = tid; item < nc * D; item += nth) {
+        const int r = item / D, e = item - r * D;
+        const float* q = qc + (size_t)r * QS;
+        float s = 0.f;
+        for (int d = 0; d < D; ++d) s += q[d] * cs[d * QS + e];
+        os[(size_t)r * QS + e] = rnd<T>(s);
+      }
+      for (int item = tid; item < nc * D; item += nth) {
+        const int r = item / D, e = item - r * D;
+        const float* gr = gs + (size_t)r * C;
+        const T* wr = wo + (size_t)(h * D + e) * C;
+        float s = 0.f;
+        for (int cc = 0; cc < C; ++cc) s += gr[cc] * to_f(wr[cc]);
+        ds[(size_t)r * QS + e] = rnd<T>(s);
+      }
+      __syncthreads();
+
+      // dW_o,h += o^T g;  dctx_h += qc^T do;  dq (per token, over ps).
+      for (int item = tid; item < D * C; item += nth) {
+        const int e = item / C, cc = item - e * C;
+        float s = 0.f;
+        for (int r = 0; r < nc; ++r) s += os[(size_t)r * QS + e] * gs[(size_t)r * C + cc];
+        pwo[(size_t)(h * D + e) * C + cc] += s;
+      }
+      for (int item = tid; item < D * D; item += nth) {
+        const int d = item / D, e = item - d * D;
+        float s = 0.f;
+        for (int r = 0; r < nc; ++r) s += qc[(size_t)r * QS + d] * ds[(size_t)r * QS + e];
+        dc[(size_t)h * D * D + item] += s;
+      }
+      for (int r = tid; r < nc; r += nth) {
+        const float* dor = ds + (size_t)r * QS;
+        float* p = ps + (size_t)r * QS;
+        float sum = 0.f;
+        for (int d = 0; d < D; ++d) {
+          float dp = 0.f;
+          for (int e = 0; e < D; ++e) dp += dor[e] * cs[d * QS + e];
+          sum += dp * scale * p[d];
+        }
+        for (int d = 0; d < D; ++d) {
+          float dp = 0.f;
+          for (int e = 0; e < D; ++e) dp += dor[e] * cs[d * QS + e];
+          p[d] = rnd<T>(p[d] * (dp * scale - sum));
+        }
+      }
+      __syncthreads();
+
+      // dW_q,h += x^T dq;  y += dq W_q,h^T.
+      for (int item = tid; item < C * D; item += nth) {
+        const int k = item / D, d = item - k * D;
+        float s = 0.f;
+        for (int r = 0; r < nc; ++r) s += xs[(size_t)r * C + k] * ps[(size_t)r * QS + d];
+        pwq[(size_t)k * HD + h * D + d] += s;
+      }
+      for (int item = tid; item < RG * C; item += nth) {
+        const int rg = item / C, k = item - rg * C;
+        const int r0 = rg * 4;
+        const float* p0 = ps + (size_t)r0 * QS;
+        const float* p1 = ps + (size_t)min(r0 + 1, nc - 1) * QS;
+        const float* p2 = ps + (size_t)min(r0 + 2, nc - 1) * QS;
+        const float* p3 = ps + (size_t)min(r0 + 3, nc - 1) * QS;
+        const T* wr = wqkv + (size_t)k * W3 + h * D;
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int d = 0; d < D; ++d) {
+          const float w = to_f(wr[d]);
+          a[0] += p0[d] * w;
+          a[1] += p1[d] * w;
+          a[2] += p2[d] * w;
+          a[3] += p3[d] * w;
+        }
+        for (int u = 0; u < 4; ++u)
+          if (r0 + u < nc) ys[(size_t)(r0 + u) * C + k] += a[u];
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < nc * C; i += nth) dxq[base + i] = from_f<T>(gs[i] + ys[i]);
+  }
+}
+
+// k and v projections of head h for a chunk: ks float32, vs rounded.
+template <typename T>
+__device__ __forceinline__ void project_kv(const float* xs, const T* __restrict__ wqkv, float* ks,
+                                           float* vs, int nc, int C, int HD, int h, int D) {
+  const int QS = D + 1, W3 = 3 * HD;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int RG = (nc + 3) / 4;
+  for (int item = tid; item < RG * 2 * D; item += nth) {
+    const int rg = item / (2 * D), j = item - rg * 2 * D;
+    const int part = j / D, d = j - part * D;
+    const int col = (1 + part) * HD + h * D + d;
+    const int r0 = rg * 4;
+    const float* x0 = xs + (size_t)r0 * C;
+    const float* x1 = xs + (size_t)min(r0 + 1, nc - 1) * C;
+    const float* x2 = xs + (size_t)min(r0 + 2, nc - 1) * C;
+    const float* x3 = xs + (size_t)min(r0 + 3, nc - 1) * C;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < C; ++k) {
+      const float w = to_f(wqkv[(size_t)k * W3 + col]);
+      a[0] += x0[k] * w;
+      a[1] += x1[k] * w;
+      a[2] += x2[k] * w;
+      a[3] += x3[k] * w;
+    }
+    for (int u = 0; u < 4; ++u) {
+      const int r = r0 + u;
+      if (r < nc) {
+        if (part == 0) ks[(size_t)r * QS + d] = a[u];
+        else vs[(size_t)r * QS + d] = rnd<T>(a[u]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) sla_bwd_kv_kernel(
+    const T* __restrict__ x, const T* __restrict__ wqkv, const float* __restrict__ dctx,
+    const T* __restrict__ dxq, const float* __restrict__ stats, T* __restrict__ dx,
+    float* __restrict__ rho_part, float* __restrict__ partial, int n, int C, int H, int D, int NC,
+    int pass) {
+  extern __shared__ float smem[];
+  const int QS = D + 1;
+  float* xs = smem;                   // (NC, C)  token chunk
+  float* ys = xs + (size_t)NC * C;    // (NC, C)  float32 k/v-path dx over heads
+  float* ks = ys + (size_t)NC * C;    // (NC, QS) k, then ds * s (pass 0) or round(s) (pass 1)
+  float* vs = ks + (size_t)NC * QS;   // (NC, QS) round(v)
+  float* dks = vs + (size_t)NC * QS;  // (NC, QS) round(dk)
+  float* dvs = dks + (size_t)NC * QS; // (NC, QS) round(dv)
+  float* cs = dvs + (size_t)NC * QS;  // (D, QS)  round(dctx_h)
+  float* mz = cs + (size_t)D * QS;    // (2, D)   the head's k-softmax max and sum
+  float* rho = mz + 2 * D;            // (H, D)   sum_n ds * s
+
+  const int frame = blockIdx.x, frames = gridDim.x, splits = gridDim.y;
+  const int cta = blockIdx.y * frames + frame;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int HD = H * D, W3 = 3 * HD;
+  float* pwk = partial + (size_t)cta * 2 * C * HD;  // dW_k (C, HD)
+  float* pwv = pwk + (size_t)C * HD;                // dW_v (C, HD)
+  if (pass == 1) {
+    for (int i = tid; i < 2 * C * HD; i += nth) pwk[i] = 0.f;
+    for (int i = tid; i < HD; i += nth) {  // the frame's rho, its partials added in split order
+      float s = 0.f;
+      for (int sp = 0; sp < splits; ++sp) s += rho_part[((size_t)sp * frames + frame) * HD + i];
+      rho[i] = s;
+    }
+  } else {
+    for (int i = tid; i < HD; i += nth) rho[i] = 0.f;
+  }
+  const int nchunks = (n + NC - 1) / NC, per = (nchunks + splits - 1) / splits;
+  const int n_end = min(n, (int)(blockIdx.y + 1) * per * NC);
+
+  for (int n0 = blockIdx.y * per * NC; n0 < n_end; n0 += NC) {
+    const int nc = min(NC, n - n0);
+    const size_t base = ((size_t)frame * n + n0) * C;
+    __syncthreads();
+    for (int i = tid; i < nc * C; i += nth) {
+      xs[i] = to_f(x[base + i]);
+      ys[i] = 0.f;
+    }
+    __syncthreads();
+    const int RG = (nc + 3) / 4;
+    for (int h = 0; h < H; ++h) {
+      project_kv<T>(xs, wqkv, ks, vs, nc, C, HD, h, D);
+      const float* dch = dctx + ((size_t)frame * H + h) * D * D;
+      for (int i = tid; i < D * D; i += nth) cs[(i / D) * QS + i % D] = rnd<T>(dch[i]);
+      if (tid < D) {
+        const size_t at = ((size_t)frame * H + h) * D + tid;
+        mz[tid] = stats[at];
+        mz[D + tid] = stats[(size_t)frames * HD + at];
+      }
+      __syncthreads();
+
+      // s = exp(k - max) / sum;  ds = round(dctx) round(v)^T.
+      for (int item = tid; item < nc * D; item += nth) {
+        const int r = item / D, d = item - r * D;
+        const float s = expf(ks[(size_t)r * QS + d] - mz[d]) / mz[D + d];
+        const float* vr = vs + (size_t)r * QS;
+        float dsv = 0.f;
+        for (int e = 0; e < D; ++e) dsv += cs[d * QS + e] * vr[e];
+        if (pass == 0) {
+          ks[(size_t)r * QS + d] = dsv * s;
+        } else {
+          dks[(size_t)r * QS + d] = rnd<T>(s * (dsv - rho[h * D + d]));
+          ks[(size_t)r * QS + d] = rnd<T>(s);
+        }
+      }
+      __syncthreads();
+
+      if (pass == 0) {
+        for (int d = tid; d < D; d += nth) {
+          float s = 0.f;
+          for (int r = 0; r < nc; ++r) s += ks[(size_t)r * QS + d];
+          rho[h * D + d] += s;
+        }
+        __syncthreads();
+        continue;
+      }
+
+      // dv = round(dctx)^T round(s).
+      for (int item = tid; item < nc * D; item += nth) {
+        const int r = item / D, e = item - r * D;
+        const float* sr = ks + (size_t)r * QS;
+        float s = 0.f;
+        for (int d = 0; d < D; ++d) s += cs[d * QS + e] * sr[d];
+        dvs[(size_t)r * QS + e] = rnd<T>(s);
+      }
+      __syncthreads();
+
+      // dW_k,h += x^T dk, dW_v,h += x^T dv;  y += dk W_k,h^T + dv W_v,h^T.
+      for (int item = tid; item < 2 * C * D; item += nth) {
+        const int part = item / (C * D), rest = item - part * C * D;
+        const int k = rest / D, d = rest - k * D;
+        const float* src = part == 0 ? dks : dvs;
+        float s = 0.f;
+        for (int r = 0; r < nc; ++r) s += xs[(size_t)r * C + k] * src[(size_t)r * QS + d];
+        (part == 0 ? pwk : pwv)[(size_t)k * HD + h * D + d] += s;
+      }
+      for (int item = tid; item < RG * C; item += nth) {
+        const int rg = item / C, k = item - rg * C;
+        const int r0 = rg * 4;
+        const int rr[4] = {r0, min(r0 + 1, nc - 1), min(r0 + 2, nc - 1), min(r0 + 3, nc - 1)};
+        const T* wk = wqkv + (size_t)k * W3 + HD + h * D;
+        const T* wv = wk + HD;
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int d = 0; d < D; ++d) {
+          const float w1 = to_f(wk[d]), w2 = to_f(wv[d]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            a[u] += dks[(size_t)rr[u] * QS + d] * w1 + dvs[(size_t)rr[u] * QS + d] * w2;
+        }
+        for (int u = 0; u < 4; ++u)
+          if (r0 + u < nc) ys[(size_t)(r0 + u) * C + k] += a[u];
+      }
+      __syncthreads();
+    }
+    if (pass == 1)
+      for (int i = tid; i < nc * C; i += nth) dx[base + i] = from_f<T>(to_f(dxq[base + i]) + ys[i]);
+  }
+  if (pass == 0) {
+    __syncthreads();
+    for (int i = tid; i < HD; i += nth) rho_part[(size_t)cta * HD + i] = rho[i];
+  }
+}
+
+template <typename T>
+static int launch_bwd_q(const void* x, const void* g, const void* wqkv, const void* wo,
+                        const void* ctx, void* dxq, void* dctx_part, void* dctx, void* partial,
+                        void* dwq, void* dwo, int frames, int splits, int n, int c, int heads,
+                        int dim, float scale, int chunk, cudaStream_t stream) {
+  const size_t smem = sizeof(float) *
+      (3 * (size_t)chunk * c + 4 * (size_t)chunk * (dim + 1) + (size_t)dim * (dim + 1));
+  cudaError_t err = cudaFuncSetAttribute(
+      sla_bwd_q_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sla_bwd_q_kernel<T><<<dim3(frames, splits), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(wqkv),
+      static_cast<const T*>(wo), static_cast<const float*>(ctx), static_cast<T*>(dxq),
+      static_cast<float*>(dctx_part), static_cast<float*>(partial), n, c, heads, dim, scale, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int hd = heads * dim;
+  const size_t ctx_size = (size_t)frames * heads * dim * dim;
+  int e = launch_reduce(static_cast<const float*>(dctx_part), splits, ctx_size, 1, (int)ctx_size,
+                        static_cast<float*>(dctx), (int)ctx_size, stream);
+  if (e != 0) return e;
+  const size_t stride = 2 * (size_t)c * hd;
+  const float* p = static_cast<const float*>(partial);
+  e = launch_reduce(p, frames * splits, stride, c, hd, static_cast<float*>(dwq), hd, stream);
+  if (e != 0) return e;
+  return launch_reduce(p + (size_t)c * hd, frames * splits, stride, hd, c,
+                       static_cast<float*>(dwo), c, stream);
+}
+
+template <typename T>
+static int launch_bwd_kv(const void* x, const void* wqkv, const void* dctx, const void* dxq,
+                         const void* stats, void* dx, void* rho_part, void* partial, void* dwk,
+                         void* dwv, int frames, int splits, int n, int c, int heads, int dim,
+                         int chunk, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * (size_t)chunk * c + 4 * (size_t)chunk * (dim + 1) +
+                                       (size_t)dim * (dim + 1) + 2 * dim + (size_t)heads * dim);
+  cudaError_t err = cudaFuncSetAttribute(
+      sla_bwd_kv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  for (int pass = 0; pass < 2; ++pass) {
+    sla_bwd_kv_kernel<T><<<dim3(frames, splits), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(dctx),
+        static_cast<const T*>(dxq), static_cast<const float*>(stats), static_cast<T*>(dx),
+        static_cast<float*>(rho_part), static_cast<float*>(partial), n, c, heads, dim, chunk, pass);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int hd = heads * dim;
+  const size_t stride = 2 * (size_t)c * hd;
+  const float* p = static_cast<const float*>(partial);
+  int e = launch_reduce(p, frames * splits, stride, c, hd, static_cast<float*>(dwk), hd, stream);
+  if (e != 0) return e;
+  return launch_reduce(p + (size_t)c * hd, frames * splits, stride, c, hd,
+                       static_cast<float*>(dwv), hd, stream);
+}
+
 }  // namespace vdt
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of its launch.
-extern "C" int sla_context_fwd(int dtype, const void* x, const void* wqkv, void* ctx, int frames,
-                               int n, int c, int heads, int dim, int chunk, void* stream) {
+// `stats` receives the k softmax's per-feature max (frames, H, D) followed by
+// its sum (frames, H, D), float32.
+extern "C" int sla_context_fwd(int dtype, const void* x, const void* wqkv, void* ctx, void* stats,
+                               int frames, int n, int c, int heads, int dim, int chunk,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return vdt::launch_context<float>(x, wqkv, ctx, frames, n, c, heads, dim, chunk, s);
+  if (dtype == 0)
+    return vdt::launch_context<float>(x, wqkv, ctx, stats, frames, n, c, heads, dim, chunk, s);
   if (dtype == 1)
-    return vdt::launch_context<__nv_bfloat16>(x, wqkv, ctx, frames, n, c, heads, dim, chunk, s);
+    return vdt::launch_context<__nv_bfloat16>(x, wqkv, ctx, stats, frames, n, c, heads, dim, chunk,
+                                              s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -300,5 +739,41 @@ extern "C" int sla_out_fwd(int dtype, const void* x, const void* wqkv, const voi
   if (dtype == 1)
     return vdt::launch_out<__nv_bfloat16>(x, wqkv, wo, ctx, out, frames, n, c, heads, dim, scale,
                                           chunk, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward, q path, over frames x splits CTAs: dx_q; dctx (frames, H, D, D),
+// dW_q (c, HD) and dW_o (HD, c) float32, summed over the CTAs' partials
+// (`dctx_part`: splits x frames x H x D x D; `partial`: frames x splits x
+// 2 c HD floats).
+extern "C" int sla_bwd_q(int dtype, const void* x, const void* g, const void* wqkv, const void* wo,
+                         const void* ctx, void* dxq, void* dctx_part, void* dctx, void* partial,
+                         void* dwq, void* dwo, int frames, int splits, int n, int c, int heads,
+                         int dim, float scale, int chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return vdt::launch_bwd_q<float>(x, g, wqkv, wo, ctx, dxq, dctx_part, dctx, partial, dwq, dwo,
+                                    frames, splits, n, c, heads, dim, scale, chunk, s);
+  if (dtype == 1)
+    return vdt::launch_bwd_q<__nv_bfloat16>(x, g, wqkv, wo, ctx, dxq, dctx_part, dctx, partial,
+                                            dwq, dwo, frames, splits, n, c, heads, dim, scale,
+                                            chunk, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward, k/v path, over frames x splits CTAs (two passes): dx from dx_q,
+// and dW_k, dW_v (c, HD) float32. `rho_part` holds splits x frames x HD
+// floats, `partial` frames x splits x 2 c HD.
+extern "C" int sla_bwd_kv(int dtype, const void* x, const void* wqkv, const void* dctx,
+                          const void* dxq, const void* stats, void* dx, void* rho_part,
+                          void* partial, void* dwk, void* dwv, int frames, int splits, int n, int c,
+                          int heads, int dim, int chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return vdt::launch_bwd_kv<float>(x, wqkv, dctx, dxq, stats, dx, rho_part, partial, dwk, dwv,
+                                     frames, splits, n, c, heads, dim, chunk, s);
+  if (dtype == 1)
+    return vdt::launch_bwd_kv<__nv_bfloat16>(x, wqkv, dctx, dxq, stats, dx, rho_part, partial,
+                                             dwk, dwv, frames, splits, n, c, heads, dim, chunk, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,91 @@
+"""Shuffling batch loader and device prefetch (counterpart of the JAX package's data/loader.py:35-173).
+
+:class:`DataLoader` draws each epoch's order from ``np.random.default_rng(seed)``
+exactly as the JAX package does, so both packages yield the same batches
+for one seed. :func:`device_prefetch` runs a background thread that pins
+each batch and copies it to the device without blocking, ``depth`` batches
+ahead of the training step.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Callable, Iterator, Sequence
+
+import numpy as np
+import torch
+
+
+class DataLoader:
+    """Shuffling, drop-last batches over a dataset of numpy items; one iteration is one epoch."""
+
+    def __init__(self, dataset: Sequence, batch_size: int, shuffle: bool = True, drop_last: bool = True,
+                 seed: int = 0, collate_fn: Callable[[list], Any] | None = None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+        self.collate_fn = collate_fn or (lambda items: np.stack(items, axis=0))
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[Any]:
+        n = len(self.dataset)
+        order = self._rng.permutation(n) if self.shuffle else np.arange(n)
+        end = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for start in range(0, end, self.batch_size):
+            yield self.collate_fn([self.dataset[int(i)] for i in order[start:start + self.batch_size]])
+
+
+def cycle(iterable):
+    """Re-iterate ``iterable`` forever (a shuffling loader reshuffles every epoch)."""
+    while True:
+        yield from iterable
+
+
+class _Error:
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def device_prefetch(iterator, device: torch.device, depth: int = 2) -> Iterator[torch.Tensor]:
+    """Yield each numpy batch of ``iterator`` as a tensor on ``device``, ``depth`` batches ahead."""
+    device = torch.device(device)
+    q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+
+    def put(batch) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(batch))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
+    def run():
+        try:
+            for item in iterator:
+                if stop.is_set():
+                    return
+                q.put(put(item))
+        except Exception as e:  # surfaced at the consumer
+            q.put(_Error(e))
+
+    threading.Thread(target=run, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, _Error):
+                raise item.exc
+            yield item
+    finally:
+        stop.set()
+
+
+def endless_prefetching_loader(dataset: Sequence, batch_size: int, device, seed: int = 0,
+                               depth: int = 2) -> Iterator[torch.Tensor]:
+    """The trainer's feed: an endless shuffled stream of batches already on ``device``."""
+    loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=seed)
+    return device_prefetch(cycle(loader), device, depth)

@@ -1,11 +1,12 @@
-"""DDPM Gaussian diffusion: reverse sampling (counterpart of the JAX package's diffusion/gaussian_diffusion.py).
+"""DDPM Gaussian diffusion: training loss and reverse sampling (counterpart of the JAX package's diffusion/gaussian_diffusion.py).
 
 The schedule buffers carry the JAX package's names, so a converted
 checkpoint loads them directly, and equal its values bit for bit
 (``utils/schedule.py``). The JAX package runs the reverse process as one
 ``lax.scan`` program; here it is a Python loop over the steps. Noise comes
 from an explicit ``torch.Generator``; ``p_sample`` and ``ddim_sample`` also
-take injected noise, so that a test can feed both packages the same numbers.
+take injected noise, and ``forward`` (the training loss) takes injected t and
+noise, so that a test can feed both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from video_diffusion_nnx_tpu_torch.utils.image import unnormalize_img
+from video_diffusion_nnx_tpu_torch.utils.image import normalize_img, unnormalize_img
 from video_diffusion_nnx_tpu_torch.utils.schedule import ScheduleBuffers, extract
 
 BUFFER_NAMES = (
@@ -212,3 +213,49 @@ class GaussianDiffusion(nn.Module):
                 noise = step_noise[step] if step_noise is not None else _normal(shape, generator, self.device)
                 img = img + sigma * noise
         return unnormalize_img(img)
+
+    # Training.
+
+    def p_losses(self, x_start, t, noise=None, generator=None) -> torch.Tensor:
+        """Denoising loss at timesteps ``t`` (JAX ``p_losses``, :923-996); noise from ``generator`` when not given."""
+        if noise is None:
+            noise = _normal(x_start.shape, generator, x_start.device)
+        x_noisy = self.q_sample(x_start, t, noise)
+        model_out = self.denoise_fn(x_noisy, t).permute(0, 4, 1, 2, 3)  # -> (b, c, f, h, w)
+        if self.prediction_type == "noise":
+            target = noise
+        elif self.prediction_type == "v":
+            target = self.predict_v(x_start, t, noise).detach()  # supervision, not a path to the buffers
+        else:
+            target = x_start
+        if self.loss_type == "l1":
+            err = (model_out - target).abs()
+        elif self.loss_type == "l2":
+            err = (model_out - target) ** 2
+        else:
+            raise ValueError(f"Unsupported loss type: {self.loss_type}")
+        if self.min_snr_gamma is None:
+            return err.mean()
+        # Min-SNR-gamma weights in each parameterization's own loss space;
+        # sqrt of them for l1, whose error is linear in the residual.
+        acp_t = extract(self.alphas_cumprod, t, x_start.shape)
+        snr = acp_t / (1.0 - acp_t)
+        clamped = torch.clamp(snr, max=self.min_snr_gamma)
+        if self.prediction_type == "noise":
+            w = clamped / snr
+        elif self.prediction_type == "v":
+            w = clamped / (snr + 1.0)
+        else:
+            w = clamped
+        if self.loss_type == "l1":
+            w = torch.sqrt(w)
+        return (w * err).mean()
+
+    def forward(self, x, generator=None, t=None, noise=None) -> torch.Tensor:
+        """Training entry (JAX ``__call__``, :998-1016): draw t, normalize ``x`` from [0, 1], return the loss."""
+        want = (x.shape[0], self.channels, self.num_frames, self.image_size, self.image_size)
+        if tuple(x.shape) != want:
+            raise ValueError(f"x must have shape (b, c, f, h, w) = {want}; got {tuple(x.shape)}")
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (x.shape[0],), generator=generator, device=x.device)
+        return self.p_losses(normalize_img(x), t, noise=noise, generator=generator)

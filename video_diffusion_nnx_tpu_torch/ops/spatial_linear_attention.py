@@ -1,4 +1,4 @@
-"""Fused spatial linear-attention block, forward (counterpart of the JAX package's ops/spatial_linear_attention.py).
+"""Fused spatial linear-attention block (counterpart of the JAX package's ops/spatial_linear_attention.py).
 
     out = x + to_out(softmax_D(q(x)) * scale . (softmax_n(k(x))^T v(x)))   per frame of x (b, f, h, w, c)
 
@@ -7,15 +7,27 @@
 
 The block is two stages, each with its hand-written kernel in
 ``csrc/spatial_linear_attention.cu`` and its plain version here:
-``sla_context`` (per frame and head, ``softmax_n(k)^T v``, float32) and
+``sla_context`` (per frame and head, ``softmax_n(k)^T v``, float32, and
+the k softmax's max and sum, which the backward reads) and
 ``sla_out`` (the q softmax, ``q . ctx``, W_o and the residual). Together the
 two plain stages equal the JAX ``_composite_xla`` (:343-368), rounding
 points included. On the GPU every frame size takes the same two kernels:
 the TPU's split between a one-pass and a two-pass forward follows its VMEM
 budget, which does not apply here.
 
-Dispatch has no hidden fallback: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel or raises ``NotImplementedError``.
+The backward is two more kernels, ``sla_bwd_q`` (the q and output
+projections, and the contexts' cotangent) and ``sla_bwd_kv`` (the k and v
+projections through the token-axis softmax), with plain versions
+``sla_bwd_q_plain`` and ``sla_bwd_kv_plain`` that keep the rounding points
+of the JAX ``_bwd_q_kernel`` and ``_bwd_kv_kernel``. On CUDA tensors the
+public op is ``_SpatialLinearAttention``: its forward keeps the contexts and
+the k softmax's statistics (from the context kernel), so the backward
+recomputes nothing; at batch 8 of the flagship that is 2.6 MB per spatial
+attention, 21 MB over the 8 of a step.
+
+Dispatch has no hidden fallback: a CPU tensor takes the plain versions,
+differentiated by autograd; a CUDA tensor launches the kernels or raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,8 +41,9 @@ from video_diffusion_nnx_tpu_torch.ops import _build
 _SMEM_TARGET = 100 * 1024
 _SMEM_MAX = 227 * 1024
 MAX_DIM = 64  # the context kernel keeps D*D / 256 accumulators per thread in registers
+_WORKSPACE_MAX = 128 * 2**20  # bytes of per-CTA weight-gradient partials in one backward kernel
 
-launches = {"sla_context": 0, "sla_out": 0}
+launches = {"sla_context": 0, "sla_out": 0, "sla_bwd_q": 0, "sla_bwd_kv": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -46,6 +59,19 @@ def sla_context_plain(xt, wqkv, heads: int, dim: int) -> torch.Tensor:
     return torch.einsum("bnhd,bnhe->bhde", k.float(), v.float())
 
 
+def sla_stats_plain(xt, wqkv, heads: int, dim: int) -> torch.Tensor:
+    """The k softmax's per-feature max and sum over the tokens: ``(2, frames, H, D)`` float32.
+
+    k in float32 from x and W_k in x's type, as the JAX ``_ctx_stats_kernel``
+    (:246-278) and the backward's ``sla_bwd_kv_plain`` take it.
+    """
+    frames, n, c = xt.shape
+    hd = heads * dim
+    k = (xt.float() @ wqkv[:, hd:2 * hd].to(xt.dtype).float()).reshape(frames, n, heads, dim)
+    m = k.amax(dim=1)
+    return torch.stack([m, torch.exp(k - m[:, None]).sum(dim=1)])
+
+
 def sla_out_plain(xt, wqkv, wo, ctx, heads: int, dim: int, scale: float) -> torch.Tensor:
     """``x + W_o(softmax_D(q) * scale . ctx)`` given the contexts; ``(frames, n, c)``."""
     frames, n, c = xt.shape
@@ -57,6 +83,60 @@ def sla_out_plain(xt, wqkv, wo, ctx, heads: int, dim: int, scale: float) -> torc
         q = q * torch.tensor(scale, dtype=dt, device=xt.device)
     o = torch.einsum("bnhd,bhde->bnhe", q, ctx.to(dt)).reshape(frames, n, hd)
     return xt + o @ wo.to(dt)
+
+
+def sla_bwd_q_plain(xt, g, wqkv, wo, ctx, heads: int, dim: int, scale: float):
+    """Backward of the q path given the contexts: ``(dx_q, dctx, dwq, dwo)``.
+
+    ``dx_q = g + dq W_q^T`` in x's type; ``dctx`` (frames, H, D, D), ``dwq``
+    (c, H*D) and ``dwo`` (H*D, c) float32. Rounding points of the JAX
+    ``_bwd_q_kernel`` (:450-531): q and its softmax in float32, then
+    ``p * scale``, o, do and dq rounded to x's type before their products.
+    """
+    frames, n, c = xt.shape
+    dt = xt.dtype
+    hd = heads * dim
+    xf = xt.float()
+    gc = g.to(dt).float()
+    q = (xf @ wqkv[:, :hd].to(dt).float()).reshape(frames, n, heads, dim)
+    p = torch.softmax(q, dim=-1)
+    qs = (p * scale).to(dt).float()
+    ctx_c = ctx.to(dt).float()
+    o = torch.einsum("bnhd,bhde->bnhe", qs, ctx_c).to(dt).float()
+    dwo = torch.einsum("bnhe,bnc->hec", o, gc).reshape(hd, c)
+    do = torch.einsum("bnc,hec->bnhe", gc, wo.to(dt).float().reshape(heads, dim, c)).to(dt).float()
+    dctx = torch.einsum("bnhd,bnhe->bhde", qs, do)
+    dp = torch.einsum("bnhe,bhde->bnhd", do, ctx_c) * scale
+    dq = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float().reshape(frames, n, hd)
+    dwq = torch.einsum("bnc,bnk->ck", xf, dq)
+    dxq = (g.float() + dq @ wqkv[:, :hd].to(dt).float().t()).to(dt)
+    return dxq, dctx, dwq, dwo
+
+
+def sla_bwd_kv_plain(xt, wqkv, dctx, dxq, heads: int, dim: int):
+    """Backward of the k/v path from the contexts' cotangent: ``(dx, dwk, dwv)``.
+
+    ``dx = dx_q + dk W_k^T + dv W_v^T`` in x's type; ``dwk`` and ``dwv``
+    (c, H*D) float32. Rounding points of the JAX ``_bwd_kv_kernel``
+    (:534-607): k and its token-axis softmax in float32, v, s, dctx, dk and
+    dv rounded to x's type before their products.
+    """
+    frames, n, c = xt.shape
+    dt = xt.dtype
+    hd = heads * dim
+    xf = xt.float()
+    k = (xf @ wqkv[:, hd:2 * hd].to(dt).float()).reshape(frames, n, heads, dim)
+    v = (xf @ wqkv[:, 2 * hd:].to(dt).float()).reshape(frames, n, heads, dim).to(dt).float()
+    s = torch.softmax(k, dim=1)
+    dctx_c = dctx.to(dt).float()
+    ds = torch.einsum("bhde,bnhe->bnhd", dctx_c, v)
+    dv = torch.einsum("bhde,bnhd->bnhe", dctx_c, s.to(dt).float()).to(dt).float().reshape(frames, n, hd)
+    dk = (s * (ds - (ds * s).sum(1, keepdim=True))).to(dt).float().reshape(frames, n, hd)
+    dwk = torch.einsum("bnc,bnk->ck", xf, dk)
+    dwv = torch.einsum("bnc,bnk->ck", xf, dv)
+    dx = (dxq.float() + dk @ wqkv[:, hd:2 * hd].to(dt).float().t()
+          + dv @ wqkv[:, 2 * hd:].to(dt).float().t()).to(dt)
+    return dx, dwk, dwv
 
 
 def _check(xt, wqkv, heads: int, dim: int, *others) -> None:
@@ -83,6 +163,14 @@ def _chunk(per_token: int, fixed: int, n: int) -> int:
     return max(4, min(64, fit - fit % 4, -(-n // 4) * 4))
 
 
+def _splits(frames: int, n: int, chunk: int, partial_floats: int, device) -> int:
+    """CTAs per frame for the backward kernels: about two per SM over all frames, within the workspace."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-2 * sms // frames)
+    cap = max(1, _WORKSPACE_MAX // (4 * partial_floats * frames))
+    return max(1, min(want, -(-n // chunk), cap))
+
+
 def _fn(name: str, argtypes: list):
     fn = getattr(_build.library("spatial_linear_attention"), name)
     fn.restype = ctypes.c_int
@@ -90,23 +178,28 @@ def _fn(name: str, argtypes: list):
     return fn
 
 
-def sla_context(xt, wqkv, heads: int, dim: int) -> torch.Tensor:
-    """Stage 1: the context kernel on a CUDA tensor, the plain version on a CPU one."""
+def sla_context(xt, wqkv, heads: int, dim: int):
+    """Stage 1: the context kernel on a CUDA tensor, the plain versions on a CPU one.
+
+    Returns ``(ctx, stats)``: the contexts and the k softmax's per-feature
+    max and sum, ``(2, frames, H, D)`` float32, which the backward kernel reads.
+    """
     if not xt.is_cuda:
-        return sla_context_plain(xt, wqkv, heads, dim)
+        return sla_context_plain(xt, wqkv, heads, dim), sla_stats_plain(xt, wqkv, heads, dim)
     _check(xt, wqkv, heads, dim)
     frames, n, c = xt.shape
     wqkv = wqkv.to(xt.dtype).contiguous()
     chunk = _chunk(4 * (c + 2 * (dim + 1)), 4 * 3 * dim, n)
     ctx = torch.empty(frames, heads, dim, dim, device=xt.device, dtype=torch.float32)
-    fn = _fn("sla_context_fwd", [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    stats = torch.empty(2, frames, heads, dim, device=xt.device, dtype=torch.float32)
+    fn = _fn("sla_context_fwd", [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     err = fn(
-        _DTYPES[xt.dtype], xt.data_ptr(), wqkv.data_ptr(), ctx.data_ptr(), frames, n, c,
-        heads, dim, chunk, torch.cuda.current_stream(xt.device).cuda_stream,
+        _DTYPES[xt.dtype], xt.data_ptr(), wqkv.data_ptr(), ctx.data_ptr(), stats.data_ptr(),
+        frames, n, c, heads, dim, chunk, torch.cuda.current_stream(xt.device).cuda_stream,
     )
     _build.check(err, "sla_context_fwd")
     launches["sla_context"] += 1
-    return ctx
+    return ctx, stats
 
 
 def sla_out(xt, wqkv, wo, ctx, heads: int, dim: int, scale: float) -> torch.Tensor:
@@ -134,14 +227,114 @@ def sla_out(xt, wqkv, wo, ctx, heads: int, dim: int, scale: float) -> torch.Tens
     return out
 
 
+def sla_bwd_q(xt, g, wqkv, wo, ctx, heads: int, dim: int, scale: float):
+    """Backward, q path: the kernel on CUDA tensors, the plain version on CPU ones.
+
+    Returns ``(dx_q, dctx, dwq, dwo)`` as :func:`sla_bwd_q_plain` does.
+    """
+    if not xt.is_cuda:
+        return sla_bwd_q_plain(xt, g, wqkv, wo, ctx, heads, dim, scale)
+    _check(xt, wqkv, heads, dim, g, wo, ctx)
+    frames, n, c = xt.shape
+    hd = heads * dim
+    if g.shape != xt.shape or tuple(wo.shape) != (hd, c) or tuple(ctx.shape) != (frames, heads, dim, dim):
+        raise ValueError(f"g {tuple(g.shape)}, wo {tuple(wo.shape)} or ctx {tuple(ctx.shape)} "
+                         f"does not fit x {tuple(xt.shape)}")
+    g = g.to(xt.dtype).contiguous()
+    wqkv = wqkv.to(xt.dtype).contiguous()
+    wo = wo.to(xt.dtype).contiguous()
+    ctx = ctx.float().contiguous()
+    chunk = _chunk(4 * (3 * c + 4 * (dim + 1)), 4 * dim * (dim + 1), n)
+    splits = _splits(frames, n, chunk, 2 * c * hd, xt.device)
+    f32 = dict(device=xt.device, dtype=torch.float32)
+    dxq = torch.empty_like(xt)
+    dctx_part = torch.empty(splits, frames, heads, dim, dim, **f32)
+    dctx = torch.empty(frames, heads, dim, dim, **f32)
+    partial = torch.empty(frames * splits, 2 * c * hd, **f32)
+    dwq, dwo = torch.empty(c, hd, **f32), torch.empty(hd, c, **f32)
+    fn = _fn("sla_bwd_q", [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    err = fn(
+        _DTYPES[xt.dtype], xt.data_ptr(), g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(),
+        ctx.data_ptr(), dxq.data_ptr(), dctx_part.data_ptr(), dctx.data_ptr(), partial.data_ptr(),
+        dwq.data_ptr(), dwo.data_ptr(), frames, splits, n, c, heads, dim, float(scale), chunk,
+        torch.cuda.current_stream(xt.device).cuda_stream,
+    )
+    _build.check(err, "sla_bwd_q")
+    launches["sla_bwd_q"] += 1
+    return dxq, dctx, dwq, dwo
+
+
+def sla_bwd_kv(xt, wqkv, dctx, dxq, stats, heads: int, dim: int):
+    """Backward, k/v path: the kernel on CUDA tensors, the plain version on CPU ones.
+
+    ``stats`` are the context kernel's softmax statistics (CUDA only; the
+    plain version recomputes the softmax). Returns ``(dx, dwk, dwv)``.
+    """
+    if not xt.is_cuda:
+        return sla_bwd_kv_plain(xt, wqkv, dctx, dxq, heads, dim)
+    _check(xt, wqkv, heads, dim, dctx, dxq, stats)
+    frames, n, c = xt.shape
+    hd = heads * dim
+    if (tuple(dctx.shape) != (frames, heads, dim, dim) or dxq.shape != xt.shape
+            or tuple(stats.shape) != (2, frames, heads, dim)):
+        raise ValueError(f"dctx {tuple(dctx.shape)}, dx_q {tuple(dxq.shape)} or stats "
+                         f"{tuple(stats.shape)} does not fit x {tuple(xt.shape)}")
+    wqkv = wqkv.to(xt.dtype).contiguous()
+    dctx = dctx.float().contiguous()
+    dxq = dxq.to(xt.dtype).contiguous()
+    stats = stats.float().contiguous()
+    chunk = _chunk(4 * (2 * c + 4 * (dim + 1)), 4 * (dim * (dim + 1) + 2 * dim + hd), n)
+    splits = _splits(frames, n, chunk, 2 * c * hd, xt.device)
+    f32 = dict(device=xt.device, dtype=torch.float32)
+    dx = torch.empty_like(xt)
+    rho_part = torch.empty(splits, frames, hd, **f32)
+    partial = torch.empty(frames * splits, 2 * c * hd, **f32)
+    dwk, dwv = torch.empty(c, hd, **f32), torch.empty(c, hd, **f32)
+    fn = _fn("sla_bwd_kv", [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    err = fn(
+        _DTYPES[xt.dtype], xt.data_ptr(), wqkv.data_ptr(), dctx.data_ptr(), dxq.data_ptr(),
+        stats.data_ptr(), dx.data_ptr(), rho_part.data_ptr(), partial.data_ptr(), dwk.data_ptr(),
+        dwv.data_ptr(), frames, splits, n, c, heads, dim, chunk,
+        torch.cuda.current_stream(xt.device).cuda_stream,
+    )
+    _build.check(err, "sla_bwd_kv")
+    launches["sla_bwd_kv"] += 1
+    return dx, dwk, dwv
+
+
+class _SpatialLinearAttention(torch.autograd.Function):
+    """The block on CUDA tensors: context and output kernels forward, two kernels backward."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, wo, heads: int, dim: int, scale: float):
+        b, f, hh, ww, c = x.shape
+        xt = x.reshape(b * f, hh * ww, c)
+        context, stats = sla_context(xt, wqkv, heads, dim)
+        ctx.save_for_backward(xt, wqkv, wo, context, stats)
+        ctx.heads, ctx.dim, ctx.scale = heads, dim, scale
+        return sla_out(xt, wqkv, wo, context, heads, dim, scale).reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        xt, wqkv, wo, context, stats = ctx.saved_tensors
+        gt = g.reshape(xt.shape)
+        dxq, dctx, dwq, dwo = sla_bwd_q(xt, gt, wqkv, wo, context, ctx.heads, ctx.dim, ctx.scale)
+        dx, dwk, dwv = sla_bwd_kv(xt, wqkv, dctx, dxq, stats, ctx.heads, ctx.dim)
+        dwqkv = torch.cat([dwq, dwk, dwv], dim=1)
+        return dx.reshape(g.shape), dwqkv.to(wqkv.dtype), dwo.to(wo.dtype), None, None, None
+
+
 def fused_spatial_linear_attention_block(x, wqkv, wo, heads: int, dim: int, scale: float) -> torch.Tensor:
-    """``x + SpatialLinearAttention(x)`` for x ``(b, f, h, w, c)``."""
+    """``x + SpatialLinearAttention(x)`` for x ``(b, f, h, w, c)``; differentiable."""
     if x.dim() != 5:
         raise ValueError(f"x must be (b, f, h, w, c); got {tuple(x.shape)}")
+    if x.is_cuda:
+        return _SpatialLinearAttention.apply(x, wqkv, wo, heads, dim, scale)
     b, f, hh, ww, c = x.shape
     xt = x.reshape(b * f, hh * ww, c)
-    ctx = sla_context(xt, wqkv, heads, dim)
-    return sla_out(xt, wqkv, wo, ctx, heads, dim, scale).reshape(x.shape)
+    ctx = sla_context_plain(xt, wqkv, heads, dim)
+    return sla_out_plain(xt, wqkv, wo, ctx, heads, dim, scale).reshape(x.shape)
 
 
 def pack_sla_weights(sla) -> tuple[torch.Tensor, torch.Tensor]:
