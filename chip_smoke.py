@@ -34,8 +34,24 @@ in one summary line (``PHASE <name>: ...``):
    writes left out) and peak memory; the same steps through the plain
    modules (fused flags off), whose losses agree step by step; the trained
    checkpoint samples through the sampling CLI (DDIM-10);
-9. kernels line: one JSON object per kernel (launches over the train
-   phase, error, times, bound).
+9. blockwise: both blockwise (online-softmax) temporal kernels against their
+   plain versions at every shape the long-clip Unet3D gives them (batch 1,
+   128 frames), at the 256-long bottleneck shape of a 128x128 input and at
+   two ragged lengths (65, 100), in bf16 and f32, TF32 off; in f32 also
+   against the dense plain versions; CUDA-event times;
+10. long unet: the configs/config_long_clip.yaml Unet3D (full width and
+    depth, batch 1, 128 frames, bf16, seeded weights) forward with kernels
+    against the plain modules;
+11. long grads: one ``p_losses`` and ``backward`` of it with ``remat_blocks``
+    on against off (same launch counts, gradients equal), against the plain
+    modules and f32;
+12. long train: ``train.main`` on the long-clip recipe with a seeded
+    synthetic 128-frame dataset, 12 steps at batch 1: the loss falls, exact
+    launches per step, seconds per step, peak memory with ``remat_blocks``
+    on and off, the plain-modules control; then ``sample.main`` from the
+    trained checkpoint, DDIM-50 at batch 1, a 128-frame GIF checked;
+13. kernels line: one JSON object per kernel (launches over its train
+    phase, error, times, bound).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. Outputs go to chiprun_out/chip_smoke/ (small) and
@@ -129,6 +145,37 @@ KERNELS = {
 }
 BWD_KERNELS = ("temporal_attention_bwd", "sla_bwd_q", "sla_bwd_kv")
 
+# The long-clip recipe: 128 frames of 64x64 at batch 1. (per-forward count, (b, s, f, c)) of every
+# temporal attention over the frames; the bottleneck's spatial attention, (1, 128, 64, 256), attends 64
+# tokens and stays on the dense kernels.
+LONG_CONFIG = REPO / "configs" / "config_long_clip.yaml"
+LONG_TEMPORAL_SHAPES = [
+    (3, (1, 4096, 128, 32)),   # init block, down 0, up 3
+    (1, (1, 1024, 128, 64)),   # down 1
+    (1, (1, 256, 128, 128)),   # down 2
+    (2, (1, 64, 128, 256)),    # down 3, mid temporal
+    (1, (1, 64, 128, 128)),    # up 0
+    (1, (1, 256, 128, 64)),    # up 1
+    (1, (1, 1024, 128, 32)),   # up 2
+]
+# Off the main path: the bottleneck spatial attention of a 128x128 input (16x16 = 256 tokens attended,
+# 16 frames as columns) and two ragged lengths.
+EXTRA_BLOCKWISE_SHAPES = [(0, (1, 16, 256, 256)), (0, (1, 64, 65, 64)), (0, (1, 64, 100, 32))]
+LONG_PER_STEP = {"temporal_blockwise_fwd": 10, "temporal_blockwise_bwd": 10, "temporal_attention_fwd": 1,
+                 "temporal_attention_bwd": 1, "sla_context": 8, "sla_out": 8, "sla_bwd_q": 8, "sla_bwd_kv": 8}
+LONG_STEPS, LONG_CKPT_EVERY, LONG_CLIPS = 12, 6, 32
+REMAT_TOL = 1e-3  # gradients with remat_blocks on against off, relative norm per tensor
+KERNELS.update({
+    "temporal_blockwise_fwd": {
+        "source": "video_diffusion_nnx_tpu_torch/csrc/temporal_blockwise.cu",
+        "replaces": "video_diffusion_nnx_tpu/ops/temporal_attention.py:405",
+    },
+    "temporal_blockwise_bwd": {
+        "source": "video_diffusion_nnx_tpu_torch/csrc/temporal_blockwise.cu",
+        "replaces": "video_diffusion_nnx_tpu/ops/temporal_attention.py:432",
+    },
+})
+
 
 class SmokeFailure(Exception):
     pass
@@ -162,6 +209,26 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def new_totals(names) -> dict:
+    """Per kernel: the largest error and the times summed over a forward or a step's launches."""
+    return {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0}
+            for k in names}
+
+
+def add_timing(row: dict, total: dict, count: int, err: float, ms: float, plain_ms: float, nbytes: float,
+               flops: float) -> None:
+    """Write a timed check's times and bound into its ``row`` and add ``count`` launches of it to ``total``."""
+    b, by = bound_ms(nbytes, flops)
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
+    if count:
+        total["err"] = max(total["err"], err)
+        total["ms"] += count * ms
+        total["plain_ms"] += count * plain_ms
+        total["bound_ms"] += count * b
+        total["t_bytes"] += count * nbytes / PEAK_BYTES_PER_S * 1e3
+        total["t_ops"] += count * flops / PEAK_BF16_FLOPS * 1e3
+
+
 def rand(torch, shape, seed: int, scale: float, dtype):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
@@ -172,8 +239,7 @@ def kernel_phase(torch, ta, sla) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hd = HEADS * DIM_HEAD
-    rows, agg = [], {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
-                         "t_ops": 0.0} for k in PER_FORWARD}
+    rows, agg = [], new_totals(PER_FORWARD)
 
     def record(name, shape, dtype, err, count, ms=None, plain_ms=None, nbytes=0.0, flops=0.0):
         check(math.isfinite(err) and err <= TOL[dtype],
@@ -181,15 +247,7 @@ def kernel_phase(torch, ta, sla) -> dict:
         row = {"kernel": name, "shape": shape, "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
                "per_forward": count}
         if ms is not None:
-            b, by = bound_ms(nbytes, flops)
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
-            a = agg[name]
-            a["err"] = max(a["err"], err)
-            a["ms"] += count * ms
-            a["plain_ms"] += count * plain_ms
-            a["bound_ms"] += count * b
-            a["t_bytes"] += count * nbytes / PEAK_BYTES_PER_S * 1e3
-            a["t_ops"] += count * flops / PEAK_BF16_FLOPS * 1e3
+            add_timing(row, agg[name], count, err, ms, plain_ms, nbytes, flops)
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
 
@@ -252,11 +310,11 @@ def kernel_phase(torch, ta, sla) -> dict:
     return {"rows": rows, "per_forward": agg}
 
 
-def unet_phase(torch, load_config, build_models) -> dict:
-    """Flagship-width Unet3D in bf16: kernels against the plain modules (and both against f32)."""
+def unet_phase(torch, load_config, build_models, config_path: Path = CONFIG, batch: int = B) -> dict:
+    """A recipe's full-width Unet3D in bf16: kernels against the plain modules (and both against f32)."""
     from video_diffusion_nnx_tpu_torch.models import Unet3D
 
-    config = load_config(CONFIG)
+    config = load_config(config_path)
     kernels, _ = build_models(config, device="cuda")
     u = {k: v for k, v in config["unet"].items()
          if k not in ("arch", "rngs_seed", "depth", "patch_size", "mlp_ratio")}
@@ -267,13 +325,13 @@ def unet_phase(torch, load_config, build_models) -> dict:
                       "use_fused_spatial_attention": False}).cuda()
     ref32.load_state_dict(kernels.state_dict())
     d = config["diffusion"]
-    x = rand(torch, (B, d["channels"], d["num_frames"], d["image_size"], d["image_size"]), 11, 1.0,
+    x = rand(torch, (batch, d["channels"], d["num_frames"], d["image_size"], d["image_size"]), 11, 1.0,
              torch.float32)
-    t = torch.tensor([10, 500], device="cuda")
+    t = torch.linspace(10, 500, batch, device="cuda").long()
     with torch.no_grad():
         y_k, y_p, y_32 = kernels(x, t), plain(x, t), ref32(x, t)
     torch.cuda.synchronize()
-    check(tuple(y_k.shape) == (B, d["num_frames"], d["image_size"], d["image_size"], d["channels"]),
+    check(tuple(y_k.shape) == (batch, d["num_frames"], d["image_size"], d["image_size"], d["channels"]),
           f"unet output shape {tuple(y_k.shape)}")
     check(y_k.dtype == torch.float32 and bool(torch.isfinite(y_k).all()), "unet output not finite f32")
     scale = y_32.abs().max().item()
@@ -344,8 +402,7 @@ def backward_phase(torch, ta, sla) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hd = HEADS * DIM_HEAD
-    rows, agg = [], {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
-                         "t_ops": 0.0} for k in BWD_KERNELS}
+    rows, agg = [], new_totals(BWD_KERNELS)
     fwd_err = {k: 0.0 for k in PER_FORWARD}  # the forward kernels at the training batch
 
     def record_fwd(name, shape, dtype, err, tol, what="max-abs"):
@@ -365,16 +422,7 @@ def backward_phase(torch, ta, sla) -> dict:
         row = {"kernel": name, "shape": shape, "dtype": dtype, "rel_err": rel, "max_abs_err": err,
                "tol": BWD_TOL[dtype], "per_step": count}
         if ms is not None:
-            b, by = bound_ms(nbytes, flops)
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
-            if count:
-                a = agg[name]
-                a["err"] = max(a["err"], err)
-                a["ms"] += count * ms
-                a["plain_ms"] += count * plain_ms
-                a["bound_ms"] += count * b
-                a["t_bytes"] += count * nbytes / PEAK_BYTES_PER_S * 1e3
-                a["t_ops"] += count * flops / PEAK_BF16_FLOPS * 1e3
+            add_timing(row, agg[name], count, err, ms, plain_ms, nbytes, flops)
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
 
@@ -458,7 +506,90 @@ def backward_phase(torch, ta, sla) -> dict:
     return {"rows": rows, "per_step": agg, "fwd_err": fwd_err}
 
 
-def _unet_variants(torch, config, kernels):
+def blockwise_phase(torch, ta) -> dict:
+    """Both blockwise temporal kernels against their plain versions at every long-clip shape; times in bf16.
+
+    In f32 each is also held to the dense plain version (forward) and the dense backward oracle, so
+    that the blockwise plain versions cannot drift away from the function together with the kernels.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hd = HEADS * DIM_HEAD
+    names = ("temporal_blockwise_fwd", "temporal_blockwise_bwd")
+    rows, agg = [], new_totals(names)
+    grad_names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo")
+
+    def record(name, shape, dtype, count, row, err, ms=None, plain_ms=None, nbytes=0.0, flops=0.0):
+        row = {"kernel": name, "shape": shape, "dtype": dtype, "per_step": count, **row}
+        if ms is not None:
+            add_timing(row, agg[name], count, err, ms, plain_ms, nbytes, flops)
+        rows.append(row)
+        print("  " + json.dumps(row), flush=True)
+
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        timed = dtype_name == "bfloat16"
+        elt = 2 if timed else 4
+        for count, shape in [*LONG_TEMPORAL_SHAPES, *EXTRA_BLOCKWISE_SHAPES]:
+            b, s, f, c = shape
+            kb = ta.KV_BLOCK
+            x = rand(torch, shape, 1, 0.5, dtype)
+            g = rand(torch, shape, 9, 0.1, dtype)
+            w = (rand(torch, (c, 3 * hd), 2, c ** -0.5, torch.float32), rand(torch, (3 * hd,), 3, 0.1, torch.float32),
+                 rand(torch, (hd, c), 4, hd ** -0.5, torch.float32), rand(torch, (c,), 5, 0.1, torch.float32))
+            before = dict(ta.launches)
+            got = ta.fused_temporal_attention_block(x, *w, HEADS, DIM_HEAD)
+            grads = ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD)
+            torch.cuda.synchronize()
+            check(all(ta.launches[k] == before[k] + 1 for k in names)
+                  and ta.launches["temporal_attention_fwd"] == before["temporal_attention_fwd"],
+                  f"f = {f} did not take the blockwise kernels: {ta.launches}")
+            err = _max_abs(got, ta.temporal_attention_blockwise_plain(x, *w, HEADS, DIM_HEAD, kb))
+            check(math.isfinite(err) and err <= TOL[dtype_name],
+                  f"temporal_blockwise_fwd at {shape} in {dtype_name}: max-abs error {err} over {TOL[dtype_name]}")
+            want = ta.temporal_attention_blockwise_bwd_plain(x, g, *w, HEADS, DIM_HEAD, kb)
+            rel = {k: _rel_err(a, v) for k, a, v in zip(grad_names, grads, want)}
+            err_b = max(_max_abs(a, v) for a, v in zip(grads, want))
+            for k, r in rel.items():
+                check(math.isfinite(r) and r <= BWD_TOL[dtype_name],
+                      f"temporal_blockwise_bwd {k} at {shape} in {dtype_name}: error {r} of its largest value, "
+                      f"over {BWD_TOL[dtype_name]}")
+            del want
+            fwd_row = {"kv_block": kb, "max_abs_err": err, "tol": TOL[dtype_name]}
+            bwd_row = {"kv_block": kb, "rel_err": rel, "max_abs_err": err_b, "tol": BWD_TOL[dtype_name]}
+            if not timed:
+                dense = _max_abs(got, ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD))
+                check(dense <= TOL[dtype_name], f"temporal_blockwise_fwd at {shape} against the dense plain version: {dense}")
+                want_d = ta.temporal_attention_bwd_plain(x, g, *w, HEADS, DIM_HEAD)
+                rel_d = {k: _rel_err(a, v) for k, a, v in zip(grad_names, grads, want_d)}
+                check(max(rel_d.values()) <= BWD_TOL[dtype_name],
+                      f"temporal_blockwise_bwd at {shape} against the dense backward oracle: {rel_d}")
+                del want_d
+                fwd_row["vs_dense_plain"] = dense
+                bwd_row["vs_dense_oracle"] = rel_d
+                record(names[0], shape, dtype_name, count, fwd_row, err)
+                record(names[1], shape, dtype_name, count, bwd_row, err_b)
+            else:
+                rows_n = b * s * f
+                f_bytes = elt * (2 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c)
+                f_flops = rows_n * (8 * c * hd + 4 * f * hd)
+                b_bytes = elt * (3 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + 4 * (4 * c * hd + 3 * hd + c)
+                b_flops = rows_n * (22 * c * hd + 12 * f * hd)  # the function's count, as the dense backward's
+                ms_f = cuda_ms(torch, lambda: ta.fused_temporal_attention_block(x, *w, HEADS, DIM_HEAD), 5, 1)
+                pl_f = cuda_ms(torch, lambda: ta.temporal_attention_blockwise_plain(x, *w, HEADS, DIM_HEAD, kb), 3, 1)
+                ms_b = cuda_ms(torch, lambda: ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD), 3, 1)
+                pl_b = cuda_ms(torch, lambda: ta.temporal_attention_blockwise_bwd_plain(x, g, *w, HEADS, DIM_HEAD, kb), 3, 1)
+                record(names[0], shape, dtype_name, count, fwd_row, err, ms_f, pl_f, f_bytes, f_flops)
+                record(names[1], shape, dtype_name, count, bwd_row, err_b, ms_b, pl_b, b_bytes, b_flops)
+            del x, g, got, grads
+    return {"rows": rows, "per_step": agg}
+
+
+PLAIN_MODULES = {"use_fused_attention": False, "use_fused_spatial_attention": False}
+UNET_VARIANTS = {"plain": PLAIN_MODULES, "f32": {"compute_dtype": None, **PLAIN_MODULES}}
+
+
+def _unet_variants(torch, config, kernels, variants: dict = UNET_VARIANTS):
+    """``kernels``' diffusion model rebuilt with each variant's Unet3D options, on the same weights."""
     from video_diffusion_nnx_tpu_torch.diffusion import GaussianDiffusion
     from video_diffusion_nnx_tpu_torch.models import Unet3D
 
@@ -467,9 +598,7 @@ def _unet_variants(torch, config, kernels):
     u["dim_mults"] = tuple(u["dim_mults"])
     d = config["diffusion"]
     out = {}
-    for name, extra in (("plain", {"use_fused_attention": False, "use_fused_spatial_attention": False}),
-                        ("f32", {"compute_dtype": None, "use_fused_attention": False,
-                                 "use_fused_spatial_attention": False})):
+    for name, extra in variants.items():
         net = Unet3D(**{**u, **extra})
         diff = GaussianDiffusion(net, **{k: d[k] for k in d}).to(kernels.device)
         diff.load_state_dict(kernels.state_dict())
@@ -495,17 +624,25 @@ def _faulty_backward(ta, sla, eps: float):
     return temporal, spatial_q
 
 
-def grads_phase(torch, ta, sla, load_config, build_models) -> dict:
-    """Flagship Unet3D gradients in bf16 (batch 8): kernels against plain modules, both against f32."""
-    config = load_config(CONFIG)
+def grads_phase(torch, ops, ta, sla, load_config, build_models, config_path: Path = CONFIG,
+                batch: int = B_TRAIN, long_clip: bool = False) -> dict:
+    """A recipe's Unet3D gradients in bf16: kernels against plain modules, both against f32.
+
+    The flagship run (batch 8) adds the controls; the long-clip run (batch 1, ``remat_blocks`` on
+    in every variant) adds the same Unet with ``remat_blocks`` off, whose gradients and launch counts
+    must equal the kernel route's.
+    """
+    config = load_config(config_path)
     _, kernels = build_models(config, device="cuda")
-    models = {"kernels": kernels, **_unet_variants(torch, config, kernels)}
+    variants = {**UNET_VARIANTS, **({"remat_off": {"remat_blocks": False}} if long_clip else {})}
+    models = {"kernels": kernels, **_unet_variants(torch, config, kernels, variants)}
     d = config["diffusion"]
-    shape = (B_TRAIN, d["channels"], d["num_frames"], d["image_size"], d["image_size"])
+    shape = (batch, d["channels"], d["num_frames"], d["image_size"], d["image_size"])
     x = rand(torch, shape, 12, 1.0, torch.float32).sigmoid()
     noise = rand(torch, shape, 13, 1.0, torch.float32)
-    t = torch.linspace(0, d["timesteps"] - 1, B_TRAIN, device="cuda").long()
-    grads, losses, ms = {}, {}, {}
+    t = (torch.linspace(0, d["timesteps"] - 1, batch, device="cuda").long() if batch > 1
+         else torch.tensor([d["timesteps"] // 2], device="cuda"))
+    grads, losses, ms, peak, launches = {}, {}, {}, {}, {}
 
     def run(m):
         m.zero_grad(set_to_none=True)
@@ -517,7 +654,10 @@ def grads_phase(torch, ta, sla, load_config, build_models) -> dict:
 
     for name, m in models.items():
         m.train()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         losses[name], grads[name] = run(m)
+        peak[name], launches[name] = torch.cuda.max_memory_allocated(), ops.launch_counts()
 
         def step(m=m):
             m.zero_grad(set_to_none=True)
@@ -554,11 +694,24 @@ def grads_phase(torch, ta, sla, load_config, build_models) -> dict:
     check(k_whole <= 1.5 * p_whole + GRAD_MARGIN,
           f"whole gradient: kernel route {k_whole} from f32, plain route {p_whole}")
 
+    remat = {}
+    if long_clip:
+        # remat_blocks recomputes the ResNet blocks alone: the attention kernels launch once each way.
+        check(launches["kernels"] == LONG_PER_STEP and launches["remat_off"] == LONG_PER_STEP,
+              f"launches with remat_blocks on {launches['kernels']} and off {launches['remat_off']}, "
+              f"expected {LONG_PER_STEP}")
+        worst_r = max(per, key=lambda k: rel(grads["kernels"][k], grads["remat_off"][k], "kernels"))
+        remat = {"max_rel": rel(grads["kernels"][worst_r], grads["remat_off"][worst_r], "kernels"),
+                 "worst": worst_r, "tol": REMAT_TOL,
+                 "bit_equal": all(torch.equal(grads["kernels"][k], grads["remat_off"][k]) for k in per),
+                 "loss_on": losses["kernels"], "loss_off": losses["remat_off"]}
+        check(remat["max_rel"] <= REMAT_TOL, f"gradients with remat_blocks on and off part: {remat}")
+
     # Controls: the same checks must catch a kernel route whose attention backward is slightly off.
     controls = {}
     saved = ta.temporal_attention_bwd, sla.sla_bwd_q
     try:
-        for eps in CONTROL_FAULTS:
+        for eps in (() if long_clip else CONTROL_FAULTS):
             ta.temporal_attention_bwd, sla.sla_bwd_q = _faulty_backward(ta, sla, eps)
             _, grads["control"] = run(models["kernels"])
             c_tensor = max(rel(grads["control"][k], grads["plain"][k], "plain") for k in per)
@@ -568,9 +721,11 @@ def grads_phase(torch, ta, sla, load_config, build_models) -> dict:
     finally:
         ta.temporal_attention_bwd, sla.sla_bwd_q = saved
         grads.pop("control", None)
-    check(controls[max(CONTROL_FAULTS)]["caught"], f"the gradient checks miss the control faults: {controls}")
+    check(long_clip or controls[max(CONTROL_FAULTS)]["caught"],
+          f"the gradient checks miss the control faults: {controls}")
     worst = max(per, key=lambda k: per[k]["k_vs_p"])
-    return {"losses": losses, "fwd_bwd_ms": ms, "tensors": len(per), "worst": {worst: per[worst]},
+    return {"losses": losses, "fwd_bwd_ms": ms, "peak_memory": peak, "remat": remat, "tensors": len(per),
+            "worst": {worst: per[worst]},
             "limits": {"per_tensor": GRAD_TOL, "whole": 1.5 * p_whole + GRAD_MARGIN}, "controls": controls,
             "kernels_vs_f32": k_whole, "plain_vs_f32": p_whole,
             "max_k_vs_p": per[worst]["k_vs_p"], "max_k_vs_f32": max(r["k_vs_f32"] for r in per.values()),
@@ -601,14 +756,15 @@ def bouncing_squares(path: Path, clips: int = 256, frames: int = 10, size: int =
     return path
 
 
-def _train_config(yaml, config: dict, root: Path, data: Path, name: str, fused: bool) -> Path:
+def _train_config(yaml, config: dict, root: Path, data: Path, name: str, unet: dict | None = None,
+                  steps: int = TRAIN_STEPS, ckpt_every: int = CKPT_EVERY, **trainer) -> Path:
+    """The recipe with its dataset, output folders and length replaced, and the given overrides."""
     cfg = json.loads(json.dumps(config))
     out = root / name
     cfg["trainer"].update(dataset_path=str(data), folder=str(out), results_folder=str(out),
-                          tensorboard_dir=str(out / "tensorboard"), train_num_steps=TRAIN_STEPS,
-                          checkpoint_every_steps=CKPT_EVERY)
-    if not fused:
-        cfg["unet"].update(use_fused_attention=False, use_fused_spatial_attention=False)
+                          tensorboard_dir=str(out / "tensorboard"), train_num_steps=steps,
+                          checkpoint_every_steps=ckpt_every, **trainer)
+    cfg["unet"].update(unet or {})
     path = root / f"{name}.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return path
@@ -632,8 +788,8 @@ def train_phase(torch, ops, train, sample) -> dict:
     root = SCRATCH / "train"
     root.mkdir(parents=True, exist_ok=True)
     data = bouncing_squares(root / "bouncing_squares.npy")
-    fused_cfg = _train_config(yaml, raw, root, data, "kernels", fused=True)
-    plain_cfg = _train_config(yaml, raw, root, data, "plain", fused=False)
+    fused_cfg = _train_config(yaml, raw, root, data, "kernels")
+    plain_cfg = _train_config(yaml, raw, root, data, "plain", unet=PLAIN_MODULES)
     for sub in ("kernels", "plain"):
         for old in (root / sub / "checkpoints").glob("step_*.pt"):
             old.unlink()
@@ -701,6 +857,86 @@ def train_phase(torch, ops, train, sample) -> dict:
             "sample_seconds": res["seconds"], "gifs": len(res["paths"])}
 
 
+def long_train_phase(torch, ops, train, sample) -> dict:
+    """The long-clip recipe through the CLIs: 12 steps at batch 1 on 128-frame clips, then DDIM-50."""
+    import yaml
+    from PIL import Image
+
+    raw = yaml.safe_load(LONG_CONFIG.read_text())
+    d = raw["diffusion"]
+    root = SCRATCH / "long_train"
+    root.mkdir(parents=True, exist_ok=True)
+    data = bouncing_squares(root / "bouncing_squares_128.npy", clips=LONG_CLIPS, frames=d["num_frames"],
+                            size=d["image_size"])
+    # The recipe names a folder of GIFs and trains the schedule buffers with the weights; the port's
+    # trainer reads .npy clips and keeps the buffers frozen, so the derived recipe says both.
+    common = dict(steps=LONG_STEPS, ckpt_every=LONG_CKPT_EVERY, freeze_schedule_buffers=True, log_every_steps=1)
+    cfgs = {"kernels": _train_config(yaml, raw, root, data, "kernels", **common),
+            "remat_off": _train_config(yaml, raw, root, data, "remat_off", unet={"remat_blocks": False}, **common),
+            "plain": _train_config(yaml, raw, root, data, "plain", unet=PLAIN_MODULES, **common)}
+    for sub in cfgs:
+        for old in (root / sub / "checkpoints").glob("step_*.pt"):
+            old.unlink()
+
+    runs = {}
+    for name, cfg in cfgs.items():
+        ops.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = train.main(["--config", str(cfg), "--device", "cuda"])
+        counts = ops.launch_counts()
+        losses = tr.loss_trace.tolist()
+        check(len(losses) == LONG_STEPS and all(math.isfinite(v) for v in losses), f"{name}: losses {losses}")
+        sps, save_s = _seconds_per_step(tr, warmup=3)
+        runs[name] = {"losses": losses, "launches": counts, "seconds_per_step": sps,
+                      "checkpoint_write_seconds": save_s, "peak_memory": torch.cuda.max_memory_allocated(),
+                      "checkpoints": sorted(int(p.stem[5:]) for p in tr.checkpoint_dir_path.glob("step_*.pt"))}
+        if name == "kernels":
+            ckpt_dir = tr.checkpoint_dir_path
+            check(tr.model.denoise_fn.remat_blocks and tr.max_grad_norm == raw["trainer"]["max_grad_norm"],
+                  "the long-clip trainer lost remat_blocks or max_grad_norm")
+        del tr
+    k = runs["kernels"]
+    first, last = sum(k["losses"][:4]) / 4, sum(k["losses"][-4:]) / 4
+    check(last < first, f"long-clip loss did not fall: first 4 steps {first}, last 4 {last}")
+    check(k["checkpoints"] == list(range(LONG_CKPT_EVERY, LONG_STEPS + 1, LONG_CKPT_EVERY)),
+          f"long-clip checkpoints at steps {k['checkpoints']}")
+    for name in ("kernels", "remat_off"):
+        for kernel, per in LONG_PER_STEP.items():
+            check(runs[name]["launches"][kernel] == per * LONG_STEPS,
+                  f"{name}: kernel {kernel} launched {runs[name]['launches'][kernel]} times in {LONG_STEPS} "
+                  f"steps, expected {per} per step")
+    check(set(runs["plain"]["launches"].values()) == {0}, f"the plain modules launched kernels: {runs['plain']['launches']}")
+    gaps = {name: max(abs(a - b) / abs(b) for a, b in zip(k["losses"], runs[name]["losses"]))
+            for name in ("remat_off", "plain")}
+    check(gaps["plain"] <= LOSS_TOL and gaps["remat_off"] <= LOSS_TOL,
+          f"long-clip losses part from the kernel route's by {gaps} (relative, over {LOSS_TOL})")
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out_dir = OUT / "gifs" / "long_clip_ddim50_b1"
+    res = sample.main(["--config", str(cfgs["kernels"]), "--checkpoint-path", str(ckpt_dir / f"step_{LONG_STEPS}.pt"),
+                       "--output-path", str(out_dir), "--batch-size", "1", "--seed", "0", "--device", "cuda",
+                       "--sampler", "ddim", "--num-steps", "50"])
+    videos = res["videos"]
+    check(tuple(videos.shape) == (1, 1, d["num_frames"], d["image_size"], d["image_size"]),
+          f"long-clip samples: shape {tuple(videos.shape)}")
+    check(bool(torch.isfinite(videos).all()), "long-clip samples: non-finite values")
+    img = Image.open(res["paths"][0])
+    check(img.n_frames == d["num_frames"] and img.size == (d["image_size"], d["image_size"]),
+          f"{res['paths'][0].name}: {img.n_frames} frames of {img.size}")
+    s_counts = ops.launch_counts()
+    for kernel, per in LONG_PER_STEP.items():
+        check(s_counts[kernel] == (per * res["steps"] if kernel in PER_FORWARD or kernel.endswith("_fwd") else 0),
+              f"long-clip sampling: kernel {kernel} launched {s_counts[kernel]} times in {res['steps']} steps")
+    return {"steps": LONG_STEPS, "batch": raw["trainer"]["train_batch_size"], "frames": d["num_frames"],
+            "first4": first, "last4": last, "runs": runs, "loss_gaps_vs_kernels": gaps,
+            "launches": k["launches"],
+            "sample": {"steps": res["steps"], "seconds": res["seconds"],
+                       "seconds_per_step": res["seconds"] / res["steps"], "launches": s_counts,
+                       "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}}
+
+
 def main() -> int:
     import torch
 
@@ -725,56 +961,60 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     phase("device", name=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
           torch=torch.__version__, cuda=torch.version.cuda)
+    results = {"device": kind, "nvidia_smi": smi}
+
+    def timed(title: str, fn, *args, show=lambda r: r, **kwargs):
+        """Run one phase, print its summary line (``show`` picks the fields) and keep its full result."""
+        t0 = time.perf_counter()
+        results[title] = res = fn(*args, **kwargs)
+        phase(title, seconds=time.perf_counter() - t0, **show(res))
+        return res
+
+    def per_step(res, key):
+        return {key: {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "err")} for k, v in res[key].items()}}
 
     t0 = time.perf_counter()
     _build.build_all()
-    build_s = time.perf_counter() - t0
+    results["build_seconds"] = time.perf_counter() - t0
     (OUT / "build_log.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in _build.build_logs.items()))
-    phase("build", seconds=build_s, sources=list(_build.SOURCES))
-
-    t0 = time.perf_counter()
-    kern = kernel_phase(torch, ta, sla)
-    phase("kernels", seconds=time.perf_counter() - t0, tf32="off (matmul and cudnn)",
-          checks=len(kern["rows"]), tolerance=TOL)
-
-    t0 = time.perf_counter()
-    unet = unet_phase(torch, load_config, build_models)
-    phase("unet", seconds=time.perf_counter() - t0, **unet)
-
+    phase("build", seconds=results["build_seconds"], sources=list(_build.SOURCES))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    samp = sample_phase(torch, ops, load_config, build_models, save_checkpoint, sample)
-    phase("sample", seconds=time.perf_counter() - t0, **samp)
 
-    t0 = time.perf_counter()
-    bwd = backward_phase(torch, ta, sla)
-    phase("backward", seconds=time.perf_counter() - t0, checks=len(bwd["rows"]), tolerance=BWD_TOL,
-          per_step={k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "err")}
-                    for k, v in bwd["per_step"].items()})
+    kern = timed("kernels", kernel_phase, torch, ta, sla,
+                 show=lambda r: {"tf32": "off (matmul and cudnn)", "checks": len(r["rows"]), "tolerance": TOL})
+    timed("unet", unet_phase, torch, load_config, build_models)
+    timed("sample", sample_phase, torch, ops, load_config, build_models, save_checkpoint, sample)
+    bwd = timed("backward", backward_phase, torch, ta, sla,
+                show=lambda r: {"checks": len(r["rows"]), "tolerance": BWD_TOL, **per_step(r, "per_step")})
+    timed("grads", grads_phase, torch, ops, ta, sla, load_config, build_models,
+          show=lambda r: {k: v for k, v in r.items() if k != "per_tensor"})
+    trained = timed("train", train_phase, torch, ops, train, sample)
+    blk = timed("blockwise", blockwise_phase, torch, ta,
+                show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
+                                **per_step(r, "per_step")})
+    timed("long unet", unet_phase, torch, load_config, build_models, config_path=LONG_CONFIG, batch=1)
+    timed("long grads", grads_phase, torch, ops, ta, sla, load_config, build_models, config_path=LONG_CONFIG,
+          batch=1, long_clip=True, show=lambda r: {k: v for k, v in r.items() if k != "per_tensor"})
+    long_trained = timed("long train", long_train_phase, torch, ops, train, sample)
 
-    t0 = time.perf_counter()
-    grads = grads_phase(torch, ta, sla, load_config, build_models)
-    phase("grads", seconds=time.perf_counter() - t0, **{k: v for k, v in grads.items() if k != "per_tensor"})
-
-    t0 = time.perf_counter()
-    trained = train_phase(torch, ops, train, sample)
-    phase("train", seconds=time.perf_counter() - t0, **trained)
-
-    kernels_line = []
-    for name, meta in KERNELS.items():
-        a = (kern["per_forward"] if name in PER_FORWARD else bwd["per_step"])[name]
-        err = max(a["err"], bwd["fwd_err"][name]) if name in PER_FORWARD else a["err"]
-        kernels_line.append({
-            "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
-            "launches": trained["launches"][name], "max_abs_err": err, "ms": a["ms"],
-            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-            "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations",
-            "library_ms": None,
-        })
-    results = {"device": kind, "nvidia_smi": smi, "build_seconds": build_s, "kernels": kern,
-               "unet": unet, "sample": samp, "backward": bwd, "grads": grads, "train": trained,
-               "kernels_line": kernels_line}
+    # Every kernel with the launches of the training path that runs it: the flagship's for the six
+    # dense and spatial kernels, the long-clip recipe's for the blockwise pair.
+    aggregates, launches = {}, {}
+    for name in PER_STEP:
+        a = dict((kern["per_forward"] if name in PER_FORWARD else bwd["per_step"])[name])
+        if name in PER_FORWARD:
+            a["err"] = max(a["err"], bwd["fwd_err"][name])
+        aggregates[name], launches[name] = a, trained["launches"][name]
+    for name, a in blk["per_step"].items():
+        aggregates[name], launches[name] = a, long_trained["launches"][name]
+    kernels_line = [{
+        "name": name, "route": "cuda", "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
+        "launches": launches[name], "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations",
+        "library_ms": None,
+    } for name, a in aggregates.items()]
+    results["kernels_line"] = kernels_line
     (OUT / "results.json").write_text(json.dumps(results, indent=1, default=str))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)

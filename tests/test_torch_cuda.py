@@ -69,6 +69,7 @@ def test_sla_kernels_match_plain(device, dtype, b, f, hw, c):
     got = sla.sla_out(xt, wqkv, wo, ctx, heads, dim, 1.0)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
+                                   "temporal_blockwise_fwd": 0, "temporal_blockwise_bwd": 0,
                                    "sla_context": 1, "sla_out": 1, "sla_bwd_q": 0, "sla_bwd_kv": 0}
     ctx_plain = sla.sla_context_plain(xt, wqkv, heads, dim)
     want = sla.sla_out_plain(xt, wqkv, wo, ctx_plain, heads, dim, 1.0)
@@ -80,12 +81,15 @@ def test_sla_kernels_match_plain(device, dtype, b, f, hw, c):
 
 
 def test_unsupported_shape_raises_on_the_card(device):
-    x = torch.zeros(1, 2, 65, 16, device=device)
+    """A column too long for shared memory raises; nothing falls back to the plain or the dense route."""
+    x = torch.zeros(1, 2, 4096, 16, device=device)
     w = torch.zeros(16, 3 * 64, device=device)
-    with pytest.raises(NotImplementedError, match="B7"):
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="exceed shared memory"):
         ta.fused_temporal_attention_block(x, w, torch.zeros(192, device=device),
                                           torch.zeros(64, 16, device=device),
                                           torch.zeros(16, device=device), 2, 32)
+    assert set(ops.launch_counts().values()) == {0}
 
 
 BWD_TOL = {torch.bfloat16: 0.02, torch.float32: 1e-5}
@@ -180,11 +184,99 @@ def test_weight_gradient_reduction_is_deterministic(device):
 
 
 def test_unsupported_backward_shape_raises_on_the_card(device):
-    x = torch.zeros(1, 2, 65, 16, device=device)
-    with pytest.raises(NotImplementedError, match="B7"):
+    x = torch.zeros(1, 2, 4096, 16, device=device)
+    with pytest.raises(NotImplementedError, match="exceed shared memory"):
         ta.temporal_attention_bwd(x, x, torch.zeros(16, 192, device=device), torch.zeros(192, device=device),
                                   torch.zeros(64, 16, device=device), torch.zeros(16, device=device), 2, 32)
+    x = torch.zeros(1, 2, 330, 16, device=device)  # the forward refuses what the backward could not hold
+    with pytest.raises(NotImplementedError, match="f=330"):
+        ta.fused_temporal_attention_block(x, torch.zeros(16, 192, device=device), torch.zeros(192, device=device),
+                                          torch.zeros(64, 16, device=device), torch.zeros(16, device=device), 2, 32)
     xt = torch.zeros(2, 4, 8, device=device, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="float16"):
         sla.sla_bwd_kv(xt, torch.zeros(8, 192, device=device, dtype=torch.float16), torch.zeros(2, 2, 32, 32, device=device),
                        xt, torch.zeros(2, 2, 2, 32, device=device), 2, 32)
+
+
+# The last two columns are near the longest the panels of one KV block width leave room for (321 frames).
+BLOCKWISE_SHAPES = [(1, 64, 128, 32), (1, 8, 128, 256), (1, 3, 256, 256), (2, 5, 65, 48), (1, 7, 100, 64),
+                    (1, 3, 300, 32), (1, 2, 316, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BLOCKWISE_SHAPES)
+def test_blockwise_kernels_match_plain(device, dtype, shape):
+    """Beyond 64 frames the op launches the blockwise pair: forward and all five gradients against
+    the plain blockwise versions at the kernel's block width, and in f32 against the dense ones."""
+    x, wqkv, bqkv, wo, bo = _temporal_args(shape, device, dtype)
+    g = _rand(shape, 5, 0.1, device, dtype)
+    kb = ta.KV_BLOCK
+    ops.reset_launch_counts()
+    got = ta.fused_temporal_attention_block(x, wqkv, bqkv, wo, bo, 8, 32)
+    grads = ta.temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, 8, 32)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["temporal_blockwise_fwd"] == 1 and counts["temporal_blockwise_bwd"] == 1
+    assert counts["temporal_attention_fwd"] == 0 and counts["temporal_attention_bwd"] == 0
+    want = ta.temporal_attention_blockwise_plain(x, wqkv, bqkv, wo, bo, 8, 32, kb)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    want_grads = ta.temporal_attention_blockwise_bwd_plain(x, g, wqkv, bqkv, wo, bo, 8, 32, kb)
+    assert grads[0].dtype == dtype and all(t.dtype == torch.float32 for t in grads[1:])
+    for name, a, w in zip(("dx", "dwqkv", "dbqkv", "dwo", "dbo"), grads, want_grads):
+        assert a.shape == w.shape, name
+        assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
+    if dtype == torch.float32:
+        dense = ta.temporal_attention_plain(x, wqkv, bqkv, wo, bo, 8, 32)
+        assert (got - dense).abs().max().item() <= TOL[dtype]
+        for name, a, w in zip(("dx", "dwqkv", "dbqkv", "dwo", "dbo"), grads,
+                              ta.temporal_attention_bwd_plain(x, g, wqkv, bqkv, wo, bo, 8, 32)):
+            assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
+
+
+def test_blockwise_gradients_flow_and_are_deterministic(device):
+    """loss.backward() over 128 frames reaches x and every weight through the blockwise backward
+    kernel, and two runs of it give bit-equal results (per-CTA partials, summed in a fixed order)."""
+    x, wqkv, bqkv, wo, bo = _temporal_args((1, 300, 128, 32), device, torch.bfloat16)
+    leaves = [t.requires_grad_() for t in (x, wqkv, bqkv, wo, bo)]
+    ops.reset_launch_counts()
+    out = ta.fused_temporal_attention_block(*leaves, 8, 32)
+    assert out.grad_fn is not None
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["temporal_blockwise_bwd"] == 1
+    for t in leaves:
+        assert t.grad is not None and t.grad.dtype == t.dtype and bool(torch.isfinite(t.grad).all())
+        assert t.grad.abs().max().item() > 0
+    tensors = [t.detach() for t in leaves]
+    g = _rand(x.shape, 5, 0.1, device, torch.bfloat16)
+    a = ta.temporal_attention_bwd(tensors[0], g, *tensors[1:], 8, 32)
+    b = ta.temporal_attention_bwd(tensors[0], g, *tensors[1:], 8, 32)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert torch.equal(ta.fused_temporal_attention_block(*tensors, 8, 32), out.detach())
+
+
+def test_unet_remat_blocks_on_the_card(device):
+    """A 72-frame Unet3D on the kernels: remat_blocks leaves launches, output and gradients as they are."""
+    from video_diffusion_nnx_tpu_torch.models import Unet3D
+
+    kw = dict(dim=8, dim_mults=(1, 2), channels=1, compute_dtype="bfloat16", use_fused_attention=True,
+              use_fused_spatial_attention=True)
+    plain, remat = Unet3D(**kw).to(device), Unet3D(**kw, remat_blocks=True).to(device)
+    plain.reset_parameters(torch.Generator().manual_seed(0))
+    remat.load_state_dict(plain.state_dict())
+    x, t = _rand((1, 1, 72, 16, 16), 0, 1.0, device), torch.tensor([3], device=device)
+    results = []
+    for net in (plain, remat):
+        ops.reset_launch_counts()
+        out = net(x, t)
+        out.square().mean().backward()
+        torch.cuda.synchronize()
+        results.append((out.detach(), ops.launch_counts(), {k: p.grad for k, p in net.named_parameters()}))
+    (y0, c0, g0), (y1, c1, g1) = results
+    assert c0 == c1 and c0["temporal_blockwise_fwd"] == c0["temporal_blockwise_bwd"] == 6
+    assert c0["temporal_attention_fwd"] == c0["temporal_attention_bwd"] == 1  # the bottleneck's 8x8 tokens
+    assert torch.equal(y0, y1)
+    for k, g in g0.items():
+        if g is not None:
+            assert _rel_err(g1[k], g) <= 1e-3, k

@@ -43,3 +43,21 @@ def test_port_and_chip_smoke_import_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
+
+
+def test_every_kernel_source_is_built_and_counted():
+    """Each csrc/*.cu is in the build list of ops/_build.py, and each launch counter belongs to a kernel chip_smoke.py names."""
+    import importlib.util
+
+    from video_diffusion_nnx_tpu_torch import ops
+    from video_diffusion_nnx_tpu_torch.ops import _build
+
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert set(ops.launch_counts()) == set(smoke.KERNELS)
+    for meta in smoke.KERNELS.values():
+        assert (REPO / meta["source"]).is_file()
+        path, line = meta["replaces"].split(" ")[0].rsplit(":", 1)
+        assert "pallas" in (REPO / path).read_text() and int(line) > 0

@@ -49,7 +49,6 @@ def test_unet_bf16_policy_runs_in_bf16_and_returns_f32():
     ({"cond_dim": 16}, "A10"),
     ({"use_bert_text_cond": True}, "A10"),
     ({"guidance_embed": True}, "A13"),
-    ({"remat_blocks": True}, "A5"),
     ({"sequence_parallel_mesh": object()}, "A15"),
 ])
 def test_unported_options_raise(kwargs, item):

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from video_diffusion_nnx_tpu_torch.models.attention import (
     MultiheadAttention,
@@ -87,8 +88,6 @@ class Unet3D(nn.Module):
             raise _not_ported("conditioning (cond_dim / use_bert_text_cond)", "A10")
         if guidance_embed:
             raise _not_ported("guidance_embed", "A13")
-        if remat_blocks:
-            raise _not_ported("remat_blocks (activation checkpointing)", "A5")
         if sequence_parallel_mesh is not None:
             raise _not_ported("a sequence-parallel mesh", "A15")
         if block_type != "resnet":
@@ -99,6 +98,9 @@ class Unet3D(nn.Module):
         self.compute_dtype = compute_dtype
         self.use_fused_attention = use_fused_attention
         self.use_fused_spatial_attention = use_fused_spatial_attention
+        # Recompute each ResNet block's activations in the backward instead of keeping them; the
+        # attention ops are not rematerialised, so their kernels launch once per step each way.
+        self.remat_blocks = remat_blocks
         dt = compute_dtype
 
         def temporal_attn(d: int) -> EinopsToAndFrom:
@@ -182,6 +184,16 @@ class Unet3D(nn.Module):
             raise _not_ported("conditioning", "A10")
         return self(x, time)
 
+    def _resnet(self, block: ResnetBlock, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """A ResNet block of the down, middle or up path (JAX ``_resnet``): checkpointed under ``remat_blocks``.
+
+        Under ``no_grad`` (sampling) there is nothing to recompute and the block runs as it is.
+        The blocks draw no random numbers, so no generator state is kept.
+        """
+        if self.remat_blocks and torch.is_grad_enabled():
+            return checkpoint(block, x, t, use_reentrant=False, preserve_rng_state=False)
+        return block(x, t)
+
     def _temporal(self, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """``x + MHA(x)`` over frames: the fused op, or the module chain."""
         if not self.use_fused_attention or isinstance(block, Identity):
@@ -224,22 +236,22 @@ class Unet3D(nn.Module):
 
         hs = []
         for block1, block2, spatial_attn, temporal_attn, downsample in self.downs:
-            x = block1(x, t)
-            x = block2(x, t)
+            x = self._resnet(block1, x, t)
+            x = self._resnet(block2, x, t)
             x = self._spatial(spatial_attn, x)
             x = self._temporal(temporal_attn, x)
             hs.append(x)
             x = downsample(x)
 
-        x = self.mid_block1(x, t)
+        x = self._resnet(self.mid_block1, x, t)
         x = self._mid_spatial(self.mid_spatial_attn, x)
         x = self._temporal(self.mid_temporal_attn, x)
-        x = self.mid_block2(x, t)
+        x = self._resnet(self.mid_block2, x, t)
 
         for block1, block2, spatial_attn, temporal_attn, upsample in self.ups:
             x = torch.cat((x, hs.pop()), dim=-1)
-            x = block1(x, t)
-            x = block2(x, t)
+            x = self._resnet(block1, x, t)
+            x = self._resnet(block2, x, t)
             x = self._spatial(spatial_attn, x)
             x = self._temporal(temporal_attn, x)
             x = upsample(x)

@@ -137,7 +137,9 @@ class Trainer:
         if not freeze_schedule_buffers:
             raise _not_ported(
                 "freeze_schedule_buffers: false (full-state Adam over the schedule buffers, PARITY #11)", "A7")
-        if save_and_sample_every and 0 < save_and_sample_every <= train_num_steps:
+        # The loop's steps run from 0 to train_num_steps - 1, and a sample is due at a positive multiple
+        # of save_and_sample_every (JAX trainer.py:687-693): the default, 100000 at 100000 steps, asks for none.
+        if save_and_sample_every and 0 < save_and_sample_every < train_num_steps:
             raise _not_ported("sampling during training (save_and_sample_every)", "A8")
         if Path(dataset_path).is_dir():
             raise _not_ported("GIF-folder datasets", "A8")
