@@ -50,7 +50,25 @@ in one summary line (``PHASE <name>: ...``):
     launches per step, seconds per step, peak memory with ``remat_blocks``
     on and off, the plain-modules control; then ``sample.main`` from the
     trained checkpoint, DDIM-50 at batch 1, a 128-frame GIF checked;
-13. kernels line: one JSON object per kernel (launches over its train
+13. biased: the four biased (fixed-math) temporal kernels against their plain
+    versions, forward and backward with dbias: the dense pair at the ten
+    flagship shapes (batch 2 forward, batch 8 backward) and at f = 64 with
+    c = 256, the blockwise pair at the ten long-clip shapes, the 256-long
+    shape and f = 65 and 100; bf16 and f32, TF32 off; a zero bias must
+    reproduce the unbiased kernel bit for bit; in f32 the blockwise pair
+    also against the dense plain versions; CUDA-event times in both types;
+14. sla scale: the spatial output and q-path backward kernels at the fixed
+    math's ``scale = 32 ** -0.5`` against their plain versions;
+15. fixed unet, fixed grads, long fixed unet, long fixed grads: phases 4, 7,
+    10 and 11 for the two recipes with ``unet.reference_compat: false``
+    (pre-norms applied, the position bias on the logits): every fused op
+    gets float32 there; exact launches (10 biased + 1 unbiased temporal and
+    8 of each spatial kernel each way); the bias table and every PreNorm
+    norm have gradients; a live focus mask against the plain modules;
+16. fixed train, long fixed train: phases 8 and 12 for those recipes (the
+    kernel route and the plain modules), with DDIM-50 from each trained
+    checkpoint;
+17. kernels line: one JSON object per kernel (launches over its train
     phase, error, times, bound).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -76,6 +94,7 @@ SCRATCH = REPO / "build" / "chip_smoke"
 # Times and bounds are taken in bf16, the main path's type.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores: the bound of a kernel's f32 instantiation
 
 TOL = {"bfloat16": 0.05, "float32": 1e-4}
 # Backward kernels against their plain versions: max-abs error over the largest magnitude of
@@ -177,6 +196,28 @@ KERNELS.update({
 })
 
 
+# Fixed math (unet.reference_compat: false): every temporal attention over the frames takes the biased
+# kernels; the bottleneck's spatial attention stays unbiased; the spatial kernels get scale = 32 ** -0.5.
+FIXED = {"reference_compat": False}
+SLA_PER_STEP = {"sla_context": 8, "sla_out": 8, "sla_bwd_q": 8, "sla_bwd_kv": 8}
+FIXED_PER_STEP = {"temporal_attention_biased_fwd": 10, "temporal_attention_biased_bwd": 10,
+                  "temporal_attention_fwd": 1, "temporal_attention_bwd": 1, **SLA_PER_STEP}
+FIXED_LONG_PER_STEP = {"temporal_blockwise_biased_fwd": 10, "temporal_blockwise_biased_bwd": 10,
+                       "temporal_attention_fwd": 1, "temporal_attention_bwd": 1, **SLA_PER_STEP}
+MID_SPATIAL = (B, 10, 64, 256)  # unbiased in both maths; as a biased shape it is the f = 64, wide-c check
+BIASED_DENSE_SHAPES = [*((n, sh) for n, sh in TEMPORAL_SHAPES if sh != MID_SPATIAL), (0, MID_SPATIAL)]
+BIASED_KERNELS = {
+    "temporal_attention_biased_fwd": ("temporal_attention.cu", "111 (bias_ref, :151-152)"),
+    "temporal_attention_biased_bwd": ("temporal_attention.cu", "175 (bias_ref and dbias_ref, :204-205, :245-248)"),
+    "temporal_blockwise_biased_fwd": ("temporal_blockwise.cu", "405 (bias_ref, :372-373)"),
+    "temporal_blockwise_biased_bwd": ("temporal_blockwise.cu", "432 (bias_ref and dbias_ref, :512-513, :530-535)"),
+}
+KERNELS.update({name: {"source": f"video_diffusion_nnx_tpu_torch/csrc/{src}",
+                       "replaces": f"video_diffusion_nnx_tpu/ops/temporal_attention.py:{line}"}
+                for name, (src, line) in BIASED_KERNELS.items()})
+SLA_SCALE = DIM_HEAD ** -0.5
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -203,10 +244,14 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def new_totals(names) -> dict:
@@ -216,9 +261,9 @@ def new_totals(names) -> dict:
 
 
 def add_timing(row: dict, total: dict, count: int, err: float, ms: float, plain_ms: float, nbytes: float,
-               flops: float) -> None:
+               flops: float, peak: float = PEAK_BF16_FLOPS) -> None:
     """Write a timed check's times and bound into its ``row`` and add ``count`` launches of it to ``total``."""
-    b, by = bound_ms(nbytes, flops)
+    b, by = bound_ms(nbytes, flops, peak)
     row.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
     if count:
         total["err"] = max(total["err"], err)
@@ -226,7 +271,7 @@ def add_timing(row: dict, total: dict, count: int, err: float, ms: float, plain_
         total["plain_ms"] += count * plain_ms
         total["bound_ms"] += count * b
         total["t_bytes"] += count * nbytes / PEAK_BYTES_PER_S * 1e3
-        total["t_ops"] += count * flops / PEAK_BF16_FLOPS * 1e3
+        total["t_ops"] += count * flops / peak * 1e3
 
 
 def rand(torch, shape, seed: int, scale: float, dtype):
@@ -310,11 +355,16 @@ def kernel_phase(torch, ta, sla) -> dict:
     return {"rows": rows, "per_forward": agg}
 
 
-def unet_phase(torch, load_config, build_models, config_path: Path = CONFIG, batch: int = B) -> dict:
-    """A recipe's full-width Unet3D in bf16: kernels against the plain modules (and both against f32)."""
+def unet_phase(torch, load_config, build_models, config_path: Path = CONFIG, batch: int = B,
+               unet: dict | None = None) -> dict:
+    """A recipe's full-width Unet3D in bf16: kernels against the plain modules (and both against f32).
+
+    ``unet`` overrides keys of the recipe's ``unet`` section (``FIXED`` derives the fixed-math recipe).
+    """
     from video_diffusion_nnx_tpu_torch.models import Unet3D
 
     config = load_config(config_path)
+    config["unet"].update(unet or {})
     kernels, _ = build_models(config, device="cuda")
     u = {k: v for k, v in config["unet"].items()
          if k not in ("arch", "rngs_seed", "depth", "patch_size", "mlp_ratio")}
@@ -584,6 +634,144 @@ def blockwise_phase(torch, ta) -> dict:
     return {"rows": rows, "per_step": agg}
 
 
+def biased_phase(torch, ta) -> dict:
+    """The four biased temporal kernels against their plain versions; times in both types.
+
+    The fixed recipes hand these kernels float32 (the PreNorm's LayerNorm promotes the bf16
+    activations), so the f32 instantiation is the main path's and its bound takes the float32 rate;
+    the bf16 instantiation is part of the op and is held and timed too. Per shape: forward
+    (the dense family at the sampling batch) and backward with dbias (at the training batch)
+    against the family's plain versions, in f32 the blockwise pair also against the dense ones, and a zero
+    bias against the unbiased kernel, bit for bit.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hd = HEADS * DIM_HEAD
+    grad_names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dbias")
+    rows = []
+    agg = {dt: new_totals(BIASED_KERNELS) for dt in TOL}
+
+    def weights(c):
+        return (rand(torch, (c, 3 * hd), 2, c ** -0.5, torch.float32), rand(torch, (3 * hd,), 3, 0.1, torch.float32),
+                rand(torch, (hd, c), 4, hd ** -0.5, torch.float32), rand(torch, (c,), 5, 0.1, torch.float32))
+
+    shapes = [("attention", n, sh, (B_TRAIN, *sh[1:])) for n, sh in BIASED_DENSE_SHAPES]
+    shapes += [("blockwise", n, sh, sh) for n, sh in [*LONG_TEMPORAL_SHAPES, *EXTRA_BLOCKWISE_SHAPES]]
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        elt, peak = (4, PEAK_F32_FLOPS) if dtype_name == "float32" else (2, PEAK_BF16_FLOPS)
+        for family, count, f_shape, b_shape in shapes:
+            names = (f"temporal_{family}_biased_fwd", f"temporal_{family}_biased_bwd")
+            dense = family == "attention"
+            f, c = f_shape[2], f_shape[3]
+            w = weights(c)
+            bias = rand(torch, (HEADS, f, f), 14, 0.5, torch.float32)
+            zero = torch.zeros_like(bias)
+            kb = () if dense else (ta.KV_BLOCK,)
+            plain_f = ta.temporal_attention_plain if dense else ta.temporal_attention_blockwise_plain
+            plain_b = ta.temporal_attention_bwd_plain if dense else ta.temporal_attention_blockwise_bwd_plain
+            panel = HEADS * f * f
+
+            # Forward.
+            x = rand(torch, f_shape, 1, 0.5, dtype)
+            before = dict(ta.launches)
+            got = ta.fused_temporal_attention_block_biased(x, *w, bias, HEADS, DIM_HEAD)
+            torch.cuda.synchronize()
+            check(ta.launches[names[0]] == before[names[0]] + 1, f"f = {f} did not launch {names[0]}: {ta.launches}")
+            err = _max_abs(got, plain_f(x, *w, HEADS, DIM_HEAD, *kb, pos_bias=bias))
+            check(math.isfinite(err) and err <= TOL[dtype_name],
+                  f"{names[0]} at {f_shape} in {dtype_name}: max-abs error {err} over {TOL[dtype_name]}")
+            check(torch.equal(ta.fused_temporal_attention_block_biased(x, *w, zero, HEADS, DIM_HEAD),
+                              ta.fused_temporal_attention_block(x, *w, HEADS, DIM_HEAD)),
+                  f"{names[0]} at {f_shape} in {dtype_name}: a zero bias does not reproduce the unbiased kernel")
+            row = {"kernel": names[0], "shape": f_shape, "dtype": dtype_name, "per_step": count, "max_abs_err": err,
+                   "tol": TOL[dtype_name]}
+            if not dense and dtype_name == "float32":
+                row["vs_dense_plain"] = _max_abs(got, ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD, pos_bias=bias))
+                check(row["vs_dense_plain"] <= TOL[dtype_name], f"{names[0]} at {f_shape} against the dense plain version: {row}")
+            rows_n = f_shape[0] * f_shape[1] * f
+            nbytes = elt * (2 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + 4 * panel
+            flops = rows_n * (8 * c * hd + 4 * f * hd + HEADS * f)  # the unbiased count and one add per logit
+            ms = cuda_ms(torch, lambda: ta.fused_temporal_attention_block_biased(x, *w, bias, HEADS, DIM_HEAD), 5, 1)
+            pl = cuda_ms(torch, lambda: plain_f(x, *w, HEADS, DIM_HEAD, *kb, pos_bias=bias), 3, 1)
+            add_timing(row, agg[dtype_name][names[0]], count, err, ms, pl, nbytes, flops, peak)
+            rows.append(row)
+            print("  " + json.dumps(row), flush=True)
+            del got
+
+            # Backward, with dbias.
+            if b_shape != f_shape:
+                x = rand(torch, b_shape, 1, 0.5, dtype)
+            g = rand(torch, b_shape, 9, 0.1, dtype)
+            before = dict(ta.launches)
+            grads = ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD, pos_bias=bias)
+            torch.cuda.synchronize()
+            check(ta.launches[names[1]] == before[names[1]] + 1, f"f = {f} did not launch {names[1]}: {ta.launches}")
+            want = plain_b(x, g, *w, HEADS, DIM_HEAD, *kb, pos_bias=bias)
+            rel = {k: _rel_err(a, v) for k, a, v in zip(grad_names, grads, want)}
+            err_b = max(_max_abs(a, v) for a, v in zip(grads, want))
+            for k, r in rel.items():
+                check(math.isfinite(r) and r <= BWD_TOL[dtype_name],
+                      f"{names[1]} {k} at {b_shape} in {dtype_name}: error {r} of its largest value, over {BWD_TOL[dtype_name]}")
+            del want
+            row = {"kernel": names[1], "shape": b_shape, "dtype": dtype_name, "per_step": count, "rel_err": rel,
+                   "max_abs_err": err_b, "tol": BWD_TOL[dtype_name]}
+            if not dense and dtype_name == "float32":
+                want_d = ta.temporal_attention_bwd_plain(x, g, *w, HEADS, DIM_HEAD, pos_bias=bias)
+                row["vs_dense_oracle"] = {k: _rel_err(a, v) for k, a, v in zip(grad_names, grads, want_d)}
+                check(max(row["vs_dense_oracle"].values()) <= BWD_TOL[dtype_name],
+                      f"{names[1]} at {b_shape} against the dense backward oracle: {row['vs_dense_oracle']}")
+                del want_d
+            for a, v in zip(ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD, pos_bias=zero),
+                            ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD)):
+                check(torch.equal(a, v), f"{names[1]} at {b_shape} in {dtype_name}: a zero bias does not "
+                                         "reproduce the unbiased kernel's gradients")
+            rows_n = b_shape[0] * b_shape[1] * f
+            nbytes = (elt * (3 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + 4 * (4 * c * hd + 3 * hd + c)
+                      + 2 * 4 * panel)  # the bias read once and dbias written once
+            flops = rows_n * (22 * c * hd + 12 * f * hd + 2 * HEADS * f)  # the bias add and the dbias sum
+            ms = cuda_ms(torch, lambda: ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD, pos_bias=bias), 3, 1)
+            pl = cuda_ms(torch, lambda: plain_b(x, g, *w, HEADS, DIM_HEAD, *kb, pos_bias=bias), 3, 1)
+            add_timing(row, agg[dtype_name][names[1]], count, err_b, ms, pl, nbytes, flops, peak)
+            rows.append(row)
+            print("  " + json.dumps(row), flush=True)
+            del x, g, grads
+    return {"rows": rows, "per_step": agg}
+
+
+def sla_scale_phase(torch, sla) -> dict:
+    """The two spatial kernels that take the q scale, at fixed math's 32 ** -0.5 and the training shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hd = HEADS * DIM_HEAD
+    rows = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for _, shape in SLA_SHAPES:
+            b, f, hh, ww, c = (B_TRAIN, *shape[1:])
+            x = rand(torch, (b * f, hh * ww, c), 6, 0.5, dtype)
+            g = rand(torch, (b * f, hh * ww, c), 10, 0.1, dtype)
+            wqkv = rand(torch, (c, 3 * hd), 7, c ** -0.5, torch.float32)
+            wo = rand(torch, (hd, c), 8, hd ** -0.5, torch.float32)
+            ctx = sla.sla_context_plain(x, wqkv, HEADS, DIM_HEAD)
+            err = _max_abs(sla.sla_out(x, wqkv, wo, ctx, HEADS, DIM_HEAD, SLA_SCALE),
+                           sla.sla_out_plain(x, wqkv, wo, ctx, HEADS, DIM_HEAD, SLA_SCALE))
+            check(math.isfinite(err) and err <= TOL[dtype_name],
+                  f"sla_out with the q scale at {(b, f, hh, ww, c)} in {dtype_name}: {err} over {TOL[dtype_name]}")
+            unscaled = _max_abs(sla.sla_out(x, wqkv, wo, ctx, HEADS, DIM_HEAD, SLA_SCALE),
+                                sla.sla_out(x, wqkv, wo, ctx, HEADS, DIM_HEAD, 1.0))
+            check(unscaled > 0, f"the q scale leaves sla_out unchanged at {shape}")
+            q_args = (x, g, wqkv, wo, ctx, HEADS, DIM_HEAD, SLA_SCALE)
+            rel = {k: _rel_err(a, v) for k, a, v in zip(("dx_q", "dctx", "dwq", "dwo"), sla.sla_bwd_q(*q_args),
+                                                        sla.sla_bwd_q_plain(*q_args))}
+            for k, r in rel.items():
+                check(math.isfinite(r) and r <= BWD_TOL[dtype_name],
+                      f"sla_bwd_q {k} with the q scale at {(b, f, hh, ww, c)} in {dtype_name}: {r} over {BWD_TOL[dtype_name]}")
+            rows.append({"shape": (b, f, hh, ww, c), "dtype": dtype_name, "scale": SLA_SCALE, "sla_out_err": err,
+                         "sla_out_vs_scale_1": unscaled, "sla_bwd_q_rel_err": rel})
+            print("  " + json.dumps(rows[-1]), flush=True)
+            del x, g, ctx
+    return {"rows": rows}
+
+
 PLAIN_MODULES = {"use_fused_attention": False, "use_fused_spatial_attention": False}
 UNET_VARIANTS = {"plain": PLAIN_MODULES, "f32": {"compute_dtype": None, **PLAIN_MODULES}}
 
@@ -613,8 +801,8 @@ def _faulty_backward(ta, sla, eps: float):
     def off(dx, g):
         return (dx.float() + eps * (dx.float() - g.float())).to(dx.dtype)
 
-    def temporal(x, g, *rest):
-        dx, *others = t_bwd(x, g, *rest)
+    def temporal(x, g, *rest, **kw):
+        dx, *others = t_bwd(x, g, *rest, **kw)
         return (off(dx, g), *others)
 
     def spatial_q(xt, g, *rest):
@@ -625,14 +813,20 @@ def _faulty_backward(ta, sla, eps: float):
 
 
 def grads_phase(torch, ops, ta, sla, load_config, build_models, config_path: Path = CONFIG,
-                batch: int = B_TRAIN, long_clip: bool = False) -> dict:
+                batch: int = B_TRAIN, long_clip: bool = False, unet: dict | None = None,
+                per_step: dict | None = None) -> dict:
     """A recipe's Unet3D gradients in bf16: kernels against plain modules, both against f32.
 
     The flagship run (batch 8) adds the controls; the long-clip run (batch 1, ``remat_blocks`` on
     in every variant) adds the same Unet with ``remat_blocks`` off, whose gradients and launch counts
-    must equal the kernel route's.
+    must equal the kernel route's. ``unet`` overrides keys of the recipe's ``unet`` section and
+    ``per_step`` is the exact launch count of one step. In fixed math the run also checks that
+    the position-bias table and every PreNorm norm get a gradient and, at batch 8, a live focus mask.
     """
     config = load_config(config_path)
+    config["unet"].update(unet or {})
+    fixed = not config["unet"]["reference_compat"]
+    per_step = per_step or (LONG_PER_STEP if long_clip else PER_STEP)
     _, kernels = build_models(config, device="cuda")
     variants = {**UNET_VARIANTS, **({"remat_off": {"remat_blocks": False}} if long_clip else {})}
     models = {"kernels": kernels, **_unet_variants(torch, config, kernels, variants)}
@@ -644,9 +838,9 @@ def grads_phase(torch, ops, ta, sla, load_config, build_models, config_path: Pat
          else torch.tensor([d["timesteps"] // 2], device="cuda"))
     grads, losses, ms, peak, launches = {}, {}, {}, {}, {}
 
-    def run(m):
+    def run(m, **kw):
         m.zero_grad(set_to_none=True)
-        loss = m(x, t=t, noise=noise)
+        loss = m(x, t=t, noise=noise, **kw)
         loss.backward()
         torch.cuda.synchronize()
         return loss.item(), {k: p.grad.detach().float().clone() for k, p in m.named_parameters()
@@ -665,6 +859,9 @@ def grads_phase(torch, ops, ta, sla, load_config, build_models, config_path: Pat
 
         ms[name] = cuda_ms(torch, step, 3, 1)
     check(all(math.isfinite(v) for v in losses.values()), f"non-finite losses {losses}")
+    check(nonzero(launches["kernels"]) == per_step and not nonzero(launches["plain"]),
+          f"launches of one step: kernels {nonzero(launches['kernels'])}, expected {per_step}; "
+          f"plain modules {nonzero(launches['plain'])}")
     check(set(grads["kernels"]) == set(grads["plain"]) == set(grads["f32"]),
           "the routes give gradients to different parameters")
 
@@ -697,9 +894,8 @@ def grads_phase(torch, ops, ta, sla, load_config, build_models, config_path: Pat
     remat = {}
     if long_clip:
         # remat_blocks recomputes the ResNet blocks alone: the attention kernels launch once each way.
-        check(launches["kernels"] == LONG_PER_STEP and launches["remat_off"] == LONG_PER_STEP,
-              f"launches with remat_blocks on {launches['kernels']} and off {launches['remat_off']}, "
-              f"expected {LONG_PER_STEP}")
+        check(nonzero(launches["remat_off"]) == per_step,
+              f"launches with remat_blocks off {nonzero(launches['remat_off'])}, expected {per_step}")
         worst_r = max(per, key=lambda k: rel(grads["kernels"][k], grads["remat_off"][k], "kernels"))
         remat = {"max_rel": rel(grads["kernels"][worst_r], grads["remat_off"][worst_r], "kernels"),
                  "worst": worst_r, "tol": REMAT_TOL,
@@ -723,8 +919,30 @@ def grads_phase(torch, ops, ta, sla, load_config, build_models, config_path: Pat
         grads.pop("control", None)
     check(long_clip or controls[max(CONTROL_FAULTS)]["caught"],
           f"the gradient checks miss the control faults: {controls}")
+    live = {}
+    if fixed:
+        # Fixed math trains what compat math leaves unused: the position-bias table and the PreNorm norms.
+        named = [k for k in grads["kernels"] if ".fn.norm." in k or "time_rel_pos_bias" in k]
+        check(len(named) == 2 * 19 + 1, f"{len(named)} PreNorm and bias-table tensors have gradients, expected 39")
+        dead = [k for k in named if not grads["kernels"][k].abs().max().item() > 0]
+        check(not dead, f"zero gradients in fixed math: {dead}")
+        live = {"norm_and_table_tensors": len(named)}
+    if fixed and batch > 1:
+        # A live focus mask: masked samples take the v-projection select (no kernel sees the mask).
+        mask = torch.arange(batch, device="cuda") % 2 == 0
+        ops.reset_launch_counts()
+        m_loss, m_grads = run(models["kernels"], focus_present_mask=mask)
+        m_counts = nonzero(ops.launch_counts())
+        p_loss, p_grads = run(models["plain"], focus_present_mask=mask)
+        check(m_counts == per_step, f"launches under a focus mask {m_counts}, expected {per_step}")
+        worst_m = max(rel(m_grads[k], p_grads[k], "plain") for k in per)
+        check(worst_m <= GRAD_TOL, f"focus mask: gradient of a tensor parts by {worst_m} > {GRAD_TOL}")
+        check(abs(m_loss - p_loss) <= LOSS_TOL * abs(p_loss) and abs(m_loss - losses["kernels"]) > 1e-6,
+              f"focus mask: loss {m_loss} (kernels), {p_loss} (plain modules), {losses['kernels']} unmasked")
+        live.update(focus_mask={"loss_kernels": m_loss, "loss_plain": p_loss, "max_k_vs_p": worst_m})
     worst = max(per, key=lambda k: per[k]["k_vs_p"])
     return {"losses": losses, "fwd_bwd_ms": ms, "peak_memory": peak, "remat": remat, "tensors": len(per),
+            "launches": nonzero(launches["kernels"]), "fixed_math": live,
             "worst": {worst: per[worst]},
             "limits": {"per_tensor": GRAD_TOL, "whole": 1.5 * p_whole + GRAD_MARGIN}, "controls": controls,
             "kernels_vs_f32": k_whole, "plain_vs_f32": p_whole,
@@ -780,16 +998,19 @@ def _seconds_per_step(trainer, warmup: int = 5) -> tuple[float, float]:
     return (starts[-1] - starts[warmup] - saves) / (len(starts) - 1 - warmup), saves
 
 
-def train_phase(torch, ops, train, sample) -> dict:
+def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | None = None,
+                per_step: dict = PER_STEP, ddim_steps: int = 10) -> dict:
+    """The flagship recipe (with ``unet`` overrides) through the CLIs: 30 steps at batch 8, a resume, the
+    same steps through the plain modules, then DDIM from the trained checkpoint."""
     import yaml
     from PIL import Image
 
     raw = yaml.safe_load(CONFIG.read_text())
-    root = SCRATCH / "train"
+    root = SCRATCH / name
     root.mkdir(parents=True, exist_ok=True)
     data = bouncing_squares(root / "bouncing_squares.npy")
-    fused_cfg = _train_config(yaml, raw, root, data, "kernels")
-    plain_cfg = _train_config(yaml, raw, root, data, "plain", unet=PLAIN_MODULES)
+    fused_cfg = _train_config(yaml, raw, root, data, "kernels", unet=unet)
+    plain_cfg = _train_config(yaml, raw, root, data, "plain", unet={**(unet or {}), **PLAIN_MODULES})
     for sub in ("kernels", "plain"):
         for old in (root / sub / "checkpoints").glob("step_*.pt"):
             old.unlink()
@@ -797,15 +1018,16 @@ def train_phase(torch, ops, train, sample) -> dict:
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     tr = train.main(["--config", str(fused_cfg), "--device", "cuda"])
-    counts = ops.launch_counts()
+    counts = nonzero(ops.launch_counts())
     peak = torch.cuda.max_memory_allocated()
     losses = tr.loss_trace.tolist()
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     check(last < first, f"loss did not fall: first 5 steps {first}, last 5 {last}")
-    for name, per in PER_STEP.items():
-        check(counts[name] == per * TRAIN_STEPS,
-              f"kernel {name}: {counts[name]} launches in {TRAIN_STEPS} steps, expected {per} per step")
+    check(counts == {k: per * TRAIN_STEPS for k, per in per_step.items()},
+          f"launches in {TRAIN_STEPS} steps {counts}, expected per step {per_step}")
+    check(tr.model.denoise_fn.reference_compat == (not unet or unet.get("reference_compat", True)),
+          "the trainer's Unet3D lost the reference_compat key")
     ckpts = sorted(int(p.stem[5:]) for p in tr.checkpoint_dir_path.glob("step_*.pt"))
     check(ckpts == list(range(CKPT_EVERY, TRAIN_STEPS + 1, CKPT_EVERY)), f"checkpoints at steps {ckpts}")
     sps, save_s = _seconds_per_step(tr)
@@ -835,10 +1057,14 @@ def train_phase(torch, ops, train, sample) -> dict:
     plain_sps, plain_save_s = _seconds_per_step(plain)
     del plain
 
-    out_dir = OUT / "gifs" / "trained_ddim10_b2"
+    out_dir = OUT / "gifs" / f"{name}ed_ddim{ddim_steps}_b2"
+    ops.reset_launch_counts()
     res = sample.main(["--config", str(fused_cfg), "--checkpoint-path", str(ckpt_dir / f"step_{TRAIN_STEPS}.pt"),
                        "--output-path", str(out_dir), "--batch-size", "2", "--seed", "0", "--device", "cuda",
-                       "--sampler", "ddim", "--num-steps", "10", "--load-ema-params"])
+                       "--sampler", "ddim", "--num-steps", str(ddim_steps), "--load-ema-params"])
+    s_counts = nonzero(ops.launch_counts())
+    check(s_counts == {k: per * ddim_steps for k, per in per_step.items() if "bwd" not in k},
+          f"sampling from the trained checkpoint: launches {s_counts} in {ddim_steps} steps")
     d = raw["diffusion"]
     videos = res["videos"]
     check(tuple(videos.shape) == (2, 1, d["num_frames"], d["image_size"], d["image_size"]),
@@ -854,44 +1080,46 @@ def train_phase(torch, ops, train, sample) -> dict:
             "loss_gap_vs_plain": loss_gap,
             "resumed_from": mid, "resumed_losses": r_losses, "plain_losses": plain_losses,
             "plain_seconds_per_step": plain_sps, "plain_peak_memory": plain_peak,
-            "sample_seconds": res["seconds"], "gifs": len(res["paths"])}
+            "sample_seconds": res["seconds"], "sample_steps": ddim_steps, "sample_launches": s_counts,
+            "gifs": len(res["paths"])}
 
 
-def long_train_phase(torch, ops, train, sample) -> dict:
-    """The long-clip recipe through the CLIs: 12 steps at batch 1 on 128-frame clips, then DDIM-50."""
+def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: dict | None = None,
+                     per_step: dict = LONG_PER_STEP, variants=("kernels", "remat_off", "plain")) -> dict:
+    """The long-clip recipe (with ``unet`` overrides) through the CLIs: 12 steps at batch 1 on 128-frame
+    clips by each of ``variants``, then DDIM-50."""
     import yaml
     from PIL import Image
 
     raw = yaml.safe_load(LONG_CONFIG.read_text())
     d = raw["diffusion"]
-    root = SCRATCH / "long_train"
+    root = SCRATCH / name
     root.mkdir(parents=True, exist_ok=True)
     data = bouncing_squares(root / "bouncing_squares_128.npy", clips=LONG_CLIPS, frames=d["num_frames"],
                             size=d["image_size"])
     # The recipe names a folder of GIFs and trains the schedule buffers with the weights; the port's
     # trainer reads .npy clips and keeps the buffers frozen, so the derived recipe says both.
     common = dict(steps=LONG_STEPS, ckpt_every=LONG_CKPT_EVERY, freeze_schedule_buffers=True, log_every_steps=1)
-    cfgs = {"kernels": _train_config(yaml, raw, root, data, "kernels", **common),
-            "remat_off": _train_config(yaml, raw, root, data, "remat_off", unet={"remat_blocks": False}, **common),
-            "plain": _train_config(yaml, raw, root, data, "plain", unet=PLAIN_MODULES, **common)}
+    extra = {"kernels": {}, "remat_off": {"remat_blocks": False}, "plain": PLAIN_MODULES}
+    cfgs = {v: _train_config(yaml, raw, root, data, v, unet={**(unet or {}), **extra[v]}, **common) for v in variants}
     for sub in cfgs:
         for old in (root / sub / "checkpoints").glob("step_*.pt"):
             old.unlink()
 
     runs = {}
-    for name, cfg in cfgs.items():
+    for variant, cfg in cfgs.items():
         ops.reset_launch_counts()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         tr = train.main(["--config", str(cfg), "--device", "cuda"])
-        counts = ops.launch_counts()
+        counts = nonzero(ops.launch_counts())
         losses = tr.loss_trace.tolist()
-        check(len(losses) == LONG_STEPS and all(math.isfinite(v) for v in losses), f"{name}: losses {losses}")
+        check(len(losses) == LONG_STEPS and all(math.isfinite(v) for v in losses), f"{variant}: losses {losses}")
         sps, save_s = _seconds_per_step(tr, warmup=3)
-        runs[name] = {"losses": losses, "launches": counts, "seconds_per_step": sps,
-                      "checkpoint_write_seconds": save_s, "peak_memory": torch.cuda.max_memory_allocated(),
-                      "checkpoints": sorted(int(p.stem[5:]) for p in tr.checkpoint_dir_path.glob("step_*.pt"))}
-        if name == "kernels":
+        runs[variant] = {"losses": losses, "launches": counts, "seconds_per_step": sps,
+                         "checkpoint_write_seconds": save_s, "peak_memory": torch.cuda.max_memory_allocated(),
+                         "checkpoints": sorted(int(p.stem[5:]) for p in tr.checkpoint_dir_path.glob("step_*.pt"))}
+        if variant == "kernels":
             ckpt_dir = tr.checkpoint_dir_path
             check(tr.model.denoise_fn.remat_blocks and tr.max_grad_norm == raw["trainer"]["max_grad_norm"],
                   "the long-clip trainer lost remat_blocks or max_grad_norm")
@@ -901,20 +1129,18 @@ def long_train_phase(torch, ops, train, sample) -> dict:
     check(last < first, f"long-clip loss did not fall: first 4 steps {first}, last 4 {last}")
     check(k["checkpoints"] == list(range(LONG_CKPT_EVERY, LONG_STEPS + 1, LONG_CKPT_EVERY)),
           f"long-clip checkpoints at steps {k['checkpoints']}")
-    for name in ("kernels", "remat_off"):
-        for kernel, per in LONG_PER_STEP.items():
-            check(runs[name]["launches"][kernel] == per * LONG_STEPS,
-                  f"{name}: kernel {kernel} launched {runs[name]['launches'][kernel]} times in {LONG_STEPS} "
-                  f"steps, expected {per} per step")
-    check(set(runs["plain"]["launches"].values()) == {0}, f"the plain modules launched kernels: {runs['plain']['launches']}")
-    gaps = {name: max(abs(a - b) / abs(b) for a, b in zip(k["losses"], runs[name]["losses"]))
-            for name in ("remat_off", "plain")}
-    check(gaps["plain"] <= LOSS_TOL and gaps["remat_off"] <= LOSS_TOL,
+    for variant in variants:
+        want = {} if variant == "plain" else {kernel: per * LONG_STEPS for kernel, per in per_step.items()}
+        check(runs[variant]["launches"] == want,
+              f"{variant}: launches {runs[variant]['launches']} in {LONG_STEPS} steps, expected per step {per_step}")
+    gaps = {variant: max(abs(a - b) / abs(b) for a, b in zip(k["losses"], runs[variant]["losses"]))
+            for variant in variants if variant != "kernels"}
+    check(max(gaps.values()) <= LOSS_TOL,
           f"long-clip losses part from the kernel route's by {gaps} (relative, over {LOSS_TOL})")
 
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    out_dir = OUT / "gifs" / "long_clip_ddim50_b1"
+    out_dir = OUT / "gifs" / f"{name}_ddim50_b1"
     res = sample.main(["--config", str(cfgs["kernels"]), "--checkpoint-path", str(ckpt_dir / f"step_{LONG_STEPS}.pt"),
                        "--output-path", str(out_dir), "--batch-size", "1", "--seed", "0", "--device", "cuda",
                        "--sampler", "ddim", "--num-steps", "50"])
@@ -925,10 +1151,9 @@ def long_train_phase(torch, ops, train, sample) -> dict:
     img = Image.open(res["paths"][0])
     check(img.n_frames == d["num_frames"] and img.size == (d["image_size"], d["image_size"]),
           f"{res['paths'][0].name}: {img.n_frames} frames of {img.size}")
-    s_counts = ops.launch_counts()
-    for kernel, per in LONG_PER_STEP.items():
-        check(s_counts[kernel] == (per * res["steps"] if kernel in PER_FORWARD or kernel.endswith("_fwd") else 0),
-              f"long-clip sampling: kernel {kernel} launched {s_counts[kernel]} times in {res['steps']} steps")
+    s_counts = nonzero(ops.launch_counts())
+    check(s_counts == {kernel: per * res["steps"] for kernel, per in per_step.items() if "bwd" not in kernel},
+          f"long-clip sampling: launches {s_counts} in {res['steps']} steps")
     return {"steps": LONG_STEPS, "batch": raw["trainer"]["train_batch_size"], "frames": d["num_frames"],
             "first4": first, "last4": last, "runs": runs, "loss_gaps_vs_kernels": gaps,
             "launches": k["launches"],
@@ -970,6 +1195,9 @@ def main() -> int:
         phase(title, seconds=time.perf_counter() - t0, **show(res))
         return res
 
+    def brief(res):
+        return {k: v for k, v in res.items() if k != "per_tensor"}
+
     def per_step(res, key):
         return {key: {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms", "err")} for k, v in res[key].items()}}
 
@@ -988,19 +1216,38 @@ def main() -> int:
     bwd = timed("backward", backward_phase, torch, ta, sla,
                 show=lambda r: {"checks": len(r["rows"]), "tolerance": BWD_TOL, **per_step(r, "per_step")})
     timed("grads", grads_phase, torch, ops, ta, sla, load_config, build_models,
-          show=lambda r: {k: v for k, v in r.items() if k != "per_tensor"})
+          show=brief)
     trained = timed("train", train_phase, torch, ops, train, sample)
     blk = timed("blockwise", blockwise_phase, torch, ta,
                 show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
                                 **per_step(r, "per_step")})
     timed("long unet", unet_phase, torch, load_config, build_models, config_path=LONG_CONFIG, batch=1)
     timed("long grads", grads_phase, torch, ops, ta, sla, load_config, build_models, config_path=LONG_CONFIG,
-          batch=1, long_clip=True, show=lambda r: {k: v for k, v in r.items() if k != "per_tensor"})
+          batch=1, long_clip=True, show=brief)
     long_trained = timed("long train", long_train_phase, torch, ops, train, sample)
 
-    # Every kernel with the launches of the training path that runs it: the flagship's for the six
-    # dense and spatial kernels, the long-clip recipe's for the blockwise pair.
-    aggregates, launches = {}, {}
+    # Fixed math: the biased kernels, the spatial kernels' q scale, then both recipes with reference_compat off.
+    biased = timed("biased", biased_phase, torch, ta,
+                   show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
+                                   **{dt: per_step({"p": a}, "p")["p"] for dt, a in r["per_step"].items()}})
+    timed("sla scale", sla_scale_phase, torch, sla, show=lambda r: {"checks": len(r["rows"]), "scale": SLA_SCALE})
+    timed("fixed unet", unet_phase, torch, load_config, build_models, unet=FIXED)
+    timed("fixed grads", grads_phase, torch, ops, ta, sla, load_config, build_models, unet=FIXED,
+          per_step=FIXED_PER_STEP, show=brief)
+    fixed_trained = timed("fixed train", train_phase, torch, ops, train, sample, name="fixed_train", unet=FIXED,
+                          per_step=FIXED_PER_STEP, ddim_steps=50)
+    timed("long fixed unet", unet_phase, torch, load_config, build_models, config_path=LONG_CONFIG, batch=1,
+          unet=FIXED)
+    timed("long fixed grads", grads_phase, torch, ops, ta, sla, load_config, build_models, config_path=LONG_CONFIG,
+          batch=1, long_clip=True, unet=FIXED, per_step=FIXED_LONG_PER_STEP, show=brief)
+    long_fixed_trained = timed("long fixed train", long_train_phase, torch, ops, train, sample,
+                               name="long_fixed_train", unet=FIXED, per_step=FIXED_LONG_PER_STEP,
+                               variants=("kernels", "plain"))
+
+    # Every kernel with the launches of the training path that runs it: the flagship's for the six dense and
+    # spatial kernels, the long-clip recipe's for the blockwise pair, the two fixed recipes' for the biased
+    # kernels. Times are of the type that path hands the kernel: bf16 in compat math, float32 in fixed math.
+    aggregates, launches, dtypes = {}, {}, {}
     for name in PER_STEP:
         a = dict((kern["per_forward"] if name in PER_FORWARD else bwd["per_step"])[name])
         if name in PER_FORWARD:
@@ -1008,12 +1255,17 @@ def main() -> int:
         aggregates[name], launches[name] = a, trained["launches"][name]
     for name, a in blk["per_step"].items():
         aggregates[name], launches[name] = a, long_trained["launches"][name]
+    for name, a in biased["per_step"]["float32"].items():
+        path = fixed_trained if "attention" in name else long_fixed_trained
+        aggregates[name], launches[name], dtypes[name] = a, path["launches"][name], "float32"
     kernels_line = [{
         "name": name, "route": "cuda", "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
         "launches": launches[name], "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"], "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations",
-        "library_ms": None,
+        "library_ms": None, "dtype": dtypes.get(name, "bfloat16"),
     } for name, a in aggregates.items()]
+    check(all(k["launches"] > 0 for k in kernels_line) and len(kernels_line) == 12,
+          f"a kernel of the main paths was never launched: {[(k['name'], k['launches']) for k in kernels_line]}")
     results["kernels_line"] = kernels_line
     (OUT / "results.json").write_text(json.dumps(results, indent=1, default=str))
     print(json.dumps({"kernels": kernels_line}), flush=True)

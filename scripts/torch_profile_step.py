@@ -1,12 +1,13 @@
 """Where a sampler or a training step's time goes in the PyTorch port, on one CUDA card.
 
     python scripts/torch_profile_step.py [--steps 5] [--batch-size 2] [--train]
-        [--config configs/config_bouncing_digits.yaml] [--trace]
+        [--config configs/config_bouncing_digits.yaml] [--fixed] [--trace]
 
 Builds the recipe of ``--config`` (the flagship's by default) with seeded
 random weights and traces ``--steps`` DDPM reverse steps, or with ``--train``
 that many training steps (the loss on a random batch, its backward and an
-Adam update; no gradient clip, no EMA), with ``torch.profiler`` (CPU and
+Adam update; no gradient clip, no EMA; ``--fixed`` sets ``unet.reference_compat:
+false``, the fixed-math recipe), with ``torch.profiler`` (CPU and
 CUDA activities) after a warm-up. Prints one JSON line: the host-clock time per step with and without the profiler, the
 device time per step (the sum of every CUDA kernel's time), the device's
 busy share (device time over the unprofiled step, since tracing the host
@@ -34,6 +35,7 @@ def main() -> int:
     p.add_argument("--batch-size", type=int, default=2)
     p.add_argument("--train", action="store_true", help="trace training steps instead of sampler steps")
     p.add_argument("--config", type=str, default=str(REPO / "configs" / "config_bouncing_digits.yaml"))
+    p.add_argument("--fixed", action="store_true", help="fixed math: unet.reference_compat false")
     p.add_argument("--trace", action="store_true", help="also write the Chrome trace (tens of MB for a training step)")
     args = p.parse_args()
 
@@ -46,7 +48,10 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config
 
-    _, diffusion = build_models(load_config(args.config), "cuda")
+    config = load_config(args.config)
+    if args.fixed:
+        config["unet"]["reference_compat"] = False
+    _, diffusion = build_models(config, "cuda")
     diffusion.train(args.train)
     g = torch.Generator(device="cuda").manual_seed(0)
     shape = (args.batch_size, diffusion.channels, diffusion.num_frames,
@@ -84,6 +89,7 @@ def main() -> int:
     result = {
         "device": torch.cuda.get_device_name(0),
         "config": Path(args.config).name,
+        "reference_compat": not args.fixed,
         "mode": "train" if args.train else "sample",
         "batch_size": args.batch_size,
         "steps": args.steps,
@@ -99,7 +105,7 @@ def main() -> int:
         ],
     }
     OUT.mkdir(parents=True, exist_ok=True)
-    tag = f"{Path(args.config).stem}_{result['mode']}_b{args.batch_size}"
+    tag = f"{Path(args.config).stem}{'_fixed' if args.fixed else ''}_{result['mode']}_b{args.batch_size}"
     if args.trace:
         prof.export_chrome_trace(str(OUT / f"trace_{tag}.json"))
     (OUT / f"result_{tag}.json").write_text(json.dumps(result, indent=1))

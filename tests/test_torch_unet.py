@@ -45,7 +45,6 @@ def test_unet_bf16_policy_runs_in_bf16_and_returns_f32():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"reference_compat": False}, "A5"),
     ({"cond_dim": 16}, "A10"),
     ({"use_bert_text_cond": True}, "A10"),
     ({"guidance_embed": True}, "A13"),
@@ -54,13 +53,6 @@ def test_unet_bf16_policy_runs_in_bf16_and_returns_f32():
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         Unet3D(dim=8, dim_mults=(1, 2), channels=1, **kwargs)
-
-
-def test_focus_mask_raises():
-    unet = Unet3D(dim=8, dim_mults=(1, 2), channels=1)
-    x = torch.zeros(1, 1, 4, 16, 16)
-    with pytest.raises(NotImplementedError, match="A5"):
-        unet(x, torch.tensor([1]), prob_focus_present=0.5)
 
 
 def test_module_names_follow_the_jax_tree():

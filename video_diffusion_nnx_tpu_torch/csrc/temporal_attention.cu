@@ -23,6 +23,13 @@
 // memory (at most 227 KB; the caller aims at about 100 KB so that two CTAs
 // share an SM).
 //
+// Bias. The BIAS instantiations take `bias` (H, f, f) float32, the fixed-math
+// relative position bias, and add bias[h, i, j] to the float32 logit of
+// query frame i and key frame j before the row maximum (the TPU kernel's
+// `bias_ref`; its padding of the bias to 8 sublanes is dropped, the bias is
+// read with its own stride f). The unbiased instantiations compile without
+// any of it.
+//
 // Bound on this card. Per token the block moves 2*f*c elements and does
 // 8*f*c*H*D FLOPs in its four projections plus 4*f*f*H*D in attention: with
 // H*D = 256 that is 520-600 FLOP per bf16 byte at every Unet3D shape, above
@@ -35,11 +42,11 @@
 
 namespace vdt {
 
-template <typename T>
+template <typename T, bool BIAS>
 __global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ wqkv, const float* __restrict__ bqkv,
-    const T* __restrict__ wo, const float* __restrict__ bo, T* __restrict__ out,
-    int tokens, int F, int C, int H, int D, int BT, float scale_in) {
+    const T* __restrict__ wo, const float* __restrict__ bo, const float* __restrict__ bias,
+    T* __restrict__ out, int tokens, int F, int C, int H, int D, int BT, float scale_in) {
   extern __shared__ float smem[];
   const int R = BT * F;
   const int QS = 3 * D + 1;  // odd row strides keep the per-row loops free of bank conflicts
@@ -101,11 +108,13 @@ __global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(
       const float* q = qkv + (size_t)row * QS;
       const float* kb = qkv + (size_t)tk * F * QS + D;
       float* p = pr + (size_t)row * PS;
+      const float* brow = BIAS ? bias + ((size_t)h * F + (row - tk * F)) * F : nullptr;
       float m = -INFINITY;
       for (int j = 0; j < F; ++j) {
         const float* kj = kb + (size_t)j * QS;
         float s = 0.f;
         for (int d = 0; d < D; ++d) s += q[d] * kj[d];
+        if (BIAS) s += brow[j];
         p[j] = s;
         m = fmaxf(m, s);
       }
@@ -162,20 +171,20 @@ __global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool BIAS>
 static int launch(const void* x, const void* wqkv, const void* bqkv, const void* wo,
-                  const void* bo, void* out, int tokens, int f, int c, int heads, int dim,
-                  int bt, float scale, cudaStream_t stream) {
+                  const void* bo, const void* bias, void* out, int tokens, int f, int c, int heads,
+                  int dim, int bt, float scale, cudaStream_t stream) {
   const size_t rows = (size_t)bt * f;
   const size_t smem = sizeof(float) * rows * (2 * c + 3 * dim + 1 + f + 1);
   cudaError_t err = cudaFuncSetAttribute(
-      temporal_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      temporal_fwd_kernel<T, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (tokens + bt - 1) / bt;
-  temporal_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  temporal_fwd_kernel<T, BIAS><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
-      static_cast<const T*>(wo), static_cast<const float*>(bo), static_cast<T*>(out),
-      tokens, f, c, heads, dim, bt, scale);
+      static_cast<const T*>(wo), static_cast<const float*>(bo), static_cast<const float*>(bias),
+      static_cast<T*>(out), tokens, f, c, heads, dim, bt, scale);
   return (int)cudaGetLastError();
 }
 
@@ -192,7 +201,10 @@ static int launch(const void* x, const void* wqkv, const void* bqkv, const void*
 // softmax and its VJP in float32 on the unrounded probabilities; the
 // probabilities, o_h, do, ds and dqkv rounded to x's type before each
 // product; db_qkv summed from the unrounded dqkv; every weight gradient in
-// float32.
+// float32. The BIAS instantiation adds bias[h] to the logits as the forward
+// does and also emits dbias (H, f, f) float32: for every head the sum over
+// tokens of ds, the logit gradient, taken from the float32 values before
+// they round to x's type (the TPU kernel's `dbias_ref`).
 //
 // Weight gradients cross CTAs. The TPU kernel adds them into one block over
 // a grid that runs in order; here the grid is persistent (about one or two
@@ -200,7 +212,9 @@ static int launch(const void* x, const void* wqkv, const void* bqkv, const void*
 // own float32 partial (dW_qkv | db_qkv | dW_o | db_o) in a workspace the
 // caller allocates, so the workspace scales with the CTA count and not the
 // token count. `reduce_partials_kernel` then sums the partials in a fixed
-// order: the result is deterministic.
+// order: the result is deterministic. dbias crosses CTAs the same way, through
+// an (H, f, f) partial per CTA in a workspace of its own (`dbias_partial`) and
+// a second call of the reduction.
 //
 // Shared memory per tile row: x and the float32 dx accumulator (2c), q|k|v
 // and dq|dk|dv (2 * (3D + 1)), the f x f probabilities, then ds (f + 1),
@@ -215,11 +229,12 @@ static int launch(const void* x, const void* wqkv, const void* bqkv, const void*
 // tensor-core rate. This first version multiplies on the CUDA cores in
 // float32, far from it.
 
-template <typename T>
+template <typename T, bool BIAS>
 __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ wqkv,
-    const float* __restrict__ bqkv, const T* __restrict__ wo, T* __restrict__ dx,
-    float* __restrict__ partial, int tokens, int F, int C, int H, int D, int BT, float scale) {
+    const float* __restrict__ bqkv, const T* __restrict__ wo, const float* __restrict__ bias,
+    float* __restrict__ dbias_partial, T* __restrict__ dx, float* __restrict__ partial, int tokens,
+    int F, int C, int H, int D, int BT, float scale) {
   extern __shared__ float smem[];
   const int R = BT * F;
   const int QS = 3 * D + 1, PS = F + 1, OS = D + 1;
@@ -239,6 +254,9 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
   float* pwo = pb + W3;                              // dW_o (HD, C)
   float* pbo = pwo + (size_t)HD * C;                 // db_o (C)
   for (size_t i = tid; i < total; i += nth) pw[i] = 0.f;
+  float* pdb = BIAS ? dbias_partial + (size_t)blockIdx.x * H * F * F : nullptr;  // dbias (H, F, F)
+  if (BIAS)
+    for (int i = tid; i < H * F * F; i += nth) pdb[i] = 0.f;
   const float scale_q = rnd<T>(scale);
   const int ntiles = (tokens + BT - 1) / BT;
 
@@ -292,11 +310,13 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
         const float* q = qkv + (size_t)row * QS;
         const float* kb = qkv + (size_t)tk * F * QS + D;
         float* p = pr + (size_t)row * PS;
+        const float* brow = BIAS ? bias + ((size_t)h * F + (row - tk * F)) * F : nullptr;
         float m = -INFINITY;
         for (int j = 0; j < F; ++j) {
           const float* kj = kb + (size_t)j * QS;
           float s = 0.f;
           for (int d = 0; d < D; ++d) s += q[d] * kj[d];
+          if (BIAS) s += brow[j];
           p[j] = s;
           m = fmaxf(m, s);
         }
@@ -371,7 +391,8 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
       }
       __syncthreads();
 
-      // 6b. ds = P * (dattn - sum_j dattn P), dattn = do V^T; rounded, over P.
+      // 6b. ds = P * (dattn - sum_j dattn P), dattn = do V^T; rounded, over P. With a bias the
+      // unrounded ds stays for 6c.
       for (int row = tid; row < rows; row += nth) {
         const int tk = row / F;
         const float* dob = os + (size_t)row * OS;
@@ -386,10 +407,28 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
         for (int j = 0; j < F; ++j) {
           float da = 0.f;
           for (int d = 0; d < D; ++d) da += dob[d] * vb[(size_t)j * QS + d];
-          p[j] = rnd<T>(p[j] * (da - sum));
+          const float ds = p[j] * (da - sum);
+          p[j] = BIAS ? ds : rnd<T>(ds);
         }
       }
       __syncthreads();
+
+      // 6c. dbias[h] += the tile's token sum of the unrounded ds, in token order; ds rounds in place.
+      // Each (i, j) belongs to one thread, so no two threads add into one element.
+      if (BIAS) {
+        const int nt = rows / F;
+        for (int item = tid; item < F * F; item += nth) {
+          const int i = item / F, j = item - i * F;
+          float s = 0.f;
+          for (int tk = 0; tk < nt; ++tk) {
+            float* e = pr + (size_t)(tk * F + i) * PS + j;
+            s += *e;
+            *e = rnd<T>(*e);
+          }
+          pdb[(size_t)h * F * F + item] += s;
+        }
+        __syncthreads();
+      }
 
       // 7. dq = (ds k) * scale and dk = ds^T q (q as scaled in the forward).
       for (int item = tid; item < rows * 2 * D; item += nth) {
@@ -473,57 +512,67 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool BIAS>
 static int launch_bwd(const void* x, const void* g, const void* wqkv, const void* bqkv,
-                      const void* wo, void* dx, void* partial, void* grads, int tokens, int f,
-                      int c, int heads, int dim, int bt, int grid, float scale,
-                      cudaStream_t stream) {
+                      const void* wo, const void* bias, void* dbias_partial, void* dbias, void* dx,
+                      void* partial, void* grads, int tokens, int f, int c, int heads, int dim,
+                      int bt, int grid, float scale, cudaStream_t stream) {
   const size_t rows = (size_t)bt * f;
   const size_t smem = sizeof(float) * rows * (2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1);
   cudaError_t err = cudaFuncSetAttribute(
-      temporal_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      temporal_bwd_kernel<T, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  temporal_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  temporal_bwd_kernel<T, BIAS><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<const T*>(wo), static_cast<T*>(dx),
-      static_cast<float*>(partial), tokens, f, c, heads, dim, bt, scale);
+      static_cast<const float*>(bqkv), static_cast<const T*>(wo), static_cast<const float*>(bias),
+      static_cast<float*>(dbias_partial), static_cast<T*>(dx), static_cast<float*>(partial), tokens,
+      f, c, heads, dim, bt, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t hd = (size_t)heads * dim;
   const size_t total = (size_t)c * 3 * hd + 3 * hd + hd * c + c;
-  return launch_reduce(static_cast<const float*>(partial), grid, total, 1, (int)total,
-                       static_cast<float*>(grads), (int)total, stream);
+  int rc = launch_reduce(static_cast<const float*>(partial), grid, total, 1, (int)total,
+                         static_cast<float*>(grads), (int)total, stream);
+  if (rc != 0 || !BIAS) return rc;
+  const size_t panel = (size_t)heads * f * f;
+  return launch_reduce(static_cast<const float*>(dbias_partial), grid, panel, 1, (int)panel,
+                       static_cast<float*>(dbias), (int)panel, stream);
 }
 
 }  // namespace vdt
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. `bias` is (heads, f, f) float32 or null (the unbiased
+// instantiation). Returns the cudaError_t of the launch.
 extern "C" int temporal_attention_fwd(int dtype, const void* x, const void* wqkv,
                                       const void* bqkv, const void* wo, const void* bo,
-                                      void* out, int tokens, int f, int c, int heads,
-                                      int dim, int bt, float scale, void* stream) {
+                                      const void* bias, void* out, int tokens, int f, int c,
+                                      int heads, int dim, int bt, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vdt::launch<float>(x, wqkv, bqkv, wo, bo, out, tokens, f, c, heads, dim, bt, scale, s);
-  if (dtype == 1)
-    return vdt::launch<__nv_bfloat16>(x, wqkv, bqkv, wo, bo, out, tokens, f, c, heads, dim, bt,
-                                      scale, s);
+#define VDT_FWD(T, B) \
+  vdt::launch<T, B>(x, wqkv, bqkv, wo, bo, bias, out, tokens, f, c, heads, dim, bt, scale, s)
+  if (dtype == 0) return bias ? VDT_FWD(float, true) : VDT_FWD(float, false);
+  if (dtype == 1) return bias ? VDT_FWD(__nv_bfloat16, true) : VDT_FWD(__nv_bfloat16, false);
+#undef VDT_FWD
   return (int)cudaErrorInvalidValue;
 }
 
 // Backward: dx in x's type; `grads` (float32) receives dW_qkv (c, 3HD) |
 // db_qkv (3HD) | dW_o (HD, c) | db_o (c), summed over the `grid` CTAs'
-// partials in `partial` (grid x that size, float32).
+// partials in `partial` (grid x that size, float32). With `bias`, `dbias`
+// (heads, f, f) float32 receives the sum of the CTAs' `dbias_partial`
+// (grid x heads*f*f, float32); all three are null for the unbiased instantiation.
 extern "C" int temporal_attention_bwd(int dtype, const void* x, const void* g, const void* wqkv,
-                                      const void* bqkv, const void* wo, void* dx, void* partial,
+                                      const void* bqkv, const void* wo, const void* bias,
+                                      void* dbias_partial, void* dbias, void* dx, void* partial,
                                       void* grads, int tokens, int f, int c, int heads, int dim,
                                       int bt, int grid, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vdt::launch_bwd<float>(x, g, wqkv, bqkv, wo, dx, partial, grads, tokens, f, c, heads,
-                                  dim, bt, grid, scale, s);
-  if (dtype == 1)
-    return vdt::launch_bwd<__nv_bfloat16>(x, g, wqkv, bqkv, wo, dx, partial, grads, tokens, f, c,
-                                          heads, dim, bt, grid, scale, s);
+  if (bias && !(dbias_partial && dbias)) return (int)cudaErrorInvalidValue;
+#define VDT_BWD(T, B)                                                                           \
+  vdt::launch_bwd<T, B>(x, g, wqkv, bqkv, wo, bias, dbias_partial, dbias, dx, partial, grads, \
+                        tokens, f, c, heads, dim, bt, grid, scale, s)
+  if (dtype == 0) return bias ? VDT_BWD(float, true) : VDT_BWD(float, false);
+  if (dtype == 1) return bias ? VDT_BWD(__nv_bfloat16, true) : VDT_BWD(__nv_bfloat16, false);
+#undef VDT_BWD
   return (int)cudaErrorInvalidValue;
 }

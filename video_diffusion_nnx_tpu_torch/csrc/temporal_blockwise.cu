@@ -45,6 +45,20 @@
 // into its own float32 partial and `reduce_partials_kernel` sums the partials
 // in block order, so results are bit-equal from run to run.
 //
+// Bias. The BIAS instantiations take `bias` (H, f, f) float32, the fixed-math
+// relative position bias: bias[h, i, j0 + n] is added to the float32 logit of
+// a KV block before the row maximum, in the forward, in the backward's
+// statistics sweep, and again where its gradient sweep rebuilds p from lse
+// (the TPU kernels' `bias_ref`; their KV-major transpose and padding of the
+// bias are dropped, it is read with its own stride f). The backward also
+// emits dbias: ds = p (dp - di) of every block, float32 and unrounded, summed
+// over tokens. All H*f*f sums live across a CTA's tokens, more than shared
+// memory holds beside the panels (512 KB at f = 128), so each CTA adds into
+// an (H, f, f) partial of its own in device memory (`dbias_partial`): within
+// one launch every element is added to by the same thread, once per token, in
+// token order; no atomics. The partials are then reduced in block order like
+// the weight gradients'.
+//
 // Bound on this card. Per token row the function needs 8*c*H*D + 4*f*H*D
 // FLOPs forward and 22*c*H*D + 12*f*H*D backward (the dense backward's
 // count), against 2 (3 in the backward) elements of c moved: far above the
@@ -159,10 +173,12 @@ __device__ __forceinline__ void project_kv(const Dims& s, const T* __restrict__ 
 // The online-softmax sweep of head h over the KV blocks (forward, and sweep 1
 // of the backward). On return, for every frame row: ms = running maximum,
 // ls = sum of exp(s - m), acc (F, QS) = sum_j round(exp(s_j - m)) v_j.
-template <typename T>
+// With BIAS, `bias_h` is head h's (F, F) bias panel.
+template <typename T, bool BIAS>
 __device__ void online_pass(const Dims& s, const T* __restrict__ xt, const T* __restrict__ wqkv,
-                            const float* __restrict__ bqkv, const float* qs, float* acc,
-                            float* kvs, float* ps, float* ms, float* ls, int h) {
+                            const float* __restrict__ bqkv, const float* __restrict__ bias_h,
+                            const float* qs, float* acc, float* kvs, float* ps, float* ms,
+                            float* ls, int h) {
   const int tid = threadIdx.x, nth = blockDim.x;
   for (int i = tid; i < s.F * s.QS; i += nth) acc[i] = 0.f;
   for (int i = tid; i < s.F; i += nth) {
@@ -176,7 +192,10 @@ __device__ void online_pass(const Dims& s, const T* __restrict__ xt, const T* __
     mm<4, 4>(
         tid, nth, s.F, nb, s.D, [&](int m, int k) { return qs[m * s.QS + k]; },
         [&](int k, int n) { return kvs[n * s.KS + k]; },
-        [&](int m, int n, float v) { ps[m * s.PS + n] = v; });
+        [&](int m, int n, float v) {
+          if (BIAS) v += bias_h[(size_t)m * s.F + j0 + n];
+          ps[m * s.PS + n] = v;
+        });
     __syncthreads();
     // Rescale: 8 lanes share a row; the loop bound is uniform so that every lane reaches the shuffles.
     const int lane = tid & 7;
@@ -218,11 +237,11 @@ __device__ void online_pass(const Dims& s, const T* __restrict__ xt, const T* __
 
 // `ohs_all` is the CTAs' scratch, (grid, F, HD) of T: the rounded o_h of every head of the
 // CTA's current token. It is written and read back by the same CTA, so it is not `const`.
-template <typename T>
+template <typename T, bool BIAS>
 __global__ void __launch_bounds__(kThreads) temporal_blockwise_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ wqkv, const float* __restrict__ bqkv,
-    const T* __restrict__ wo, const float* __restrict__ bo, T* __restrict__ out, T* ohs_all,
-    int tokens, int F, int C, int H, int D, int KB, float scale) {
+    const T* __restrict__ wo, const float* __restrict__ bo, const float* __restrict__ bias,
+    T* __restrict__ out, T* ohs_all, int tokens, int F, int C, int H, int D, int KB, float scale) {
   extern __shared__ float smem[];
   const Dims s(F, C, H, D, KB);
   float* qs = smem;                       // (F, QS)   q of the head
@@ -239,7 +258,8 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_fwd_kernel(
     T* ot = out + (size_t)tok * F * C;
     for (int h = 0; h < H; ++h) {
       project_q<T>(s, xt, wqkv, bqkv, qs, h, scale);
-      online_pass<T>(s, xt, wqkv, bqkv, qs, acc, kvs, ps, ms, ls, h);
+      online_pass<T, BIAS>(s, xt, wqkv, bqkv, BIAS ? bias + (size_t)h * F * F : nullptr, qs, acc,
+                           kvs, ps, ms, ls, h);
       for (int i = tid; i < F * D; i += nth) {
         const int r = i / D, d = i - r * D;
         ohs[(size_t)r * s.HD + h * D + d] = from_f<T>(acc[r * s.QS + d] / ls[r]);
@@ -266,13 +286,15 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_fwd_kernel(
 // the heads: dW_o += o^T g, dW_qkv += x^T dqkv, db_o += sum g and
 // dx = g + dqkv W_qkv^T. `wqkv_t` (3HD, c) and `wo_t` (c, HD) are the
 // weights transposed by the caller, so that these two products read along
-// rows too.
-template <typename T>
+// rows too. With BIAS, `dbias_partial` is (grid, H, F, F) float32, one panel
+// per CTA, which the CTA zeroes and then adds every token's ds into.
+template <typename T, bool BIAS>
 __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ wqkv,
     const T* __restrict__ wqkv_t, const float* __restrict__ bqkv, const T* __restrict__ wo_t,
-    T* __restrict__ dx, float* __restrict__ partial, T* scr_all, int tokens, int F, int C, int H,
-    int D, int KB, float scale) {
+    const float* __restrict__ bias, float* dbias_partial, T* __restrict__ dx,
+    float* __restrict__ partial, T* scr_all, int tokens, int F, int C, int H, int D, int KB,
+    float scale) {
   extern __shared__ float smem[];
   const Dims s(F, C, H, D, KB);
   float* qs = smem;                        // (F, QS)   q of the head
@@ -295,6 +317,9 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
   float* pwo = pb + W3;                              // dW_o (HD, C)
   float* pbo = pwo + (size_t)HD * C;                 // db_o (C)
   for (size_t i = tid; i < total; i += nth) pw[i] = 0.f;
+  float* pdb = BIAS ? dbias_partial + (size_t)blockIdx.x * H * F * F : nullptr;  // dbias (H, F, F)
+  if (BIAS)
+    for (size_t i = tid; i < (size_t)H * F * F; i += nth) pdb[i] = 0.f;
   __syncthreads();
 
   for (int tok = blockIdx.x; tok < tokens; tok += gridDim.x) {
@@ -302,8 +327,10 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
     const T* gt = g + (size_t)tok * F * C;
     T* dxt = dx + (size_t)tok * F * C;
     for (int h = 0; h < H; ++h) {
+      const float* bias_h = BIAS ? bias + (size_t)h * F * F : nullptr;
+      float* pdb_h = BIAS ? pdb + (size_t)h * F * F : nullptr;
       project_q<T>(s, xt, wqkv, bqkv, qs, h, scale);
-      online_pass<T>(s, xt, wqkv, bqkv, qs, acc, kvs, ps, ms, ls, h);
+      online_pass<T, BIAS>(s, xt, wqkv, bqkv, bias_h, qs, acc, kvs, ps, ms, ls, h);
       // o_h = acc / l: unrounded over acc, rounded to the scratch.
       for (int i = tid; i < F * D; i += nth) {
         const int r = i / D, d = i - r * D;
@@ -343,15 +370,22 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
         mm<4, 4>(
             tid, nth, F, nb, D, [&](int m, int k) { return qs[m * s.QS + k]; },
             [&](int k, int n) { return kvs[n * s.KS + k]; },
-            [&](int m, int n, float v) { ps[m * s.PS + n] = expf(v - ms[m]); });
+            [&](int m, int n, float v) {
+              if (BIAS) v += bias_h[(size_t)m * F + j0 + n];
+              ps[m * s.PS + n] = expf(v - ms[m]);
+            });
         __syncthreads();
-        // dp = do v^T; ds = p (dp - di), rounded; p rounds in place.
+        // dp = do v^T; ds = p (dp - di), rounded; p rounds in place. With a bias the unrounded ds is
+        // first added into this CTA's dbias panel: the same thread owns (m, n) of this block for
+        // every token, and the tokens come in order.
         mm<4, 4>(
             tid, nth, F, nb, D, [&](int m, int k) { return dos[m * s.QS + k]; },
             [&](int k, int n) { return kvs[n * s.KS + D + k]; },
             [&](int m, int n, float v) {
               const float p = ps[m * s.PS + n];
-              dss[m * s.PS + n] = rnd<T>(p * (v - di[m]));
+              const float ds = p * (v - di[m]);
+              if (BIAS) pdb_h[(size_t)m * F + j0 + n] += ds;
+              dss[m * s.PS + n] = rnd<T>(ds);
               ps[m * s.PS + n] = rnd<T>(p);
             });
         __syncthreads();
@@ -426,75 +460,88 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool BIAS>
 static int launch_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wo,
-                      const void* bo, void* out, void* scratch, int tokens, int f, int c,
-                      int heads, int dim, int kb, int grid, float scale, cudaStream_t stream) {
+                      const void* bo, const void* bias, void* out, void* scratch, int tokens, int f,
+                      int c, int heads, int dim, int kb, int grid, float scale,
+                      cudaStream_t stream) {
   const size_t smem = sizeof(float) * Dims(f, c, heads, dim, kb).fwd_floats();
-  cudaError_t err = cudaFuncSetAttribute(temporal_blockwise_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(temporal_blockwise_fwd_kernel<T, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  temporal_blockwise_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  temporal_blockwise_fwd_kernel<T, BIAS><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
-      static_cast<const T*>(wo), static_cast<const float*>(bo), static_cast<T*>(out),
-      static_cast<T*>(scratch), tokens, f, c, heads, dim, kb, scale);
+      static_cast<const T*>(wo), static_cast<const float*>(bo), static_cast<const float*>(bias),
+      static_cast<T*>(out), static_cast<T*>(scratch), tokens, f, c, heads, dim, kb, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool BIAS>
 static int launch_bwd(const void* x, const void* g, const void* wqkv, const void* wqkv_t,
-                      const void* bqkv, const void* wo_t, void* dx, void* partial, void* grads,
-                      void* scratch, int tokens, int f, int c, int heads, int dim, int kb,
-                      int grid, float scale, cudaStream_t stream) {
+                      const void* bqkv, const void* wo_t, const void* bias, void* dbias_partial,
+                      void* dbias, void* dx, void* partial, void* grads, void* scratch, int tokens,
+                      int f, int c, int heads, int dim, int kb, int grid, float scale,
+                      cudaStream_t stream) {
   const size_t smem = sizeof(float) * Dims(f, c, heads, dim, kb).bwd_floats();
-  cudaError_t err = cudaFuncSetAttribute(temporal_blockwise_bwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(temporal_blockwise_bwd_kernel<T, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  temporal_blockwise_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  temporal_blockwise_bwd_kernel<T, BIAS><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(wqkv),
       static_cast<const T*>(wqkv_t), static_cast<const float*>(bqkv),
-      static_cast<const T*>(wo_t), static_cast<T*>(dx), static_cast<float*>(partial),
+      static_cast<const T*>(wo_t), static_cast<const float*>(bias),
+      static_cast<float*>(dbias_partial), static_cast<T*>(dx), static_cast<float*>(partial),
       static_cast<T*>(scratch), tokens, f, c, heads, dim, kb, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t hd = (size_t)heads * dim;
   const size_t total = (size_t)c * 3 * hd + 3 * hd + hd * c + c;
-  return launch_reduce(static_cast<const float*>(partial), grid, total, 1, (int)total,
-                       static_cast<float*>(grads), (int)total, stream);
+  int rc = launch_reduce(static_cast<const float*>(partial), grid, total, 1, (int)total,
+                         static_cast<float*>(grads), (int)total, stream);
+  if (rc != 0 || !BIAS) return rc;
+  const size_t panel = (size_t)heads * f * f;
+  return launch_reduce(static_cast<const float*>(dbias_partial), grid, panel, 1, (int)panel,
+                       static_cast<float*>(dbias), (int)panel, stream);
 }
 
 }  // namespace vdt
 
 // dtype: 0 = float32, 1 = bfloat16. `grid` CTAs walk the tokens; `scratch` holds grid * f * H*D
-// elements of x's type. Returns the cudaError_t of the launch.
+// elements of x's type. `bias` is (heads, f, f) float32 or null (the unbiased instantiation).
+// Returns the cudaError_t of the launch.
 extern "C" int temporal_blockwise_fwd(int dtype, const void* x, const void* wqkv,
-                                      const void* bqkv, const void* wo, const void* bo, void* out,
-                                      void* scratch, int tokens, int f, int c, int heads, int dim,
-                                      int kb, int grid, float scale, void* stream) {
+                                      const void* bqkv, const void* wo, const void* bo,
+                                      const void* bias, void* out, void* scratch, int tokens, int f,
+                                      int c, int heads, int dim, int kb, int grid, float scale,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vdt::launch_fwd<float>(x, wqkv, bqkv, wo, bo, out, scratch, tokens, f, c, heads, dim,
-                                  kb, grid, scale, s);
-  if (dtype == 1)
-    return vdt::launch_fwd<__nv_bfloat16>(x, wqkv, bqkv, wo, bo, out, scratch, tokens, f, c,
-                                          heads, dim, kb, grid, scale, s);
+#define VDT_FWD(T, B)                                                                          \
+  vdt::launch_fwd<T, B>(x, wqkv, bqkv, wo, bo, bias, out, scratch, tokens, f, c, heads, dim, \
+                        kb, grid, scale, s)
+  if (dtype == 0) return bias ? VDT_FWD(float, true) : VDT_FWD(float, false);
+  if (dtype == 1) return bias ? VDT_FWD(__nv_bfloat16, true) : VDT_FWD(__nv_bfloat16, false);
+#undef VDT_FWD
   return (int)cudaErrorInvalidValue;
 }
 
 // Backward: dx in x's type; `grads` (float32) receives dW_qkv (c, 3HD) | db_qkv (3HD) |
 // dW_o (HD, c) | db_o (c), summed over the `grid` CTAs' partials in `partial` (grid x that size,
-// float32). `scratch` holds grid * f * 4*H*D elements of x's type.
+// float32). `scratch` holds grid * f * 4*H*D elements of x's type. With `bias`, `dbias`
+// (heads, f, f) float32 receives the sum of the CTAs' `dbias_partial` (grid x heads*f*f, float32);
+// all three are null for the unbiased instantiation.
 extern "C" int temporal_blockwise_bwd(int dtype, const void* x, const void* g, const void* wqkv,
                                       const void* wqkv_t, const void* bqkv, const void* wo_t,
-                                      void* dx, void* partial, void* grads, void* scratch,
-                                      int tokens, int f, int c, int heads, int dim, int kb,
-                                      int grid, float scale, void* stream) {
+                                      const void* bias, void* dbias_partial, void* dbias, void* dx,
+                                      void* partial, void* grads, void* scratch, int tokens, int f,
+                                      int c, int heads, int dim, int kb, int grid, float scale,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vdt::launch_bwd<float>(x, g, wqkv, wqkv_t, bqkv, wo_t, dx, partial, grads, scratch,
-                                  tokens, f, c, heads, dim, kb, grid, scale, s);
-  if (dtype == 1)
-    return vdt::launch_bwd<__nv_bfloat16>(x, g, wqkv, wqkv_t, bqkv, wo_t, dx, partial, grads,
-                                          scratch, tokens, f, c, heads, dim, kb, grid, scale, s);
+  if (bias && !(dbias_partial && dbias)) return (int)cudaErrorInvalidValue;
+#define VDT_BWD(T, B)                                                                        \
+  vdt::launch_bwd<T, B>(x, g, wqkv, wqkv_t, bqkv, wo_t, bias, dbias_partial, dbias, dx,     \
+                        partial, grads, scratch, tokens, f, c, heads, dim, kb, grid, scale, s)
+  if (dtype == 0) return bias ? VDT_BWD(float, true) : VDT_BWD(float, false);
+  if (dtype == 1) return bias ? VDT_BWD(__nv_bfloat16, true) : VDT_BWD(__nv_bfloat16, false);
+#undef VDT_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -216,12 +216,19 @@ class GaussianDiffusion(nn.Module):
 
     # Training.
 
-    def p_losses(self, x_start, t, noise=None, generator=None) -> torch.Tensor:
-        """Denoising loss at timesteps ``t`` (JAX ``p_losses``, :923-996); noise from ``generator`` when not given."""
+    def p_losses(self, x_start, t, noise=None, generator=None, focus_present_mask=None,
+                 prob_focus_present: float = 0.0) -> torch.Tensor:
+        """Denoising loss at timesteps ``t`` (JAX ``p_losses``, :923-996); noise from ``generator`` when not given.
+
+        ``focus_present_mask`` and ``prob_focus_present`` go to the denoiser, which draws its
+        mask from ``generator`` after the noise.
+        """
         if noise is None:
             noise = _normal(x_start.shape, generator, x_start.device)
         x_noisy = self.q_sample(x_start, t, noise)
-        model_out = self.denoise_fn(x_noisy, t).permute(0, 4, 1, 2, 3)  # -> (b, c, f, h, w)
+        model_out = self.denoise_fn(x_noisy, t, focus_present_mask=focus_present_mask,
+                                    prob_focus_present=prob_focus_present, generator=generator)
+        model_out = model_out.permute(0, 4, 1, 2, 3)  # -> (b, c, f, h, w)
         if self.prediction_type == "noise":
             target = noise
         elif self.prediction_type == "v":
@@ -251,11 +258,13 @@ class GaussianDiffusion(nn.Module):
             w = torch.sqrt(w)
         return (w * err).mean()
 
-    def forward(self, x, generator=None, t=None, noise=None) -> torch.Tensor:
+    def forward(self, x, generator=None, t=None, noise=None, focus_present_mask=None,
+                prob_focus_present: float = 0.0) -> torch.Tensor:
         """Training entry (JAX ``__call__``, :998-1016): draw t, normalize ``x`` from [0, 1], return the loss."""
         want = (x.shape[0], self.channels, self.num_frames, self.image_size, self.image_size)
         if tuple(x.shape) != want:
             raise ValueError(f"x must have shape (b, c, f, h, w) = {want}; got {tuple(x.shape)}")
         if t is None:
             t = torch.randint(0, self.num_timesteps, (x.shape[0],), generator=generator, device=x.device)
-        return self.p_losses(normalize_img(x), t, noise=noise, generator=generator)
+        return self.p_losses(normalize_img(x), t, noise=noise, generator=generator,
+                             focus_present_mask=focus_present_mask, prob_focus_present=prob_focus_present)

@@ -1,10 +1,13 @@
 """Attention modules (counterpart of the JAX package's models/attention.py:43-301).
 
-These are the module route, taken when the fused flags are off. They keep
-the reference-compat math: the spatial linear attention drops its q scale,
-and neither a focus mask nor a position bias reaches the temporal attention
-(the compat PreNorm drops them). Softmaxes and the attention products
-accumulate in float32 under a bf16 policy, and round to it after.
+These are the module route, taken when the fused flags are off. Each has the
+``reference_compat`` switch of its JAX counterpart. Compat math: the spatial
+linear attention drops its q scale, and the temporal attention applies a
+focus mask and a position bias after the softmax (quirks that only a direct
+caller sees: the compat PreNorm drops both before they get here). Fixed
+math: the q scale is applied, and the bias and then the mask go onto the
+logits before the softmax. Softmaxes and the attention products accumulate
+in float32 under a bf16 policy, and round to it after.
 """
 
 from __future__ import annotations
@@ -17,8 +20,20 @@ from torch import nn
 from video_diffusion_nnx_tpu_torch.models.layers import Linear, PointwiseConv, compute_dtype
 
 
+_NEG_INF = torch.finfo(torch.float32).min
+
+
 def _to(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype) if dtype is not None else x
+
+
+def _host_bool(x: torch.Tensor) -> bool | None:
+    """A Python bool for a scalar already on the host, else None.
+
+    The counterpart of the JAX ``_concrete_bool``, which gives None under
+    ``jit``: reading a CUDA scalar would stall the step, so it is never read.
+    """
+    return None if x.is_cuda else bool(x)
 
 
 class SpatialLinearAttention(nn.Module):
@@ -26,10 +41,10 @@ class SpatialLinearAttention(nn.Module):
 
     def __init__(self, dim: int, heads: int, D: int, dtype=None, reference_compat: bool = True):
         super().__init__()
-        if not reference_compat:
-            raise NotImplementedError("fixed-math spatial attention is not ported yet: ROADMAP A4")
+        self.scale = D ** -0.5
         self.heads = heads
         self.dtype = dtype
+        self.reference_compat = reference_compat
         hd = D * heads
         self.q = PointwiseConv(dim, hd, bias=False, dtype=dtype)
         self.k = PointwiseConv(dim, hd, bias=False, dtype=dtype)
@@ -46,8 +61,10 @@ class SpatialLinearAttention(nn.Module):
         q = split_heads(self.q(tokens))
         k = split_heads(self.k(tokens))
         v = split_heads(self.v(tokens))
-        # Compat: the q scale is dropped (reference quirk).
-        q = _to(torch.softmax(q.float(), dim=-2), self.dtype)
+        q = torch.softmax(q.float(), dim=-2)
+        if not self.reference_compat:  # compat drops the q scale (reference quirk)
+            q = q * self.scale
+        q = _to(q, self.dtype)
         k = _to(torch.softmax(k.float(), dim=-1), self.dtype)
         context = _to(torch.einsum("bhdn,bhen->bhde", k.float(), v.float()), self.dtype)
         out = _to(torch.einsum("bhde,bhdn->bhen", context.float(), q.float()), self.dtype)
@@ -56,18 +73,22 @@ class SpatialLinearAttention(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """Multi-head attention along the second-to-last axis (reference-compat, no mask or bias).
+    """Multi-head attention along the second-to-last axis; ``(..., f, c)`` in and out.
 
     ``q``, ``k``, ``v`` are ``Linear(c, heads*dim)`` and ``out`` is
     ``Linear(heads*dim, c)``; the JAX package holds the same weights as
     ``(c, heads, dim)`` and ``(heads, dim, c)`` kernels.
+
+    ``focus_present_mask`` (b,) makes a sample attend only to itself and
+    ``pos_bias`` (heads, f, f) biases the attention. With
+    ``reference_compat=False`` the bias and then the mask are applied to the
+    logits; with ``True`` both come after the softmax, as the reference has
+    them (masked entries set to the most negative float, not renormalised).
     """
 
     def __init__(self, in_features: int, dim: int, num_heads: int,
                  reference_compat: bool = True, dtype=None):
         super().__init__()
-        if not reference_compat:
-            raise NotImplementedError("fixed-math temporal attention is not ported yet: ROADMAP A4")
         hd = num_heads * dim
         self.q = Linear(in_features, hd, dtype=dtype)
         self.k = Linear(in_features, hd, dtype=dtype)
@@ -75,28 +96,88 @@ class MultiheadAttention(nn.Module):
         self.out = Linear(hd, in_features, dtype=dtype)
         self.dim = dim
         self.heads = num_heads
+        self.reference_compat = reference_compat
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, focus_present_mask: torch.Tensor | None = None,
+                pos_bias: torch.Tensor | None = None) -> torch.Tensor:
         lead, f = x.shape[:-2], x.shape[-2]
 
         def split(t: torch.Tensor) -> torch.Tensor:  # (..., f, H*D) -> (..., f, H, D)
             return t.reshape(*lead, f, self.heads, self.dim)
 
         q, k, v = split(self.q(x)), split(self.k(x)), split(self.v(x))
+
+        if focus_present_mask is not None:
+            all_present = _host_bool(focus_present_mask.all())
+            if all_present:
+                # Every sample attends only to itself: attention is the identity, and the
+                # block is the output projection of v.
+                return self.out(v.reshape(*lead, f, self.heads * self.dim))
+            if all_present is None and self.reference_compat:
+                raise ValueError(
+                    "reference_compat MultiheadAttention reads the focus_present_mask on the host; "
+                    "pass a CPU mask or use reference_compat=False"
+                )
+
         dt = compute_dtype(self.dtype, q)
         q = q / torch.tensor(math.sqrt(self.dim), dtype=dt, device=q.device)
         sim = torch.einsum("...ihd,...jhd->...hij", q.float(), k.float())
-        attn = _to(torch.softmax(sim, dim=-1), self.dtype)
+
+        if self.reference_compat:
+            attn = torch.softmax(sim, dim=-1)
+            if focus_present_mask is not None and _host_bool(focus_present_mask.any()):
+                attn = torch.where(self._focus_mask(focus_present_mask, f, attn.dim()), attn, _NEG_INF)
+            if pos_bias is not None:
+                attn = attn + pos_bias
+        else:
+            if pos_bias is not None:
+                sim = sim + pos_bias
+            if focus_present_mask is not None:
+                sim = torch.where(self._focus_mask(focus_present_mask, f, sim.dim()), sim, _NEG_INF)
+            attn = torch.softmax(sim, dim=-1)
+
+        attn = _to(attn, self.dtype)
         out = _to(torch.einsum("...hij,...jhd->...ihd", attn.float(), v.float()), self.dtype)
         return self.out(out.reshape(*lead, f, self.heads * self.dim))
+
+    @staticmethod
+    def _focus_mask(focus_present_mask: torch.Tensor, f: int, attn_ndim: int) -> torch.Tensor:
+        """Per sample, attend to all frames or to itself; broadcasts the (b,) mask to the attention's rank."""
+        device = focus_present_mask.device
+        attend_all = torch.ones(f, f, dtype=torch.bool, device=device)
+        attend_self = torch.eye(f, dtype=torch.bool, device=device)
+        batch_shape = tuple(focus_present_mask.shape) + (1,) * (attn_ndim - 1)
+        return torch.where(focus_present_mask.reshape(batch_shape), attend_self, attend_all)
+
+
+class _BucketLookup(torch.autograd.Function):
+    """``table[buckets]`` whose backward sums each bucket's gradients as one matrix product.
+
+    ``nn.Embedding``'s own backward adds with atomics once the indices are many (16384 at 128
+    frames), so two runs differ in the last bits; a product with the one-hot matrix of the
+    buckets gives the same sums in a fixed order.
+    """
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(buckets)
+        ctx.num_buckets = table.shape[0]
+        return table[buckets]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (buckets,) = ctx.saved_tensors
+        one_hot = torch.nn.functional.one_hot(buckets.reshape(-1), ctx.num_buckets).to(grad.dtype)
+        return one_hot.t() @ grad.reshape(-1, grad.shape[-1]), None
 
 
 class RelativePositionBias(nn.Module):
     """T5-style bucketed relative position bias, ``(heads, n, n)``.
 
-    Its parameters are part of every checkpoint; in reference-compat math
-    the bias never reaches the attention (the compat PreNorm drops it).
+    Its parameters are part of every checkpoint. In reference-compat math
+    the bias never reaches the attention (the compat PreNorm drops it); in
+    fixed math it is added to every temporal attention's logits and trains.
     """
 
     def __init__(self, heads: int = 8, num_buckets: int = 32, max_distance: int = 128):
@@ -127,4 +208,4 @@ class RelativePositionBias(nn.Module):
         buckets = self._relative_position_bucket(
             pos[:, None] - pos[None, :], self.num_buckets, self.max_distance
         )
-        return self.relative_attention_bias(buckets.long()).permute(2, 0, 1)
+        return _BucketLookup.apply(self.relative_attention_bias.weight, buckets.long()).permute(2, 0, 1)

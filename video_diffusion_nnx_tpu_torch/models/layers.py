@@ -196,21 +196,24 @@ class Residual(nn.Module):
 
 
 class PreNorm(nn.Module):
-    """The reference-compat PreNorm: holds a LayerNorm it never applies.
+    """LayerNorm-then-``fn`` with the reference-compat switch (JAX package models/layers.py:148-177).
 
-    The reference computes the norm, then calls ``fn`` on the un-normalized
-    input and drops the extra arguments; checkpoints carry the norm's
-    parameters all the same (JAX package models/layers.py:174-177). Only
-    this compat behaviour is ported.
+    ``reference_compat=True`` keeps the reference's behaviour: ``fn`` runs on
+    the un-normalized input and the extra arguments are dropped, so the norm
+    is held (checkpoints carry its parameters) but never applied.
+    ``False`` applies the norm and forwards ``*args, **kwargs`` to ``fn``.
     """
 
-    def __init__(self, dim: int, fn: nn.Module):
+    def __init__(self, dim: int, fn: nn.Module, reference_compat: bool = True):
         super().__init__()
         self.fn = fn
         self.norm = LayerNorm(dim)
+        self.reference_compat = reference_compat
 
     def forward(self, x: torch.Tensor, *args: Any, **kwargs: Any) -> torch.Tensor:
-        return self.fn(x)
+        if self.reference_compat:
+            return self.fn(x)
+        return self.fn(self.norm(x), *args, **kwargs)
 
 
 class SinusoidalPosEmb(nn.Module):

@@ -1,9 +1,13 @@
 """Fused temporal-attention block (counterpart of the JAX package's ops/temporal_attention.py).
 
-    out = x + out_proj(softmax(q(x) k(x)^T / sqrt(D)) v(x))   over the f axis of x (b, s, f, c)
+    out = x + out_proj(softmax(q(x) k(x)^T / sqrt(D) [+ pos_bias]) v(x))   over the f axis of x (b, s, f, c)
 
-The public op keeps the JAX layouts: ``wqkv`` (c, 3*H*D) packs the q|k|v
+The public ops keep the JAX layouts: ``wqkv`` (c, 3*H*D) packs the q|k|v
 kernels, ``bqkv`` is (3*H*D,), ``wo`` is (H*D, c) and ``bo`` is (c,).
+``fused_temporal_attention_block_biased`` adds ``pos_bias`` (H, f, f) to the
+float32 logits before the softmax (fixed math: the relative position bias)
+and differentiates it: dbias sums the unrounded float32 logit gradient over
+all tokens.
 
 Two kernel families, chosen by the attended length alone (the JAX
 ``_route``): up to ``MAX_FRAMES`` frames the dense kernels of
@@ -17,7 +21,16 @@ version, differentiated by autograd; a CUDA tensor goes through
 kernels, or raises ``NotImplementedError`` for a shape the kernels do not
 take. ``temporal_attention_bwd_plain`` and
 ``temporal_attention_blockwise_bwd_plain`` are the backward kernels'
-oracles, with their rounding points.
+oracles, with their rounding points. Every plain version and every kernel
+takes the bias; a launch with it is counted under a name of its own
+(``..._biased_fwd``, ``..._biased_bwd``).
+
+dbias crosses CTAs like the weight gradients: each CTA of a backward kernel
+adds into a float32 (H, f, f) partial of its own and ``reduce_partials_kernel``
+sums the partials in a fixed order, so two runs are bit-equal. The partials
+live in a workspace of their own (``_DBIAS_WORKSPACE_MAX``), apart from the
+weight partials', so that the bias changes neither the weight workspace's
+cap nor the grid of the unbiased kernels.
 """
 
 from __future__ import annotations
@@ -35,14 +48,20 @@ KV_BLOCK = 32  # KV frames per block of the blockwise kernels, forward and backw
 _SMEM_TARGET = 100 * 1024  # two CTAs per SM where a tile allows it
 _SMEM_MAX = 227 * 1024
 _WORKSPACE_MAX = 128 * 2**20  # bytes of per-CTA weight-gradient partials in one backward
+_DBIAS_WORKSPACE_MAX = 256 * 2**20  # bytes of per-CTA dbias partials (H*f*f floats each) in one backward
 
 launches = {"temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
-            "temporal_blockwise_fwd": 0, "temporal_blockwise_bwd": 0}
+            "temporal_blockwise_fwd": 0, "temporal_blockwise_bwd": 0,
+            "temporal_attention_biased_fwd": 0, "temporal_attention_biased_bwd": 0,
+            "temporal_blockwise_biased_fwd": 0, "temporal_blockwise_biased_bwd": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def temporal_attention_plain(x, wqkv, bqkv, wo, bo, heads: int, dim: int) -> torch.Tensor:
-    """Plain PyTorch version, with the rounding points of the JAX ``_composite_xla`` (:798-819)."""
+def temporal_attention_plain(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> torch.Tensor:
+    """Plain PyTorch version, with the rounding points of the JAX ``_composite_xla`` (:798-819).
+
+    ``pos_bias`` (H, f, f) is added in float32 to the float32 logits.
+    """
     b, s, f, c = x.shape
     dt = x.dtype
     qkv = (x @ wqkv.to(dt)) + bqkv.to(dt)
@@ -50,19 +69,23 @@ def temporal_attention_plain(x, wqkv, bqkv, wo, bo, heads: int, dim: int) -> tor
     scale = torch.tensor(1.0 / math.sqrt(dim), dtype=dt, device=x.device)
     q, k, v = qkv[..., 0, :, :] * scale, qkv[..., 1, :, :], qkv[..., 2, :, :]
     sim = torch.einsum("bsihd,bsjhd->bshij", q.float(), k.float())
+    if pos_bias is not None:
+        sim = sim + pos_bias.float()
     attn = torch.softmax(sim, dim=-1)
     o = torch.einsum("bshij,bsjhd->bsihd", attn.to(dt), v).reshape(b, s, f, heads * dim)
     y = (o @ wo.to(dt)) + bo.to(dt)
     return x + y
 
 
-def temporal_attention_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int):
+def temporal_attention_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None):
     """The backward of ``temporal_attention_plain`` by explicit formulas: ``(dx, dwqkv, dbqkv, dwo, dbo)``.
 
     Rounding points of the JAX ``_bwd_kernel`` (:189-286): q|k|v in x's
     type, the softmax and its VJP in float32, ``attn``, ``do``, ``ds`` and
     ``dqkv`` rounded to x's type before each product, db_qkv summed from the
-    unrounded dqkv, float32 weight gradients.
+    unrounded dqkv, float32 weight gradients. With ``pos_bias`` the result
+    gains dbias (H, f, f) last: the unrounded float32 ds summed over the
+    tokens, in ``pos_bias``'s type.
     """
     b, s, f, c = x.shape
     dt = x.dtype
@@ -72,7 +95,10 @@ def temporal_attention_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int)
     qkv = ((x.to(f32) @ wqkv.to(dt).to(f32)) + bqkv.to(f32)).to(dt).reshape(b, s, f, 3, heads, dim)
     q = qkv[..., 0, :, :] * torch.tensor(scale, dtype=dt, device=x.device)
     k, v = qkv[..., 1, :, :], qkv[..., 2, :, :]
-    attn = torch.softmax(torch.einsum("bsihd,bsjhd->bshij", q.float(), k.float()), dim=-1)
+    sim = torch.einsum("bsihd,bsjhd->bshij", q.float(), k.float())
+    if pos_bias is not None:
+        sim = sim + pos_bias.float()
+    attn = torch.softmax(sim, dim=-1)
     attn_c = attn.to(dt).float()
     o = torch.einsum("bshij,bsjhd->bsihd", attn_c, v.float()).to(dt).float()
     gf = g.to(f32)
@@ -81,7 +107,8 @@ def temporal_attention_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int)
     do = torch.einsum("bsic,hdc->bsihd", gc, wo.to(dt).float().reshape(heads, dim, c)).to(dt).float()
     dattn = torch.einsum("bsihd,bsjhd->bshij", do, v.float())
     dv = torch.einsum("bshij,bsihd->bsjhd", attn_c, do)
-    ds = (attn * (dattn - (dattn * attn).sum(-1, keepdim=True))).to(dt).float()
+    ds_f = attn * (dattn - (dattn * attn).sum(-1, keepdim=True))
+    ds = ds_f.to(dt).float()
     dq = torch.einsum("bshij,bsjhd->bsihd", ds, k.float()) * scale
     dk = torch.einsum("bshij,bsihd->bsjhd", ds, q.float())
     dqkv = torch.stack([dq, dk, dv], dim=3).reshape(b, s, f, 3 * hd)
@@ -89,17 +116,21 @@ def temporal_attention_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int)
     dqkv_c = dqkv.to(dt).float()
     dwqkv = torch.einsum("bsfc,bsfk->ck", x.float(), dqkv_c)
     dx = (gf + dqkv_c @ wqkv.to(dt).float().t()).to(dt)
-    return dx, dwqkv, dbqkv, dwo, gf.sum((0, 1, 2))
+    grads = (dx, dwqkv, dbqkv, dwo, gf.sum((0, 1, 2)))
+    if pos_bias is None:
+        return grads
+    return (*grads, ds_f.sum((0, 1)).to(pos_bias.dtype))
 
 
-def _online_softmax_plain(x, wqkv, bqkv, heads: int, dim: int, kb: int):
+def _online_softmax_plain(x, wqkv, bqkv, heads: int, dim: int, kb: int, pos_bias=None):
     """The blockwise kernels' sweep over KV blocks of ``kb`` frames, in plain PyTorch.
 
     Returns ``(q, k, v, m, l, acc)``, all float32 and head-major (b, s, H, f, .):
     q|k|v hold values rounded to x's type (q scaled before its one rounding),
     ``m`` and ``l`` the running row maximum and sum of the unrounded
     ``p = exp(s - m)``, ``acc`` the sum of ``round(p) v`` (JAX
-    ``_project_q`` :396-402 and ``_online_softmax_pass`` :343-393).
+    ``_project_q`` :396-402 and ``_online_softmax_pass`` :343-393). ``pos_bias``
+    (H, f, f) is added to each block's float32 logits before the row maximum.
     """
     b, s, f, c = x.shape
     dt = x.dtype
@@ -113,6 +144,8 @@ def _online_softmax_plain(x, wqkv, bqkv, heads: int, dim: int, kb: int):
     for j0 in range(0, f, kb):
         kj, vj = k[..., j0:j0 + kb, :], v[..., j0:j0 + kb, :]
         sim = q @ kj.transpose(-1, -2)
+        if pos_bias is not None:
+            sim = sim + pos_bias.float()[..., j0:j0 + kb]
         m_new = torch.maximum(m, sim.amax(-1, keepdim=True))
         p = torch.exp(sim - m_new)
         alpha = torch.exp(m - m_new)
@@ -122,7 +155,8 @@ def _online_softmax_plain(x, wqkv, bqkv, heads: int, dim: int, kb: int):
     return q, k, v, m, l, acc
 
 
-def temporal_attention_blockwise_plain(x, wqkv, bqkv, wo, bo, heads: int, dim: int, kb: int) -> torch.Tensor:
+def temporal_attention_blockwise_plain(x, wqkv, bqkv, wo, bo, heads: int, dim: int, kb: int,
+                                       pos_bias=None) -> torch.Tensor:
     """Plain PyTorch version of the blockwise forward kernel (JAX ``_fwd_blockwise_kernel`` :405-429).
 
     The function of ``temporal_attention_plain``, with other rounding points:
@@ -131,27 +165,30 @@ def temporal_attention_blockwise_plain(x, wqkv, bqkv, wo, bo, heads: int, dim: i
     """
     b, s, f, c = x.shape
     dt = x.dtype
-    _, _, _, _, l, acc = _online_softmax_plain(x, wqkv, bqkv, heads, dim, kb)
+    _, _, _, _, l, acc = _online_softmax_plain(x, wqkv, bqkv, heads, dim, kb, pos_bias)
     oh = (acc / l).to(dt).float().transpose(2, 3).reshape(b, s, f, heads * dim)
     y = oh @ wo.to(dt).float() + bo.float()
     return x + y.to(dt)
 
 
-def temporal_attention_blockwise_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, kb: int):
+def temporal_attention_blockwise_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, kb: int,
+                                           pos_bias=None):
     """The blockwise backward kernel's oracle: ``(dx, dwqkv, dbqkv, dwo, dbo)`` by explicit formulas.
 
     Rounding points of the JAX ``_bwd_blockwise_kernel`` (:432-584): the
     probabilities are rebuilt from ``lse = m + log l``; ``di = rowsum(do * o)``
     uses the unrounded ``do`` and ``o``; p, do, ds, dk|dv and dq round to x's
     type before each product; db_qkv sums the unrounded values; float32
-    weight gradients.
+    weight gradients. With ``pos_bias`` the bias enters the logits of both
+    sweeps and the result gains dbias (H, f, f) last: each block's unrounded
+    ``ds`` summed over the tokens, in ``pos_bias``'s type.
     """
     b, s, f, c = x.shape
     dt = x.dtype
     hd = heads * dim
     scale = 1.0 / math.sqrt(dim)
     w = wqkv.to(dt).float()
-    q, k, v, m, l, acc = _online_softmax_plain(x, wqkv, bqkv, heads, dim, kb)
+    q, k, v, m, l, acc = _online_softmax_plain(x, wqkv, bqkv, heads, dim, kb, pos_bias)
     lse = m + torch.log(l)
     oh = acc / l
     gf = g.float()
@@ -162,11 +199,18 @@ def temporal_attention_blockwise_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads: int,
     do_c = do.to(dt).float()
     dq = torch.zeros_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias = None if pos_bias is None else torch.empty(heads, f, f, dtype=torch.float32, device=x.device)
     for j0 in range(0, f, kb):
         kj, vj = k[..., j0:j0 + kb, :], v[..., j0:j0 + kb, :]
-        p = torch.exp(q @ kj.transpose(-1, -2) - lse)
+        sim = q @ kj.transpose(-1, -2)
+        if pos_bias is not None:
+            sim = sim + pos_bias.float()[..., j0:j0 + kb]
+        p = torch.exp(sim - lse)
         p_c = p.to(dt).float()
-        ds_c = (p * (do_c @ vj.transpose(-1, -2) - di)).to(dt).float()
+        ds = p * (do_c @ vj.transpose(-1, -2) - di)
+        if dbias is not None:
+            dbias[..., j0:j0 + kb] = ds.sum((0, 1))
+        ds_c = ds.to(dt).float()
         dv[..., j0:j0 + kb, :] = p_c.transpose(-1, -2) @ do_c
         dk[..., j0:j0 + kb, :] = ds_c.transpose(-1, -2) @ q
         dq = dq + ds_c @ kj
@@ -175,7 +219,8 @@ def temporal_attention_blockwise_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads: int,
     dqkv_c = dqkv.to(dt).float()
     dwqkv = torch.einsum("bsfc,bsfk->ck", x.float(), dqkv_c)
     dx = (gf + dqkv_c @ w.t()).to(dt)
-    return dx, dwqkv, dbqkv, dwo, gf.sum((0, 1, 2))
+    grads = (dx, dwqkv, dbqkv, dwo, gf.sum((0, 1, 2)))
+    return grads if dbias is None else (*grads, dbias.to(pos_bias.dtype))
 
 
 def _blockwise_floats(f: int, dim: int, kb: int, backward: bool) -> int:
@@ -219,7 +264,7 @@ def _tile(tokens: int, f: int, c: int, dim: int, device: torch.device, row_float
     return max(1, min(fit, spread, 64))
 
 
-def _check(x, wqkv, bqkv, wo, bo, heads: int, dim: int) -> None:
+def _check(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be (b, s, f, c); got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
@@ -232,14 +277,22 @@ def _check(x, wqkv, bqkv, wo, bo, heads: int, dim: int) -> None:
         raise ValueError(f"wo/bo shapes {tuple(wo.shape)}/{tuple(bo.shape)} do not fit c={c}, H*D={hd}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    for t in (wqkv, bqkv, wo, bo):
-        if t.device != x.device:
+    if pos_bias is not None and tuple(pos_bias.shape) != (heads, f, f):
+        raise ValueError(f"pos_bias must be (heads, f, f) = {(heads, f, f)}; got {tuple(pos_bias.shape)}")
+    for t in (wqkv, bqkv, wo, bo, pos_bias):
+        if t is not None and t.device != x.device:
             raise ValueError("all operands must be on x's device")
 
 
-def _launch(x, wqkv, bqkv, wo, bo, heads: int, dim: int) -> torch.Tensor:
-    """The forward kernel of x's family on CUDA tensors: dense up to ``MAX_FRAMES``, else blockwise."""
-    _check(x, wqkv, bqkv, wo, bo, heads, dim)
+def _launch(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> torch.Tensor:
+    """The forward kernel of x's family on CUDA tensors: dense up to ``MAX_FRAMES``, else blockwise.
+
+    With ``pos_bias`` the kernel's biased instantiation runs, and is counted under its own name.
+    """
+    _check(x, wqkv, bqkv, wo, bo, heads, dim, pos_bias)
+    bias = None if pos_bias is None else pos_bias.float().contiguous()
+    bias_ptr = None if bias is None else bias.data_ptr()
+    tag = "" if bias is None else "_biased"
     b, s, f, c = x.shape
     wqkv = wqkv.to(x.dtype).contiguous()
     wo = wo.to(x.dtype).contiguous()
@@ -253,41 +306,42 @@ def _launch(x, wqkv, bqkv, wo, bo, heads: int, dim: int) -> torch.Tensor:
         bt = _tile(tokens, f, c, dim, x.device)
         fn = _build.library("temporal_attention").temporal_attention_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         err = fn(
             _DTYPES[x.dtype], x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
-            bo.data_ptr(), out.data_ptr(), tokens, f, c, heads, dim, bt, scale, stream,
+            bo.data_ptr(), bias_ptr, out.data_ptr(), tokens, f, c, heads, dim, bt, scale, stream,
         )
-        _build.check(err, "temporal_attention_fwd")
-        launches["temporal_attention_fwd"] += 1
+        _build.check(err, f"temporal_attention{tag}_fwd")
+        launches[f"temporal_attention{tag}_fwd"] += 1
         return out
     _check_blockwise(f, dim)
     grid = _blockwise_grid(tokens, f, dim, False, x.device)
     scratch = torch.empty(grid, f, heads * dim, device=x.device, dtype=x.dtype)  # each CTA's rounded o_h
     fn = _build.library("temporal_blockwise").temporal_blockwise_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     err = fn(
         _DTYPES[x.dtype], x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
-        bo.data_ptr(), out.data_ptr(), scratch.data_ptr(), tokens, f, c, heads, dim, KV_BLOCK, grid,
-        scale, stream,
+        bo.data_ptr(), bias_ptr, out.data_ptr(), scratch.data_ptr(), tokens, f, c, heads, dim, KV_BLOCK,
+        grid, scale, stream,
     )
-    _build.check(err, "temporal_blockwise_fwd")
-    launches["temporal_blockwise_fwd"] += 1
+    _build.check(err, f"temporal_blockwise{tag}_fwd")
+    launches[f"temporal_blockwise{tag}_fwd"] += 1
     return out
 
 
-def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int):
+def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None):
     """Backward of the block: the family's kernel on CUDA tensors, its plain formulas on CPU ones.
 
-    Returns ``(dx, dwqkv, dbqkv, dwo, dbo)``: dx in x's type, the rest float32.
+    Returns ``(dx, dwqkv, dbqkv, dwo, dbo)``: dx in x's type, the rest float32. With ``pos_bias``
+    the biased instantiation runs and dbias (H, f, f), in ``pos_bias``'s type, comes last.
     """
     f = x.shape[-2]
     if not x.is_cuda:
         if f <= MAX_FRAMES:
-            return temporal_attention_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads, dim)
-        return temporal_attention_blockwise_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads, dim, KV_BLOCK)
-    _check(x, wqkv, bqkv, wo, bo, heads, dim)
+            return temporal_attention_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads, dim, pos_bias)
+        return temporal_attention_blockwise_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads, dim, KV_BLOCK, pos_bias)
+    _check(x, wqkv, bqkv, wo, bo, heads, dim, pos_bias)
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g {tuple(g.shape)} must match x {tuple(x.shape)} on x's device")
     b, s, f, c = x.shape
@@ -302,6 +356,17 @@ def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     dx = torch.empty_like(x)
     grads = torch.empty(total, device=x.device, dtype=torch.float32)
+    tag = "" if pos_bias is None else "_biased"
+    panel = heads * f * f  # floats of the bias and of each CTA's dbias partial
+
+    def bias_buffers(grid: int):
+        """The float32 bias, the CTAs' dbias partials and dbias, and their pointers (null without a bias)."""
+        if pos_bias is None:
+            return None, [None] * 3
+        tensors = (pos_bias.float().contiguous(), torch.empty(grid, panel, device=x.device, dtype=torch.float32),
+                   torch.empty(heads, f, f, device=x.device, dtype=torch.float32))
+        return tensors, [t.data_ptr() for t in tensors]
+
     if f <= MAX_FRAMES:
         if dim % 4:
             raise NotImplementedError(f"the temporal backward kernel takes head dims divisible by 4, not {dim}")
@@ -312,63 +377,86 @@ def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int):
         per_sm = 2 if 2 * (smem + 1024) <= 228 * 1024 else 1
         grid = max(1, min(-(-tokens // bt), sms * per_sm, _WORKSPACE_MAX // (4 * total)))
         partial = torch.empty(grid, total, device=x.device, dtype=torch.float32)
+        bias_t, bias_ptrs = bias_buffers(grid)  # at most 128 KB per CTA here: no cap of its own is needed
         fn = _build.library("temporal_attention").temporal_attention_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         err = fn(
             _DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), wqkv_c.data_ptr(), bqkv_f.data_ptr(),
-            wo_c.data_ptr(), dx.data_ptr(), partial.data_ptr(), grads.data_ptr(), tokens, f, c,
+            wo_c.data_ptr(), *bias_ptrs, dx.data_ptr(), partial.data_ptr(), grads.data_ptr(), tokens, f, c,
             heads, dim, bt, grid, scale, stream,
         )
-        _build.check(err, "temporal_attention_bwd")
-        launches["temporal_attention_bwd"] += 1
+        _build.check(err, f"temporal_attention{tag}_bwd")
+        launches[f"temporal_attention{tag}_bwd"] += 1
     else:
         _check_blockwise(f, dim)
         grid = min(_blockwise_grid(tokens, f, dim, True, x.device), max(1, _WORKSPACE_MAX // (4 * total)))
+        if pos_bias is not None:
+            grid = min(grid, max(1, _DBIAS_WORKSPACE_MAX // (4 * panel)))
         partial = torch.empty(grid, total, device=x.device, dtype=torch.float32)
+        bias_t, bias_ptrs = bias_buffers(grid)
         # Each CTA's rounded o_h (H*D per frame row) and dq|dk|dv (3*H*D) of its current token.
         scratch = torch.empty(grid, f, 4 * hd, device=x.device, dtype=x.dtype)
         wqkv_t = wqkv_c.t().contiguous()
         wo_t = wo_c.t().contiguous()
         fn = _build.library("temporal_blockwise").temporal_blockwise_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         err = fn(
             _DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), wqkv_c.data_ptr(), wqkv_t.data_ptr(),
-            bqkv_f.data_ptr(), wo_t.data_ptr(), dx.data_ptr(), partial.data_ptr(), grads.data_ptr(),
-            scratch.data_ptr(), tokens, f, c, heads, dim, KV_BLOCK, grid, scale, stream,
+            bqkv_f.data_ptr(), wo_t.data_ptr(), *bias_ptrs, dx.data_ptr(), partial.data_ptr(),
+            grads.data_ptr(), scratch.data_ptr(), tokens, f, c, heads, dim, KV_BLOCK, grid, scale, stream,
         )
-        _build.check(err, "temporal_blockwise_bwd")
-        launches["temporal_blockwise_bwd"] += 1
+        _build.check(err, f"temporal_blockwise{tag}_bwd")
+        launches[f"temporal_blockwise{tag}_bwd"] += 1
     dwqkv, dbqkv, dwo, dbo = grads.split([c * 3 * hd, 3 * hd, hd * c, c])
-    return dx, dwqkv.view(c, 3 * hd), dbqkv, dwo.view(hd, c), dbo
+    out = (dx, dwqkv.view(c, 3 * hd), dbqkv, dwo.view(hd, c), dbo)
+    return out if pos_bias is None else (*out, bias_t[2].to(pos_bias.dtype))
 
 
 class _TemporalAttention(torch.autograd.Function):
-    """The block on CUDA tensors: forward and backward are the hand-written kernels."""
+    """The block on CUDA tensors: forward and backward are the hand-written kernels; ``pos_bias`` may be None."""
 
     @staticmethod
-    def forward(ctx, x, wqkv, bqkv, wo, bo, heads: int, dim: int):
-        ctx.save_for_backward(x, wqkv, bqkv, wo, bo)
+    def forward(ctx, x, wqkv, bqkv, wo, bo, pos_bias, heads: int, dim: int):
+        ctx.save_for_backward(x, wqkv, bqkv, wo, bo, pos_bias)
         ctx.heads, ctx.dim = heads, dim
-        return _launch(x, wqkv, bqkv, wo, bo, heads, dim)
+        return _launch(x, wqkv, bqkv, wo, bo, heads, dim, pos_bias)
 
     @staticmethod
     def backward(ctx, g):
-        x, wqkv, bqkv, wo, bo = ctx.saved_tensors
-        dx, dwqkv, dbqkv, dwo, dbo = temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, ctx.heads, ctx.dim)
+        x, wqkv, bqkv, wo, bo, pos_bias = ctx.saved_tensors
+        dx, dwqkv, dbqkv, dwo, dbo, *dbias = temporal_attention_bwd(
+            x, g, wqkv, bqkv, wo, bo, ctx.heads, ctx.dim, pos_bias)
         return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(bo.dtype),
-                None, None)
+                dbias[0] if dbias else None, None, None)
+
+
+def _block(x, wqkv, bqkv, wo, bo, pos_bias, heads: int, dim: int) -> torch.Tensor:
+    if x.is_cuda:
+        return _TemporalAttention.apply(x, wqkv, bqkv, wo, bo, pos_bias, heads, dim)
+    f = x.shape[-2]
+    if f <= MAX_FRAMES:
+        return temporal_attention_plain(x, wqkv, bqkv, wo, bo, heads, dim, pos_bias)
+    return temporal_attention_blockwise_plain(x, wqkv, bqkv, wo, bo, heads, dim, KV_BLOCK, pos_bias)
 
 
 def fused_temporal_attention_block(x, wqkv, bqkv, wo, bo, heads: int, dim: int) -> torch.Tensor:
     """``x + MHA(x)`` over the second-to-last axis of ``x`` (b, s, f, c); differentiable."""
-    if x.is_cuda:
-        return _TemporalAttention.apply(x, wqkv, bqkv, wo, bo, heads, dim)
-    f = x.shape[-2]
-    if f <= MAX_FRAMES:
-        return temporal_attention_plain(x, wqkv, bqkv, wo, bo, heads, dim)
-    return temporal_attention_blockwise_plain(x, wqkv, bqkv, wo, bo, heads, dim, KV_BLOCK)
+    return _block(x, wqkv, bqkv, wo, bo, None, heads, dim)
+
+
+def fused_temporal_attention_block_biased(x, wqkv, bqkv, wo, bo, pos_bias, heads: int, dim: int) -> torch.Tensor:
+    """``x + MHA(x, pos_bias)`` with ``pos_bias`` (heads, f, f) added to the logits before the softmax.
+
+    The fixed-math temporal attention (JAX ``fused_temporal_attention_block_biased``, :1038-1065);
+    differentiable in all six tensors, so the relative-position table trains through it. The
+    pre-norm runs outside: callers pass the normalized x and swap the residual
+    (``out = x_orig + (this(xn, ...) - xn)``).
+    """
+    if pos_bias is None:
+        raise ValueError("pos_bias is required; fused_temporal_attention_block is the unbiased op")
+    return _block(x, wqkv, bqkv, wo, bo, pos_bias, heads, dim)
 
 
 def pack_mha_weights(mha) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:

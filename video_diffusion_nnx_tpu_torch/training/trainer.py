@@ -1,8 +1,8 @@
 """Trainer: the single-device training loop with Adam, EMA and checkpoints.
 
 Counterpart of the JAX package's training/trainer.py (:84-475 construction,
-:480-711 the step and the loop) for the single-device, unconditioned,
-reference-compat case. Semantics kept from it:
+:480-711 the step and the loop) for the single-device, unconditioned case,
+in reference-compat or fixed math. Semantics kept from it:
 
 * Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8) under the
   hold-then-cosine learning rate of ``optax.piecewise_interpolate_schedule``
@@ -208,14 +208,17 @@ class Trainer:
     def checkpoint_path(self, step: int) -> Path:
         return self.checkpoint_dir_path / f"step_{step}.pt"
 
-    def train_step(self, batch: torch.Tensor, t=None, noise=None):
+    def train_step(self, batch: torch.Tensor, t=None, noise=None, prob_focus_present: float = 0.0,
+                   focus_present_mask=None):
         """One step on ``batch`` ((b, c, f, h, w) in [0, 1]): loss, gradient, clip, Adam, EMA.
 
         ``t`` and ``noise`` may be injected; otherwise they come from the
-        trainer's generator. Returns ``(loss, grad_norm)`` as device tensors.
+        trainer's generator, as does the focus mask that ``prob_focus_present``
+        asks for. Returns ``(loss, grad_norm)`` as device tensors.
         """
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model(batch, generator=self.generator, t=t, noise=noise)
+        loss = self.model(batch, generator=self.generator, t=t, noise=noise,
+                          focus_present_mask=focus_present_mask, prob_focus_present=prob_focus_present)
         loss.backward()
         with torch.no_grad():
             live = [p for p in self.params if p.grad is not None]
@@ -236,8 +239,12 @@ class Trainer:
                 torch._foreach_add_(self._ema_params, self.params, alpha=1.0 - self.ema_decay)
         return loss.detach(), grad_norm
 
-    def train(self, log_fn: Callable = lambda _: None) -> None:
-        """Run the loop from ``self.step`` to ``train_num_steps``, then save the final checkpoint."""
+    def train(self, prob_focus_present: float = 0.0, log_fn: Callable = lambda _: None) -> None:
+        """Run the loop from ``self.step`` to ``train_num_steps``, then save the final checkpoint.
+
+        ``prob_focus_present`` (JAX ``train``, :625-635) masks each sample's temporal attentions
+        with that probability in every step; only a fixed-math denoiser heeds it.
+        """
         logger.info("Starting training loop from step %d...", self.step)
         self.model.train()
         pending = None
@@ -245,7 +252,7 @@ class Trainer:
         while self.step < self.train_num_steps:
             self.step_starts.append(time.perf_counter())
             batch = next(self.dl)
-            loss, grad_norm = self.train_step(batch)
+            loss, grad_norm = self.train_step(batch, prob_focus_present=prob_focus_present)
             self.loss_trace[self.step] = loss
             now = time.time()
             self.writer.add_scalar("step_time", now - last, self.step)

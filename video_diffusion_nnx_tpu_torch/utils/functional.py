@@ -1,8 +1,10 @@
-"""Small pure-Python helpers (counterpart of the JAX package's utils/functional.py:18-45)."""
+"""Small helpers (counterpart of the JAX package's utils/functional.py:18-45 and :86-108)."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, TypeVar
+
+import torch
 
 T = TypeVar("T")
 
@@ -22,3 +24,17 @@ def default(val: T | None, d: T | Callable[[], T]) -> T:
 def is_odd(n: int) -> bool:
     """True iff ``n`` is odd."""
     return n % 2 == 1
+
+
+def prob_mask_like(shape, prob: float, generator: torch.Generator | None = None, device=None) -> torch.Tensor:
+    """Boolean mask whose elements are True with probability ``prob`` (JAX ``prob_mask_like``, :86-108).
+
+    ``prob`` 0 and 1 draw nothing. Otherwise the uniforms come from
+    ``generator`` (which takes the place of the JAX key and must live on
+    ``device``), or from torch's global generator when none is given.
+    """
+    if prob == 1:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    if prob == 0:
+        return torch.zeros(shape, dtype=torch.bool, device=device)
+    return torch.rand(shape, generator=generator, device=device) < prob
