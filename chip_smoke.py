@@ -68,7 +68,28 @@ in one summary line (``PHASE <name>: ...``):
 16. fixed train, long fixed train: phases 8 and 12 for those recipes (the
     kernel route and the plain modules), with DDIM-50 from each trained
     checkpoint;
-17. kernels line: one JSON object per kernel (launches over its train
+17. cross: both cross-attention kernels of the sequence-parallel recipe
+    (configs/config_seq_parallel.yaml: 32 frames over 4 ranks, batch 2)
+    against their plain versions at the ten calls' shapes (x (2, s, 8, c),
+    K/V (2, s, 32, 256)), forward and all seven gradients, in bf16 and f32,
+    TF32 off; at a ragged f_g = 21; at f_l = f_g = 32 with K/V projected from
+    x, against the dense temporal kernel (the self-attention equivalence);
+    CUDA-event times per call and per step against the bound;
+18. seq train: the train CLI's rank function on that recipe (derived keys
+    only: a seeded 32-frame dataset, 6 steps, a checkpoint every 3): 4 ranks
+    sharing cuda:0 over gloo, named explicitly. First a 4-rank all-gather of a
+    (2, 4096, 8, 256) bf16 panel through the group. Then exact launches per
+    rank per step (10 + 10 cross kernels, nothing else), the ranks'
+    parameters bit-equal, ``sqrt_alphas_cumprod`` drifted and
+    ``alphas_cumprod`` bit-exact (full-state Adam), a resume from step 3; the
+    per-step loss against a 1-rank run of the same recipe (temporal attention
+    through the modules) within a gate derived from a control (the 1-rank
+    run with the dense temporal kernels), which the 4-rank losses scaled by
+    1.01 must fail; seconds per step, peak memory per rank, bytes and host
+    seconds in the collectives;
+19. seq sample: the sampling CLI on one rank from rank 0's checkpoint,
+    DDIM-10 at batch 1 and 32 frames;
+20. kernels line: one JSON object per kernel (launches over its train
     phase, error, times, bound).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -216,6 +237,24 @@ KERNELS.update({name: {"source": f"video_diffusion_nnx_tpu_torch/csrc/{src}",
                        "replaces": f"video_diffusion_nnx_tpu/ops/temporal_attention.py:{line}"}
                 for name, (src, line) in BIASED_KERNELS.items()})
 SLA_SCALE = DIM_HEAD ** -0.5
+
+# The sequence-parallel recipe: 32 frames of 64x64 at batch 2 over 4 ranks (8 frames each) sharing one card.
+# (per-forward count, (s, c)) of the cross-attention calls of one rank, x (2, s, 8, c), K/V (2, s, 32, 256).
+SEQ_CONFIG = REPO / "configs" / "config_seq_parallel.yaml"
+SEQ_WORLD, SEQ_FL, SEQ_FG = 4, 8, 32
+SEQ_CROSS_SHAPES = [(3, (4096, 32)), (1, (1024, 64)), (1, (1024, 32)), (1, (256, 128)), (1, (256, 64)),
+                    (2, (64, 256)), (1, (64, 128))]
+SEQ_PER_STEP = {"cross_attention_fwd": 10, "cross_attention_bwd": 10}
+SEQ_STEPS, SEQ_CKPT_EVERY, SEQ_CLIPS = 6, 3, 16
+SEQ_GATHER_PANEL = (2, 4096, 8, 256)  # one rank's K panel at the widest level, bf16
+SEQ_CONTROL_OFF = 0.01  # the 4-rank losses scaled by 1 + this must fail the loss gate
+SEQ_GATE_MARGIN = 0.001  # added to 1.5x the control's relative loss gap
+KERNELS.update({
+    "cross_attention_fwd": {"source": "video_diffusion_nnx_tpu_torch/csrc/cross_attention.cu",
+                            "replaces": "video_diffusion_nnx_tpu/ops/cross_attention.py:121"},
+    "cross_attention_bwd": {"source": "video_diffusion_nnx_tpu_torch/csrc/cross_attention.cu",
+                            "replaces": "video_diffusion_nnx_tpu/ops/cross_attention.py:151"},
+})
 
 
 class SmokeFailure(Exception):
@@ -1162,6 +1201,276 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
                        "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}}
 
 
+def cross_phase(torch, xa, ta) -> dict:
+    """Both cross-attention kernels against their plain versions at the sequence-parallel recipe's shapes.
+
+    Forward and all seven gradients at the ten calls' shapes and at a ragged f_g, in bf16 (timed) and
+    f32; then the self-attention case f_l = f_g = 32 against the dense temporal kernel.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hd = HEADS * DIM_HEAD
+    names = ("cross_attention_fwd", "cross_attention_bwd")
+    grad_names = ("dx", "dk", "dv", "dwq", "dbq", "dwo", "dbo")
+    rows, agg = [], new_totals(names)
+
+    def operands(x_shape, fg, dtype):
+        b, s, _, c = x_shape
+        return (rand(torch, x_shape, 1, 0.5, dtype), rand(torch, (b, s, fg, hd), 2, 1.0, dtype),
+                rand(torch, (b, s, fg, hd), 3, 1.0, dtype), rand(torch, (c, hd), 4, c ** -0.5, torch.float32),
+                rand(torch, (hd,), 5, 0.1, torch.float32), rand(torch, (hd, c), 6, hd ** -0.5, torch.float32),
+                rand(torch, (c,), 7, 0.1, torch.float32))
+
+    def record(name, row, err=0.0, count=0, timing=None):
+        if timing is not None:
+            add_timing(row, agg[name], count, err, *timing)
+        rows.append({"kernel": name, **row})
+        print("  " + json.dumps(rows[-1]), flush=True)
+
+    shapes = [(count, (B, s, SEQ_FL, c), SEQ_FG) for count, (s, c) in SEQ_CROSS_SHAPES]
+    shapes += [(0, (1, 64, 4, 64), 21)]  # a ragged f_g: no padding, no mask, a short last KV block
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        timed = dtype_name == "bfloat16"
+        for count, x_shape, fg in shapes:
+            a = operands(x_shape, fg, dtype)
+            x, k, v, wq, bq, wo, bo = a
+            g = rand(torch, x_shape, 9, 0.1, dtype)
+            before = dict(xa.launches)
+            out = xa.fused_cross_attention_block(*a, HEADS, DIM_HEAD)
+            grads = xa.cross_attention_bwd(x, g, k, v, wq, bq, wo, HEADS, DIM_HEAD)
+            torch.cuda.synchronize()
+            check(all(xa.launches[n] == before[n] + 1 for n in names), f"{x_shape}: launches {xa.launches}")
+            err = _max_abs(out, xa.cross_attention_plain(*a, HEADS, DIM_HEAD))
+            check(math.isfinite(err) and err <= TOL[dtype_name],
+                  f"cross_attention_fwd at {x_shape}, f_g {fg} in {dtype_name}: max-abs error {err} over {TOL[dtype_name]}")
+            want = xa.cross_attention_bwd_plain(x, g, k, v, wq, bq, wo, HEADS, DIM_HEAD)
+            rel = {n: _rel_err(u, w) for n, u, w in zip(grad_names, grads, want)}
+            err_b = max(_max_abs(u, w) for u, w in zip(grads, want))
+            for n, r in rel.items():
+                check(math.isfinite(r) and r <= BWD_TOL[dtype_name],
+                      f"cross_attention_bwd {n} at {x_shape}, f_g {fg} in {dtype_name}: error {r} of its largest "
+                      f"value, over {BWD_TOL[dtype_name]}")
+            del want, grads, out
+            common = {"shape": x_shape, "f_g": fg, "dtype": dtype_name, "per_step": count}
+            fwd_row = {**common, "max_abs_err": err, "tol": TOL[dtype_name]}
+            bwd_row = {**common, "rel_err": rel, "max_abs_err": err_b, "tol": BWD_TOL[dtype_name]}
+            if not timed:
+                record(names[0], fwd_row)
+                record(names[1], bwd_row)
+                continue
+            b, s, fl, c = x_shape
+            rows_n, tokens = b * s * fl, b * s
+            f_bytes = 2 * (2 * rows_n * c + 2 * tokens * fg * hd + 2 * c * hd) + 4 * (hd + c)
+            f_flops = rows_n * (4 * c * hd + 4 * fg * hd)
+            b_bytes = 2 * (3 * rows_n * c + 4 * tokens * fg * hd + 2 * c * hd) + 4 * hd + 4 * (2 * c * hd + hd + c)
+            b_flops = rows_n * (8 * c * hd + 8 * fg * hd)
+            ms_f = cuda_ms(torch, lambda: xa.fused_cross_attention_block(*a, HEADS, DIM_HEAD), 10, 2)
+            pl_f = cuda_ms(torch, lambda: xa.cross_attention_plain(*a, HEADS, DIM_HEAD), 5, 1)
+            ms_b = cuda_ms(torch, lambda: xa.cross_attention_bwd(x, g, k, v, wq, bq, wo, HEADS, DIM_HEAD), 5, 1)
+            pl_b = cuda_ms(torch, lambda: xa.cross_attention_bwd_plain(x, g, k, v, wq, bq, wo, HEADS, DIM_HEAD), 3, 1)
+            record(names[0], fwd_row, err, count, (ms_f, pl_f, f_bytes, f_flops))
+            record(names[1], bwd_row, err_b, count, (ms_b, pl_b, b_bytes, b_flops))
+            del a, x, k, v, g
+
+    # f_l = f_g = 32 with K|V projected from x: the self-attention block of the dense temporal kernel
+    # (JAX tests/test_ops.py:328). Forward in both types; in f32 also every gradient through autograd.
+    equiv = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        c = 64
+        leaves = [rand(torch, (B, 64, SEQ_FG, c), 1, 0.5, dtype), rand(torch, (c, 3 * hd), 2, c ** -0.5, torch.float32),
+                  rand(torch, (3 * hd,), 3, 0.1, torch.float32), rand(torch, (hd, c), 4, hd ** -0.5, torch.float32),
+                  rand(torch, (c,), 5, 0.1, torch.float32)]
+        g = rand(torch, leaves[0].shape, 9, 0.1, dtype)
+        outs = {}
+        for route in ("cross", "dense"):
+            ls = [t.clone().requires_grad_() for t in leaves]
+            x, wqkv, bqkv, wo, bo = ls
+            if route == "cross":
+                kv = x @ wqkv[:, hd:].to(dtype) + bqkv[hd:].to(dtype)
+                y = xa.fused_cross_attention_block(x, kv[..., :hd].contiguous(), kv[..., hd:].contiguous(),
+                                                   wqkv[:, :hd], bqkv[:hd], wo, bo, HEADS, DIM_HEAD)
+            else:
+                before = ta.launches["temporal_attention_fwd"]
+                y = ta.fused_temporal_attention_block(x, wqkv, bqkv, wo, bo, HEADS, DIM_HEAD)
+                check(ta.launches["temporal_attention_fwd"] == before + 1, "the dense temporal kernel did not run")
+            y.backward(g)
+            outs[route] = (y.detach(), [t.grad for t in ls])
+        err = _max_abs(outs["cross"][0], outs["dense"][0])
+        check(err <= TOL[dtype_name], f"cross kernel at f_l = f_g = 32 against the dense kernel ({dtype_name}): {err}")
+        row = {"max_abs_err": err, "tol": TOL[dtype_name]}
+        if dtype_name == "float32":
+            rel = {n: _rel_err(u, w) for n, u, w in zip(("dx", "dwqkv", "dbqkv", "dwo", "dbo"), outs["cross"][1],
+                                                         outs["dense"][1])}
+            check(max(rel.values()) <= TOL[dtype_name], f"self-attention equivalence, gradients: {rel}")
+            row["grad_rel_err"] = rel
+        equiv[dtype_name] = row
+    print("  " + json.dumps({"self_attention_equivalence": equiv}), flush=True)
+    return {"rows": rows, "per_step": agg, "self_attention_equivalence": equiv}
+
+
+def seq_rank(rank: int, world: int, gather_init: str, runs: list, out_dir: str) -> None:
+    """One rank of phase seq train, in a spawned process: the gather check, then each run of the train CLI's
+    rank function (``train.run_rank``), with its launches, losses, times, memory, collectives and a digest of
+    the state, written to ``seq_rank<r>.json``."""
+    import hashlib
+
+    import torch
+
+    from video_diffusion_nnx_tpu_torch import ops, train
+    from video_diffusion_nnx_tpu_torch.parallel import destroy_sequence_group, init_sequence_group
+    from video_diffusion_nnx_tpu_torch.utils.schedule import ScheduleBuffers
+
+    out = {"rank": rank}
+    group = init_sequence_group(rank, world, "gloo", gather_init)
+    try:
+        panel = torch.full(SEQ_GATHER_PANEL, float(rank + 1), device=group.device, dtype=torch.bfloat16)
+        group.all_gather(panel, 2)  # warm-up
+        group.reset_stats()
+        t0 = time.perf_counter()
+        full = group.all_gather(panel, 2)
+        torch.cuda.synchronize(group.device)
+        seconds = time.perf_counter() - t0
+        per = SEQ_GATHER_PANEL[2]
+        correct = full.is_cuda and all(bool((full[:, :, r * per:(r + 1) * per] == r + 1).all()) for r in range(world))
+        out["gather"] = {"seconds": seconds, "bytes_in": panel.numel() * 2, "bytes_out": full.numel() * 2,
+                         "shape": list(full.shape), "correct": correct, "device": str(group.device)}
+        del panel, full
+    finally:
+        destroy_sequence_group()
+    for name, init_method, argv in runs:
+        ops.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = train.run_rank(rank, world, "gloo", init_method, argv)
+        state = tr.model.state_dict()
+        digest = hashlib.sha256(b"".join(v.detach().cpu().contiguous().numpy().tobytes() for v in state.values()))
+        fresh = ScheduleBuffers.create(tr.model.num_timesteps)
+        out[name] = {
+            "launches": nonzero(ops.launch_counts()), "losses": tr.loss_trace.tolist(), "step_starts": tr.step_starts,
+            "save_seconds": tr.save_seconds, "peak_memory": torch.cuda.max_memory_allocated(),
+            "comm": dict(tr.sequence_group.stats), "digest": digest.hexdigest(), "device": str(tr.device),
+            "opt_count": tr.opt_count, "is_main": tr.is_main,
+            "buffer_drift": {k: (state[k].cpu() - getattr(fresh, k)).abs().max().item()
+                             for k in ("alphas_cumprod", "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod")},
+        }
+        del tr, state
+    (Path(out_dir) / f"seq_rank{rank}.json").write_text(json.dumps(out))
+
+
+def seq_train_phase(torch, train) -> dict:
+    """configs/config_seq_parallel.yaml through the train CLI's rank function: 4 ranks on cuda:0 over gloo."""
+    import torch.multiprocessing as mp
+    import yaml
+
+    raw = yaml.safe_load(SEQ_CONFIG.read_text())
+    d = raw["diffusion"]
+    check(raw["trainer"]["sequence_parallel_size"] == SEQ_WORLD and d["num_frames"] == SEQ_WORLD * SEQ_FL,
+          f"the recipe is not {SEQ_WORLD} ranks of {SEQ_FL} frames: {raw['trainer']}")
+    root = SCRATCH / "seq_train"
+    root.mkdir(parents=True, exist_ok=True)
+    data = bouncing_squares(root / "bouncing_squares_32.npy", clips=SEQ_CLIPS, frames=d["num_frames"],
+                            size=d["image_size"])
+    common = dict(steps=SEQ_STEPS, ckpt_every=SEQ_CKPT_EVERY)
+    cfgs = {"ranks4": _train_config(yaml, raw, root, data, "ranks4", **common),
+            "rank1": _train_config(yaml, raw, root, data, "rank1", sequence_parallel_size=1, **common),
+            "rank1_fused": _train_config(yaml, raw, root, data, "rank1_fused", unet={"use_fused_attention": True},
+                                         sequence_parallel_size=1, **common)}
+    for old in [*root.glob("*/checkpoints/step_*.pt"), *root.glob("store_*"), *root.glob("seq_rank*.json")]:
+        old.unlink()
+    argv = ["--config", str(cfgs["ranks4"]), "--device", "cuda", "--dist-backend", "gloo"]
+    runs = [("run", f"file://{root / 'store_run'}", argv),
+            ("resume", f"file://{root / 'store_resume'}", argv + ["--resume_step", str(SEQ_CKPT_EVERY)])]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(seq_rank, args=(SEQ_WORLD, f"file://{root / 'store_gather'}", runs, str(root)), nprocs=SEQ_WORLD,
+             join=True)
+    spawn_seconds = time.perf_counter() - t0
+    ranks = [json.loads((root / f"seq_rank{r}.json").read_text()) for r in range(SEQ_WORLD)]
+
+    for r in ranks:
+        check(r["gather"]["correct"] and r["gather"]["device"] == "cuda:0", f"rank {r['rank']}: gather {r['gather']}")
+        for name, steps in (("run", SEQ_STEPS), ("resume", SEQ_STEPS - SEQ_CKPT_EVERY)):
+            want = {k: per * steps for k, per in SEQ_PER_STEP.items()}
+            check(r[name]["launches"] == want and r[name]["device"] == "cuda:0",
+                  f"rank {r['rank']} {name}: launches {r[name]['launches']} on {r[name]['device']}, expected {want}")
+    run0 = ranks[0]["run"]
+    for name in ("run", "resume"):
+        check(len({r[name]["digest"] for r in ranks}) == 1, f"{name}: the ranks' states differ")
+        check(all(r[name]["losses"] == ranks[0][name]["losses"] for r in ranks), f"{name}: the ranks' losses differ")
+    losses = run0["losses"]
+    check(len(losses) == SEQ_STEPS and all(math.isfinite(v) for v in losses), f"4-rank losses {losses}")
+    drift = run0["buffer_drift"]
+    check(drift["alphas_cumprod"] == 0 and drift["sqrt_alphas_cumprod"] > 0 and drift["sqrt_one_minus_alphas_cumprod"] > 0,
+          f"full-state Adam: buffer drift {drift}")
+    ckpts = sorted(int(p.stem[5:]) for p in (root / "ranks4" / "checkpoints").glob("step_*.pt"))
+    check(ckpts == [SEQ_CKPT_EVERY, SEQ_STEPS], f"checkpoints of the 4-rank run at steps {ckpts}")
+    resumed = ranks[0]["resume"]["losses"]
+    check(all(math.isnan(v) for v in resumed[:SEQ_CKPT_EVERY]) and all(math.isfinite(v) for v in resumed[SEQ_CKPT_EVERY:])
+          and ranks[0]["resume"]["opt_count"] == SEQ_STEPS - SEQ_CKPT_EVERY, f"resumed losses {resumed}")
+
+    # One rank of the same recipe (temporal attention through the modules), and the control: the same with the
+    # dense temporal kernels, another valid bf16 route. The gate is 1.5x the control's largest relative per-step
+    # gap plus a margin; the 4-rank losses must stay within it and the same losses 1% off must not.
+    one = {}
+    for name in ("rank1", "rank1_fused"):
+        torch.cuda.reset_peak_memory_stats()
+        tr = train.main(["--config", str(cfgs[name]), "--device", "cuda"])
+        sps, _ = _seconds_per_step(tr, warmup=2)
+        one[name] = {"losses": tr.loss_trace.tolist(), "seconds_per_step": sps,
+                     "peak_memory": torch.cuda.max_memory_allocated()}
+        del tr
+    ref = one["rank1"]["losses"]
+
+    def gap(ls):
+        return max(abs(a - b) / abs(b) for a, b in zip(ls, ref))
+
+    control = gap(one["rank1_fused"]["losses"])
+    gate = 1.5 * control + SEQ_GATE_MARGIN
+    gap4 = gap(losses)
+    off = gap([(1 + SEQ_CONTROL_OFF) * v for v in losses])
+    check(gap4 <= gate, f"4-rank losses part from the 1-rank run's by {gap4} (relative), over the gate {gate} "
+                        f"(control {control}): {losses} against {ref}")
+    check(off > gate, f"the loss gate {gate} misses losses {SEQ_CONTROL_OFF:.0%} off ({off})")
+
+    starts, saves = run0["step_starts"], run0["save_seconds"]
+    warm = 2
+    sps4 = (starts[-1] - starts[warm] - sum(v for k, v in saves.items() if int(k) >= warm)) / (len(starts) - 1 - warm)
+    steps = SEQ_STEPS
+    return {"world": SEQ_WORLD, "backend": "gloo", "device": run0["device"], "steps": steps,
+            "batch": raw["trainer"]["train_batch_size"], "frames": d["num_frames"], "losses": losses,
+            "launches_per_rank": run0["launches"], "launches": {k: sum(r["run"]["launches"][k] for r in ranks)
+                                                               for k in SEQ_PER_STEP},
+            "checkpoints": ckpts, "buffer_drift": drift, "resumed_losses": resumed, "seconds_per_step": sps4,
+            "peak_memory_per_rank": [r["run"]["peak_memory"] for r in ranks],
+            "collectives_per_rank_per_step": {k: v / steps for k, v in run0["comm"].items()},
+            "gather_panel": ranks[0]["gather"], "spawn_seconds": spawn_seconds,
+            "one_rank": one, "loss_gate": {"gap_4_ranks": gap4, "control_gap": control, "gate": gate,
+                                          "control_1pct_off_gap": off}}
+
+
+def seq_sample_phase(torch, ops, sample) -> dict:
+    """The sampling CLI on one rank from the 4-rank run's final checkpoint: DDIM-10 at batch 1, 32 frames."""
+    from PIL import Image
+
+    root = SCRATCH / "seq_train"
+    ckpt = root / "ranks4" / "checkpoints" / f"step_{SEQ_STEPS}.pt"
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = sample.main(["--config", str(root / "ranks4.yaml"), "--checkpoint-path", str(ckpt), "--output-path",
+                       str(OUT / "gifs" / "seq_ddim10_b1"), "--batch-size", "1", "--seed", "0", "--device", "cuda",
+                       "--sampler", "ddim", "--num-steps", "10"])
+    videos = res["videos"]
+    frames = SEQ_WORLD * SEQ_FL
+    check(tuple(videos.shape) == (1, 1, frames, 64, 64), f"seq samples: shape {tuple(videos.shape)}")
+    check(bool(torch.isfinite(videos).all()), "seq samples: non-finite values")
+    img = Image.open(res["paths"][0])
+    check(img.n_frames == frames and img.size == (64, 64), f"{res['paths'][0].name}: {img.n_frames} frames")
+    counts = nonzero(ops.launch_counts())
+    check(not counts, f"one rank of the recipe samples through the modules: launches {counts}")
+    return {"steps": res["steps"], "sample_seconds": res["seconds"], "seconds_per_step": res["seconds"] / res["steps"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}
+
+
 def main() -> int:
     import torch
 
@@ -1176,6 +1485,7 @@ def main() -> int:
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config
     from video_diffusion_nnx_tpu_torch.convert import save_checkpoint
     from video_diffusion_nnx_tpu_torch.ops import _build
+    from video_diffusion_nnx_tpu_torch.ops import cross_attention as xa
     from video_diffusion_nnx_tpu_torch.ops import spatial_linear_attention as sla
     from video_diffusion_nnx_tpu_torch.ops import temporal_attention as ta
 
@@ -1244,6 +1554,15 @@ def main() -> int:
                                name="long_fixed_train", unet=FIXED, per_step=FIXED_LONG_PER_STEP,
                                variants=("kernels", "plain"))
 
+    # The sequence-parallel recipe: its cross-attention kernels, then 4 ranks training on the one card.
+    cross = timed("cross", cross_phase, torch, xa, ta,
+                  show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
+                                  "self_attention_equivalence": r["self_attention_equivalence"],
+                                  **per_step(r, "per_step")})
+    seq = timed("seq train", seq_train_phase, torch, train,
+                show=lambda r: {k: v for k, v in r.items() if k != "resumed_losses"})
+    timed("seq sample", seq_sample_phase, torch, ops, sample)
+
     # Every kernel with the launches of the training path that runs it: the flagship's for the six dense and
     # spatial kernels, the long-clip recipe's for the blockwise pair, the two fixed recipes' for the biased
     # kernels. Times are of the type that path hands the kernel: bf16 in compat math, float32 in fixed math.
@@ -1258,13 +1577,15 @@ def main() -> int:
     for name, a in biased["per_step"]["float32"].items():
         path = fixed_trained if "attention" in name else long_fixed_trained
         aggregates[name], launches[name], dtypes[name] = a, path["launches"][name], "float32"
+    for name, a in cross["per_step"].items():  # launches summed over the four ranks of the seq train run
+        aggregates[name], launches[name] = a, seq["launches"][name]
     kernels_line = [{
         "name": name, "route": "cuda", "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
         "launches": launches[name], "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"], "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations",
         "library_ms": None, "dtype": dtypes.get(name, "bfloat16"),
     } for name, a in aggregates.items()]
-    check(all(k["launches"] > 0 for k in kernels_line) and len(kernels_line) == 12,
+    check(all(k["launches"] > 0 for k in kernels_line) and len(kernels_line) == len(KERNELS) == 14,
           f"a kernel of the main paths was never launched: {[(k['name'], k['launches']) for k in kernels_line]}")
     results["kernels_line"] = kernels_line
     (OUT / "results.json").write_text(json.dumps(results, indent=1, default=str))

@@ -383,3 +383,63 @@ def test_fixed_math_unet_on_the_card(device):
     gk = fused.time_rel_pos_bias.relative_attention_bias.weight.grad
     gm = module.time_rel_pos_bias.relative_attention_bias.weight.grad
     assert ((gk - gm).norm() / gm.norm()).item() <= 0.1
+
+
+# The sequence-parallel recipe's widest and narrowest (s, c) at f_l = 8 of f_g = 32, and a ragged f_g.
+CROSS_SHAPES = [(2, 64, 8, 32, 256), (1, 96, 8, 32, 32), (1, 16, 4, 21, 64)]
+
+
+def _cross_args(shape, device, dtype, heads=8, dim=32):
+    b, s, fl, fg, c = shape
+    hd = heads * dim
+    return (_rand((b, s, fl, c), 0, 0.5, device, dtype), _rand((b, s, fg, hd), 1, 1.0, device, dtype),
+            _rand((b, s, fg, hd), 2, 1.0, device, dtype), _rand((c, hd), 3, c ** -0.5, device),
+            _rand((hd,), 4, 0.1, device), _rand((hd, c), 5, hd ** -0.5, device), _rand((c,), 6, 0.1, device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CROSS_SHAPES)
+def test_cross_kernels_match_plain(device, dtype, shape):
+    from video_diffusion_nnx_tpu_torch.ops import cross_attention as xa
+
+    x, k, v, wq, bq, wo, bo = _cross_args(shape, device, dtype)
+    g = _rand(x.shape, 7, 0.1, device, dtype)
+    ops.reset_launch_counts()
+    got = xa.fused_cross_attention_block(x, k, v, wq, bq, wo, bo, 8, 32)
+    grads = xa.cross_attention_bwd(x, g, k, v, wq, bq, wo, 8, 32)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.launch_counts().items() if c} == {"cross_attention_fwd": 1, "cross_attention_bwd": 1}
+    want = xa.cross_attention_plain(x, k, v, wq, bq, wo, bo, 8, 32)
+    assert got.dtype == dtype and (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    for name, a, w in zip(("dx", "dk", "dv", "dwq", "dbq", "dwo", "dbo"), grads,
+                          xa.cross_attention_bwd_plain(x, g, k, v, wq, bq, wo, 8, 32)):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
+
+
+def test_cross_gradients_flow_and_are_deterministic(device):
+    from video_diffusion_nnx_tpu_torch.ops import cross_attention as xa
+
+    args = _cross_args((2, 256, 8, 32, 64), device, torch.bfloat16)
+    g = _rand(args[0].shape, 7, 0.1, device, torch.bfloat16)
+    runs = [xa.cross_attention_bwd(args[0], g, *args[1:6], 8, 32) for _ in range(2)]
+    assert all(torch.equal(u, w) for u, w in zip(*runs))
+    leaves = [a.clone().requires_grad_() for a in args]
+    xa.fused_cross_attention_block(*leaves, 8, 32).backward(g)
+    for t in leaves:
+        assert t.grad is not None and t.grad.dtype == t.dtype and t.grad.abs().max().item() > 0
+    with pytest.raises(NotImplementedError, match="K and V in x's type"):
+        xa.fused_cross_attention_block(args[0], args[1].float(), args[2], *args[3:], 8, 32)
+
+
+def test_gloo_ranks_share_one_card(device, tmp_path):
+    """Two gloo ranks on cuda:0: the frame gather and the sum, staged through host memory, and their backward."""
+    import torch.multiprocessing as mp
+
+    import torch_seq_workers
+
+    mp.spawn(torch_seq_workers.card_rank_main, args=(2, f"file://{tmp_path / 'store'}", str(tmp_path)),
+             nprocs=2, join=True)
+    for r in range(2):
+        res = torch.load(tmp_path / f"card{r}.pt")
+        assert res["device"] == "cuda:0" and res["ok"], res

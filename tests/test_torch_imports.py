@@ -31,7 +31,7 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1] + "/chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(n.split(".")[0] in BLOCKED for n in sys.modules), "a blocked module was imported"
-print("imported", len(names), "modules")
+print("imported", len(names), "modules:", " ".join(names))
 """
 
 
@@ -43,6 +43,8 @@ def test_port_and_chip_smoke_import_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
+    for name in ("parallel", "parallel.mesh", "parallel.sequence", "ops.cross_attention"):
+        assert f" video_diffusion_nnx_tpu_torch.{name} " in proc.stdout + " ", name
 
 
 def test_every_kernel_source_is_built_and_counted():

@@ -2,9 +2,10 @@
 
 Covered: ``p_losses`` and ``forward`` (every target, l1/l2, min-SNR), the
 learning-rate schedule, the gradient clip, ``cast_num_frames``, the dataset
-and the loader, the options the port leaves out, and three whole train steps
-(loss, gradient norm, every parameter and EMA tensor) from converted
-weights. Tolerances: losses float32 atol 5e-5 (the Unet's own bound); the
+and the loader, the options the port leaves out, the checks of a
+sequence-parallel recipe, and three whole train steps (loss, gradient norm,
+every parameter and EMA tensor) from converted weights, with the schedule
+buffers frozen and with full-state Adam. Tolerances: losses float32 atol 5e-5 (the Unet's own bound); the
 schedule atol 1e-9; train steps 1e-4 of each tensor's largest magnitude.
 """
 
@@ -24,6 +25,8 @@ from video_diffusion_nnx_tpu.utils import image as jimage
 from video_diffusion_nnx_tpu_torch.convert import state_dict_from_nnx, torch_key
 from video_diffusion_nnx_tpu_torch.data.loader import DataLoader
 from video_diffusion_nnx_tpu_torch.data.moving_mnist import MovingMNIST
+from video_diffusion_nnx_tpu_torch.diffusion.gaussian_diffusion import BUFFER_NAMES
+from video_diffusion_nnx_tpu_torch.parallel import SequenceGroup
 from video_diffusion_nnx_tpu_torch.training.trainer import Trainer, lr_schedule
 from video_diffusion_nnx_tpu_torch.utils import grad as pgrad
 from video_diffusion_nnx_tpu_torch.utils.image import cast_num_frames
@@ -157,12 +160,12 @@ def _trainer(model, npy_path, tmp_path, **kw):
     (dict(enable_gradient_accumulation=True), "A7"),
     (dict(num_model_shards=2), "A15"),
     (dict(param_sharding="fsdp"), "A15"),
-    (dict(sequence_parallel_size=2), "A15"),
+    (dict(sequence_parallel_size=2, sequence_group=SequenceGroup(0, 4, "gloo", torch.device("cpu"))), "A15"),
     (dict(use_path_as_cond=True), "A10"),
     (dict(null_cond_prob=0.1), "A10"),
     (dict(flatten_optimizer=True), "A7"),
     (dict(async_checkpointing=True), "A8"),
-    (dict(freeze_schedule_buffers=False), "A7"),
+    (dict(freeze_schedule_buffers=False, enable_gradient_accumulation=True, gradient_accumulate_every=4), "A7"),
     (dict(save_and_sample_every=2), "A8"),
     (dict(dataset_path="."), "A8"),
 ])
@@ -172,6 +175,35 @@ def test_unported_options_raise(npy_path, tmp_path, option, item):
         _trainer(pm, npy_path, tmp_path, **option)
 
 
+def _group(world: int = 4) -> SequenceGroup:
+    """A rank's view of a group, without a process group behind it: the trainer checks it before any collective."""
+    return SequenceGroup(0, world, "gloo", torch.device("cpu"))
+
+
+@pytest.mark.parametrize("kw,unet,error", [
+    (dict(sequence_parallel_size=4), {}, "start them with the train CLI"),
+    (dict(sequence_parallel_size=4, sequence_group=_group()), {"reference_compat": False}, "reference_compat"),
+    (dict(sequence_parallel_size=3, sequence_group=_group(3)), {}, "must divide"),
+])
+def test_sequence_parallel_recipe_checks(npy_path, tmp_path, kw, unet, error):
+    """A sequence-parallel trainer needs its group, compat math, and frames that divide (JAX :155-175)."""
+    pm = port_model(jax_fixture_model(), **unet)
+    with pytest.raises(ValueError, match=error):
+        _trainer(pm, npy_path, tmp_path, **kw)
+    assert pm.denoise_fn.sequence_parallel_mesh is None
+
+
+def test_sequence_group_reaches_the_denoiser(npy_path, tmp_path):
+    pm = port_model(jax_fixture_model())
+    group = _group()
+    tr = _trainer(pm, npy_path, tmp_path, sequence_parallel_size=4, sequence_group=group)
+    assert pm.denoise_fn.sequence_parallel_mesh is group and pm.sequence_group is group
+    assert tr.is_main
+    other = _trainer(port_model(jax_fixture_model()), npy_path, tmp_path / "r1", sequence_parallel_size=4,
+                     sequence_group=SequenceGroup(1, 4, "gloo", torch.device("cpu")))
+    assert not other.is_main and other.save() is None  # rank 0 alone writes checkpoints
+
+
 def test_three_train_steps_match_jax(npy_path, tmp_path):
     """From identical converted weights, batches, t and noise: the JAX package's pieces against the Trainer.
 
@@ -179,6 +211,19 @@ def test_three_train_steps_match_jax(npy_path, tmp_path):
     the frozen buffers, ``clip_grad_norm``, ``optax.adam`` over the
     hold-then-cosine schedule, and the gated EMA.
     """
+    _three_steps(npy_path, tmp_path, freeze=True)
+
+
+def test_three_full_state_train_steps_match_jax(npy_path, tmp_path):
+    """``freeze_schedule_buffers: false``: Adam over the whole state, the schedule buffers too (PARITY #11).
+
+    The buffers on the loss's path drift with the JAX package's; ``alphas_cumprod`` has no gradient and
+    stays bit-exact; the EMA covers the buffers.
+    """
+    _three_steps(npy_path, tmp_path, freeze=False)
+
+
+def _three_steps(npy_path, tmp_path, freeze: bool):
     # The flagship's learning rate, and every bias drawn non-zero: Adam's first step moves each
     # element by about lr whatever its gradient, so a zero-initialised tensor would be compared at a
     # scale where an element with a gradient near Adam's eps decides the result.
@@ -193,7 +238,7 @@ def test_three_train_steps_match_jax(npy_path, tmp_path):
     init = {k: v.detach().clone().numpy() for k, v in pm.state_dict().items()}
     tr = _trainer(pm, npy_path, tmp_path, train_lr=lr, lr_decay_start_step=start, lr_decay_steps=steps,
                   lr_decay_coeff=coeff, max_grad_norm=max_norm, step_start_ema=1, update_ema_every=1,
-                  ema_decay=decay)
+                  ema_decay=decay, freeze_schedule_buffers=freeze)
 
     graphdef, params = nnx.split(jm)
     tx = optax.adam(optax.piecewise_interpolate_schedule(
@@ -214,15 +259,21 @@ def test_three_train_steps_match_jax(npy_path, tmp_path):
         t = rng.integers(0, 10, size=2).astype(np.int32)
         noise = seeded(SHAPE, 20 + step)
         loss, grads = loss_and_grads(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(noise))
-        g_params, g_rest = nnx.split_state(grads, nnx.Param, ...)
-        grads = nnx.merge_state(g_params, jax.tree_util.tree_map(jnp.zeros_like, g_rest))
-        j_grads = flat_nnx_state(g_params)
+        if freeze:
+            g_params, g_rest = nnx.split_state(grads, nnx.Param, ...)
+            grads = nnx.merge_state(g_params, jax.tree_util.tree_map(jnp.zeros_like, g_rest))
+            j_grads = flat_nnx_state(g_params)
+        else:
+            j_grads = flat_nnx_state(grads)
         grads, norm = jgrad.clip_grad_norm(grads, max_norm)
         updates, opt_state = tx.update(grads, opt_state, params)
         new = optax.apply_updates(params, updates)
-        p_new, _ = nnx.split_state(new, nnx.Param, ...)
-        _, rest_old = nnx.split_state(params, nnx.Param, ...)
-        params = nnx.merge_state(p_new, rest_old)
+        if freeze:
+            p_new, _ = nnx.split_state(new, nnx.Param, ...)
+            _, rest_old = nnx.split_state(params, nnx.Param, ...)
+            params = nnx.merge_state(p_new, rest_old)
+        else:
+            params = new
         if step >= 1:
             ema = jax.tree_util.tree_map(lambda e, p: decay * e + (1 - decay) * p, ema, params)
 
@@ -231,6 +282,12 @@ def test_three_train_steps_match_jax(npy_path, tmp_path):
         tr.step += 1
         np.testing.assert_allclose(p_loss.item(), float(loss), atol=5e-5, rtol=0)
         np.testing.assert_allclose(p_norm.item(), float(norm), rtol=1e-4)
+        drift = {k: (pm.state_dict()[k] - torch.from_numpy(init[k])).abs().max().item() for k in BUFFER_NAMES}
+        if freeze:
+            assert set(drift.values()) == {0.0}
+        else:
+            assert drift["sqrt_alphas_cumprod"] > 0 and drift["sqrt_one_minus_alphas_cumprod"] > 0
+            assert drift["alphas_cumprod"] == 0
 
         # Tensors whose gradient is zero by construction (a key bias shifts a whole softmax row;
         # a conv bias under a one-channel GroupNorm is subtracted back out) carry rounding noise,

@@ -14,6 +14,8 @@ from torch_port_helpers import CHANNELS, FRAMES, IMAGE_SIZE, jax_fixture_model, 
 from video_diffusion_nnx_tpu.ops import spatial_linear_attention as jsla
 from video_diffusion_nnx_tpu.ops import temporal_attention as jta
 from video_diffusion_nnx_tpu_torch.models import Unet3D
+from video_diffusion_nnx_tpu_torch.models.layers import GroupNorm
+from video_diffusion_nnx_tpu_torch.parallel import SequenceGroup
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -48,11 +50,25 @@ def test_unet_bf16_policy_runs_in_bf16_and_returns_f32():
     ({"cond_dim": 16}, "A10"),
     ({"use_bert_text_cond": True}, "A10"),
     ({"guidance_embed": True}, "A13"),
-    ({"sequence_parallel_mesh": object()}, "A15"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         Unet3D(dim=8, dim_mults=(1, 2), channels=1, **kwargs)
+
+
+def test_sequence_parallel_mesh_is_a_group_in_compat_math_only():
+    """A group reaches every GroupNorm; fixed math drops it (JAX ``__init__`` :136); anything else raises."""
+    group = SequenceGroup(0, 4, "gloo", torch.device("cpu"))
+    unet = Unet3D(dim=8, dim_mults=(1, 2), channels=1, sequence_parallel_mesh=group)
+    norms = [m for m in unet.modules() if isinstance(m, GroupNorm)]
+    assert unet.sequence_parallel_mesh is group and norms and all(m.sequence_group is group for m in norms)
+    unet.sequence_parallel_mesh = None
+    assert all(m.sequence_group is None for m in norms)
+    fixed = Unet3D(dim=8, dim_mults=(1, 2), channels=1, reference_compat=False, sequence_parallel_mesh=group)
+    assert fixed.sequence_parallel_mesh is None
+    assert all(m.sequence_group is None for m in fixed.modules() if isinstance(m, GroupNorm))
+    with pytest.raises(TypeError, match="SequenceGroup"):
+        Unet3D(dim=8, dim_mults=(1, 2), channels=1, sequence_parallel_mesh=object())
 
 
 def test_module_names_follow_the_jax_tree():

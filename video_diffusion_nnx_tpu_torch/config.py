@@ -183,16 +183,22 @@ def build_models(config: dict[str, Any], device: str | torch.device = "cuda"):
 
 
 def build_trainer(config: dict[str, Any], device: str | torch.device = "cuda", resume_step: int = 0,
-                  rng_seed: int | None = None):
-    """``(unet, diffusion, trainer)`` from a merged config; seed: ``rng_seed`` > config ``rng_seed`` > 0."""
+                  rng_seed: int | None = None, sequence_group=None):
+    """``(unet, diffusion, trainer)`` from a merged config; seed: ``rng_seed`` > config ``rng_seed`` > 0.
+
+    With a ``sequence_group`` (one rank of a sequence-parallel run) the models are built on the
+    rank's device and the trainer runs over the group.
+    """
     from video_diffusion_nnx_tpu_torch.training.trainer import Trainer
 
     seed = rng_seed if rng_seed is not None else config.get("rng_seed", 0)
+    if sequence_group is not None:
+        device = sequence_group.device
     unet, diffusion = build_models(config, device=device)
     t = {**_TRAINER_DEFAULTS, **config.get("trainer", {})}
     if "dataset_path" not in t:
         raise KeyError("config section 'trainer' needs a dataset_path")
     kwargs = {k: t[k] for k in _TRAINER_DEFAULTS if k not in ("resume_training_step", "compilation_cache_dir")}
     trainer = Trainer(diffusion, dataset_path=t["dataset_path"], rng_seed=seed,
-                      resume_training_step=resume_step, **kwargs)
+                      resume_training_step=resume_step, sequence_group=sequence_group, **kwargs)
     return unet, diffusion, trainer

@@ -7,6 +7,13 @@ checkpoint loads them directly, and equal its values bit for bit
 from an explicit ``torch.Generator``; ``p_sample`` and ``ddim_sample`` also
 take injected noise, and ``forward`` (the training loss) takes injected t and
 noise, so that a test can feed both packages the same numbers.
+
+Under a sequence-parallel group (the denoiser's ``sequence_parallel_mesh``)
+each rank trains on its own frames: ``forward`` draws t and the noise for
+the whole clip, exactly as one rank would, and keeps this rank's frames of
+the clip and the noise; ``p_losses`` then returns this rank's share of the
+loss, the mean over its elements divided by the world size. The shares sum
+to the mean over the whole clip, and their gradients to its gradient.
 """
 
 from __future__ import annotations
@@ -86,6 +93,11 @@ class GaussianDiffusion(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.alphas_cumprod.device
+
+    @property
+    def sequence_group(self):
+        """The denoiser's sequence-parallel group, or None."""
+        return getattr(self.denoise_fn, "sequence_parallel_mesh", None)
 
     def _x(self, a: torch.Tensor, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return extract(a, t, x.shape)
@@ -221,7 +233,8 @@ class GaussianDiffusion(nn.Module):
         """Denoising loss at timesteps ``t`` (JAX ``p_losses``, :923-996); noise from ``generator`` when not given.
 
         ``focus_present_mask`` and ``prob_focus_present`` go to the denoiser, which draws its
-        mask from ``generator`` after the noise.
+        mask from ``generator`` after the noise. Under a sequence group ``x_start`` and ``noise``
+        are this rank's frames and the result is this rank's share of the loss.
         """
         if noise is None:
             noise = _normal(x_start.shape, generator, x_start.device)
@@ -241,8 +254,9 @@ class GaussianDiffusion(nn.Module):
             err = (model_out - target) ** 2
         else:
             raise ValueError(f"Unsupported loss type: {self.loss_type}")
+        share = 1 if self.sequence_group is None else self.sequence_group.world_size
         if self.min_snr_gamma is None:
-            return err.mean()
+            return err.mean() / share
         # Min-SNR-gamma weights in each parameterization's own loss space;
         # sqrt of them for l1, whose error is linear in the residual.
         acp_t = extract(self.alphas_cumprod, t, x_start.shape)
@@ -256,15 +270,25 @@ class GaussianDiffusion(nn.Module):
             w = clamped
         if self.loss_type == "l1":
             w = torch.sqrt(w)
-        return (w * err).mean()
+        return (w * err).mean() / share
 
     def forward(self, x, generator=None, t=None, noise=None, focus_present_mask=None,
                 prob_focus_present: float = 0.0) -> torch.Tensor:
-        """Training entry (JAX ``__call__``, :998-1016): draw t, normalize ``x`` from [0, 1], return the loss."""
+        """Training entry (JAX ``__call__``, :998-1016): draw t, normalize ``x`` from [0, 1], return the loss.
+
+        ``x`` (and an injected ``noise``) is the whole clip on every rank of a sequence group; the
+        loss is this rank's share, over its frames.
+        """
         want = (x.shape[0], self.channels, self.num_frames, self.image_size, self.image_size)
         if tuple(x.shape) != want:
             raise ValueError(f"x must have shape (b, c, f, h, w) = {want}; got {tuple(x.shape)}")
         if t is None:
             t = torch.randint(0, self.num_timesteps, (x.shape[0],), generator=generator, device=x.device)
+        group = self.sequence_group
+        if group is not None:
+            if noise is None:
+                noise = _normal(x.shape, generator, x.device)
+            frames = group.frames(self.num_frames)
+            x, noise = x[:, :, frames], noise[:, :, frames]
         return self.p_losses(normalize_img(x), t, noise=noise, generator=generator,
                              focus_present_mask=focus_present_mask, prob_focus_present=prob_focus_present)

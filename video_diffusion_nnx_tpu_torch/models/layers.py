@@ -28,6 +28,8 @@ import torch.nn.functional as F
 from einops import rearrange
 from torch import nn
 
+from video_diffusion_nnx_tpu_torch.parallel.sequence import all_reduce_sum
+
 NORM_EPS = 1e-6  # flax's LayerNorm and GroupNorm epsilon (torch's default is 1e-5)
 
 
@@ -154,14 +156,19 @@ class GroupNorm(nn.Module):
     """flax ``nnx.GroupNorm`` with float32 compute on ``(b, ..., c)`` input.
 
     Statistics reduce over every axis but the batch, within each group of
-    channels: over (f, h, w, group) per sample, never per frame.
+    channels: over (f, h, w, group) per sample, never per frame. With a
+    ``sequence_group`` the frames are sharded over its ranks, and the float32
+    sums of x and x^2 are summed over the ranks (a differentiable all-reduce)
+    before the fast variance E[x^2] - E[x]^2 is taken: what GSPMD does
+    implicitly for the JAX package's sharded activations.
     """
 
-    def __init__(self, dim: int, groups: int):
+    def __init__(self, dim: int, groups: int, sequence_group=None):
         super().__init__()
         self.groups = groups
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
+        self.sequence_group = sequence_group
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.weight)
@@ -170,8 +177,14 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
         xg = x.float().reshape(b, -1, self.groups, c // self.groups)
-        mean = xg.mean((1, 3), keepdim=True)
-        var = torch.clamp((xg * xg).mean((1, 3), keepdim=True) - mean * mean, min=0.0)
+        if self.sequence_group is None:
+            mean = xg.mean((1, 3), keepdim=True)
+            mean2 = (xg * xg).mean((1, 3), keepdim=True)
+        else:
+            count = xg.shape[1] * xg.shape[3] * self.sequence_group.world_size
+            sums = torch.stack([xg.sum((1, 3), keepdim=True), (xg * xg).sum((1, 3), keepdim=True)])
+            mean, mean2 = all_reduce_sum(sums, self.sequence_group) / count
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         scale = self.weight.reshape(self.groups, c // self.groups)
         y = (xg - mean) * (torch.rsqrt(var + NORM_EPS) * scale) + self.bias.reshape(scale.shape)
         return y.reshape(x.shape)

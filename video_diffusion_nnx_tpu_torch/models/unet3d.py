@@ -12,6 +12,13 @@ position bias on the temporal logits, the spatial q scale, a focus-present
 mask). The options outside raise ``NotImplementedError`` naming their
 ROADMAP item.
 
+``sequence_parallel_mesh`` (a ``parallel.SequenceGroup``, compat math only,
+as in the JAX package; fixed math sets it to None) shards the frames over the
+group's ranks: the input is a rank's own frames, every temporal attention
+takes the sequence-parallel route first (K/V gathered, then the
+cross-attention op), and every GroupNorm sums its statistics over the ranks.
+It may be set after construction, as the trainer does.
+
 The fused flags choose the route explicitly: with ``use_fused_attention``
 every temporal attention and the bottleneck's spatial attention go through
 ``ops.temporal_attention``; with ``use_fused_spatial_attention`` every
@@ -53,6 +60,7 @@ from video_diffusion_nnx_tpu_torch.models.layers import (
 )
 from video_diffusion_nnx_tpu_torch.ops import spatial_linear_attention as sla_ops
 from video_diffusion_nnx_tpu_torch.ops import temporal_attention as ta_ops
+from video_diffusion_nnx_tpu_torch.parallel import SequenceGroup, sequence_parallel_temporal_attention
 from video_diffusion_nnx_tpu_torch.utils.functional import default, is_odd, prob_mask_like
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -94,8 +102,6 @@ class Unet3D(nn.Module):
             raise _not_ported("conditioning (cond_dim / use_bert_text_cond)", "A10")
         if guidance_embed:
             raise _not_ported("guidance_embed", "A13")
-        if sequence_parallel_mesh is not None:
-            raise _not_ported("a sequence-parallel mesh", "A15")
         if block_type != "resnet":
             raise ValueError(f"block_type must be 'resnet'; got {block_type!r}")
         if isinstance(compute_dtype, str) or compute_dtype is None:
@@ -179,6 +185,22 @@ class Unet3D(nn.Module):
             block(dim * 2, dim, time=False),
             PointwiseConv(dim, default(out_dim, channels), dtype=dt),
         )
+        self.sequence_parallel_mesh = sequence_parallel_mesh
+
+    @property
+    def sequence_parallel_mesh(self) -> SequenceGroup | None:
+        """The sequence-parallel group, or None; setting it reaches every GroupNorm (JAX ``__init__`` :136)."""
+        return self._sequence_group
+
+    @sequence_parallel_mesh.setter
+    def sequence_parallel_mesh(self, group: SequenceGroup | None) -> None:
+        if group is not None and not isinstance(group, SequenceGroup):
+            raise TypeError(f"sequence_parallel_mesh must be a parallel.SequenceGroup or None; got {type(group).__name__}")
+        group = group if self.reference_compat else None
+        self._sequence_group = group
+        for module in self.modules():
+            if isinstance(module, GroupNorm):
+                module.sequence_group = group
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every weight from ``generator``: normal with variance 1/fan_in; biases 0, norms 1."""
@@ -208,7 +230,10 @@ class Unet3D(nn.Module):
 
     def _temporal(self, block: nn.Module, x: torch.Tensor, pos_bias: torch.Tensor,
                   focus_present_mask: torch.Tensor | None) -> torch.Tensor:
-        """``x + MHA(x)`` over frames: the fused op, or the module chain (JAX ``_temporal``, :379-450).
+        """``x + MHA(x)`` over frames: the sequence-parallel route, the fused op, or the module chain (JAX
+        ``_temporal``, :379-450).
+
+        With a sequence group the sequence-parallel route comes first, before the fused flag (JAX :396-412).
 
         Compat math drops the bias and the mask (PreNorm), so the unbiased op is the whole block.
         Fixed math is ``x + MHA(LN(x), pos_bias, mask)``: the norm runs here, the bias rides the
@@ -219,6 +244,14 @@ class Unet3D(nn.Module):
         """
         if isinstance(block, Identity):
             return x
+        group = self.sequence_parallel_mesh
+        if group is not None:  # compat math only: the block is x + MHA(x)
+            mha = block.fn.fn.fn
+            b, f, h, w, c = x.shape
+            x_r = x.reshape(b, f, h * w, c).transpose(1, 2).contiguous()  # (b, hw, f_l, c)
+            wqkv, bqkv, wo, bo = ta_ops.pack_mha_weights(mha)
+            y = sequence_parallel_temporal_attention(x_r, wqkv, bqkv, wo, bo, mha.heads, mha.dim, group)
+            return y.transpose(1, 2).reshape(b, f, h, w, c)
         if not self.use_fused_attention:
             return block(x, pos_bias=pos_bias, focus_present_mask=focus_present_mask)
         mha = block.fn.fn.fn  # Residual -> PreNorm -> EinopsToAndFrom -> MHA

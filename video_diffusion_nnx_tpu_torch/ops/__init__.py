@@ -1,8 +1,8 @@
 """Fused attention ops: plain PyTorch versions beside hand-written CUDA kernels for Hopper."""
 
-from video_diffusion_nnx_tpu_torch.ops import spatial_linear_attention, temporal_attention
+from video_diffusion_nnx_tpu_torch.ops import cross_attention, spatial_linear_attention, temporal_attention
 
-_COUNTERS = (temporal_attention.launches, spatial_linear_attention.launches)
+_COUNTERS = (temporal_attention.launches, spatial_linear_attention.launches, cross_attention.launches)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,8 +1,10 @@
-"""Trainer: the single-device training loop with Adam, EMA and checkpoints.
+"""Trainer: the training loop with Adam, EMA and checkpoints, on one device or one sequence group.
 
 Counterpart of the JAX package's training/trainer.py (:84-475 construction,
-:480-711 the step and the loop) for the single-device, unconditioned case,
-in reference-compat or fixed math. Semantics kept from it:
+:480-711 the step and the loop) for the unconditioned case, in
+reference-compat or fixed math, on one device or, in compat math, over a
+sequence-parallel group (``sequence_parallel_size > 1``). Semantics kept
+from it:
 
 * Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8) under the
   hold-then-cosine learning rate of ``optax.piecewise_interpolate_schedule``
@@ -18,11 +20,28 @@ in reference-compat or fixed math. Semantics kept from it:
 * the loss of a step is logged after the next step is queued, so the host
   never waits on the step it has just launched (:656-677).
 
-``freeze_schedule_buffers: true`` is the only mode: here the diffusion
-schedule is held in buffers, which the optimizer never sees. The options
-this port does not cover raise ``NotImplementedError`` naming their ROADMAP
-item. The batch order comes from ``np.random.default_rng(rng_seed)`` as in
-the JAX package; timesteps and noise from a ``torch.Generator`` seeded with
+Full-state Adam (``freeze_schedule_buffers: false``, the default): the ten
+schedule buffers of the diffusion model take part in the loss's autograd
+graph, the gradient clip, Adam (their moments in the optimizer state) and
+the EMA, as every leaf of the JAX package's state does (:545-577, PARITY
+#11). Those with a gradient path (``sqrt_alphas_cumprod`` and
+``sqrt_one_minus_alphas_cumprod`` through ``q_sample``) drift; the others
+get no gradient, so Adam leaves them bit-exact; the checkpoint carries the
+drifted values. ``freeze_schedule_buffers: true`` keeps all ten out.
+
+Sequence parallelism: the trainer runs on one rank of a ``SequenceGroup``
+whose world size is ``sequence_parallel_size`` (data parallelism stays at
+one; the train CLI starts the ranks). It attaches the group to the
+denoiser, so each rank computes on its own frames and the loss is its
+share. After the backward the gradients are summed over the ranks, before
+the clip, so the norm, Adam and the EMA are bit-equal on every rank; the
+logged loss is the sum of the shares. Rank 0 alone writes checkpoints,
+metrics and logs; every rank reads the checkpoint on resume.
+
+The options this port does not cover raise ``NotImplementedError`` naming
+their ROADMAP item. The batch order comes from
+``np.random.default_rng(rng_seed)`` as in the JAX package, the same on
+every rank; timesteps and noise from a ``torch.Generator`` seeded with
 ``rng_seed`` (JAX's key chain cannot be reproduced).
 """
 
@@ -40,6 +59,7 @@ import torch
 from video_diffusion_nnx_tpu_torch.convert import read_checkpoint, save_checkpoint
 from video_diffusion_nnx_tpu_torch.data.loader import endless_prefetching_loader
 from video_diffusion_nnx_tpu_torch.data.moving_mnist import MovingMNIST
+from video_diffusion_nnx_tpu_torch.diffusion.gaussian_diffusion import BUFFER_NAMES
 from video_diffusion_nnx_tpu_torch.training.metrics import create_summary_writer
 from video_diffusion_nnx_tpu_torch.utils.grad import clip_grad_norm, global_l2_norm
 
@@ -75,8 +95,18 @@ def lr_schedule(train_lr: float, lr_decay_start_step: int, lr_decay_steps: int,
     return schedule
 
 
+class _NullWriter:
+    """The metrics writer of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
-    """Training runtime for a ``GaussianDiffusion`` on one device."""
+    """Training runtime for a ``GaussianDiffusion`` on one device or one rank of a sequence group."""
 
     def __init__(
         self,
@@ -123,20 +153,18 @@ class Trainer:
         null_cond_prob: float = 0.0,
         freeze_schedule_buffers: bool = False,
         flatten_optimizer: bool = False,
+        sequence_group=None,
     ):
         if enable_gradient_accumulation and gradient_accumulate_every > 1:
             raise _not_ported("gradient accumulation", "A7")
-        if num_model_shards > 1 or param_sharding != "tensor" or sequence_parallel_size > 1:
-            raise _not_ported("model sharding, FSDP and sequence parallelism", "A15")
+        if num_model_shards > 1 or param_sharding != "tensor":
+            raise _not_ported("model sharding and FSDP", "A15")
         if use_path_as_cond or sample_text or null_cond_prob:
             raise _not_ported("text conditioning and its dropout", "A10")
         if flatten_optimizer:
             raise _not_ported("flatten_optimizer (a fused Adam and EMA)", "A7")
         if async_checkpointing:
             raise _not_ported("asynchronous checkpointing", "A8")
-        if not freeze_schedule_buffers:
-            raise _not_ported(
-                "freeze_schedule_buffers: false (full-state Adam over the schedule buffers, PARITY #11)", "A7")
         # The loop's steps run from 0 to train_num_steps - 1, and a sample is due at a positive multiple
         # of save_and_sample_every (JAX trainer.py:687-693): the default, 100000 at 100000 steps, asks for none.
         if save_and_sample_every and 0 < save_and_sample_every < train_num_steps:
@@ -149,6 +177,10 @@ class Trainer:
 
         self.model = diffusion_model
         self.device = diffusion_model.device
+        self.sequence_group = sequence_group
+        if sequence_parallel_size > 1 or sequence_group is not None:
+            self._attach_sequence_group(sequence_parallel_size)
+        self.is_main = sequence_group is None or sequence_group.rank == 0
         self.train_num_steps = train_num_steps
         self.batch_size = train_batch_size
         self.max_grad_norm = max_grad_norm
@@ -162,12 +194,17 @@ class Trainer:
         self.add_loss_plot = add_loss_plot
         self.lr_schedule = lr_schedule(train_lr, lr_decay_start_step, lr_decay_steps, lr_decay_coeff)
 
-        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        trained = [k for k, p in self.model.named_parameters() if p.requires_grad]
+        if not freeze_schedule_buffers:  # full-state Adam: the schedule buffers train with the weights
+            for name in BUFFER_NAMES:
+                getattr(self.model, name).requires_grad_(True)
+            trained += list(BUFFER_NAMES)
+        state = self.model.state_dict(keep_vars=True)
+        self.params = [state[k] for k in trained]
         self.optimizer = self._new_optimizer(train_lr)
         self.opt_count = 0  # optax's update count, which the learning rate is read at
         self.ema_state = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
-        names = dict(self.model.named_parameters())
-        self._ema_params = [self.ema_state[k] for k, p in names.items() if p.requires_grad]
+        self._ema_params = [self.ema_state[k] for k in trained]
         self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
 
         self.image_size = diffusion_model.image_size
@@ -189,7 +226,7 @@ class Trainer:
         self.tensorboard_dir = (Path(tensorboard_dir).resolve() if tensorboard_dir
                                 else self.results_folder / "tensorboard")
         self.tensorboard_dir.mkdir(exist_ok=True, parents=True)
-        self.writer = create_summary_writer(str(self.tensorboard_dir))
+        self.writer = create_summary_writer(str(self.tensorboard_dir)) if self.is_main else _NullWriter()
 
         self.step = resume_training_step
         if self.step > 0:
@@ -198,6 +235,24 @@ class Trainer:
         self.save_seconds: dict[int, float] = {}  # host seconds of each checkpoint write inside the loop
         # Every step's loss, kept on the device (no host sync); NaN for steps not run here.
         self.loss_trace = torch.full((train_num_steps,), float("nan"), device=self.device)
+
+    def _attach_sequence_group(self, size: int) -> None:
+        """Check the group against the recipe and attach it to the denoiser (JAX :155-175)."""
+        group = self.sequence_group
+        if group is None:
+            raise ValueError(f"sequence_parallel_size {size} runs over a group of {size} ranks: start them with "
+                             "the train CLI, or pass each rank's sequence_group")
+        if group.world_size != size:
+            raise _not_ported(f"data parallelism (a group of {group.world_size} ranks for sequence_parallel_size "
+                              f"{size})", "A15")
+        denoiser = self.model.denoise_fn
+        if not getattr(denoiser, "reference_compat", False):
+            raise ValueError("sequence parallelism needs a reference_compat denoiser")
+        if self.model.num_frames % size:
+            raise ValueError(f"num_frames={self.model.num_frames} must divide by sequence_parallel_size={size}")
+        if self.device != group.device:
+            raise ValueError(f"the model is on {self.device}, the rank's device is {group.device}")
+        denoiser.sequence_parallel_mesh = group
 
     # Steps.
 
@@ -214,7 +269,9 @@ class Trainer:
 
         ``t`` and ``noise`` may be injected; otherwise they come from the
         trainer's generator, as does the focus mask that ``prob_focus_present``
-        asks for. Returns ``(loss, grad_norm)`` as device tensors.
+        asks for. Under a sequence group ``batch`` (and injected noise) is the
+        whole clip, and the loss returned is summed over the ranks. Returns
+        ``(loss, grad_norm)`` as device tensors.
         """
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.model(batch, generator=self.generator, t=t, noise=noise,
@@ -223,6 +280,12 @@ class Trainer:
         with torch.no_grad():
             live = [p for p in self.params if p.grad is not None]
             grads = [p.grad for p in live]
+            if self.sequence_group is not None:  # each rank holds its share of the gradient: sum them
+                flat = self.sequence_group.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+                grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+                for p, g in zip(live, grads):
+                    p.grad = g
+                loss = self.sequence_group.all_reduce(loss.detach())
             if self.max_grad_norm is not None:
                 clipped, grad_norm = clip_grad_norm(grads, self.max_grad_norm)
                 for p, g in zip(live, clipped):
@@ -283,6 +346,8 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def _log(self, step: int, loss, grad_norm, lr: float, log_fn: Callable) -> None:
+        if not self.is_main:
+            return
         loss_v, norm_v = loss.item(), grad_norm.item()
         logger.info("Step: %d/%d | Loss: %.4f", step, self.train_num_steps, loss_v)
         log_fn({"loss": loss_v, "step": step})
@@ -293,7 +358,12 @@ class Trainer:
     # Checkpoints.
 
     def save(self) -> Path | None:
-        """Write this step's checkpoint file, unless it exists (a resumed step); keep ``max_to_keep``."""
+        """Write this step's checkpoint file, unless it exists (a resumed step); keep ``max_to_keep``.
+
+        Only rank 0 of a sequence group writes (the ranks' states are bit-equal).
+        """
+        if not self.is_main:
+            return None
         path = self.checkpoint_path(self.step)
         if path.exists():
             logger.info("Checkpoint for step %d already exists; skipping save", self.step)
@@ -338,7 +408,7 @@ class Trainer:
     def _write_loss_plot(self) -> None:
         losses = self.loss_trace.tolist()
         steps = [i for i, v in enumerate(losses) if v == v]  # the steps run here (NaN elsewhere)
-        if not (self.add_loss_plot and steps):
+        if not (self.add_loss_plot and steps and self.is_main):
             return
         try:
             import matplotlib
