@@ -21,7 +21,8 @@ in one summary line (``PHASE <name>: ...``):
    launch counted over this phase alone;
 6. backward: each backward kernel against its plain version at every shape
    the flagship training step (batch 8) gives it, and at one wide-frame
-   shape, in bf16 and f32, TF32 off; CUDA-event times and per-step totals;
+   shape, in bf16 and f32, TF32 off; CUDA-event times, each timed row's share
+   of its bound (``bound_share``) and per-step totals;
    at the same inputs the forward kernels and the context kernel's softmax
    statistics against their plain versions;
 7. grads: one ``p_losses`` and ``backward`` of the flagship Unet3D in bf16
@@ -58,7 +59,9 @@ in one summary line (``PHASE <name>: ...``):
     reproduce the unbiased kernel bit for bit; in f32 the blockwise pair
     also against the dense plain versions; CUDA-event times in both types;
 14. sla scale: the spatial output and q-path backward kernels at the fixed
-    math's ``scale = 32 ** -0.5`` against their plain versions;
+    math's ``scale = 32 ** -0.5`` against their plain versions, and the q-path
+    backward's times per shape in both types (float32 is what fixed math hands
+    it);
 15. fixed unet, fixed grads, long fixed unet, long fixed grads: phases 4, 7,
     10 and 11 for the two recipes with ``unet.reference_compat: false``
     (pre-norms applied, the position bias on the logits): every fused op
@@ -303,7 +306,7 @@ def add_timing(row: dict, total: dict, count: int, err: float, ms: float, plain_
                flops: float, peak: float = PEAK_BF16_FLOPS) -> None:
     """Write a timed check's times and bound into its ``row`` and add ``count`` launches of it to ``total``."""
     b, by = bound_ms(nbytes, flops, peak)
-    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops, bound_share=b / ms)
     if count:
         total["err"] = max(total["err"], err)
         total["ms"] += count * ms
@@ -778,13 +781,18 @@ def biased_phase(torch, ta) -> dict:
 
 
 def sla_scale_phase(torch, sla) -> dict:
-    """The two spatial kernels that take the q scale, at fixed math's 32 ** -0.5 and the training shapes."""
+    """The two spatial kernels that take the q scale, at fixed math's 32 ** -0.5 and the training shapes.
+
+    ``sla_bwd_q`` is timed here in both types: float32 is what the fixed recipes hand it.
+    """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hd = HEADS * DIM_HEAD
     rows = []
+    agg = {dt: new_totals(("sla_bwd_q",)) for dt in TOL}
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for _, shape in SLA_SHAPES:
+        elt, peak = (4, PEAK_F32_FLOPS) if dtype_name == "float32" else (2, PEAK_BF16_FLOPS)
+        for count, shape in SLA_SHAPES:
             b, f, hh, ww, c = (B_TRAIN, *shape[1:])
             x = rand(torch, (b * f, hh * ww, c), 6, 0.5, dtype)
             g = rand(torch, (b * f, hh * ww, c), 10, 0.1, dtype)
@@ -804,11 +812,18 @@ def sla_scale_phase(torch, sla) -> dict:
             for k, r in rel.items():
                 check(math.isfinite(r) and r <= BWD_TOL[dtype_name],
                       f"sla_bwd_q {k} with the q scale at {(b, f, hh, ww, c)} in {dtype_name}: {r} over {BWD_TOL[dtype_name]}")
-            rows.append({"shape": (b, f, hh, ww, c), "dtype": dtype_name, "scale": SLA_SCALE, "sla_out_err": err,
-                         "sla_out_vs_scale_1": unscaled, "sla_bwd_q_rel_err": rel})
+            row = {"shape": (b, f, hh, ww, c), "dtype": dtype_name, "scale": SLA_SCALE, "sla_out_err": err,
+                   "sla_out_vs_scale_1": unscaled, "sla_bwd_q_rel_err": rel, "per_step": count}
+            rows_n = b * f * hh * ww
+            nbytes = elt * (3 * rows_n * c + 2 * c * hd) + 2 * 4 * b * f * HEADS * DIM_HEAD ** 2 + 4 * 2 * c * hd
+            flops = rows_n * (10 * c * hd + 6 * DIM_HEAD * hd)
+            ms = cuda_ms(torch, lambda: sla.sla_bwd_q(*q_args), 5, 1)
+            pl = cuda_ms(torch, lambda: sla.sla_bwd_q_plain(*q_args), 5, 1)
+            add_timing(row, agg[dtype_name]["sla_bwd_q"], count, max(rel.values()), ms, pl, nbytes, flops, peak)
+            rows.append(row)
             print("  " + json.dumps(rows[-1]), flush=True)
             del x, g, ctx
-    return {"rows": rows}
+    return {"rows": rows, "per_step": agg}
 
 
 PLAIN_MODULES = {"use_fused_attention": False, "use_fused_spatial_attention": False}
@@ -1540,7 +1555,8 @@ def main() -> int:
     biased = timed("biased", biased_phase, torch, ta,
                    show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
                                    **{dt: per_step({"p": a}, "p")["p"] for dt, a in r["per_step"].items()}})
-    timed("sla scale", sla_scale_phase, torch, sla, show=lambda r: {"checks": len(r["rows"]), "scale": SLA_SCALE})
+    timed("sla scale", sla_scale_phase, torch, sla, show=lambda r: {
+        "checks": len(r["rows"]), "scale": SLA_SCALE, **{dt: per_step({"p": a}, "p")["p"] for dt, a in r["per_step"].items()}})
     timed("fixed unet", unet_phase, torch, load_config, build_models, unet=FIXED)
     timed("fixed grads", grads_phase, torch, ops, ta, sla, load_config, build_models, unet=FIXED,
           per_step=FIXED_PER_STEP, show=brief)

@@ -147,6 +147,55 @@ def test_sla_bwd_kernels_match_plain(device, dtype, shape):
         assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
 
 
+# The padding edges of the backward kernels' tiles: f of 1 (a token is one row), 16 (whole 16-row
+# blocks) and 64 (the longest dense column); c of 24 and 40 (not multiples of 16) and 256; head dims
+# 16 and 64 (64 takes the CUDA-core kernel where the tensor-core tile does not fit, and at f = 64, c =
+# 256 raises as the CUDA-core kernel always did); three heads, so that the weight ring's slots
+# alternate unevenly across tiles.
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [16, 64])
+@pytest.mark.parametrize("c", [24, 40, 256])
+@pytest.mark.parametrize("f", [1, 16, 64])
+def test_temporal_bwd_padding_edges_match_plain(device, f, c, dim, dtype, bias):
+    heads = 3
+    shape = (2, 37 if f < 64 else 5, f, c)
+    x, wqkv, bqkv, wo, bo = _temporal_args(shape, device, dtype, heads, dim)
+    g = _rand(shape, 5, 0.1, device, dtype)
+    pos_bias = _rand((heads, f, f), 6, 0.5, device) if bias else None
+    name = "temporal_attention_biased_bwd" if bias else "temporal_attention_bwd"
+    ops.reset_launch_counts()
+    if f * 4 * (2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1) > 227 * 1024:  # one token over shared memory
+        with pytest.raises(NotImplementedError, match="exceed shared memory"):
+            ta.temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads, dim, pos_bias=pos_bias)
+        assert set(ops.launch_counts().values()) == {0}
+        return
+    got = ta.temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads, dim, pos_bias=pos_bias)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {name: 1}
+    want = ta.temporal_attention_bwd_plain(x, g, wqkv, bqkv, wo, bo, heads, dim, pos_bias=pos_bias)
+    for k, a, w in zip(GRADS6, got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, k
+        assert _rel_err(a, w) <= BWD_TOL[dtype], (k, _rel_err(a, w))
+
+
+@pytest.mark.parametrize("scale", [1.0, 32 ** -0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 2, 7, 5, 40), (2, 3, 9, 9, 40), (1, 2, 6, 6, 256)])
+def test_sla_bwd_q_padding_edges_match_plain(device, shape, dtype, scale):
+    """c = 40 (not a multiple of 16) and token counts that are not multiples of 16 (35, 81, 36)."""
+    xt, wqkv, wo = _sla_args(shape, device, dtype)
+    g = _rand(xt.shape, 5, 0.1, device, dtype)
+    ctx = sla.sla_context_plain(xt, wqkv, 8, 32)
+    ops.reset_launch_counts()
+    got = sla.sla_bwd_q(xt, g, wqkv, wo, ctx, 8, 32, scale)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sla_bwd_q"] == 1
+    for k, a, w in zip(("dx_q", "dctx", "dwq", "dwo"), got, sla.sla_bwd_q_plain(xt, g, wqkv, wo, ctx, 8, 32, scale)):
+        assert a.shape == w.shape and a.dtype == w.dtype, k
+        assert _rel_err(a, w) <= BWD_TOL[dtype], (k, _rel_err(a, w))
+
+
 def test_gradients_flow_through_both_ops(device):
     """loss.backward() on CUDA reaches x and every weight, through the backward kernels."""
     x, wqkv, bqkv, wo, bo = _temporal_args((2, 16, 10, 32), device, torch.bfloat16)
@@ -165,14 +214,18 @@ def test_gradients_flow_through_both_ops(device):
         assert t.grad.abs().max().item() > 0
 
 
-def test_weight_gradient_reduction_is_deterministic(device):
-    x, wqkv, bqkv, wo, bo = _temporal_args((4, 1024, 10, 32), device, torch.float32)
-    g = _rand(x.shape, 5, 0.1, device)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 1024, 10, 32), (8, 4096, 10, 32)])
+def test_weight_gradient_reduction_is_deterministic(device, dtype, shape):
+    """Two backward runs are bit-equal (per-CTA partials summed in a fixed order, no atomics), at the
+    flagship's top-level temporal shape too, in both types (bf16 takes the tensor-core kernels)."""
+    x, wqkv, bqkv, wo, bo = _temporal_args(shape, device, dtype)
+    g = _rand(x.shape, 5, 0.1, device, dtype)
     a = ta.temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, 8, 32)
     b = ta.temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, 8, 32)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
-    xt, sw, so = _sla_args((2, 10, 32, 32, 32), device, torch.float32)
-    g = _rand(xt.shape, 5, 0.1, device)
+    xt, sw, so = _sla_args((2, 10, 32, 32, 32), device, dtype)
+    g = _rand(xt.shape, 5, 0.1, device, dtype)
     ctx, stats = sla.sla_context(xt, sw, 8, 32)
     runs = []
     for _ in range(2):

@@ -493,6 +493,204 @@ __global__ void __launch_bounds__(kThreads) sla_bwd_q_kernel(
   }
 }
 
+// The q path with staged panels: the kernel above, redesigned (tensor cores in bf16).
+//
+// The same function and rounding points. Every operand of its products is
+// rounded to x's type in the TPU kernel's math (x, g, W_q, W_o,
+// round(p * scale), round(ctx), o, do, dq), so in bf16 `mma.sync` with float32
+// accumulators keeps them; only the order of the sums changes. Per head,
+// through `panel_mma` (common.cuh; tensor cores for bf16 panels, the CUDA
+// cores in float32 for float32 ones):
+//     q = x W_q,h,  do = round(g W_o,h^T),  o = round(qc ctx),  dctx += qc^T do,
+//     dp = do ctx^T,  dW_o,h += o^T g,  dW_q,h += x^T dq,  y += dq W_q,h^T;
+// the two softmax rows (q's, and its VJP into dq) stay on the CUDA cores in
+// float32, eight lanes per token. The chunk's x and g rows are staged once in
+// x's type, in chunks of a multiple of 16 tokens; each head's W_q,h (c, D)
+// and W_o,h (D, c) go through two buffers, the next head's copied
+// asynchronously while this one computes. Five barriers per head. The weight
+// gradients and dctx are one product per head and chunk, read-modify-written
+// into the CTA's float32 partials once, and reduced in a fixed order by
+// `reduce_partials_kernel`.
+//
+// A shape whose 16-token chunk does not fit (in bf16 c above about 400, in
+// float32 about half that) takes the CUDA-core kernel above.
+
+struct SlaTcPlan {
+  int Cp, Dp, LDC, LDF, LDD, PSD, WQ, WO;
+  size_t x, g, y, p, dp, qc, o, dob, dq, cs, w, bytes;
+};
+
+__host__ __device__ inline SlaTcPlan sla_tc_plan(int NC, int C, int D, int elt) {
+  SlaTcPlan p;
+  p.Cp = round16(C);
+  p.Dp = round16(D);
+  p.LDC = pad_ld(C);
+  p.LDF = p.Cp + 8;
+  p.LDD = pad_ld(D);
+  p.PSD = p.Dp + 1;
+  p.WQ = p.Cp * p.LDD;  // W_q,h (Cp, Dp)
+  p.WO = p.Dp * p.LDC;  // W_o,h (Dp, Cp)
+  size_t at = 0;
+  p.x = at;   at += (size_t)elt * NC * p.LDC;
+  p.g = at;   at += (size_t)elt * NC * p.LDC;
+  p.y = at;   at += (size_t)4 * NC * p.LDF;
+  p.p = at;   at += (size_t)4 * NC * p.PSD;
+  p.dp = at;  at += (size_t)4 * NC * p.PSD;
+  p.qc = at;  at += (size_t)elt * NC * p.LDD;
+  p.o = at;   at += (size_t)elt * NC * p.LDD;
+  p.dob = at; at += (size_t)elt * NC * p.LDD;
+  p.dq = at;  at += (size_t)elt * NC * p.LDD;
+  p.cs = at;  at += (size_t)elt * p.Dp * p.LDD;
+  at = (at + 15) / 16 * 16;
+  p.w = at;   at += (size_t)2 * elt * (p.WQ + p.WO);
+  p.bytes = at;
+  return p;
+}
+
+__host__ __device__ inline bool sla_tc_fits(int NC, int C, int D, int elt) {
+  return NC % 16 == 0 && sla_tc_plan(NC, C, D, elt).bytes <= kSmemMax;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) sla_bwd_q_panel_kernel(
+    const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ wqkv,
+    const T* __restrict__ wo, const float* __restrict__ ctx, T* __restrict__ dxq,
+    float* __restrict__ dctx, float* __restrict__ partial, int n, int C, int H, int D,
+    float scale, int NC) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SlaTcPlan pl = sla_tc_plan(NC, C, D, sizeof(T));
+  T* xs = reinterpret_cast<T*>(smem_raw + pl.x);     // (NC, Cp) token chunk
+  T* gs = reinterpret_cast<T*>(smem_raw + pl.g);     // (NC, Cp) its cotangent
+  float* ys = reinterpret_cast<float*>(smem_raw + pl.y);   // (NC, Cp) float32 sum of dq W_q^T
+  float* ps = reinterpret_cast<float*>(smem_raw + pl.p);   // (NC, Dp) q, then its softmax
+  float* dps = reinterpret_cast<float*>(smem_raw + pl.dp); // (NC, Dp) do ctx^T
+  T* qc = reinterpret_cast<T*>(smem_raw + pl.qc);    // (NC, Dp) round(p * scale)
+  T* os = reinterpret_cast<T*>(smem_raw + pl.o);     // (NC, Dp) round(o)
+  T* dos = reinterpret_cast<T*>(smem_raw + pl.dob);  // (NC, Dp) round(do)
+  T* dqs = reinterpret_cast<T*>(smem_raw + pl.dq);   // (NC, Dp) round(dq)
+  T* cs = reinterpret_cast<T*>(smem_raw + pl.cs);    // (Dp, Dp) round(ctx_h)
+  T* wbuf = reinterpret_cast<T*>(smem_raw + pl.w);   // 2 x (W_q,h | W_o,h)
+  const int Cp = pl.Cp, Dp = pl.Dp, LDC = pl.LDC, LDF = pl.LDF, LDD = pl.LDD, PSD = pl.PSD;
+
+  const int frame = blockIdx.x, frames = gridDim.x;
+  const int cta = blockIdx.y * frames + frame;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int HD = H * D, W3 = 3 * HD;
+  float* pwq = partial + (size_t)cta * 2 * C * HD;  // dW_q (C, HD)
+  float* pwo = pwq + (size_t)C * HD;                // dW_o (HD, C)
+  float* dc = dctx + (size_t)cta * H * D * D;       // this CTA's dctx partial (H, D, D)
+  for (int i = tid; i < 2 * C * HD; i += nth) pwq[i] = 0.f;
+  for (int i = tid; i < H * D * D; i += nth) dc[i] = 0.f;
+  const int nchunks = (n + NC - 1) / NC, per = (nchunks + gridDim.y - 1) / gridDim.y;
+  const int n_end = min(n, (int)(blockIdx.y + 1) * per * NC);
+
+  auto load_head = [&](int h) {  // W_q,h and W_o,h into buffer h % 2
+    T* wq = wbuf + (size_t)(h & 1) * (pl.WQ + pl.WO);
+    stage(wq, LDD, wqkv + (size_t)h * D, W3, C, D, Cp, Dp);
+    stage(wq + pl.WQ, LDC, wo + (size_t)h * D * C, C, D, C, Dp, Cp);
+    cp_async_commit();
+  };
+
+  for (int n0 = blockIdx.y * per * NC; n0 < n_end; n0 += NC) {
+    const int nc = min(NC, n - n0);
+    const size_t base = ((size_t)frame * n + n0) * C;
+    __syncthreads();  // the partials are zeroed and the previous chunk consumed
+    stage(xs, LDC, x + base, C, nc, C, NC, Cp);
+    stage(gs, LDC, g + base, C, nc, C, NC, Cp);
+    load_head(0);
+    for (int i = tid; i < NC * Cp; i += nth) ys[(i / Cp) * LDF + i % Cp] = 0.f;
+
+    for (int h = 0; h < H; ++h) {
+      cp_async_wait_all();
+      __syncthreads();  // head h's weights have landed; the previous head is done with cs
+      if (h + 1 < H) load_head(h + 1);
+      const T* wq = wbuf + (size_t)(h & 1) * (pl.WQ + pl.WO);
+      const T* wop = wq + pl.WQ;
+      const float* ch = ctx + ((size_t)frame * H + h) * D * D;
+      for (int i = tid; i < Dp * Dp; i += nth) {
+        const int d = i / Dp, e = i - d * Dp;
+        cs[d * LDD + e] = from_f<T>(d < D && e < D ? ch[d * D + e] : 0.f);
+      }
+      // q = x W_q,h (float32, into its softmax) and do = round(g W_o,h^T).
+      panel_mma<false, true>(xs, LDC, wq, LDD, NC, Dp, Cp, [=](int r, int c, float v0, float v1) {
+        ps[r * PSD + c] = v0;
+        ps[r * PSD + c + 1] = v1;
+      });
+      panel_mma<false, false>(gs, LDC, wop, LDC, NC, Dp, Cp, [=](int r, int c, float v0, float v1) {
+        st2(dos + r * LDD + c, v0, v1);
+      });
+      __syncthreads();
+
+      // Softmax over each token's D features (float32), and qc = round(p * scale); zeros past the edges.
+      // Eight lanes per token, each taking the features d = lane, lane + 8, ... (D <= 64).
+      for (int r0 = 0; r0 < NC; r0 += nth / 8) {
+        const int r = r0 + (tid >> 3), sub = tid & 7;
+        const bool live = r < nc, in = r < NC;
+        float* q = ps + (in ? r : 0) * PSD;
+        T* qr = qc + (in ? r : 0) * LDD;
+        float m = -INFINITY, sum = 0.f;
+        for (int d = sub; d < D; d += 8)
+          if (live) m = fmaxf(m, q[d]);
+        m = max8(m);
+        for (int d = sub; d < D; d += 8)
+          if (live) {
+            q[d] = expf(q[d] - m);
+            sum += q[d];
+          }
+        sum = sum8(sum);
+        for (int d = sub; d < Dp; d += 8) {
+          if (live && d < D) {
+            q[d] = q[d] / sum;
+            qr[d] = from_f<T>(q[d] * scale);
+          } else if (in) {
+            qr[d] = from_f<T>(0.f);
+          }
+        }
+      }
+      __syncthreads();
+
+      // o = round(qc ctx), dctx_h += qc^T do, dp = do ctx^T.
+      panel_mma<false, true>(qc, LDD, cs, LDD, NC, Dp, Dp, [=](int r, int c, float v0, float v1) {
+        st2(os + r * LDD + c, v0, v1);
+      });
+      panel_mma_add<true, true>(qc, LDD, dos, LDD, Dp, Dp, NC, dc + (size_t)h * D * D, D, D, D);
+      panel_mma<false, false>(dos, LDD, cs, LDD, NC, Dp, Dp, [=](int r, int c, float v0, float v1) {
+        dps[r * PSD + c] = v0;
+        dps[r * PSD + c + 1] = v1;
+      });
+      __syncthreads();
+
+      // dW_o,h += o^T g; dq = p * (dp * scale - sum_D(dp * scale * p)), rounded, per token.
+      panel_mma_add<true, true>(os, LDD, gs, LDC, Dp, Cp, NC, pwo + (size_t)h * D * C, C, D, C);
+      for (int r0 = 0; r0 < NC; r0 += nth / 8) {  // eight lanes per token, as for the softmax
+        const int r = r0 + (tid >> 3), sub = tid & 7;
+        const bool live = r < nc, in = r < NC;
+        const float* p = ps + (in ? r : 0) * PSD;
+        const float* dp = dps + (in ? r : 0) * PSD;
+        T* dq = dqs + (in ? r : 0) * LDD;
+        float sum = 0.f;
+        for (int d = sub; d < D; d += 8)
+          if (live) sum += dp[d] * scale * p[d];
+        sum = sum8(sum);
+        for (int d = sub; d < Dp; d += 8) {
+          if (live && d < D) dq[d] = from_f<T>(p[d] * (dp[d] * scale - sum));
+          else if (in) dq[d] = from_f<T>(0.f);
+        }
+      }
+      __syncthreads();
+
+      // dW_q,h += x^T dq;  y += dq W_q,h^T.
+      panel_mma_add<true, true>(xs, LDC, dqs, LDD, Cp, Dp, NC, pwq + (size_t)h * D, HD, C, D);
+      panel_mma_add<false, false>(dqs, LDD, wq, LDD, NC, Cp, Dp, ys, LDF, NC, Cp);
+    }
+    __syncthreads();
+    for (int i = tid; i < nc * C; i += nth) {
+      const int r = i / C, c = i - r * C;
+      dxq[base + i] = from_f<T>(to_f(gs[r * LDC + c]) + ys[r * LDF + c]);
+    }
+  }
+}
+
 // k and v projections of head h for a chunk: ks float32, vs rounded.
 template <typename T>
 __device__ __forceinline__ void project_kv(const float* xs, const T* __restrict__ wqkv, float* ks,
@@ -662,15 +860,29 @@ static int launch_bwd_q(const void* x, const void* g, const void* wqkv, const vo
                         const void* ctx, void* dxq, void* dctx_part, void* dctx, void* partial,
                         void* dwq, void* dwo, int frames, int splits, int n, int c, int heads,
                         int dim, float scale, int chunk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (3 * (size_t)chunk * c + 4 * (size_t)chunk * (dim + 1) + (size_t)dim * (dim + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      sla_bwd_q_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sla_bwd_q_kernel<T><<<dim3(frames, splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(wqkv),
-      static_cast<const T*>(wo), static_cast<const float*>(ctx), static_cast<T*>(dxq),
-      static_cast<float*>(dctx_part), static_cast<float*>(partial), n, c, heads, dim, scale, chunk);
+  cudaError_t err;
+  if (sla_tc_fits(chunk, c, dim, sizeof(T))) {
+    const size_t smem = sla_tc_plan(chunk, c, dim, sizeof(T)).bytes;
+    err = cudaFuncSetAttribute(sla_bwd_q_panel_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sla_bwd_q_panel_kernel<T><<<dim3(frames, splits), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(wqkv),
+        static_cast<const T*>(wo), static_cast<const float*>(ctx), static_cast<T*>(dxq),
+        static_cast<float*>(dctx_part), static_cast<float*>(partial), n, c, heads, dim, scale,
+        chunk);
+  } else {
+    const size_t smem = sizeof(float) *
+        (3 * (size_t)chunk * c + 4 * (size_t)chunk * (dim + 1) + (size_t)dim * (dim + 1));
+    err = cudaFuncSetAttribute(sla_bwd_q_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sla_bwd_q_kernel<T><<<dim3(frames, splits), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(wqkv),
+        static_cast<const T*>(wo), static_cast<const float*>(ctx), static_cast<T*>(dxq),
+        static_cast<float*>(dctx_part), static_cast<float*>(partial), n, c, heads, dim, scale,
+        chunk);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int hd = heads * dim;

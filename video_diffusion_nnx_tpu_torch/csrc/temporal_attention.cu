@@ -425,7 +425,7 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
             s += *e;
             *e = rnd<T>(*e);
           }
-          pdb[(size_t)h * F * F + item] += s;
+          dbias_partial[((size_t)blockIdx.x * H + h) * F * F + item] += s;
         }
         __syncthreads();
       }
@@ -512,21 +512,382 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward with staged panels: the kernel above, redesigned (tensor cores in bf16).
+//
+// The same function and rounding points as `temporal_bwd_kernel<T, BIAS>`.
+// Every operand of the products that scale with c is already rounded to x's
+// type in the TPU kernel's math (x, g, W_qkv, W_o, q|k|v, o, do, dqkv), so in
+// bf16 `mma.sync` with float32 accumulators reproduces the rounding points;
+// only the order of the sums changes. Per head h the five width-scaling
+// products, through `panel_mma` (common.cuh):
+//     q|k|v = x W_qkv,h (+ b, rounded),  do = round(g W_o,h^T),
+//     dW_o,h += o^T g,  dW_qkv,h += x^T dqkv,  dx += dqkv W_qkv,h^T,
+// run on the tensor cores for bf16 panels and on the CUDA cores in float32
+// for float32 ones (TF32 would miss the float32 gates). The per-token f x f
+// attention products (logits, P V, P^T do, do V^T, ds k, ds^T q) are 12 f HD
+// of the 22 c HD + 12 f HD FLOPs per row; they stay on the CUDA cores in
+// float32, as do the softmax, its VJP and db_qkv from the unrounded dqkv: the
+// logits with their softmax, and do V^T with the VJP, take eight lanes per
+// row (shuffles for the row's maximum and sums); the other four one output
+// per thread.
+//
+// Staging. The tile's x and g rows go to shared memory once, in x's type
+// (`stage`, asynchronous 8-byte copies), padded with zeros to 16 rows and to
+// c rounded up to 16 columns. A head's weights go through a ring of two
+// buffers, one (c, D) or (D, c) part at a time in the order W_q, W_k, W_v,
+// W_o, W_q, W_k, W_v: part i+1 is copied asynchronously while part i is
+// multiplied, and each part costs one barrier (nine or ten per head in all).
+// The float32 dx accumulator (rows, c), the float32 probabilities and ds
+// (rows, f), and two float32 column-sum slots per thread (db_qkv, summed in a
+// fixed order) are float32 in both types. In bf16 the bottleneck (f = 64,
+// c = 256) takes 226 KB for one token; smaller shapes aim at two CTAs per SM.
+//
+// Weight gradients: each head's dW_qkv,h and dW_o,h are one product over the
+// tile's rows each, in registers, read-modify-written into the CTA's float32
+// partial once per head and tile (`panel_mma_add`: a thread reads its eight
+// elements before it writes them); the partials and `reduce_partials_kernel`
+// are as before, so runs stay bit-equal. Heads stay inside the tile loop:
+// splitting heads over CTAs would need a cross-CTA sum of dx as well.
+//
+// A shape whose one-token tile does not fit (in bf16 c above about 260 at
+// f = 64; in float32 about half that) takes the CUDA-core kernel above.
+
+struct TcBwdPlan {
+  int Rp, Cp, Dp, LDC, LDF, LDD, LDQ, WS;
+  size_t x, g, dx, qkv, dqkv, p, o, dob, cs, w, bytes;
+};
+
+__host__ __device__ inline TcBwdPlan tc_bwd_plan(int rows, int F, int C, int D, int elt) {
+  TcBwdPlan p;
+  p.Rp = round16(rows);
+  p.Cp = round16(C);
+  p.Dp = round16(D);
+  p.LDC = pad_ld(C);
+  p.LDF = p.Cp + 8;
+  p.LDD = pad_ld(D);
+  p.LDQ = pad_ld(3 * p.Dp);
+  p.WS = p.Cp * p.LDD > p.Dp * p.LDC ? p.Cp * p.LDD : p.Dp * p.LDC;
+  size_t at = 0;
+  p.x = at;    at += (size_t)elt * p.Rp * p.LDC;
+  p.g = at;    at += (size_t)elt * p.Rp * p.LDC;
+  p.dx = at;   at += (size_t)4 * p.Rp * p.LDF;
+  p.qkv = at;  at += (size_t)elt * p.Rp * p.LDQ;
+  p.dqkv = at; at += (size_t)elt * p.Rp * p.LDQ;
+  p.p = at;    at += (size_t)4 * p.Rp * (F + 1);
+  p.o = at;    at += (size_t)elt * p.Rp * p.LDD;
+  p.dob = at;  at += (size_t)elt * p.Rp * p.LDD;
+  p.cs = at;   at += (size_t)4 * 2 * kThreads;
+  p.w = at;    at += (size_t)2 * elt * p.WS;
+  p.bytes = at;
+  return p;
+}
+
+// The tensor-core kernel takes a shape when its tile of `bt` tokens fits shared memory and a
+// thread of the block is left for every column-sum slot (head dims up to 128).
+__host__ __device__ inline bool tc_bwd_fits(int bt, int F, int C, int D, int elt) {
+  return 2 * round16(D) <= kThreads && tc_bwd_plan(bt * F, F, C, D, elt).bytes <= kSmemMax;
+}
+
+// Two CTAs per SM in bf16 (128 registers a thread); float32 tiles mostly fill an SM alone.
+template <typename T, bool BIAS>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd_panel_kernel(
+    const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ wqkv,
+    const float* __restrict__ bqkv, const T* __restrict__ wo, const float* __restrict__ bias,
+    float* __restrict__ dbias_partial, T* __restrict__ dx, float* __restrict__ partial,
+    int tokens, int F, int C, int H, int D, int BT, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TcBwdPlan pl = tc_bwd_plan(BT * F, F, C, D, sizeof(T));
+  T* xs = reinterpret_cast<T*>(smem_raw + pl.x);      // (Rp, Cp) x
+  T* gs = reinterpret_cast<T*>(smem_raw + pl.g);      // (Rp, Cp) g
+  float* dxs = reinterpret_cast<float*>(smem_raw + pl.dx);  // (Rp, Cp) float32 sum of dqkv_h W_h^T
+  T* qkv = reinterpret_cast<T*>(smem_raw + pl.qkv);   // (Rp, 3Dp) q|k|v of head h, rounded
+  T* dqk = reinterpret_cast<T*>(smem_raw + pl.dqkv);  // (Rp, 3Dp) dq|dk|dv, rounded
+  float* pr = reinterpret_cast<float*>(smem_raw + pl.p);    // (Rp, F+1) probabilities, then ds
+  T* os = reinterpret_cast<T*>(smem_raw + pl.o);      // (Rp, Dp) o_h, rounded
+  T* dos = reinterpret_cast<T*>(smem_raw + pl.dob);   // (Rp, Dp) do, rounded
+  float* csum = reinterpret_cast<float*>(smem_raw + pl.cs); // (2, threads) column-sum slots
+  T* wbuf = reinterpret_cast<T*>(smem_raw + pl.w);    // 2 x WS, the weight ring
+  const int Rp = pl.Rp, Cp = pl.Cp, Dp = pl.Dp, LDC = pl.LDC, LDF = pl.LDF, LDD = pl.LDD,
+            LDQ = pl.LDQ, WS = pl.WS, PS = F + 1;
+
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int HD = H * D, W3 = 3 * HD, D3 = 3 * D;
+  // This CTA's partial: dW_qkv (C, 3HD) packed | db_qkv (3HD) | dW_o (HD, C) | db_o (C); the
+  // offsets are taken where they are used, which keeps the kernel within 128 registers.
+  float* pw = partial + (size_t)blockIdx.x * ((size_t)C * W3 + W3 + (size_t)HD * C + C);
+  for (size_t i = tid; i < (size_t)C * W3 + W3 + (size_t)HD * C + C; i += nth) pw[i] = 0.f;
+  if (BIAS)
+    for (int i = tid; i < H * F * F; i += nth) dbias_partial[(size_t)blockIdx.x * H * F * F + i] = 0.f;
+  const float scale_q = rnd<T>(scale);
+  const int ntiles = (tokens + BT - 1) / BT;
+  // Column-sum slots: dv by (group, d) with Gv groups, dq|dk by (group, j) with Gqk groups.
+  const int Gv = max(1, nth / Dp), Gqk = max(1, nth / (2 * Dp));
+
+  // Weight part s of head h (s = 0..6: W_q, W_k, W_v, W_o, W_q, W_k, W_v) into ring slot i % 2.
+  auto load_part = [&](int h, int s, int i) {
+    T* dst = wbuf + (size_t)(i & 1) * WS;
+    if (s == 3) {
+      stage(dst, LDC, wo + (size_t)h * D * C, C, D, C, Dp, Cp);  // (Dp, Cp): rows of W_o,h
+    } else {
+      const int part = s < 3 ? s : s - 4;
+      stage(dst, LDD, wqkv + (size_t)part * HD + h * D, W3, C, D, Cp, Dp);  // (Cp, Dp)
+    }
+    cp_async_commit();
+  };
+  auto part_ready = [&](int i) {  // wait for part i, and for everyone to be done with slot (i+1) % 2
+    cp_async_wait_all();
+    __syncthreads();
+    return wbuf + (size_t)(i & 1) * WS;
+  };
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int t0 = tile * BT;
+    const int rows = min(BT, tokens - t0) * F;
+    const size_t base = (size_t)t0 * F * C;
+    __syncthreads();  // the partials are zeroed and the previous tile consumed
+    stage(xs, LDC, x + base, C, rows, C, Rp, Cp);
+    stage(gs, LDC, g + base, C, rows, C, Rp, Cp);
+    load_part(0, 0, 0);
+    for (int i = tid; i < Rp * Cp; i += nth) dxs[(i / Cp) * LDF + i % Cp] = 0.f;
+
+    for (int h = 0; h < H; ++h) {
+      const int i0 = 7 * h;
+      // 1. q|k|v = round(x W_part + b) (q then scaled and rounded again), on the tensor cores.
+      for (int part = 0; part < 3; ++part) {
+        const T* w = part_ready(i0 + part);
+        load_part(h, part + 1, i0 + part + 1);
+        const float* bb = bqkv + part * HD + h * D;
+        T* dst = qkv + part * Dp;
+        panel_mma<false, true>(xs, LDC, w, LDD, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
+          float a = 0.f, b = 0.f;
+          if (c < D) {
+            a = rnd<T>(v0 + bb[c]);
+            b = rnd<T>(v1 + bb[c + 1]);
+            if (part == 0) {
+              a = a * scale_q;
+              b = b * scale_q;
+            }
+          }
+          st2(dst + (size_t)r * LDQ + c, a, b);
+        });
+      }
+
+      // 2. W_o,h has landed and q|k|v is complete: do = round(g W_o,h^T) on the tensor cores, and
+      // the logits and their float32 softmax, kept unrounded for the VJP.
+      {
+        const T* w = part_ready(i0 + 3);
+        load_part(h, 4, i0 + 4);
+        panel_mma<false, false>(gs, LDC, w, LDC, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
+          st2(dos + (size_t)r * LDD + c, v0, v1);
+        });
+        // Eight lanes per row, each taking the frames j = lane, lane + 8, ... (F <= 64).
+        for (int r0 = 0; r0 < rows; r0 += nth / 8) {
+          const int row = r0 + (tid >> 3), sub = tid & 7;
+          const bool live = row < rows;
+          const int rr = live ? row : rows - 1, tk = rr / F;
+          const T* q = qkv + (size_t)rr * LDQ;
+          const T* kb = qkv + (size_t)tk * F * LDQ + Dp;
+          const float* brow = BIAS ? bias + ((size_t)h * F + (rr - tk * F)) * F : nullptr;
+          float sv[8], m = -INFINITY, sum = 0.f;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int j = sub + 8 * u;
+            sv[u] = 0.f;
+            if (live && j < F) {
+              sv[u] = dot_rows(q, kb + (size_t)j * LDQ, D) + (BIAS ? brow[j] : 0.f);
+              m = fmaxf(m, sv[u]);
+            }
+          }
+          m = max8(m);
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            if (live && sub + 8 * u < F) {
+              sv[u] = expf(sv[u] - m);
+              sum += sv[u];
+            }
+          sum = sum8(sum);
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            if (live && sub + 8 * u < F) pr[(size_t)rr * PS + sub + 8 * u] = sv[u] / sum;
+        }
+      }
+      __syncthreads();
+
+      // 3. o_h = round(round(P) V) and dv = round(P)^T do (unrounded dv summed per column in a
+      // slot of its own, then rounded); padded rows and columns are written as zeros.
+      for (int item = tid; item < Rp * Dp; item += nth) {
+        const int row = item / Dp, d = item - row * Dp;
+        float s = 0.f;
+        if (row < rows && d < D) {
+          const int tk = row / F;
+          const float* p = pr + (size_t)row * PS;
+          const T* vb = qkv + (size_t)tk * F * LDQ + 2 * Dp + d;
+          for (int j = 0; j < F; ++j) s += rnd<T>(p[j]) * to_f(vb[(size_t)j * LDQ]);
+        }
+        os[(size_t)row * LDD + d] = from_f<T>(s);
+      }
+      if (tid < Gv * Dp) {
+        const int grp = tid / Dp, d = tid - grp * Dp;
+        float cs = 0.f;
+        for (int row = grp; row < Rp; row += Gv) {
+          float s = 0.f;
+          if (row < rows && d < D) {
+            const int tk = row / F, j = row - tk * F;
+            const float* pc = pr + (size_t)tk * F * PS + j;
+            const T* ob = dos + (size_t)tk * F * LDD + d;
+            for (int i = 0; i < F; ++i) s += rnd<T>(pc[(size_t)i * PS]) * to_f(ob[(size_t)i * LDD]);
+          }
+          cs += s;
+          dqk[(size_t)row * LDQ + 2 * Dp + d] = from_f<T>(s);
+        }
+        csum[tid] = cs;
+      }
+      __syncthreads();
+
+      // 4. dW_o,h += o_h^T g on the tensor cores, once per head and tile; and, per row,
+      // ds = P * (dattn - sum_j dattn P) with dattn = do V^T, over P (rounded unless a bias
+      // needs the unrounded ds for dbias).
+      panel_mma_add<true, true>(os, LDD, gs, LDC, Dp, Cp, Rp, pw + (size_t)C * W3 + W3 + (size_t)h * D * C, C,
+                             D, C);  // dW_o,h
+      for (int r0 = 0; r0 < rows; r0 += nth / 8) {  // eight lanes per row, as for the softmax
+        const int row = r0 + (tid >> 3), sub = tid & 7;
+        const bool live = row < rows;
+        const int rr = live ? row : rows - 1, tk = rr / F;
+        const T* dob = dos + (size_t)rr * LDD;
+        const T* vb = qkv + (size_t)tk * F * LDQ + 2 * Dp;
+        float* p = pr + (size_t)rr * PS;
+        float da[8], sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = sub + 8 * u;
+          da[u] = 0.f;
+          if (live && j < F) {
+            da[u] = dot_rows(dob, vb + (size_t)j * LDQ, D);
+            sum += da[u] * p[j];
+          }
+        }
+        sum = sum8(sum);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = sub + 8 * u;
+          if (live && j < F) {
+            const float ds = p[j] * (da[u] - sum);
+            p[j] = BIAS ? ds : rnd<T>(ds);
+          }
+        }
+      }
+      __syncthreads();
+
+      // 4b. dbias[h] += the tile's token sum of the unrounded ds, in token order; ds rounds in place.
+      if (BIAS) {
+        const int nt = rows / F;
+        for (int item = tid; item < F * F; item += nth) {
+          const int i = item / F, j = item - i * F;
+          float s = 0.f;
+          for (int tk = 0; tk < nt; ++tk) {
+            float* e = pr + (size_t)(tk * F + i) * PS + j;
+            s += *e;
+            *e = rnd<T>(*e);
+          }
+          dbias_partial[((size_t)blockIdx.x * H + h) * F * F + item] += s;
+        }
+        __syncthreads();
+      }
+
+      // 5. dq = (ds k) * scale and dk = ds^T q, by (group, column): the unrounded values summed
+      // per column into the thread's slot, the rounded ones into dq|dk.
+      if (tid < Gqk * 2 * Dp) {
+        const int grp = tid / (2 * Dp), j = tid - grp * 2 * Dp;
+        const int d = j < Dp ? j : j - Dp;
+        float cs = 0.f;
+        for (int row = grp; row < Rp; row += Gqk) {
+          float s = 0.f;
+          if (row < rows && d < D) {
+            const int tk = row / F, i0r = row - tk * F;
+            if (j < Dp) {
+              const float* p = pr + (size_t)row * PS;
+              const T* kb = qkv + (size_t)tk * F * LDQ + Dp + d;
+              for (int jj = 0; jj < F; ++jj) s += p[jj] * to_f(kb[(size_t)jj * LDQ]);
+              s *= scale;
+            } else {
+              const float* pc = pr + (size_t)tk * F * PS + i0r;
+              const T* qb = qkv + (size_t)tk * F * LDQ + d;
+              for (int i = 0; i < F; ++i) s += pc[(size_t)i * PS] * to_f(qb[(size_t)i * LDQ]);
+            }
+          }
+          cs += s;
+          dqk[(size_t)row * LDQ + j] = from_f<T>(s);
+        }
+        csum[kThreads + tid] = cs;
+      }
+
+      // 6. Per part of dqkv (W_q, W_k, W_v again): dW_part,h += x^T dpart and dx += dpart W_part^T,
+      // both on the tensor cores; with the first part, db_qkv += the column sums in group order.
+      for (int part = 0; part < 3; ++part) {
+        const T* w = part_ready(i0 + 4 + part);
+        if (part < 2) load_part(h, 5 + part, i0 + 5 + part);
+        else if (h + 1 < H) load_part(h + 1, 0, i0 + 7);
+        if (part == 0) {
+          for (int j = tid; j < D3; j += nth) {
+            const int pt = j / D, d = j - pt * D;
+            float s = 0.f;
+            if (pt < 2) {
+              for (int grp = 0; grp < Gqk; ++grp) s += csum[kThreads + grp * 2 * Dp + pt * Dp + d];
+            } else {
+              for (int grp = 0; grp < Gv; ++grp) s += csum[grp * Dp + d];
+            }
+            pw[(size_t)C * W3 + pt * HD + h * D + d] += s;  // db_qkv
+          }
+        }
+        const T* dp = dqk + part * Dp;
+        panel_mma_add<true, true>(xs, LDC, dp, LDQ, Cp, Dp, Rp, pw + part * HD + h * D, W3, C, D);
+        panel_mma_add<false, false>(dp, LDQ, w, LDD, Rp, Cp, Dp, dxs, LDF, Rp, Cp);
+      }
+    }
+    __syncthreads();
+
+    // db_o += token sum of g; dx = round(g + dx_attention).
+    for (int c = tid; c < C; c += nth) {
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s += to_f(gs[(size_t)r * LDC + c]);
+      pw[(size_t)C * W3 + W3 + (size_t)HD * C + c] += s;  // db_o
+    }
+    for (int i = tid; i < rows * C; i += nth) {
+      const int r = i / C, c = i - r * C;
+      dx[base + i] = from_f<T>(to_f(gs[(size_t)r * LDC + c]) + dxs[(size_t)r * LDF + c]);
+    }
+  }
+}
+
 template <typename T, bool BIAS>
 static int launch_bwd(const void* x, const void* g, const void* wqkv, const void* bqkv,
                       const void* wo, const void* bias, void* dbias_partial, void* dbias, void* dx,
                       void* partial, void* grads, int tokens, int f, int c, int heads, int dim,
                       int bt, int grid, float scale, cudaStream_t stream) {
-  const size_t rows = (size_t)bt * f;
-  const size_t smem = sizeof(float) * rows * (2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      temporal_bwd_kernel<T, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  temporal_bwd_kernel<T, BIAS><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<const T*>(wo), static_cast<const float*>(bias),
-      static_cast<float*>(dbias_partial), static_cast<T*>(dx), static_cast<float*>(partial), tokens,
-      f, c, heads, dim, bt, scale);
+  cudaError_t err;
+  if (tc_bwd_fits(bt, f, c, dim, sizeof(T))) {
+    const size_t smem = tc_bwd_plan(bt * f, f, c, dim, sizeof(T)).bytes;
+    err = cudaFuncSetAttribute(temporal_bwd_panel_kernel<T, BIAS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    temporal_bwd_panel_kernel<T, BIAS><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(wqkv),
+        static_cast<const float*>(bqkv), static_cast<const T*>(wo), static_cast<const float*>(bias),
+        static_cast<float*>(dbias_partial), static_cast<T*>(dx), static_cast<float*>(partial),
+        tokens, f, c, heads, dim, bt, scale);
+  } else {
+    const size_t rows = (size_t)bt * f;
+    const size_t smem = sizeof(float) * rows * (2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1);
+    err = cudaFuncSetAttribute(temporal_bwd_kernel<T, BIAS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    temporal_bwd_kernel<T, BIAS><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(wqkv),
+        static_cast<const float*>(bqkv), static_cast<const T*>(wo), static_cast<const float*>(bias),
+        static_cast<float*>(dbias_partial), static_cast<T*>(dx), static_cast<float*>(partial),
+        tokens, f, c, heads, dim, bt, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t hd = (size_t)heads * dim;

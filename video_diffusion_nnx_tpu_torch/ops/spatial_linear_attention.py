@@ -19,7 +19,10 @@ The backward is two more kernels, ``sla_bwd_q`` (the q and output
 projections, and the contexts' cotangent) and ``sla_bwd_kv`` (the k and v
 projections through the token-axis softmax), with plain versions
 ``sla_bwd_q_plain`` and ``sla_bwd_kv_plain`` that keep the rounding points
-of the JAX ``_bwd_q_kernel`` and ``_bwd_kv_kernel``. On CUDA tensors the
+of the JAX ``_bwd_q_kernel`` and ``_bwd_kv_kernel``. ``sla_bwd_q`` runs the
+staged kernel (``sla_bwd_q_panel_kernel``: panels in x's type in shared memory,
+the products on the tensor cores in bf16) wherever a 16-token chunk fits, else
+the CUDA-core one; ``q_plan`` chooses. On CUDA tensors the
 public op is ``_SpatialLinearAttention``: its forward keeps the contexts and
 the k softmax's statistics (from the context kernel), so the backward
 recomputes nothing; at batch 8 of the flagship that is 2.6 MB per spatial
@@ -42,6 +45,7 @@ _SMEM_TARGET = 100 * 1024
 _SMEM_MAX = 227 * 1024
 MAX_DIM = 64  # the context kernel keeps D*D / 256 accumulators per thread in registers
 _WORKSPACE_MAX = 128 * 2**20  # bytes of per-CTA weight-gradient partials in one backward kernel
+_TC_SMEM_TARGET = 113 * 1024  # two staged CTAs per SM where a chunk allows it
 
 launches = {"sla_context": 0, "sla_out": 0, "sla_bwd_q": 0, "sla_bwd_kv": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -163,12 +167,51 @@ def _chunk(per_token: int, fixed: int, n: int) -> int:
     return max(4, min(64, fit - fit % 4, -(-n // 4) * 4))
 
 
-def _splits(frames: int, n: int, chunk: int, partial_floats: int, device) -> int:
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _splits(frames: int, n: int, chunk: int, partial_floats: int, sms: int) -> int:
     """CTAs per frame for the backward kernels: about two per SM over all frames, within the workspace."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = -(-2 * sms // frames)
     cap = max(1, _WORKSPACE_MAX // (4 * partial_floats * frames))
     return max(1, min(want, -(-n // chunk), cap))
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _sla_tc_bytes(chunk: int, c: int, dim: int, elt: int) -> int:
+    """Shared memory of the staged ``sla_bwd_q`` at ``chunk`` tokens, ``elt``-byte panels (``sla_tc_plan``)."""
+    cp, dp = _round16(c), _round16(dim)
+    ldc, ldd = cp + 8, dp + 8
+    panels = elt * (2 * chunk * ldc + 4 * chunk * ldd + dp * ldd) + 4 * chunk * (cp + 8) + 2 * 4 * chunk * (dp + 1)
+    return -(-panels // 16) * 16 + 2 * elt * (cp * ldd + dp * ldc)
+
+
+def q_plan(frames: int, n: int, c: int, dim: int, heads: int, bf16: bool, sms: int) -> dict:
+    """The launch of ``sla_bwd_q`` for ``sms`` SMs: route, tokens per chunk, CTAs per frame, shared memory.
+
+    The staged kernel ("staged": panels in x's type, chunks of a multiple of 16 tokens, the
+    products on the tensor cores in bf16) takes every shape whose 16-token chunk fits; the rest
+    the CUDA-core kernel ("simt"). Raises where the CUDA-core kernel's 4-token chunk does not fit,
+    as before. The C launcher makes the same choice (``sla_tc_fits``).
+    """
+    hd = heads * dim
+    chunk = _chunk(4 * (3 * c + 4 * (dim + 1)), 4 * dim * (dim + 1), n)  # raises where 4 tokens do not fit
+    smem = 4 * (3 * chunk * c + 4 * chunk * (dim + 1) + dim * (dim + 1))
+    route, elt = "simt", 2 if bf16 else 4
+    if _sla_tc_bytes(16, c, dim, elt) <= _SMEM_MAX:
+        route = "staged"
+        chunk = 16
+        while chunk < min(128, _round16(n)) and _sla_tc_bytes(chunk + 16, c, dim, elt) <= _TC_SMEM_TARGET:
+            chunk += 16
+        want = -(-2 * sms // frames)
+        while chunk > 16 and -(-n // chunk) < want:  # smaller chunks where a frame has too few for the SMs
+            chunk -= 16
+        smem = _sla_tc_bytes(chunk, c, dim, elt)
+    return {"route": route, "chunk": chunk, "splits": _splits(frames, n, chunk, 2 * c * hd, sms), "smem": smem}
 
 
 def _fn(name: str, argtypes: list):
@@ -244,8 +287,9 @@ def sla_bwd_q(xt, g, wqkv, wo, ctx, heads: int, dim: int, scale: float):
     wqkv = wqkv.to(xt.dtype).contiguous()
     wo = wo.to(xt.dtype).contiguous()
     ctx = ctx.float().contiguous()
-    chunk = _chunk(4 * (3 * c + 4 * (dim + 1)), 4 * dim * (dim + 1), n)
-    splits = _splits(frames, n, chunk, 2 * c * hd, xt.device)
+    plan = q_plan(frames, n, c, dim, heads, xt.dtype == torch.bfloat16, _sms(xt.device))
+    chunk, splits = plan["chunk"], plan["splits"]
+    xt, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xt, g))  # copied in 8-byte chunks
     f32 = dict(device=xt.device, dtype=torch.float32)
     dxq = torch.empty_like(xt)
     dctx_part = torch.empty(splits, frames, heads, dim, dim, **f32)
@@ -285,7 +329,7 @@ def sla_bwd_kv(xt, wqkv, dctx, dxq, stats, heads: int, dim: int):
     dxq = dxq.to(xt.dtype).contiguous()
     stats = stats.float().contiguous()
     chunk = _chunk(4 * (2 * c + 4 * (dim + 1)), 4 * (dim * (dim + 1) + 2 * dim + hd), n)
-    splits = _splits(frames, n, chunk, 2 * c * hd, xt.device)
+    splits = _splits(frames, n, chunk, 2 * c * hd, _sms(xt.device))
     f32 = dict(device=xt.device, dtype=torch.float32)
     dx = torch.empty_like(xt)
     rho_part = torch.empty(splits, frames, hd, **f32)

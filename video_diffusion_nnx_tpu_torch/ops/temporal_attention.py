@@ -13,7 +13,11 @@ Two kernel families, chosen by the attended length alone (the JAX
 ``_route``): up to ``MAX_FRAMES`` frames the dense kernels of
 ``csrc/temporal_attention.cu`` hold a token's whole f x f panel; longer clips
 take the blockwise (online-softmax) kernels of ``csrc/temporal_blockwise.cu``,
-which walk K/V in blocks of ``KV_BLOCK`` frames.
+which walk K/V in blocks of ``KV_BLOCK`` frames. The dense backward has two
+kernels: the staged one (``temporal_bwd_panel_kernel``: panels in x's type in
+shared memory, the width-scaling products on the tensor cores in bf16) wherever
+one token's tile fits, else the CUDA-core one; ``bwd_plan`` chooses the route
+and the tile for a given number of SMs.
 
 Dispatch has no hidden fallback. A CPU tensor takes the family's plain
 version, differentiated by autograd; a CUDA tensor goes through
@@ -49,6 +53,8 @@ _SMEM_TARGET = 100 * 1024  # two CTAs per SM where a tile allows it
 _SMEM_MAX = 227 * 1024
 _WORKSPACE_MAX = 128 * 2**20  # bytes of per-CTA weight-gradient partials in one backward
 _DBIAS_WORKSPACE_MAX = 256 * 2**20  # bytes of per-CTA dbias partials (H*f*f floats each) in one backward
+_THREADS = 256  # threads of every CTA (kThreads in csrc/common.cuh)
+_TC_SMEM_TARGET = 113 * 1024  # two staged backward CTAs per SM where a tile allows it
 
 launches = {"temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
             "temporal_blockwise_fwd": 0, "temporal_blockwise_bwd": 0,
@@ -245,12 +251,16 @@ def _check_blockwise(f: int, dim: int) -> None:
 def _blockwise_grid(tokens: int, f: int, dim: int, backward: bool, device: torch.device) -> int:
     """CTAs of the persistent grid: as many as are resident at once, at most one per token."""
     smem = 4 * _blockwise_floats(f, dim, KV_BLOCK, backward)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sms(device)
     return max(1, min(tokens, sms * max(1, min(4, _SMEM_MAX // (smem + 1024)))))
 
 
-def _tile(tokens: int, f: int, c: int, dim: int, device: torch.device, row_floats: int | None = None) -> int:
-    """Tokens per CTA: as many as fit the shared-memory target, spread over the SMs."""
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tile(tokens: int, f: int, c: int, dim: int, sms: int, row_floats: int | None = None) -> int:
+    """Tokens per CTA of the CUDA-core kernels: as many as fit the shared-memory target, spread over the SMs."""
     row_bytes = 4 * (row_floats if row_floats is not None else 2 * c + 3 * dim + 1 + f + 1)
     token_bytes = f * row_bytes
     if token_bytes > _SMEM_MAX:
@@ -259,9 +269,72 @@ def _tile(tokens: int, f: int, c: int, dim: int, device: torch.device, row_float
             "exceed shared memory"
         )
     fit = max(1, _SMEM_TARGET // token_bytes)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     spread = max(1, -(-tokens // (2 * sms)))
     return max(1, min(fit, spread, 64))
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _pad_ld(n: int) -> int:
+    """A bf16 panel's leading dimension (``pad_ld`` in csrc/common.cuh): n rounded up to 16, plus 8."""
+    return _round16(n) + 8
+
+
+def _tc_bwd_bytes(bt: int, f: int, c: int, dim: int, elt: int) -> int:
+    """Shared memory of the staged backward at ``bt`` tokens per tile and ``elt``-byte panels (``tc_bwd_plan``)."""
+    rp, cp, dp = _round16(bt * f), _round16(c), _round16(dim)
+    ldc, ldd, ldq = _pad_ld(c), _pad_ld(dim), _pad_ld(3 * dp)
+    ws = max(cp * ldd, dp * ldc)
+    return (elt * (2 * rp * ldc + 2 * rp * ldq + 2 * rp * ldd + 2 * ws) + 4 * rp * (cp + 8) + 4 * rp * (f + 1)
+            + 4 * 2 * _THREADS)
+
+
+def _tc_bwd_fits(bt: int, f: int, c: int, dim: int, elt: int) -> bool:
+    """``tc_bwd_fits``: the tile fits shared memory and every column-sum slot has a thread (head dims <= 128)."""
+    return 2 * _round16(dim) <= _THREADS and _tc_bwd_bytes(bt, f, c, dim, elt) <= _SMEM_MAX
+
+
+def _tc_fit(f: int, c: int, dim: int, elt: int, target: int) -> int:
+    """The most tokens (at most 64, at least 1) whose staged tile fits ``target`` bytes."""
+    fit = 1
+    while fit < 64 and _tc_bwd_bytes(fit + 1, f, c, dim, elt) <= target:
+        fit += 1
+    return fit
+
+
+def bwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms: int) -> dict:
+    """The dense backward's launch: route, tokens per tile, shared memory and grid, for ``sms`` SMs.
+
+    The staged kernel (``route`` "staged": panels in x's type, the products on the tensor cores in
+    bf16) takes every shape whose one-token tile fits; the rest the CUDA-core kernel ("simt").
+    Raises where the CUDA-core kernel cannot hold one token, which is where the staged one cannot
+    either. The C launcher makes the same choice from ``bt`` (``tc_bwd_fits``).
+    """
+    if dim % 4:
+        raise NotImplementedError(f"the temporal backward kernel takes head dims divisible by 4, not {dim}")
+    row_floats = 2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1
+    bt = _tile(tokens, f, c, dim, sms, row_floats)  # raises where one token does not fit
+    smem = 4 * bt * f * row_floats
+    route, elt = "simt", 2 if bf16 else 4
+    if _tc_bwd_fits(1, f, c, dim, elt):
+        route = "staged"
+        fit = _tc_fit(f, c, dim, elt, _TC_SMEM_TARGET)
+        if fit * f < 64:  # two CTAs per SM would leave tiles of few rows: one CTA of a larger tile instead
+            fit = _tc_fit(f, c, dim, elt, _SMEM_MAX - 1024)
+        bt = max(1, min(fit, -(-tokens // (2 * sms))))
+        unit = 16 // math.gcd(f, 16)  # whole 16-row blocks where the tile allows it
+        if bt >= unit:
+            bt -= bt % unit
+        smem = _tc_bwd_bytes(bt, f, c, dim, elt)
+    # two CTAs per SM where shared memory allows, except the float32 staged kernel, whose launch
+    # bounds leave it more than the 128 registers a thread that two CTAs would
+    per_sm = 2 if 2 * (smem + 1024) <= 228 * 1024 and (bf16 or route == "simt") else 1
+    total = c * 3 * heads * dim + 3 * heads * dim + heads * dim * c + c
+    grid = max(1, min(-(-tokens // bt), sms * per_sm, _WORKSPACE_MAX // (4 * total)))
+    return {"route": route, "bt": bt, "smem": smem, "grid": grid, "rows": bt * f,
+            "rows_padded": _round16(bt * f) if route == "staged" else bt * f}
 
 
 def _check(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> None:
@@ -303,7 +376,7 @@ def _launch(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> torch
     scale = 1.0 / math.sqrt(dim)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if f <= MAX_FRAMES:
-        bt = _tile(tokens, f, c, dim, x.device)
+        bt = _tile(tokens, f, c, dim, _sms(x.device))
         fn = _build.library("temporal_attention").temporal_attention_fwd
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
@@ -368,14 +441,9 @@ def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_b
         return tensors, [t.data_ptr() for t in tensors]
 
     if f <= MAX_FRAMES:
-        if dim % 4:
-            raise NotImplementedError(f"the temporal backward kernel takes head dims divisible by 4, not {dim}")
-        row_floats = 2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1
-        bt = _tile(tokens, f, c, dim, x.device, row_floats)
-        smem = 4 * bt * f * row_floats
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        per_sm = 2 if 2 * (smem + 1024) <= 228 * 1024 else 1
-        grid = max(1, min(-(-tokens // bt), sms * per_sm, _WORKSPACE_MAX // (4 * total)))
+        plan = bwd_plan(tokens, f, c, dim, heads, x.dtype == torch.bfloat16, _sms(x.device))
+        bt, grid = plan["bt"], plan["grid"]
+        x, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, g))  # copied in 8-byte chunks
         partial = torch.empty(grid, total, device=x.device, dtype=torch.float32)
         bias_t, bias_ptrs = bias_buffers(grid)  # at most 128 KB per CTA here: no cap of its own is needed
         fn = _build.library("temporal_attention").temporal_attention_bwd
