@@ -22,9 +22,10 @@ in one summary line (``PHASE <name>: ...``):
 6. backward: each backward kernel against its plain version at every shape
    the flagship training step (batch 8) gives it, and at one wide-frame
    shape, in bf16 and f32, TF32 off; CUDA-event times, each timed row's share
-   of its bound (``bound_share``) and per-step totals;
-   at the same inputs the forward kernels and the context kernel's softmax
-   statistics against their plain versions;
+   of its bound (``bound_share``) and per-step totals (``sla_bwd_kv`` also in
+   f32, what fixed math hands it); at the same inputs the forward kernels and
+   the context kernel's softmax statistics against their plain versions, and
+   the dense temporal forward's bf16 times per training step;
 7. grads: one ``p_losses`` and ``backward`` of the flagship Unet3D in bf16
    (batch 8) with the kernels, against the plain modules, both against f32;
    controls: the same checks catch an attention backward that is off;
@@ -93,7 +94,10 @@ in one summary line (``PHASE <name>: ...``):
 19. seq sample: the sampling CLI on one rank from rank 0's checkpoint,
     DDIM-10 at batch 1 and 32 frames;
 20. kernels line: one JSON object per kernel (launches over its train
-    phase, error, times, bound).
+    phase, error, times, bound, and ``design``: "staged" where every launch of
+    that train phase ran its staged kernel (panels in shared memory, tensor
+    cores in bf16), "cuda-core" where each ran the first version, both where
+    the shapes split, as the C entries reported each launch).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. Outputs go to chiprun_out/chip_smoke/ (small) and
@@ -316,6 +320,22 @@ def add_timing(row: dict, total: dict, count: int, err: float, ms: float, plain_
         total["t_ops"] += count * flops / peak * 1e3
 
 
+def route_counts(*mods) -> dict:
+    """Per kernel of the op modules ``mods``: (launches, of them those that ran the staged kernel)."""
+    return {k: (n, getattr(m, "staged", {}).get(k, 0)) for m in mods for k, n in m.launches.items()}
+
+
+def design(launches: int, staged: int) -> str:
+    """The kernel ``launches`` ran, from the route each launch's C entry reported: "staged" (panels in x's
+    type, the products on the tensor cores in bf16), "cuda-core" (the first version), or both."""
+    return "staged" if launches and staged == launches else "cuda-core" if staged == 0 else "staged/cuda-core"
+
+
+def design_since(before: dict, now: dict, name: str) -> str:
+    """The design of ``name``'s launches between two :func:`route_counts`."""
+    return design(now[name][0] - before[name][0], now[name][1] - before[name][1])
+
+
 def rand(torch, shape, seed: int, scale: float, dtype):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
@@ -332,7 +352,7 @@ def kernel_phase(torch, ta, sla) -> dict:
         check(math.isfinite(err) and err <= TOL[dtype],
               f"{name} at {shape} in {dtype}: max-abs error {err} over tolerance {TOL[dtype]}")
         row = {"kernel": name, "shape": shape, "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
-               "per_forward": count}
+               "per_forward": count, "design": design_since(before, route_counts(ta, sla), name)}
         if ms is not None:
             add_timing(row, agg[name], count, err, ms, plain_ms, nbytes, flops)
         rows.append(row)
@@ -349,6 +369,7 @@ def kernel_phase(torch, ta, sla) -> dict:
             wo = rand(torch, (hd, c), 4, hd ** -0.5, dtype)
             bo = rand(torch, (c,), 5, 0.1, torch.float32)
             args = (x, wqkv, bqkv, wo, bo, HEADS, DIM_HEAD)
+            before = route_counts(ta, sla)
             got = ta.fused_temporal_attention_block(*args)
             want = ta.temporal_attention_plain(*args)
             torch.cuda.synchronize()
@@ -366,6 +387,7 @@ def kernel_phase(torch, ta, sla) -> dict:
         for count, shape in SLA_SHAPES:
             b, f, hh, ww, c = shape
             frames, n = b * f, hh * ww
+            before = route_counts(ta, sla)
             x = rand(torch, (frames, n, c), 6, 0.5, dtype)
             wqkv = rand(torch, (c, 3 * hd), 7, c ** -0.5, dtype)
             wo = rand(torch, (hd, c), 8, hd ** -0.5, dtype)
@@ -496,6 +518,8 @@ def backward_phase(torch, ta, sla) -> dict:
     hd = HEADS * DIM_HEAD
     rows, agg = [], new_totals(BWD_KERNELS)
     fwd_err = {k: 0.0 for k in PER_FORWARD}  # the forward kernels at the training batch
+    fwd_step = new_totals(("temporal_attention_fwd",))  # the dense forward's bf16 times per training step
+    kv_f32 = new_totals(("sla_bwd_kv",))  # sla_bwd_kv in float32, what the fixed recipe hands it (one pass)
 
     def record_fwd(name, shape, dtype, err, tol, what="max-abs"):
         check(math.isfinite(err) and err <= tol, f"{name} at {shape} in {dtype}: {what} error {err} over {tol}")
@@ -505,16 +529,17 @@ def backward_phase(torch, ta, sla) -> dict:
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
 
-    def record(name, shape, dtype, outs, count, ms=None, plain_ms=None, nbytes=0.0, flops=0.0):
+    def record(name, shape, dtype, outs, count, ms=None, plain_ms=None, nbytes=0.0, flops=0.0, total=None,
+               peak=PEAK_BF16_FLOPS):
         rel = {k: _rel_err(a, w) for k, (a, w) in outs.items()}
         err = max(_max_abs(a, w) for a, w in outs.values())
         for k, r in rel.items():
             check(math.isfinite(r) and r <= BWD_TOL[dtype],
                   f"{name} {k} at {shape} in {dtype}: error {r} of its largest value, over {BWD_TOL[dtype]}")
         row = {"kernel": name, "shape": shape, "dtype": dtype, "rel_err": rel, "max_abs_err": err,
-               "tol": BWD_TOL[dtype], "per_step": count}
+               "tol": BWD_TOL[dtype], "per_step": count, "design": design_since(before, route_counts(ta, sla), name)}
         if ms is not None:
-            add_timing(row, agg[name], count, err, ms, plain_ms, nbytes, flops)
+            add_timing(row, agg[name] if total is None else total, count, err, ms, plain_ms, nbytes, flops, peak)
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
 
@@ -530,10 +555,21 @@ def backward_phase(torch, ta, sla) -> dict:
             wo = rand(torch, (hd, c), 4, hd ** -0.5, torch.float32)
             bo = rand(torch, (c,), 5, 0.1, torch.float32)
             fwd_args = (x, wqkv, bqkv, wo, bo, HEADS, DIM_HEAD)
+            before = route_counts(ta, sla)
             y = ta.fused_temporal_attention_block(*fwd_args)
-            record_fwd("temporal_attention_fwd", (b, s, f, c), dtype_name,
-                       _max_abs(y, ta.temporal_attention_plain(*fwd_args)), TOL[dtype_name])
+            err_f = _max_abs(y, ta.temporal_attention_plain(*fwd_args))
+            record_fwd("temporal_attention_fwd", (b, s, f, c), dtype_name, err_f, TOL[dtype_name])
             del y
+            if timed:  # the forward at the training batch, as the step runs it
+                row = {"kernel": "temporal_attention_fwd", "shape": (b, s, f, c), "dtype": dtype_name,
+                       "per_step": count, "design": design_since(before, route_counts(ta, sla), "temporal_attention_fwd")}
+                rows_n = b * s * f
+                add_timing(row, fwd_step["temporal_attention_fwd"], count, err_f,
+                           cuda_ms(torch, lambda: ta.fused_temporal_attention_block(*fwd_args), 10),
+                           cuda_ms(torch, lambda: ta.temporal_attention_plain(*fwd_args), 5, 1),
+                           elt * (2 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c), rows_n * (8 * c * hd + 4 * f * hd))
+                rows.append(row)
+                print("  " + json.dumps(row), flush=True)
             args = (x, g, wqkv, bqkv, wo, bo, HEADS, DIM_HEAD)
             got = ta.temporal_attention_bwd(*args)
             want = ta.temporal_attention_bwd_plain(*args)
@@ -553,6 +589,7 @@ def backward_phase(torch, ta, sla) -> dict:
         for count, shape in [*SLA_SHAPES, (0, WIDE_SLA_SHAPE)]:
             b, f, hh, ww, c = (B_TRAIN, *shape[1:]) if count else shape
             frames, n = b * f, hh * ww
+            before = route_counts(ta, sla)
             x = rand(torch, (frames, n, c), 6, 0.5, dtype)
             g = rand(torch, (frames, n, c), 10, 0.1, dtype)
             wqkv = rand(torch, (c, 3 * hd), 7, c ** -0.5, torch.float32)
@@ -572,30 +609,33 @@ def backward_phase(torch, ta, sla) -> dict:
             q_args = (x, g, wqkv, wo, ctx, HEADS, DIM_HEAD, 1.0)
             got_q = sla.sla_bwd_q(*q_args)
             want_q = sla.sla_bwd_q_plain(*q_args)
-            kv_args = (x, wqkv, got_q[1], got_q[0])
+            kv_args = (x, wqkv, ctx, got_q[1], got_q[0])
             got_kv = sla.sla_bwd_kv(*kv_args, stats, HEADS, DIM_HEAD)
             want_kv = sla.sla_bwd_kv_plain(*kv_args, HEADS, DIM_HEAD)
             torch.cuda.synchronize()
             outs_q = dict(zip(("dx_q", "dctx", "dwq", "dwo"), zip(got_q, want_q)))
             outs_kv = dict(zip(("dx", "dwk", "dwv"), zip(got_kv, want_kv)))
+            rows_n = frames * n
+            ctx_b = 4 * frames * HEADS * DIM_HEAD ** 2
+            # float32 also reads the forward's contexts, which give it rho (one pass)
+            kv_bytes = (elt * (3 * rows_n * c + 2 * c * hd) + ctx_b * (1 if timed else 2) + 4 * 2 * frames * hd
+                        + 4 * 2 * c * hd)
+            kv_flops = rows_n * (12 * c * hd + 4 * DIM_HEAD * hd)
+            ms_kv = cuda_ms(torch, lambda: sla.sla_bwd_kv(*kv_args, stats, HEADS, DIM_HEAD), 5, 1)
+            pl_kv = cuda_ms(torch, lambda: sla.sla_bwd_kv_plain(*kv_args, HEADS, DIM_HEAD), 5, 1)
             if timed:
-                rows_n = frames * n
-                ctx_b = 4 * frames * HEADS * DIM_HEAD ** 2
                 q_bytes = elt * (3 * rows_n * c + 2 * c * hd) + 2 * ctx_b + 4 * 2 * c * hd
                 q_flops = rows_n * (10 * c * hd + 6 * DIM_HEAD * hd)
-                kv_bytes = elt * (3 * rows_n * c + 2 * c * hd) + ctx_b + 4 * 2 * frames * hd + 4 * 2 * c * hd
-                kv_flops = rows_n * (12 * c * hd + 4 * DIM_HEAD * hd)
                 ms_q = cuda_ms(torch, lambda: sla.sla_bwd_q(*q_args), 5, 1)
                 pl_q = cuda_ms(torch, lambda: sla.sla_bwd_q_plain(*q_args), 5, 1)
-                ms_kv = cuda_ms(torch, lambda: sla.sla_bwd_kv(*kv_args, stats, HEADS, DIM_HEAD), 5, 1)
-                pl_kv = cuda_ms(torch, lambda: sla.sla_bwd_kv_plain(*kv_args, HEADS, DIM_HEAD), 5, 1)
                 record("sla_bwd_q", shape_r, dtype_name, outs_q, count, ms_q, pl_q, q_bytes, q_flops)
                 record("sla_bwd_kv", shape_r, dtype_name, outs_kv, count, ms_kv, pl_kv, kv_bytes, kv_flops)
-            else:
+            else:  # float32, what the fixed recipe hands sla_bwd_kv
                 record("sla_bwd_q", shape_r, dtype_name, outs_q, count)
-                record("sla_bwd_kv", shape_r, dtype_name, outs_kv, count)
+                record("sla_bwd_kv", shape_r, dtype_name, outs_kv, count, ms_kv, pl_kv, kv_bytes, kv_flops,
+                       kv_f32["sla_bwd_kv"], PEAK_F32_FLOPS)
             del x, g, got_q, want_q, got_kv, want_kv, outs_q, outs_kv
-    return {"rows": rows, "per_step": agg, "fwd_err": fwd_err}
+    return {"rows": rows, "per_step": agg, "fwd_err": fwd_err, "fwd_per_step": fwd_step, "f32_per_step": kv_f32}
 
 
 def blockwise_phase(torch, ta) -> dict:
@@ -715,7 +755,7 @@ def biased_phase(torch, ta) -> dict:
 
             # Forward.
             x = rand(torch, f_shape, 1, 0.5, dtype)
-            before = dict(ta.launches)
+            before, routes = dict(ta.launches), route_counts(ta)
             got = ta.fused_temporal_attention_block_biased(x, *w, bias, HEADS, DIM_HEAD)
             torch.cuda.synchronize()
             check(ta.launches[names[0]] == before[names[0]] + 1, f"f = {f} did not launch {names[0]}: {ta.launches}")
@@ -726,7 +766,7 @@ def biased_phase(torch, ta) -> dict:
                               ta.fused_temporal_attention_block(x, *w, HEADS, DIM_HEAD)),
                   f"{names[0]} at {f_shape} in {dtype_name}: a zero bias does not reproduce the unbiased kernel")
             row = {"kernel": names[0], "shape": f_shape, "dtype": dtype_name, "per_step": count, "max_abs_err": err,
-                   "tol": TOL[dtype_name]}
+                   "tol": TOL[dtype_name], "design": design_since(routes, route_counts(ta), names[0])}
             if not dense and dtype_name == "float32":
                 row["vs_dense_plain"] = _max_abs(got, ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD, pos_bias=bias))
                 check(row["vs_dense_plain"] <= TOL[dtype_name], f"{names[0]} at {f_shape} against the dense plain version: {row}")
@@ -744,7 +784,7 @@ def biased_phase(torch, ta) -> dict:
             if b_shape != f_shape:
                 x = rand(torch, b_shape, 1, 0.5, dtype)
             g = rand(torch, b_shape, 9, 0.1, dtype)
-            before = dict(ta.launches)
+            before, routes = dict(ta.launches), route_counts(ta)
             grads = ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD, pos_bias=bias)
             torch.cuda.synchronize()
             check(ta.launches[names[1]] == before[names[1]] + 1, f"f = {f} did not launch {names[1]}: {ta.launches}")
@@ -756,7 +796,8 @@ def biased_phase(torch, ta) -> dict:
                       f"{names[1]} {k} at {b_shape} in {dtype_name}: error {r} of its largest value, over {BWD_TOL[dtype_name]}")
             del want
             row = {"kernel": names[1], "shape": b_shape, "dtype": dtype_name, "per_step": count, "rel_err": rel,
-                   "max_abs_err": err_b, "tol": BWD_TOL[dtype_name]}
+                   "max_abs_err": err_b, "tol": BWD_TOL[dtype_name],
+                   "design": design_since(routes, route_counts(ta), names[1])}
             if not dense and dtype_name == "float32":
                 want_d = ta.temporal_attention_bwd_plain(x, g, *w, HEADS, DIM_HEAD, pos_bias=bias)
                 row["vs_dense_oracle"] = {k: _rel_err(a, v) for k, a, v in zip(grad_names, grads, want_d)}
@@ -1072,7 +1113,7 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     tr = train.main(["--config", str(fused_cfg), "--device", "cuda"])
-    counts = nonzero(ops.launch_counts())
+    counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = tr.loss_trace.tolist()
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
@@ -1129,7 +1170,8 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
         check(img.n_frames == d["num_frames"] and img.size == (d["image_size"], d["image_size"]),
               f"{p.name}: {img.n_frames} frames of {img.size}")
     return {"steps": TRAIN_STEPS, "batch": B_TRAIN, "losses": losses, "first5": first, "last5": last,
-            "launches": counts, "checkpoints": ckpts, "seconds_per_step": sps, "peak_memory": peak,
+            "launches": counts, "staged_launches": staged, "checkpoints": ckpts, "seconds_per_step": sps,
+            "peak_memory": peak,
             "checkpoint_write_seconds": save_s, "plain_checkpoint_write_seconds": plain_save_s,
             "loss_gap_vs_plain": loss_gap,
             "resumed_from": mid, "resumed_losses": r_losses, "plain_losses": plain_losses,
@@ -1166,11 +1208,11 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         tr = train.main(["--config", str(cfg), "--device", "cuda"])
-        counts = nonzero(ops.launch_counts())
+        counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
         losses = tr.loss_trace.tolist()
         check(len(losses) == LONG_STEPS and all(math.isfinite(v) for v in losses), f"{variant}: losses {losses}")
         sps, save_s = _seconds_per_step(tr, warmup=3)
-        runs[variant] = {"losses": losses, "launches": counts, "seconds_per_step": sps,
+        runs[variant] = {"losses": losses, "launches": counts, "staged_launches": staged, "seconds_per_step": sps,
                          "checkpoint_write_seconds": save_s, "peak_memory": torch.cuda.max_memory_allocated(),
                          "checkpoints": sorted(int(p.stem[5:]) for p in tr.checkpoint_dir_path.glob("step_*.pt"))}
         if variant == "kernels":
@@ -1210,7 +1252,7 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
           f"long-clip sampling: launches {s_counts} in {res['steps']} steps")
     return {"steps": LONG_STEPS, "batch": raw["trainer"]["train_batch_size"], "frames": d["num_frames"],
             "first4": first, "last4": last, "runs": runs, "loss_gaps_vs_kernels": gaps,
-            "launches": k["launches"],
+            "launches": k["launches"], "staged_launches": k["staged_launches"],
             "sample": {"steps": res["steps"], "seconds": res["seconds"],
                        "seconds_per_step": res["seconds"] / res["steps"], "launches": s_counts,
                        "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}}
@@ -1539,7 +1581,9 @@ def main() -> int:
     timed("unet", unet_phase, torch, load_config, build_models)
     timed("sample", sample_phase, torch, ops, load_config, build_models, save_checkpoint, sample)
     bwd = timed("backward", backward_phase, torch, ta, sla,
-                show=lambda r: {"checks": len(r["rows"]), "tolerance": BWD_TOL, **per_step(r, "per_step")})
+                show=lambda r: {"checks": len(r["rows"]), "tolerance": BWD_TOL, **per_step(r, "per_step"),
+                                "forward_per_step": per_step(r, "fwd_per_step")["fwd_per_step"],
+                                "float32_per_step": per_step(r, "f32_per_step")["f32_per_step"]})
     timed("grads", grads_phase, torch, ops, ta, sla, load_config, build_models,
           show=brief)
     trained = timed("train", train_phase, torch, ops, train, sample)
@@ -1582,21 +1626,31 @@ def main() -> int:
     # Every kernel with the launches of the training path that runs it: the flagship's for the six dense and
     # spatial kernels, the long-clip recipe's for the blockwise pair, the two fixed recipes' for the biased
     # kernels. Times are of the type that path hands the kernel: bf16 in compat math, float32 in fixed math.
-    aggregates, launches, dtypes = {}, {}, {}
+    # Each kernel's design is that of its launches in that run, as the C entries reported them.
+    aggregates, launches, dtypes, designs = {}, {}, {}, {}
+
+    def from_path(name, path):
+        launches[name] = path["launches"][name]
+        designs[name] = design(launches[name], path.get("staged_launches", {}).get(name, 0))
+
     for name in PER_STEP:
         a = dict((kern["per_forward"] if name in PER_FORWARD else bwd["per_step"])[name])
         if name in PER_FORWARD:
             a["err"] = max(a["err"], bwd["fwd_err"][name])
-        aggregates[name], launches[name] = a, trained["launches"][name]
+        aggregates[name] = a
+        from_path(name, trained)
     for name, a in blk["per_step"].items():
-        aggregates[name], launches[name] = a, long_trained["launches"][name]
+        aggregates[name] = a
+        from_path(name, long_trained)
     for name, a in biased["per_step"]["float32"].items():
-        path = fixed_trained if "attention" in name else long_fixed_trained
-        aggregates[name], launches[name], dtypes[name] = a, path["launches"][name], "float32"
+        aggregates[name], dtypes[name] = a, "float32"
+        from_path(name, fixed_trained if "attention" in name else long_fixed_trained)
     for name, a in cross["per_step"].items():  # launches summed over the four ranks of the seq train run
-        aggregates[name], launches[name] = a, seq["launches"][name]
+        aggregates[name] = a
+        from_path(name, seq)
     kernels_line = [{
-        "name": name, "route": "cuda", "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
+        "name": name, "route": "cuda", "design": designs[name],
+        "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
         "launches": launches[name], "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"], "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations",
         "library_ms": None, "dtype": dtypes.get(name, "bfloat16"),

@@ -136,13 +136,13 @@ def test_sla_bwd_kernels_match_plain(device, dtype, shape):
     ctx, stats = sla.sla_context(xt, wqkv, 8, 32)
     ops.reset_launch_counts()
     dxq, dctx, dwq, dwo = sla.sla_bwd_q(xt, g, wqkv, wo, ctx, 8, 32, 1.0)
-    dx, dwk, dwv = sla.sla_bwd_kv(xt, wqkv, dctx, dxq, stats, 8, 32)
+    dx, dwk, dwv = sla.sla_bwd_kv(xt, wqkv, ctx, dctx, dxq, stats, 8, 32)
     torch.cuda.synchronize()
     assert ops.launch_counts()["sla_bwd_q"] == 1 and ops.launch_counts()["sla_bwd_kv"] == 1
     want_q = sla.sla_bwd_q_plain(xt, g, wqkv, wo, ctx, 8, 32, 1.0)
     for name, a, w in zip(("dx_q", "dctx", "dwq", "dwo"), (dxq, dctx, dwq, dwo), want_q):
         assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
-    want_kv = sla.sla_bwd_kv_plain(xt, wqkv, dctx, dxq, 8, 32)  # the kernel's own dctx and dx_q
+    want_kv = sla.sla_bwd_kv_plain(xt, wqkv, ctx, dctx, dxq, 8, 32)  # the kernel's own dctx and dx_q
     for name, a, w in zip(("dx", "dwk", "dwv"), (dx, dwk, dwv), want_kv):
         assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
 
@@ -230,7 +230,7 @@ def test_weight_gradient_reduction_is_deterministic(device, dtype, shape):
     runs = []
     for _ in range(2):
         dxq, dctx, dwq, dwo = sla.sla_bwd_q(xt, g, sw, so, ctx, 8, 32, 1.0)
-        runs.append((dxq, dctx, dwq, dwo, *sla.sla_bwd_kv(xt, sw, dctx, dxq, stats, 8, 32)))
+        runs.append((dxq, dctx, dwq, dwo, *sla.sla_bwd_kv(xt, sw, ctx, dctx, dxq, stats, 8, 32)))
     assert all(torch.equal(u, v) for u, v in zip(*runs))
 
 
@@ -246,7 +246,7 @@ def test_unsupported_backward_shape_raises_on_the_card(device):
     xt = torch.zeros(2, 4, 8, device=device, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="float16"):
         sla.sla_bwd_kv(xt, torch.zeros(8, 192, device=device, dtype=torch.float16), torch.zeros(2, 2, 32, 32, device=device),
-                       xt, torch.zeros(2, 2, 2, 32, device=device), 2, 32)
+                       torch.zeros(2, 2, 32, 32, device=device), xt, torch.zeros(2, 2, 2, 32, device=device), 2, 32)
 
 
 # The last two columns are near the longest the panels of one KV block width leave room for (321 frames).
@@ -496,3 +496,86 @@ def test_gloo_ranks_share_one_card(device, tmp_path):
     for r in range(2):
         res = torch.load(tmp_path / f"card{r}.pt")
         assert res["device"] == "cuda:0" and res["ok"], res
+
+
+# The staged dense forward (`temporal_fwd_panel_kernel`) and the staged k/v backward (`sla_bwd_kv_panel_kernel`)
+# at every shape the flagship, fixed and long-clip recipes give them (batch 8 for training, batch 2 for the
+# sampler), the long clip's bottleneck, and ragged f, c and n (not multiples of 16).
+STAGED_FWD_SHAPES = sorted({(8, 4096, 10, 32), (8, 1024, 10, 64), (8, 256, 10, 128), (8, 64, 10, 256),
+                            (8, 10, 64, 256), (8, 64, 10, 128), (8, 256, 10, 64), (8, 1024, 10, 32),
+                            (2, 4096, 10, 32), (2, 64, 10, 256), (2, 10, 64, 256), (1, 128, 64, 256),
+                            (3, 5, 7, 48), (2, 37, 13, 40)})
+STAGED_KV_SHAPES = [(8, 10, 64, 64, 32), (8, 10, 32, 32, 64), (8, 10, 16, 16, 128), (8, 10, 8, 8, 256),
+                    (8, 10, 8, 8, 128), (8, 10, 16, 16, 64), (8, 10, 32, 32, 32),
+                    (1, 128, 64, 64, 32), (1, 128, 32, 32, 64), (1, 128, 16, 16, 128), (1, 128, 8, 8, 256),
+                    (1, 128, 8, 8, 128), (1, 128, 16, 16, 64), (1, 128, 32, 32, 32),
+                    (1, 10, 64, 64, 128), (1, 2, 7, 5, 24), (2, 3, 9, 9, 40)]
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STAGED_FWD_SHAPES, ids=str)
+def test_staged_temporal_fwd_matches_plain(device, shape, dtype, bias):
+    """The dense forward against its plain version; every shape but f = 64, c = 256 in float32 takes the staged
+    kernel; a zero bias reproduces the unbiased kernel bit for bit."""
+    b, s, f, c = shape
+    plan = ta.fwd_plan(b * s, f, c, 32, 8, dtype == torch.bfloat16, _sms())
+    assert plan["route"] == ("simt" if dtype == torch.float32 and (f, c) == (64, 256) else "staged")
+    x, wqkv, bqkv, wo, bo = _temporal_args(shape, device, dtype)
+    pos_bias = _rand((8, f, f), 6, 0.5, device) if bias else None
+    ops.reset_launch_counts()
+    got = ta._block(x, wqkv, bqkv, wo, bo, pos_bias, 8, 32)
+    torch.cuda.synchronize()
+    name = "temporal_attention_biased_fwd" if bias else "temporal_attention_fwd"
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {name: 1}
+    assert ops.staged_launch_counts()[name] == (plan["route"] == "staged")  # the C launcher chose as the planner
+    want = ta.temporal_attention_plain(x, wqkv, bqkv, wo, bo, 8, 32, pos_bias=pos_bias)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    if bias:
+        zero = torch.zeros_like(pos_bias)
+        assert torch.equal(ta.fused_temporal_attention_block_biased(x, wqkv, bqkv, wo, bo, zero, 8, 32),
+                           ta.fused_temporal_attention_block(x, wqkv, bqkv, wo, bo, 8, 32))
+
+
+def _kv_args(shape, device, dtype):
+    """x, W_qkv, the contexts (float32 takes rho from them), a context cotangent, dx_q and the context
+    kernel's softmax statistics for ``sla_bwd_kv``."""
+    b, f, hh, ww, c = shape
+    xt, wqkv, _ = _sla_args(shape, device, dtype)
+    dctx = _rand((b * f, 8, 32, 32), 7, 0.5, device)
+    dxq = _rand(xt.shape, 8, 0.1, device, dtype)
+    ctx, stats = sla.sla_context(xt, wqkv, 8, 32)
+    return xt, wqkv, ctx, dctx, dxq, stats
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STAGED_KV_SHAPES, ids=str)
+def test_staged_sla_bwd_kv_matches_plain(device, shape, dtype):
+    b, f, hh, ww, c = shape
+    assert sla.kv_plan(b * f, hh * ww, c, 32, 8, dtype == torch.bfloat16, _sms())["route"] == "staged"
+    args = _kv_args(shape, device, dtype)
+    ops.reset_launch_counts()
+    got = sla.sla_bwd_kv(*args, 8, 32)  # float32: rho from the contexts, one pass; bf16: two passes
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {"sla_bwd_kv": 1}
+    assert ops.staged_launch_counts()["sla_bwd_kv"] == 1  # the C launcher chose as the planner
+    want = sla.sla_bwd_kv_plain(*args[:5], 8, 32)
+    for name, a, w in zip(("dx", "dwk", "dwv"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_kernels_are_deterministic(device, dtype):
+    """Two runs of each staged kernel at its flagship top-level shape are bit-equal."""
+    x, wqkv, bqkv, wo, bo = _temporal_args((8, 4096, 10, 32), device, dtype)
+    assert torch.equal(ta.fused_temporal_attention_block(x, wqkv, bqkv, wo, bo, 8, 32),
+                       ta.fused_temporal_attention_block(x, wqkv, bqkv, wo, bo, 8, 32))
+    args = _kv_args((8, 10, 64, 64, 32), device, dtype)
+    a, b = sla.sla_bwd_kv(*args, 8, 32), sla.sla_bwd_kv(*args, 8, 32)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))

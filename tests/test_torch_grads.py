@@ -98,7 +98,7 @@ def test_sla_bwd_oracles_equal_autograd(scale):
     xt, w, wo = _t(arrays[0]).reshape(6, 16, c), _t(arrays[1]), _t(arrays[2])
     ctx = psla.sla_context_plain(xt, w, heads, d)
     dxq, dctx, dwq, dwo = psla.sla_bwd_q_plain(xt, _t(g).reshape(6, 16, c), w, wo, ctx, heads, d, scale)
-    dx, dwk, dwv = psla.sla_bwd_kv_plain(xt, w, dctx, dxq, heads, d)
+    dx, dwk, dwv = psla.sla_bwd_kv_plain(xt, w, ctx, dctx, dxq, heads, d)
     np.testing.assert_allclose(dx.reshape(shape).numpy(), want[0], atol=1e-5, rtol=0)
     np.testing.assert_allclose(torch.cat([dwq, dwk, dwv], 1).numpy(), want[1], atol=1e-5, rtol=0)
     np.testing.assert_allclose(dwo.numpy(), want[2], atol=1e-5, rtol=0)
@@ -130,7 +130,7 @@ def test_sla_bwd_oracles_match_jax_composite_in_bf16():
     xt, w, wo = _bf16(arrays[0]).reshape(6, 16, c), _t(arrays[1]), _t(arrays[2])
     ctx = psla.sla_context_plain(xt, w, heads, d)
     dxq, dctx, dwq, dwo = psla.sla_bwd_q_plain(xt, _bf16(g).reshape(6, 16, c), w, wo, ctx, heads, d, 1.0)
-    dx, dwk, dwv = psla.sla_bwd_kv_plain(xt, w, dctx, dxq, heads, d)
+    dx, dwk, dwv = psla.sla_bwd_kv_plain(xt, w, ctx, dctx, dxq, heads, d)
     for gw, gg in zip(want, (dx.reshape(shape), torch.cat([dwq, dwk, dwv], 1), dwo)):
         np.testing.assert_allclose(gg.float().numpy(), np.asarray(gw, np.float32), rtol=0.1, atol=0.25)
 
@@ -144,3 +144,28 @@ def test_cpu_ops_stay_plain_and_differentiable():
     grads = _port_grads(lambda *a: pta.fused_temporal_attention_block(*a, 2, 8), arrays, g)
     assert all(np.abs(gr).max() > 0 for gr in grads)
     assert set(ops.launch_counts().values()) == {0}
+    assert set(ops.staged_launch_counts().values()) == {0}
+
+
+# The float32 k/v backward takes rho = sum_e dctx * ctx from the forward's contexts in place of sum_n ds * s
+# (rounding is the identity in float32), as the staged kernel's one pass does. Against the JAX backward through
+# the whole-frame `_bwd_kv_kernel` and the chunked `_bwd_kv_chunk1/2_kernel` pair in interpret mode, within the
+# card's float32 backward gate (1e-5 of each output's largest value).
+@pytest.mark.parametrize("shape,heads,d,route", [((2, 3, 4, 4, 16), 4, 8, "whole"), ((1, 2, 8, 8, 32), 2, 16, "whole"),
+                                                 ((1, 2, 32, 32, 16), 2, 8, "chunked")])
+def test_sla_bwd_kv_one_pass_matches_pallas_backward(monkeypatch, shape, heads, d, route):
+    monkeypatch.setattr(jsla, "FORCE_INTERPRET", True)
+    b, f, hh, ww, c = shape
+    hd = heads * d
+    arrays = [seeded(shape, 1, 0.5), seeded((c, 3 * hd), 2, c ** -0.5), seeded((hd, c), 3, hd ** -0.5)]
+    g = seeded(shape, 4, 0.5)
+    backward = jsla._backward_pallas if route == "whole" else jsla._backward_pallas_chunked
+    want_dx, want_dw, _ = (np.asarray(a) for a in backward(*map(jnp.asarray, (*arrays, g)), heads, d, 1.0))
+    xt, w, wo = _t(arrays[0]).reshape(b * f, hh * ww, c), _t(arrays[1]), _t(arrays[2])
+    ctx = psla.sla_context_plain(xt, w, heads, d)
+    dxq, dctx, dwq, _ = psla.sla_bwd_q_plain(xt, _t(g).reshape(xt.shape), w, wo, ctx, heads, d, 1.0)
+    one = psla.sla_bwd_kv(xt, w, ctx, dctx, dxq, None, heads, d)  # a CPU tensor: the plain version
+    got = {"dx": one[0].reshape(shape).numpy(), "dwk": one[1].numpy(), "dwv": one[2].numpy()}
+    want = {"dx": want_dx, "dwk": want_dw[:, hd:2 * hd], "dwv": want_dw[:, 2 * hd:]}
+    for k, ref in want.items():
+        assert np.abs(got[k] - ref).max() <= 1e-5 * np.abs(ref).max(), k

@@ -310,13 +310,17 @@ static int launch_out(const void* x, const void* wqkv, const void* wo, const voi
 //     dW_q += x^T round(dq),  dx_q = round(g + sum_h round(dq) W_q^T).
 // dctx sums over the whole frame: each CTA writes its own partial.
 //
-// `sla_bwd_kv_kernel` runs twice. The k softmax runs over all n tokens, so
+// `sla_bwd_kv_kernel` (and its staged twin) runs twice. The k softmax runs over all n tokens, so
 // its VJP needs rho = sum_n ds * s before any dk: pass 0 rebuilds s = exp(k -
 // max) / sum from the saved statistics and sums, per (head, feature), a
 // partial rho over its chunks, with ds = round(dctx) round(v)^T; pass 1 adds
 // the frame's partials up and finishes dk = s * (ds - rho), dv =
 // round(dctx)^T round(s), dW_k, dW_v and dx = round(dx_q + sum_h round(dk)
-// W_k^T + round(dv) W_v^T).
+// W_k^T + round(dv) W_v^T). In float32 rounding is the identity, so the
+// forward's context is s^T v and rho[d] = sum_e dctx[d, e] ctx[d, e], the
+// same sum in another order: the staged kernel in float32 takes rho so and
+// runs pass 1 alone. (In bf16 the context multiplies round(s), while rho
+// needs float32 s.)
 //
 // Sums across CTAs (dctx, rho, the weight gradients) go through per-CTA
 // float32 partials, added in a fixed order (`reduce_partials_kernel`, or the
@@ -325,9 +329,18 @@ static int launch_out(const void* x, const void* wqkv, const void* wo, const voi
 // indexes one head.
 //
 // Bound: like the forward, about 2n(c * HD) FLOPs per projection and frame,
-// and each kernel recomputes or back-propagates four or five of them;
-// tensor-core bound at small c, near the ridge at c = 256. This first
-// version multiplies on the CUDA cores in float32.
+// and each kernel recomputes or back-propagates four or five of them
+// (sla_bwd_kv: 12 c HD + 4 D HD FLOPs per token over x, dx_q and dx, about
+// 0.14 ms per flagship training step against the bf16 tensor-core rate);
+// tensor-core bound at small c, near the ridge at c = 256. Each kernel has
+// two versions: the first (`sla_bwd_q_kernel`, `sla_bwd_kv_kernel`) multiplies
+// on the CUDA cores in float32 with the weights read from device memory one
+// element at a time; the staged ones (`sla_bwd_q_panel_kernel`,
+// `sla_bwd_kv_panel_kernel`) stage the chunk and each head's weights in shared
+// memory in x's type and run the products on the tensor cores in bf16. The
+// planners `q_plan` / `kv_plan` (ops/spatial_linear_attention.py) and the
+// launchers (`sla_tc_fits` / `sla_kv_fits`) choose the staged kernel wherever
+// its 16-token chunk fits.
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sla_bwd_q_kernel(
@@ -855,13 +868,227 @@ __global__ void __launch_bounds__(kThreads) sla_bwd_kv_kernel(
   }
 }
 
+// The k/v path with staged panels: the kernel above, redesigned (tensor cores in bf16).
+//
+// The same function, passes and rounding points. Every operand of its
+// products is rounded to x's type in the TPU kernel's math (x, W_k, W_v,
+// round(v), round(dctx), round(s), dk, dv), so in bf16 `mma.sync` with float32
+// accumulators keeps them; only the order of the sums changes. Per head h,
+// through `panel_mma` (common.cuh; tensor cores for bf16 panels, the CUDA
+// cores in float32 for float32 ones):
+//     k|v = x [W_k,h | W_v,h]   (one product; the epilogue turns k into
+//                                s = exp(k - max) / sum in float32, and rounds s and v),
+//     ds = round(v) round(dctx_h)^T,
+// and in pass 1 also
+//     dk = round(s (ds - rho)) (in ds's epilogue),  dv = round(round(s) round(dctx_h)),
+//     dW_k,h += x^T dk,  dW_v,h += x^T dv,  y += [dk | dv] [W_k,h | W_v,h]^T.
+// Pass 0 multiplies ds by s in its epilogue and sums the chunk's rows per
+// (head, feature) into a float32 slot per thread group, added up in a fixed
+// order at the end (rho is a sum over the whole frame, so it needs its own
+// pass; in float32 the forward's contexts give it, see above). The chunk's x rows are staged once in x's type, in chunks of a
+// multiple of 16 tokens; each head's W_k,h | W_v,h, side by side as one
+// (c, 2D) panel, goes through two buffers, the next head's copied
+// asynchronously while this one computes; round(dctx_h) is staged once per
+// head and chunk as a padded (D, D) panel. Three barriers per head. The
+// weight gradients are one product per head and chunk each, read-modify-
+// written into the CTA's float32 partials once (`panel_mma_add`: all of a
+// block read, then written), and reduced in a fixed order by
+// `reduce_partials_kernel`.
+//
+// A shape whose 16-token chunk does not fit (at head dim 32 and 8 heads: c
+// above 544 in bf16, above 288 in float32) takes the CUDA-core kernel above.
+
+struct SlaKvPlan {
+  int Cp, Dp, LDC, LDF, LDD, LDW, PSD, G;
+  size_t x, y, s, v, sc, dkv, cs, mz, rho, csum, w, bytes;
+};
+
+__host__ __device__ inline SlaKvPlan sla_kv_plan(int NC, int C, int D, int H, int elt) {
+  SlaKvPlan p;
+  p.Cp = round16(C);
+  p.Dp = round16(D);
+  p.LDC = pad_ld(C);
+  p.LDF = p.Cp + 8;
+  p.LDD = pad_ld(D);
+  p.LDW = pad_ld(2 * p.Dp);
+  p.PSD = p.Dp + 1;
+  p.G = kThreads / p.Dp;  // thread groups of the rho column sums
+  size_t at = 0;
+  p.x = at;    at += (size_t)elt * NC * p.LDC;
+  p.y = at;    at += (size_t)4 * NC * p.LDF;
+  p.s = at;    at += (size_t)4 * NC * p.PSD;
+  p.v = at;    at += (size_t)elt * NC * p.LDD;
+  p.sc = at;   at += (size_t)elt * NC * p.LDD;
+  p.dkv = at;  at += (size_t)elt * NC * p.LDW;
+  p.cs = at;   at += (size_t)elt * p.Dp * p.LDD;
+  p.mz = at;   at += (size_t)4 * 2 * H * p.Dp;
+  p.rho = at;  at += (size_t)4 * H * p.Dp;
+  p.csum = at; at += (size_t)4 * H * p.G * p.Dp;
+  at = (at + 15) / 16 * 16;
+  p.w = at;    at += (size_t)2 * elt * p.Cp * p.LDW;
+  p.bytes = at;
+  return p;
+}
+
+__host__ __device__ inline bool sla_kv_fits(int NC, int C, int D, int H, int elt) {
+  return NC % 16 == 0 && sla_kv_plan(NC, C, D, H, elt).bytes <= kSmemMax;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) sla_bwd_kv_panel_kernel(
+    const T* __restrict__ x, const T* __restrict__ wqkv, const float* __restrict__ dctx,
+    const T* __restrict__ dxq, const float* __restrict__ stats, const float* __restrict__ ctx,
+    T* __restrict__ dx, float* __restrict__ rho_part, float* __restrict__ partial, int n, int C, int H,
+    int D, int NC, int pass) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SlaKvPlan pl = sla_kv_plan(NC, C, D, H, sizeof(T));
+  T* xs = reinterpret_cast<T*>(smem_raw + pl.x);           // (NC, Cp) token chunk
+  float* ys = reinterpret_cast<float*>(smem_raw + pl.y);   // (NC, Cp) float32 k/v-path dx over heads
+  float* ss = reinterpret_cast<float*>(smem_raw + pl.s);   // (NC, Dp) s, float32 (pass 0: ds * s)
+  T* vs = reinterpret_cast<T*>(smem_raw + pl.v);           // (NC, Dp) round(v)
+  T* sc = reinterpret_cast<T*>(smem_raw + pl.sc);          // (NC, Dp) round(s)
+  T* dkv = reinterpret_cast<T*>(smem_raw + pl.dkv);        // (NC, 2Dp) round(dk) | round(dv)
+  T* cs = reinterpret_cast<T*>(smem_raw + pl.cs);          // (Dp, Dp) round(dctx_h)
+  float* mz = reinterpret_cast<float*>(smem_raw + pl.mz);  // (2, H, Dp) k-softmax max and 1 / sum
+  float* rho = reinterpret_cast<float*>(smem_raw + pl.rho);    // (H, Dp) sum_n ds * s (pass 1)
+  float* csum = reinterpret_cast<float*>(smem_raw + pl.csum);  // (H, G, Dp) its partial sums (pass 0)
+  T* wbuf = reinterpret_cast<T*>(smem_raw + pl.w);         // 2 x (W_k,h | W_v,h)
+  const int Cp = pl.Cp, Dp = pl.Dp, LDC = pl.LDC, LDF = pl.LDF, LDD = pl.LDD, LDW = pl.LDW,
+            PSD = pl.PSD, G = pl.G;
+
+  const int frame = blockIdx.x, frames = gridDim.x, splits = gridDim.y;
+  const int cta = blockIdx.y * frames + frame;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int HD = H * D, W3 = 3 * HD;
+  float* pwk = partial + (size_t)cta * 2 * C * HD;  // dW_k (C, HD)
+  float* pwv = pwk + (size_t)C * HD;                // dW_v (C, HD)
+  for (int i = tid; i < H * Dp; i += nth) {
+    const int h = i / Dp, d = i - h * Dp;
+    const size_t at = ((size_t)frame * H + h) * D + d;
+    const bool in = d < D;
+    mz[i] = in ? stats[at] : 0.f;
+    mz[H * Dp + i] = in ? 1.f / stats[(size_t)frames * HD + at] : 1.f;  // the reciprocal of the sum
+    float r = 0.f;  // pass 1: the frame's rho, in float32 sum_e dctx * ctx from the forward's contexts
+    if (pass == 1 && in) {  // (one pass), in bf16 its pass-0 partials added in split order
+      if constexpr (sizeof(T) == 4) {
+        const size_t at = (((size_t)frame * H + h) * D + d) * D;
+        for (int e = 0; e < D; ++e) r += dctx[at + e] * ctx[at + e];
+      } else {
+        for (int sp = 0; sp < splits; ++sp) r += rho_part[((size_t)sp * frames + frame) * HD + h * D + d];
+      }
+    }
+    rho[i] = r;
+  }
+  if (pass == 1) {
+    for (int i = tid; i < 2 * C * HD; i += nth) pwk[i] = 0.f;
+  } else {
+    for (int i = tid; i < H * G * Dp; i += nth) csum[i] = 0.f;
+  }
+  const int nchunks = (n + NC - 1) / NC, per = (nchunks + splits - 1) / splits;
+  const int n_end = min(n, (int)(blockIdx.y + 1) * per * NC);
+
+  auto load_head = [&](int h) {  // W_k,h | W_v,h into buffer h % 2
+    T* w = wbuf + (size_t)(h & 1) * Cp * LDW;
+    stage(w, LDW, wqkv + HD + (size_t)h * D, W3, C, D, Cp, Dp);
+    stage(w + Dp, LDW, wqkv + 2 * HD + (size_t)h * D, W3, C, D, Cp, Dp);
+    cp_async_commit();
+  };
+
+  for (int n0 = blockIdx.y * per * NC; n0 < n_end; n0 += NC) {
+    const int nc = min(NC, n - n0);
+    const size_t base = ((size_t)frame * n + n0) * C;
+    __syncthreads();  // the slots are initialised and the previous chunk consumed
+    stage(xs, LDC, x + base, C, nc, C, NC, Cp);
+    load_head(0);
+    if (pass == 1)
+      for (int i = tid; i < NC * Cp; i += nth) ys[(i / Cp) * LDF + i % Cp] = 0.f;
+
+    for (int h = 0; h < H; ++h) {
+      cp_async_wait_all();
+      __syncthreads();  // head h's weights have landed; the previous head is done with the panels
+      if (h + 1 < H) load_head(h + 1);
+      const T* w = wbuf + (size_t)(h & 1) * Cp * LDW;
+      const float* mh = mz + h * Dp;
+      const float* rz = mz + (H + h) * Dp;
+      // k|v = x [W_k,h | W_v,h]: s = exp(k - max) / sum in float32 (zero past the chunk and past D; the
+      // division taken as a product with the sum's reciprocal, within an ulp of it) and round(s);
+      // round(v). Padded columns of the weights are zero, so v is zero there.
+      panel_mma<false, true>(xs, LDC, w, LDW, NC, 2 * Dp, Cp, [=](int r, int c, float v0, float v1) {
+        if (c < Dp) {
+          const float s0 = r < nc && c < D ? expf(v0 - mh[c]) * rz[c] : 0.f;
+          const float s1 = r < nc && c + 1 < D ? expf(v1 - mh[c + 1]) * rz[c + 1] : 0.f;
+          ss[r * PSD + c] = s0;
+          ss[r * PSD + c + 1] = s1;
+          st2(sc + r * LDD + c, s0, s1);
+        } else {
+          st2(vs + r * LDD + c - Dp, v0, v1);
+        }
+      });
+      const float* dch = dctx + ((size_t)frame * H + h) * D * D;
+      for (int i = tid; i < Dp * Dp; i += nth) {
+        const int d = i / Dp, e = i - d * Dp;
+        cs[d * LDD + e] = from_f<T>(d < D && e < D ? dch[d * D + e] : 0.f);
+      }
+      __syncthreads();
+
+      if (pass == 0) {
+        // ds = round(v) round(dctx_h)^T, times s in place; then each group's column sums.
+        panel_mma<false, false>(vs, LDD, cs, LDD, NC, Dp, Dp, [=](int r, int c, float v0, float v1) {
+          ss[r * PSD + c] *= v0;
+          ss[r * PSD + c + 1] *= v1;
+        });
+        __syncthreads();
+        if (tid < G * Dp) {
+          const int g = tid / Dp, d = tid - g * Dp;
+          float a = 0.f;
+          for (int r = g; r < nc; r += G) a += ss[r * PSD + d];
+          csum[(h * G + g) * Dp + d] += a;
+        }
+        continue;
+      }
+
+      // dk = round(s (ds - rho)) and dv = round(round(s) round(dctx_h)), side by side.
+      const float* rh = rho + h * Dp;
+      panel_mma<false, false>(vs, LDD, cs, LDD, NC, Dp, Dp, [=](int r, int c, float v0, float v1) {
+        st2(dkv + r * LDW + c, ss[r * PSD + c] * (v0 - rh[c]), ss[r * PSD + c + 1] * (v1 - rh[c + 1]));
+      });
+      panel_mma<false, true>(sc, LDD, cs, LDD, NC, Dp, Dp, [=](int r, int c, float v0, float v1) {
+        st2(dkv + r * LDW + Dp + c, v0, v1);
+      });
+      __syncthreads();
+
+      // dW_k,h += x^T dk;  dW_v,h += x^T dv;  y += [dk | dv] [W_k,h | W_v,h]^T.
+      panel_mma_add<true, true>(xs, LDC, dkv, LDW, Cp, Dp, NC, pwk + (size_t)h * D, HD, C, D);
+      panel_mma_add<true, true>(xs, LDC, dkv + Dp, LDW, Cp, Dp, NC, pwv + (size_t)h * D, HD, C, D);
+      panel_mma_add<false, false>(dkv, LDW, w, LDW, NC, Cp, 2 * Dp, ys, LDF, NC, Cp);
+    }
+    if (pass == 1) {
+      __syncthreads();
+      for (int i = tid; i < nc * C; i += nth) {
+        const int r = i / C, c = i - r * C;
+        dx[base + i] = from_f<T>(to_f(dxq[base + i]) + ys[r * LDF + c]);
+      }
+    }
+  }
+  if (pass == 0) {
+    __syncthreads();
+    for (int i = tid; i < HD; i += nth) {  // the CTA's rho partial, its groups added in order
+      const int h = i / D, d = i - h * D;
+      float r = 0.f;
+      for (int g = 0; g < G; ++g) r += csum[(h * G + g) * Dp + d];
+      rho_part[(size_t)cta * HD + i] = r;
+    }
+  }
+}
+
 template <typename T>
 static int launch_bwd_q(const void* x, const void* g, const void* wqkv, const void* wo,
                         const void* ctx, void* dxq, void* dctx_part, void* dctx, void* partial,
                         void* dwq, void* dwo, int frames, int splits, int n, int c, int heads,
-                        int dim, float scale, int chunk, cudaStream_t stream) {
+                        int dim, float scale, int chunk, cudaStream_t stream, int* staged) {
   cudaError_t err;
-  if (sla_tc_fits(chunk, c, dim, sizeof(T))) {
+  *staged = sla_tc_fits(chunk, c, dim, sizeof(T));
+  if (*staged) {
     const size_t smem = sla_tc_plan(chunk, c, dim, sizeof(T)).bytes;
     err = cudaFuncSetAttribute(sla_bwd_q_panel_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -900,22 +1127,35 @@ static int launch_bwd_q(const void* x, const void* g, const void* wqkv, const vo
 
 template <typename T>
 static int launch_bwd_kv(const void* x, const void* wqkv, const void* dctx, const void* dxq,
-                         const void* stats, void* dx, void* rho_part, void* partial, void* dwk,
-                         void* dwv, int frames, int splits, int n, int c, int heads, int dim,
-                         int chunk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)chunk * c + 4 * (size_t)chunk * (dim + 1) +
-                                       (size_t)dim * (dim + 1) + 2 * dim + (size_t)heads * dim);
-  cudaError_t err = cudaFuncSetAttribute(
-      sla_bwd_kv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                         const void* stats, const void* ctx, void* dx, void* rho_part, void* partial,
+                         void* dwk, void* dwv, int frames, int splits, int n, int c, int heads,
+                         int dim, int chunk, cudaStream_t stream, int* staged_out) {
+  const bool staged = sla_kv_fits(chunk, c, dim, heads, sizeof(T));
+  const size_t smem = staged ? sla_kv_plan(chunk, c, dim, heads, sizeof(T)).bytes
+                             : sizeof(float) * (2 * (size_t)chunk * c + 4 * (size_t)chunk * (dim + 1) +
+                                                (size_t)dim * (dim + 1) + 2 * dim + (size_t)heads * dim);
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = staged ? cudaFuncSetAttribute(sla_bwd_kv_panel_kernel<T>, attr, (int)smem)
+                           : cudaFuncSetAttribute(sla_bwd_kv_kernel<T>, attr, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  for (int pass = 0; pass < 2; ++pass) {
-    sla_bwd_kv_kernel<T><<<dim3(frames, splits), kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(dctx),
-        static_cast<const T*>(dxq), static_cast<const float*>(stats), static_cast<T*>(dx),
-        static_cast<float*>(rho_part), static_cast<float*>(partial), n, c, heads, dim, chunk, pass);
+  const dim3 grid(frames, splits);
+  for (int pass = staged && sizeof(T) == 4 ? 1 : 0; pass < 2; ++pass) {  // float32 staged: pass 1 alone
+    if (staged) {
+      sla_bwd_kv_panel_kernel<T><<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(dctx),
+          static_cast<const T*>(dxq), static_cast<const float*>(stats), static_cast<const float*>(ctx),
+          static_cast<T*>(dx), static_cast<float*>(rho_part), static_cast<float*>(partial), n, c, heads,
+          dim, chunk, pass);
+    } else {
+      sla_bwd_kv_kernel<T><<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(dctx),
+          static_cast<const T*>(dxq), static_cast<const float*>(stats), static_cast<T*>(dx),
+          static_cast<float*>(rho_part), static_cast<float*>(partial), n, c, heads, dim, chunk, pass);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  *staged_out = staged;
   const int hd = heads * dim;
   const size_t stride = 2 * (size_t)c * hd;
   const float* p = static_cast<const float*>(partial);
@@ -957,35 +1197,42 @@ extern "C" int sla_out_fwd(int dtype, const void* x, const void* wqkv, const voi
 // Backward, q path, over frames x splits CTAs: dx_q; dctx (frames, H, D, D),
 // dW_q (c, HD) and dW_o (HD, c) float32, summed over the CTAs' partials
 // (`dctx_part`: splits x frames x H x D x D; `partial`: frames x splits x
-// 2 c HD floats).
+// 2 c HD floats). `*staged` is set to 1 where the staged kernel ran, 0 where
+// the CUDA-core one did.
 extern "C" int sla_bwd_q(int dtype, const void* x, const void* g, const void* wqkv, const void* wo,
                          const void* ctx, void* dxq, void* dctx_part, void* dctx, void* partial,
                          void* dwq, void* dwo, int frames, int splits, int n, int c, int heads,
-                         int dim, float scale, int chunk, void* stream) {
+                         int dim, float scale, int chunk, void* stream, int* staged) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return vdt::launch_bwd_q<float>(x, g, wqkv, wo, ctx, dxq, dctx_part, dctx, partial, dwq, dwo,
-                                    frames, splits, n, c, heads, dim, scale, chunk, s);
+                                    frames, splits, n, c, heads, dim, scale, chunk, s, staged);
   if (dtype == 1)
     return vdt::launch_bwd_q<__nv_bfloat16>(x, g, wqkv, wo, ctx, dxq, dctx_part, dctx, partial,
                                             dwq, dwo, frames, splits, n, c, heads, dim, scale,
-                                            chunk, s);
+                                            chunk, s, staged);
   return (int)cudaErrorInvalidValue;
 }
 
 // Backward, k/v path, over frames x splits CTAs (two passes): dx from dx_q,
 // and dW_k, dW_v (c, HD) float32. `rho_part` holds splits x frames x HD
-// floats, `partial` frames x splits x 2 c HD.
+// floats, `partial` frames x splits x 2 c HD. `ctx` is the forward's contexts
+// (frames, H, D, D) float32: the staged kernel in float32 takes rho = sum_e
+// dctx * ctx from them (rounding is the identity there, so ctx = s^T v) and
+// skips pass 0; bf16 does not read them. `*staged` is set to 1 where the
+// staged kernel ran, 0 where the CUDA-core one did.
 extern "C" int sla_bwd_kv(int dtype, const void* x, const void* wqkv, const void* dctx,
-                          const void* dxq, const void* stats, void* dx, void* rho_part,
-                          void* partial, void* dwk, void* dwv, int frames, int splits, int n, int c,
-                          int heads, int dim, int chunk, void* stream) {
+                          const void* dxq, const void* stats, const void* ctx, void* dx,
+                          void* rho_part, void* partial, void* dwk, void* dwv, int frames,
+                          int splits, int n, int c, int heads, int dim, int chunk, void* stream,
+                          int* staged) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return vdt::launch_bwd_kv<float>(x, wqkv, dctx, dxq, stats, dx, rho_part, partial, dwk, dwv,
-                                     frames, splits, n, c, heads, dim, chunk, s);
+    return vdt::launch_bwd_kv<float>(x, wqkv, dctx, dxq, stats, ctx, dx, rho_part, partial, dwk,
+                                     dwv, frames, splits, n, c, heads, dim, chunk, s, staged);
   if (dtype == 1)
-    return vdt::launch_bwd_kv<__nv_bfloat16>(x, wqkv, dctx, dxq, stats, dx, rho_part, partial,
-                                             dwk, dwv, frames, splits, n, c, heads, dim, chunk, s);
+    return vdt::launch_bwd_kv<__nv_bfloat16>(x, wqkv, dctx, dxq, stats, ctx, dx, rho_part, partial,
+                                             dwk, dwv, frames, splits, n, c, heads, dim, chunk, s,
+                                             staged);
   return (int)cudaErrorInvalidValue;
 }

@@ -34,9 +34,13 @@
 // 8*f*c*H*D FLOPs in its four projections plus 4*f*f*H*D in attention: with
 // H*D = 256 that is 520-600 FLOP per bf16 byte at every Unet3D shape, above
 // the H100's ~295 FLOP/byte ridge (989 TFLOP/s over 3.35 TB/s), so the
-// bound is the bf16 tensor-core rate. This first version multiplies on the
-// CUDA cores in float32 (no tensor cores), so it is far from that bound;
-// wgmma tiles and TMA loads are later work.
+// bound is the bf16 tensor-core rate. The projections are 8c of the 8c + 4f
+// FLOPs per row and head (86% at f = 10, c = 32). `temporal_fwd_panel_kernel`
+// (below) puts them, and then the per-token products too, on the tensor cores
+// in bf16; `temporal_fwd_kernel`, the first version, multiplies everything on
+// the CUDA cores in float32, with the weights read from device memory one
+// element at a time, and now runs only where the staged tile does not fit
+// (`fwd_plan` in ops/temporal_attention.py and `tc_fwd_fits` choose alike).
 
 #include "common.cuh"
 
@@ -171,20 +175,301 @@ __global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward with staged panels: the kernel above, redesigned (tensor cores in bf16).
+//
+// The same function and rounding points as `temporal_fwd_kernel<T, BIAS>`.
+// The operands of the two width-scaling products are already rounded to x's
+// type in the TPU kernel's math (x, W_qkv, W_o, o_h), so in bf16 `mma.sync`
+// with float32 accumulators keeps the rounding points; only the order of the
+// sums changes. Per head h, through `panel_mma` (common.cuh):
+//     q|k|v = x W_part,h, one part at a time, the epilogue adding b_qkv,
+//             rounding, and scaling q in x's type;
+//     y += o_h W_o,h into a float32 shared accumulator (`panel_mma_add`);
+// on the tensor cores for bf16 panels, on the CUDA cores in float32 for
+// float32 ones (TF32 would miss the float32 gates). With those moved, the
+// per-token f x f products set the time at the top level (f = 10, c = 32),
+// so in bf16 they run on the tensor cores too: a 16-row block of query rows
+// takes its logits against a window of keys, the whole tokens its rows touch
+// (`key_window`: 32 keys at f = 10, 64 at f = 64), and keeps each row's own
+// token's keys; the softmax (float32, eight lanes per row, the bias joining
+// the logits before the row maximum) writes the rounded probabilities into
+// the row's place in that window, zero elsewhere, and o_h = P V runs per
+// block over the window. q and the probabilities are rounded to x's type in
+// the TPU kernel's math as well, so this changes only the order of sums. In
+// float32 the logits with the softmax and P V stay on the CUDA cores. o_h is
+// written over the q slots (q is no longer read).
+//
+// Staging. The tile's x rows go to shared memory once, in x's type (`stage`,
+// asynchronous 8-byte copies), padded with zeros to 16 rows and to c rounded
+// up to 16 columns. A head's weights go through a ring of two buffers, one
+// (c, D) or (D, c) part at a time in the order W_q, W_k, W_v, W_o: part i+1
+// is copied while part i is multiplied, one barrier per part and two more
+// per head. out = x + round(y + b_o) is written once. Tiles aim at two CTAs
+// per SM; the bottleneck (f = 64, c = 256) takes 185 KB in bf16 for one
+// token, and in float32 (260 KB) keeps the CUDA-core kernel above, as does
+// any one-token tile over 227 KB (at f = 64 and head dim 32: c above 336 in
+// bf16, above 208 in float32).
+
+// The widest window of keys a 16-row block of query rows attends to, rounded to 16: the whole tokens
+// its rows touch. Blocks start at multiples of 16, so a block's first row lies at an offset into its
+// token that is a multiple of g = gcd(16, F), at most F - g, where the block touches the most tokens.
+__host__ __device__ inline int key_window(int F) {
+  const int g = (F & -F) < 16 ? (F & -F) : 16;
+  return round16(F * (1 + (F - g + 15) / F));
+}
+
+// The window of the block at row m0 of a tile of `rows` rows: its first key and its length.
+__device__ __forceinline__ int2 block_window(int m0, int rows, int F) {
+  const int ks = (m0 / F) * F;
+  return make_int2(ks, (min(m0 + 15, rows - 1) / F + 1) * F - ks);
+}
+
+struct TcFwdPlan {
+  int Rp, Cp, Dp, LDC, LDF, LDD, LDQ, WS, LW, LDP;
+  size_t x, y, qkv, p, pw, w, bytes;
+};
+
+// bf16 tiles also hold the probabilities in x's type by key window (pw) and 16 zero rows past the
+// q|k|v panel, which the last block's window may reach.
+__host__ __device__ inline TcFwdPlan tc_fwd_plan(int rows, int F, int C, int D, int elt) {
+  TcFwdPlan p;
+  const bool tc = elt == 2;
+  p.Rp = round16(rows);
+  p.Cp = round16(C);
+  p.Dp = round16(D);
+  p.LDC = pad_ld(C);
+  p.LDF = p.Cp + 8;
+  p.LDD = pad_ld(D);
+  p.LDQ = pad_ld(3 * p.Dp);
+  p.WS = p.Cp * p.LDD > p.Dp * p.LDC ? p.Cp * p.LDD : p.Dp * p.LDC;
+  p.LW = tc ? key_window(F) : 0;
+  p.LDP = pad_ld(p.LW);
+  size_t at = 0;
+  p.x = at;   at += (size_t)elt * p.Rp * p.LDC;
+  p.y = at;   at += (size_t)4 * p.Rp * p.LDF;
+  p.qkv = at; at += (size_t)elt * (p.Rp + (tc ? 16 : 0)) * p.LDQ;
+  p.p = at;   at += (size_t)4 * p.Rp * (F + 1);
+  p.pw = at;  at += tc ? (size_t)elt * p.Rp * p.LDP : 0;
+  p.w = at;   at += (size_t)2 * elt * p.WS;
+  p.bytes = at;
+  return p;
+}
+
+// The staged forward takes a shape when its tile of `bt` tokens fits shared memory.
+__host__ __device__ inline bool tc_fwd_fits(int bt, int F, int C, int D, int elt) {
+  return tc_fwd_plan(bt * F, F, C, D, elt).bytes <= kSmemMax;
+}
+
+template <typename T, bool BIAS>
+__global__ void __launch_bounds__(kThreads, 2) temporal_fwd_panel_kernel(
+    const T* __restrict__ x, const T* __restrict__ wqkv, const float* __restrict__ bqkv,
+    const T* __restrict__ wo, const float* __restrict__ bo, const float* __restrict__ bias,
+    T* __restrict__ out, int tokens, int F, int C, int H, int D, int BT, float scale_in) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TcFwdPlan pl = tc_fwd_plan(BT * F, F, C, D, sizeof(T));
+  T* xs = reinterpret_cast<T*>(smem_raw + pl.x);          // (Rp, Cp) x
+  float* ys = reinterpret_cast<float*>(smem_raw + pl.y);  // (Rp, Cp) float32 sum of o_h W_o,h
+  T* qkv = reinterpret_cast<T*>(smem_raw + pl.qkv);       // (Rp, 3Dp) q|k|v of head h; o_h over q
+  float* pr = reinterpret_cast<float*>(smem_raw + pl.p);  // (Rp, F+1) logits (bf16) or probabilities
+  T* pw = reinterpret_cast<T*>(smem_raw + pl.pw);         // bf16: (Rp, LW) probabilities by key window
+  T* wbuf = reinterpret_cast<T*>(smem_raw + pl.w);        // 2 x WS, the weight ring
+  const int Rp = pl.Rp, Cp = pl.Cp, Dp = pl.Dp, LDC = pl.LDC, LDF = pl.LDF, LDD = pl.LDD,
+            LDQ = pl.LDQ, WS = pl.WS, LW = pl.LW, LDP = pl.LDP, PS = F + 1;
+
+  const int tid = threadIdx.x, nth = blockDim.x, lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
+  const int t0 = blockIdx.x * BT;
+  const int rows = min(BT, tokens - t0) * F;
+  const size_t base = (size_t)t0 * F * C;
+  const int HD = H * D, W3 = 3 * HD;
+  const float scale_q = rnd<T>(scale_in);
+
+  // Weight part s of head h (s = 0..3: W_q, W_k, W_v, W_o) into ring slot i % 2.
+  auto load_part = [&](int h, int s, int i) {
+    T* dst = wbuf + (size_t)(i & 1) * WS;
+    if (s == 3) stage(dst, LDC, wo + (size_t)h * D * C, C, D, C, Dp, Cp);  // (Dp, Cp): rows of W_o,h
+    else stage(dst, LDD, wqkv + (size_t)s * HD + h * D, W3, C, D, Cp, Dp);  // (Cp, Dp)
+    cp_async_commit();
+  };
+  auto part_ready = [&](int i) {  // wait for part i, and for everyone to be done with slot (i+1) % 2
+    cp_async_wait_all();
+    __syncthreads();
+    return wbuf + (size_t)(i & 1) * WS;
+  };
+
+  stage(xs, LDC, x + base, C, rows, C, Rp, Cp);
+  load_part(0, 0, 0);
+  for (int i = tid; i < Rp * Cp; i += nth) ys[(i / Cp) * LDF + i % Cp] = 0.f;
+  if constexpr (sizeof(T) == 2) {  // the zeros of the windows (other tokens' keys) and of the rows past the q|k|v panel
+    for (int i = tid; i < Rp * LW; i += nth) pw[(i / LW) * LDP + i % LW] = from_f<T>(0.f);
+    for (int i = tid; i < 16 * LDQ; i += nth) qkv[(size_t)Rp * LDQ + i] = from_f<T>(0.f);
+  }
+
+  for (int h = 0; h < H; ++h) {
+    const int i0 = 4 * h;
+    // 1. q|k|v = round(x W_part + b) (q then scaled and rounded again); zeros past D.
+    for (int part = 0; part < 3; ++part) {
+      const T* w = part_ready(i0 + part);
+      load_part(h, part + 1, i0 + part + 1);
+      const float* bb = bqkv + part * HD + h * D;
+      T* dst = qkv + part * Dp;
+      panel_mma<false, true>(xs, LDC, w, LDD, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
+        float a = c < D ? rnd<T>(v0 + bb[c]) : 0.f;
+        float b = c + 1 < D ? rnd<T>(v1 + bb[c + 1]) : 0.f;
+        if (part == 0) {
+          a = a * scale_q;
+          b = b * scale_q;
+        }
+        st2(dst + (size_t)r * LDQ + c, a, b);
+      });
+    }
+
+    // 2-3. W_o,h has landed and q|k|v is complete: the logits (with the bias before the row
+    // maximum), their float32 softmax rounded to x's type, and o_h = round(P V) over the q slots.
+    // The softmax takes eight lanes per row, each taking the frames j = lane, lane + 8, ... (F <= 64).
+    const T* w = part_ready(i0 + 3);
+    if (h + 1 < H) load_part(h + 1, 0, i0 + 4);
+    if constexpr (sizeof(T) == 2) {
+      // bf16: each 16-row block's logits against its key window (the whole tokens its rows touch) on the
+      // tensor cores, keeping a row's own token's keys (float32, into pr); the softmax writes the rounded
+      // probabilities into the row's window of pw, whose other keys stay zero; then o_h = P V per block
+      // over its window on the tensor cores.
+      const int nb = LW / 16;
+      for (int item = warp; item < (Rp / 16) * nb; item += nwarps) {
+        const int m0 = (item / nb) * 16, n0 = (item % nb) * 16;
+        if (m0 >= rows) continue;
+        const int2 win = block_window(m0, rows, F);
+        if (n0 >= win.y) continue;
+        float acc[2][4];
+        mma_block<false, false>(qkv, LDQ, qkv + (size_t)win.x * LDQ + Dp, LDQ, m0, n0, Dp, acc);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = m0 + (lane >> 2) + (e >> 1) * 8, key = win.x + n0 + (lane & 3) * 2 + 8 * j + (e & 1);
+            const int tk = r / F;
+            if (r < rows && key / F == tk) pr[(size_t)r * PS + key - tk * F] = acc[j][e];
+          }
+      }
+      __syncthreads();
+      for (int r0 = 0; r0 < rows; r0 += nth / 8) {
+        const int row = r0 + (tid >> 3), sub = tid & 7;
+        const bool live = row < rows;
+        const int rr = live ? row : rows - 1, tk = rr / F;
+        const float* brow = BIAS ? bias + ((size_t)h * F + (rr - tk * F)) * F : nullptr;
+        T* prow = pw + (size_t)rr * LDP + tk * F - block_window(rr & ~15, rows, F).x;
+        float sv[8], m = -INFINITY, sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = sub + 8 * u;
+          sv[u] = 0.f;
+          if (live && j < F) {
+            sv[u] = pr[(size_t)rr * PS + j] + (BIAS ? brow[j] : 0.f);
+            m = fmaxf(m, sv[u]);
+          }
+        }
+        m = max8(m);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (live && sub + 8 * u < F) {
+            sv[u] = expf(sv[u] - m);
+            sum += sv[u];
+          }
+        sum = sum8(sum);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (live && sub + 8 * u < F) prow[sub + 8 * u] = from_f<T>(sv[u] / sum);
+      }
+      __syncthreads();
+      const int db = Dp / 16;
+      for (int item = warp; item < (Rp / 16) * db; item += nwarps) {
+        const int m0 = (item / db) * 16, n0 = (item % db) * 16;
+        float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        if (m0 < rows) {
+          const int2 win = block_window(m0, rows, F);
+          mma_block<false, true>(pw, LDP, qkv + (size_t)win.x * LDQ + 2 * Dp, LDQ, m0, n0, round16(win.y), acc);
+        }
+        const int r = m0 + (lane >> 2), c = n0 + (lane & 3) * 2;
+        st2(qkv + (size_t)r * LDQ + c, acc[0][0], acc[0][1]);
+        st2(qkv + (size_t)(r + 8) * LDQ + c, acc[0][2], acc[0][3]);
+        st2(qkv + (size_t)r * LDQ + c + 8, acc[1][0], acc[1][1]);
+        st2(qkv + (size_t)(r + 8) * LDQ + c + 8, acc[1][2], acc[1][3]);
+      }
+    } else {  // float32: the products on the CUDA cores, the logits fused with the softmax
+      for (int r0 = 0; r0 < rows; r0 += nth / 8) {
+        const int row = r0 + (tid >> 3), sub = tid & 7;
+        const bool live = row < rows;
+        const int rr = live ? row : rows - 1, tk = rr / F;
+        const T* q = qkv + (size_t)rr * LDQ;
+        const T* kb = qkv + (size_t)tk * F * LDQ + Dp;
+        const float* brow = BIAS ? bias + ((size_t)h * F + (rr - tk * F)) * F : nullptr;
+        float sv[8], m = -INFINITY, sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = sub + 8 * u;
+          sv[u] = 0.f;
+          if (live && j < F) {
+            sv[u] = dot_rows(q, kb + (size_t)j * LDQ, D) + (BIAS ? brow[j] : 0.f);
+            m = fmaxf(m, sv[u]);
+          }
+        }
+        m = max8(m);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (live && sub + 8 * u < F) {
+            sv[u] = expf(sv[u] - m);
+            sum += sv[u];
+          }
+        sum = sum8(sum);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (live && sub + 8 * u < F) pr[(size_t)rr * PS + sub + 8 * u] = rnd<T>(sv[u] / sum);
+      }
+      __syncthreads();
+
+      // o_h = round(P V) over the q slots; padded rows and columns are written as zeros.
+      for (int item = tid; item < Rp * Dp; item += nth) {
+        const int row = item / Dp, d = item - row * Dp;
+        float s = 0.f;
+        if (row < rows && d < D) {
+          const int tk = row / F;
+          const float* p = pr + (size_t)row * PS;
+          const T* vb = qkv + (size_t)tk * F * LDQ + 2 * Dp + d;
+          for (int j = 0; j < F; ++j) s += p[j] * to_f(vb[(size_t)j * LDQ]);
+        }
+        qkv[(size_t)row * LDQ + d] = from_f<T>(s);
+      }
+    }
+    __syncthreads();
+
+    // 4. y += o_h W_o,h; the next head's first barrier protects o_h and the W_o slot.
+    panel_mma_add<false, true>(qkv, LDQ, w, LDC, Rp, Cp, Dp, ys, LDF, Rp, Cp);
+  }
+  __syncthreads();
+
+  // 5. out = x + round(y + b_o).
+  for (int i = tid; i < rows * C; i += nth) {
+    const int r = i / C, c = i - r * C;
+    out[base + i] = from_f<T>(to_f(xs[(size_t)r * LDC + c]) + rnd<T>(ys[(size_t)r * LDF + c] + bo[c]));
+  }
+}
+
 template <typename T, bool BIAS>
 static int launch(const void* x, const void* wqkv, const void* bqkv, const void* wo,
                   const void* bo, const void* bias, void* out, int tokens, int f, int c, int heads,
-                  int dim, int bt, float scale, cudaStream_t stream) {
-  const size_t rows = (size_t)bt * f;
-  const size_t smem = sizeof(float) * rows * (2 * c + 3 * dim + 1 + f + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      temporal_fwd_kernel<T, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                  int dim, int bt, float scale, cudaStream_t stream, int* staged_out) {
+  const bool staged = tc_fwd_fits(bt, f, c, dim, sizeof(T));
+  const size_t smem = staged ? tc_fwd_plan(bt * f, f, c, dim, sizeof(T)).bytes
+                             : sizeof(float) * (size_t)bt * f * (2 * c + 3 * dim + 1 + f + 1);
+  auto kernel = staged ? temporal_fwd_panel_kernel<T, BIAS> : temporal_fwd_kernel<T, BIAS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (tokens + bt - 1) / bt;
-  temporal_fwd_kernel<T, BIAS><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
       static_cast<const T*>(wo), static_cast<const float*>(bo), static_cast<const float*>(bias),
       static_cast<T*>(out), tokens, f, c, heads, dim, bt, scale);
+  *staged_out = staged;
   return (int)cudaGetLastError();
 }
 
@@ -864,9 +1149,10 @@ template <typename T, bool BIAS>
 static int launch_bwd(const void* x, const void* g, const void* wqkv, const void* bqkv,
                       const void* wo, const void* bias, void* dbias_partial, void* dbias, void* dx,
                       void* partial, void* grads, int tokens, int f, int c, int heads, int dim,
-                      int bt, int grid, float scale, cudaStream_t stream) {
+                      int bt, int grid, float scale, cudaStream_t stream, int* staged) {
   cudaError_t err;
-  if (tc_bwd_fits(bt, f, c, dim, sizeof(T))) {
+  *staged = tc_bwd_fits(bt, f, c, dim, sizeof(T));
+  if (*staged) {
     const size_t smem = tc_bwd_plan(bt * f, f, c, dim, sizeof(T)).bytes;
     err = cudaFuncSetAttribute(temporal_bwd_panel_kernel<T, BIAS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -903,14 +1189,16 @@ static int launch_bwd(const void* x, const void* g, const void* wqkv, const void
 }  // namespace vdt
 
 // dtype: 0 = float32, 1 = bfloat16. `bias` is (heads, f, f) float32 or null (the unbiased
-// instantiation). Returns the cudaError_t of the launch.
+// instantiation). Returns the cudaError_t of the launch; `*staged` is set to 1 where the staged
+// kernel ran, 0 where the CUDA-core one did (both entries).
 extern "C" int temporal_attention_fwd(int dtype, const void* x, const void* wqkv,
                                       const void* bqkv, const void* wo, const void* bo,
                                       const void* bias, void* out, int tokens, int f, int c,
-                                      int heads, int dim, int bt, float scale, void* stream) {
+                                      int heads, int dim, int bt, float scale, void* stream,
+                                      int* staged) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VDT_FWD(T, B) \
-  vdt::launch<T, B>(x, wqkv, bqkv, wo, bo, bias, out, tokens, f, c, heads, dim, bt, scale, s)
+  vdt::launch<T, B>(x, wqkv, bqkv, wo, bo, bias, out, tokens, f, c, heads, dim, bt, scale, s, staged)
   if (dtype == 0) return bias ? VDT_FWD(float, true) : VDT_FWD(float, false);
   if (dtype == 1) return bias ? VDT_FWD(__nv_bfloat16, true) : VDT_FWD(__nv_bfloat16, false);
 #undef VDT_FWD
@@ -926,12 +1214,12 @@ extern "C" int temporal_attention_bwd(int dtype, const void* x, const void* g, c
                                       const void* bqkv, const void* wo, const void* bias,
                                       void* dbias_partial, void* dbias, void* dx, void* partial,
                                       void* grads, int tokens, int f, int c, int heads, int dim,
-                                      int bt, int grid, float scale, void* stream) {
+                                      int bt, int grid, float scale, void* stream, int* staged) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias && !(dbias_partial && dbias)) return (int)cudaErrorInvalidValue;
 #define VDT_BWD(T, B)                                                                           \
   vdt::launch_bwd<T, B>(x, g, wqkv, bqkv, wo, bias, dbias_partial, dbias, dx, partial, grads, \
-                        tokens, f, c, heads, dim, bt, grid, scale, s)
+                        tokens, f, c, heads, dim, bt, grid, scale, s, staged)
   if (dtype == 0) return bias ? VDT_BWD(float, true) : VDT_BWD(float, false);
   if (dtype == 1) return bias ? VDT_BWD(__nv_bfloat16, true) : VDT_BWD(__nv_bfloat16, false);
 #undef VDT_BWD

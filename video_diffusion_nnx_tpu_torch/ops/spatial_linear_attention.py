@@ -19,14 +19,17 @@ The backward is two more kernels, ``sla_bwd_q`` (the q and output
 projections, and the contexts' cotangent) and ``sla_bwd_kv`` (the k and v
 projections through the token-axis softmax), with plain versions
 ``sla_bwd_q_plain`` and ``sla_bwd_kv_plain`` that keep the rounding points
-of the JAX ``_bwd_q_kernel`` and ``_bwd_kv_kernel``. ``sla_bwd_q`` runs the
-staged kernel (``sla_bwd_q_panel_kernel``: panels in x's type in shared memory,
-the products on the tensor cores in bf16) wherever a 16-token chunk fits, else
-the CUDA-core one; ``q_plan`` chooses. On CUDA tensors the
+of the JAX ``_bwd_q_kernel`` and ``_bwd_kv_kernel``. Each runs its staged
+kernel (``sla_bwd_q_panel_kernel``, ``sla_bwd_kv_panel_kernel``: panels in x's
+type in shared memory, the products on the tensor cores in bf16) wherever a
+16-token chunk fits, else the CUDA-core one; ``q_plan`` and ``kv_plan``
+choose. On CUDA tensors the
 public op is ``_SpatialLinearAttention``: its forward keeps the contexts and
 the k softmax's statistics (from the context kernel), so the backward
 recomputes nothing; at batch 8 of the flagship that is 2.6 MB per spatial
-attention, 21 MB over the 8 of a step.
+attention, 21 MB over the 8 of a step. In float32 the contexts also give the
+k softmax VJP's rho, so ``sla_bwd_kv`` then runs its staged kernel's second
+pass alone.
 
 Dispatch has no hidden fallback: a CPU tensor takes the plain versions,
 differentiated by autograd; a CUDA tensor launches the kernels or raises
@@ -46,8 +49,10 @@ _SMEM_MAX = 227 * 1024
 MAX_DIM = 64  # the context kernel keeps D*D / 256 accumulators per thread in registers
 _WORKSPACE_MAX = 128 * 2**20  # bytes of per-CTA weight-gradient partials in one backward kernel
 _TC_SMEM_TARGET = 113 * 1024  # two staged CTAs per SM where a chunk allows it
+_THREADS = 256  # threads of every CTA (kThreads in csrc/common.cuh)
 
 launches = {"sla_context": 0, "sla_out": 0, "sla_bwd_q": 0, "sla_bwd_kv": 0}
+staged = {"sla_bwd_q": 0, "sla_bwd_kv": 0}  # launches that ran the staged kernel, as the C entry reports
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -117,13 +122,18 @@ def sla_bwd_q_plain(xt, g, wqkv, wo, ctx, heads: int, dim: int, scale: float):
     return dxq, dctx, dwq, dwo
 
 
-def sla_bwd_kv_plain(xt, wqkv, dctx, dxq, heads: int, dim: int):
+def sla_bwd_kv_plain(xt, wqkv, ctx, dctx, dxq, heads: int, dim: int):
     """Backward of the k/v path from the contexts' cotangent: ``(dx, dwk, dwv)``.
 
     ``dx = dx_q + dk W_k^T + dv W_v^T`` in x's type; ``dwk`` and ``dwv``
     (c, H*D) float32. Rounding points of the JAX ``_bwd_kv_kernel``
     (:534-607): k and its token-axis softmax in float32, v, s, dctx, dk and
-    dv rounded to x's type before their products.
+    dv rounded to x's type before their products. The softmax VJP needs
+    ``rho = sum_n ds * s``; for float32 x, where rounding is the identity and
+    so the forward's context is ``ctx = s^T v``, it is taken as
+    ``sum_e dctx * ctx``, the same sum in another order (the kernel's one-pass
+    route). In bf16 the forward's context multiplies round(s) while rho needs
+    float32 s, so ``ctx`` is not used there.
     """
     frames, n, c = xt.shape
     dt = xt.dtype
@@ -135,7 +145,11 @@ def sla_bwd_kv_plain(xt, wqkv, dctx, dxq, heads: int, dim: int):
     dctx_c = dctx.to(dt).float()
     ds = torch.einsum("bhde,bnhe->bnhd", dctx_c, v)
     dv = torch.einsum("bhde,bnhd->bnhe", dctx_c, s.to(dt).float()).to(dt).float().reshape(frames, n, hd)
-    dk = (s * (ds - (ds * s).sum(1, keepdim=True))).to(dt).float().reshape(frames, n, hd)
+    if dt == torch.float32:
+        rho = (dctx_c * ctx.float()).sum(-1)[:, None]
+    else:
+        rho = (ds * s).sum(1, keepdim=True)
+    dk = (s * (ds - rho)).to(dt).float().reshape(frames, n, hd)
     dwk = torch.einsum("bnc,bnk->ck", xf, dk)
     dwv = torch.einsum("bnc,bnk->ck", xf, dv)
     dx = (dxq.float() + dk @ wqkv[:, hd:2 * hd].to(dt).float().t()
@@ -204,13 +218,51 @@ def q_plan(frames: int, n: int, c: int, dim: int, heads: int, bf16: bool, sms: i
     route, elt = "simt", 2 if bf16 else 4
     if _sla_tc_bytes(16, c, dim, elt) <= _SMEM_MAX:
         route = "staged"
-        chunk = 16
-        while chunk < min(128, _round16(n)) and _sla_tc_bytes(chunk + 16, c, dim, elt) <= _TC_SMEM_TARGET:
-            chunk += 16
-        want = -(-2 * sms // frames)
-        while chunk > 16 and -(-n // chunk) < want:  # smaller chunks where a frame has too few for the SMs
-            chunk -= 16
+        chunk = _staged_chunk(frames, n, sms, lambda k: _sla_tc_bytes(k, c, dim, elt))
         smem = _sla_tc_bytes(chunk, c, dim, elt)
+    return {"route": route, "chunk": chunk, "splits": _splits(frames, n, chunk, 2 * c * hd, sms), "smem": smem}
+
+
+def _sla_kv_bytes(chunk: int, c: int, dim: int, heads: int, elt: int) -> int:
+    """Shared memory of the staged ``sla_bwd_kv`` at ``chunk`` tokens, ``elt``-byte panels (``sla_kv_plan``)."""
+    cp, dp = _round16(c), _round16(dim)
+    ldc, ldd, ldw = cp + 8, dp + 8, 2 * dp + 8
+    groups = _THREADS // dp  # thread groups of pass 0's column sums
+    panels = (elt * (chunk * ldc + 2 * chunk * ldd + chunk * ldw + dp * ldd) + 4 * chunk * (cp + 8)
+              + 4 * chunk * (dp + 1) + 4 * heads * dp * (3 + groups))
+    return -(-panels // 16) * 16 + 2 * elt * cp * ldw
+
+
+def _staged_chunk(frames: int, n: int, sms: int, nbytes) -> int:
+    """Tokens per staged chunk: a multiple of 16 up to 128 within two CTAs per SM, smaller where a
+    frame would have too few chunks to spread over the SMs."""
+    chunk = 16
+    while chunk < min(128, _round16(n)) and nbytes(chunk + 16) <= _TC_SMEM_TARGET:
+        chunk += 16
+    want = -(-2 * sms // frames)
+    while chunk > 16 and -(-n // chunk) < want:
+        chunk -= 16
+    return chunk
+
+
+def kv_plan(frames: int, n: int, c: int, dim: int, heads: int, bf16: bool, sms: int) -> dict:
+    """The launch of ``sla_bwd_kv`` for ``sms`` SMs: route, tokens per chunk, CTAs per frame, shared memory.
+
+    The staged kernel ("staged": the chunk and each head's W_k | W_v in x's type, chunks of a
+    multiple of 16 tokens, the products on the tensor cores in bf16) takes every shape whose
+    16-token chunk fits; the rest the CUDA-core kernel ("simt"). Raises where the CUDA-core
+    kernel's 4-token chunk does not fit, as before. The C launcher makes the same choice
+    (``sla_kv_fits``). Both passes run on the same grid.
+    """
+    hd = heads * dim
+    fixed = dim * (dim + 1) + 2 * dim + hd
+    chunk = _chunk(4 * (2 * c + 4 * (dim + 1)), 4 * fixed, n)  # raises where 4 tokens do not fit
+    smem = 4 * (2 * chunk * c + 4 * chunk * (dim + 1) + fixed)
+    route, elt = "simt", 2 if bf16 else 4
+    if _sla_kv_bytes(16, c, dim, heads, elt) <= _SMEM_MAX:
+        route = "staged"
+        chunk = _staged_chunk(frames, n, sms, lambda k: _sla_kv_bytes(k, c, dim, heads, elt))
+        smem = _sla_kv_bytes(chunk, c, dim, heads, elt)
     return {"route": route, "chunk": chunk, "splits": _splits(frames, n, chunk, 2 * c * hd, sms), "smem": smem}
 
 
@@ -297,53 +349,63 @@ def sla_bwd_q(xt, g, wqkv, wo, ctx, heads: int, dim: int, scale: float):
     partial = torch.empty(frames * splits, 2 * c * hd, **f32)
     dwq, dwo = torch.empty(c, hd, **f32), torch.empty(hd, c, **f32)
     fn = _fn("sla_bwd_q", [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    route = ctypes.c_int(0)
     err = fn(
         _DTYPES[xt.dtype], xt.data_ptr(), g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(),
         ctx.data_ptr(), dxq.data_ptr(), dctx_part.data_ptr(), dctx.data_ptr(), partial.data_ptr(),
         dwq.data_ptr(), dwo.data_ptr(), frames, splits, n, c, heads, dim, float(scale), chunk,
-        torch.cuda.current_stream(xt.device).cuda_stream,
+        torch.cuda.current_stream(xt.device).cuda_stream, ctypes.byref(route),
     )
     _build.check(err, "sla_bwd_q")
     launches["sla_bwd_q"] += 1
+    staged["sla_bwd_q"] += route.value
     return dxq, dctx, dwq, dwo
 
 
-def sla_bwd_kv(xt, wqkv, dctx, dxq, stats, heads: int, dim: int):
+def sla_bwd_kv(xt, wqkv, ctx, dctx, dxq, stats, heads: int, dim: int):
     """Backward, k/v path: the kernel on CUDA tensors, the plain version on CPU ones.
 
-    ``stats`` are the context kernel's softmax statistics (CUDA only; the
-    plain version recomputes the softmax). Returns ``(dx, dwk, dwv)``.
+    ``ctx`` are the forward's contexts: float32 x takes rho from them, so the
+    staged kernel runs its second pass alone (see :func:`sla_bwd_kv_plain`);
+    bf16 x does not use them. ``stats`` are the context kernel's softmax
+    statistics (CUDA only; the plain version recomputes the softmax).
+    Returns ``(dx, dwk, dwv)``.
     """
     if not xt.is_cuda:
-        return sla_bwd_kv_plain(xt, wqkv, dctx, dxq, heads, dim)
-    _check(xt, wqkv, heads, dim, dctx, dxq, stats)
+        return sla_bwd_kv_plain(xt, wqkv, ctx, dctx, dxq, heads, dim)
+    _check(xt, wqkv, heads, dim, ctx, dctx, dxq, stats)
     frames, n, c = xt.shape
     hd = heads * dim
-    if (tuple(dctx.shape) != (frames, heads, dim, dim) or dxq.shape != xt.shape
-            or tuple(stats.shape) != (2, frames, heads, dim)):
-        raise ValueError(f"dctx {tuple(dctx.shape)}, dx_q {tuple(dxq.shape)} or stats "
+    if (tuple(ctx.shape) != (frames, heads, dim, dim) or tuple(dctx.shape) != (frames, heads, dim, dim)
+            or dxq.shape != xt.shape or tuple(stats.shape) != (2, frames, heads, dim)):
+        raise ValueError(f"ctx {tuple(ctx.shape)}, dctx {tuple(dctx.shape)}, dx_q {tuple(dxq.shape)} or stats "
                          f"{tuple(stats.shape)} does not fit x {tuple(xt.shape)}")
+    ctx = ctx.float().contiguous()
     wqkv = wqkv.to(xt.dtype).contiguous()
     dctx = dctx.float().contiguous()
     dxq = dxq.to(xt.dtype).contiguous()
     stats = stats.float().contiguous()
-    chunk = _chunk(4 * (2 * c + 4 * (dim + 1)), 4 * (dim * (dim + 1) + 2 * dim + hd), n)
-    splits = _splits(frames, n, chunk, 2 * c * hd, _sms(xt.device))
+    plan = kv_plan(frames, n, c, dim, heads, xt.dtype == torch.bfloat16, _sms(xt.device))
+    chunk, splits = plan["chunk"], plan["splits"]
+    xt = xt if xt.data_ptr() % 16 == 0 else xt.clone()  # copied in 8-byte chunks
     f32 = dict(device=xt.device, dtype=torch.float32)
     dx = torch.empty_like(xt)
     rho_part = torch.empty(splits, frames, hd, **f32)
     partial = torch.empty(frames * splits, 2 * c * hd, **f32)
     dwk, dwv = torch.empty(c, hd, **f32), torch.empty(c, hd, **f32)
-    fn = _fn("sla_bwd_kv", [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn = _fn("sla_bwd_kv", [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    route = ctypes.c_int(0)
     err = fn(
         _DTYPES[xt.dtype], xt.data_ptr(), wqkv.data_ptr(), dctx.data_ptr(), dxq.data_ptr(),
-        stats.data_ptr(), dx.data_ptr(), rho_part.data_ptr(), partial.data_ptr(), dwk.data_ptr(),
-        dwv.data_ptr(), frames, splits, n, c, heads, dim, chunk,
-        torch.cuda.current_stream(xt.device).cuda_stream,
+        stats.data_ptr(), ctx.data_ptr(), dx.data_ptr(), rho_part.data_ptr(), partial.data_ptr(),
+        dwk.data_ptr(), dwv.data_ptr(), frames, splits, n, c, heads, dim, chunk,
+        torch.cuda.current_stream(xt.device).cuda_stream, ctypes.byref(route),
     )
     _build.check(err, "sla_bwd_kv")
     launches["sla_bwd_kv"] += 1
+    staged["sla_bwd_kv"] += route.value
     return dx, dwk, dwv
 
 
@@ -364,7 +426,7 @@ class _SpatialLinearAttention(torch.autograd.Function):
         xt, wqkv, wo, context, stats = ctx.saved_tensors
         gt = g.reshape(xt.shape)
         dxq, dctx, dwq, dwo = sla_bwd_q(xt, gt, wqkv, wo, context, ctx.heads, ctx.dim, ctx.scale)
-        dx, dwk, dwv = sla_bwd_kv(xt, wqkv, dctx, dxq, stats, ctx.heads, ctx.dim)
+        dx, dwk, dwv = sla_bwd_kv(xt, wqkv, context, dctx, dxq, stats, ctx.heads, ctx.dim)
         dwqkv = torch.cat([dwq, dwk, dwv], dim=1)
         return dx.reshape(g.shape), dwqkv.to(wqkv.dtype), dwo.to(wo.dtype), None, None, None
 

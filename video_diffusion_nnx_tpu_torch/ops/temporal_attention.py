@@ -14,10 +14,11 @@ Two kernel families, chosen by the attended length alone (the JAX
 ``csrc/temporal_attention.cu`` hold a token's whole f x f panel; longer clips
 take the blockwise (online-softmax) kernels of ``csrc/temporal_blockwise.cu``,
 which walk K/V in blocks of ``KV_BLOCK`` frames. The dense backward has two
-kernels: the staged one (``temporal_bwd_panel_kernel``: panels in x's type in
-shared memory, the width-scaling products on the tensor cores in bf16) wherever
-one token's tile fits, else the CUDA-core one; ``bwd_plan`` chooses the route
-and the tile for a given number of SMs.
+kernels, and so has the dense forward: the staged one
+(``temporal_bwd_panel_kernel``, ``temporal_fwd_panel_kernel``: panels in x's
+type in shared memory, the width-scaling products on the tensor cores in bf16)
+wherever one token's tile fits, else the CUDA-core one; ``bwd_plan`` and
+``fwd_plan`` choose the route and the tile for a given number of SMs.
 
 Dispatch has no hidden fallback. A CPU tensor takes the family's plain
 version, differentiated by autograd; a CUDA tensor goes through
@@ -54,12 +55,14 @@ _SMEM_MAX = 227 * 1024
 _WORKSPACE_MAX = 128 * 2**20  # bytes of per-CTA weight-gradient partials in one backward
 _DBIAS_WORKSPACE_MAX = 256 * 2**20  # bytes of per-CTA dbias partials (H*f*f floats each) in one backward
 _THREADS = 256  # threads of every CTA (kThreads in csrc/common.cuh)
-_TC_SMEM_TARGET = 113 * 1024  # two staged backward CTAs per SM where a tile allows it
+_TC_SMEM_TARGET = 113 * 1024  # two staged CTAs per SM where a tile allows it
 
 launches = {"temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
             "temporal_blockwise_fwd": 0, "temporal_blockwise_bwd": 0,
             "temporal_attention_biased_fwd": 0, "temporal_attention_biased_bwd": 0,
             "temporal_blockwise_biased_fwd": 0, "temporal_blockwise_biased_bwd": 0}
+# Launches of the dense kernels that ran the staged kernel, as the C entry reports (the rest ran the CUDA-core one).
+staged = {name: 0 for name in launches if name.startswith("temporal_attention")}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -296,12 +299,66 @@ def _tc_bwd_fits(bt: int, f: int, c: int, dim: int, elt: int) -> bool:
     return 2 * _round16(dim) <= _THREADS and _tc_bwd_bytes(bt, f, c, dim, elt) <= _SMEM_MAX
 
 
-def _tc_fit(f: int, c: int, dim: int, elt: int, target: int) -> int:
-    """The most tokens (at most 64, at least 1) whose staged tile fits ``target`` bytes."""
-    fit = 1
-    while fit < 64 and _tc_bwd_bytes(fit + 1, f, c, dim, elt) <= target:
-        fit += 1
-    return fit
+def _key_window(f: int) -> int:
+    """The widest window of keys a 16-row block of query rows attends to, rounded to 16 (``key_window``)."""
+    g = math.gcd(16, f)  # a block's first row lies at an offset into its token that is a multiple of g
+    return _round16(f * (1 + (f - g + 15) // f))
+
+
+def _tc_fwd_bytes(bt: int, f: int, c: int, dim: int, elt: int) -> int:
+    """Shared memory of the staged forward at ``bt`` tokens per tile and ``elt``-byte panels (``tc_fwd_plan``).
+
+    bf16 tiles also hold the probabilities by key window and 16 zero rows past the q|k|v panel.
+    """
+    rp, cp, dp = _round16(bt * f), _round16(c), _round16(dim)
+    ldc, ldd, ldq = _pad_ld(c), _pad_ld(dim), _pad_ld(3 * dp)
+    ws = max(cp * ldd, dp * ldc)
+    tc = elt == 2
+    windows = rp * _pad_ld(_key_window(f)) + 16 * ldq if tc else 0
+    return elt * (rp * ldc + rp * ldq + 2 * ws + windows) + 4 * rp * (cp + 8) + 4 * rp * (f + 1)
+
+
+def _tc_fwd_fits(bt: int, f: int, c: int, dim: int, elt: int) -> bool:
+    """``tc_fwd_fits``: the staged forward's tile of ``bt`` tokens fits shared memory."""
+    return _tc_fwd_bytes(bt, f, c, dim, elt) <= _SMEM_MAX
+
+
+def _staged_tile(tokens: int, f: int, sms: int, nbytes) -> int:
+    """Tokens per staged tile: as many as fit two CTAs per SM (or one CTA, where that leaves fewer
+    than 64 rows), spread over the SMs, in whole 16-row blocks where the tile allows it."""
+    def fit(target: int) -> int:
+        n = 1
+        while n < 64 and nbytes(n + 1) <= target:
+            n += 1
+        return n
+
+    bt = fit(_TC_SMEM_TARGET)
+    if bt * f < 64:  # two CTAs per SM would leave tiles of few rows: one CTA of a larger tile instead
+        bt = fit(_SMEM_MAX - 1024)
+    bt = max(1, min(bt, -(-tokens // (2 * sms))))
+    unit = 16 // math.gcd(f, 16)
+    return bt - bt % unit if bt >= unit else bt
+
+
+def fwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms: int) -> dict:
+    """The dense forward's launch: route, tokens per tile, shared memory and grid, for ``sms`` SMs.
+
+    The staged kernel (``route`` "staged": panels in x's type; in bf16 the projections and the
+    per-token products on the tensor cores) takes every shape whose one-token tile fits; the rest
+    the CUDA-core kernel ("simt").
+    Raises where the CUDA-core kernel cannot hold one token, as it always did. The C launcher makes
+    the same choice from ``bt`` (``tc_fwd_fits``). ``heads`` does not change the tile: each head
+    runs over the same tile in turn.
+    """
+    bt = _tile(tokens, f, c, dim, sms)  # raises where one token does not fit
+    smem = 4 * bt * f * (2 * c + 3 * dim + 1 + f + 1)
+    route, elt = "simt", 2 if bf16 else 4
+    if _tc_fwd_fits(1, f, c, dim, elt):
+        route = "staged"
+        bt = _staged_tile(tokens, f, sms, lambda n: _tc_fwd_bytes(n, f, c, dim, elt))
+        smem = _tc_fwd_bytes(bt, f, c, dim, elt)
+    return {"route": route, "bt": bt, "smem": smem, "grid": -(-tokens // bt), "rows": bt * f,
+            "rows_padded": _round16(bt * f) if route == "staged" else bt * f}
 
 
 def bwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms: int) -> dict:
@@ -320,13 +377,7 @@ def bwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms:
     route, elt = "simt", 2 if bf16 else 4
     if _tc_bwd_fits(1, f, c, dim, elt):
         route = "staged"
-        fit = _tc_fit(f, c, dim, elt, _TC_SMEM_TARGET)
-        if fit * f < 64:  # two CTAs per SM would leave tiles of few rows: one CTA of a larger tile instead
-            fit = _tc_fit(f, c, dim, elt, _SMEM_MAX - 1024)
-        bt = max(1, min(fit, -(-tokens // (2 * sms))))
-        unit = 16 // math.gcd(f, 16)  # whole 16-row blocks where the tile allows it
-        if bt >= unit:
-            bt -= bt % unit
+        bt = _staged_tile(tokens, f, sms, lambda n: _tc_bwd_bytes(n, f, c, dim, elt))
         smem = _tc_bwd_bytes(bt, f, c, dim, elt)
     # two CTAs per SM where shared memory allows, except the float32 staged kernel, whose launch
     # bounds leave it more than the 128 registers a thread that two CTAs would
@@ -376,16 +427,21 @@ def _launch(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> torch
     scale = 1.0 / math.sqrt(dim)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if f <= MAX_FRAMES:
-        bt = _tile(tokens, f, c, dim, _sms(x.device))
+        bt = fwd_plan(tokens, f, c, dim, heads, x.dtype == torch.bfloat16, _sms(x.device))["bt"]
+        x = x if x.data_ptr() % 16 == 0 else x.clone()  # copied in 8-byte chunks
         fn = _build.library("temporal_attention").temporal_attention_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        route = ctypes.c_int(0)
         err = fn(
             _DTYPES[x.dtype], x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), bias_ptr, out.data_ptr(), tokens, f, c, heads, dim, bt, scale, stream,
+            ctypes.byref(route),
         )
         _build.check(err, f"temporal_attention{tag}_fwd")
         launches[f"temporal_attention{tag}_fwd"] += 1
+        staged[f"temporal_attention{tag}_fwd"] += route.value
         return out
     _check_blockwise(f, dim)
     grid = _blockwise_grid(tokens, f, dim, False, x.device)
@@ -448,14 +504,17 @@ def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_b
         bias_t, bias_ptrs = bias_buffers(grid)  # at most 128 KB per CTA here: no cap of its own is needed
         fn = _build.library("temporal_attention").temporal_attention_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        route = ctypes.c_int(0)
         err = fn(
             _DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), wqkv_c.data_ptr(), bqkv_f.data_ptr(),
             wo_c.data_ptr(), *bias_ptrs, dx.data_ptr(), partial.data_ptr(), grads.data_ptr(), tokens, f, c,
-            heads, dim, bt, grid, scale, stream,
+            heads, dim, bt, grid, scale, stream, ctypes.byref(route),
         )
         _build.check(err, f"temporal_attention{tag}_bwd")
         launches[f"temporal_attention{tag}_bwd"] += 1
+        staged[f"temporal_attention{tag}_bwd"] += route.value
     else:
         _check_blockwise(f, dim)
         grid = min(_blockwise_grid(tokens, f, dim, True, x.device), max(1, _WORKSPACE_MAX // (4 * total)))
