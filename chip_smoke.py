@@ -10,15 +10,20 @@ in one summary line (``PHASE <name>: ...``):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA kernel, compiled from csrc/ in parallel;
 3. kernels: each kernel against its plain PyTorch version at every shape the
-   flagship Unet3D gives it (batch 2), in bf16 and f32, TF32 off; CUDA-event
-   times of the kernel and of the plain version;
+   flagship Unet3D gives it (batch 2; the spatial pair also at the training
+   batch 8), in bf16 and f32, TF32 off; the spatial pair also relative to
+   each output's largest value (the contexts, and the attention term
+   out - x at contexts scaled by ``CTX_GAIN``); CUDA-event times of the
+   kernel and of the plain version (bf16; the spatial pair in f32 too, what
+   fixed math hands it);
 4. unet: the flagship-width Unet3D (configs/config_bouncing_digits.yaml,
    seeded random weights) in bf16 with the kernels, against the same
    weights through the plain modules (fused flags off);
 5. sample: ``video_diffusion_nnx_tpu_torch.sample.main`` with that config and
    a checkpoint file written by ``convert.py``: DDIM-50 at batch 4 and
    DDPM over the config's 1000 steps at batch 2; GIFs checked; every kernel
-   launch counted over this phase alone;
+   launch counted over this phase alone, and every launch of the spatial
+   forward pair must have run its staged kernel (so in phases 8, 12 and 16);
 6. backward: each backward kernel against its plain version at every shape
    the flagship training step (batch 8) gives it, and at one wide-frame
    shape, in bf16 and f32, TF32 off; CUDA-event times, each timed row's share
@@ -41,6 +46,9 @@ in one summary line (``PHASE <name>: ...``):
    128 frames), at the 256-long bottleneck shape of a 128x128 input and at
    two ragged lengths (65, 100), in bf16 and f32, TF32 off; in f32 also
    against the dense plain versions; CUDA-event times;
+9b. long sla: both spatial kernels at the long clip's eight calls (batch 1, 128
+    frames, bf16 and f32) against their plain versions, as in phase 3; the
+    spatial forward's time per step in each type;
 10. long unet: the configs/config_long_clip.yaml Unet3D (full width and
     depth, batch 1, 128 frames, bf16, seeded weights) forward with kernels
     against the plain modules;
@@ -100,8 +108,11 @@ in one summary line (``PHASE <name>: ...``):
     the shapes split, as the C entries reported each launch).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
-non-zero before it. Outputs go to chiprun_out/chip_smoke/ (small) and
-build/chip_smoke/ (checkpoints and data).
+non-zero before it. ``--only kernels,long sla`` runs the device check, the
+build and the named phases alone, then stops without the kernels line and the
+ok line (those two phases call only the ops' public wrappers, so a copy of
+this file in another checkout times that checkout's kernels). Outputs go to
+chiprun_out/chip_smoke/ (small) and build/chip_smoke/ (checkpoints and data).
 """
 
 from __future__ import annotations
@@ -128,6 +139,11 @@ TOL = {"bfloat16": 0.05, "float32": 1e-4}
 # Backward kernels against their plain versions: max-abs error over the largest magnitude of
 # each output (sums run in another order; in bf16 an intermediate may round one ulp apart).
 BWD_TOL = {"bfloat16": 0.02, "float32": 1e-5}
+# The spatial pair is also held relative to each output's largest value, at BWD_TOL: the contexts, and the
+# attention term y = out - x of sla_out. At the inputs' scale y is about one bf16 ulp of x, so out = x + round(y)
+# rounds most of y away; the contexts are multiplied by this power of two (exact in either type, and y with them)
+# so that y outweighs x and out - x shows y to its own rounding.
+CTX_GAIN = 2.0 ** 12
 HEADS, DIM_HEAD = 8, 32
 B = 2  # the kernel phase's batch
 B_TRAIN = 8  # the flagship training batch
@@ -162,6 +178,7 @@ SLA_SHAPES = [
     (1, (B, 10, 32, 32, 32)),  # up 2
 ]
 PER_FORWARD = {"temporal_attention_fwd": 11, "sla_context": 8, "sla_out": 8}
+SLA_FWD = ("sla_context", "sla_out")  # every launch of these on the flagship paths must run the staged kernel
 PER_STEP = {**PER_FORWARD, "temporal_attention_bwd": 11, "sla_bwd_q": 8, "sla_bwd_kv": 8}
 WIDE_SLA_SHAPE = (1, 10, 64, 64, 128)  # a frame the TPU's whole-frame backward cannot hold
 KERNELS = {
@@ -211,6 +228,7 @@ EXTRA_BLOCKWISE_SHAPES = [(0, (1, 16, 256, 256)), (0, (1, 64, 65, 64)), (0, (1, 
 LONG_PER_STEP = {"temporal_blockwise_fwd": 10, "temporal_blockwise_bwd": 10, "temporal_attention_fwd": 1,
                  "temporal_attention_bwd": 1, "sla_context": 8, "sla_out": 8, "sla_bwd_q": 8, "sla_bwd_kv": 8}
 LONG_STEPS, LONG_CKPT_EVERY, LONG_CLIPS = 12, 6, 32
+LONG_SLA_SHAPES = [(count, (1, 128, *shape[2:])) for count, shape in SLA_SHAPES]  # the long clip's 8 spatial calls
 REMAT_TOL = 1e-3  # gradients with remat_blocks on against off, relative norm per tensor
 KERNELS.update({
     "temporal_blockwise_fwd": {
@@ -336,25 +354,37 @@ def design_since(before: dict, now: dict, name: str) -> str:
     return design(now[name][0] - before[name][0], now[name][1] - before[name][1])
 
 
+def check_staged(counts: dict, staged: dict, where: str) -> None:
+    """Every launch of the spatial forward pair ran its staged kernel, as the C entries reported."""
+    for name in SLA_FWD:
+        check(counts.get(name, 0) > 0 and staged.get(name, 0) == counts[name],
+              f"{where}: {staged.get(name, 0)} of {counts.get(name, 0)} launches of {name} ran the staged kernel")
+
+
 def rand(torch, shape, seed: int, scale: float, dtype):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
 def kernel_phase(torch, ta, sla) -> dict:
-    """Every kernel against its plain version at every slice shape; times in bf16."""
+    """Every kernel against its plain version at every slice shape; times in bf16 (the spatial pair also in f32,
+    and at the training batch)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hd = HEADS * DIM_HEAD
     rows, agg = [], new_totals(PER_FORWARD)
+    # the spatial pair per forward at each batch and type (float32 is what fixed math hands it)
+    sla_agg = {f"b{b}_{t}": agg if (b, t) == (B, "bfloat16") else new_totals(SLA_FWD)
+               for b in (B, B_TRAIN) for t in ("bfloat16", "float32")}
 
-    def record(name, shape, dtype, err, count, ms=None, plain_ms=None, nbytes=0.0, flops=0.0):
+    def record(name, shape, dtype, err, count, timing=None, total=agg, **extra):
         check(math.isfinite(err) and err <= TOL[dtype],
               f"{name} at {shape} in {dtype}: max-abs error {err} over tolerance {TOL[dtype]}")
         row = {"kernel": name, "shape": shape, "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
-               "per_forward": count, "design": design_since(before, route_counts(ta, sla), name)}
-        if ms is not None:
-            add_timing(row, agg[name], count, err, ms, plain_ms, nbytes, flops)
+               "per_forward": count, "design": design_since(before, route_counts(ta, sla), name), **extra}
+        if timing is not None:
+            add_timing(row, total[name], count, err, *timing,
+                       PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS)
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
 
@@ -380,43 +410,102 @@ def kernel_phase(torch, ta, sla) -> dict:
                 flops = 2 * tokens * f * (c * 3 * hd + hd * c) + 4 * tokens * HEADS * f * f * DIM_HEAD
                 ms = cuda_ms(torch, lambda: ta.fused_temporal_attention_block(*args), 20)
                 plain = cuda_ms(torch, lambda: ta.temporal_attention_plain(*args), 10)
-                record("temporal_attention_fwd", shape, dtype_name, err, count, ms, plain, nbytes, flops)
+                record("temporal_attention_fwd", shape, dtype_name, err, count, (ms, plain, nbytes, flops))
             else:
                 record("temporal_attention_fwd", shape, dtype_name, err, count)
 
-        for count, shape in SLA_SHAPES:
-            b, f, hh, ww, c = shape
-            frames, n = b * f, hh * ww
-            before = route_counts(ta, sla)
-            x = rand(torch, (frames, n, c), 6, 0.5, dtype)
-            wqkv = rand(torch, (c, 3 * hd), 7, c ** -0.5, dtype)
-            wo = rand(torch, (hd, c), 8, hd ** -0.5, dtype)
-            ctx, _ = sla.sla_context(x, wqkv, HEADS, DIM_HEAD)
-            ctx_plain = sla.sla_context_plain(x, wqkv, HEADS, DIM_HEAD)
-            out = sla.sla_out(x, wqkv, wo, ctx_plain, HEADS, DIM_HEAD, 1.0)
-            out_plain = sla.sla_out_plain(x, wqkv, wo, ctx_plain, HEADS, DIM_HEAD, 1.0)
-            block = sla.sla_out(x, wqkv, wo, ctx, HEADS, DIM_HEAD, 1.0)
-            torch.cuda.synchronize()
-            err_ctx = (ctx - ctx_plain).abs().max().item()
-            err_out = (out.float() - out_plain.float()).abs().max().item()
-            err_block = (block.float() - out_plain.float()).abs().max().item()
-            check(err_block <= TOL[dtype_name],
-                  f"spatial block (context + output kernels) at {shape} in {dtype_name}: {err_block}")
-            if timed:
-                ctx_bytes = elt * (frames * n * c + 2 * c * hd) + 4 * frames * HEADS * DIM_HEAD ** 2
-                ctx_flops = 2 * frames * n * (2 * c * hd + HEADS * DIM_HEAD ** 2)
-                out_bytes = elt * (2 * frames * n * c + 2 * c * hd) + 4 * frames * HEADS * DIM_HEAD ** 2
-                out_flops = 2 * frames * n * (2 * c * hd + HEADS * DIM_HEAD ** 2)
-                ms_c = cuda_ms(torch, lambda: sla.sla_context(x, wqkv, HEADS, DIM_HEAD), 20)
-                pl_c = cuda_ms(torch, lambda: sla.sla_context_plain(x, wqkv, HEADS, DIM_HEAD), 10)
-                ms_o = cuda_ms(torch, lambda: sla.sla_out(x, wqkv, wo, ctx_plain, HEADS, DIM_HEAD, 1.0), 20)
-                pl_o = cuda_ms(torch, lambda: sla.sla_out_plain(x, wqkv, wo, ctx_plain, HEADS, DIM_HEAD, 1.0), 10)
-                record("sla_context", shape, dtype_name, err_ctx, count, ms_c, pl_c, ctx_bytes, ctx_flops)
-                record("sla_out", shape, dtype_name, err_out, count, ms_o, pl_o, out_bytes, out_flops)
-            else:
-                record("sla_context", shape, dtype_name, err_ctx, count)
-                record("sla_out", shape, dtype_name, err_out, count)
-    return {"rows": rows, "per_forward": agg}
+        for batch in (B, B_TRAIN):
+            for count, shape in SLA_SHAPES:
+                shape = (batch, *shape[1:])
+                before = route_counts(ta, sla)
+                checked, times = sla_pair(torch, sla, shape, dtype, dtype_name)
+                for name in SLA_FWD:
+                    err, rel = checked[name]
+                    record(name, shape, dtype_name, err, count, times[name], sla_agg[f"b{batch}_{dtype_name}"],
+                           rel_err=rel, rel_tol=BWD_TOL[dtype_name])
+    return {"rows": rows, "per_forward": agg, "sla_per_forward": sla_agg, "rel_err": largest_rel(rows)}
+
+
+def largest_rel(rows) -> dict:
+    """Per spatial kernel and type, the largest relative error of the rows (``rel_err``) and its limit."""
+    out = {}
+    for r in rows:
+        if "rel_err" in r:
+            key = f"{r['kernel']}_{r['dtype']}"
+            out[key] = {"rel_err": max(r["rel_err"], out.get(key, {}).get("rel_err", 0.0)), "tol": r["rel_tol"]}
+    return out
+
+
+def sla_pair(torch, sla, shape, dtype, dtype_name: str) -> tuple[dict, dict]:
+    """Both spatial kernels at x (b*f, h*w, c) of ``shape`` (b, f, h, w, c) against their plain versions, and
+    timed. Returns, per kernel, (max-abs error, relative error) and :func:`sla_timing`'s times. The relative
+    errors: the contexts over the plain contexts' largest value; the attention term y = out - x of sla_out over
+    the plain version's, both given the plain contexts times ``CTX_GAIN``. The two kernels together (the
+    contexts of the one into the other) are held to the forward gate too."""
+    b, f, hh, ww, c = shape
+    hd = HEADS * DIM_HEAD
+    x = rand(torch, (b * f, hh * ww, c), 6, 0.5, dtype)
+    wqkv = rand(torch, (c, 3 * hd), 7, c ** -0.5, dtype)
+    wo = rand(torch, (hd, c), 8, hd ** -0.5, dtype)
+
+    def out(fn, ctx):
+        return fn(x, wqkv, wo, ctx, HEADS, DIM_HEAD, 1.0)
+
+    ctx, _ = sla.sla_context(x, wqkv, HEADS, DIM_HEAD)
+    ctx_plain = sla.sla_context_plain(x, wqkv, HEADS, DIM_HEAD)
+    out_plain = out(sla.sla_out_plain, ctx_plain)
+    y, y_plain = (out(fn, ctx_plain * CTX_GAIN).float() - x.float() for fn in (sla.sla_out, sla.sla_out_plain))
+    checked = {"sla_context": (_max_abs(ctx, ctx_plain), _rel_err(ctx, ctx_plain)),
+               "sla_out": (_max_abs(out(sla.sla_out, ctx_plain), out_plain), _rel_err(y, y_plain))}
+    err_block = _max_abs(out(sla.sla_out, ctx), out_plain)
+    check(err_block <= TOL[dtype_name],
+          f"spatial block (context + output kernels) at {shape} in {dtype_name}: {err_block}")
+    for name, (_, rel) in checked.items():
+        check(math.isfinite(rel) and rel <= BWD_TOL[dtype_name],
+              f"{name} at {shape} in {dtype_name}: relative error {rel} over {BWD_TOL[dtype_name]}")
+    return checked, sla_timing(torch, sla, x, wqkv, wo, ctx_plain)
+
+
+def sla_timing(torch, sla, x, wqkv, wo, ctx, scale: float = 1.0) -> dict:
+    """Per spatial kernel on x (frames, n, c): ``(ms, plain ms, bytes, flops)``, the CUDA-event times of the
+    kernel and of its plain version, and the bytes and FLOPs of the function."""
+    frames, n, c = x.shape
+    hd, elt = HEADS * DIM_HEAD, x.element_size()
+    ctx_b = 4 * frames * HEADS * DIM_HEAD ** 2
+    flops = 2 * frames * n * (2 * c * hd + HEADS * DIM_HEAD ** 2)  # two projections and one D x D product per head
+    fns = {"sla_context": (lambda: sla.sla_context(x, wqkv, HEADS, DIM_HEAD),
+                           lambda: sla.sla_context_plain(x, wqkv, HEADS, DIM_HEAD),
+                           elt * (frames * n * c + 2 * c * hd) + ctx_b + 4 * 2 * frames * hd),
+           "sla_out": (lambda: sla.sla_out(x, wqkv, wo, ctx, HEADS, DIM_HEAD, scale),
+                       lambda: sla.sla_out_plain(x, wqkv, wo, ctx, HEADS, DIM_HEAD, scale),
+                       elt * (2 * frames * n * c + 2 * c * hd) + ctx_b)}
+    return {name: (cuda_ms(torch, kernel, 20), cuda_ms(torch, plain, 10), nbytes, flops)
+            for name, (kernel, plain, nbytes) in fns.items()}
+
+
+def long_sla_phase(torch, sla) -> dict:
+    """Both spatial kernels at the long-clip recipe's eight calls (batch 1, 128 frames) against their plain
+    versions, as in the kernels phase, and the spatial forward's time per training step (each call runs once a
+    step) in bf16 and in float32 (what the fixed long-clip recipe hands it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, agg = [], {dt: new_totals(SLA_FWD) for dt in TOL}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        peak = PEAK_F32_FLOPS if dtype_name == "float32" else PEAK_BF16_FLOPS
+        for count, shape in LONG_SLA_SHAPES:
+            before = route_counts(sla)
+            checked, times = sla_pair(torch, sla, shape, dtype, dtype_name)
+            now = route_counts(sla)
+            for name in SLA_FWD:
+                err, rel = checked[name]
+                check(math.isfinite(err) and err <= TOL[dtype_name],
+                      f"{name} at {shape} in {dtype_name}: max-abs error {err} over {TOL[dtype_name]}")
+                row = {"kernel": name, "shape": shape, "dtype": dtype_name, "max_abs_err": err,
+                       "tol": TOL[dtype_name], "rel_err": rel, "rel_tol": BWD_TOL[dtype_name], "per_step": count,
+                       "design": design_since(before, now, name)}
+                add_timing(row, agg[dtype_name][name], count, err, *times[name], peak)
+                rows.append(row)
+                print("  " + json.dumps(row), flush=True)
+    return {"rows": rows, "per_step": agg, "rel_err": largest_rel(rows)}
 
 
 def unet_phase(torch, load_config, build_models, config_path: Path = CONFIG, batch: int = B,
@@ -494,13 +583,14 @@ def sample_phase(torch, ops, load_config, build_models, save_checkpoint, sample)
         runs[name] = {"steps": res["steps"], "seconds": res["seconds"],
                       "seconds_per_step": res["seconds"] / res["steps"],
                       "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}
-    counts = ops.launch_counts()
+    counts, staged = ops.launch_counts(), ops.staged_launch_counts()
+    check_staged(counts, staged, "flagship sampling")
     forwards = sum(r["steps"] for r in runs.values())
     for name, per in PER_FORWARD.items():
         check(counts[name] > 0, f"kernel {name} was never launched on the main path")
         check(counts[name] == per * forwards,
               f"kernel {name}: {counts[name]} launches, expected {per} x {forwards} forwards")
-    return {"runs": runs, "launches": counts, "forwards": forwards}
+    return {"runs": runs, "launches": counts, "staged_launches": staged, "forwards": forwards}
 
 
 def _rel_err(got, want) -> float:
@@ -1114,6 +1204,7 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
     torch.cuda.reset_peak_memory_stats()
     tr = train.main(["--config", str(fused_cfg), "--device", "cuda"])
     counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+    check_staged(counts, staged, f"{name} phase")
     peak = torch.cuda.max_memory_allocated()
     losses = tr.loss_trace.tolist()
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
@@ -1158,6 +1249,7 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
                        "--output-path", str(out_dir), "--batch-size", "2", "--seed", "0", "--device", "cuda",
                        "--sampler", "ddim", "--num-steps", str(ddim_steps), "--load-ema-params"])
     s_counts = nonzero(ops.launch_counts())
+    check_staged(s_counts, ops.staged_launch_counts(), f"sampling after the {name} phase")
     check(s_counts == {k: per * ddim_steps for k, per in per_step.items() if "bwd" not in k},
           f"sampling from the trained checkpoint: launches {s_counts} in {ddim_steps} steps")
     d = raw["diffusion"]
@@ -1209,6 +1301,8 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
         torch.cuda.reset_peak_memory_stats()
         tr = train.main(["--config", str(cfg), "--device", "cuda"])
         counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+        if variant != "plain":
+            check_staged(counts, staged, f"{name} phase, {variant}")
         losses = tr.loss_trace.tolist()
         check(len(losses) == LONG_STEPS and all(math.isfinite(v) for v in losses), f"{variant}: losses {losses}")
         sps, save_s = _seconds_per_step(tr, warmup=3)
@@ -1528,7 +1622,14 @@ def seq_sample_phase(torch, ops, sample) -> dict:
             "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port's main path on one CUDA card and check it.")
+    ap.add_argument("--only", type=lambda v: v.split(","), default=None,
+                    help="comma-separated phase names (e.g. 'kernels,long sla'): run these alone, then stop")
+    only = ap.parse_args(argv).only
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1557,6 +1658,8 @@ def main() -> int:
 
     def timed(title: str, fn, *args, show=lambda r: r, **kwargs):
         """Run one phase, print its summary line (``show`` picks the fields) and keep its full result."""
+        if only is not None and title not in only:
+            return None
         t0 = time.perf_counter()
         results[title] = res = fn(*args, **kwargs)
         phase(title, seconds=time.perf_counter() - t0, **show(res))
@@ -1576,8 +1679,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    def sla_totals(totals):
+        return {k: {m: totals[k][m] for m in ("ms", "plain_ms", "bound_ms", "err")} for k in SLA_FWD}
+
     kern = timed("kernels", kernel_phase, torch, ta, sla,
-                 show=lambda r: {"tf32": "off (matmul and cudnn)", "checks": len(r["rows"]), "tolerance": TOL})
+                 show=lambda r: {"tf32": "off (matmul and cudnn)", "checks": len(r["rows"]), "tolerance": TOL,
+                                 **per_step(r, "per_forward"), "relative": r["rel_err"],
+                                 "sla_per_forward": {k: sla_totals(a) for k, a in r["sla_per_forward"].items()}})
     timed("unet", unet_phase, torch, load_config, build_models)
     timed("sample", sample_phase, torch, ops, load_config, build_models, save_checkpoint, sample)
     bwd = timed("backward", backward_phase, torch, ta, sla,
@@ -1590,6 +1698,9 @@ def main() -> int:
     blk = timed("blockwise", blockwise_phase, torch, ta,
                 show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
                                 **per_step(r, "per_step")})
+    timed("long sla", long_sla_phase, torch, sla,
+          show=lambda r: {"checks": len(r["rows"]), "tolerance": TOL, "relative": r["rel_err"],
+                          "per_step": {dt: sla_totals(a) for dt, a in r["per_step"].items()}})
     timed("long unet", unet_phase, torch, load_config, build_models, config_path=LONG_CONFIG, batch=1)
     timed("long grads", grads_phase, torch, ops, ta, sla, load_config, build_models, config_path=LONG_CONFIG,
           batch=1, long_clip=True, show=brief)
@@ -1622,6 +1733,9 @@ def main() -> int:
     seq = timed("seq train", seq_train_phase, torch, train,
                 show=lambda r: {k: v for k, v in r.items() if k != "resumed_losses"})
     timed("seq sample", seq_sample_phase, torch, ops, sample)
+    if only is not None:
+        (OUT / "results.json").write_text(json.dumps(results, indent=1, default=str))
+        return 0
 
     # Every kernel with the launches of the training path that runs it: the flagship's for the six dense and
     # spatial kernels, the long-clip recipe's for the blockwise pair, the two fixed recipes' for the biased
@@ -1668,7 +1782,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         sys.exit(1)

@@ -579,3 +579,107 @@ def test_staged_kernels_are_deterministic(device, dtype):
     args = _kv_args((8, 10, 64, 64, 32), device, dtype)
     a, b = sla.sla_bwd_kv(*args, 8, 32), sla.sla_bwd_kv(*args, 8, 32)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+# The staged spatial forward (`sla_context_panel_kernel`: two passes and the split reduction;
+# `sla_out_panel_kernel`) at every shape of the flagship (batch 2 for the sampler, batch 8 for training), the
+# long clip (128 frames), the wide frame and two ragged ones, in both types, at scale 1 and fixed math's 32 ** -0.5.
+_SLA_FRAME = [(64, 64, 32), (32, 32, 64), (16, 16, 128), (8, 8, 256), (8, 8, 128), (16, 16, 64), (32, 32, 32)]
+STAGED_SLA_FWD_SHAPES = ([(b, 10, *p) for b in (2, 8) for p in _SLA_FRAME] + [(1, 128, *p) for p in _SLA_FRAME]
+                         + [(1, 10, 64, 64, 128), (1, 2, 7, 7, 24), (1, 3, 16, 16, 128)])
+# The attention term y = out - x of sla_out is about one bf16 ulp of x at these inputs, so out = x + round(y)
+# rounds most of y away; the relative check of y multiplies the contexts by this power of two (exact in either
+# type, and y with them), so that y outweighs x.
+CTX_GAIN = 2.0 ** 12
+
+
+def _check_sla_fwd(xt, wqkv, wo, heads, dim, scale, routes):
+    """Both forward stages against their plain versions (forward gates; relative to their largest value the
+    contexts, y = out - x at contexts times CTX_GAIN, and the softmax statistics); each C entry reports the
+    route its planner chose (``routes``: "staged" or "simt" per stage); two runs bit-equal."""
+    dtype = xt.dtype
+    ops.reset_launch_counts()
+    ctx, stats = sla.sla_context(xt, wqkv, heads, dim)
+    ctx_plain = sla.sla_context_plain(xt, wqkv, heads, dim)
+    out = sla.sla_out(xt, wqkv, wo, ctx_plain, heads, dim, scale)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {"sla_context": 1, "sla_out": 1}
+    staged = ops.staged_launch_counts()
+    assert [staged[k] for k in ("sla_context", "sla_out")] == [r == "staged" for r in routes]
+    assert (ctx - ctx_plain).abs().max().item() <= TOL[dtype]
+    want = sla.sla_out_plain(xt, wqkv, wo, ctx_plain, heads, dim, scale)
+    assert out.dtype == dtype and out.shape == xt.shape
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert _rel_err(ctx, ctx_plain) <= BWD_TOL[dtype], _rel_err(ctx, ctx_plain)
+    y, y_plain = (fn(xt, wqkv, wo, ctx_plain * CTX_GAIN, heads, dim, scale).float() - xt.float()
+                  for fn in (sla.sla_out, sla.sla_out_plain))
+    assert _rel_err(y, y_plain) <= BWD_TOL[dtype], _rel_err(y, y_plain)
+    for name, a, w in zip(("max", "sum"), stats, sla.sla_stats_plain(xt, wqkv, heads, dim)):
+        assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
+    ctx2, stats2 = sla.sla_context(xt, wqkv, heads, dim)
+    assert torch.equal(ctx, ctx2) and torch.equal(stats, stats2)
+    assert torch.equal(out, sla.sla_out(xt, wqkv, wo, ctx_plain, heads, dim, scale))
+
+
+def _fwd_routes(xt, c, heads, dim):
+    frames, n, _ = xt.shape
+    args = (frames, n, c, dim, heads, xt.dtype == torch.bfloat16, _sms())
+    return sla.ctx_plan(*args)["route"], sla.out_plan(*args)["route"]
+
+
+@pytest.mark.parametrize("scale", [1.0, 32 ** -0.5], ids=["scale1", "scale_fixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", STAGED_SLA_FWD_SHAPES, ids=str)
+def test_staged_sla_fwd_matches_plain(device, shape, dtype, scale):
+    """Every configured shape takes both staged kernels, in either type."""
+    xt, wqkv, wo = _sla_args(shape, device, dtype)
+    routes = _fwd_routes(xt, shape[-1], 8, 32)
+    assert routes == ("staged", "staged")
+    _check_sla_fwd(xt, wqkv, wo, 8, 32, scale, routes)
+
+
+@pytest.mark.parametrize("scale", [1.0, 32 ** -0.5], ids=["scale1", "scale_fixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [16, 32, 64])
+@pytest.mark.parametrize("c", [24, 40, 256])
+def test_staged_sla_fwd_padding_edges_match_plain(device, c, dim, dtype, scale):
+    """n = 35 tokens (a ragged last chunk; at c = 256 in float32 three splits of one chunk), c and D padded to
+    16; the route is the planner's (float32 at D = 64, c = 256 keeps the CUDA-core kernels)."""
+    xt, wqkv, wo = _sla_args((2, 3, 7, 5, c), device, dtype, dim=dim)
+    _check_sla_fwd(xt, wqkv, wo, 8, dim, scale, _fwd_routes(xt, c, 8, dim))
+
+
+def jax_point_context(xt, wqkv, heads, dim):
+    """The contexts at the JAX context kernel's rounding points, in float64: k from x and W_k in x's type
+    (not rounded), its softmax over all tokens, then s and v rounded to x's type (``_context_kernel``)."""
+    frames, n, c = xt.shape
+    hd, dt = heads * dim, xt.dtype
+    x = xt.double()
+    k = (x @ wqkv[:, hd:2 * hd].to(dt).double()).reshape(frames, n, heads, dim)
+    v = (x @ wqkv[:, 2 * hd:].to(dt).double()).to(dt).double().reshape(frames, n, heads, dim)
+    s = torch.softmax(k, dim=1).to(dt).double()
+    return torch.einsum("bnhd,bnhe->bhde", s, v)
+
+
+@pytest.mark.parametrize("b", [2, 8])
+def test_staged_context_keeps_the_jax_rounding_points(device, monkeypatch, b):
+    """At the top level in bf16 the staged kernel rounds s after its normalisation over all n tokens, where the
+    JAX kernel rounds it, so its contexts lie no further from a float64 model of those rounding points than
+    those of the CUDA-core kernel (which a chunk that is not a multiple of 16 selects, by the C launcher's fit
+    rule, and which never rounds s); both stay within the forward gate of the plain version, which rounds k
+    before its softmax and so is no yardstick for either."""
+    xt, wqkv, _ = _sla_args((b, 10, 64, 64, 32), device, torch.bfloat16)
+    ref = jax_point_context(xt, wqkv, 8, 32)
+    plain = sla.sla_context_plain(xt, wqkv, 8, 32)
+    ops.reset_launch_counts()
+    staged, _ = sla.sla_context(xt, wqkv, 8, 32)
+    assert ops.staged_launch_counts()["sla_context"] == 1
+    monkeypatch.setattr(sla, "ctx_plan", lambda *a: {"route": "simt", "chunk": 60, "splits": 1, "groups": 1, "smem": 0})
+    simt, stats = sla.sla_context(xt, wqkv, 8, 32)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sla_context"] == 2 and ops.staged_launch_counts()["sla_context"] == 1
+    err_staged, err_simt = ((t.double() - ref).abs().max().item() for t in (staged, simt))
+    assert err_staged <= err_simt, (err_staged, err_simt)
+    assert max((t - plain).abs().max().item() for t in (staged, simt)) <= TOL[torch.bfloat16]
+    for name, a, w in zip(("max", "sum"), stats, sla.sla_stats_plain(xt, wqkv, 8, 32)):
+        assert _rel_err(a, w) <= BWD_TOL[torch.bfloat16], (name, _rel_err(a, w))

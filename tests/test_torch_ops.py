@@ -125,6 +125,29 @@ def test_sla_context_stats_match_pallas_kernel(monkeypatch, shape, heads, d):
     assert ops.launch_counts()["sla_context"] == 0
 
 
+@pytest.mark.parametrize("shape,heads,d", [((2, 64, 32), 8, 32), ((3, 49, 24), 4, 8)])
+def test_jax_point_context_model_matches_pallas_kernel(monkeypatch, shape, heads, d):
+    """In bf16, the float64 model of the JAX context kernel's rounding points that the card tests hold the staged
+    kernel against (``test_torch_cuda.jax_point_context``: k in float32 from x and W_k in x's type, its softmax
+    over all tokens, then s and v rounded to x's type) gives the contexts of ``_ctx_stats_kernel`` (interpret
+    mode); ``sla_context_plain``, which rounds k before its softmax, lies further from them."""
+    from test_torch_cuda import jax_point_context
+
+    monkeypatch.setattr(jsla, "FORCE_INTERPRET", True)
+    frames, _, c = shape
+    _, wqkv, wo = _sla(c, heads, d)
+    x = seeded(shape, 4, 0.5)
+    _, wk, wv, _, group, n_groups = jsla._group_views(jnp.asarray(wqkv), jnp.asarray(wo), heads, d, jnp.bfloat16)
+    ctx, _, _ = jsla._ctx_stats_pallas(jnp.asarray(x, jnp.bfloat16), wk, wv, group, d)
+    blocks = np.asarray(ctx, np.float64).reshape(frames, n_groups, group, d, group, d)
+    want = np.stack([blocks[:, :, h, :, h, :] for h in range(group)], 2).reshape(frames, heads, d, d)
+    xt = _t(x).bfloat16()
+    model = jax_point_context(xt, _t(wqkv), heads, d).numpy()
+    plain = psla.sla_context_plain(xt, _t(wqkv), heads, d).double().numpy()
+    err_model, err_plain = (np.abs(a - want).max() / np.abs(want).max() for a in (model, plain))
+    assert err_model <= 1e-5 and err_model < err_plain, (err_model, err_plain)
+
+
 def test_pack_sla_weights_matches():
     sla, _, _ = _sla(16, 4, 8)
     port = patt.SpatialLinearAttention(16, heads=4, D=8)

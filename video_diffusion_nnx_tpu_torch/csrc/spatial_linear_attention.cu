@@ -12,9 +12,17 @@
 //     ctx_h = softmax_n(x W_k,h)^T (x W_v,h)              (D, D), float32
 //     out   = x + sum_h softmax_D(x W_q,h) * scale . ctx_h W_o,h
 //
+// Each stage has two versions. The staged kernels (`sla_context_panel_kernel`,
+// `sla_out_panel_kernel`, below the first versions) stage the chunk and each
+// head's weights in shared memory in x's type and run the products on the
+// tensor cores in bf16; they take every shape whose 16-token chunk fits. The
+// first versions multiply on the CUDA cores in float32 with the weights read
+// from device memory one element at a time, and keep the rest:
+//
 // `sla_context_kernel`: one CTA per (frame, head) walks all n tokens in
 // chunks, keeping a running per-feature max and sum of k and rescaling its
-// float32 (D, D) accumulator as the max grows, then divides by the sums.
+// float32 (D, D) accumulator as the max grows, then divides by the sums
+// (so it never rounds s, where the TPU kernels round it after the division).
 // A head is a CTA of its own, so no block-diagonal mask and no 128-lane
 // head grouping are needed, and no sum crosses CTAs.
 //
@@ -26,16 +34,17 @@
 // x + round(y).
 //
 // Rounding points follow the TPU kernels: projections accumulate in float32
-// and k, q stay float32 into their softmaxes; v, the q softmax, the context
-// and o_h round to x's type before their products.
+// and k, q stay float32 into their softmaxes; v, s = softmax_n(k) (after its
+// division by the sum over all n tokens, `_context_kernel:193`), the q
+// softmax times the scale, the context and o_h round to x's type before
+// their products. The CUDA-core context kernel alone skips the rounding of s:
+// it multiplies the unrounded exp(k - max) into its running sums.
 //
-// Bound on this card. Each kernel reads x once (the output kernel also
+// Bound on this card. Each stage reads x once (the output stage also
 // writes it) and does 2*n*(2*c*H*D + H*D*D) FLOPs per frame: with H*D = 256
 // and D = 32 that is 270-770 FLOP per bf16 byte, around the H100's ~295
 // FLOP/byte ridge (989 TFLOP/s over 3.35 TB/s), so the bound is the
-// tensor-core rate at small c and the bytes at the widest c. This first
-// version multiplies on the CUDA cores in float32 (no tensor cores), so its
-// time is set by that, far from the bound.
+// tensor-core rate at small c and the bytes at the widest c.
 
 #include "common.cuh"
 
@@ -279,6 +288,475 @@ static int launch_out(const void* x, const void* wqkv, const void* wo, const voi
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(frames, (n + chunk - 1) / chunk);
   sla_out_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const T*>(wo),
+      static_cast<const float*>(ctx), static_cast<T*>(out), n, c, heads, dim, scale, chunk);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The forward with staged panels: the two kernels above, redesigned (tensor cores in bf16).
+//
+// The same function and rounding points as the TPU's `_ctx_stats_kernel` and `_out_kernel`.
+// Every operand of their products is rounded to x's type in the TPU kernels' math (x, W_q, W_k,
+// W_v, W_o, round(s), round(v), round(p * scale), round(ctx), round(o)), so in bf16 `mma.sync`
+// with float32 accumulators keeps them; only the order of the sums changes.
+//
+// `sla_context_panel_kernel` runs twice over a grid of (frame, split, head group) CTAs, each
+// split a contiguous range of the frame's token chunks (a frame alone would leave most SMs idle:
+// 20 frames at the sampler's batch 2), each head group a contiguous range of heads (`ctx_plan`
+// spreads the heads over CTAs where a frame's chunks alone leave a CTA too many serial steps:
+// a CTA's heads run one after another, each waiting for its weights). The chunk's x rows are
+// staged once in x's type for the CTA's heads, in chunks of a multiple of 16 tokens; each head's
+// weights go through two buffers, the next head's copied asynchronously while this one computes.
+//   pass 0: k = x W_k,h (float32); per (head, feature) and thread group a running max and sum
+//           of exp(k - max) over the group's rows, merged over the groups in a fixed order into
+//           the CTA's (max, sum) partial.
+//   pass 1: the frame's max and sum, merged over the splits in a fixed order
+//           (sum = sum_split sum_split exp(max_split - max); split 0 writes them to `stats`); then
+//           per head one (c, 2D) product x [W_k,h | W_v,h] whose epilogue turns k into
+//           round(exp(k - max) / sum) (the division taken as a product with the sum's reciprocal,
+//           within an ulp of it, as `sla_bwd_kv` rebuilds s) and rounds v, and
+//           ctx_h += round(s)^T round(v) in float32 in shared memory, written to the CTA's
+//           partial once at its end.
+// The partials are added in split order by `reduce_partials_kernel`: no atomics, so two runs
+// are bit-equal. s is rounded after its normalisation over all n tokens, where the TPU kernels
+// round it (the CUDA-core kernel above never rounds it). The extra cost is a second k product
+// per token, 2 c D FLOPs per head.
+//
+// `sla_out_panel_kernel`: one CTA per (frame, token chunk), as the kernel above. Per head:
+// q = x W_q,h (float32) and its softmax over the D features with the head's own max, then
+// qc = round(p * scale); o = round(qc round(ctx_h)) and y += o W_o,h (through `panel_mma`) into
+// a float32 panel in shared memory; then out = x + round(y). In bf16 q and its softmax stay in
+// registers, a warp taking a 16-row strip and all D columns (three barriers per head); in float32
+// q goes through shared memory and the softmax takes eight lanes per token (four barriers).
+//
+// Shapes whose 16-token chunk does not fit (at head dim 32: c above 688 / 576 in bf16, above
+// 336 / 304 in float32, for the context / output kernel) take the CUDA-core kernels above;
+// `ctx_plan` / `out_plan` (ops/spatial_linear_attention.py) and `sla_ctx_fits` / `sla_out_fits`
+// choose alike.
+
+// Each pass uses its own panels: k and the statistics in pass 0, round(s), round(v) and the
+// contexts in pass 1, over the same two regions (`a`, `b`). HC is the CTA's head count.
+struct SlaCtxPlan {
+  int Cp, Dp, LDC, LDD, LDW, PSD, LDA, G;
+  size_t x, a, b, mz, w, bytes;
+};
+
+__host__ __device__ inline SlaCtxPlan sla_ctx_plan(int NC, int C, int D, int HC, int elt) {
+  SlaCtxPlan p;
+  p.Cp = round16(C);
+  p.Dp = round16(D);
+  p.LDC = pad_ld(C);
+  p.LDD = pad_ld(D);
+  p.LDW = pad_ld(2 * p.Dp);
+  p.PSD = p.Dp + 1;
+  p.LDA = p.Dp + 4;
+  p.G = kThreads / p.Dp;  // thread groups of pass 0's statistics
+  const size_t a0 = (size_t)4 * NC * p.PSD, a1 = (size_t)2 * elt * NC * p.LDD;
+  const size_t b0 = (size_t)4 * 2 * HC * p.G * p.Dp, b1 = (size_t)4 * HC * p.Dp * p.LDA;
+  size_t at = 0;
+  p.x = at;   at += (size_t)elt * NC * p.LDC;
+  p.a = at;   at += a0 > a1 ? a0 : a1;
+  p.b = at;   at += b0 > b1 ? b0 : b1;
+  p.mz = at;  at += (size_t)4 * 2 * HC * p.Dp;
+  at = (at + 15) / 16 * 16;
+  p.w = at;   at += (size_t)2 * elt * p.Cp * p.LDW;
+  p.bytes = at;
+  return p;
+}
+
+__host__ __device__ inline bool sla_ctx_fits(int NC, int C, int D, int HC, int elt) {
+  return NC % 16 == 0 && sla_ctx_plan(NC, C, D, HC, elt).bytes <= kSmemMax;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) sla_context_panel_kernel(
+    const T* __restrict__ x, const T* __restrict__ wqkv, float* __restrict__ stat_part,
+    float* __restrict__ ctx_part, float* __restrict__ stats, int n, int C, int H, int D, int NC,
+    int pass) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int HC = H / gridDim.z, h0 = blockIdx.z * HC;  // this CTA's heads h0 .. h0 + HC - 1
+  const SlaCtxPlan pl = sla_ctx_plan(NC, C, D, HC, sizeof(T));
+  T* xs = reinterpret_cast<T*>(smem_raw + pl.x);           // (NC, Cp) token chunk
+  float* ks = reinterpret_cast<float*>(smem_raw + pl.a);   // pass 0: (NC, Dp) k, float32
+  T* sc = reinterpret_cast<T*>(smem_raw + pl.a);           // pass 1: (NC, Dp) round(s)
+  T* vs = sc + (size_t)NC * pl.LDD;                        // pass 1: (NC, Dp) round(v)
+  float* st = reinterpret_cast<float*>(smem_raw + pl.b);   // pass 0: (2, HC, G, Dp) running max, sum
+  float* acc = reinterpret_cast<float*>(smem_raw + pl.b);  // pass 1: (HC, Dp, Dp) contexts, float32
+  float* mz = reinterpret_cast<float*>(smem_raw + pl.mz);  // pass 1: (2, HC, Dp) max, 1 / sum
+  T* wbuf = reinterpret_cast<T*>(smem_raw + pl.w);         // 2 x (W_k,h | W_v,h)
+  const int Cp = pl.Cp, Dp = pl.Dp, LDC = pl.LDC, LDD = pl.LDD, LDW = pl.LDW, PSD = pl.PSD, LDA = pl.LDA,
+            G = pl.G;
+
+  const int frame = blockIdx.x, frames = gridDim.x, splits = gridDim.y;
+  const int cta = blockIdx.y * frames + frame;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int HD = H * D, W3 = 3 * HD;
+  float* mpart = stat_part;                               // (splits, frames, H, D) maxima
+  float* zpart = stat_part + (size_t)splits * frames * HD;  // (splits, frames, H, D) sums
+  float* cpart = ctx_part + ((size_t)cta * H + h0) * D * D;  // pass 1: this CTA's (HC, D, D) partial
+  if (pass == 0) {
+    for (int i = tid; i < HC * G * Dp; i += nth) {
+      st[i] = -INFINITY;
+      st[HC * G * Dp + i] = 0.f;
+    }
+  } else {
+    for (int i = tid; i < HC * Dp * LDA; i += nth) acc[i] = 0.f;
+    for (int i = tid; i < HC * Dp; i += nth) {  // the frame's statistics, the splits merged in order
+      const int h = h0 + i / Dp, d = i % Dp;
+      float m = -INFINITY, z = 0.f;
+      if (d < D) {
+        for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, mpart[((size_t)sp * frames + frame) * HD + h * D + d]);
+        for (int sp = 0; sp < splits; ++sp) {
+          const size_t at = ((size_t)sp * frames + frame) * HD + h * D + d;
+          if (zpart[at] > 0.f) z += zpart[at] * expf(mpart[at] - m);
+        }
+        if (blockIdx.y == 0) {
+          const size_t at = ((size_t)frame * H + h) * D + d;
+          stats[at] = m;
+          stats[(size_t)frames * HD + at] = z;
+        }
+      }
+      mz[i] = d < D ? m : 0.f;
+      mz[HC * Dp + i] = d < D ? 1.f / z : 0.f;
+    }
+  }
+  const int nchunks = (n + NC - 1) / NC, per = (nchunks + splits - 1) / splits;
+  const int n_end = min(n, (int)(blockIdx.y + 1) * per * NC);
+
+  auto load_head = [&](int j) {  // W_k,h (and in pass 1 W_v,h beside it) of head h0 + j into buffer j % 2
+    T* w = wbuf + (size_t)(j & 1) * Cp * LDW;
+    stage(w, LDW, wqkv + HD + (size_t)(h0 + j) * D, W3, C, D, Cp, Dp);
+    if (pass == 1) stage(w + Dp, LDW, wqkv + 2 * HD + (size_t)(h0 + j) * D, W3, C, D, Cp, Dp);
+    cp_async_commit();
+  };
+
+  for (int n0 = blockIdx.y * per * NC; n0 < n_end; n0 += NC) {
+    const int nc = min(NC, n - n0);
+    __syncthreads();  // the slots are initialised and the previous chunk consumed
+    stage(xs, LDC, x + ((size_t)frame * n + n0) * C, C, nc, C, NC, Cp);
+    load_head(0);
+
+    for (int j = 0; j < HC; ++j) {  // the CTA's j-th head
+      cp_async_wait_all();
+      __syncthreads();  // its weights have landed; the previous head is done with the panels
+      if (j + 1 < HC) load_head(j + 1);
+      const T* w = wbuf + (size_t)(j & 1) * Cp * LDW;
+      if (pass == 0) {
+        // k = x W_k,h; then thread (g, d) folds the chunk's rows g, g + G, ... into its running max and sum.
+        panel_mma<false, true>(xs, LDC, w, LDW, NC, Dp, Cp, [=](int r, int c, float v0, float v1) {
+          ks[r * PSD + c] = v0;
+          ks[r * PSD + c + 1] = v1;
+        });
+        __syncthreads();
+        if (tid < G * Dp) {
+          const int g = tid / Dp, d = tid - g * Dp;
+          float mc = -INFINITY;
+#pragma unroll 4
+          for (int r = g; r < nc; r += G) mc = fmaxf(mc, ks[r * PSD + d]);
+          if (d < D && mc > -INFINITY) {
+            float* sm = st + (j * G + g) * Dp + d;
+            float* sz = sm + HC * G * Dp;
+            const float mo = *sm, mn = fmaxf(mo, mc);
+            float z = mo == -INFINITY ? 0.f : *sz * expf(mo - mn);
+#pragma unroll 4
+            for (int r = g; r < nc; r += G) z += expf(ks[r * PSD + d] - mn);
+            *sm = mn;
+            *sz = z;
+          }
+        }
+        continue;  // the next head's barrier protects ks
+      }
+      // k|v = x [W_k,h | W_v,h]: round(exp(k - max) / sum), zero past the chunk and past D; round(v).
+      const float* mh = mz + j * Dp;
+      const float* rz = mz + (HC + j) * Dp;
+      panel_mma<false, true>(xs, LDC, w, LDW, NC, 2 * Dp, Cp, [=](int r, int c, float v0, float v1) {
+        if (c < Dp) {
+          const float s0 = r < nc && c < D ? expf(v0 - mh[c]) * rz[c] : 0.f;
+          const float s1 = r < nc && c + 1 < D ? expf(v1 - mh[c + 1]) * rz[c + 1] : 0.f;
+          st2(sc + r * LDD + c, s0, s1);
+        } else {
+          st2(vs + r * LDD + c - Dp, v0, v1);
+        }
+      });
+      __syncthreads();
+      // ctx_h += round(s)^T round(v) in shared memory; the next head's barrier protects sc and vs.
+      panel_mma_add<true, true>(sc, LDD, vs, LDD, Dp, Dp, NC, acc + (size_t)j * Dp * LDA, LDA, D, D);
+    }
+  }
+  __syncthreads();
+  if (pass == 1) {
+    for (int i = tid; i < HC * D * D; i += nth) {  // the CTA's partial, written once
+      const int j = i / (D * D), d = (i / D) % D, e = i % D;
+      cpart[i] = acc[((size_t)j * Dp + d) * LDA + e];
+    }
+  } else {
+    for (int i = tid; i < HC * D; i += nth) {  // the CTA's partial, its groups merged in order
+      const int j = i / D, d = i - j * D;
+      const float* sm = st + j * G * Dp + d;
+      const float* sz = sm + HC * G * Dp;
+      float m = -INFINITY, z = 0.f;
+      for (int g = 0; g < G; ++g) m = fmaxf(m, sm[g * Dp]);
+      for (int g = 0; g < G; ++g)
+        if (sz[g * Dp] > 0.f) z += sz[g * Dp] * expf(sm[g * Dp] - m);
+      mpart[(size_t)cta * HD + h0 * D + i] = m;
+      zpart[(size_t)cta * HD + h0 * D + i] = z;
+    }
+  }
+}
+
+constexpr int kCsPerThread = 16;  // elements of a (Dp, Dp) context panel per thread: Dp <= 64
+
+struct SlaOutPlan {
+  int Cp, Dp, LDC, LDF, LDD, PSD, WQ, WO;
+  size_t x, y, p, qc, o, cs, w, bytes;
+};
+
+__host__ __device__ inline SlaOutPlan sla_out_plan(int NC, int C, int D, int elt) {
+  SlaOutPlan p;
+  p.Cp = round16(C);
+  p.Dp = round16(D);
+  p.LDC = pad_ld(C);
+  p.LDF = p.Cp + 8;
+  p.LDD = pad_ld(D);
+  p.PSD = p.Dp + 1;
+  p.WQ = p.Cp * p.LDD;  // W_q,h (Cp, Dp)
+  p.WO = p.Dp * p.LDC;  // W_o,h (Dp, Cp)
+  size_t at = 0;
+  p.x = at;   at += (size_t)elt * NC * p.LDC;
+  p.y = at;   at += (size_t)4 * NC * p.LDF;
+  p.p = at;   at += elt == 2 ? 0 : (size_t)4 * NC * p.PSD;  // float32 q: the float32 route only
+  p.qc = at;  at += (size_t)elt * NC * p.LDD;
+  p.o = at;   at += (size_t)elt * NC * p.LDD;
+  p.cs = at;  at += (size_t)elt * p.Dp * p.LDD;
+  at = (at + 15) / 16 * 16;
+  p.w = at;   at += (size_t)2 * elt * (p.WQ + p.WO);
+  p.bytes = at;
+  return p;
+}
+
+// The softmax takes at most four tokens per thread: chunks of up to 128 tokens.
+__host__ __device__ inline bool sla_out_fits(int NC, int C, int D, int elt) {
+  return NC % 16 == 0 && NC <= 128 && sla_out_plan(NC, C, D, elt).bytes <= kSmemMax;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) sla_out_panel_kernel(
+    const T* __restrict__ x, const T* __restrict__ wqkv, const T* __restrict__ wo,
+    const float* __restrict__ ctx, T* __restrict__ out, int n, int C, int H, int D, float scale,
+    int NC) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SlaOutPlan pl = sla_out_plan(NC, C, D, sizeof(T));
+  T* xs = reinterpret_cast<T*>(smem_raw + pl.x);           // (NC, Cp) token chunk
+  float* ys = reinterpret_cast<float*>(smem_raw + pl.y);   // (NC, Cp) float32 sum of o_h W_o,h
+  float* ps = reinterpret_cast<float*>(smem_raw + pl.p);   // float32 x: (NC, Dp) q, float32
+  T* qc = reinterpret_cast<T*>(smem_raw + pl.qc);          // (NC, Dp) round(p * scale)
+  T* os = reinterpret_cast<T*>(smem_raw + pl.o);           // (NC, Dp) round(o)
+  T* cs = reinterpret_cast<T*>(smem_raw + pl.cs);          // (Dp, Dp) round(ctx_h)
+  T* wbuf = reinterpret_cast<T*>(smem_raw + pl.w);         // 2 x (W_q,h | W_o,h)
+  const int Cp = pl.Cp, Dp = pl.Dp, LDC = pl.LDC, LDF = pl.LDF, LDD = pl.LDD, PSD = pl.PSD;
+
+  const int frame = blockIdx.x, n0 = blockIdx.y * NC;
+  const int nc = min(NC, n - n0);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int HD = H * D, W3 = 3 * HD;
+  const size_t base = ((size_t)frame * n + n0) * C;
+
+  auto load_head = [&](int h) {  // W_q,h and W_o,h into buffer h % 2
+    T* wq = wbuf + (size_t)(h & 1) * (pl.WQ + pl.WO);
+    stage(wq, LDD, wqkv + (size_t)h * D, W3, C, D, Cp, Dp);
+    stage(wq + pl.WQ, LDC, wo + (size_t)h * D * C, C, D, C, Dp, Cp);
+    cp_async_commit();
+  };
+
+  stage(xs, LDC, x + base, C, nc, C, NC, Cp);
+  load_head(0);
+  for (int i = tid; i < NC * Cp; i += nth) ys[(i / Cp) * LDF + i % Cp] = 0.f;
+
+  for (int h = 0; h < H; ++h) {
+    cp_async_wait_all();
+    __syncthreads();  // head h's weights have landed; the previous head is done with cs, os and its slot
+    if (h + 1 < H) load_head(h + 1);
+    const T* wq = wbuf + (size_t)(h & 1) * (pl.WQ + pl.WO);
+    const T* wop = wq + pl.WQ;
+    const float* ch = ctx + ((size_t)frame * H + h) * D * D;
+    if constexpr (sizeof(T) == 2) {
+      // The head's context, read into registers now and rounded into cs once q's phase is done, so that
+      // its latency overlaps that phase.
+      float cv[kCsPerThread];
+#pragma unroll
+      for (int u = 0; u < kCsPerThread; ++u) {
+        const int i = tid + u * nth, d = i / Dp, e = i % Dp;
+        cv[u] = i < Dp * Dp && d < D && e < D ? ch[d * D + e] : 0.f;
+      }
+      // q = x W_q,h and its softmax over the D features (float32, this head's own max) in registers: a
+      // warp takes a 16-row strip and all Dp columns (Dp / 16 blocks), so each lane holds 2 rows x
+      // Dp / 4 of q's columns and a row's four lanes reduce it with two shuffles. Then
+      // qc = round(p * scale), zeros past the edges; the division and the scale are taken as one product
+      // with scale / sum (within an ulp of them, as `sla_bwd_kv` rebuilds s).
+      const int lane = tid & 31;
+      for (int m0 = (tid >> 5) * 16; m0 < NC; m0 += nth / 2) {
+        float acc[4][2][4];  // Dp <= 64: up to four 16-column blocks
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (16 * b < Dp) mma_block<false, true>(xs, LDC, wq, LDD, m0, 16 * b, Cp, acc[b]);
+        const int c0 = (lane & 3) * 2;
+        float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (16 * b < Dp && 16 * b + 8 * j + c0 + (e & 1) < D) mx[e >> 1] = fmaxf(mx[e >> 1], acc[b][j][e]);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          mx[t] = fmaxf(mx[t], __shfl_xor_sync(0xffffffffu, mx[t], 1));
+          mx[t] = fmaxf(mx[t], __shfl_xor_sync(0xffffffffu, mx[t], 2));
+        }
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool in = 16 * b < Dp && 16 * b + 8 * j + c0 + (e & 1) < D;
+              acc[b][j][e] = in ? expf(acc[b][j][e] - mx[e >> 1]) : 0.f;
+              sum[e >> 1] += acc[b][j][e];
+            }
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          sum[t] += __shfl_xor_sync(0xffffffffu, sum[t], 1);
+          sum[t] += __shfl_xor_sync(0xffffffffu, sum[t], 2);
+          const int r = m0 + (lane >> 2) + 8 * t;
+          sum[t] = r < nc ? scale / sum[t] : 0.f;  // rows past the chunk: zeros
+        }
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int t = 0; t < 2; ++t)
+              if (16 * b < Dp)
+                st2(qc + (m0 + (lane >> 2) + 8 * t) * LDD + 16 * b + 8 * j + c0,
+                    acc[b][j][2 * t] * sum[t], acc[b][j][2 * t + 1] * sum[t]);
+      }
+#pragma unroll
+      for (int u = 0; u < kCsPerThread; ++u) {
+        const int i = tid + u * nth;
+        if (i < Dp * Dp) cs[(i / Dp) * LDD + i % Dp] = from_f<T>(cv[u]);
+      }
+    } else {
+      // float32: the head's context into cs, q = x W_q,h on the CUDA cores into ps, then its softmax per token.
+      for (int i = tid; i < Dp * Dp; i += nth) {
+        const int d = i / Dp, e = i - d * Dp;
+        cs[d * LDD + e] = from_f<T>(d < D && e < D ? ch[d * D + e] : 0.f);
+      }
+      panel_mma<false, true>(xs, LDC, wq, LDD, NC, Dp, Cp, [=](int r, int c, float v0, float v1) {
+        ps[r * PSD + c] = v0;
+        ps[r * PSD + c + 1] = v1;
+      });
+      __syncthreads();
+
+      // Softmax over each token's D features (float32) with this head's own max, and qc = round(p * scale);
+      // zeros past the edges. Eight lanes per token, each taking the features d = lane, lane + 8, ...
+      // (D <= 64); a thread takes its four tokens tid / 8 + 32 i (NC <= 128) at once, so that their
+      // latencies overlap. The division and the scale are taken as one product with scale / sum.
+      const int sub = tid & 7;
+      float ev[4][8], m[4], sum[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = (tid >> 3) + 32 * i;
+        m[i] = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int d = sub + 8 * u;
+          ev[i][u] = r < nc && d < D ? ps[r * PSD + d] : -INFINITY;
+          m[i] = fmaxf(m[i], ev[i][u]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m[i] = max8(m[i]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool live = (tid >> 3) + 32 * i < nc;
+        sum[i] = 0.f;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          ev[i][u] = live && sub + 8 * u < D ? expf(ev[i][u] - m[i]) : 0.f;
+          sum[i] += ev[i][u];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[i] = scale / sum8(sum[i]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = (tid >> 3) + 32 * i;
+        if (r >= NC) continue;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int d = sub + 8 * u;
+          if (d < Dp) qc[r * LDD + d] = from_f<T>(r < nc && d < D ? ev[i][u] * sum[i] : 0.f);
+        }
+      }
+    }
+    __syncthreads();
+
+    // o = round(qc ctx_h).
+    panel_mma<false, true>(qc, LDD, cs, LDD, NC, Dp, Dp, [=](int r, int c, float v0, float v1) {
+      st2(os + r * LDD + c, v0, v1);
+    });
+    __syncthreads();
+
+    // y += o W_o,h; the next head's first barrier protects os, cs and the slot.
+    panel_mma_add<false, true>(os, LDD, wop, LDC, NC, Cp, Dp, ys, LDF, NC, Cp);
+  }
+  __syncthreads();
+
+  // out = x + round(y).
+  for (int i = tid; i < nc * C; i += nth) {
+    const int r = i / C, c = i - r * C;
+    out[base + i] = from_f<T>(to_f(xs[r * LDC + c]) + rnd<T>(ys[r * LDF + c]));
+  }
+}
+
+template <typename T>
+static int launch_context_fwd(const void* x, const void* wqkv, void* ctx, void* stats, void* stat_part,
+                              void* ctx_part, int frames, int splits, int groups, int n, int c, int heads,
+                              int dim, int chunk, cudaStream_t stream, int* staged_out) {
+  if (groups < 1 || heads % groups) return (int)cudaErrorInvalidValue;
+  const bool staged = sla_ctx_fits(chunk, c, dim, heads / groups, sizeof(T));
+  *staged_out = staged;
+  if (!staged) return launch_context<T>(x, wqkv, ctx, stats, frames, n, c, heads, dim, chunk, stream);
+  const size_t smem = sla_ctx_plan(chunk, c, dim, heads / groups, sizeof(T)).bytes;
+  cudaError_t err = cudaFuncSetAttribute(sla_context_panel_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  for (int pass = 0; pass < 2; ++pass) {
+    sla_context_panel_kernel<T><<<dim3(frames, splits, groups), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<float*>(stat_part),
+        static_cast<float*>(ctx_part), static_cast<float*>(stats), n, c, heads, dim, chunk, pass);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (splits == 1) return 0;  // the one partial is the contexts (the caller passed ctx as ctx_part)
+  const size_t total = (size_t)frames * heads * dim * dim;
+  return launch_reduce(static_cast<const float*>(ctx_part), splits, total, 1, (int)total,
+                       static_cast<float*>(ctx), (int)total, stream);
+}
+
+template <typename T>
+static int launch_out_fwd(const void* x, const void* wqkv, const void* wo, const void* ctx, void* out,
+                          int frames, int n, int c, int heads, int dim, float scale, int chunk,
+                          cudaStream_t stream, int* staged_out) {
+  const bool staged = sla_out_fits(chunk, c, dim, sizeof(T));
+  *staged_out = staged;
+  if (!staged) return launch_out<T>(x, wqkv, wo, ctx, out, frames, n, c, heads, dim, scale, chunk, stream);
+  const size_t smem = sla_out_plan(chunk, c, dim, sizeof(T)).bytes;
+  cudaError_t err = cudaFuncSetAttribute(sla_out_panel_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sla_out_panel_kernel<T><<<dim3(frames, (n + chunk - 1) / chunk), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const T*>(wo),
       static_cast<const float*>(ctx), static_cast<T*>(out), n, c, heads, dim, scale, chunk);
   return (int)cudaGetLastError();
@@ -1169,28 +1647,35 @@ static int launch_bwd_kv(const void* x, const void* wqkv, const void* dctx, cons
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of its launch.
 // `stats` receives the k softmax's per-feature max (frames, H, D) followed by
-// its sum (frames, H, D), float32.
+// its sum (frames, H, D), float32. The staged kernel runs over frames x splits
+// CTAs (`stat_part`: 2 x splits x frames x H x D floats; `ctx_part`: splits x
+// frames x H x D x D, or ctx itself where splits is 1; each of the `groups`
+// head groups, a divisor of heads, fills its own heads' slices); the CUDA-core
+// one over frames x heads, without the workspaces. `*staged` is set to 1
+// where the staged kernel ran, 0 where the CUDA-core one did.
 extern "C" int sla_context_fwd(int dtype, const void* x, const void* wqkv, void* ctx, void* stats,
-                               int frames, int n, int c, int heads, int dim, int chunk,
-                               void* stream) {
+                               void* stat_part, void* ctx_part, int frames, int splits, int groups,
+                               int n, int c, int heads, int dim, int chunk, void* stream, int* staged) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return vdt::launch_context<float>(x, wqkv, ctx, stats, frames, n, c, heads, dim, chunk, s);
+    return vdt::launch_context_fwd<float>(x, wqkv, ctx, stats, stat_part, ctx_part, frames, splits,
+                                          groups, n, c, heads, dim, chunk, s, staged);
   if (dtype == 1)
-    return vdt::launch_context<__nv_bfloat16>(x, wqkv, ctx, stats, frames, n, c, heads, dim, chunk,
-                                              s);
+    return vdt::launch_context_fwd<__nv_bfloat16>(x, wqkv, ctx, stats, stat_part, ctx_part, frames,
+                                                  splits, groups, n, c, heads, dim, chunk, s, staged);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int sla_out_fwd(int dtype, const void* x, const void* wqkv, const void* wo,
                            const void* ctx, void* out, int frames, int n, int c, int heads,
-                           int dim, float scale, int chunk, void* stream) {
+                           int dim, float scale, int chunk, void* stream, int* staged) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return vdt::launch_out<float>(x, wqkv, wo, ctx, out, frames, n, c, heads, dim, scale, chunk, s);
+    return vdt::launch_out_fwd<float>(x, wqkv, wo, ctx, out, frames, n, c, heads, dim, scale, chunk,
+                                      s, staged);
   if (dtype == 1)
-    return vdt::launch_out<__nv_bfloat16>(x, wqkv, wo, ctx, out, frames, n, c, heads, dim, scale,
-                                          chunk, s);
+    return vdt::launch_out_fwd<__nv_bfloat16>(x, wqkv, wo, ctx, out, frames, n, c, heads, dim, scale,
+                                              chunk, s, staged);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,7 +13,16 @@ the k softmax's max and sum, which the backward reads) and
 two plain stages equal the JAX ``_composite_xla`` (:343-368), rounding
 points included. On the GPU every frame size takes the same two kernels:
 the TPU's split between a one-pass and a two-pass forward follows its VMEM
-budget, which does not apply here.
+budget, which does not apply here. Each stage runs its staged kernel
+(``sla_context_panel_kernel``: two passes over token chunks split across CTAs,
+first the k softmax's statistics, then the contexts; ``sla_out_panel_kernel``)
+wherever a 16-token chunk fits, else the CUDA-core one; ``ctx_plan`` and
+``out_plan`` choose. The kernels keep the rounding points of the JAX Pallas
+kernels, which differ from ``_composite_xla`` in one place: k stays float32
+into its softmax (the plain version, as the composite, takes k from a product
+in x's type). The staged kernel rounds s = softmax_n(k) to x's type after its
+division by the sum over all n tokens, as ``_context_kernel`` (:193) does; the
+CUDA-core context kernel never rounds s.
 
 The backward is two more kernels, ``sla_bwd_q`` (the q and output
 projections, and the contexts' cotangent) and ``sla_bwd_kv`` (the k and v
@@ -39,6 +48,7 @@ differentiated by autograd; a CUDA tensor launches the kernels or raises
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,13 +56,14 @@ from video_diffusion_nnx_tpu_torch.ops import _build
 
 _SMEM_TARGET = 100 * 1024
 _SMEM_MAX = 227 * 1024
-MAX_DIM = 64  # the context kernel keeps D*D / 256 accumulators per thread in registers
+MAX_DIM = 64  # the kernels keep D*D / 256 context values per thread in registers
 _WORKSPACE_MAX = 128 * 2**20  # bytes of per-CTA weight-gradient partials in one backward kernel
 _TC_SMEM_TARGET = 113 * 1024  # two staged CTAs per SM where a chunk allows it
+_CTX_WORKSPACE_MAX = 16 * 2**20  # bytes of per-CTA context partials in one forward
 _THREADS = 256  # threads of every CTA (kThreads in csrc/common.cuh)
 
 launches = {"sla_context": 0, "sla_out": 0, "sla_bwd_q": 0, "sla_bwd_kv": 0}
-staged = {"sla_bwd_q": 0, "sla_bwd_kv": 0}  # launches that ran the staged kernel, as the C entry reports
+staged = {k: 0 for k in launches}  # launches that ran the staged kernel, as the C entry reports
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -181,6 +192,7 @@ def _chunk(per_token: int, fixed: int, n: int) -> int:
     return max(4, min(64, fit - fit % 4, -(-n // 4) * 4))
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -233,12 +245,18 @@ def _sla_kv_bytes(chunk: int, c: int, dim: int, heads: int, elt: int) -> int:
     return -(-panels // 16) * 16 + 2 * elt * cp * ldw
 
 
-def _staged_chunk(frames: int, n: int, sms: int, nbytes) -> int:
-    """Tokens per staged chunk: a multiple of 16 up to 128 within two CTAs per SM, smaller where a
-    frame would have too few chunks to spread over the SMs."""
+def _longest_chunk(n: int, nbytes) -> int:
+    """The longest staged chunk: a multiple of 16 up to 128 (and n) within two CTAs per SM."""
     chunk = 16
     while chunk < min(128, _round16(n)) and nbytes(chunk + 16) <= _TC_SMEM_TARGET:
         chunk += 16
+    return chunk
+
+
+def _staged_chunk(frames: int, n: int, sms: int, nbytes) -> int:
+    """Tokens per staged chunk: the longest, shortened where a frame would have too few chunks to
+    spread over the SMs."""
+    chunk = _longest_chunk(n, nbytes)
     want = -(-2 * sms // frames)
     while chunk > 16 and -(-n // chunk) < want:
         chunk -= 16
@@ -266,6 +284,98 @@ def kv_plan(frames: int, n: int, c: int, dim: int, heads: int, bf16: bool, sms: 
     return {"route": route, "chunk": chunk, "splits": _splits(frames, n, chunk, 2 * c * hd, sms), "smem": smem}
 
 
+def _sla_ctx_bytes(chunk: int, c: int, dim: int, hc: int, elt: int) -> int:
+    """Shared memory of the staged ``sla_context`` at ``chunk`` tokens, ``hc`` heads per CTA and ``elt``-byte
+    panels (``sla_ctx_plan``: the two passes' panels share two regions)."""
+    cp, dp = _round16(c), _round16(dim)
+    ldc, ldd, ldw = cp + 8, dp + 8, 2 * dp + 8
+    groups = _THREADS // dp  # thread groups of the statistics pass
+    panels = (elt * chunk * ldc + max(4 * chunk * (dp + 1), 2 * elt * chunk * ldd)
+              + max(4 * 2 * hc * groups * dp, 4 * hc * dp * (dp + 4)) + 4 * 2 * hc * dp)
+    return -(-panels // 16) * 16 + 2 * elt * cp * ldw
+
+
+def _cover(n: int, chunk: int, splits: int) -> int:
+    """The CTAs per frame that hold chunks when ``splits`` CTAs take contiguous ranges of them."""
+    chunks = -(-n // chunk)
+    return -(-chunks // -(-chunks // splits))
+
+
+@functools.lru_cache(maxsize=256)  # the wrappers ask for every call; the caller must not change the plan
+def ctx_plan(frames: int, n: int, c: int, dim: int, heads: int, bf16: bool, sms: int) -> dict:
+    """The launch of ``sla_context`` for ``sms`` SMs: route, tokens per chunk, CTAs per frame and head
+    groups, shared memory.
+
+    The staged kernel ("staged": the chunk and each head's W_k | W_v in x's type, chunks of a
+    multiple of 16 tokens, the products on the tensor cores in bf16; two passes over a grid of
+    frames x ``splits`` x ``groups`` CTAs) takes every shape whose 16-token chunk fits; the rest the
+    CUDA-core kernel ("simt", one CTA per frame and head, ``splits`` and ``groups`` 1). Raises where
+    the CUDA-core kernel's 4-token chunk does not fit, as before. The C launcher makes the same
+    choice (``sla_ctx_fits``).
+
+    Per head-group count (a divisor of ``heads``; a CTA keeps float32 contexts for each of its
+    heads, so wide weights need more groups before two CTAs share an SM), chunks are as long as
+    two CTAs per SM allow (up to 128 tokens), and ``splits`` CTAs take contiguous ranges of a
+    frame's chunks. The plan takes the (splits, groups) with the fewest waves of CTAs times the
+    steps of a CTA, then the fewest CTAs. A CTA's (chunk, head) steps run one after another, each
+    waiting for its weights and two barriers; staging a chunk of x costs about one step more, and a
+    CTA two (its launch, the first weights): at the top level that is about one wave of CTAs with
+    all heads, at the narrow levels one chunk and a few heads per CTA.
+    """
+    chunk = _chunk(4 * (c + 2 * (dim + 1)), 4 * 3 * dim, n)  # raises where 4 tokens do not fit
+    plan = {"route": "simt", "chunk": chunk, "splits": 1, "groups": 1,
+            "smem": 4 * (chunk * c + 2 * chunk * (dim + 1) + 3 * dim)}
+    elt = 2 if bf16 else 4
+    if _sla_ctx_bytes(16, c, dim, 1, elt) > _SMEM_MAX:  # not even one head's 16-token chunk fits
+        return plan
+    cap = max(1, _CTX_WORKSPACE_MAX // (4 * heads * dim * dim * frames))
+    best = None
+    for groups in (g for g in range(1, heads + 1) if heads % g == 0):
+        def nbytes(k: int) -> int:
+            return _sla_ctx_bytes(k, c, dim, heads // groups, elt)
+
+        if nbytes(16) > _SMEM_MAX:
+            continue
+        chunk = _longest_chunk(n, nbytes)
+        slots = sms * (2 if 2 * (nbytes(chunk) + 1024) <= 228 * 1024 else 1)
+        chunks = -(-n // chunk)
+        for splits in sorted({_cover(n, chunk, k) for k in range(1, min(chunks, cap) + 1)}):
+            ctas = frames * splits * groups
+            cost = (-(-ctas // slots) * (-(-chunks // splits) * (heads // groups + 1) + 2), ctas)
+            if best is None or cost < best[0]:
+                best = (cost, {"route": "staged", "chunk": chunk, "splits": splits, "groups": groups,
+                               "smem": nbytes(chunk)})
+    return best[1]
+
+
+def _sla_out_bytes(chunk: int, c: int, dim: int, elt: int) -> int:
+    """Shared memory of the staged ``sla_out`` at ``chunk`` tokens, ``elt``-byte panels (``sla_out_plan``)."""
+    cp, dp = _round16(c), _round16(dim)
+    ldc, ldd = cp + 8, dp + 8
+    q32 = 4 * chunk * (dp + 1) if elt == 4 else 0  # q in float32 (bf16 keeps it in registers)
+    panels = elt * (chunk * ldc + 2 * chunk * ldd + dp * ldd) + 4 * chunk * (cp + 8) + q32
+    return -(-panels // 16) * 16 + 2 * elt * (cp * ldd + dp * ldc)
+
+
+@functools.lru_cache(maxsize=256)
+def out_plan(frames: int, n: int, c: int, dim: int, heads: int, bf16: bool, sms: int) -> dict:
+    """The launch of ``sla_out`` for ``sms`` SMs: route, tokens per chunk, CTAs per frame, shared memory.
+
+    One CTA per frame and chunk in either route, so ``splits`` is the chunks per frame. The staged
+    kernel ("staged": the chunk and each head's W_q | W_o in x's type, chunks of a multiple of 16
+    tokens, the products on the tensor cores in bf16) takes every shape whose 16-token chunk fits;
+    the rest the CUDA-core kernel ("simt"). Raises where the CUDA-core kernel's 4-token chunk does
+    not fit, as before. The C launcher makes the same choice (``sla_out_fits``).
+    """
+    chunk = _chunk(4 * (2 * c + 2 * (dim + 1)), 4 * dim * (dim + 1), n)  # raises where 4 tokens do not fit
+    route, smem, elt = "simt", 4 * (2 * chunk * c + 2 * chunk * (dim + 1) + dim * (dim + 1)), 2 if bf16 else 4
+    if _sla_out_bytes(16, c, dim, elt) <= _SMEM_MAX:
+        route = "staged"
+        chunk = _staged_chunk(frames, n, sms, lambda k: _sla_out_bytes(k, c, dim, elt))
+        smem = _sla_out_bytes(chunk, c, dim, elt)
+    return {"route": route, "chunk": chunk, "splits": -(-n // chunk), "smem": smem}
+
+
 def _fn(name: str, argtypes: list):
     fn = getattr(_build.library("spatial_linear_attention"), name)
     fn.restype = ctypes.c_int
@@ -284,16 +394,28 @@ def sla_context(xt, wqkv, heads: int, dim: int):
     _check(xt, wqkv, heads, dim)
     frames, n, c = xt.shape
     wqkv = wqkv.to(xt.dtype).contiguous()
-    chunk = _chunk(4 * (c + 2 * (dim + 1)), 4 * 3 * dim, n)
-    ctx = torch.empty(frames, heads, dim, dim, device=xt.device, dtype=torch.float32)
-    stats = torch.empty(2, frames, heads, dim, device=xt.device, dtype=torch.float32)
-    fn = _fn("sla_context_fwd", [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    plan = ctx_plan(frames, n, c, dim, heads, xt.dtype == torch.bfloat16, _sms(xt.device))
+    chunk, splits = plan["chunk"], plan["splits"]
+    xt = xt if xt.data_ptr() % 16 == 0 else xt.clone()  # copied in 8-byte chunks
+    hd = heads * dim
+    f32 = dict(device=xt.device, dtype=torch.float32)
+    ctx = torch.empty(frames, heads, dim, dim, **f32)
+    stats = torch.empty(2, frames, heads, dim, **f32)
+    # the workspace: the statistics' partials (2, splits, frames, H, D), then the contexts' (splits, frames, H, D, D),
+    # which the kernel writes straight into ctx where a frame is one split
+    work = torch.empty(splits * frames * hd * (2 + (dim if splits > 1 else 0)), **f32)
+    ctx_part = work.data_ptr() + 4 * 2 * splits * frames * hd if splits > 1 else ctx.data_ptr()
+    fn = _fn("sla_context_fwd", [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    route = ctypes.c_int(0)
     err = fn(
         _DTYPES[xt.dtype], xt.data_ptr(), wqkv.data_ptr(), ctx.data_ptr(), stats.data_ptr(),
-        frames, n, c, heads, dim, chunk, torch.cuda.current_stream(xt.device).cuda_stream,
+        work.data_ptr(), ctx_part, frames, splits, plan["groups"], n, c, heads, dim, chunk,
+        torch.cuda.current_stream(xt.device).cuda_stream, ctypes.byref(route),
     )
     _build.check(err, "sla_context_fwd")
     launches["sla_context"] += 1
+    staged["sla_context"] += route.value
     return ctx, stats
 
 
@@ -308,17 +430,20 @@ def sla_out(xt, wqkv, wo, ctx, heads: int, dim: int, scale: float) -> torch.Tens
     wqkv = wqkv.to(xt.dtype).contiguous()
     wo = wo.to(xt.dtype).contiguous()
     ctx = ctx.float().contiguous()
-    chunk = _chunk(4 * (2 * c + 2 * (dim + 1)), 4 * dim * (dim + 1), n)
+    chunk = out_plan(frames, n, c, dim, heads, xt.dtype == torch.bfloat16, _sms(xt.device))["chunk"]
+    xt = xt if xt.data_ptr() % 16 == 0 else xt.clone()  # copied in 8-byte chunks
     out = torch.empty_like(xt)
     fn = _fn("sla_out_fwd", [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    route = ctypes.c_int(0)
     err = fn(
         _DTYPES[xt.dtype], xt.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), ctx.data_ptr(),
         out.data_ptr(), frames, n, c, heads, dim, float(scale), chunk,
-        torch.cuda.current_stream(xt.device).cuda_stream,
+        torch.cuda.current_stream(xt.device).cuda_stream, ctypes.byref(route),
     )
     _build.check(err, "sla_out_fwd")
     launches["sla_out"] += 1
+    staged["sla_out"] += route.value
     return out
 
 
