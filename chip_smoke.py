@@ -45,7 +45,8 @@ in one summary line (``PHASE <name>: ...``):
    plain versions at every shape the long-clip Unet3D gives them (batch 1,
    128 frames), at the 256-long bottleneck shape of a 128x128 input and at
    two ragged lengths (65, 100), in bf16 and f32, TF32 off; in f32 also
-   against the dense plain versions; CUDA-event times;
+   against the dense plain versions; every long-clip shape must run the
+   streaming kernels (as the C entries report); CUDA-event times;
 9b. long sla: both spatial kernels at the long clip's eight calls (batch 1, 128
     frames, bf16 and f32) against their plain versions, as in phase 3; the
     spatial forward's time per step in each type;
@@ -55,11 +56,29 @@ in one summary line (``PHASE <name>: ...``):
 11. long grads: one ``p_losses`` and ``backward`` of it with ``remat_blocks``
     on against off (same launch counts, gradients equal), against the plain
     modules and f32;
-12. long train: ``train.main`` on the long-clip recipe with a seeded
-    synthetic 128-frame dataset, 12 steps at batch 1: the loss falls, exact
-    launches per step, seconds per step, peak memory with ``remat_blocks``
-    on and off, the plain-modules control; then ``sample.main`` from the
-    trained checkpoint, DDIM-50 at batch 1, a 128-frame GIF checked;
+12. long train: ``train.main`` on configs/config_long_clip.yaml as the file
+    has it (full-state Adam), reading a folder of 32 seeded synthetic
+    128-frame GIFs written through the port's ``utils.media`` (only
+    ``dataset_path``, the output folders and the step counts differ), 12
+    steps at batch 1: the loss falls, exact launches per step, seconds per
+    step, peak memory with ``remat_blocks`` on and off, the plain-modules
+    control; then ``sample.main`` from the trained checkpoint, DDIM-50 at
+    batch 1, a 128-frame GIF checked;
+12b. wide: the wide temporal pair (f = 64 at c = 320, 512, 1024, batch 2,
+    where the dense tile holds no token: the streaming kernels in mode
+    DENSE) against the dense plain versions in bf16 and f32, biased too,
+    held to the gates and, in bf16, to one bf16 unit of each output (the
+    standard the staged dense kernels meet at c = 256, checked of them too);
+    the float32 gradients closer to the dense oracle than to the blockwise
+    one; CUDA-event times;
+12c. ctx rounding: the CUDA-core context kernel (the dim-128 bottleneck's
+    frames, c = 1024) and both context kernels at the flagship top level
+    against a float64 model of the JAX kernel's rounding points: each closer
+    to it than to the same model without the rounding of s;
+12d. dim128 unet, dim128 grads: phases 4 and 7 for the Unet3D of
+    configs/config_tpu_v2_3.yaml (dim 128, 10 frames of 64x64, bf16, both
+    fused flags) at batch 2, with its controls: every launch counted, the
+    bottleneck's attention through the wide pair;
 13. biased: the four biased (fixed-math) temporal kernels against their plain
     versions, forward and backward with dbias: the dense pair at the ten
     flagship shapes (batch 2 forward, batch 8 backward) and at f = 64 with
@@ -101,11 +120,14 @@ in one summary line (``PHASE <name>: ...``):
     seconds in the collectives;
 19. seq sample: the sampling CLI on one rank from rank 0's checkpoint,
     DDIM-10 at batch 1 and 32 frames;
-20. kernels line: one JSON object per kernel (launches over its train
-    phase, error, times, bound, and ``design``: "staged" where every launch of
-    that train phase ran its staged kernel (panels in shared memory, tensor
-    cores in bf16), "cuda-core" where each ran the first version, both where
-    the shapes split, as the C entries reported each launch).
+20. kernels line: one JSON object per kernel of a driven path (launches over
+    its train phase, the wide pair's over the dim-128 step, error, times,
+    bound, and ``design``: "staged" where every launch of that run ran its
+    staged or streaming kernel (panels in shared memory, tensor cores in
+    bf16), "cuda-core" where each ran the first version, both where the
+    shapes split, as the C entries reported each launch). The biased wide
+    pair, which no recipe reaches, is held in the wide phase and reported in
+    results.json apart from the line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. ``--only kernels,long sla`` runs the device check, the
@@ -241,6 +263,34 @@ KERNELS.update({
     },
 })
 
+
+# Wide columns (f <= 64 at widths whose one-token dense tile does not fit: c >= 374 forward, c >= 309
+# backward at head dim 32): the streaming kernels in mode DENSE, with the dense kernels' rounding points.
+# The dim-128 recipe (configs/config_tpu_v2_3.yaml: Unet3D dim 128, mults (1,2,4,8), 10 frames of 64x64,
+# bf16, both fused flags) attends its bottleneck's 8x8 = 64 tokens at c = 1024 there; it is driven at batch 2.
+DIM128_CONFIG = REPO / "configs" / "config_tpu_v2_3.yaml"
+DIM128_BATCH = 2
+# (per-step count in the dim-128 recipe, (b, s, f, c)): c = 1024 is its bottleneck; 320 and 512 are off its path
+WIDE_SHAPES = [(int(c == 1024), (DIM128_BATCH, 10, 64, c)) for c in (320, 512, 1024)]
+WIDE_DENSE_REF = (DIM128_BATCH, 10, 64, 256)  # the widest column the staged dense kernels hold, for comparison
+DIM128_PER_STEP = {"temporal_attention_fwd": 10, "temporal_wide_fwd": 1, "temporal_attention_bwd": 10,
+                   "temporal_wide_bwd": 1, "sla_context": 8, "sla_out": 8, "sla_bwd_q": 8, "sla_bwd_kv": 8}
+CTX_WIDE = (DIM128_BATCH * 10, 64, 1024)  # the dim-128 bottleneck's spatial frames: the CUDA-core context kernel
+CTX_TOP = (B * 10, 4096, 32)  # the flagship top level, where the staged context kernel runs (and, forced, the other)
+KERNELS.update({
+    "temporal_wide_fwd": {"source": "video_diffusion_nnx_tpu_torch/csrc/temporal_blockwise.cu",
+                          "replaces": "video_diffusion_nnx_tpu/ops/temporal_attention.py:111"},
+    "temporal_wide_bwd": {"source": "video_diffusion_nnx_tpu_torch/csrc/temporal_blockwise.cu",
+                          "replaces": "video_diffusion_nnx_tpu/ops/temporal_attention.py:175"},
+    "temporal_wide_biased_fwd": {"source": "video_diffusion_nnx_tpu_torch/csrc/temporal_blockwise.cu",
+                                 "replaces": "video_diffusion_nnx_tpu/ops/temporal_attention.py:111"},
+    "temporal_wide_biased_bwd": {"source": "video_diffusion_nnx_tpu_torch/csrc/temporal_blockwise.cu",
+                                 "replaces": "video_diffusion_nnx_tpu/ops/temporal_attention.py:175"},
+})
+# No recipe reaches the biased wide instantiation (the position bias goes onto attention over frames, and no
+# recipe has 64 frames or fewer at c >= 309): the wide phase and the card tests hold it against its plain
+# version, and it stands apart from the kernels line, whose kernels each run on a driven path.
+OFF_PATH = ("temporal_wide_biased_fwd", "temporal_wide_biased_bwd")
 
 # Fixed math (unet.reference_compat: false): every temporal attention over the frames takes the biased
 # kernels; the bottleneck's spatial attention stays unbiased; the spatial kernels get scale = 32 ** -0.5.
@@ -758,13 +808,16 @@ def blockwise_phase(torch, ta) -> dict:
             g = rand(torch, shape, 9, 0.1, dtype)
             w = (rand(torch, (c, 3 * hd), 2, c ** -0.5, torch.float32), rand(torch, (3 * hd,), 3, 0.1, torch.float32),
                  rand(torch, (hd, c), 4, hd ** -0.5, torch.float32), rand(torch, (c,), 5, 0.1, torch.float32))
-            before = dict(ta.launches)
+            before, routes = dict(ta.launches), route_counts(ta)
             got = ta.fused_temporal_attention_block(x, *w, HEADS, DIM_HEAD)
             grads = ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD)
             torch.cuda.synchronize()
             check(all(ta.launches[k] == before[k] + 1 for k in names)
                   and ta.launches["temporal_attention_fwd"] == before["temporal_attention_fwd"],
                   f"f = {f} did not take the blockwise kernels: {ta.launches}")
+            designs = {k: design_since(routes, route_counts(ta), k) for k in names}
+            check(not count or set(designs.values()) == {"staged"},
+                  f"the long clip's shape {shape} in {dtype_name} did not take the streaming kernels: {designs}")
             err = _max_abs(got, ta.temporal_attention_blockwise_plain(x, *w, HEADS, DIM_HEAD, kb))
             check(math.isfinite(err) and err <= TOL[dtype_name],
                   f"temporal_blockwise_fwd at {shape} in {dtype_name}: max-abs error {err} over {TOL[dtype_name]}")
@@ -776,8 +829,9 @@ def blockwise_phase(torch, ta) -> dict:
                       f"temporal_blockwise_bwd {k} at {shape} in {dtype_name}: error {r} of its largest value, "
                       f"over {BWD_TOL[dtype_name]}")
             del want
-            fwd_row = {"kv_block": kb, "max_abs_err": err, "tol": TOL[dtype_name]}
-            bwd_row = {"kv_block": kb, "rel_err": rel, "max_abs_err": err_b, "tol": BWD_TOL[dtype_name]}
+            fwd_row = {"kv_block": kb, "max_abs_err": err, "tol": TOL[dtype_name], "design": designs[names[0]]}
+            bwd_row = {"kv_block": kb, "rel_err": rel, "max_abs_err": err_b, "tol": BWD_TOL[dtype_name],
+                       "design": designs[names[1]]}
             if not timed:
                 dense = _max_abs(got, ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD))
                 check(dense <= TOL[dtype_name], f"temporal_blockwise_fwd at {shape} against the dense plain version: {dense}")
@@ -857,6 +911,8 @@ def biased_phase(torch, ta) -> dict:
                   f"{names[0]} at {f_shape} in {dtype_name}: a zero bias does not reproduce the unbiased kernel")
             row = {"kernel": names[0], "shape": f_shape, "dtype": dtype_name, "per_step": count, "max_abs_err": err,
                    "tol": TOL[dtype_name], "design": design_since(routes, route_counts(ta), names[0])}
+            check(dense or not count or row["design"] == "staged",
+                  f"{names[0]} at the long clip's {f_shape} in {dtype_name} ran the {row['design']} design")
             if not dense and dtype_name == "float32":
                 row["vs_dense_plain"] = _max_abs(got, ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD, pos_bias=bias))
                 check(row["vs_dense_plain"] <= TOL[dtype_name], f"{names[0]} at {f_shape} against the dense plain version: {row}")
@@ -888,6 +944,8 @@ def biased_phase(torch, ta) -> dict:
             row = {"kernel": names[1], "shape": b_shape, "dtype": dtype_name, "per_step": count, "rel_err": rel,
                    "max_abs_err": err_b, "tol": BWD_TOL[dtype_name],
                    "design": design_since(routes, route_counts(ta), names[1])}
+            check(dense or not count or row["design"] == "staged",
+                  f"{names[1]} at the long clip's {b_shape} in {dtype_name} ran the {row['design']} design")
             if not dense and dtype_name == "float32":
                 want_d = ta.temporal_attention_bwd_plain(x, g, *w, HEADS, DIM_HEAD, pos_bias=bias)
                 row["vs_dense_oracle"] = {k: _rel_err(a, v) for k, a, v in zip(grad_names, grads, want_d)}
@@ -909,6 +967,166 @@ def biased_phase(torch, ta) -> dict:
             print("  " + json.dumps(row), flush=True)
             del x, g, grads
     return {"rows": rows, "per_step": agg}
+
+
+def _one_ulp(got, want) -> bool:
+    """The bf16 standard the dense kernels meet: no element further from the reference than one bf16 unit in the last
+    place of the reference's largest magnitude."""
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return _max_abs(got, want) <= ulp
+
+
+def wide_phase(torch, ta) -> dict:
+    """The wide pair (mode DENSE of the streaming kernels) against the dense plain versions at f = 64 and
+    c of ``WIDE_SHAPES`` (batch 2), bf16 and f32, TF32 off, unbiased and biased (dbias held like the weight gradients).
+
+    Each output is held to the gates of PERF.md section 2 and, in bf16, to the standard the staged dense kernels
+    meet at c = 256 (``WIDE_DENSE_REF``, the widest column they hold), which this phase checks of them too: at most
+    one bf16 unit in the last place of each output's largest magnitude. In bf16 the float32 gradients also show the
+    rounding points: dW_o (which reads the rounded o_h of the forward) and dW_qkv, db_qkv, dbias (the rounded ds and
+    di of the backward) lie closer to the dense oracle than to the blockwise one, whose points the wide kernels do
+    not take. CUDA-event times at every shape; the dim-128 shape (c = 1024, unbiased bf16) is the kernels line's.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hd = HEADS * DIM_HEAD
+    grad_names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dbias")
+    names = ("temporal_wide_fwd", "temporal_wide_bwd", "temporal_wide_biased_fwd", "temporal_wide_biased_bwd")
+    rows, agg = [], new_totals(names)
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        elt, peak = (4, PEAK_F32_FLOPS) if dtype_name == "float32" else (2, PEAK_BF16_FLOPS)
+        bf16 = dtype_name == "bfloat16"
+        for count, shape in [(0, WIDE_DENSE_REF), *WIDE_SHAPES]:
+            b, s, f, c = shape
+            for biased in (False, True):
+                tag = "_biased" if biased else ""
+                family = "attention" if shape == WIDE_DENSE_REF else "wide"
+                # the dense forward still holds c = 320 (its tile refuses c >= 374; the backward's c >= 309)
+                f_family = "wide" if family == "wide" and ta.wide_needed(f, c, DIM_HEAD, False) else "attention"
+                fwd, bwd = f"temporal_{f_family}{tag}_fwd", f"temporal_{family}{tag}_bwd"
+                x = rand(torch, shape, 1, 0.5, dtype)
+                g = rand(torch, shape, 9, 0.1, dtype)
+                w = (rand(torch, (c, 3 * hd), 2, c ** -0.5, torch.float32), rand(torch, (3 * hd,), 3, 0.1, torch.float32),
+                     rand(torch, (hd, c), 4, hd ** -0.5, torch.float32), rand(torch, (c,), 5, 0.1, torch.float32))
+                bias = rand(torch, (HEADS, f, f), 14, 0.5, torch.float32) if biased else None
+                kw = {"pos_bias": bias}
+                before, routes = dict(ta.launches), route_counts(ta)
+                got = ta._block(x, *w, bias, HEADS, DIM_HEAD)
+                grads = ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD, **kw)
+                torch.cuda.synchronize()
+                check(ta.launches[fwd] == before[fwd] + 1 and ta.launches[bwd] == before[bwd] + 1,
+                      f"{shape} {dtype_name}: {fwd} / {bwd} were not launched: {nonzero(ta.launches)}")
+                design = tuple(design_since(routes, route_counts(ta), k) for k in (fwd, bwd))
+                check(family == "attention" or (design[1] == "staged" and (design[0] == "staged" or f_family == "attention")),
+                      f"{shape} {dtype_name}: {fwd} / {bwd} ran {design}")
+                want_f = ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD, **kw)
+                want = ta.temporal_attention_bwd_plain(x, g, *w, HEADS, DIM_HEAD, **kw)
+                err = _max_abs(got, want_f)
+                rel = {k: _rel_err(a, v) for k, a, v in zip(grad_names, grads, want)}
+                err_b = max(rel.values())
+                row = {"shape": shape, "dtype": dtype_name, "bias": biased, "kernels": (fwd, bwd), "design": design,
+                       "max_abs_err": err, "rel_err": rel, "per_step": count}
+                check(math.isfinite(err) and err <= TOL[dtype_name],
+                      f"{fwd} at {shape} in {dtype_name}: max-abs error {err} over {TOL[dtype_name]}")
+                check(math.isfinite(err_b) and err_b <= BWD_TOL[dtype_name],
+                      f"{bwd} at {shape} in {dtype_name}: {rel} over {BWD_TOL[dtype_name]}")
+                if bf16:
+                    row["one_ulp"] = _one_ulp(got, want_f) and all(_one_ulp(a, v) for a, v in zip(grads, want))
+                    check(row["one_ulp"], f"{fwd} / {bwd} at {shape}: an output more than one bf16 unit from the plain "
+                                          f"version (forward {err}, backward {rel})")
+                del want_f
+                if family == "attention":
+                    rows.append(row)
+                    print("  " + json.dumps(row), flush=True)
+                    del x, g, got, grads, want
+                    continue
+                if bf16:  # the rounding points, through the float32 gradients
+                    blk = ta.temporal_attention_blockwise_bwd_plain(x, g, *w, HEADS, DIM_HEAD, ta.KV_BLOCK, **kw)
+                    probes = {"forward (dwo)": ("dwo",), "backward (dwqkv, dbqkv, dbias)": ("dwqkv", "dbqkv", "dbias")}
+                    row["rounding_points"] = {}
+                    for probe, keys in probes.items():
+                        dense_d = max(rel[k] for k in keys if k in rel)
+                        blk_d = max(_rel_err(grads[grad_names.index(k)], blk[grad_names.index(k)]) for k in keys if k in rel)
+                        row["rounding_points"][probe] = {"vs_dense": dense_d, "vs_blockwise": blk_d}
+                        check(dense_d < blk_d, f"{bwd} at {shape}: the {probe} gradients lie no closer to the dense "
+                                               f"oracle ({dense_d}) than to the blockwise one ({blk_d})")
+                    del blk
+                del want
+                rows_n = b * s * f
+                f_bytes = elt * (2 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + (4 * HEADS * f * f if biased else 0)
+                f_flops = rows_n * (8 * c * hd + 4 * f * hd + (HEADS * f if biased else 0))
+                b_bytes = (elt * (3 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + 4 * (4 * c * hd + 3 * hd + c)
+                           + (2 * 4 * HEADS * f * f if biased else 0))
+                b_flops = rows_n * (22 * c * hd + 12 * f * hd + (2 * HEADS * f if biased else 0))
+                ms_f = cuda_ms(torch, lambda: ta._block(x, *w, bias, HEADS, DIM_HEAD), 5, 1)
+                pl_f = cuda_ms(torch, lambda: ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD, **kw), 3, 1)
+                ms_b = cuda_ms(torch, lambda: ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD, **kw), 3, 1)
+                pl_b = cuda_ms(torch, lambda: ta.temporal_attention_bwd_plain(x, g, *w, HEADS, DIM_HEAD, **kw), 3, 1)
+                main = bf16 and count  # the dim-128 recipe's call (and the biased pair's yardstick)
+                fwd_row, bwd_row = dict(row, kernel=fwd), dict(row, kernel=bwd)
+                add_timing(fwd_row, agg.get(fwd, {}), count if main else 0, err, ms_f, pl_f, f_bytes, f_flops, peak)
+                add_timing(bwd_row, agg[bwd], count if main else 0, err_b, ms_b, pl_b, b_bytes, b_flops, peak)
+                rows += [fwd_row, bwd_row]
+                print("  " + json.dumps(fwd_row) + "\n  " + json.dumps(bwd_row), flush=True)
+                del x, g, got, grads
+    return {"rows": rows, "per_step": agg}
+
+
+def _point_contexts(torch, xt, wqkv):
+    """Float64 models of the contexts: at the JAX context kernel's rounding points (k from x and W_k in x's type,
+    not rounded; its softmax over all tokens; then s and v rounded to x's type, ``_context_kernel``:177-193), and
+    the same without the rounding of s."""
+    frames, n, c = xt.shape
+    hd, dt = HEADS * DIM_HEAD, xt.dtype
+    x = xt.double()
+    k = (x @ wqkv[:, hd:2 * hd].to(dt).double()).reshape(frames, n, HEADS, DIM_HEAD)
+    v = (x @ wqkv[:, 2 * hd:].to(dt).double()).to(dt).double().reshape(frames, n, HEADS, DIM_HEAD)
+    s = torch.softmax(k, dim=1)
+    return (torch.einsum("bnhd,bnhe->bhde", s.to(dt).double(), v), torch.einsum("bnhd,bnhe->bhde", s, v))
+
+
+def ctx_rounding_phase(torch, sla) -> dict:
+    """The context kernels against the float64 model of the JAX kernel's rounding points, bf16, each distance
+    relative to the model's largest context: at the dim-128 bottleneck's frames (c = 1024, where ``ctx_plan`` takes
+    the CUDA-core kernel) and at the flagship's top level, where both kernels run (the CUDA-core one forced through
+    a chunk the staged fit rule refuses, as the card tests do). Every kernel must lie closer to that model than to
+    the same model without the rounding of s, which is where a kernel that skips the rounding lies."""
+    hd = HEADS * DIM_HEAD
+    out = {}
+
+    def measure(ctx, ref, unrounded):
+        scale = ref.abs().max().item()
+        return {"rel_err": (ctx.double() - ref).abs().max().item() / scale,
+                "rel_err_vs_unrounded": (ctx.double() - unrounded).abs().max().item() / scale,
+                "models_differ": (ref - unrounded).abs().max().item() / scale}
+
+    for name, shape in (("wide", CTX_WIDE), ("top", CTX_TOP)):
+        frames, n, c = shape
+        xt = rand(torch, shape, 6, 0.5, torch.bfloat16)
+        wqkv = rand(torch, (c, 3 * hd), 7, c ** -0.5, torch.float32)
+        ref, unrounded = _point_contexts(torch, xt, wqkv)
+        before = sla.staged["sla_context"]
+        got, _ = sla.sla_context(xt, wqkv, HEADS, DIM_HEAD)
+        torch.cuda.synchronize()
+        out[name] = {"shape": shape, "route": "staged" if sla.staged["sla_context"] > before else "simt",
+                     **measure(got, ref, unrounded)}
+        if name == "top":
+            saved = sla.ctx_plan
+            sla.ctx_plan = lambda *a: {"route": "simt", "chunk": 60, "splits": 1, "groups": 1, "smem": 0}
+            try:
+                simt, _ = sla.sla_context(xt, wqkv, HEADS, DIM_HEAD)
+                torch.cuda.synchronize()
+            finally:
+                sla.ctx_plan = saved
+            out["top_simt"] = {"shape": shape, "route": "simt", **measure(simt, ref, unrounded)}
+    print("  " + json.dumps(out), flush=True)
+    check(out["wide"]["route"] == "simt" and out["top"]["route"] == "staged",
+          f"the context kernels ran other routes than the check needs: {out}")
+    for name, r in out.items():
+        check(r["rel_err"] < r["rel_err_vs_unrounded"],
+              f"the {r['route']} context kernel at {r['shape']} does not round s where the JAX kernel does: {r}")
+    return out
 
 
 def sla_scale_phase(torch, sla) -> dict:
@@ -1031,12 +1249,15 @@ def grads_phase(torch, ops, ta, sla, load_config, build_models, config_path: Pat
         return loss.item(), {k: p.grad.detach().float().clone() for k, p in m.named_parameters()
                              if p.grad is not None}
 
+    staged = {}
     for name, m in models.items():
         m.train()
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         losses[name], grads[name] = run(m)
         peak[name], launches[name] = torch.cuda.max_memory_allocated(), ops.launch_counts()
+        if name == "kernels":
+            staged = nonzero(ops.staged_launch_counts())
 
         def step(m=m):
             m.zero_grad(set_to_none=True)
@@ -1127,7 +1348,7 @@ def grads_phase(torch, ops, ta, sla, load_config, build_models, config_path: Pat
         live.update(focus_mask={"loss_kernels": m_loss, "loss_plain": p_loss, "max_k_vs_p": worst_m})
     worst = max(per, key=lambda k: per[k]["k_vs_p"])
     return {"losses": losses, "fwd_bwd_ms": ms, "peak_memory": peak, "remat": remat, "tensors": len(per),
-            "launches": nonzero(launches["kernels"]), "fixed_math": live,
+            "launches": nonzero(launches["kernels"]), "staged_launches": staged, "fixed_math": live,
             "worst": {worst: per[worst]},
             "limits": {"per_tensor": GRAD_TOL, "whole": 1.5 * p_whole + GRAD_MARGIN}, "controls": controls,
             "kernels_vs_f32": k_whole, "plain_vs_f32": p_whole,
@@ -1136,7 +1357,27 @@ def grads_phase(torch, ops, ta, sla, load_config, build_models, config_path: Pat
 
 
 def bouncing_squares(path: Path, clips: int = 256, frames: int = 10, size: int = 64, seed: int = 0) -> Path:
-    """A seeded uint8 dataset (frames, clips, size, size): one bright square bouncing per clip."""
+    """A seeded uint8 dataset (frames, clips, size, size) saved as ``.npy``: one bright square bouncing per clip."""
+    import numpy as np
+
+    np.save(path, _squares(clips, frames, size, seed))
+    return path
+
+
+def bouncing_square_gifs(folder: Path, clips: int, frames: int, size: int = 64, seed: int = 0) -> Path:
+    """The same clips as one grayscale GIF each (``clip_NNN.gif``), written by the port's ``utils.media``."""
+    from video_diffusion_nnx_tpu_torch.utils.media import video_array_to_gif
+
+    folder.mkdir(parents=True, exist_ok=True)
+    for old in folder.glob("*.gif"):
+        old.unlink()
+    data = _squares(clips, frames, size, seed)
+    for i in range(clips):
+        video_array_to_gif(data[:, i, :, :, None], folder / f"clip_{i:03d}.gif")
+    return folder
+
+
+def _squares(clips: int, frames: int, size: int, seed: int):
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1154,9 +1395,7 @@ def bouncing_squares(path: Path, clips: int = 256, frames: int = 10, size: int =
     s = side[None, :, None]
     rows = (grid >= y0) & (grid < y0 + s)
     cols = (grid >= x0) & (grid < x0 + s)
-    data = (rows[..., :, None] & cols[..., None, :]).astype(np.uint8) * 255
-    np.save(path, data)
-    return path
+    return (rows[..., :, None] & cols[..., None, :]).astype(np.uint8) * 255
 
 
 def _train_config(yaml, config: dict, root: Path, data: Path, name: str, unet: dict | None = None,
@@ -1279,15 +1518,17 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
     import yaml
     from PIL import Image
 
+    from PIL import Image as _Image
+
     raw = yaml.safe_load(LONG_CONFIG.read_text())
     d = raw["diffusion"]
     root = SCRATCH / name
     root.mkdir(parents=True, exist_ok=True)
-    data = bouncing_squares(root / "bouncing_squares_128.npy", clips=LONG_CLIPS, frames=d["num_frames"],
-                            size=d["image_size"])
-    # The recipe names a folder of GIFs and trains the schedule buffers with the weights; the port's
-    # trainer reads .npy clips and keeps the buffers frozen, so the derived recipe says both.
-    common = dict(steps=LONG_STEPS, ckpt_every=LONG_CKPT_EVERY, freeze_schedule_buffers=True, log_every_steps=1)
+    # The recipe reads a folder of GIFs: seeded synthetic 128-frame clips, written through the port's media
+    # helpers. Only dataset_path, the output folders and the step counts differ from the file.
+    data = bouncing_square_gifs(root / "long_clips", clips=LONG_CLIPS, frames=d["num_frames"], size=d["image_size"])
+    gif_frames = sorted({_Image.open(p).n_frames for p in data.glob("*.gif")})
+    common = dict(steps=LONG_STEPS, ckpt_every=LONG_CKPT_EVERY)
     extra = {"kernels": {}, "remat_off": {"remat_blocks": False}, "plain": PLAIN_MODULES}
     cfgs = {v: _train_config(yaml, raw, root, data, v, unet={**(unet or {}), **extra[v]}, **common) for v in variants}
     for sub in cfgs:
@@ -1345,6 +1586,8 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
     check(s_counts == {kernel: per * res["steps"] for kernel, per in per_step.items() if "bwd" not in kernel},
           f"long-clip sampling: launches {s_counts} in {res['steps']} steps")
     return {"steps": LONG_STEPS, "batch": raw["trainer"]["train_batch_size"], "frames": d["num_frames"],
+            "dataset": {"gif_folder": str(data), "clips": LONG_CLIPS, "frames_per_gif": gif_frames},
+            "freeze_schedule_buffers": raw["trainer"].get("freeze_schedule_buffers", False),
             "first4": first, "last4": last, "runs": runs, "loss_gaps_vs_kernels": gaps,
             "launches": k["launches"], "staged_launches": k["staged_launches"],
             "sample": {"steps": res["steps"], "seconds": res["seconds"],
@@ -1706,6 +1949,15 @@ def main(argv: list[str]) -> int:
           batch=1, long_clip=True, show=brief)
     long_trained = timed("long train", long_train_phase, torch, ops, train, sample)
 
+    # Wide columns (C3): the streaming kernels' mode DENSE, the CUDA-core context kernel's rounding points (C2),
+    # then the dim-128 recipe's Unet3D forward and backward through the kernels.
+    wide = timed("wide", wide_phase, torch, ta,
+                 show=lambda r: {"checks": len(r["rows"]), **per_step(r, "per_step")})
+    timed("ctx rounding", ctx_rounding_phase, torch, sla)
+    timed("dim128 unet", unet_phase, torch, load_config, build_models, config_path=DIM128_CONFIG, batch=DIM128_BATCH)
+    dim128 = timed("dim128 grads", grads_phase, torch, ops, ta, sla, load_config, build_models,
+                   config_path=DIM128_CONFIG, batch=DIM128_BATCH, per_step=DIM128_PER_STEP, show=brief)
+
     # Fixed math: the biased kernels, the spatial kernels' q scale, then both recipes with reference_compat off.
     biased = timed("biased", biased_phase, torch, ta,
                    show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
@@ -1739,7 +1991,8 @@ def main(argv: list[str]) -> int:
 
     # Every kernel with the launches of the training path that runs it: the flagship's for the six dense and
     # spatial kernels, the long-clip recipe's for the blockwise pair, the two fixed recipes' for the biased
-    # kernels. Times are of the type that path hands the kernel: bf16 in compat math, float32 in fixed math.
+    # kernels, the dim-128 recipe's step for the wide pair. Times are of the type that path hands the kernel:
+    # bf16 in compat math, float32 in fixed math.
     # Each kernel's design is that of its launches in that run, as the C entries reported them.
     aggregates, launches, dtypes, designs = {}, {}, {}, {}
 
@@ -1762,6 +2015,11 @@ def main(argv: list[str]) -> int:
     for name, a in cross["per_step"].items():  # launches summed over the four ranks of the seq train run
         aggregates[name] = a
         from_path(name, seq)
+    for name in ("temporal_wide_fwd", "temporal_wide_bwd"):  # one fwd + bwd of the dim-128 recipe
+        aggregates[name] = wide["per_step"][name]
+        from_path(name, dim128)
+    results["off_path_kernels"] = {name: {**wide["per_step"][name], "launches": 0, "source": KERNELS[name]["source"],
+                                          "replaces": KERNELS[name]["replaces"]} for name in OFF_PATH}
     kernels_line = [{
         "name": name, "route": "cuda", "design": designs[name],
         "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
@@ -1769,7 +2027,7 @@ def main(argv: list[str]) -> int:
         "bound_ms": a["bound_ms"], "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations",
         "library_ms": None, "dtype": dtypes.get(name, "bfloat16"),
     } for name, a in aggregates.items()]
-    check(all(k["launches"] > 0 for k in kernels_line) and len(kernels_line) == len(KERNELS) == 14,
+    check(all(k["launches"] > 0 for k in kernels_line) and len(kernels_line) == len(KERNELS) - len(OFF_PATH) == 16,
           f"a kernel of the main paths was never launched: {[(k['name'], k['launches']) for k in kernels_line]}")
     results["kernels_line"] = kernels_line
     (OUT / "results.json").write_text(json.dumps(results, indent=1, default=str))

@@ -11,6 +11,8 @@ f32 (sums in another order), 0.02 in bf16 (an intermediate rounded to bf16
 may land one ulp apart when its float32 sum was taken in another order).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -150,8 +152,9 @@ def test_sla_bwd_kernels_match_plain(device, dtype, shape):
 # The padding edges of the backward kernels' tiles: f of 1 (a token is one row), 16 (whole 16-row
 # blocks) and 64 (the longest dense column); c of 24 and 40 (not multiples of 16) and 256; head dims
 # 16 and 64 (64 takes the CUDA-core kernel where the tensor-core tile does not fit, and at f = 64, c =
-# 256 raises as the CUDA-core kernel always did); three heads, so that the weight ring's slots
-# alternate unevenly across tiles.
+# 256, where no dense tile holds one token, the wide kernel: the streaming kernel in mode DENSE, with
+# the dense kernels' rounding points); three heads, so that the weight ring's slots alternate unevenly
+# across tiles.
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dim", [16, 64])
@@ -163,13 +166,11 @@ def test_temporal_bwd_padding_edges_match_plain(device, f, c, dim, dtype, bias):
     x, wqkv, bqkv, wo, bo = _temporal_args(shape, device, dtype, heads, dim)
     g = _rand(shape, 5, 0.1, device, dtype)
     pos_bias = _rand((heads, f, f), 6, 0.5, device) if bias else None
-    name = "temporal_attention_biased_bwd" if bias else "temporal_attention_bwd"
+    family = "attention"
+    if f * 4 * (2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1) > 227 * 1024:  # one token over the dense tile
+        family = "wide"
+    name = f"temporal_{family}{'_biased' if bias else ''}_bwd"
     ops.reset_launch_counts()
-    if f * 4 * (2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1) > 227 * 1024:  # one token over shared memory
-        with pytest.raises(NotImplementedError, match="exceed shared memory"):
-            ta.temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads, dim, pos_bias=pos_bias)
-        assert set(ops.launch_counts().values()) == {0}
-        return
     got = ta.temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads, dim, pos_bias=pos_bias)
     torch.cuda.synchronize()
     assert {k: v for k, v in ops.launch_counts().items() if v} == {name: 1}
@@ -661,15 +662,32 @@ def jax_point_context(xt, wqkv, heads, dim):
     return torch.einsum("bnhd,bnhe->bhde", s, v)
 
 
+def unrounded_context(xt, wqkv, heads, dim):
+    """``jax_point_context`` without the rounding of s: the point the CUDA-core kernel skipped before."""
+    frames, n, c = xt.shape
+    hd, dt = heads * dim, xt.dtype
+    x = xt.double()
+    k = (x @ wqkv[:, hd:2 * hd].to(dt).double()).reshape(frames, n, heads, dim)
+    v = (x @ wqkv[:, 2 * hd:].to(dt).double()).to(dt).double().reshape(frames, n, heads, dim)
+    return torch.einsum("bnhd,bnhe->bhde", torch.softmax(k, dim=1), v)
+
+
+def _rounding_distances(ctx, xt, wqkv):
+    """A context's distance, relative to the largest context, to the float64 model of the JAX rounding points
+    and to the same model without the rounding of s."""
+    ref, unr = jax_point_context(xt, wqkv, 8, 32), unrounded_context(xt, wqkv, 8, 32)
+    scale = ref.abs().max().item()
+    return (ctx.double() - ref).abs().max().item() / scale, (ctx.double() - unr).abs().max().item() / scale
+
+
 @pytest.mark.parametrize("b", [2, 8])
 def test_staged_context_keeps_the_jax_rounding_points(device, monkeypatch, b):
-    """At the top level in bf16 the staged kernel rounds s after its normalisation over all n tokens, where the
-    JAX kernel rounds it, so its contexts lie no further from a float64 model of those rounding points than
-    those of the CUDA-core kernel (which a chunk that is not a multiple of 16 selects, by the C launcher's fit
-    rule, and which never rounds s); both stay within the forward gate of the plain version, which rounds k
-    before its softmax and so is no yardstick for either."""
+    """At the top level in bf16 both context kernels round s after its normalisation over all n tokens, where the
+    JAX kernel rounds it: the staged kernel and the CUDA-core one (which a chunk that is not a multiple of 16
+    selects, by the C launcher's fit rule; its pass 0 takes the statistics first) each lie closer to a float64
+    model of those rounding points than to the same model without the rounding of s. Both stay within the
+    forward gate of the plain version, which rounds k before its softmax and so is no yardstick for either."""
     xt, wqkv, _ = _sla_args((b, 10, 64, 64, 32), device, torch.bfloat16)
-    ref = jax_point_context(xt, wqkv, 8, 32)
     plain = sla.sla_context_plain(xt, wqkv, 8, 32)
     ops.reset_launch_counts()
     staged, _ = sla.sla_context(xt, wqkv, 8, 32)
@@ -678,8 +696,136 @@ def test_staged_context_keeps_the_jax_rounding_points(device, monkeypatch, b):
     simt, stats = sla.sla_context(xt, wqkv, 8, 32)
     torch.cuda.synchronize()
     assert ops.launch_counts()["sla_context"] == 2 and ops.staged_launch_counts()["sla_context"] == 1
-    err_staged, err_simt = ((t.double() - ref).abs().max().item() for t in (staged, simt))
-    assert err_staged <= err_simt, (err_staged, err_simt)
+    for ctx in (staged, simt):
+        err, err_unrounded = _rounding_distances(ctx, xt, wqkv)
+        assert err < err_unrounded, (err, err_unrounded)
     assert max((t - plain).abs().max().item() for t in (staged, simt)) <= TOL[torch.bfloat16]
     for name, a, w in zip(("max", "sum"), stats, sla.sla_stats_plain(xt, wqkv, 8, 32)):
         assert _rel_err(a, w) <= BWD_TOL[torch.bfloat16], (name, _rel_err(a, w))
+
+
+# The streaming kernels (the blockwise pair redesigned: panels staged in x's type, warp-owned query rows, the
+# products on the tensor cores in bf16) at every length of the long-clip tests and every width of the long
+# clip, both types, biased too. The route is the planner's (`blockwise_plan`: the first design only where the
+# streaming plan does not fit), and the C launcher reports the one it ran; float32 is also held to the dense
+# plain versions; runs are bit-equal, dbias included.
+STREAM_F = [65, 72, 96, 128, 321]
+STREAM_C = [32, 64, 128, 256]
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", STREAM_C)
+@pytest.mark.parametrize("f", STREAM_F)
+def test_streaming_blockwise_kernels_match_plain(device, f, c, dtype, bias):
+    shape = (1, 3, f, c)
+    x, wqkv, bqkv, wo, bo = _temporal_args(shape, device, dtype)
+    g = _rand(shape, 5, 0.1, device, dtype)
+    w = (wqkv, bqkv, wo, bo)
+    pos_bias = _rand((8, f, f), 6, 0.5, device) if bias else None
+    kw = {"pos_bias": pos_bias}
+    tag = "_biased" if bias else ""
+    routes = [ta.temporal_plan(3, f, c, 32, 8, dtype == torch.bfloat16, _sms(), bwd)["route"] for bwd in (False, True)]
+    if f == 128:  # every width of the long clip takes the streaming kernels, in either type
+        assert routes == ["staged", "staged"]
+    ops.reset_launch_counts()
+    got = ta._block(x, *w, pos_bias, 8, 32)
+    grads = ta.temporal_attention_bwd(x, g, *w, 8, 32, **kw)
+    torch.cuda.synchronize()
+    names = (f"temporal_blockwise{tag}_fwd", f"temporal_blockwise{tag}_bwd")
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {n: 1 for n in names}
+    assert [ops.staged_launch_counts()[n] for n in names] == [r == "staged" for r in routes]
+    want = ta.temporal_attention_blockwise_plain(x, *w, 8, 32, ta.KV_BLOCK, **kw)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    want_grads = ta.temporal_attention_blockwise_bwd_plain(x, g, *w, 8, 32, ta.KV_BLOCK, **kw)
+    for k, a, v in zip(GRADS6, grads, want_grads):
+        assert a.shape == v.shape and a.dtype == v.dtype, k
+        assert _rel_err(a, v) <= BWD_TOL[dtype], (k, _rel_err(a, v))
+    if dtype == torch.float32:
+        assert (got - ta.temporal_attention_plain(x, *w, 8, 32, **kw)).abs().max().item() <= TOL[dtype]
+        for k, a, v in zip(GRADS6, grads, ta.temporal_attention_bwd_plain(x, g, *w, 8, 32, **kw)):
+            assert _rel_err(a, v) <= BWD_TOL[dtype], (k, _rel_err(a, v))
+    again = ta.temporal_attention_bwd(x, g, *w, 8, 32, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(grads, again))
+    assert torch.equal(ta._block(x, *w, pos_bias, 8, 32), got)
+
+
+# The wide columns of C3: f = 64 at widths whose one-token dense tile does not fit (the bottleneck of a dim-128
+# Unet3D attends 8x8 = 64 tokens at c = 1024). They take the streaming kernels in mode DENSE, never a plain
+# version, with the dense kernels' rounding points. Each output is held to the gates and, in bf16, to the standard
+# the staged dense kernels meet at c = 256 (the widest column they hold; checked here of them too): no element
+# further from the dense plain version than one bf16 unit in the last place of the output's largest magnitude.
+# (Errors are that granular: whether one element near the largest rounds the other way decides between half a unit
+# and one, so an error of the wide kernels "no larger than the dense kernel's" would compare two coin flips.) In
+# bf16 the float32 gradients show the rounding points: dW_o (which reads the forward's rounded o_h) and dW_qkv,
+# db_qkv, dbias lie closer to the dense oracle than to the blockwise one.
+def _one_ulp(got, want):
+    top = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() <= 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def _dense_errors(shape, device, dtype, bias):
+    x, wqkv, bqkv, wo, bo = _temporal_args(shape, device, dtype)
+    g = _rand(shape, 5, 0.1, device, dtype)
+    w = (wqkv, bqkv, wo, bo)
+    f = shape[2]
+    pos_bias = _rand((8, f, f), 6, 0.5, device) if bias else None
+    kw = {"pos_bias": pos_bias}
+    ops.reset_launch_counts()
+    got = ta._block(x, *w, pos_bias, 8, 32)
+    grads = ta.temporal_attention_bwd(x, g, *w, 8, 32, **kw)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    want = ta.temporal_attention_plain(x, *w, 8, 32, **kw)
+    want_g = ta.temporal_attention_bwd_plain(x, g, *w, 8, 32, **kw)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    for k, a, v in zip(GRADS6, grads, want_g):
+        assert _rel_err(a, v) <= BWD_TOL[dtype], (k, _rel_err(a, v))
+    if dtype == torch.bfloat16:
+        assert _one_ulp(got, want) and all(_one_ulp(a, v) for a, v in zip(grads, want_g))
+    return counts, (x, w, kw, g, grads, want_g)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [320, 512, 1024])
+def test_wide_columns_take_the_dense_rounding_points(device, c, dtype, bias):
+    tag = "_biased" if bias else ""
+    counts, _ = _dense_errors((2, 10, 64, 256), device, dtype, bias)  # the dense kernels meet the standard
+    assert counts == {f"temporal_attention{tag}_fwd": 1, f"temporal_attention{tag}_bwd": 1}
+    counts, (x, w, kw, g, grads, want_g) = _dense_errors((2, 10, 64, c), device, dtype, bias)
+    fwd = f"temporal_wide{tag}_fwd" if c >= 374 else f"temporal_attention{tag}_fwd"  # the dense forward holds c < 374
+    assert counts == {fwd: 1, f"temporal_wide{tag}_bwd": 1}
+    assert all(ops.staged_launch_counts()[k] == 1 for k in counts if "wide" in k)
+    if dtype == torch.bfloat16:
+        blk_g = ta.temporal_attention_blockwise_bwd_plain(x, g, *w, 8, 32, ta.KV_BLOCK, **kw)
+        for keys in (("dwo",), ("dwqkv", "dbqkv", "dbias")):
+            idx = [GRADS6.index(k) for k in keys if GRADS6.index(k) < len(grads)]
+            dense = max(_rel_err(grads[i], want_g[i]) for i in idx)
+            blockwise = max(_rel_err(grads[i], blk_g[i]) for i in idx)
+            assert dense < blockwise, (keys, dense, blockwise)
+    again = ta.temporal_attention_bwd(x, g, *w, 8, 32, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(grads, again))
+
+
+def test_wide_route_is_the_planners(device):
+    """The op's family at the dim-128 bottleneck, forward and backward, as ``temporal_plan`` names it."""
+    for bwd in (False, True):
+        for bf16 in (True, False):
+            plan = ta.temporal_plan(20, 64, 1024, 32, 8, bf16, _sms(), bwd)
+            assert plan["family"] == "wide" and plan["route"] == "staged"
+
+
+def test_cuda_core_context_rounds_s(device):
+    """The CUDA-core context kernel at the dim-128 bottleneck (c = 1024, where ``ctx_plan`` takes it, bf16)
+    rounds s after the softmax's division as the JAX kernel does: it lies closer to the float64 model of the
+    JAX rounding points than to the same model without the rounding of s."""
+    xt, wqkv, _ = _sla_args((2, 10, 8, 8, 1024), device, torch.bfloat16)
+    assert sla.ctx_plan(20, 64, 1024, 32, 8, True, _sms())["route"] == "simt"
+    ops.reset_launch_counts()
+    ctx, _ = sla.sla_context(xt, wqkv, 8, 32)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sla_context"] == 1 and ops.staged_launch_counts()["sla_context"] == 0
+    err, err_unrounded = _rounding_distances(ctx, xt, wqkv)
+    assert err < err_unrounded, (err, err_unrounded)
+    assert (ctx - sla.sla_context_plain(xt, wqkv, 8, 32)).abs().max().item() <= TOL[torch.bfloat16]

@@ -297,8 +297,7 @@ def _long_clip_config(root, **trainer):
                     "step_start_ema": 1, "update_ema_every": 1, "max_grad_norm": 1.0, "checkpoint_every_steps": 2,
                     "results_folder": str(root / "results"), "tensorboard_dir": str(root / "tb"),
                     "max_to_keep": 10, "profile_flush_step": 0, "dataset_normalize": True,
-                    "save_optimizer_state": True, "log_every_steps": 2, "freeze_schedule_buffers": True,
-                    **trainer},
+                    "save_optimizer_state": True, "log_every_steps": 2, **trainer},
     }
     path = root / "long_clip.yaml"
     path.write_text(yaml.safe_dump(cfg))
@@ -324,17 +323,27 @@ def test_long_clip_shaped_recipe_trains_and_samples_through_the_clis(tmp_path):
 
 def test_config_long_clip_builds_a_trainer(tmp_path):
     """configs/config_long_clip.yaml through ``load_config`` and ``build_trainer``: full width, 128 frames,
-    ``remat_blocks`` and both fused flags on. Only the dataset, the output folders and the frozen
-    schedule buffers (the one mode the port's trainer has) are set beside it."""
+    ``remat_blocks`` and both fused flags on, full-state Adam (the file leaves ``freeze_schedule_buffers``
+    unset), clips from a folder of GIFs as the recipe names. Only the dataset folder and the output folders
+    are set beside it."""
     from pathlib import Path
+
+    from video_diffusion_nnx_tpu_torch.data.gif_dataset import GifVideoDataset
+    from video_diffusion_nnx_tpu_torch.utils.media import video_array_to_gif
 
     config = load_config(Path(__file__).resolve().parent.parent / "configs" / "config_long_clip.yaml")
     assert config["unet"]["remat_blocks"] and config["diffusion"]["num_frames"] == 128
-    data = tmp_path / "clips.npy"
-    np.save(data, np.zeros((128, 2, 64, 64), np.uint8))
-    config["trainer"].update(dataset_path=str(data), results_folder=str(tmp_path / "r"),
-                             tensorboard_dir=str(tmp_path / "tb"), freeze_schedule_buffers=True)
+    assert config["trainer"]["freeze_schedule_buffers"] is False  # the default: the file leaves it unset
+    folder = tmp_path / "long_clips"
+    folder.mkdir()
+    clip = (np.arange(128 * 64 * 64).reshape(128, 64, 64, 1) % 251).astype(np.uint8)
+    for i in range(2):
+        video_array_to_gif(np.roll(clip, i, axis=0), folder / f"clip_{i}.gif")
+    config["trainer"].update(dataset_path=str(folder), results_folder=str(tmp_path / "r"),
+                             tensorboard_dir=str(tmp_path / "tb"))
     unet, diffusion, trainer = build_trainer(config, device="cpu")
+    assert isinstance(trainer.ds, GifVideoDataset) and len(trainer.ds) == 2
+    assert diffusion.sqrt_alphas_cumprod.requires_grad  # the schedule buffers train with the weights
     assert unet.remat_blocks and unet.use_fused_attention and unet.use_fused_spatial_attention
     assert diffusion.num_frames == 128 and trainer.batch_size == 1 and trainer.max_grad_norm == 1.0
     assert trainer.train_num_steps == 100000  # the recipe's default save_and_sample_every asks for no sample

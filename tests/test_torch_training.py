@@ -167,7 +167,6 @@ def _trainer(model, npy_path, tmp_path, **kw):
     (dict(async_checkpointing=True), "A8"),
     (dict(freeze_schedule_buffers=False, enable_gradient_accumulation=True, gradient_accumulate_every=4), "A7"),
     (dict(save_and_sample_every=2), "A8"),
-    (dict(dataset_path="."), "A8"),
 ])
 def test_unported_options_raise(npy_path, tmp_path, option, item):
     pm = port_model(jax_fixture_model())

@@ -20,9 +20,10 @@
 // from device memory one element at a time, and keep the rest:
 //
 // `sla_context_kernel`: one CTA per (frame, head) walks all n tokens in
-// chunks, keeping a running per-feature max and sum of k and rescaling its
-// float32 (D, D) accumulator as the max grows, then divides by the sums
-// (so it never rounds s, where the TPU kernels round it after the division).
+// chunks twice: pass 0 projects k and keeps a running per-feature max and
+// sum; pass 1 projects k|v again and forms s = round(exp(k - max) / sum)
+// with the whole frame's statistics, as the TPU kernel rounds s after its
+// division (`_context_kernel:193`), and sums round(s)^T round(v) in float32.
 // A head is a CTA of its own, so no block-diagonal mask and no 128-lane
 // head grouping are needed, and no sum crosses CTAs.
 //
@@ -37,8 +38,7 @@
 // and k, q stay float32 into their softmaxes; v, s = softmax_n(k) (after its
 // division by the sum over all n tokens, `_context_kernel:193`), the q
 // softmax times the scale, the context and o_h round to x's type before
-// their products. The CUDA-core context kernel alone skips the rounding of s:
-// it multiplies the unrounded exp(k - max) into its running sums.
+// their products.
 //
 // Bound on this card. Each stage reads x once (the output stage also
 // writes it) and does 2*n*(2*c*H*D + H*D*D) FLOPs per frame: with H*D = 256
@@ -59,11 +59,10 @@ __global__ void __launch_bounds__(kThreads) sla_context_kernel(
   extern __shared__ float smem[];
   const int KS = D + 1;
   float* xs = smem;                  // (NC, C)  token chunk
-  float* ks = xs + (size_t)NC * C;   // (NC, KS) k in float32, then exp(k - max)
-  float* vs = ks + (size_t)NC * KS;  // (NC, KS) v rounded to x's type
+  float* ks = xs + (size_t)NC * C;   // (NC, KS) k in float32; in pass 1 then s, rounded
+  float* vs = ks + (size_t)NC * KS;  // (NC, KS) v rounded to x's type (pass 1)
   float* mrun = vs + (size_t)NC * KS;  // (D) running max of k per feature
   float* srun = mrun + D;              // (D) running sum of exp(k - max)
-  float* alpha = srun + D;             // (D) this chunk's rescale factor
 
   const int frame = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -77,70 +76,76 @@ __global__ void __launch_bounds__(kThreads) sla_context_kernel(
     srun[tid] = 0.f;
   }
 
-  for (int n0 = 0; n0 < n; n0 += NC) {
-    const int nc = min(NC, n - n0);
-    __syncthreads();  // the previous chunk is fully consumed
-    for (int i = tid; i < nc * C; i += nth) xs[i] = to_f(xf[(size_t)n0 * C + i]);
-    __syncthreads();
+  // Pass 0: the k softmax's statistics over all n tokens; pass 1: the context from round(s) and round(v).
+  for (int pass = 0; pass < 2; ++pass) {
+    const int parts = pass + 1;  // pass 0 projects k alone
+    for (int n0 = 0; n0 < n; n0 += NC) {
+      const int nc = min(NC, n - n0);
+      __syncthreads();  // the previous chunk is fully consumed
+      for (int i = tid; i < nc * C; i += nth) xs[i] = to_f(xf[(size_t)n0 * C + i]);
+      __syncthreads();
 
-    // k and v projections of head h, four rows per weight load.
-    const int RG = (nc + 3) / 4;
-    for (int item = tid; item < RG * 2 * D; item += nth) {
-      const int rg = item / (2 * D), j = item - rg * 2 * D;
-      const int part = j / D, d = j - part * D;  // part 0: k, part 1: v
-      const int col = (1 + part) * HD + h * D + d;
-      const int r0 = rg * 4;
-      const float* x0 = xs + (size_t)r0 * C;
-      const float* x1 = xs + (size_t)min(r0 + 1, nc - 1) * C;
-      const float* x2 = xs + (size_t)min(r0 + 2, nc - 1) * C;
-      const float* x3 = xs + (size_t)min(r0 + 3, nc - 1) * C;
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < C; ++k) {
-        const float w = to_f(wqkv[(size_t)k * W3 + col]);
-        a[0] += x0[k] * w;
-        a[1] += x1[k] * w;
-        a[2] += x2[k] * w;
-        a[3] += x3[k] * w;
-      }
-      for (int u = 0; u < 4; ++u) {
-        const int r = r0 + u;
-        if (r < nc) {
-          if (part == 0) ks[(size_t)r * KS + d] = a[u];
-          else vs[(size_t)r * KS + d] = rnd<T>(a[u]);
+      // k (and in pass 1 v) projections of head h, four rows per weight load.
+      const int RG = (nc + 3) / 4;
+      for (int item = tid; item < RG * parts * D; item += nth) {
+        const int rg = item / (parts * D), j = item - rg * parts * D;
+        const int part = j / D, d = j - part * D;  // part 0: k, part 1: v
+        const int col = (1 + part) * HD + h * D + d;
+        const int r0 = rg * 4;
+        const float* x0 = xs + (size_t)r0 * C;
+        const float* x1 = xs + (size_t)min(r0 + 1, nc - 1) * C;
+        const float* x2 = xs + (size_t)min(r0 + 2, nc - 1) * C;
+        const float* x3 = xs + (size_t)min(r0 + 3, nc - 1) * C;
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int k = 0; k < C; ++k) {
+          const float w = to_f(wqkv[(size_t)k * W3 + col]);
+          a[0] += x0[k] * w;
+          a[1] += x1[k] * w;
+          a[2] += x2[k] * w;
+          a[3] += x3[k] * w;
+        }
+        for (int u = 0; u < 4; ++u) {
+          const int r = r0 + u;
+          if (r < nc) {
+            if (part == 0) ks[(size_t)r * KS + d] = a[u];
+            else vs[(size_t)r * KS + d] = rnd<T>(a[u]);
+          }
         }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // Online softmax statistics over the token axis, one feature per thread.
-    if (tid < D) {
-      const int d = tid;
-      float mc = -INFINITY;
-      for (int r = 0; r < nc; ++r) mc = fmaxf(mc, ks[(size_t)r * KS + d]);
-      const float mold = mrun[d];
-      const float mnew = fmaxf(mold, mc);
-      const float a = expf(mold - mnew);  // 0 on the first chunk
-      float s = 0.f;
-      for (int r = 0; r < nc; ++r) {
-        const float e = expf(ks[(size_t)r * KS + d] - mnew);
-        ks[(size_t)r * KS + d] = e;
-        s += e;
+      if (pass == 0) {
+        // Online softmax statistics over the token axis, one feature per thread.
+        if (tid < D) {
+          const int d = tid;
+          float mc = -INFINITY;
+          for (int r = 0; r < nc; ++r) mc = fmaxf(mc, ks[(size_t)r * KS + d]);
+          const float mold = mrun[d];
+          const float mnew = fmaxf(mold, mc);
+          float s = 0.f;
+          for (int r = 0; r < nc; ++r) s += expf(ks[(size_t)r * KS + d] - mnew);
+          srun[d] = srun[d] * expf(mold - mnew) + s;  // the factor is 0 on the first chunk
+          mrun[d] = mnew;
+        }
+        continue;
       }
-      srun[d] = srun[d] * a + s;
-      mrun[d] = mnew;
-      alpha[d] = a;
-    }
-    __syncthreads();
 
-    // Rescale and extend the (D, D) accumulator (constant trip count keeps acc in registers).
+      // s = round(exp(k - max) / sum) with the frame's statistics, then ctx += s^T v (constant trip
+      // count keeps acc in registers).
+      for (int i = tid; i < nc * D; i += nth) {
+        const int r = i / D, d = i - r * D;
+        ks[(size_t)r * KS + d] = rnd<T>(expf(ks[(size_t)r * KS + d] - mrun[d]) / srun[d]);
+      }
+      __syncthreads();
 #pragma unroll
-    for (int i = 0; i < kMaxAcc; ++i) {
-      const int idx = tid + i * nth;
-      if (i < nacc && idx < D * D) {
-        const int d = idx / D, e = idx - d * D;
-        float s = 0.f;
-        for (int r = 0; r < nc; ++r) s += ks[(size_t)r * KS + d] * vs[(size_t)r * KS + e];
-        acc[i] = acc[i] * alpha[d] + s;
+      for (int i = 0; i < kMaxAcc; ++i) {
+        const int idx = tid + i * nth;
+        if (i < nacc && idx < D * D) {
+          const int d = idx / D, e = idx - d * D;
+          float s = 0.f;
+          for (int r = 0; r < nc; ++r) s += ks[(size_t)r * KS + d] * vs[(size_t)r * KS + e];
+          acc[i] += s;
+        }
       }
     }
   }
@@ -150,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) sla_context_kernel(
 #pragma unroll
   for (int i = 0; i < kMaxAcc; ++i) {
     const int idx = tid + i * nth;
-    if (i < nacc && idx < D * D) out[idx] = acc[i] / srun[idx / D];
+    if (i < nacc && idx < D * D) out[idx] = acc[i];
   }
   if (tid < D) {  // the k softmax's max and sum, for the backward
     const size_t at = ((size_t)frame * H + h) * D + tid;

@@ -9,16 +9,23 @@ float32 logits before the softmax (fixed math: the relative position bias)
 and differentiates it: dbias sums the unrounded float32 logit gradient over
 all tokens.
 
-Two kernel families, chosen by the attended length alone (the JAX
-``_route``): up to ``MAX_FRAMES`` frames the dense kernels of
-``csrc/temporal_attention.cu`` hold a token's whole f x f panel; longer clips
-take the blockwise (online-softmax) kernels of ``csrc/temporal_blockwise.cu``,
-which walk K/V in blocks of ``KV_BLOCK`` frames. The dense backward has two
-kernels, and so has the dense forward: the staged one
-(``temporal_bwd_panel_kernel``, ``temporal_fwd_panel_kernel``: panels in x's
-type in shared memory, the width-scaling products on the tensor cores in bf16)
-wherever one token's tile fits, else the CUDA-core one; ``bwd_plan`` and
-``fwd_plan`` choose the route and the tile for a given number of SMs.
+Three kernel families (``temporal_plan``). Up to ``MAX_FRAMES`` frames, as
+the JAX ``_route`` has it, the dense kernels of ``csrc/temporal_attention.cu``
+hold a token's whole f x f panel: the staged one (``temporal_bwd_panel_kernel``,
+``temporal_fwd_panel_kernel``: panels in x's type in shared memory, the
+width-scaling products on the tensor cores in bf16) wherever one token's tile
+fits, else the CUDA-core one; ``bwd_plan`` and ``fwd_plan`` choose the route
+and the tile for a given number of SMs. Where even the CUDA-core tile cannot
+hold one token (``wide_needed``: at f = 64 and head dim 32, c >= 374 forward and
+c >= 309 backward, as at the bottleneck of a dim-128 Unet3D) the "wide" family
+takes over: the streaming kernels of ``csrc/temporal_blockwise.cu`` in mode
+DENSE, with the dense kernels' rounding points (the JAX reference keeps these
+shapes on its dense kernel). Longer clips take the blockwise (online-softmax)
+family of ``csrc/temporal_blockwise.cu``, which walks K/V in blocks of
+``KV_BLOCK`` frames: the streaming kernels wherever their plan fits
+(``blockwise_plan``, ``stream_plan``: x, g and the weights staged in c-chunks,
+a token's q|k|v in shared memory, the products on the tensor cores in bf16),
+else the first design.
 
 Dispatch has no hidden fallback. A CPU tensor takes the family's plain
 version, differentiated by autograd; a CUDA tensor goes through
@@ -26,9 +33,10 @@ version, differentiated by autograd; a CUDA tensor goes through
 kernels, or raises ``NotImplementedError`` for a shape the kernels do not
 take. ``temporal_attention_bwd_plain`` and
 ``temporal_attention_blockwise_bwd_plain`` are the backward kernels'
-oracles, with their rounding points. Every plain version and every kernel
-takes the bias; a launch with it is counted under a name of its own
-(``..._biased_fwd``, ``..._biased_bwd``).
+oracles, with their rounding points; the wide family's are the dense ones.
+Every plain version and every kernel takes the bias; a launch with it is
+counted under a name of its own (``..._biased_fwd``, ``..._biased_bwd``), and
+``staged`` counts the launches that ran the staged or streaming kernel.
 
 dbias crosses CTAs like the weight gradients: each CTA of a backward kernel
 adds into a float32 (H, f, f) partial of its own and ``reduce_partials_kernel``
@@ -60,9 +68,12 @@ _TC_SMEM_TARGET = 113 * 1024  # two staged CTAs per SM where a tile allows it
 launches = {"temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
             "temporal_blockwise_fwd": 0, "temporal_blockwise_bwd": 0,
             "temporal_attention_biased_fwd": 0, "temporal_attention_biased_bwd": 0,
-            "temporal_blockwise_biased_fwd": 0, "temporal_blockwise_biased_bwd": 0}
-# Launches of the dense kernels that ran the staged kernel, as the C entry reports (the rest ran the CUDA-core one).
-staged = {name: 0 for name in launches if name.startswith("temporal_attention")}
+            "temporal_blockwise_biased_fwd": 0, "temporal_blockwise_biased_bwd": 0,
+            "temporal_wide_fwd": 0, "temporal_wide_bwd": 0,
+            "temporal_wide_biased_fwd": 0, "temporal_wide_biased_bwd": 0}
+# Launches that ran the staged (dense) or streaming (blockwise, wide) kernel, as the C entry reports (the rest ran
+# the first design; the wide kernels have no other).
+staged = {name: 0 for name in launches}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -251,21 +262,133 @@ def _check_blockwise(f: int, dim: int) -> None:
         )
 
 
-def _blockwise_grid(tokens: int, f: int, dim: int, backward: bool, device: torch.device) -> int:
-    """CTAs of the persistent grid: as many as are resident at once, at most one per token."""
+def _blockwise_grid(tokens: int, f: int, dim: int, backward: bool, sms: int) -> int:
+    """CTAs of the first design's persistent grid: as many as are resident at once, at most one per token."""
     smem = 4 * _blockwise_floats(f, dim, KV_BLOCK, backward)
-    sms = _sms(device)
     return max(1, min(tokens, sms * max(1, min(4, _SMEM_MAX // (smem + 1024)))))
+
+
+def _al16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _stream_layout(f: int, c: int, dim: int, elt: int, backward: bool, dense: bool, ck: int, ns: int,
+                   acc_smem: bool) -> dict:
+    """``sw_layout`` in csrc/temporal_blockwise.cu: the streaming kernels' shared memory for one launch.
+
+    Rows pad to 16 (k|v to whole KV blocks of 32, or 64 in mode DENSE), head dims to 32 or 64, c to
+    16; a ring of ``ns`` slots holds c-chunks of ``ck`` columns of x (and g), W_qkv,h and W_o,h.
+    """
+    fp, cp, dp = _round16(f), _round16(c), 32 if dim <= 32 else 64
+    kb = 64 if dense else 32
+    fk = -(-fp // kb) * kb
+    nch = -(-cp // ck)
+    ldq, ldd, ldx = _pad_ld(3 * dp), _pad_ld(dp), _pad_ld(ck)
+    slot = fp * ldx * (2 if backward else 1) + ck * ldq + dp * ldx
+    at = _al16(ns * slot * elt) + _al16(fk * ldq * elt) + _al16(fp * ldd * elt)
+    if backward:  # do (x's type and float32), the row statistics, the warps' column sums
+        at += _al16(fp * ldd * elt) + _al16(fp * (dp + 4) * 4) + _al16(3 * fp * 4) + _al16(8 * 3 * dp * 4)
+    if nch > 1 and elt == 2:  # the q|k|v sums over the chunks (float32 panels sum in place)
+        at += _al16(fp * (3 * dp + 4) * 4)
+    if acc_smem:  # y (forward) or dx (backward), float32
+        at += _al16(fp * (cp + 4) * 4)
+    if elt == 4:  # each warp's scratch for P on the CUDA cores
+        at += _al16(8 * 16 * (kb + 4) * 4)
+    return {"ck": ck, "chunks": nch, "slots": ns, "acc_smem": acc_smem, "smem": at, "rows_padded": fp,
+            "kv_rows": fk, "dim_padded": dp, "kv_block": kb, "acc_floats": fp * (cp + 4)}
+
+
+def stream_plan(f: int, c: int, dim: int, elt: int, backward: bool, dense: bool) -> dict | None:
+    """``sw_plan``: the streaming kernels' layout, or None where nothing fits 227 KB.
+
+    The widest c-chunk first (c itself, then 256, 128, 64, 32), then the float32 accumulator in shared
+    memory before device memory, then two ring slots before one. Head dims up to 64 in mode DENSE (f <= 64),
+    up to 32 in mode BLOCKWISE. The C launcher makes the same choice from the shape.
+    """
+    if dim > 64 or (not dense and dim > 32) or (dense and f > MAX_FRAMES):
+        return None
+    cp = _round16(c)
+    for i, ck in enumerate((cp, 256, 128, 64, 32)):
+        if i and ck >= cp:
+            continue
+        for acc_smem in (True, False):
+            for ns in (2, 1):
+                plan = _stream_layout(f, c, dim, elt, backward, dense, ck, ns, acc_smem)
+                if plan["smem"] <= _SMEM_MAX:
+                    return plan
+    return None
+
+
+def _dense_row_floats(f: int, c: int, dim: int, backward: bool) -> int:
+    """Floats of shared memory per tile row of the dense CUDA-core kernels (``_tile``'s sizing)."""
+    return 2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1 if backward else 2 * c + 3 * dim + 1 + f + 1
+
+
+def wide_needed(f: int, c: int, dim: int, backward: bool) -> bool:
+    """f <= ``MAX_FRAMES`` and the dense kernels cannot hold one token: the CUDA-core tile's float32 row
+    panels exceed shared memory (where ``fwd_plan`` / ``bwd_plan`` raise)."""
+    return f <= MAX_FRAMES and 4 * f * _dense_row_floats(f, c, dim, backward) > _SMEM_MAX
+
+
+def blockwise_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms: int, backward: bool,
+                   dense: bool = False) -> dict:
+    """The launch of a blockwise (or, with ``dense``, wide) kernel for ``sms`` SMs: route, grid, scratch.
+
+    ``route`` "staged": the streaming kernel (panels staged in x's type, warp-owned query rows, the products
+    on the tensor cores in bf16), with its ``stream_plan`` fields; "simt": the first design, where the
+    streaming plan does not fit (mode BLOCKWISE only; a wide shape that does not fit raises). ``scratch`` is
+    the bytes of device scratch the launch needs (the C entry checks it). The forward of mode BLOCKWISE puts
+    two CTAs on an SM where shared memory allows; the rest take one. The backward's grid keeps its partials
+    within ``_WORKSPACE_MAX`` (and ``_DBIAS_WORKSPACE_MAX``, which the caller applies with a bias).
+    """
+    elt = 2 if bf16 else 4
+    if not dense:  # the first design's limit holds either way, so that no shape runs forward and then fails backward
+        _check_blockwise(f, dim)
+    plan = stream_plan(f, c, dim, elt, backward, dense)
+    if plan is None:
+        if dense:
+            raise NotImplementedError(f"temporal attention kernel: one token's panels exceed shared memory at f={f}, "
+                                      f"c={c}, head dim {dim}")
+        grid = _blockwise_grid(tokens, f, dim, backward, sms)
+        plan = {"route": "simt", "smem": 4 * _blockwise_floats(f, dim, KV_BLOCK, backward)}
+    else:
+        per_sm = 2 if not dense and not backward and 2 * (plan["smem"] + 1024) <= 228 * 1024 else 1
+        grid = max(1, min(tokens, sms * per_sm))
+        plan = {"route": "staged", **plan}
+    if backward:
+        total = c * 3 * heads * dim + 3 * heads * dim + heads * dim * c + c
+        grid = min(grid, max(1, _WORKSPACE_MAX // (4 * total)))
+    return {**plan, "grid": grid, "scratch": _scratch_bytes(plan, grid, f, heads, dim, elt, backward)}
+
+
+def _scratch_bytes(plan: dict, grid: int, f: int, heads: int, dim: int, elt: int, backward: bool) -> int:
+    """``scratch_bytes``: the streaming kernels' float32 accumulator per CTA where it is not in shared memory,
+    the first design's column of x's type per CTA."""
+    if plan["route"] == "staged":
+        return 0 if plan["acc_smem"] else 4 * grid * plan["acc_floats"]
+    return grid * f * (4 if backward else 1) * heads * dim * elt
+
+
+def temporal_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms: int,
+                  backward: bool) -> dict:
+    """The kernel a CUDA call of the op launches: ``family`` "dense" (``fwd_plan`` / ``bwd_plan``), "wide"
+    (f <= 64 where the dense tile cannot hold one token: the streaming kernel in mode DENSE, with the dense
+    kernels' rounding points) or "blockwise" (f > 64), with that family's plan. Never a plain version."""
+    if f > MAX_FRAMES:
+        return {"family": "blockwise", **blockwise_plan(tokens, f, c, dim, heads, bf16, sms, backward)}
+    if wide_needed(f, c, dim, backward):
+        return {"family": "wide", **blockwise_plan(tokens, f, c, dim, heads, bf16, sms, backward, dense=True)}
+    planner = bwd_plan if backward else fwd_plan
+    return {"family": "dense", **planner(tokens, f, c, dim, heads, bf16, sms)}
 
 
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _tile(tokens: int, f: int, c: int, dim: int, sms: int, row_floats: int | None = None) -> int:
+def _tile(tokens: int, f: int, c: int, dim: int, sms: int, backward: bool) -> int:
     """Tokens per CTA of the CUDA-core kernels: as many as fit the shared-memory target, spread over the SMs."""
-    row_bytes = 4 * (row_floats if row_floats is not None else 2 * c + 3 * dim + 1 + f + 1)
-    token_bytes = f * row_bytes
+    token_bytes = 4 * f * _dense_row_floats(f, c, dim, backward)
     if token_bytes > _SMEM_MAX:
         raise NotImplementedError(
             f"temporal attention kernel: one token's panels ({token_bytes} B at f={f}, c={c}) "
@@ -350,8 +473,8 @@ def fwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms:
     the same choice from ``bt`` (``tc_fwd_fits``). ``heads`` does not change the tile: each head
     runs over the same tile in turn.
     """
-    bt = _tile(tokens, f, c, dim, sms)  # raises where one token does not fit
-    smem = 4 * bt * f * (2 * c + 3 * dim + 1 + f + 1)
+    bt = _tile(tokens, f, c, dim, sms, False)  # raises where one token does not fit
+    smem = 4 * bt * f * _dense_row_floats(f, c, dim, False)
     route, elt = "simt", 2 if bf16 else 4
     if _tc_fwd_fits(1, f, c, dim, elt):
         route = "staged"
@@ -371,9 +494,8 @@ def bwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms:
     """
     if dim % 4:
         raise NotImplementedError(f"the temporal backward kernel takes head dims divisible by 4, not {dim}")
-    row_floats = 2 * c + 2 * (3 * dim + 1) + f + 1 + dim + 1
-    bt = _tile(tokens, f, c, dim, sms, row_floats)  # raises where one token does not fit
-    smem = 4 * bt * f * row_floats
+    bt = _tile(tokens, f, c, dim, sms, True)  # raises where one token does not fit
+    smem = 4 * bt * f * _dense_row_floats(f, c, dim, True)
     route, elt = "simt", 2 if bf16 else 4
     if _tc_bwd_fits(1, f, c, dim, elt):
         route = "staged"
@@ -409,7 +531,8 @@ def _check(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> None:
 
 
 def _launch(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> torch.Tensor:
-    """The forward kernel of x's family on CUDA tensors: dense up to ``MAX_FRAMES``, else blockwise.
+    """The forward kernel of x's family on CUDA tensors (``temporal_plan``): dense up to ``MAX_FRAMES``
+    (wide where the dense tile cannot hold one token), else blockwise.
 
     With ``pos_bias`` the kernel's biased instantiation runs, and is counted under its own name.
     """
@@ -426,36 +549,34 @@ def _launch(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> torch
     out = torch.empty_like(x)
     scale = 1.0 / math.sqrt(dim)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if f <= MAX_FRAMES:
-        bt = fwd_plan(tokens, f, c, dim, heads, x.dtype == torch.bfloat16, _sms(x.device))["bt"]
-        x = x if x.data_ptr() % 16 == 0 else x.clone()  # copied in 8-byte chunks
+    plan = temporal_plan(tokens, f, c, dim, heads, x.dtype == torch.bfloat16, _sms(x.device), False)
+    x = x if x.data_ptr() % 16 == 0 else x.clone()  # copied in 8-byte chunks
+    route = ctypes.c_int(0)
+    if plan["family"] == "dense":
         fn = _build.library("temporal_attention").temporal_attention_fwd
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-        route = ctypes.c_int(0)
         err = fn(
             _DTYPES[x.dtype], x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
-            bo.data_ptr(), bias_ptr, out.data_ptr(), tokens, f, c, heads, dim, bt, scale, stream,
+            bo.data_ptr(), bias_ptr, out.data_ptr(), tokens, f, c, heads, dim, plan["bt"], scale, stream,
             ctypes.byref(route),
         )
-        _build.check(err, f"temporal_attention{tag}_fwd")
-        launches[f"temporal_attention{tag}_fwd"] += 1
-        staged[f"temporal_attention{tag}_fwd"] += route.value
-        return out
-    _check_blockwise(f, dim)
-    grid = _blockwise_grid(tokens, f, dim, False, x.device)
-    scratch = torch.empty(grid, f, heads * dim, device=x.device, dtype=x.dtype)  # each CTA's rounded o_h
-    fn = _build.library("temporal_blockwise").temporal_blockwise_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    err = fn(
-        _DTYPES[x.dtype], x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
-        bo.data_ptr(), bias_ptr, out.data_ptr(), scratch.data_ptr(), tokens, f, c, heads, dim, KV_BLOCK,
-        grid, scale, stream,
-    )
-    _build.check(err, f"temporal_blockwise{tag}_fwd")
-    launches[f"temporal_blockwise{tag}_fwd"] += 1
+    else:
+        scratch = torch.empty(max(plan["scratch"], 16), device=x.device, dtype=torch.uint8)
+        fn = _build.library("temporal_blockwise").temporal_blockwise_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_size_t] + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        err = fn(
+            _DTYPES[x.dtype], int(plan["family"] == "wide"), x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), bias_ptr, out.data_ptr(), scratch.data_ptr(), scratch.numel(), tokens,
+            f, c, heads, dim, KV_BLOCK, plan["grid"], scale, stream, ctypes.byref(route),
+        )
+    name = f"temporal_{'attention' if plan['family'] == 'dense' else plan['family']}{tag}_fwd"
+    _build.check(err, name)
+    launches[name] += 1
+    staged[name] += route.value
     return out
 
 
@@ -496,46 +617,46 @@ def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_b
                    torch.empty(heads, f, f, device=x.device, dtype=torch.float32))
         return tensors, [t.data_ptr() for t in tensors]
 
-    if f <= MAX_FRAMES:
-        plan = bwd_plan(tokens, f, c, dim, heads, x.dtype == torch.bfloat16, _sms(x.device))
-        bt, grid = plan["bt"], plan["grid"]
-        x, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, g))  # copied in 8-byte chunks
-        partial = torch.empty(grid, total, device=x.device, dtype=torch.float32)
-        bias_t, bias_ptrs = bias_buffers(grid)  # at most 128 KB per CTA here: no cap of its own is needed
+    plan = temporal_plan(tokens, f, c, dim, heads, x.dtype == torch.bfloat16, _sms(x.device), True)
+    grid = plan["grid"]
+    if pos_bias is not None and plan["family"] != "dense":  # at most 128 KB per CTA in the dense family
+        grid = min(grid, max(1, _DBIAS_WORKSPACE_MAX // (4 * panel)))
+    x, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, g))  # copied in 8-byte chunks
+    partial = torch.empty(grid, total, device=x.device, dtype=torch.float32)
+    bias_t, bias_ptrs = bias_buffers(grid)
+    route = ctypes.c_int(0)
+    if plan["family"] == "dense":
         fn = _build.library("temporal_attention").temporal_attention_bwd
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-        route = ctypes.c_int(0)
         err = fn(
             _DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), wqkv_c.data_ptr(), bqkv_f.data_ptr(),
             wo_c.data_ptr(), *bias_ptrs, dx.data_ptr(), partial.data_ptr(), grads.data_ptr(), tokens, f, c,
-            heads, dim, bt, grid, scale, stream, ctypes.byref(route),
+            heads, dim, plan["bt"], grid, scale, stream, ctypes.byref(route),
         )
-        _build.check(err, f"temporal_attention{tag}_bwd")
-        launches[f"temporal_attention{tag}_bwd"] += 1
-        staged[f"temporal_attention{tag}_bwd"] += route.value
     else:
-        _check_blockwise(f, dim)
-        grid = min(_blockwise_grid(tokens, f, dim, True, x.device), max(1, _WORKSPACE_MAX // (4 * total)))
-        if pos_bias is not None:
-            grid = min(grid, max(1, _DBIAS_WORKSPACE_MAX // (4 * panel)))
-        partial = torch.empty(grid, total, device=x.device, dtype=torch.float32)
-        bias_t, bias_ptrs = bias_buffers(grid)
-        # Each CTA's rounded o_h (H*D per frame row) and dq|dk|dv (3*H*D) of its current token.
-        scratch = torch.empty(grid, f, 4 * hd, device=x.device, dtype=x.dtype)
-        wqkv_t = wqkv_c.t().contiguous()
-        wo_t = wo_c.t().contiguous()
+        scratch_size = _scratch_bytes(plan, grid, f, heads, dim, x.element_size(), True)
+        scratch = torch.empty(max(scratch_size, 16), device=x.device, dtype=torch.uint8)
+        # the first design reads the weights transposed, so that its dx and dW_o products read along rows
+        first = plan["route"] == "simt"
+        wqkv_t = wqkv_c.t().contiguous() if first else None
+        wo_t = wo_c.t().contiguous() if first else None
         fn = _build.library("temporal_blockwise").temporal_blockwise_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 14 + [ctypes.c_size_t] + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         err = fn(
-            _DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), wqkv_c.data_ptr(), wqkv_t.data_ptr(),
-            bqkv_f.data_ptr(), wo_t.data_ptr(), *bias_ptrs, dx.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), scratch.data_ptr(), tokens, f, c, heads, dim, KV_BLOCK, grid, scale, stream,
+            _DTYPES[x.dtype], int(plan["family"] == "wide"), x.data_ptr(), g.data_ptr(), wqkv_c.data_ptr(),
+            None if wqkv_t is None else wqkv_t.data_ptr(), bqkv_f.data_ptr(), wo_c.data_ptr(),
+            None if wo_t is None else wo_t.data_ptr(), *bias_ptrs, dx.data_ptr(), partial.data_ptr(),
+            grads.data_ptr(), scratch.data_ptr(), scratch.numel(), tokens, f, c, heads, dim, KV_BLOCK, grid,
+            scale, stream, ctypes.byref(route),
         )
-        _build.check(err, f"temporal_blockwise{tag}_bwd")
-        launches[f"temporal_blockwise{tag}_bwd"] += 1
+    name = f"temporal_{'attention' if plan['family'] == 'dense' else plan['family']}{tag}_bwd"
+    _build.check(err, name)
+    launches[name] += 1
+    staged[name] += route.value
     dwqkv, dbqkv, dwo, dbo = grads.split([c * 3 * hd, 3 * hd, hd * c, c])
     out = (dx, dwqkv.view(c, 3 * hd), dbqkv, dwo.view(hd, c), dbo)
     return out if pos_bias is None else (*out, bias_t[2].to(pos_bias.dtype))

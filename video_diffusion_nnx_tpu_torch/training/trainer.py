@@ -19,6 +19,8 @@ from it:
   mismatched optimizer state means a fresh optimizer and a warning;
 * the loss of a step is logged after the next step is queued, so the host
   never waits on the step it has just launched (:656-677).
+* the clips come from a Moving-MNIST ``.npy`` or, where ``dataset_path`` is
+  a folder, from the GIFs under it (``GifVideoDataset``, :334-345).
 
 Full-state Adam (``freeze_schedule_buffers: false``, the default): the ten
 schedule buffers of the diffusion model take part in the loss's autograd
@@ -57,6 +59,7 @@ import numpy as np
 import torch
 
 from video_diffusion_nnx_tpu_torch.convert import read_checkpoint, save_checkpoint
+from video_diffusion_nnx_tpu_torch.data.gif_dataset import GifVideoDataset
 from video_diffusion_nnx_tpu_torch.data.loader import endless_prefetching_loader
 from video_diffusion_nnx_tpu_torch.data.moving_mnist import MovingMNIST
 from video_diffusion_nnx_tpu_torch.diffusion.gaussian_diffusion import BUFFER_NAMES
@@ -169,8 +172,6 @@ class Trainer:
         # of save_and_sample_every (JAX trainer.py:687-693): the default, 100000 at 100000 steps, asks for none.
         if save_and_sample_every and 0 < save_and_sample_every < train_num_steps:
             raise _not_ported("sampling during training (save_and_sample_every)", "A8")
-        if Path(dataset_path).is_dir():
-            raise _not_ported("GIF-folder datasets", "A8")
         if profile_flush_step > 0:
             logger.info("profile_flush_step=%d: the profiler trace is not ported (ROADMAP A8); "
                         "scripts/torch_profile_step.py profiles a step", profile_flush_step)
@@ -209,9 +210,13 @@ class Trainer:
 
         self.image_size = diffusion_model.image_size
         logger.info("Loading dataset from: %s", dataset_path)
-        self.ds = MovingMNIST(dataset_path, image_size=(self.image_size, self.image_size),
-                              num_frames=diffusion_model.num_frames, force_num_frames=True,
-                              normalize=dataset_normalize)
+        if Path(dataset_path).is_dir():  # a folder of GIF clips (JAX trainer.py:334-345)
+            self.ds = GifVideoDataset(dataset_path, image_size=self.image_size, channels=diffusion_model.channels,
+                                      num_frames=diffusion_model.num_frames, force_num_frames=True)
+        else:
+            self.ds = MovingMNIST(dataset_path, image_size=(self.image_size, self.image_size),
+                                  num_frames=diffusion_model.num_frames, force_num_frames=True,
+                                  normalize=dataset_normalize)
         logger.info("Found %d sequences in dataset.", len(self.ds))
         if len(self.ds) < self.batch_size:
             raise ValueError(f"dataset {dataset_path} has {len(self.ds)} clips, fewer than a batch")

@@ -1,4 +1,4 @@
-"""GIF output, PIL and numpy only (counterpart of the JAX package's utils/media.py:46-109).
+"""GIF input and output, PIL and numpy only (counterpart of the JAX package's utils/media.py:20-109).
 
 The artifact format is the reference's: one ``sample_{i}.gif`` per clip,
 scaled to uint8 by the batch-global min and max so clips stay comparable.
@@ -7,11 +7,30 @@ scaled to uint8 by the batch-global min and max so clips stay comparable.
 from __future__ import annotations
 
 from pathlib import Path
+from typing import Iterator
 
 import numpy as np
 from PIL import Image
 
+# The reference's keys (JAX utils/media.py:20-24): 2 -> RGB and 3 -> RGBA, one off from the channel count;
+# `seek_all_images(img, channels=3)` yields RGBA frames, as there.
+CHANNELS_TO_MODE = {1: "L", 2: "RGB", 3: "RGBA"}
 _NUM_CHANNELS_TO_MODE = {1: "L", 3: "RGB", 4: "RGBA"}
+
+
+def seek_all_images(img: Image.Image, channels: int = 3) -> Iterator[Image.Image]:
+    """Yield every frame of a (possibly animated) PIL image, converted (JAX utils/media.py:29)."""
+    if channels not in CHANNELS_TO_MODE:
+        raise ValueError(f"channels {channels} invalid")
+    mode = CHANNELS_TO_MODE[channels]
+    i = 0
+    while True:
+        try:
+            img.seek(i)
+            yield img.convert(mode)
+        except EOFError:
+            break
+        i += 1
 
 
 def _frame_to_pil(frame: np.ndarray) -> Image.Image:
