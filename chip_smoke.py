@@ -105,12 +105,14 @@ in one summary line (``PHASE <name>: ...``):
     K/V (2, s, 32, 256)), forward and all seven gradients, in bf16 and f32,
     TF32 off; at a ragged f_g = 21; at f_l = f_g = 32 with K/V projected from
     x, against the dense temporal kernel (the self-attention equivalence);
-    CUDA-event times per call and per step against the bound;
+    every launch must run the staged kernels (each row's ``design``, as the
+    C entries report); CUDA-event times per call and per step against the
+    bound;
 18. seq train: the train CLI's rank function on that recipe (derived keys
     only: a seeded 32-frame dataset, 6 steps, a checkpoint every 3): 4 ranks
     sharing cuda:0 over gloo, named explicitly. First a 4-rank all-gather of a
     (2, 4096, 8, 256) bf16 panel through the group. Then exact launches per
-    rank per step (10 + 10 cross kernels, nothing else), the ranks'
+    rank per step (10 + 10 cross kernels, nothing else, all staged), the ranks'
     parameters bit-equal, ``sqrt_alphas_cumprod`` drifted and
     ``alphas_cumprod`` bit-exact (full-state Adam), a resume from step 3; the
     per-step loss against a 1-rank run of the same recipe (temporal attention
@@ -1629,11 +1631,15 @@ def cross_phase(torch, xa, ta) -> dict:
             a = operands(x_shape, fg, dtype)
             x, k, v, wq, bq, wo, bo = a
             g = rand(torch, x_shape, 9, 0.1, dtype)
-            before = dict(xa.launches)
+            before = route_counts(xa)
             out = xa.fused_cross_attention_block(*a, HEADS, DIM_HEAD)
             grads = xa.cross_attention_bwd(x, g, k, v, wq, bq, wo, HEADS, DIM_HEAD)
             torch.cuda.synchronize()
-            check(all(xa.launches[n] == before[n] + 1 for n in names), f"{x_shape}: launches {xa.launches}")
+            now = route_counts(xa)
+            check(all(now[n][0] == before[n][0] + 1 for n in names), f"{x_shape}: launches {xa.launches}")
+            designs = {n: design_since(before, now, n) for n in names}
+            check(all(d == "staged" for d in designs.values()),
+                  f"{x_shape}, f_g {fg} in {dtype_name}: the cross kernels ran {designs}, not their staged design")
             err = _max_abs(out, xa.cross_attention_plain(*a, HEADS, DIM_HEAD))
             check(math.isfinite(err) and err <= TOL[dtype_name],
                   f"cross_attention_fwd at {x_shape}, f_g {fg} in {dtype_name}: max-abs error {err} over {TOL[dtype_name]}")
@@ -1646,8 +1652,9 @@ def cross_phase(torch, xa, ta) -> dict:
                       f"value, over {BWD_TOL[dtype_name]}")
             del want, grads, out
             common = {"shape": x_shape, "f_g": fg, "dtype": dtype_name, "per_step": count}
-            fwd_row = {**common, "max_abs_err": err, "tol": TOL[dtype_name]}
-            bwd_row = {**common, "rel_err": rel, "max_abs_err": err_b, "tol": BWD_TOL[dtype_name]}
+            fwd_row = {**common, "design": designs[names[0]], "max_abs_err": err, "tol": TOL[dtype_name]}
+            bwd_row = {**common, "design": designs[names[1]], "rel_err": rel, "max_abs_err": err_b,
+                       "tol": BWD_TOL[dtype_name]}
             if not timed:
                 record(names[0], fwd_row)
                 record(names[1], bwd_row)
@@ -1680,9 +1687,12 @@ def cross_phase(torch, xa, ta) -> dict:
             ls = [t.clone().requires_grad_() for t in leaves]
             x, wqkv, bqkv, wo, bo = ls
             if route == "cross":
+                before = route_counts(xa)
                 kv = x @ wqkv[:, hd:].to(dtype) + bqkv[hd:].to(dtype)
                 y = xa.fused_cross_attention_block(x, kv[..., :hd].contiguous(), kv[..., hd:].contiguous(),
                                                    wqkv[:, :hd], bqkv[:hd], wo, bo, HEADS, DIM_HEAD)
+                check(design_since(before, route_counts(xa), "cross_attention_fwd") == "staged",
+                      "the self-attention case did not run the staged cross forward")
             else:
                 before = ta.launches["temporal_attention_fwd"]
                 y = ta.fused_temporal_attention_block(x, wqkv, bqkv, wo, bo, HEADS, DIM_HEAD)
@@ -1740,7 +1750,8 @@ def seq_rank(rank: int, world: int, gather_init: str, runs: list, out_dir: str) 
         digest = hashlib.sha256(b"".join(v.detach().cpu().contiguous().numpy().tobytes() for v in state.values()))
         fresh = ScheduleBuffers.create(tr.model.num_timesteps)
         out[name] = {
-            "launches": nonzero(ops.launch_counts()), "losses": tr.loss_trace.tolist(), "step_starts": tr.step_starts,
+            "launches": nonzero(ops.launch_counts()), "staged_launches": nonzero(ops.staged_launch_counts()),
+            "losses": tr.loss_trace.tolist(), "step_starts": tr.step_starts,
             "save_seconds": tr.save_seconds, "peak_memory": torch.cuda.max_memory_allocated(),
             "comm": dict(tr.sequence_group.stats), "digest": digest.hexdigest(), "device": str(tr.device),
             "opt_count": tr.opt_count, "is_main": tr.is_main,
@@ -1787,6 +1798,9 @@ def seq_train_phase(torch, train) -> dict:
             want = {k: per * steps for k, per in SEQ_PER_STEP.items()}
             check(r[name]["launches"] == want and r[name]["device"] == "cuda:0",
                   f"rank {r['rank']} {name}: launches {r[name]['launches']} on {r[name]['device']}, expected {want}")
+        for name in ("run", "resume"):
+            check(r[name]["staged_launches"] == r[name]["launches"],
+                  f"rank {r['rank']} {name}: staged launches {r[name]['staged_launches']} of {r[name]['launches']}")
     run0 = ranks[0]["run"]
     for name in ("run", "resume"):
         check(len({r[name]["digest"] for r in ranks}) == 1, f"{name}: the ranks' states differ")
@@ -1834,6 +1848,7 @@ def seq_train_phase(torch, train) -> dict:
             "batch": raw["trainer"]["train_batch_size"], "frames": d["num_frames"], "losses": losses,
             "launches_per_rank": run0["launches"], "launches": {k: sum(r["run"]["launches"][k] for r in ranks)
                                                                for k in SEQ_PER_STEP},
+            "staged_launches": {k: sum(r["run"]["staged_launches"].get(k, 0) for r in ranks) for k in SEQ_PER_STEP},
             "checkpoints": ckpts, "buffer_drift": drift, "resumed_losses": resumed, "seconds_per_step": sps4,
             "peak_memory_per_rank": [r["run"]["peak_memory"] for r in ranks],
             "collectives_per_rank_per_step": {k: v / steps for k, v in run0["comm"].items()},

@@ -463,11 +463,37 @@ def test_cross_kernels_match_plain(device, dtype, shape):
     grads = xa.cross_attention_bwd(x, g, k, v, wq, bq, wo, 8, 32)
     torch.cuda.synchronize()
     assert {n: c for n, c in ops.launch_counts().items() if c} == {"cross_attention_fwd": 1, "cross_attention_bwd": 1}
+    # every shape here fits the staged kernels' plan, and the C entries report that they ran
+    assert {n: c for n, c in ops.staged_launch_counts().items() if c} == {"cross_attention_fwd": 1,
+                                                                          "cross_attention_bwd": 1}
     want = xa.cross_attention_plain(x, k, v, wq, bq, wo, bo, 8, 32)
     assert got.dtype == dtype and (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     for name, a, w in zip(("dx", "dk", "dv", "dwq", "dbq", "dwo", "dbo"), grads,
                           xa.cross_attention_bwd_plain(x, g, k, v, wq, bq, wo, 8, 32)):
         assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_first_design_where_the_plan_does_not_fit(device, dtype):
+    """f_g = 300: one token's K|V panels exceed shared memory, so both kernels run their first design."""
+    from video_diffusion_nnx_tpu_torch.ops import cross_attention as xa
+
+    shape = (1, 8, 8, 300, 32)
+    x, k, v, wq, bq, wo, bo = _cross_args(shape, device, dtype)
+    g = _rand(x.shape, 7, 0.1, device, dtype)
+    for backward in (False, True):
+        assert xa.cross_plan(8, 8, 300, 32, 8, 32, dtype == torch.bfloat16, _sms(), backward)["route"] == "simt"
+    ops.reset_launch_counts()
+    got = xa.fused_cross_attention_block(x, k, v, wq, bq, wo, bo, 8, 32)
+    grads = xa.cross_attention_bwd(x, g, k, v, wq, bq, wo, 8, 32)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.launch_counts().items() if c} == {"cross_attention_fwd": 1, "cross_attention_bwd": 1}
+    assert not any(ops.staged_launch_counts().values())
+    want = xa.cross_attention_plain(x, k, v, wq, bq, wo, bo, 8, 32)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    for name, a, w in zip(("dx", "dk", "dv", "dwq", "dbq", "dwo", "dbo"), grads,
+                          xa.cross_attention_bwd_plain(x, g, k, v, wq, bq, wo, 8, 32)):
         assert _rel_err(a, w) <= BWD_TOL[dtype], (name, _rel_err(a, w))
 
 

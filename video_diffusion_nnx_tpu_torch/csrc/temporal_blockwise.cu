@@ -468,141 +468,12 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
 //
 // Where the plan does not fit 227 KB (see the head of this file) the first-design kernels above run.
 
-// Per-lane place of an m16n8k16 accumulator fragment: element e of n8 block j lies at row
-// (lane >> 2) + 8 * (e >> 1), column 8 * j + 2 * (lane & 3) + (e & 1).
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// s (16 x 8NB) = A (16 rows) B (8NB rows)^T over K, both row-major panels in shared memory.
-template <int NB>
-__device__ __forceinline__ void warp_nt(float (&s)[NB][4], const bf16* A, int lda, const bf16* B, int ldb,
-                                        int K) {
-  const int lane = threadIdx.x & 31;
-  const int a_r = lane & 15, a_c = (lane >> 4) << 3;
-  const int b_r = (lane & 7) + ((lane >> 4) << 3), b_c = ((lane >> 3) & 1) << 3;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    unsigned a[4];
-    ldsm_x4(a, A + (size_t)a_r * lda + k0 + a_c);
-#pragma unroll
-    for (int jb = 0; jb < NB / 2; ++jb) {
-      unsigned b[4];
-      ldsm_x4(b, B + (size_t)(16 * jb + b_r) * ldb + k0 + b_c);
-      mma_bf16(s[2 * jb], a, b[0], b[1]);
-      mma_bf16(s[2 * jb + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int NB>
-__device__ __forceinline__ void warp_nt(float (&s)[NB][4], const float* A, int lda, const float* B, int ldb,
-                                        int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  const float* a0 = A + (size_t)g * lda;
-  const float* a1 = A + (size_t)(g + 8) * lda;
-  const float* b0 = B + (size_t)(2 * q) * ldb;
-  for (int k = 0; k < K; ++k) {
-    const float x0 = a0[k], x1 = a1[k];
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float y0 = b0[(size_t)(8 * j) * ldb + k], y1 = b0[(size_t)(8 * j + 1) * ldb + k];
-      s[j][0] += x0 * y0;
-      s[j][1] += x0 * y1;
-      s[j][2] += x1 * y0;
-      s[j][3] += x1 * y1;
-    }
-  }
-}
-
-// o (16 x 8NB) += P (16 x 8KC, accumulator fragments holding values already rounded to x's type)
-// B (8KC rows, 8NB columns, row-major in shared memory). bf16: P packs into the A fragments; float:
-// P goes through the warp's scratch (16 x (8KC + 4) floats).
-template <int NB, int KC>
-__device__ __forceinline__ void warp_pv(float (&o)[NB][4], const float (&p)[KC][4], const bf16* B, int ldb,
-                                        float*) {
-  const int lane = threadIdx.x & 31;
-  const int b_r = (lane & 7) + (((lane >> 3) & 1) << 3), b_c = (lane >> 4) << 3;
-#pragma unroll
-  for (int t = 0; t < KC / 2; ++t) {
-    const unsigned a[4] = {pack_bf16(p[2 * t][0], p[2 * t][1]), pack_bf16(p[2 * t][2], p[2 * t][3]),
-                           pack_bf16(p[2 * t + 1][0], p[2 * t + 1][1]),
-                           pack_bf16(p[2 * t + 1][2], p[2 * t + 1][3])};
-#pragma unroll
-    for (int jb = 0; jb < NB / 2; ++jb) {
-      unsigned b[4];
-      ldsm_x4_t(b, B + (size_t)(16 * t + b_r) * ldb + 16 * jb + b_c);
-      mma_bf16(o[2 * jb], a, b[0], b[1]);
-      mma_bf16(o[2 * jb + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int NB, int KC>
-__device__ __forceinline__ void warp_pv(float (&o)[NB][4], const float (&p)[KC][4], const float* B, int ldb,
-                                        float* scr) {
-  constexpr int LD = 8 * KC + 4;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  __syncwarp();  // the warp is done reading the scratch's previous contents
-#pragma unroll
-  for (int j = 0; j < KC; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) scr[(g + 8 * (e >> 1)) * LD + 8 * j + 2 * q + (e & 1)] = p[j][e];
-  __syncwarp();
-  const float* a0 = scr + g * LD;
-  const float* a1 = scr + (g + 8) * LD;
-  for (int k = 0; k < 8 * KC; ++k) {
-    const float x0 = a0[k], x1 = a1[k];
-    const float* b = B + (size_t)k * ldb + 2 * q;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float y0 = b[8 * j], y1 = b[8 * j + 1];
-      o[j][0] += x0 * y0;
-      o[j][1] += x0 * y1;
-      o[j][2] += x1 * y0;
-      o[j][3] += x1 * y1;
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Sum over the 16 rows of a fragment's columns: on return lanes 0-3 hold, for each n8 block j, the
-// sums of columns 8j + 2 * lane and 8j + 2 * lane + 1 in cs[j][0], cs[j][1].
-template <int NB>
-__device__ __forceinline__ void column_sums(const float (&a)[NB][4], float (&cs)[NB][2]) {
-#pragma unroll
-  for (int j = 0; j < NB; ++j)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      float v = a[j][u] + a[j][u + 2];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      cs[j][u] = v;
-    }
-}
-
 // Shared-memory layout of the streaming kernels for one launch (host and device).
 struct SwPlan {
   int Fp, Fk, Cp, Dp, KB, CK, nch, NS, acc_smem, LDQ, LDD, LDX, LDF, LDA, LDY;
   size_t sx, sg, swq, swo, slot;  // elements of T: x, g, W_qkv,h and W_o,h chunks within a ring slot
   size_t ring, qkv, o, dob, dof, st, cs, acc3, y, scr, bytes;  // byte offsets
 };
-
-__host__ __device__ inline size_t al16(size_t b) { return (b + 15) / 16 * 16; }
 
 __host__ __device__ inline SwPlan sw_layout(int F, int C, int D, int elt, bool bwd, bool dense, int CK, int NS,
                                             int acc_smem) {
@@ -661,80 +532,6 @@ __host__ __device__ inline bool sw_plan(int F, int C, int D, int elt, bool bwd, 
       }
   }
   return false;
-}
-
-// Head h's online-softmax sweep for the 16 query rows from m0 (one warp): on return o holds
-// sum_j round(exp(s_j - m)) v_j with l the row sums of the unrounded exp (BLOCKWISE), or round(P) V
-// with P = exp(s - m) / l normalised before its rounding (DENSE, one block of all keys); m and l for
-// the lane's rows m0 + g and m0 + g + 8.
-template <typename T, bool DENSE, int DP>
-__device__ __forceinline__ void sweep_rows(const T* qkv, int LDQ, int F, int m0, const float* bias_h,
-                                           float (&o)[DP / 8][4], float (&m)[2], float (&l)[2], float* scr) {
-  constexpr int KB = DENSE ? 64 : 32, KC = KB / 8, NB = DP / 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  m[0] = m[1] = -1e30f;
-  l[0] = l[1] = 0.f;
-  for (int kb0 = 0; kb0 < F; kb0 += KB) {
-    float s[KC][4];
-    warp_nt<KC>(s, qkv + (size_t)m0 * LDQ, LDQ, qkv + (size_t)kb0 * LDQ + DP, LDQ, DP);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < KC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + g + 8 * (e >> 1), key = kb0 + 8 * j + 2 * q + (e & 1);
-        float v = s[j][e];
-        if (key >= F) v = -INFINITY;
-        else if (bias_h && row < F) v += bias_h[(size_t)row * F + key];
-        s[j][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
-    float sum[2] = {0.f, 0.f};
-    if (DENSE) {
-#pragma unroll
-      for (int j = 0; j < KC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = expf(s[j][e] - mx[e >> 1]);
-          sum[e >> 1] += s[j][e];
-        }
-      for (int i = 0; i < 2; ++i) {
-        m[i] = mx[i];
-        l[i] = quad_sum(sum[i]);
-      }
-#pragma unroll
-      for (int j = 0; j < KC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = rnd<T>(s[j][e] / l[e >> 1]);
-    } else {
-      float mn[2], alpha[2];
-      for (int i = 0; i < 2; ++i) {
-        mn[i] = fmaxf(m[i], mx[i]);
-        alpha[i] = expf(m[i] - mn[i]);
-      }
-#pragma unroll
-      for (int j = 0; j < KC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float ev = expf(s[j][e] - mn[e >> 1]);
-          sum[e >> 1] += ev;
-          s[j][e] = rnd<T>(ev);
-        }
-      for (int i = 0; i < 2; ++i) {
-        l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
-        m[i] = mn[i];
-      }
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-    }
-    warp_pv<NB, KC>(o, s, qkv + (size_t)kb0 * LDQ + 2 * DP, LDQ, scr);
-  }
 }
 
 // The ring of staged chunks: stage gi (the CTA's gi-th chunk in order: token n = gi / per_token of the
@@ -866,7 +663,8 @@ __global__ void __launch_bounds__(kThreads, DENSE ? 1 : 2) temporal_stream_fwd_k
       const float* bias_h = bias ? bias + (size_t)h * F * F : nullptr;
       for (int rb = warp; rb < Fp / 16; rb += nw) {
         float o[NB][4], m[2], l[2];
-        sweep_rows<T, DENSE, DP>(qkv, LDQ, F, rb * 16, bias_h, o, m, l, scr);
+        sweep_rows<T, DENSE, DP>(qkv + (size_t)rb * 16 * LDQ, LDQ, qkv + DP, qkv + 2 * DP, LDQ, F, rb * 16, bias_h, o,
+                                 m, l, scr);
 #pragma unroll
         for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -944,7 +742,8 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
       // values) and do rounded.
       for (int rb = warp; rb < Fp / 16; rb += nw) {
         float o[NB][4], m[2], l[2], dsum[2] = {0.f, 0.f};
-        sweep_rows<T, DENSE, DP>(qkv, LDQ, F, rb * 16, bias_h, o, m, l, scr);
+        sweep_rows<T, DENSE, DP>(qkv + (size_t)rb * 16 * LDQ, LDQ, qkv + DP, qkv + 2 * DP, LDQ, F, rb * 16, bias_h, o,
+                                 m, l, scr);
 #pragma unroll
         for (int j = 0; j < NB; ++j)
 #pragma unroll

@@ -3,7 +3,7 @@
 from video_diffusion_nnx_tpu_torch.ops import cross_attention, spatial_linear_attention, temporal_attention
 
 _COUNTERS = (temporal_attention.launches, spatial_linear_attention.launches, cross_attention.launches)
-_STAGED = (temporal_attention.staged, spatial_linear_attention.staged)
+_STAGED = (temporal_attention.staged, spatial_linear_attention.staged, cross_attention.staged)
 
 
 def launch_counts() -> dict[str, int]:
