@@ -41,6 +41,13 @@ in one summary line (``PHASE <name>: ...``):
    writes left out) and peak memory; the same steps through the plain
    modules (fused flags off), whose losses agree step by step; the trained
    checkpoint samples through the sampling CLI (DDIM-10);
+8b. digits: the flagship eval (``eval_bouncing_digits.evaluate``) on that
+   run's step-30 checkpoint, with 64 train and 16 holdout clips of real
+   handwritten digits from the port's generator (``data/bouncing_digits.py``)
+   at the recipe's shape: 8 eval clips, reconstructions at T/8, T/4, T/2 for
+   the trained and the untrained model, DDIM-50 at batch 8, no DDPM; every
+   stat finite, the GIFs written, exact forward launches, all staged. The
+   eval's quality claims need the full 20000-step run and are not applied;
 9. blockwise: both blockwise (online-softmax) temporal kernels against their
    plain versions at every shape the long-clip Unet3D gives them (batch 1,
    128 frames), at the 256-long bottleneck shape of a 128x128 input and at
@@ -1513,6 +1520,53 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
             "gifs": len(res["paths"])}
 
 
+DIGITS_CLIPS, DIGITS_HOLDOUT, DIGITS_EVAL_CLIPS = 64, 16, 8
+
+
+def digits_phase(torch, ops) -> dict:
+    """The flagship eval on the train phase's step-30 checkpoint: data from the port's bouncing-digits
+    generator at the recipe's shape (64 train, 16 holdout clips of 16 frames), ``evaluate`` with 8 clips and
+    no DDPM, every stat finite, the GIFs written, every forward launch of its loss, reconstruction and DDIM-50
+    counted and staged. The quality claims (``check``) need the full run and are not applied here."""
+    import numpy as np
+    from PIL import Image
+
+    from video_diffusion_nnx_tpu_torch import eval_bouncing_digits as ev
+    from video_diffusion_nnx_tpu_torch.data import bouncing_digits
+
+    root = SCRATCH / "digits"
+    train_npy, hold_npy = root / "bouncing_digits.npy", root / "bouncing_digits_val.npy"
+    t0 = time.perf_counter()
+    bouncing_digits.main(["--out", str(train_npy), "--clips", str(DIGITS_CLIPS), "--frames", "16",
+                          "--holdout-out", str(hold_npy), "--holdout-clips", str(DIGITS_HOLDOUT)])
+    gen_seconds = time.perf_counter() - t0
+    data = np.load(train_npy)
+    check(data.shape == (16, DIGITS_CLIPS, 64, 64) and data.dtype == np.uint8 and data.max() > 0,
+          f"generated data {data.shape} {data.dtype}")
+    config = SCRATCH / "train" / "kernels.yaml"
+    out = OUT / "digits"
+    ops.reset_launch_counts()
+    stats = ev.evaluate(str(config), str(SCRATCH / "train" / "kernels" / "checkpoints"), TRAIN_STEPS,
+                        str(train_npy), str(hold_npy), str(out), eval_clips=DIGITS_EVAL_CLIPS, skip_ddpm=True,
+                        device="cuda")
+    counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+    check_staged(counts, staged, "digits phase")
+    recon = sum(len(ev.recon_times(1000 // frac)) for frac, _ in ev.RECON_FRACTIONS)  # the recipe's T = 1000
+    forwards = 2 + 2 * recon + 50  # the two losses, trained and untrained reconstructions, DDIM-50
+    check(counts == {k: per * forwards for k, per in PER_FORWARD.items()},
+          f"digits phase: launches {counts}, expected {forwards} forwards of {PER_FORWARD}")
+    flat = [v for v in stats.values() if isinstance(v, (int, float))]
+    flat += [v for k in ("samples_ddim50", "data_holdout") for v in stats[k].values()]
+    check(all(math.isfinite(v) for v in flat), f"digits phase: stats {stats}")
+    gifs = {p.stem: Image.open(p) for p in out.glob("*.gif")}
+    want = {**{f"ddim50_sample_{i}": (64, 64) for i in range(4)}, **{f"recon_T4_pair_{i}": (128, 64) for i in range(2)}}
+    check(set(gifs) == set(want) and all(g.size == want[k] and g.n_frames == 10 for k, g in gifs.items()),
+          f"digits phase: GIFs {[(k, g.size, g.n_frames) for k, g in gifs.items()]}")
+    return {"clips": DIGITS_CLIPS, "holdout_clips": DIGITS_HOLDOUT, "eval_clips": DIGITS_EVAL_CLIPS,
+            "generate_seconds": gen_seconds, "eval_seconds": stats.pop("seconds"), "forwards": forwards,
+            "launches": counts, "staged_launches": staged, "stats": stats, "gifs": sorted(gifs)}
+
+
 def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: dict | None = None,
                      per_step: dict = LONG_PER_STEP, variants=("kernels", "remat_off", "plain")) -> dict:
     """The long-clip recipe (with ``unet`` overrides) through the CLIs: 12 steps at batch 1 on 128-frame
@@ -1953,6 +2007,7 @@ def main(argv: list[str]) -> int:
     timed("grads", grads_phase, torch, ops, ta, sla, load_config, build_models,
           show=brief)
     trained = timed("train", train_phase, torch, ops, train, sample)
+    timed("digits", digits_phase, torch, ops)
     blk = timed("blockwise", blockwise_phase, torch, ta,
                 show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
                                 **per_step(r, "per_step")})
