@@ -21,9 +21,28 @@ in one summary line (``PHASE <name>: ...``):
    weights through the plain modules (fused flags off);
 5. sample: ``video_diffusion_nnx_tpu_torch.sample.main`` with that config and
    a checkpoint file written by ``convert.py``: DDIM-50 at batch 4 and
-   DDPM over the config's 1000 steps at batch 2; GIFs checked; every kernel
-   launch counted over this phase alone, and every launch of the spatial
+   DDPM over the config's 1000 steps at batch 2; GIFs checked; every step a
+   replay of the denoiser's CUDA graph (``diffusion/graphs.py``), so each
+   forward kernel's wrapper launches twice per capture (a warm-up forward,
+   then the capture) and never at a replay, counted over this phase alone
+   (so in every sampler run of the phases below); every launch of the spatial
    forward pair must have run its staged kernel (so in phases 8, 12 and 16);
+5b. dpm: the same CLI with ``--sampler dpm --num-steps 20`` at batch 4;
+5c. graph: DDPM-1000 at batch 2, DDIM-50 and DPM-20 at batch 4, each graphed
+   and eager from the same generator seed: outputs bit-equal (else within
+   1e-3 on [0, 1]), seconds per step eager, graphed with its capture and warm,
+   exact launches, all staged; peak memory with one cached graph (batch 4)
+   and with four (batches 1, 2, 4, 8);
+5d. extend: ``video_diffusion_nnx_tpu_torch.extend.main`` on phase 5b's first
+   clip, keeping 4 of 10 frames, DDIM-10 with reconstruction guidance 2 at
+   batch 2: the kept frames exactly as given, a forward and a backward of
+   each attention kernel per step (eager), all staged; seconds per step;
+5e. serve: ``video_diffusion_nnx_tpu_torch.serve`` in-process on a free port
+   around the recipe's seeded weights: /health, a solo DDIM-50 request
+   against ``ddim_sample`` with its seed, 8 concurrent batch-1 DDIM-50
+   requests coalesced and each held to its solo run (0.02 on [0, 1]), clips
+   per second coalesced against --no-batching at 2 and 8 clients
+   (``bench_serve.compare``), and an /extend request;
 6. backward: each backward kernel against its plain version at every shape
    the flagship training step (batch 8) gives it, and at one wide-frame
    shape, in bf16 and f32, TF32 off; CUDA-event times, each timed row's share
@@ -140,7 +159,8 @@ in one summary line (``PHASE <name>: ...``):
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. ``--only kernels,long sla`` runs the device check, the
-build and the named phases alone, then stops without the kernels line and the
+build and the named phases alone (extend and serve read the clip that dpm
+writes, digits the train phase's checkpoint), then stops without the kernels line and the
 ok line (those two phases call only the ops' public wrappers, so a copy of
 this file in another checkout times that checkout's kernels). Outputs go to
 chiprun_out/chip_smoke/ (small) and build/chip_smoke/ (checkpoints and data).
@@ -420,6 +440,16 @@ def check_staged(counts: dict, staged: dict, where: str) -> None:
               f"{where}: {staged.get(name, 0)} of {counts.get(name, 0)} launches of {name} ran the staged kernel")
 
 
+def check_graphed(counts: dict, graph: dict, steps: int, where: str, per: dict = PER_FORWARD,
+                  captures: int = 1) -> None:
+    """A sampler run through the denoiser's CUDA graph: each forward kernel launched by its wrapper twice per
+    capture (the warm-up forward, then the capture) and never at a replay; every step a replay."""
+    check(graph == {"captures": captures, "replays": steps},
+          f"{where}: graphs {graph}, expected {captures} capture(s) and {steps} replays")
+    want = {k: n * 2 * captures for k, n in per.items() if "bwd" not in k}
+    check(counts == want, f"{where}: launches {counts}, expected {want} (per forward x 2 x captures)")
+
+
 def rand(torch, shape, seed: int, scale: float, dtype):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
@@ -614,18 +644,28 @@ def unet_phase(torch, load_config, build_models, config_path: Path = CONFIG, bat
             "plain_vs_f32": err_p, "fwd_ms_kernels": fwd_k, "fwd_ms_plain": fwd_p}
 
 
-def sample_phase(torch, ops, load_config, build_models, save_checkpoint, sample) -> dict:
+def flagship_checkpoint(torch, load_config, build_models, save_checkpoint) -> Path:
+    """The flagship recipe's seeded weights as a checkpoint file (written once, read by the sampler phases)."""
+    ckpt = SCRATCH / "ckpt.pt"
+    if not ckpt.exists():
+        _, diffusion = build_models(load_config(CONFIG), device="cuda")
+        save_checkpoint(ckpt, diffusion)
+    return ckpt
+
+
+def sample_phase(torch, ops, load_config, build_models, save_checkpoint, sample, runs_spec=None) -> dict:
+    """The sampling CLI at the flagship recipe from a checkpoint: GIFs checked, every step a replay of the
+    denoiser's graph, exact wrapper launches, every spatial forward launch staged."""
     from PIL import Image
 
     config = load_config(CONFIG)
-    _, diffusion = build_models(config, device="cuda")
-    ckpt = save_checkpoint(SCRATCH / "ckpt.pt", diffusion)
-    del diffusion
+    ckpt = flagship_checkpoint(torch, load_config, build_models, save_checkpoint)
     frames, size = config["diffusion"]["num_frames"], config["diffusion"]["image_size"]
     runs = {}
     ops.reset_launch_counts()
-    for name, batch, flags in (("ddim50_b4", 4, ["--sampler", "ddim", "--num-steps", "50"]),
-                               ("ddpm1000_b2", 2, ["--sampler", "ddpm"])):
+    captures, forwards = 0, 0
+    for name, batch, flags in runs_spec or (("ddim50_b4", 4, ["--sampler", "ddim", "--num-steps", "50"]),
+                                            ("ddpm1000_b2", 2, ["--sampler", "ddpm"])):
         out_dir = OUT / "gifs" / name
         torch.cuda.reset_peak_memory_stats()
         res = sample.main(["--config", str(CONFIG), "--checkpoint-path", str(ckpt),
@@ -635,21 +675,222 @@ def sample_phase(torch, ops, load_config, build_models, save_checkpoint, sample)
         check(tuple(videos.shape) == (batch, 1, frames, size, size), f"{name}: shape {tuple(videos.shape)}")
         check(bool(torch.isfinite(videos).all()), f"{name}: non-finite samples")
         check(len(res["paths"]) == batch, f"{name}: {len(res['paths'])} GIFs for batch {batch}")
+        check(res["graph"] == {"captures": 1, "replays": res["steps"]}, f"{name}: graphs {res['graph']}")
+        captures += 1
+        forwards += res["steps"]
         for p in res["paths"]:
             img = Image.open(p)
             check(img.n_frames == frames and img.size == (size, size),
                   f"{p.name}: {img.n_frames} frames of {img.size}")
         runs[name] = {"steps": res["steps"], "seconds": res["seconds"],
                       "seconds_per_step": res["seconds"] / res["steps"],
-                      "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"]),
+                      "range": [float(videos.min()), float(videos.max())], "graph": res["graph"]}
+        (SCRATCH / "clips").mkdir(exist_ok=True)
+        torch.save(videos[0].clone(), SCRATCH / "clips" / f"{name}.pt")  # (c, f, h, w) in [0, 1], for the extend phase
     counts, staged = ops.launch_counts(), ops.staged_launch_counts()
     check_staged(counts, staged, "flagship sampling")
-    forwards = sum(r["steps"] for r in runs.values())
-    for name, per in PER_FORWARD.items():
-        check(counts[name] > 0, f"kernel {name} was never launched on the main path")
-        check(counts[name] == per * forwards,
-              f"kernel {name}: {counts[name]} launches, expected {per} x {forwards} forwards")
-    return {"runs": runs, "launches": counts, "staged_launches": staged, "forwards": forwards}
+    check_graphed(nonzero(counts), {"captures": captures, "replays": forwards}, forwards, "flagship sampling",
+                  captures=captures)
+    return {"runs": runs, "launches": counts, "staged_launches": staged, "forwards": forwards,
+            "captures": captures}
+
+
+DPM_RUN = (("dpm20_b4", 4, ["--sampler", "dpm", "--num-steps", "20"]),)
+GRAPH_RUNS = (("ddpm1000_b2", "ddpm", 2, 1000), ("ddim50_b4", "ddim", 4, 50), ("dpm20_b4", "dpm", 4, 20))
+GRAPH_BATCHES = (1, 2, 4, 8)  # the serving batches (padded to powers of two up to max_batch_rows 8)
+GRAPH_TOL = 1e-3  # on [0, 1], where graphed and eager are not bit-equal; never wider
+
+
+def _sampler(diffusion, kind: str, batch: int, steps: int):
+    if kind == "ddpm":
+        return lambda g, graph: diffusion.sample(batch_size=batch, generator=g, graph=graph)
+    if kind == "ddim":
+        return lambda g, graph: diffusion.ddim_sample(batch_size=batch, num_steps=steps, generator=g, graph=graph)
+    return lambda g, graph: diffusion.dpm_solver_sample(batch_size=batch, num_steps=steps, generator=g, graph=graph)
+
+
+def graph_phase(torch, ops, load_config, build_models) -> dict:
+    """Each sampler of the flagship recipe graphed and eager from the same generator seed, in this call: the
+    outputs bit-equal, seconds per step (host clock ending in a synchronize) eager, graphed with its capture and
+    graphed warm (DDPM-1000 once graphed: its capture is 1/1000 of the run), exact wrapper launches (eager:
+    per forward x steps; graphed: per forward x 2 at the capture, none at a replay), all staged; then peak
+    memory with one cached graph and with four (batches 1, 2, 4, 8)."""
+    _, diffusion = build_models(load_config(CONFIG), device="cuda")
+    diffusion.eval()
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def timed_run(fn, seed, graph):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(gen(seed), graph)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, nonzero(ops.launch_counts()), ops.staged_launch_counts()
+
+    runs = {}
+    for seed, (name, kind, batch, steps) in enumerate(GRAPH_RUNS):
+        fn = _sampler(diffusion, kind, batch, steps)
+        row = {}
+        diffusion.graphs.clear()  # each run captures its own graph: its first run pays for the capture
+        replays0, captures0 = diffusion.graphs.replays(), diffusion.graphs.captures
+        graphed, sec, counts, staged = timed_run(fn, seed, True)
+        check_staged(counts, staged, f"graph {name}")
+        graph = {"captures": diffusion.graphs.captures - captures0, "replays": diffusion.graphs.replays() - replays0}
+        check_graphed(counts, graph, steps, f"graph {name}")
+        row.update(graphed_launches=counts, graphed_staged=nonzero(staged), **graph)
+        row["graphed_first_s_per_step"] = sec / steps
+        if kind != "ddpm":
+            again, sec, counts, _ = timed_run(fn, seed, True)
+            check(not counts and torch.equal(again, graphed), f"graph {name}: a warm replay run launched {counts}")
+            row["graphed_warm_s_per_step"] = sec / steps
+        eager, sec, counts, staged = timed_run(fn, seed, False)
+        check_staged(counts, staged, f"eager {name}")
+        check(counts == {k: n * steps for k, n in PER_FORWARD.items()}, f"eager {name}: launches {counts}")
+        row["eager_launches"], row["eager_s_per_step"] = counts, sec / steps
+        row["max_abs_graphed_vs_eager"] = _max_abs(graphed, eager)
+        row["bit_equal"] = bool(torch.equal(graphed, eager))
+        check(row["bit_equal"] or row["max_abs_graphed_vs_eager"] <= GRAPH_TOL,
+              f"graph {name}: graphed and eager part by {row['max_abs_graphed_vs_eager']} (gate {GRAPH_TOL})")
+        check(bool(torch.isfinite(graphed).all()), f"graph {name}: non-finite samples")
+        row["batch"], row["steps"] = batch, steps
+        runs[name] = row
+
+    # Peak memory: the weights alone, then one graph (batch 4), then the four serving batches.
+    memory = {}
+    diffusion.graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    memory["weights_allocated"] = torch.cuda.memory_allocated()
+    for label, batches in (("one_graph_b4", (4,)), ("four_graphs_b1_2_4_8", GRAPH_BATCHES)):
+        diffusion.graphs.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            diffusion.dpm_solver_sample(batch_size=b, num_steps=2, generator=gen(b))
+        torch.cuda.synchronize()
+        check(len(diffusion.graphs) == len(batches), f"{label}: {len(diffusion.graphs)} cached graphs")
+        memory[label] = {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+                         "memory_allocated_after": torch.cuda.memory_allocated(),
+                         "memory_reserved_after": torch.cuda.memory_reserved()}
+    diffusion.graphs.clear()
+    return {"runs": runs, "memory": memory, "tol_if_not_bit_equal": GRAPH_TOL}
+
+
+def extend_phase(torch, ops, load_config, build_models, save_checkpoint) -> dict:
+    """The extension CLI on the dpm phase's first clip: keep 4 of 10 frames, DDIM-10 with reconstruction
+    guidance 2 at batch 2. The kept frames come out exactly as given (through [-1, 1] and back, on the card); a
+    forward and a backward of each attention kernel per step, every launch staged; no graph (guided steps run
+    eagerly); seconds per step."""
+    import numpy as np
+
+    from video_diffusion_nnx_tpu_torch import extend
+
+    clip = torch.load(SCRATCH / "clips" / "dpm20_b4.pt")  # (1, 10, 64, 64) in [0, 1]
+    npy = SCRATCH / "clips" / "dpm20_b4_255.npy"
+    np.save(npy, (clip.float().numpy() * 255.0).astype(np.float32))
+    ckpt = flagship_checkpoint(torch, load_config, build_models, save_checkpoint)
+    steps, keep = 10, 4
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = extend.main(["--config", str(CONFIG), "--checkpoint-path", str(ckpt), "--input", str(npy),
+                       "--keep-frames", str(keep), "--num-steps", str(steps), "--recon-guidance", "2",
+                       "--batch-size", "2", "--seed", "0", "--output-path", str(OUT / "gifs" / "extend"),
+                       "--device", "cuda"])
+    counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+    check(res["graph"] == {"captures": 0, "replays": 0}, f"extend: guided steps captured graphs {res['graph']}")
+    check(counts == {k: n * steps for k, n in PER_STEP.items()}, f"extend: launches {counts}")
+    check(all(staged.get(k, 0) == n for k, n in counts.items()), f"extend: staged {staged} of {counts}")
+    videos, known = res["videos"], torch.from_numpy(res["known"]).cuda()
+    pinned = ((known * 2 - 1) + 1) * 0.5  # normalize_img then unnormalize_img, as the sampler pins them
+    check(tuple(videos.shape) == (2, 1, 10, 64, 64) and bool(torch.isfinite(videos).all()),
+          f"extend: {tuple(videos.shape)} samples")
+    check(torch.equal(videos[:, :, :keep], pinned[None, :, :keep].cpu().expand(2, -1, -1, -1, -1)),
+          "extend: the kept frames are not the input's")
+    return {"steps": steps, "keep_frames": keep, "recon_guidance": 2.0, "batch": 2, "sample_seconds": res["seconds"],
+            "seconds_per_step": res["seconds"] / steps, "launches": counts, "staged_launches": staged,
+            "kept_max_abs_vs_input": _max_abs(videos[:, :, :keep], known[None, :, :keep].cpu()),
+            "generated_range": [float(videos[:, :, keep:].min()), float(videos[:, :, keep:].max())],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}
+
+
+SERVE_CLIENTS, SERVE_STEPS, SERVE_TOL = 8, 50, 0.02
+
+
+def serve_phase(torch, ops, load_config, build_models) -> dict:
+    """The port's sampling server in-process on a free port around the flagship recipe's seeded weights:
+    /health; a solo DDIM-50 request against ``ddim_sample`` with its seed; 8 concurrent batch-1 DDIM-50 requests
+    coalesced, each held to its solo run within 0.02 on [0, 1]; clips per second coalesced against
+    --no-batching through ``bench_serve``; an /extend request over HTTP."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from video_diffusion_nnx_tpu_torch import bench_serve, serve
+
+    _, model = build_models(load_config(CONFIG), device="cuda")
+    model.eval()
+    httpd = serve.create_server(model, host="127.0.0.1", port=0, batch_window_s=0.05)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    out = {}
+    try:
+        url = "http://%s:%d" % httpd.server_address[:2]
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health["status"] == "ok" and health["device"] == "cuda", f"/health: {health}")
+        service = httpd.service
+
+        def solo(seed):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            return model.ddim_sample(batch_size=1, num_steps=SERVE_STEPS, generator=g).float().cpu().numpy()
+
+        rows, seconds, extra = service.sample_rows({"sampler": "ddim", "num_steps": SERVE_STEPS, "seed": 0})
+        out["solo_request"] = {"seconds": seconds, **extra, "max_abs_vs_ddim_sample": float(np.abs(rows - solo(0)).max())}
+        check(out["solo_request"]["max_abs_vs_ddim_sample"] <= SERVE_TOL, f"solo request: {out['solo_request']}")
+
+        results = [None] * SERVE_CLIENTS
+
+        def client(i):
+            results[i] = service.sample_rows({"sampler": "ddim", "num_steps": SERVE_STEPS, "seed": i})
+
+        ops.reset_launch_counts()
+        replays0 = model.graphs.replays()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(all(r is not None for r in results), "coalesced clients: a request did not return")
+        replays, counts = model.graphs.replays() - replays0, nonzero(ops.launch_counts())
+        groups = sorted({r[2]["coalesced"] for r in results}, reverse=True)
+        errs = [float(np.abs(r[0] - solo(i)).max()) for i, r in enumerate(results)]
+        out["coalesced"] = {"groups": groups, "seconds": [r[1] for r in results], "max_abs_vs_solo": errs,
+                            "tol": SERVE_TOL, "replays": replays, "launches": counts}
+        check(groups[0] >= 2, f"coalesced clients: groups {groups}")
+        check(max(errs) <= SERVE_TOL, f"coalesced rows part from their solo runs by {max(errs)} (gate {SERVE_TOL})")
+
+        clip = torch.load(SCRATCH / "clips" / "dpm20_b4.pt").float().numpy()
+        buf = io.BytesIO()
+        np.save(buf, clip)
+        payload = {"known_npy_b64": base64.b64encode(buf.getvalue()).decode(), "frame_mask": [True] * 4 + [False] * 6,
+                   "batch_size": 2, "num_steps": 10, "seed": 1}
+        ext = bench_serve.post(url, payload, path="/extend")
+        check(ext["shape"] == [2, 1, 10, 64, 64] and len(ext["gifs"]) == 2, f"/extend: {ext['shape']}")
+        out["extend_request"] = {"time_s": ext["time_s"], "shape": ext["shape"]}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    out["throughput"] = bench_serve.compare(model, [2, SERVE_CLIENTS], SERVE_STEPS, 0.05)
+    out["cached_graph_shapes"] = model.graphs.shapes()
+    return out
 
 
 def _rel_err(got, want) -> float:
@@ -1498,8 +1739,7 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
                        "--sampler", "ddim", "--num-steps", str(ddim_steps), "--load-ema-params"])
     s_counts = nonzero(ops.launch_counts())
     check_staged(s_counts, ops.staged_launch_counts(), f"sampling after the {name} phase")
-    check(s_counts == {k: per * ddim_steps for k, per in per_step.items() if "bwd" not in k},
-          f"sampling from the trained checkpoint: launches {s_counts} in {ddim_steps} steps")
+    check_graphed(s_counts, res["graph"], ddim_steps, f"sampling after the {name} phase", per=per_step)
     d = raw["diffusion"]
     videos = res["videos"]
     check(tuple(videos.shape) == (2, 1, d["num_frames"], d["image_size"], d["image_size"]),
@@ -1552,7 +1792,11 @@ def digits_phase(torch, ops) -> dict:
     counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
     check_staged(counts, staged, "digits phase")
     recon = sum(len(ev.recon_times(1000 // frac)) for frac, _ in ev.RECON_FRACTIONS)  # the recipe's T = 1000
-    forwards = 2 + 2 * recon + 50  # the two losses, trained and untrained reconstructions, DDIM-50
+    # The two losses and the trained and untrained reconstructions run eagerly; DDIM-50 replays its graph, whose
+    # warm-up and capture ran the wrappers twice.
+    forwards = 2 + 2 * recon + 2
+    graph = stats.pop("graph")
+    check(graph == {"captures": 1, "replays": 50}, f"digits phase: DDIM-50 graphs {graph}")
     check(counts == {k: per * forwards for k, per in PER_FORWARD.items()},
           f"digits phase: launches {counts}, expected {forwards} forwards of {PER_FORWARD}")
     flat = [v for v in stats.values() if isinstance(v, (int, float))]
@@ -1563,7 +1807,7 @@ def digits_phase(torch, ops) -> dict:
     check(set(gifs) == set(want) and all(g.size == want[k] and g.n_frames == 10 for k, g in gifs.items()),
           f"digits phase: GIFs {[(k, g.size, g.n_frames) for k, g in gifs.items()]}")
     return {"clips": DIGITS_CLIPS, "holdout_clips": DIGITS_HOLDOUT, "eval_clips": DIGITS_EVAL_CLIPS,
-            "generate_seconds": gen_seconds, "eval_seconds": stats.pop("seconds"), "forwards": forwards,
+            "generate_seconds": gen_seconds, "eval_seconds": stats.pop("seconds"), "forwards": forwards, "graph": graph,
             "launches": counts, "staged_launches": staged, "stats": stats, "gifs": sorted(gifs)}
 
 
@@ -1639,8 +1883,7 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
     check(img.n_frames == d["num_frames"] and img.size == (d["image_size"], d["image_size"]),
           f"{res['paths'][0].name}: {img.n_frames} frames of {img.size}")
     s_counts = nonzero(ops.launch_counts())
-    check(s_counts == {kernel: per * res["steps"] for kernel, per in per_step.items() if "bwd" not in kernel},
-          f"long-clip sampling: launches {s_counts} in {res['steps']} steps")
+    check_graphed(s_counts, res["graph"], res["steps"], "long-clip sampling", per=per_step)
     return {"steps": LONG_STEPS, "batch": raw["trainer"]["train_batch_size"], "frames": d["num_frames"],
             "dataset": {"gif_folder": str(data), "clips": LONG_CLIPS, "frames_per_gif": gif_frames},
             "freeze_schedule_buffers": raw["trainer"].get("freeze_schedule_buffers", False),
@@ -1930,6 +2173,7 @@ def seq_sample_phase(torch, ops, sample) -> dict:
     check(img.n_frames == frames and img.size == (64, 64), f"{res['paths'][0].name}: {img.n_frames} frames")
     counts = nonzero(ops.launch_counts())
     check(not counts, f"one rank of the recipe samples through the modules: launches {counts}")
+    check(res["graph"] == {"captures": 1, "replays": res["steps"]}, f"seq sampling: graphs {res['graph']}")
     return {"steps": res["steps"], "sample_seconds": res["seconds"], "seconds_per_step": res["seconds"] / res["steps"],
             "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}
 
@@ -2000,6 +2244,10 @@ def main(argv: list[str]) -> int:
                                  "sla_per_forward": {k: sla_totals(a) for k, a in r["sla_per_forward"].items()}})
     timed("unet", unet_phase, torch, load_config, build_models)
     timed("sample", sample_phase, torch, ops, load_config, build_models, save_checkpoint, sample)
+    timed("dpm", sample_phase, torch, ops, load_config, build_models, save_checkpoint, sample, runs_spec=DPM_RUN)
+    timed("graph", graph_phase, torch, ops, load_config, build_models)
+    timed("extend", extend_phase, torch, ops, load_config, build_models, save_checkpoint)
+    timed("serve", serve_phase, torch, ops, load_config, build_models)
     bwd = timed("backward", backward_phase, torch, ta, sla,
                 show=lambda r: {"checks": len(r["rows"]), "tolerance": BWD_TOL, **per_step(r, "per_step"),
                                 "forward_per_step": per_step(r, "fwd_per_step")["fwd_per_step"],

@@ -855,3 +855,84 @@ def test_cuda_core_context_rounds_s(device):
     err, err_unrounded = _rounding_distances(ctx, xt, wqkv)
     assert err < err_unrounded, (err, err_unrounded)
     assert (ctx - sla.sla_context_plain(xt, wqkv, 8, 32)).abs().max().item() <= TOL[torch.bfloat16]
+
+
+def _graph_model(device, timesteps: int = 10, fused: bool = True, **unet_kwargs):
+    """A small bf16 Unet3D on both kernels (the flagship's layout at dim 16), v-prediction; ``fused=False``
+    runs the plain modules instead."""
+    from video_diffusion_nnx_tpu_torch.diffusion import GaussianDiffusion
+    from video_diffusion_nnx_tpu_torch.models import Unet3D
+
+    unet = Unet3D(dim=16, dim_mults=(1, 2), channels=1, compute_dtype="bfloat16", use_fused_attention=fused,
+                  use_fused_spatial_attention=fused, **unet_kwargs)
+    unet.reset_parameters(torch.Generator().manual_seed(0))
+    return GaussianDiffusion(unet, image_size=16, num_frames=10, channels=1, timesteps=timesteps, loss_type="l2",
+                             prediction_type="v").to(device).eval()
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@pytest.mark.parametrize("sampler", ["ddim3", "dpm3", "ddpm", "cond_ddim3", "interpolate"])
+def test_graph_replay_equals_eager(device, sampler):
+    """A replay runs the same kernels on the same inputs, and the sampler's draws stay eager: bit-equal."""
+    model = _graph_model(device)
+    known = torch.rand(2, 1, 10, 16, 16, device=device, generator=_gen(9))
+    run = {
+        "ddim3": lambda g, graph: model.ddim_sample(batch_size=2, num_steps=3, eta=0.5, generator=g, graph=graph),
+        "dpm3": lambda g, graph: model.dpm_solver_sample(batch_size=2, num_steps=3, generator=g, graph=graph),
+        "ddpm": lambda g, graph: model.sample(batch_size=2, generator=g, graph=graph),
+        "cond_ddim3": lambda g, graph: model.sample_conditional_frames(known, [True] * 3 + [False] * 7, num_steps=3,
+                                                                      generator=g, graph=graph),
+        "interpolate": lambda g, graph: model.interpolate(known * 2 - 1, 1 - known * 2, t=4, generator=g,
+                                                          graph=graph),
+    }[sampler]
+    ops.reset_launch_counts()
+    graphed = run(_gen(1), True)
+    torch.cuda.synchronize()
+    captured = ops.launch_counts()
+    steps = {"ddim3": 3, "dpm3": 3, "ddpm": 10, "cond_ddim3": 3, "interpolate": 4}[sampler]
+    assert model.graphs.captures == 1 and model.graphs.replays() == steps
+    # The wrappers run twice per capture (a warm-up forward, then the capture), never at a replay: a forward of
+    # two levels launches 7 temporal (1 + 2 + 2 at the middle + 2) and 4 spatial kernels of each stage.
+    assert captured["temporal_attention_fwd"] == 2 * 7 and captured["sla_context"] == 2 * 4
+    eager = run(_gen(1), False)
+    assert torch.equal(graphed, eager)
+
+
+def test_graph_cache_is_bounded_and_evicts_the_oldest(device):
+    from video_diffusion_nnx_tpu_torch.diffusion.graphs import MAX_GRAPHS
+
+    model = _graph_model(device)
+    for b in range(1, MAX_GRAPHS + 2):
+        model.dpm_solver_sample(batch_size=b, num_steps=2, generator=_gen(b))
+    assert len(model.graphs) == MAX_GRAPHS
+    assert model.graphs.captures == MAX_GRAPHS + 1 and model.graphs.replays() == 2 * (MAX_GRAPHS + 1)
+    assert [s[0] for s in model.graphs.shapes()] == list(range(2, MAX_GRAPHS + 2))
+    model.dpm_solver_sample(batch_size=1, num_steps=2, generator=_gen(0))  # evicted: captured again
+    assert model.graphs.captures == MAX_GRAPHS + 2 and model.graphs.shapes()[-1][0] == 1
+
+
+def test_weight_reload_and_moves_drop_the_graphs(device):
+    model = _graph_model(device)
+    before = model.ddim_sample(batch_size=2, num_steps=2, generator=_gen(3))
+    assert len(model.graphs) == 1
+    state = {k: v * 0.5 if v.is_floating_point() else v for k, v in model.state_dict().items()}
+    model.load_state_dict(state)
+    assert len(model.graphs) == 0
+    after = model.ddim_sample(batch_size=2, num_steps=2, generator=_gen(3))
+    eager = model.ddim_sample(batch_size=2, num_steps=2, generator=_gen(3), graph=False)
+    assert torch.equal(after, eager) and not torch.equal(after, before)
+    model.to(device)
+    assert len(model.graphs) == 0
+
+
+@pytest.mark.parametrize("fused,compat", [(False, True), (False, False), (True, False)])
+def test_graph_replay_equals_eager_in_both_maths_and_routes(device, fused, compat):
+    """The plain modules and fixed math capture too (no host copy inside the forward): graphed equals eager."""
+    model = _graph_model(device, fused=fused, reference_compat=compat)
+    graphed = model.ddim_sample(batch_size=2, num_steps=3, generator=_gen(2))
+    eager = model.ddim_sample(batch_size=2, num_steps=3, generator=_gen(2), graph=False)
+    assert model.graphs.captures == 1 and model.graphs.replays() == 3
+    assert torch.equal(graphed, eager)

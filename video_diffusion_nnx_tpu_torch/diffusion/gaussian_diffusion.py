@@ -3,10 +3,12 @@
 The schedule buffers carry the JAX package's names, so a converted
 checkpoint loads them directly, and equal its values bit for bit
 (``utils/schedule.py``). The JAX package runs the reverse process as one
-``lax.scan`` program; here it is a Python loop over the steps. Noise comes
-from an explicit ``torch.Generator``; ``p_sample`` and ``ddim_sample`` also
-take injected noise, and ``forward`` (the training loss) takes injected t and
-noise, so that a test can feed both packages the same numbers.
+``lax.scan`` program; here it is a Python loop over the steps whose denoiser
+forward, on CUDA under ``no_grad``, replays a CUDA graph (``graphs.py``; each
+sampler's ``graph=False`` runs it eagerly). Noise comes from an explicit
+``torch.Generator``; the samplers also take injected noise, and ``forward``
+(the training loss) takes injected t and noise, so that a test can feed both
+packages the same numbers (the draws of the JAX key chain).
 
 Under a sequence-parallel group (the denoiser's ``sequence_parallel_mesh``)
 each rank trains on its own frames: ``forward`` draws t and the noise for
@@ -23,6 +25,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from video_diffusion_nnx_tpu_torch.diffusion.graphs import GraphCache
 from video_diffusion_nnx_tpu_torch.utils.image import normalize_img, unnormalize_img
 from video_diffusion_nnx_tpu_torch.utils.schedule import ScheduleBuffers, extract
 
@@ -51,6 +54,13 @@ def sampling_times(num_timesteps: int, num_steps: int, grid: str = "linspace") -
 
 def _normal(shape, generator: torch.Generator | None, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+def _half_log_snr(a: torch.Tensor) -> torch.Tensor:
+    """lambda = log(alpha / sigma) of ``alphas_cumprod`` ``a`` (JAX ``lam``, :584-586), on ``a`` clipped to
+    [1e-12, 1 - 1e-12]; in float32 the upper bound rounds to 1, where lambda is inf."""
+    a = torch.clamp(a, 1e-12, 1.0 - 1e-12)
+    return 0.5 * (torch.log(a) - torch.log1p(-a))
 
 
 class GaussianDiffusion(nn.Module):
@@ -89,6 +99,13 @@ class GaussianDiffusion(nn.Module):
         buf = ScheduleBuffers.create(self.num_timesteps)
         for name in BUFFER_NAMES:
             self.register_buffer(name, getattr(buf, name))
+        # The captured denoiser forwards; dropped when weights are loaded or the module moves.
+        self.graphs = GraphCache()
+        self.register_load_state_dict_post_hook(lambda module, _keys: module.graphs.clear())
+
+    def _apply(self, fn, recurse: bool = True):
+        self.graphs.clear()
+        return super()._apply(fn, recurse)
 
     @property
     def device(self) -> torch.device:
@@ -144,12 +161,17 @@ class GaussianDiffusion(nn.Module):
 
     # Reverse (p) process.
 
-    def _denoise(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        out = self.denoise_fn.forward_with_cond_scale(x, t)  # (b, f, h, w, c)
+    def _denoise(self, x: torch.Tensor, t: torch.Tensor, graph: bool = False) -> torch.Tensor:
+        """The denoiser's output as (b, c, f, h, w). With ``graph``, for a CUDA ``x`` under ``no_grad``, a replay
+        of the cached graph of x's shape: a view of its static output, valid until the next replay."""
+        if graph and x.is_cuda and not torch.is_grad_enabled():
+            out = self.graphs.get(self.denoise_fn, x)(x, t)
+        else:
+            out = self.denoise_fn.forward_with_cond_scale(x, t)  # (b, f, h, w, c)
         return out.permute(0, 4, 1, 2, 3)  # -> (b, c, f, h, w)
 
-    def p_mean_variance(self, x, t, clip_denoised: bool = True):
-        x_recon, _ = self._model_out_to_x0_eps(x, t, self._denoise(x, t))
+    def p_mean_variance(self, x, t, clip_denoised: bool = True, graph: bool = False):
+        x_recon, _ = self._model_out_to_x0_eps(x, t, self._denoise(x, t, graph))
         if clip_denoised:
             s = 1.0
             if self.use_dynamic_thres:
@@ -162,9 +184,9 @@ class GaussianDiffusion(nn.Module):
         return self.q_posterior(x_start=x_recon, x_t=x, t=t)
 
     @torch.no_grad()
-    def p_sample(self, x, t, noise=None, generator=None, clip_denoised: bool = True):
+    def p_sample(self, x, t, noise=None, generator=None, clip_denoised: bool = True, graph: bool = False):
         """One reverse step x_t -> x_{t-1}; ``noise`` is drawn from ``generator`` when not given."""
-        mean, _, log_var = self.p_mean_variance(x, t, clip_denoised)
+        mean, _, log_var = self.p_mean_variance(x, t, clip_denoised, graph)
         if noise is None:
             noise = _normal(x.shape, generator, x.device)
         nonzero = (1.0 - (t == 0).float()).reshape(-1, 1, 1, 1, 1)
@@ -173,19 +195,42 @@ class GaussianDiffusion(nn.Module):
     def _shape(self, batch_size: int) -> tuple[int, ...]:
         return (batch_size, self.channels, self.num_frames, self.image_size, self.image_size)
 
+    def _t(self, value: int, batch_size: int) -> torch.Tensor:
+        return torch.full((batch_size,), value, dtype=torch.long, device=self.device)
+
+    def _init(self, shape, generator, init_noise) -> torch.Tensor:
+        """x_T: ``init_noise`` (checked against ``shape``), else the generator's first draw."""
+        if init_noise is None:
+            return _normal(shape, generator, self.device)
+        if tuple(init_noise.shape) != tuple(shape):
+            raise ValueError(f"init_noise must have shape {tuple(shape)}, got {tuple(init_noise.shape)}")
+        return init_noise
+
+    def _draw(self, injected: Sequence[torch.Tensor] | None, step: int, shape, generator) -> torch.Tensor:
+        return injected[step] if injected is not None else _normal(shape, generator, self.device)
+
+    def _ddim_step(self, img, x0, t: int, t_prev: int, eta: float = 0.0):
+        """The DDIM update from step t to t_prev (-1: clean) given the clipped x0, eps re-derived from it
+        (standard DDIM practice); returns x_{t_prev} without its noise, and the noise's scale sigma."""
+        a_t = self.alphas_cumprod[t]
+        a_prev = self.alphas_cumprod[t_prev] if t_prev >= 0 else torch.ones((), device=self.device)
+        eps_hat = (img - torch.sqrt(a_t) * x0) / torch.sqrt(1.0 - a_t)
+        sigma = eta * torch.sqrt((1.0 - a_prev) / (1.0 - a_t)) * torch.sqrt(1.0 - a_t / a_prev)
+        dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0)) * eps_hat
+        return torch.sqrt(a_prev) * x0 + dir_xt, sigma
+
     @torch.no_grad()
-    def p_sample_loop(self, shape, generator=None, init_noise=None):
+    def p_sample_loop(self, shape, generator=None, init_noise=None, graph: bool = True):
         """The full DDPM reverse chain, T steps; returns images in [0, 1]."""
-        img = _normal(shape, generator, self.device) if init_noise is None else init_noise
+        img = self._init(shape, generator, init_noise)
         for i in reversed(range(self.num_timesteps)):
-            t = torch.full((shape[0],), i, dtype=torch.long, device=self.device)
-            img = self.p_sample(img, t, generator=generator)
+            img = self.p_sample(img, self._t(i, shape[0]), generator=generator, graph=graph)
         return unnormalize_img(img)
 
     @torch.no_grad()
-    def sample(self, batch_size: int = 16, generator=None):
+    def sample(self, batch_size: int = 16, generator=None, graph: bool = True):
         """Unconditioned DDPM samples of ``(batch_size, c, f, h, w)``."""
-        return self.p_sample_loop(self._shape(batch_size), generator=generator)
+        return self.p_sample_loop(self._shape(batch_size), generator=generator, graph=graph)
 
     @torch.no_grad()
     def ddim_sample(
@@ -197,34 +242,191 @@ class GaussianDiffusion(nn.Module):
         generator: torch.Generator | None = None,
         init_noise: torch.Tensor | None = None,
         step_noise: Sequence[torch.Tensor] | None = None,
+        graph: bool = True,
     ) -> torch.Tensor:
         """DDIM sampling (Song et al. 2021) over a strided timestep grid; images in [0, 1].
 
         ``init_noise`` supplies x_T; ``step_noise`` supplies each step's noise
         (read only when ``eta > 0``). Otherwise both come from ``generator``.
+        At ``eta = 0`` each output row is a function of its own x_T alone.
         """
         shape = self._shape(batch_size)
-        if init_noise is not None and tuple(init_noise.shape) != shape:
-            raise ValueError(f"init_noise must have shape {shape}, got {tuple(init_noise.shape)}")
         times = sampling_times(self.num_timesteps, num_steps, grid).flip(0).tolist()
+        times_prev = times[1:] + [-1]
+        img = self._init(shape, generator, init_noise)
+        for step, (t, t_prev) in enumerate(zip(times, times_prev)):
+            t_arr = self._t(t, batch_size)
+            x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph))
+            img, sigma = self._ddim_step(img, torch.clamp(x0, -1.0, 1.0), t, t_prev, eta)
+            if eta > 0:
+                img = img + sigma * self._draw(step_noise, step, shape, generator)
+        return unnormalize_img(img)
+
+    @torch.no_grad()
+    def dpm_solver_sample(
+        self,
+        batch_size: int = 16,
+        num_steps: int = 20,
+        generator: torch.Generator | None = None,
+        init_noise: torch.Tensor | None = None,
+        graph: bool = True,
+    ) -> torch.Tensor:
+        """DPM-Solver++(2M) (Lu et al. 2022; JAX ``dpm_solver_sample``, :521-650); images in [0, 1].
+
+        A deterministic second-order multistep solver of the same ODE as DDIM at
+        eta 0, from the same x_T (``init_noise``, else the generator's first
+        draw), so each output row is a function of its own x_T alone. Each step
+        evaluates the denoiser once and combines the current and previous
+        clipped x0 with log-SNR spacing weights. The first step and the last
+        (to sigma = 0, where lambda is infinite in float32, so h is inf, r is 0
+        and the second-order term is NaN) take the first-order update; the step
+        index is known on the host, so the second-order term is never formed there.
+        """
+        shape = self._shape(batch_size)
+        times = sampling_times(self.num_timesteps, num_steps).flip(0).tolist()
         times_prev = times[1:] + [-1]
         acp = self.alphas_cumprod
         one = torch.ones((), device=self.device)
-        img = _normal(shape, generator, self.device) if init_noise is None else init_noise
+        img = self._init(shape, generator, init_noise)
+        x0_prev, h_prev = None, one
         for step, (t, t_prev) in enumerate(zip(times, times_prev)):
-            t_arr = torch.full((batch_size,), t, dtype=torch.long, device=self.device)
-            x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr))
+            t_arr = self._t(t, batch_size)
+            x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph))
             x0 = torch.clamp(x0, -1.0, 1.0)
-            a_t = acp[t]
-            a_prev = acp[t_prev] if t_prev >= 0 else one
-            eps_hat = (img - torch.sqrt(a_t) * x0) / torch.sqrt(1.0 - a_t)
-            sigma = eta * torch.sqrt((1.0 - a_prev) / (1.0 - a_t)) * torch.sqrt(1.0 - a_t / a_prev)
-            dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0)) * eps_hat
-            img = torch.sqrt(a_prev) * x0 + dir_xt
-            if eta > 0:
-                noise = step_noise[step] if step_noise is not None else _normal(shape, generator, self.device)
-                img = img + sigma * noise
+            a_cur = acp[t]
+            a_next = acp[t_prev] if t_prev >= 0 else one
+            alpha_c, sigma_c = torch.sqrt(a_cur), torch.sqrt(1.0 - a_cur)
+            alpha_n, sigma_n = torch.sqrt(a_next), torch.sqrt(torch.clamp(1.0 - a_next, min=0.0))
+            exp_neg_h = (alpha_c * sigma_n) / (sigma_c * alpha_n)  # 0 at the last step
+            h = _half_log_snr(a_next) - _half_log_snr(a_cur)
+            if step == 0 or t_prev < 0:
+                d = x0
+            else:
+                r = h_prev / h
+                d = (1.0 + 1.0 / (2.0 * r)) * x0 - (1.0 / (2.0 * r)) * x0_prev
+            img = (sigma_n / sigma_c) * img + alpha_n * (1.0 - exp_neg_h) * d
+            x0_prev, h_prev = x0, h
         return unnormalize_img(img)
+
+    def _guided_x0(self, z, t, x0_known, mask, scale) -> torch.Tensor:
+        """Reconstruction guidance (Ho et al. 2022; JAX :811-827): ``x0(z) - scale * grad_z 0.5 ||mask (x0(z) -
+        known)||^2`` on the unknown frames. One backward through the denoiser, eager, with the weights held out
+        of autograd: only the gradient with respect to z is formed."""
+        params = [p for p in self.denoise_fn.parameters() if p.requires_grad]
+        for p in params:
+            p.requires_grad_(False)
+        try:
+            with torch.enable_grad():
+                z = z.detach().requires_grad_(True)
+                x0, _ = self._model_out_to_x0_eps(z, t, self._denoise(z, t))
+                err = torch.where(mask, x0 - x0_known, 0.0)
+                (g,) = torch.autograd.grad(0.5 * torch.sum(err**2), z)
+        finally:
+            for p in params:
+                p.requires_grad_(True)
+        return x0.detach() - scale * torch.where(mask, 0.0, g)
+
+    @torch.no_grad()
+    def sample_conditional_frames(
+        self,
+        known: torch.Tensor,
+        frame_mask,
+        num_steps: int | None = None,
+        grid: str = "linspace",
+        recon_guidance_weight: float = 0.0,
+        generator: torch.Generator | None = None,
+        init_noise: torch.Tensor | None = None,
+        step_noise: Sequence[torch.Tensor] | None = None,
+        mix_noise: Sequence[torch.Tensor] | None = None,
+        graph: bool = True,
+    ) -> torch.Tensor:
+        """A clip whose frames at ``frame_mask`` are pinned to ``known`` (JAX ``sample_conditional_frames``,
+        :681-861): video extension, temporal infill or frame prediction by replacement conditioning.
+
+        After every reverse step the pinned frames are swapped for ``known``
+        forward-noised to the new level (clean at the end), so the output carries
+        them as given. ``known`` is (b, c, f, h, w) in [0, 1] (unpinned frames are
+        ignored), ``frame_mask`` (f,) bool. ``num_steps`` None runs the T-step DDPM
+        chain; an int a deterministic DDIM chain over that many ``grid`` steps,
+        where ``recon_guidance_weight`` w_r > 0 adds reconstruction guidance
+        (eager: a backward through the denoiser each step). Draws come from
+        ``generator`` unless injected: ``init_noise``, then per step ``step_noise``
+        (DDPM) and ``mix_noise`` (the pinned frames' forward noise; the last step
+        reads none). Returns images in [0, 1].
+        """
+        shape = tuple(known.shape)
+        if len(shape) != 5 or shape[1:] != self._shape(1)[1:]:
+            raise ValueError(f"known must be (b, {', '.join(map(str, self._shape(1)[1:]))}); got {shape}")
+        wr = float(recon_guidance_weight)
+        if wr > 0.0 and num_steps is None:
+            raise ValueError("recon_guidance_weight needs the DDIM path (num_steps)")
+        if num_steps is not None and not 1 <= int(num_steps) <= self.num_timesteps:
+            raise ValueError(f"num_steps must be in [1, {self.num_timesteps}]; got {num_steps}")
+        batch_size = shape[0]
+        mask = torch.as_tensor(frame_mask, dtype=torch.bool, device=self.device).reshape(1, 1, -1, 1, 1)
+        x0_known = normalize_img(known)
+        img = self._init(shape, generator, init_noise)
+
+        def replace_known(img, t_to: int, step: int):
+            """Swap the pinned frames for their forward-noised values at level ``t_to`` (clean when < 0)."""
+            known_t = x0_known
+            if t_to >= 0:
+                known_t = self.q_sample(x0_known, self._t(t_to, batch_size),
+                                        self._draw(mix_noise, step, shape, generator))
+            return torch.where(mask, known_t, img)
+
+        if num_steps is None:
+            for step, i in enumerate(reversed(range(self.num_timesteps))):
+                noise = None if step_noise is None else step_noise[step]
+                img = self.p_sample(img, self._t(i, batch_size), noise=noise, generator=generator, graph=graph)
+                img = replace_known(img, i - 1, step)
+            return unnormalize_img(img)
+
+        times = sampling_times(self.num_timesteps, int(num_steps), grid).flip(0).tolist()
+        times_prev = times[1:] + [-1]
+        for step, (t, t_prev) in enumerate(zip(times, times_prev)):
+            t_arr = self._t(t, batch_size)
+            if wr > 0.0:
+                x0 = self._guided_x0(img, t_arr, x0_known, mask, wr * torch.sqrt(self.alphas_cumprod[t]))
+            else:
+                x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph))
+            img, _ = self._ddim_step(img, torch.clamp(x0, -1.0, 1.0), t, t_prev)
+            img = replace_known(img, t_prev, step)
+        return unnormalize_img(img)
+
+    @torch.no_grad()
+    def interpolate(
+        self,
+        x1: torch.Tensor,
+        x2: torch.Tensor,
+        t: int | None = None,
+        lam: float = 0.5,
+        generator: torch.Generator | None = None,
+        q_noise: tuple[torch.Tensor, torch.Tensor] | None = None,
+        step_noise: Sequence[torch.Tensor] | None = None,
+        graph: bool = True,
+    ) -> torch.Tensor:
+        """Diffuse both clips to step ``t`` (default T - 1), blend, and denoise back (JAX ``interpolate``,
+        :863-917), quirks kept: ``x1`` and ``x2`` are taken as they are (no ``normalize_img``), the chain runs
+        from t - 1 down to 0, and the raw image comes back (no ``unnormalize_img``). ``q_noise`` is the pair of
+        forward-noising draws, ``step_noise`` each step's; otherwise both come from ``generator``."""
+        if x1.shape != x2.shape:
+            raise ValueError("inputs must have the same shape")
+        lam = float(lam)
+        if not 0.0 <= lam <= 1.0:
+            raise ValueError("lambda must be in [0, 1]")
+        t = int(t) if t is not None else self.num_timesteps - 1
+        if not 0 <= t < self.num_timesteps:
+            raise ValueError(f"t must be in [0, {self.num_timesteps - 1}]; got {t}")
+        batch_size = x1.shape[0]
+        if q_noise is None:
+            q_noise = (_normal(x1.shape, generator, self.device), _normal(x2.shape, generator, self.device))
+        t_b = self._t(t, batch_size)
+        img = (1 - lam) * self.q_sample(x1, t_b, q_noise[0]) + lam * self.q_sample(x2, t_b, q_noise[1])
+        for step, i in enumerate(range(t - 1, -1, -1)):
+            noise = None if step_noise is None else step_noise[step]
+            img = self.p_sample(img, self._t(i, batch_size), noise=noise, generator=generator, graph=graph)
+        return img
 
     # Training.
 

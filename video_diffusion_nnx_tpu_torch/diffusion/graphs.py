@@ -1,0 +1,110 @@
+"""The graph-captured denoiser: one forward in a CUDA graph, replayed at every sampler step.
+
+The JAX package runs each sampler as one compiled ``lax.scan`` and keeps the
+programs in a bounded LRU (``_build_sample_scan`` and ``_SAMPLE_SCAN_CACHE``
+in its diffusion/gaussian_diffusion.py). Here a sampler step is a Python loop
+whose denoiser forward launches some 1700 kernels at the flagship's width, so
+the host, not the card, sets the pace. A :class:`DenoiserGraph` captures one
+``denoise_fn.forward_with_cond_scale(x, t)`` on static ``x`` and ``t``
+buffers of one shape; each step copies its x and t in and replays. The
+sampler's own arithmetic (a few elementwise launches a step) and its noise
+draws stay eager around the replay, so no schedule coefficient is baked into
+a graph and a graphed chain draws the same numbers as an eager one.
+
+Capture runs the kernel wrappers' Python once: the host launch counters
+(``ops.launch_counts``) tick at capture only. Each graph counts its replays
+(``DenoiserGraph.replays``), so a run's launches are exact: the per-forward
+kernels times the eager forwards and captures, and the replays apart.
+
+A failed capture or replay raises; nothing falls back to the eager loop.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import torch
+from torch import nn
+
+MAX_GRAPHS = 8  # as the JAX package's _SAMPLE_SCAN_CACHE_MAX
+
+
+class DenoiserGraph:
+    """One captured denoiser forward at one (batch, c, f, h, w) shape and dtype.
+
+    A forward runs once eagerly on a side stream first: it builds the kernel
+    libraries, primes every lookup the wrappers cache (SM counts, plans) and
+    sets each kernel's shared-memory attribute before the capture.
+    """
+
+    def __init__(self, denoise_fn: nn.Module, shape: tuple[int, ...], dtype: torch.dtype, device: torch.device):
+        self.shape, self.dtype = tuple(shape), dtype
+        self.x = torch.zeros(self.shape, dtype=dtype, device=device)
+        self.t = torch.zeros(self.shape[0], dtype=torch.long, device=device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            denoise_fn.forward_with_cond_scale(self.x, self.t)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = denoise_fn.forward_with_cond_scale(self.x, self.t)
+        self.replays = 0
+
+    def __call__(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The denoiser's output for ``(x, t)``: the static output, valid until the next replay."""
+        self.x.copy_(x)
+        self.t.copy_(t)
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+
+class GraphCache:
+    """A bounded LRU of :class:`DenoiserGraph` s, keyed by shape, dtype, the module and its tensors' storage.
+
+    Keying on every parameter's and buffer's storage drops a graph whose module
+    had a tensor replaced; the owner calls :meth:`clear` when weights are
+    loaded or the module moves (``GaussianDiffusion`` does both).
+    """
+
+    def __init__(self, max_graphs: int = MAX_GRAPHS):
+        self.max_graphs = max_graphs
+        self._graphs: OrderedDict = OrderedDict()
+        self.captures = 0
+        self.retired_replays = 0  # replays of graphs already evicted or dropped
+
+    @staticmethod
+    def _key(denoise_fn: nn.Module, x: torch.Tensor) -> tuple:
+        storage = tuple(p.data_ptr() for p in denoise_fn.parameters()) + tuple(
+            b.data_ptr() for b in denoise_fn.buffers())
+        return (tuple(x.shape), x.dtype, x.device, id(denoise_fn), storage)
+
+    def get(self, denoise_fn: nn.Module, x: torch.Tensor) -> DenoiserGraph:
+        """The graph for ``x``'s shape, captured now if the cache lacks it (the oldest evicted past the bound)."""
+        key = self._key(denoise_fn, x)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            return graph
+        graph = DenoiserGraph(denoise_fn, x.shape, x.dtype, x.device)
+        self.captures += 1
+        self._graphs[key] = graph
+        while len(self._graphs) > self.max_graphs:
+            self.retired_replays += self._graphs.popitem(last=False)[1].replays
+        return graph
+
+    def replays(self) -> int:
+        """Replays of every graph this cache has held."""
+        return self.retired_replays + sum(g.replays for g in self._graphs.values())
+
+    def shapes(self) -> list[tuple[int, ...]]:
+        """The cached graphs' shapes, oldest first."""
+        return [g.shape for g in self._graphs.values()]
+
+    def clear(self) -> None:
+        self.retired_replays = self.replays()
+        self._graphs.clear()
+
+    def __len__(self) -> int:
+        return len(self._graphs)

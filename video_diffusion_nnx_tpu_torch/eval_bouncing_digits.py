@@ -144,7 +144,8 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
 def evaluate(config_path: str, checkpoint_path: str, step: int, train: str, holdout: str, out: str,
              eval_clips: int = 32, skip_ddpm: bool = False, device: str = "cuda") -> dict:
     """The evaluation's steps in the script's order; writes the GIFs, ``loss_curve.csv`` and ``stats.json``
-    to ``out`` and returns the stats (with ``seconds``, the evaluation's host time, which stays out of the file)."""
+    to ``out`` and returns the stats, with two entries that stay out of the file: ``seconds`` (the evaluation's
+    host time) and ``graph`` (the captures and replays of the samplers' denoiser graphs)."""
     from einops import rearrange
 
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config, resolve_device
@@ -230,7 +231,8 @@ def evaluate(config_path: str, checkpoint_path: str, step: int, train: str, hold
 
     (out_dir / "stats.json").write_text(json.dumps(stats, indent=2) + "\n")
     log.info("%s", json.dumps(stats))
-    return {**stats, "seconds": time.perf_counter() - start}
+    graph = {"captures": model.graphs.captures, "replays": model.graphs.replays()}
+    return {**stats, "seconds": time.perf_counter() - start, "graph": graph}
 
 
 def check(stats: dict) -> None:

@@ -121,7 +121,8 @@ class MultiheadAttention(nn.Module):
                 )
 
         dt = compute_dtype(self.dtype, q)
-        q = q / torch.tensor(math.sqrt(self.dim), dtype=dt, device=q.device)
+        # A fill on q's device, not a copy from the host, so that a CUDA graph can capture it.
+        q = q / torch.full((), math.sqrt(self.dim), dtype=dt, device=q.device)
         sim = torch.einsum("...ihd,...jhd->...hij", q.float(), k.float())
 
         if self.reference_compat:

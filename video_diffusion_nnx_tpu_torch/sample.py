@@ -4,9 +4,12 @@
         --checkpoint-path ckpt.pt --batch-size 2 --sampler ddim --num-steps 50
 
 Config -> ``build_models`` -> checkpoint -> sampler -> ``sample_{i}.gif``.
-The checkpoint is this package's file (``convert.save_checkpoint``). It runs
-on the GPU (``--device cuda``, the default) and raises when there is none,
-unless ``--device cpu`` is given.
+Samplers: ``ddpm`` (the full chain), ``ddim`` and ``dpm`` (DPM-Solver++(2M)),
+the last two over ``--num-steps``. On the GPU each step replays the
+denoiser's CUDA graph (``diffusion/graphs.py``). The checkpoint is this
+package's file (``convert.save_checkpoint``). It runs on the GPU
+(``--device cuda``, the default) and raises when there is none, unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batch-size", type=int, default=2)
     p.add_argument("--load-ema-params", action="store_true", default=False)
     p.add_argument("--sampler", choices=("ddpm", "ddim", "dpm"), default="ddpm")
-    p.add_argument("--num-steps", type=int, default=50, help="DDIM step count (ignored for ddpm)")
+    p.add_argument("--num-steps", type=int, default=50, help="DDIM / DPM step count (ignored for ddpm)")
     p.add_argument("--eta", type=float, default=0.0, help="DDIM stochasticity")
     p.add_argument("--grid", choices=("linspace", "stride"), default="linspace")
     p.add_argument("--text", type=str, action="append", default=None,
@@ -42,12 +45,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> dict:
-    """Run the CLI; returns the GIF paths, the samples (on the CPU), the steps and the seconds."""
+    """Run the CLI; returns the GIF paths, the samples (on the CPU), the steps, the seconds and the
+    denoiser graphs' captures and replays."""
     args = parse_args(argv)
     if args.text is not None:
         raise SystemExit("error: --text (text conditioning) is not ported yet: ROADMAP A10")
-    if args.sampler == "dpm":
-        raise SystemExit("error: --sampler dpm (DPM-Solver++) is not ported yet: ROADMAP A6")
 
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config, resolve_device
     from video_diffusion_nnx_tpu_torch.convert import load_checkpoint
@@ -74,6 +76,11 @@ def main(argv=None) -> dict:
             grid=args.grid, generator=generator,
         )
         steps = args.num_steps
+    elif args.sampler == "dpm":
+        log.info("DPM-Solver++(2M) sampling: %d steps", args.num_steps)
+        videos = diffusion.dpm_solver_sample(batch_size=args.batch_size, num_steps=args.num_steps,
+                                             generator=generator)
+        steps = args.num_steps
     else:
         videos = diffusion.sample(batch_size=args.batch_size, generator=generator)
         steps = diffusion.num_timesteps
@@ -85,7 +92,8 @@ def main(argv=None) -> dict:
     paths = write_sample_gifs(videos, Path(args.output_path))
     for p in paths:
         log.info("wrote %s", p)
-    return {"paths": paths, "videos": videos.cpu(), "steps": steps, "seconds": seconds}
+    return {"paths": paths, "videos": videos.cpu(), "steps": steps, "seconds": seconds,
+            "graph": {"captures": diffusion.graphs.captures, "replays": diffusion.graphs.replays()}}
 
 
 if __name__ == "__main__":
