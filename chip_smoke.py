@@ -67,6 +67,21 @@ in one summary line (``PHASE <name>: ...``):
    the trained and the untrained model, DDIM-50 at batch 8, no DDPM; every
    stat finite, the GIFs written, exact forward launches, all staged. The
    eval's quality claims need the full 20000-step run and are not applied;
+8c. cond: the caption-conditioned recipe (configs/config_bouncing_digits_cond.yaml:
+   768-wide text embeddings of the file names, condition dropout 0.2) through
+   the train CLI on 8 captioned GIFs per class from the port's generator, 20
+   steps at batch 8: exact launches, all staged; each step's loss within 2% of
+   the plain modules' and a control (every condition swapped for the null
+   embedding, the same draws) that must part by more; seconds per step, peak
+   memory;
+8d. cfg: classifier-free guidance from that run's checkpoint: DDIM-10 at batch
+   4 and cond_scale 1 and 3, graphed against eager (bit-equal, else within
+   1e-3) and graphed warm seconds per step at each scale (guidance doubles a
+   forward's rows); the batched guidance forward against a conditioned and a
+   null forward; DPM-20 and the recipe's DDPM chain with text; the sampling CLI
+   with ``--text "two digits" --cond-scale 3``; the extension CLI with text and
+   reconstruction guidance 2; the server: a conditioned /sample, two coalesced
+   text requests each within 0.02 of its solo run, 400 without text;
 9. blockwise: both blockwise (online-softmax) temporal kernels against their
    plain versions at every shape the long-clip Unet3D gives them (batch 1,
    128 frames), at the 256-long bottleneck shape of a 128x128 input and at
@@ -160,7 +175,7 @@ in one summary line (``PHASE <name>: ...``):
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. ``--only kernels,long sla`` runs the device check, the
 build and the named phases alone (extend and serve read the clip that dpm
-writes, digits the train phase's checkpoint), then stops without the kernels line and the
+writes, digits the train phase's checkpoint, cfg the cond phase's), then stops without the kernels line and the
 ok line (those two phases call only the ops' public wrappers, so a copy of
 this file in another checkout times that checkout's kernels). Outputs go to
 chiprun_out/chip_smoke/ (small) and build/chip_smoke/ (checkpoints and data).
@@ -1811,6 +1826,277 @@ def digits_phase(torch, ops) -> dict:
             "launches": counts, "staged_launches": staged, "stats": stats, "gifs": sorted(gifs)}
 
 
+COND_CONFIG = REPO / "configs" / "config_bouncing_digits_cond.yaml"
+COND_CLIPS_PER_CLASS, COND_STEPS, COND_CKPT_EVERY = 8, 20, 10
+COND_PROMPTS = ["one digit", "two digits", "three digits", "two digits"]
+
+
+def cond_phase(torch, ops, train) -> dict:
+    """The caption-conditioned flagship (configs/config_bouncing_digits_cond.yaml: ``use_bert_text_cond``, condition
+    dropout 0.2) through the train CLI on 8 captioned clips per class of the port's generator, 20 steps at batch 8:
+    exact launches, all staged; each step's loss against the same steps through the plain modules within
+    ``LOSS_TOL``; a control, the kernel route with every condition swapped for the null embedding (the generator's
+    draws unchanged), must part from the plain modules by more than that; seconds per step and peak memory."""
+    import shutil
+
+    import yaml
+
+    from video_diffusion_nnx_tpu_torch.config import build_trainer, load_config
+    from video_diffusion_nnx_tpu_torch.data import bouncing_digits
+
+    raw = yaml.safe_load(COND_CONFIG.read_text())
+    root = SCRATCH / "cond"
+    gifs = root / "gifs"
+    if gifs.is_dir():
+        shutil.rmtree(gifs)
+    t0 = time.perf_counter()
+    bouncing_digits.main(["--captioned-gifs", str(gifs), "--frames", str(raw["diffusion"]["num_frames"]),
+                          "--captioned-clips-per-class", str(COND_CLIPS_PER_CLASS)])
+    gen_seconds = time.perf_counter() - t0
+    check(len(list(gifs.glob("*.gif"))) == 3 * COND_CLIPS_PER_CLASS, f"cond phase: GIFs in {gifs}")
+    out = {"clips": 3 * COND_CLIPS_PER_CLASS, "generate_seconds": gen_seconds, "steps": COND_STEPS,
+           "batch": raw["trainer"]["train_batch_size"], "null_cond_prob": raw["trainer"]["null_cond_prob"]}
+    losses = {}
+    for name, unet in (("kernels", None), ("plain", PLAIN_MODULES), ("null_control", None)):
+        cfg = _train_config(yaml, raw, root, gifs, name, unet=unet, steps=COND_STEPS, ckpt_every=COND_CKPT_EVERY)
+        for old in (root / name / "checkpoints").glob("step_*.pt"):
+            old.unlink()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "null_control":
+            _, _, tr = build_trainer(load_config(cfg), device="cuda")
+            unet_mod = tr.model.denoise_fn
+
+            def to_null(module, args, kwargs):
+                kwargs["cond"] = module.null_cond_emb.detach().expand(args[0].shape[0], -1)
+                return args, kwargs
+
+            unet_mod.register_forward_pre_hook(to_null, with_kwargs=True)
+            tr.train()
+        else:
+            tr = train.main(["--config", str(cfg), "--device", "cuda"])
+        check(tr.use_path_as_cond and tr.model.denoise_fn.has_cond, f"cond phase {name}: the trainer is unconditioned")
+        losses[name] = tr.loss_trace.tolist()
+        check(len(losses[name]) == COND_STEPS and all(math.isfinite(v) for v in losses[name]),
+              f"cond phase {name}: losses {losses[name]}")
+        sps, save_s = _seconds_per_step(tr)
+        row = {"losses": losses[name], "seconds_per_step": sps, "checkpoint_write_seconds": save_s,
+               "peak_memory": torch.cuda.max_memory_allocated()}
+        if name == "kernels":
+            counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+            check_staged(counts, staged, "cond phase")
+            check(counts == {k: per * COND_STEPS for k, per in PER_STEP.items()},
+                  f"cond phase: launches in {COND_STEPS} steps {counts}, expected per step {PER_STEP}")
+            check(all(staged.get(k, 0) == n for k, n in counts.items()), f"cond phase: staged {staged} of {counts}")
+            row.update(launches=counts, staged_launches=nonzero(staged),
+                       checkpoint=str(tr.checkpoint_path(COND_STEPS)), config=str(cfg))
+        out[name] = row
+        del tr
+    plain = losses["plain"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses["kernels"], plain))
+    control_gap = max(abs(a - b) / abs(b) for a, b in zip(losses["null_control"], plain))
+    out.update(loss_gap_vs_plain=gap, null_control_gap_vs_plain=control_gap, loss_tol=LOSS_TOL)
+    check(gap <= LOSS_TOL, f"cond phase: losses of the kernel route and the plain modules part by {gap} "
+                           f"(relative, over {LOSS_TOL})")
+    check(control_gap > LOSS_TOL, f"cond phase: the null-condition control parts from the plain modules by only "
+                                  f"{control_gap} (gate {LOSS_TOL}): the gate cannot see the condition")
+    return out
+
+
+def cfg_phase(torch, ops, sample, cond) -> dict:
+    """Classifier-free guidance from the cond phase's step-20 checkpoint (its trained weights): DDIM-10 at batch 4
+    and cond_scale 3 graphed against eager (bit-equal, else within ``GRAPH_TOL``); the batched guidance forward
+    against a conditioned and a null forward (the flagship unet gate); DPM-20 and the recipe's DDPM chain with
+    text; warm graphed seconds per step at cond_scale 1 and 3; the sampling CLI with ``--text "two digits"
+    --cond-scale 3``; the extension CLI with text and reconstruction guidance 2; the server with text: a /sample,
+    two coalesced requests each held to its solo run (``SERVE_TOL``), and 400 for a request without text."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from video_diffusion_nnx_tpu_torch import extend, serve
+    from video_diffusion_nnx_tpu_torch.config import build_models, load_config
+    from video_diffusion_nnx_tpu_torch.convert import load_checkpoint
+
+    cfg_path, ckpt = cond["kernels"]["config"], cond["kernels"]["checkpoint"]
+    config = load_config(cfg_path)
+    _, model = build_models(config, device="cuda")
+    load_checkpoint(model, ckpt)
+    model.eval()
+    d = config["diffusion"]
+    frames, size = d["num_frames"], d["image_size"]
+    b = len(COND_PROMPTS)
+    out = {"prompts": COND_PROMPTS}
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def run(fn, graph):
+        ops.reset_launch_counts()
+        captures0, replays0 = model.graphs.captures, model.graphs.replays()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        videos = fn(graph)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        graph_counts = {"captures": model.graphs.captures - captures0, "replays": model.graphs.replays() - replays0}
+        return videos, sec, nonzero(ops.launch_counts()), ops.staged_launch_counts(), graph_counts
+
+    # Graphed against eager, and the seconds per step at cond_scale 1 and 3 (graphed warm, and eager).
+    steps = 10
+    rows = {}
+    for cs in (1.0, 3.0):
+        def ddim(graph, cs=cs):
+            return model.ddim_sample(num_steps=steps, generator=gen(0), graph=graph, cond=COND_PROMPTS, cond_scale=cs)
+
+        graphed, _, counts, staged, graph = run(ddim, True)
+        check_staged(counts, staged, f"cfg ddim{steps} cs{cs:g} graphed")
+        check_graphed(counts, graph, steps, f"cfg ddim{steps} cs{cs:g}")
+        warm, warm_s, counts, _, _ = run(ddim, True)
+        check(not counts and torch.equal(warm, graphed), f"cfg cs{cs:g}: a warm replay run launched {counts}")
+        eager, eager_s, counts, staged, graph = run(ddim, False)
+        check(graph == {"captures": 0, "replays": 0}, f"cfg cs{cs:g} eager: graphs {graph}")
+        check(counts == {k: n * steps for k, n in PER_FORWARD.items()}, f"cfg cs{cs:g} eager: launches {counts}")
+        check_staged(counts, staged, f"cfg ddim{steps} cs{cs:g} eager")
+        err = _max_abs(graphed, eager)
+        rows[f"cs{cs:g}"] = {"graphed_warm_s_per_step": warm_s / steps, "eager_s_per_step": eager_s / steps,
+                             "bit_equal": bool(torch.equal(graphed, eager)), "max_abs_graphed_vs_eager": err}
+        check(rows[f"cs{cs:g}"]["bit_equal"] or err <= GRAPH_TOL,
+              f"cfg cs{cs:g}: graphed and eager part by {err} (gate {GRAPH_TOL})")
+        check(tuple(graphed.shape) == (b, 1, frames, size, size) and bool(torch.isfinite(graphed).all()),
+              f"cfg cs{cs:g}: samples {tuple(graphed.shape)}")
+        rows[f"cs{cs:g}"]["range"] = [float(graphed.min()), float(graphed.max())]
+    out[f"ddim{steps}_b{b}"] = rows
+    out["cs3_over_cs1_graphed_warm"] = rows["cs3"]["graphed_warm_s_per_step"] / rows["cs1"]["graphed_warm_s_per_step"]
+
+    # The batched guidance forward against two forwards of b rows.
+    unet = model.denoise_fn
+    x = rand(torch, (b, 1, frames, size, size), 21, 1.0, torch.float32)
+    t = torch.linspace(10, 900, b, device="cuda").long()
+    emb = model.embed_cond(COND_PROMPTS)
+    with torch.no_grad():
+        guided = unet.forward_with_cond_scale(x, t, cond=emb, cond_scale=3.0)
+        c = unet(x, t, cond=emb, null_cond_mask=torch.zeros(b, dtype=torch.bool, device="cuda"))
+        n = unet(x, t, cond=emb, null_cond_mask=torch.ones(b, dtype=torch.bool, device="cuda"))
+    want = n + (c - n) * 3.0
+    scale = want.abs().max().item()
+    diff = _max_abs(guided, want)
+    out["batched_vs_two_forwards"] = {"max_abs": diff, "tol": 0.1 * scale, "max_abs_ref": scale,
+                                      "bit_equal": bool(torch.equal(guided, want))}
+    check(guided.dtype == torch.float32 and diff <= 0.1 * scale,
+          f"cfg: the batched guidance forward parts from two forwards by {diff} (gate {0.1 * scale})")
+
+    # DPM-20 and the recipe's DDPM chain (T steps) with text, graphed, each capturing its own graph (DPM-20 would
+    # otherwise replay the DDIM graph of its shape, condition and scale).
+    for name, fn, n_steps, batch in (
+            ("dpm20_b4", lambda g: model.dpm_solver_sample(num_steps=20, generator=g, cond=COND_PROMPTS,
+                                                           cond_scale=3.0), 20, b),
+            (f"ddpm{model.num_timesteps}_b2", lambda g: model.sample(generator=g, cond=COND_PROMPTS[1:3],
+                                                                      cond_scale=3.0), model.num_timesteps, 2)):
+        model.graphs.clear()
+        videos, sec, counts, staged, graph = run(lambda graph: fn(gen(1)), True)
+        check_graphed(counts, graph, n_steps, f"cfg {name}")
+        check_staged(counts, staged, f"cfg {name}")
+        check(tuple(videos.shape) == (batch, 1, frames, size, size) and bool(torch.isfinite(videos).all()),
+              f"cfg {name}: samples {tuple(videos.shape)}")
+        out[name] = {"seconds": sec, "s_per_step_with_capture": sec / n_steps, "graph": graph,
+                     "range": [float(videos.min()), float(videos.max())]}
+
+    # The sampling CLI with text.
+    ops.reset_launch_counts()
+    res = sample.main(["--config", cfg_path, "--checkpoint-path", ckpt, "--output-path", str(OUT / "gifs" / "cfg_cli"),
+                       "--batch-size", "4", "--seed", "0", "--device", "cuda", "--sampler", "ddim", "--num-steps",
+                       "50", "--text", "two digits", "--cond-scale", "3"])
+    counts = nonzero(ops.launch_counts())
+    check_staged(counts, ops.staged_launch_counts(), "cfg sampling CLI")
+    check_graphed(counts, res["graph"], 50, "cfg sampling CLI")
+    check(tuple(res["videos"].shape) == (4, 1, frames, size, size) and bool(torch.isfinite(res["videos"]).all()),
+          f"cfg sampling CLI: {tuple(res['videos'].shape)}")
+    for p in res["paths"]:
+        img = Image.open(p)
+        check(img.n_frames == frames and img.size == (size, size), f"{p.name}: {img.n_frames} frames of {img.size}")
+    out["sample_cli"] = {"seconds": res["seconds"], "s_per_step": res["seconds"] / 50, "graph": res["graph"],
+                         "gifs": len(res["paths"])}
+
+    # The extension CLI with text and reconstruction guidance (eager: a forward and a backward of 2b rows a step).
+    clip = sorted((SCRATCH / "cond" / "gifs").glob("three digits *.gif"))[0]
+    keep, ext_steps = 4, 10
+    ops.reset_launch_counts()
+    ext = extend.main(["--config", cfg_path, "--checkpoint-path", ckpt, "--input", str(clip), "--keep-frames",
+                       str(keep), "--num-steps", str(ext_steps), "--recon-guidance", "2", "--batch-size", "2",
+                       "--seed", "0", "--text", "three digits", "--cond-scale", "3",
+                       "--output-path", str(OUT / "gifs" / "cfg_extend"), "--device", "cuda"])
+    counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+    check(ext["graph"] == {"captures": 0, "replays": 0}, f"cfg extend: guided steps captured graphs {ext['graph']}")
+    check(counts == {k: n * ext_steps for k, n in PER_STEP.items()}, f"cfg extend: launches {counts}")
+    check(all(staged.get(k, 0) == n for k, n in counts.items()), f"cfg extend: staged {staged} of {counts}")
+    known = torch.from_numpy(ext["known"])
+    pinned = ((known.cuda() * 2 - 1) + 1) * 0.5
+    check(torch.equal(ext["videos"][:, :, :keep], pinned[None, :, :keep].cpu().expand(2, -1, -1, -1, -1)),
+          "cfg extend: the kept frames are not the input's")
+    out["extend_cli"] = {"seconds": ext["seconds"], "s_per_step": ext["seconds"] / ext_steps, "launches": counts}
+
+    # The server with text.
+    httpd = serve.create_server(model, host="127.0.0.1", port=0, batch_window_s=0.5)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = "http://%s:%d" % httpd.server_address[:2]
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health["model"]["has_cond"] is True and health["model"]["guidance_embed"] is False, f"/health: {health}")
+
+        def post(payload):
+            req = urllib.request.Request(url + "/sample", data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        code, body = post({"text": ["two digits"], "cond_scale": 3.0, "num_steps": SERVE_STEPS, "seed": 3})
+        check(code == 200 and body["shape"] == [1, 1, frames, size, size] and len(body["gifs"]) == 1,
+              f"conditioned /sample: {code} {body.get('shape', body)}")
+        out["http_sample"] = {"time_s": body["time_s"], "coalesced": body.get("coalesced")}
+        code, body = post({"num_steps": SERVE_STEPS})
+        check(code == 400 and "provide 'text'" in body["error"], f"/sample without text: {code} {body}")
+        out["without_text"] = {"code": code, "error": body["error"]}
+
+        service, prompts = httpd.service, ["one digit", "three digits"]
+        results = [None] * len(prompts)
+
+        def client(i):
+            results[i] = service.sample_rows({"sampler": "ddim", "num_steps": SERVE_STEPS, "seed": 10 + i,
+                                              "text": [prompts[i]], "cond_scale": 3.0})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(all(r is not None for r in results), "coalesced text requests: a request did not return")
+        errs = []
+        for i, r in enumerate(results):
+            solo = model.ddim_sample(num_steps=SERVE_STEPS, generator=gen(10 + i), cond=[prompts[i]], cond_scale=3.0)
+            errs.append(float(np.abs(r[0] - solo.float().cpu().numpy()).max()))
+        groups = [r[2]["coalesced"] for r in results]
+        out["coalesced"] = {"groups": groups, "max_abs_vs_solo": errs, "tol": SERVE_TOL,
+                            "seconds": [r[1] for r in results]}
+        check(min(groups) == 2, f"coalesced text requests: groups {groups}")
+        check(max(errs) <= SERVE_TOL, f"coalesced text rows part from their solo runs by {max(errs)} "
+                                      f"(gate {SERVE_TOL})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    out["cached_graphs"] = len(model.graphs)
+    return out
+
+
 def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: dict | None = None,
                      per_step: dict = LONG_PER_STEP, variants=("kernels", "remat_off", "plain")) -> dict:
     """The long-clip recipe (with ``unet`` overrides) through the CLIs: 12 steps at batch 1 on 128-frame
@@ -2256,6 +2542,10 @@ def main(argv: list[str]) -> int:
           show=brief)
     trained = timed("train", train_phase, torch, ops, train, sample)
     timed("digits", digits_phase, torch, ops)
+    cond = timed("cond", cond_phase, torch, ops, train,
+                 show=lambda r: {k: v for k, v in r.items() if k not in ("plain", "null_control")})
+    if cond is not None:
+        timed("cfg", cfg_phase, torch, ops, sample, cond)
     blk = timed("blockwise", blockwise_phase, torch, ta,
                 show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
                                 **per_step(r, "per_step")})

@@ -1,5 +1,6 @@
 """The port's CLIs end to end on the CPU at a tiny config: sampling (DDPM, DDIM, DPM), extension and
-infill, interpolation, and the sampling server with its throughput bench."""
+infill, interpolation, and the sampling server with its throughput bench; then a text-conditioned
+recipe trained from a captioned GIF folder, sampled and extended with ``--text`` and ``--cond-scale``."""
 
 import numpy as np
 import pytest
@@ -52,7 +53,7 @@ def test_cli_writes_gifs(setup, sampler):
     assert np.ptp(np.stack(frames)) > 0
 
 
-@pytest.mark.parametrize("flags,item", [(["--text", "a digit"], "A10")])
+@pytest.mark.parametrize("flags,item", [(["--text", "a digit"], "unconditional; remove --text")])
 def test_cli_refuses_unported_flags(setup, flags, item):
     root, cfg, ckpt = setup
     with pytest.raises(SystemExit, match=item):
@@ -105,7 +106,7 @@ def test_extend_cli_gif_input_and_refusals(setup):
     assert clip.shape == (1, 4, 16, 16) and frames == 4 and 0.0 <= clip.min() and clip.max() <= 1.0
     base = ["--config", str(cfg), "--checkpoint-path", str(ckpt), "--input", str(root / "clip.gif"), "--device", "cpu"]
     for flags, match in ((["--keep-frames", "4"], "keep-frames must be"), (["--regen-frames", "0:4"], "covers every"),
-                         (["--regen-frames", "x"], "A:B"), (["--keep-frames", "1", "--text", "a"], "A10"),
+                         (["--regen-frames", "x"], "A:B"), (["--keep-frames", "1", "--text", "a"], "unconditional; remove --text"),
                          (["--keep-frames", "1", "--recon-guidance", "1"], "needs the DDIM path")):
         with pytest.raises(SystemExit, match=match):
             extend.main([*base, *flags])
@@ -181,3 +182,92 @@ def test_new_entry_points_default_to_cuda(setup, module):
     run = mod.build if module == "serve" else mod.main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run([*common, *argv])
+
+
+COND_CONFIG = {
+    "unet": {"dim": 8, "dim_mults": [1, 2], "channels": 1, "rngs_seed": 3, "use_bert_text_cond": True,
+             "use_fused_attention": True, "use_fused_spatial_attention": True},
+    "diffusion": {"image_size": 16, "num_frames": 4, "timesteps": 6, "channels": 1, "prediction_type": "v"},
+    "trainer": {"train_batch_size": 2, "train_num_steps": 2, "checkpoint_every_steps": 2, "step_start_ema": 0,
+                "update_ema_every": 1, "profile_flush_step": 0, "use_path_as_cond": True, "null_cond_prob": 0.5,
+                "freeze_schedule_buffers": True},
+}
+
+
+@pytest.fixture(scope="module")
+def cond_setup(tmp_path_factory):
+    """The conditioned recipe trained 2 steps by the train CLI from six captioned GIFs (the hashed embedding)."""
+    from video_diffusion_nnx_tpu_torch import train
+    from video_diffusion_nnx_tpu_torch.models import text
+    from video_diffusion_nnx_tpu_torch.utils.media import video_array_to_gif
+
+    patch = pytest.MonkeyPatch()
+    patch.setattr(text, "_hf", False)
+    root = tmp_path_factory.mktemp("cond_cli")
+    (root / "gifs").mkdir()
+    rng = np.random.default_rng(8)
+    for i, caption in enumerate(["one digit", "two digits", "three digits"] * 2):
+        video_array_to_gif(rng.integers(0, 256, size=(4, 16, 16, 1), dtype=np.uint8), root / "gifs" / f"{caption} {i}.gif")
+    trainer = {**COND_CONFIG["trainer"], "dataset_path": str(root / "gifs"), "results_folder": str(root / "results"),
+               "tensorboard_dir": str(root / "tb")}
+    path = root / "cond.yaml"
+    path.write_text(yaml.safe_dump({**COND_CONFIG, "trainer": trainer}))
+    trainer = train.main(["--config", str(path), "--device", "cpu"])
+    assert trainer.use_path_as_cond and trainer.model.denoise_fn.has_cond
+    yield root, path, trainer.checkpoint_path(2)
+    patch.undo()
+
+
+@pytest.mark.parametrize("sampler", ["ddpm", "ddim", "dpm"])
+def test_text_cli_samples_each_sampler(cond_setup, sampler):
+    """``--text`` (one prompt, repeated to the batch) and ``--cond-scale`` through each sampler; the DDIM CLI equals
+    ``ddim_sample`` from the same seed and prompts."""
+    from video_diffusion_nnx_tpu_torch.convert import load_checkpoint
+
+    root, cfg, ckpt = cond_setup
+    out = root / f"text_{sampler}"
+    result = sample.main(["--config", str(cfg), "--checkpoint-path", str(ckpt), "--output-path", str(out),
+                          "--batch-size", "2", "--sampler", sampler, "--num-steps", "3", "--device", "cpu",
+                          "--seed", "1", "--text", "two digits", "--cond-scale", "3", "--load-ema-params"])
+    assert tuple(result["videos"].shape) == (2, 1, 4, 16, 16) and bool(torch.isfinite(result["videos"]).all())
+    assert sorted(p.name for p in out.iterdir()) == ["sample_0.gif", "sample_1.gif"]
+    if sampler == "ddim":
+        _, diffusion = build_models(load_config(cfg), device="cpu")
+        load_checkpoint(diffusion, ckpt, load_ema_params=True)
+        want = diffusion.eval().ddim_sample(num_steps=3, generator=torch.Generator().manual_seed(1),
+                                            cond=["two digits"] * 2, cond_scale=3.0)
+        torch.testing.assert_close(result["videos"], want, rtol=0, atol=0)
+        other = sample.main(["--config", str(cfg), "--checkpoint-path", str(ckpt), "--output-path", str(out),
+                             "--batch-size", "2", "--sampler", "ddim", "--num-steps", "3", "--device", "cpu",
+                             "--seed", "1", "--text", "one digit", "--text", "three digits", "--cond-scale", "3",
+                             "--load-ema-params"])
+        assert not torch.equal(other["videos"], result["videos"])
+
+
+def test_text_cli_refusals(cond_setup):
+    from video_diffusion_nnx_tpu_torch import extend
+
+    root, cfg, ckpt = cond_setup
+    with pytest.raises(SystemExit, match="this model is conditioned; give --text"):
+        sample.main(["--config", str(cfg), "--checkpoint-path", str(ckpt), "--device", "cpu", "--sampler", "ddim",
+                     "--num-steps", "2"])
+    np.save(root / "clip.npy", np.random.default_rng(4).integers(0, 256, size=(4, 16, 16), dtype=np.uint8))
+    with pytest.raises(SystemExit, match="--text given 3 times but --batch-size is 2"):
+        extend.main(["--config", str(cfg), "--checkpoint-path", str(ckpt), "--input", str(root / "clip.npy"),
+                     "--keep-frames", "2", "--num-steps", "2", "--batch-size", "2", "--device", "cpu",
+                     "--text", "a", "--text", "b", "--text", "c"])
+
+
+def test_extend_cli_with_text_and_guidance(cond_setup):
+    from video_diffusion_nnx_tpu_torch import extend
+
+    root, cfg, ckpt = cond_setup
+    gif = sorted((root / "gifs").glob("three digits *.gif"))[0]
+    out = root / "ext_text"
+    result = extend.main(["--config", str(cfg), "--checkpoint-path", str(ckpt), "--input", str(gif),
+                          "--keep-frames", "2", "--num-steps", "3", "--recon-guidance", "2", "--batch-size", "2",
+                          "--text", "three digits", "--cond-scale", "3", "--output-path", str(out), "--device", "cpu"])
+    videos, known = result["videos"], torch.from_numpy(result["known"])
+    assert tuple(videos.shape) == (2, 1, 4, 16, 16) and bool(torch.isfinite(videos).all())
+    assert torch.equal(videos[:, :, :2], ((known * 2 - 1 + 1) * 0.5)[None, :, :2].expand(2, -1, -1, -1, -1))
+    assert sorted(p.name for p in out.iterdir()) == ["sample_0.gif", "sample_1.gif"]

@@ -936,3 +936,78 @@ def test_graph_replay_equals_eager_in_both_maths_and_routes(device, fused, compa
     eager = model.ddim_sample(batch_size=2, num_steps=3, generator=_gen(2), graph=False)
     assert model.graphs.captures == 1 and model.graphs.replays() == 3
     assert torch.equal(graphed, eager)
+
+
+def _cond_graph_model(device, fused: bool = True, **unet_kwargs):
+    """``_graph_model`` conditioned on 768-wide text embeddings (the hashed captions of ``models/text.py``)."""
+    return _graph_model(device, fused=fused, use_bert_text_cond=True, **unet_kwargs)
+
+
+@pytest.fixture
+def hashed_text(monkeypatch):
+    from video_diffusion_nnx_tpu_torch.models import text
+
+    monkeypatch.setattr(text, "_hf", False)  # the hashed embedding, never a HuggingFace cache
+
+
+CAPTIONS = ["one digit", "three digits"]
+
+
+@pytest.mark.parametrize("sampler", ["ddim3", "dpm3", "ddpm", "cond_ddim3"])
+@pytest.mark.parametrize("cond_scale", [1.0, 3.0])
+def test_conditioned_graph_replay_equals_eager(device, hashed_text, sampler, cond_scale):
+    """A conditioned graph (the condition copied into its static buffer, the doubled batch and the guidance
+    combination inside the capture) replays what the eager forward computes: bit-equal."""
+    model = _cond_graph_model(device)
+    known = torch.rand(2, 1, 10, 16, 16, device=device, generator=_gen(9))
+    kw = {"cond": CAPTIONS, "cond_scale": cond_scale}
+    run = {
+        "ddim3": lambda g, graph: model.ddim_sample(num_steps=3, generator=g, graph=graph, **kw),
+        "dpm3": lambda g, graph: model.dpm_solver_sample(num_steps=3, generator=g, graph=graph, **kw),
+        "ddpm": lambda g, graph: model.sample(generator=g, graph=graph, **kw),
+        "cond_ddim3": lambda g, graph: model.sample_conditional_frames(known, [True] * 3 + [False] * 7, num_steps=3,
+                                                                      generator=g, graph=graph, **kw),
+    }[sampler]
+    ops.reset_launch_counts()
+    graphed = run(_gen(1), True)
+    torch.cuda.synchronize()
+    captured = ops.launch_counts()
+    steps = {"ddim3": 3, "dpm3": 3, "ddpm": 10, "cond_ddim3": 3}[sampler]
+    assert model.graphs.captures == 1 and model.graphs.replays() == steps
+    # Guidance doubles the rows of one forward, not the forwards: the wrappers still run twice per capture.
+    assert captured["temporal_attention_fwd"] == 2 * 7 and captured["sla_context"] == 2 * 4
+    eager = run(_gen(1), False)
+    assert torch.equal(graphed, eager)
+    assert tuple(graphed.shape) == (2, 1, 10, 16, 16) and bool(torch.isfinite(graphed).all())
+
+
+def test_conditioned_graph_cache_keys_the_scale_and_the_condition(device, hashed_text):
+    """cond_scale and whether a condition is present are part of a graph's key (as in the JAX package's program
+    cache): each scale captures its own graph, a repeat replays it, and the guided output differs."""
+    model = _cond_graph_model(device)
+    outs = {}
+    for cs in (1.0, 3.0, 1.0, 3.0, 5.0):
+        outs[cs] = model.ddim_sample(num_steps=2, generator=_gen(4), cond=CAPTIONS, cond_scale=cs)
+    assert model.graphs.captures == 3 and len(model.graphs) == 3 and model.graphs.replays() == 10
+    assert not torch.equal(outs[1.0], outs[3.0]) and not torch.equal(outs[3.0], outs[5.0])
+    unconditioned = _graph_model(device)
+    unconditioned.ddim_sample(batch_size=2, num_steps=2, generator=_gen(4))
+    unconditioned.ddim_sample(batch_size=2, num_steps=2, generator=_gen(4), cond=torch.zeros(2, 8, device=device))
+    assert unconditioned.graphs.captures == 2  # with a condition (ignored by the model) is another graph
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_batched_guidance_equals_two_forwards_on_the_card(device, fused):
+    """forward_with_cond_scale's one forward of 2b rows against a conditioned and a null forward of b rows."""
+    model = _cond_graph_model(device, fused=fused)
+    unet = model.denoise_fn
+    x = _rand((2, 1, 10, 16, 16), 1, 1.0, device)
+    t = torch.tensor([3, 7], device=device)
+    cond = _rand((2, 768), 2, 1.0, device)
+    with torch.no_grad():
+        guided = unet.forward_with_cond_scale(x, t, cond=cond, cond_scale=3.0)
+        c = unet(x, t, cond=cond, null_cond_mask=torch.zeros(2, dtype=torch.bool, device=device))
+        n = unet(x, t, cond=cond, null_cond_mask=torch.ones(2, dtype=torch.bool, device=device))
+    want = n + (c - n) * 3.0
+    assert guided.dtype == torch.float32
+    assert (guided - want).abs().max().item() <= 0.02 * want.abs().max().item()

@@ -77,10 +77,10 @@ def test_gif_items_match_jax(tmp_path, channels, force):
 
 
 def test_gif_dataset_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(FileNotFoundError, match="no .gif files"):
-        GifVideoDataset(str(tmp_path), image_size=IMAGE_SIZE)
-    with pytest.raises(NotImplementedError, match="A10"):
-        GifVideoDataset(str(tmp_path), image_size=IMAGE_SIZE, use_path_as_cond=True)
+    """An empty folder is refused, captioned or not; filename captions are ported (tests/test_torch_text.py)."""
+    for captioned in (False, True):
+        with pytest.raises(FileNotFoundError, match="no .gif files"):
+            GifVideoDataset(str(tmp_path), image_size=IMAGE_SIZE, use_path_as_cond=captioned)
 
 
 def test_a_train_step_from_a_gif_folder_matches_jax(gray_folder, tmp_path):

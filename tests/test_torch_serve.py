@@ -3,13 +3,18 @@
 samplers in-process on an ephemeral port), and one served request's rows
 against the JAX package's ``ddim_sample`` from the same x_T.
 
-``TestConditionedServer`` of tests/test_serve.py has no counterpart yet: the
-port builds no conditioned model (ROADMAP A10).
+``TestConditionedServerText`` serves a text-conditioned model (hashed caption
+embeddings): text and cond_scale over HTTP, each 400 of ``_validate_text``,
+coalesced text requests against their solo runs, and a served DDIM-3 text
+request against JAX ``ddim_sample`` from the same x_T and captions.
+``TestConditionedServer`` of tests/test_serve.py builds a ``guidance_embed``
+model, which waits for ROADMAP A13.
 """
 
 import base64
 import io
 import json
+import re
 import threading
 import urllib.error
 import urllib.request
@@ -21,9 +26,10 @@ import pytest
 import torch
 
 from torch_port_helpers import jax_fixture_model, port_model
+from video_diffusion_nnx_tpu.models import text as jtext
 from video_diffusion_nnx_tpu_torch import serve as serve_mod
 from video_diffusion_nnx_tpu_torch.diffusion import GaussianDiffusion
-from video_diffusion_nnx_tpu_torch.models import Unet3D
+from video_diffusion_nnx_tpu_torch.models import Unet3D, text
 
 
 def _tiny_model(timesteps: int = 6) -> GaussianDiffusion:
@@ -368,3 +374,116 @@ def test_served_rows_match_jax_ddim_from_the_same_x_T():
     x_T = torch.randn(rows.shape, generator=torch.Generator().manual_seed(5)).numpy()
     want = jm.ddim_sample(jax.random.PRNGKey(0), batch_size=2, num_steps=3, eta=0.0, init_noise=jnp.asarray(x_T))
     np.testing.assert_allclose(rows, np.asarray(want), atol=2e-4, rtol=0)
+
+
+def _tiny_cond_model(timesteps: int = 6) -> GaussianDiffusion:
+    unet = Unet3D(dim=8, dim_mults=(1,), channels=1, attn_heads=2, use_bert_text_cond=True)
+    unet.reset_parameters(torch.Generator().manual_seed(0))
+    return GaussianDiffusion(unet, image_size=8, num_frames=2, channels=1, timesteps=timesteps,
+                             loss_type="l2").eval()
+
+
+@pytest.fixture
+def hashed(monkeypatch):
+    """The hashed caption embedding on both sides: no HuggingFace cache is read."""
+    monkeypatch.setattr(text, "_hf", False)
+    monkeypatch.setattr(jtext, "_hf", False)
+
+
+@pytest.fixture(scope="module")
+def cond_server():
+    model = _tiny_cond_model()
+    httpd, thread, url = _serve(model, batch_window_s=0.5)
+    yield url, model, httpd.service
+    _stop(httpd, thread)
+
+
+@pytest.mark.usefixtures("hashed")
+class TestConditionedServerText:
+    def test_health_reports_the_condition(self, cond_server, server_url):
+        for url, has_cond in ((cond_server[0], True), (server_url, False)):
+            with urllib.request.urlopen(url + "/health", timeout=30) as r:
+                model = json.loads(r.read())["model"]
+            assert model["has_cond"] is has_cond and model["guidance_embed"] is False
+
+    def test_text_and_cond_scale_over_http(self, cond_server):
+        url, model, _ = cond_server
+        out = _post(url, {"batch_size": 2, "sampler": "ddim", "num_steps": 2, "text": ["a bouncing ball"],
+                          "cond_scale": 3.0, "seed": 4})
+        assert out["shape"] == [2, 1, 2, 8, 8] and len(out["gifs"]) == 2
+        for payload in ({"sampler": "dpm", "num_steps": 2, "text": ["a", "b", "c"]},
+                        {"sampler": "ddpm", "text": ["a"], "cond_scale": 2.0},
+                        {"sampler": "ddim", "num_steps": 2, "eta": 0.5, "text": ["a"], "cond_scale": 3.0}):
+            out = _post(url, payload)
+            assert out["shape"][0] == len(payload["text"])
+        ext = _post_path(url, "/extend", {"known_npy_b64": TestExtendEndpoint._known_b64(), "frame_mask": [True, False],
+                                          "num_steps": 2, "recon_guidance": 1.0, "text": ["one", "two"],
+                                          "cond_scale": 3.0})
+        assert ext["shape"] == [2, 1, 2, 8, 8]
+
+    @pytest.mark.parametrize("payload,message", [
+        ({}, "this model is conditioned; provide 'text'"),
+        ({"text": "not a list"}, "text must be a list of strings"),
+        ({"text": ["a", 3]}, "text must be a list of strings"),
+        ({"text": []}, r"text must have 1\.\.64 entries"),
+        ({"text": ["x"] * 65}, r"text must have 1\.\.64 entries"),
+        ({"text": ["a", "b"], "batch_size": 3}, "text has 2 entries but batch_size is 3"),
+        ({"text": ["a"], "cond_scale": "x"}, "cond_scale must be a float"),
+    ])
+    def test_validate_text_400(self, cond_server, payload, message):
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(cond_server[0], {"num_steps": 2, **payload})
+        assert ei.value.code == 400
+        assert re.search(message, json.loads(ei.value.read())["error"])
+
+    def test_validate_text_broadcasts_and_sets_the_batch(self, cond_server):
+        service = cond_server[2]
+        assert service._validate_text({"text": ["a"]}, 3) == (["a"] * 3, 3)
+        assert service._validate_text({"text": ["a", "b"]}, 1) == (["a", "b"], 2)
+        assert service._validate_text({"text": ["a", "b"], "batch_size": 2}, 2) == (["a", "b"], 2)
+        with pytest.raises(ValueError, match="batch_size .incl. inferred from text. must be <= 16"):
+            service.extend_rows({"known_npy_b64": TestExtendEndpoint._known_b64(), "frame_mask": [True, False],
+                                 "num_steps": 2, "text": ["x"] * 17})
+
+    def test_coalesced_text_requests_equal_their_solo_runs(self, cond_server):
+        """Each row is a function of its own x_T and its own caption: two text requests coalesced into one batch
+        (padded to a power of two) give what each gives alone (``ddim_sample`` from its seed and caption)."""
+        _, model, service = cond_server
+        payloads = [{"sampler": "ddim", "num_steps": 3, "seed": s, "text": [p], "cond_scale": 3.0}
+                    for s, p in ((1, "one digit"), (2, "three digits"), (3, "two digits"))]
+        outs = [None] * len(payloads)
+
+        def go(i):
+            outs[i] = service.sample_rows(payloads[i])
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert max(extra["coalesced"] for _, _, extra in outs) >= 2
+        for payload, (rows, _, _) in zip(payloads, outs):
+            solo = model.ddim_sample(num_steps=3, generator=torch.Generator().manual_seed(payload["seed"]),
+                                     cond=payload["text"], cond_scale=3.0)
+            np.testing.assert_allclose(rows, solo.numpy(), atol=1e-5, rtol=0)
+        # An unconditioned and a conditioned request never share a group key.
+        groups = {(p["sampler"], p["num_steps"], "linspace", p["cond_scale"], True) for p in payloads}
+        assert len(groups) == 1
+
+    def test_served_text_rows_match_jax_ddim(self):
+        """A served DDIM-3 text request at cond_scale 3 against the JAX package's ``ddim_sample`` with that
+        request's x_T and captions, 2e-4 as the unconditioned case."""
+        jm = jax_fixture_model(prediction_type="v", use_bert_text_cond=True)
+        service = serve_mod.SamplingService(port_model(jm, prediction_type="v", use_bert_text_cond=True),
+                                            batch_window_s=0.01)
+        captions = ["one digit", "two digits"]
+        try:
+            rows, _, extra = service.sample_rows({"sampler": "ddim", "num_steps": 3, "seed": 5, "text": captions,
+                                                  "cond_scale": 3.0})
+        finally:
+            service.close()
+        assert extra["coalesced"] == 1 and rows.shape[0] == 2
+        x_T = torch.randn(rows.shape, generator=torch.Generator().manual_seed(5)).numpy()
+        want = jm.ddim_sample(jax.random.PRNGKey(0), cond=captions, cond_scale=3.0, num_steps=3, eta=0.0,
+                              init_noise=jnp.asarray(x_T))
+        np.testing.assert_allclose(rows, np.asarray(want), atol=2e-4, rtol=0)

@@ -161,8 +161,6 @@ def _trainer(model, npy_path, tmp_path, **kw):
     (dict(num_model_shards=2), "A15"),
     (dict(param_sharding="fsdp"), "A15"),
     (dict(sequence_parallel_size=2, sequence_group=SequenceGroup(0, 4, "gloo", torch.device("cpu"))), "A15"),
-    (dict(use_path_as_cond=True), "A10"),
-    (dict(null_cond_prob=0.1), "A10"),
     (dict(flatten_optimizer=True), "A7"),
     (dict(async_checkpointing=True), "A8"),
     (dict(freeze_schedule_buffers=False, enable_gradient_accumulation=True, gradient_accumulate_every=4), "A7"),
@@ -172,6 +170,23 @@ def test_unported_options_raise(npy_path, tmp_path, option, item):
     pm = port_model(jax_fixture_model())
     with pytest.raises(NotImplementedError, match=item):
         _trainer(pm, npy_path, tmp_path, **option)
+
+
+@pytest.mark.parametrize("option", ["use_path_as_cond", "null_cond_prob"])
+def test_conditioning_options_of_the_trainer(npy_path, tmp_path, option):
+    """Filename captions need a folder of GIFs (a ``.npy`` has no file names to read); condition dropout is stored and
+    reaches the loss only with captions (JAX trainer.py:504-517), so an unconditioned recipe trains as before."""
+    pm = port_model(jax_fixture_model())
+    if option == "use_path_as_cond":
+        with pytest.raises(ValueError, match="must be a folder of GIFs"):
+            _trainer(pm, npy_path, tmp_path, use_path_as_cond=True)
+        return
+    tr = _trainer(pm, npy_path, tmp_path, null_cond_prob=0.1, sample_text="a digit", cond_scale=3.0)
+    assert (tr.null_cond_prob, tr.sample_text, tr.cond_scale, tr.use_path_as_cond) == (0.1, "a digit", 3.0, False)
+    batch = next(tr.dl)
+    assert isinstance(batch, torch.Tensor)
+    loss, _ = tr.train_step(batch)
+    assert bool(torch.isfinite(loss))
 
 
 def _group(world: int = 4) -> SequenceGroup:

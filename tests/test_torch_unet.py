@@ -13,7 +13,7 @@ import torch
 from torch_port_helpers import CHANNELS, FRAMES, IMAGE_SIZE, jax_fixture_model, port_model, seeded
 from video_diffusion_nnx_tpu.ops import spatial_linear_attention as jsla
 from video_diffusion_nnx_tpu.ops import temporal_attention as jta
-from video_diffusion_nnx_tpu_torch.models import Unet3D
+from video_diffusion_nnx_tpu_torch.models import ResnetBlock, Unet3D
 from video_diffusion_nnx_tpu_torch.models.layers import GroupNorm
 from video_diffusion_nnx_tpu_torch.parallel import SequenceGroup
 
@@ -47,13 +47,29 @@ def test_unet_bf16_policy_runs_in_bf16_and_returns_f32():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"cond_dim": 16}, "A10"),
-    ({"use_bert_text_cond": True}, "A10"),
     ({"guidance_embed": True}, "A13"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         Unet3D(dim=8, dim_mults=(1, 2), channels=1, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,cond_dim", [({"cond_dim": 16}, 16), ({"use_bert_text_cond": True}, 768)])
+def test_conditioning_options_build_a_conditioned_unet(kwargs, cond_dim):
+    """``cond_dim`` and ``use_bert_text_cond`` build the conditioned Unet3D (JAX :185-203): a null embedding and every
+    ResNet block's time MLP ``time_dim + cond_dim`` wide; it needs its condition, and the null mask selects it."""
+    unet = Unet3D(dim=8, dim_mults=(1, 2), channels=1, **kwargs)
+    unet.reset_parameters(torch.Generator().manual_seed(0))
+    assert unet.has_cond and unet.cond_dim == cond_dim and unet.null_cond_emb.shape == (1, cond_dim)
+    blocks = [m for m in unet.modules() if isinstance(m, ResnetBlock) and m.mlp is not None]
+    assert len(blocks) == 10 and all(b.mlp.layers[1].weight.shape[1] == 32 + cond_dim for b in blocks)
+    x, t = torch.from_numpy(seeded((2, 1, 4, 16, 16))), torch.tensor([1, 5])
+    with torch.no_grad(), pytest.raises(ValueError, match="cond must be passed"):
+        unet(x, t)
+    with torch.no_grad():
+        out = unet(x, t, cond=torch.zeros(2, cond_dim), null_cond_mask=torch.tensor([True, False]))
+        null = unet(x, t, cond=unet.null_cond_emb.expand(2, -1))
+    assert out.shape == (2, 4, 16, 16, 1) and torch.equal(out[0], null[0]) and not torch.equal(out[1], null[1])
 
 
 def test_sequence_parallel_mesh_is_a_group_in_compat_math_only():

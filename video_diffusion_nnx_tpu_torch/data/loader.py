@@ -3,8 +3,9 @@
 :class:`DataLoader` draws each epoch's order from ``np.random.default_rng(seed)``
 exactly as the JAX package does, so both packages yield the same batches
 for one seed. :func:`device_prefetch` runs a background thread that pins
-each batch and copies it to the device without blocking, ``depth`` batches
-ahead of the training step.
+each batch (an array, or a tuple of arrays such as the videos and text
+embeddings of :func:`collate_with_text_cond`) and copies it to the device
+without blocking, ``depth`` batches ahead of the training step.
 """
 
 from __future__ import annotations
@@ -41,6 +42,16 @@ class DataLoader:
             yield self.collate_fn([self.dataset[int(i)] for i in order[start:start + self.batch_size]])
 
 
+def collate_with_text_cond(items: list) -> tuple[np.ndarray, np.ndarray]:
+    """``(video, caption)`` items as ``(videos, embeddings)``: the captions embedded on the host
+    (``bert_embed(tokenize(captions))``, float32, ``(b, BERT_MODEL_DIM)``), in the prefetch thread."""
+    from video_diffusion_nnx_tpu_torch.models.text import embed_captions
+
+    videos = np.stack([v for v, _ in items], axis=0)
+    cond = embed_captions([c for _, c in items]).astype(np.float32)
+    return videos, cond
+
+
 def cycle(iterable):
     """Re-iterate ``iterable`` forever (a shuffling loader reshuffles every epoch)."""
     while True:
@@ -52,17 +63,21 @@ class _Error:
         self.exc = exc
 
 
-def device_prefetch(iterator, device: torch.device, depth: int = 2) -> Iterator[torch.Tensor]:
-    """Yield each numpy batch of ``iterator`` as a tensor on ``device``, ``depth`` batches ahead."""
+def device_prefetch(iterator, device: torch.device, depth: int = 2) -> Iterator[Any]:
+    """Yield each numpy batch of ``iterator`` (an array or a tuple of arrays) as tensors on ``device``,
+    ``depth`` batches ahead."""
     device = torch.device(device)
     q: queue.Queue = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
 
-    def put(batch) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(batch))
+    def put_one(array) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(array))
         if device.type == "cuda":
             return t.pin_memory().to(device, non_blocking=True)
         return t.to(device)
+
+    def put(batch):
+        return tuple(put_one(a) for a in batch) if isinstance(batch, tuple) else put_one(batch)
 
     def run():
         try:
@@ -84,8 +99,9 @@ def device_prefetch(iterator, device: torch.device, depth: int = 2) -> Iterator[
         stop.set()
 
 
-def endless_prefetching_loader(dataset: Sequence, batch_size: int, device, seed: int = 0,
-                               depth: int = 2) -> Iterator[torch.Tensor]:
+def endless_prefetching_loader(dataset: Sequence, batch_size: int, device, seed: int = 0, depth: int = 2,
+                               collate_fn: Callable[[list], Any] | None = None) -> Iterator[Any]:
     """The trainer's feed: an endless shuffled stream of batches already on ``device``."""
-    loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=seed)
+    loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=seed,
+                        collate_fn=collate_fn)
     return device_prefetch(cycle(loader), device, depth)

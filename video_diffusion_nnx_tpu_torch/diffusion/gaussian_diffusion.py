@@ -10,6 +10,15 @@ sampler's ``graph=False`` runs it eagerly). Noise comes from an explicit
 (the training loss) takes injected t and noise, so that a test can feed both
 packages the same numbers (the draws of the JAX key chain).
 
+Text conditioning: every sampler and the loss take ``cond``, either a
+``(b, cond_dim)`` array of condition vectors or a list of captions, which
+are embedded on the host (``models/text.py``; the first token's vector under
+``text_use_bert_cls``). A sampler then takes its batch size from the
+condition. The samplers also take ``cond_scale``, the classifier-free
+guidance scale (``Unet3D.forward_with_cond_scale``: one denoiser forward of
+2b rows when it is not 1); the loss takes ``null_cond_prob``, the
+condition's dropout rate. ``interpolate`` has no condition, as in JAX.
+
 Under a sequence-parallel group (the denoiser's ``sequence_parallel_mesh``)
 each rank trains on its own frames: ``forward`` draws t and the noise for
 the whole clip, exactly as one rank would, and keeps this rank's frames of
@@ -26,6 +35,8 @@ import torch
 from torch import nn
 
 from video_diffusion_nnx_tpu_torch.diffusion.graphs import GraphCache
+from video_diffusion_nnx_tpu_torch.models.text import embed_captions
+from video_diffusion_nnx_tpu_torch.utils.functional import is_list_str
 from video_diffusion_nnx_tpu_torch.utils.image import normalize_img, unnormalize_img
 from video_diffusion_nnx_tpu_torch.utils.schedule import ScheduleBuffers, extract
 
@@ -90,6 +101,7 @@ class GaussianDiffusion(nn.Module):
         self.image_size = image_size
         self.num_frames = num_frames
         self.channels = channels
+        self.text_use_bert_cls = text_use_bert_cls
         self.loss_type = loss_type
         self.prediction_type = prediction_type
         self.min_snr_gamma = min_snr_gamma
@@ -159,19 +171,33 @@ class GaussianDiffusion(nn.Module):
             self._x(self.posterior_log_variance_clipped, t, x_t),
         )
 
+    def embed_cond(self, cond) -> torch.Tensor | None:
+        """A condition as a float32 tensor on this model's device: captions (a list of str) embedded on the host
+        (JAX ``is_list_str`` -> ``bert_embed(tokenize(...))``), an array or tensor as it is; None stays None."""
+        if cond is None:
+            return None
+        if is_list_str(cond):
+            cond = embed_captions(cond, return_cls_repr=self.text_use_bert_cls)
+        return torch.as_tensor(cond, dtype=torch.float32).to(self.device)
+
     # Reverse (p) process.
 
-    def _denoise(self, x: torch.Tensor, t: torch.Tensor, graph: bool = False) -> torch.Tensor:
-        """The denoiser's output as (b, c, f, h, w). With ``graph``, for a CUDA ``x`` under ``no_grad``, a replay
-        of the cached graph of x's shape: a view of its static output, valid until the next replay."""
+    def _denoise(self, x: torch.Tensor, t: torch.Tensor, graph: bool = False, cond: torch.Tensor | None = None,
+                 cond_scale: float = 1.0) -> torch.Tensor:
+        """The denoiser's (guided) output as (b, c, f, h, w). With ``graph``, for a CUDA ``x`` under ``no_grad``, a
+        replay of the cached graph of x's shape, condition and scale: a view of its static output, valid until
+        the next replay."""
         if graph and x.is_cuda and not torch.is_grad_enabled():
-            out = self.graphs.get(self.denoise_fn, x)(x, t)
-        else:
+            out = self.graphs.get(self.denoise_fn, x, cond, cond_scale)(x, t, cond)
+        elif cond is None:
             out = self.denoise_fn.forward_with_cond_scale(x, t)  # (b, f, h, w, c)
+        else:
+            out = self.denoise_fn.forward_with_cond_scale(x, t, cond=cond, cond_scale=cond_scale)
         return out.permute(0, 4, 1, 2, 3)  # -> (b, c, f, h, w)
 
-    def p_mean_variance(self, x, t, clip_denoised: bool = True, graph: bool = False):
-        x_recon, _ = self._model_out_to_x0_eps(x, t, self._denoise(x, t, graph))
+    def p_mean_variance(self, x, t, clip_denoised: bool = True, graph: bool = False, cond=None,
+                        cond_scale: float = 1.0):
+        x_recon, _ = self._model_out_to_x0_eps(x, t, self._denoise(x, t, graph, cond, cond_scale))
         if clip_denoised:
             s = 1.0
             if self.use_dynamic_thres:
@@ -184,13 +210,19 @@ class GaussianDiffusion(nn.Module):
         return self.q_posterior(x_start=x_recon, x_t=x, t=t)
 
     @torch.no_grad()
-    def p_sample(self, x, t, noise=None, generator=None, clip_denoised: bool = True, graph: bool = False):
+    def p_sample(self, x, t, noise=None, generator=None, clip_denoised: bool = True, graph: bool = False,
+                 cond=None, cond_scale: float = 1.0):
         """One reverse step x_t -> x_{t-1}; ``noise`` is drawn from ``generator`` when not given."""
-        mean, _, log_var = self.p_mean_variance(x, t, clip_denoised, graph)
+        mean, _, log_var = self.p_mean_variance(x, t, clip_denoised, graph, cond, cond_scale)
         if noise is None:
             noise = _normal(x.shape, generator, x.device)
         nonzero = (1.0 - (t == 0).float()).reshape(-1, 1, 1, 1, 1)
         return mean + nonzero * torch.exp(0.5 * log_var) * noise
+
+    def _batch(self, batch_size: int, cond) -> tuple[int, torch.Tensor | None]:
+        """The batch size and the embedded condition: a condition sets the batch size (JAX ``ddim_sample``)."""
+        cond = self.embed_cond(cond)
+        return (batch_size if cond is None else cond.shape[0]), cond
 
     def _shape(self, batch_size: int) -> tuple[int, ...]:
         return (batch_size, self.channels, self.num_frames, self.image_size, self.image_size)
@@ -220,17 +252,25 @@ class GaussianDiffusion(nn.Module):
         return torch.sqrt(a_prev) * x0 + dir_xt, sigma
 
     @torch.no_grad()
-    def p_sample_loop(self, shape, generator=None, init_noise=None, graph: bool = True):
-        """The full DDPM reverse chain, T steps; returns images in [0, 1]."""
+    def p_sample_loop(self, shape, generator=None, init_noise=None, graph: bool = True, cond=None,
+                      cond_scale: float = 1.0, step_noise: Sequence[torch.Tensor] | None = None):
+        """The full DDPM reverse chain, T steps; returns images in [0, 1]. ``init_noise`` and ``step_noise`` (each
+        step's noise, in the chain's order) are drawn from ``generator`` where not given."""
+        cond = self.embed_cond(cond)
         img = self._init(shape, generator, init_noise)
-        for i in reversed(range(self.num_timesteps)):
-            img = self.p_sample(img, self._t(i, shape[0]), generator=generator, graph=graph)
+        for step, i in enumerate(reversed(range(self.num_timesteps))):
+            noise = None if step_noise is None else step_noise[step]
+            img = self.p_sample(img, self._t(i, shape[0]), noise=noise, generator=generator, graph=graph, cond=cond,
+                                cond_scale=cond_scale)
         return unnormalize_img(img)
 
     @torch.no_grad()
-    def sample(self, batch_size: int = 16, generator=None, graph: bool = True):
-        """Unconditioned DDPM samples of ``(batch_size, c, f, h, w)``."""
-        return self.p_sample_loop(self._shape(batch_size), generator=generator, graph=graph)
+    def sample(self, batch_size: int = 16, generator=None, graph: bool = True, cond=None, cond_scale: float = 1.0,
+               init_noise: torch.Tensor | None = None, step_noise: Sequence[torch.Tensor] | None = None):
+        """DDPM samples of ``(batch_size, c, f, h, w)``, or of one per row of ``cond``."""
+        batch_size, cond = self._batch(batch_size, cond)
+        return self.p_sample_loop(self._shape(batch_size), generator=generator, init_noise=init_noise, graph=graph,
+                                  cond=cond, cond_scale=cond_scale, step_noise=step_noise)
 
     @torch.no_grad()
     def ddim_sample(
@@ -243,20 +283,24 @@ class GaussianDiffusion(nn.Module):
         init_noise: torch.Tensor | None = None,
         step_noise: Sequence[torch.Tensor] | None = None,
         graph: bool = True,
+        cond=None,
+        cond_scale: float = 1.0,
     ) -> torch.Tensor:
         """DDIM sampling (Song et al. 2021) over a strided timestep grid; images in [0, 1].
 
         ``init_noise`` supplies x_T; ``step_noise`` supplies each step's noise
         (read only when ``eta > 0``). Otherwise both come from ``generator``.
-        At ``eta = 0`` each output row is a function of its own x_T alone.
+        At ``eta = 0`` each output row is a function of its own x_T (and its
+        own condition) alone.
         """
+        batch_size, cond = self._batch(batch_size, cond)
         shape = self._shape(batch_size)
         times = sampling_times(self.num_timesteps, num_steps, grid).flip(0).tolist()
         times_prev = times[1:] + [-1]
         img = self._init(shape, generator, init_noise)
         for step, (t, t_prev) in enumerate(zip(times, times_prev)):
             t_arr = self._t(t, batch_size)
-            x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph))
+            x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph, cond, cond_scale))
             img, sigma = self._ddim_step(img, torch.clamp(x0, -1.0, 1.0), t, t_prev, eta)
             if eta > 0:
                 img = img + sigma * self._draw(step_noise, step, shape, generator)
@@ -270,6 +314,8 @@ class GaussianDiffusion(nn.Module):
         generator: torch.Generator | None = None,
         init_noise: torch.Tensor | None = None,
         graph: bool = True,
+        cond=None,
+        cond_scale: float = 1.0,
     ) -> torch.Tensor:
         """DPM-Solver++(2M) (Lu et al. 2022; JAX ``dpm_solver_sample``, :521-650); images in [0, 1].
 
@@ -282,6 +328,7 @@ class GaussianDiffusion(nn.Module):
         and the second-order term is NaN) take the first-order update; the step
         index is known on the host, so the second-order term is never formed there.
         """
+        batch_size, cond = self._batch(batch_size, cond)
         shape = self._shape(batch_size)
         times = sampling_times(self.num_timesteps, num_steps).flip(0).tolist()
         times_prev = times[1:] + [-1]
@@ -291,7 +338,7 @@ class GaussianDiffusion(nn.Module):
         x0_prev, h_prev = None, one
         for step, (t, t_prev) in enumerate(zip(times, times_prev)):
             t_arr = self._t(t, batch_size)
-            x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph))
+            x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph, cond, cond_scale))
             x0 = torch.clamp(x0, -1.0, 1.0)
             a_cur = acp[t]
             a_next = acp[t_prev] if t_prev >= 0 else one
@@ -308,7 +355,7 @@ class GaussianDiffusion(nn.Module):
             x0_prev, h_prev = x0, h
         return unnormalize_img(img)
 
-    def _guided_x0(self, z, t, x0_known, mask, scale) -> torch.Tensor:
+    def _guided_x0(self, z, t, x0_known, mask, scale, cond=None, cond_scale: float = 1.0) -> torch.Tensor:
         """Reconstruction guidance (Ho et al. 2022; JAX :811-827): ``x0(z) - scale * grad_z 0.5 ||mask (x0(z) -
         known)||^2`` on the unknown frames. One backward through the denoiser, eager, with the weights held out
         of autograd: only the gradient with respect to z is formed."""
@@ -318,7 +365,7 @@ class GaussianDiffusion(nn.Module):
         try:
             with torch.enable_grad():
                 z = z.detach().requires_grad_(True)
-                x0, _ = self._model_out_to_x0_eps(z, t, self._denoise(z, t))
+                x0, _ = self._model_out_to_x0_eps(z, t, self._denoise(z, t, cond=cond, cond_scale=cond_scale))
                 err = torch.where(mask, x0 - x0_known, 0.0)
                 (g,) = torch.autograd.grad(0.5 * torch.sum(err**2), z)
         finally:
@@ -339,6 +386,8 @@ class GaussianDiffusion(nn.Module):
         step_noise: Sequence[torch.Tensor] | None = None,
         mix_noise: Sequence[torch.Tensor] | None = None,
         graph: bool = True,
+        cond=None,
+        cond_scale: float = 1.0,
     ) -> torch.Tensor:
         """A clip whose frames at ``frame_mask`` are pinned to ``known`` (JAX ``sample_conditional_frames``,
         :681-861): video extension, temporal infill or frame prediction by replacement conditioning.
@@ -352,8 +401,10 @@ class GaussianDiffusion(nn.Module):
         (eager: a backward through the denoiser each step). Draws come from
         ``generator`` unless injected: ``init_noise``, then per step ``step_noise``
         (DDPM) and ``mix_noise`` (the pinned frames' forward noise; the last step
-        reads none). Returns images in [0, 1].
+        reads none). ``cond`` (one row per clip) and ``cond_scale`` reach every
+        denoiser forward, the guided ones too. Returns images in [0, 1].
         """
+        cond = self.embed_cond(cond)
         shape = tuple(known.shape)
         if len(shape) != 5 or shape[1:] != self._shape(1)[1:]:
             raise ValueError(f"known must be (b, {', '.join(map(str, self._shape(1)[1:]))}); got {shape}")
@@ -378,7 +429,8 @@ class GaussianDiffusion(nn.Module):
         if num_steps is None:
             for step, i in enumerate(reversed(range(self.num_timesteps))):
                 noise = None if step_noise is None else step_noise[step]
-                img = self.p_sample(img, self._t(i, batch_size), noise=noise, generator=generator, graph=graph)
+                img = self.p_sample(img, self._t(i, batch_size), noise=noise, generator=generator, graph=graph,
+                                    cond=cond, cond_scale=cond_scale)
                 img = replace_known(img, i - 1, step)
             return unnormalize_img(img)
 
@@ -387,9 +439,10 @@ class GaussianDiffusion(nn.Module):
         for step, (t, t_prev) in enumerate(zip(times, times_prev)):
             t_arr = self._t(t, batch_size)
             if wr > 0.0:
-                x0 = self._guided_x0(img, t_arr, x0_known, mask, wr * torch.sqrt(self.alphas_cumprod[t]))
+                x0 = self._guided_x0(img, t_arr, x0_known, mask, wr * torch.sqrt(self.alphas_cumprod[t]), cond,
+                                     cond_scale)
             else:
-                x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph))
+                x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph, cond, cond_scale))
             img, _ = self._ddim_step(img, torch.clamp(x0, -1.0, 1.0), t, t_prev)
             img = replace_known(img, t_prev, step)
         return unnormalize_img(img)
@@ -431,18 +484,22 @@ class GaussianDiffusion(nn.Module):
     # Training.
 
     def p_losses(self, x_start, t, noise=None, generator=None, focus_present_mask=None,
-                 prob_focus_present: float = 0.0) -> torch.Tensor:
+                 prob_focus_present: float = 0.0, cond=None, null_cond_prob: float = 0.0) -> torch.Tensor:
         """Denoising loss at timesteps ``t`` (JAX ``p_losses``, :923-996); noise from ``generator`` when not given.
 
-        ``focus_present_mask`` and ``prob_focus_present`` go to the denoiser, which draws its
-        mask from ``generator`` after the noise. Under a sequence group ``x_start`` and ``noise``
-        are this rank's frames and the result is this rank's share of the loss.
+        ``focus_present_mask`` and ``prob_focus_present`` go to the denoiser, and so do ``cond``
+        (captions are embedded here) and ``null_cond_prob``, its dropout rate; the denoiser draws
+        its masks from ``generator`` after the noise, the focus mask first. Under a sequence group
+        ``x_start`` and ``noise`` are this rank's frames and the result is this rank's share of the loss.
         """
         if noise is None:
             noise = _normal(x_start.shape, generator, x_start.device)
         x_noisy = self.q_sample(x_start, t, noise)
+        cond_kw = {}
+        if cond is not None:
+            cond_kw = {"cond": self.embed_cond(cond), "null_cond_prob": null_cond_prob}
         model_out = self.denoise_fn(x_noisy, t, focus_present_mask=focus_present_mask,
-                                    prob_focus_present=prob_focus_present, generator=generator)
+                                    prob_focus_present=prob_focus_present, generator=generator, **cond_kw)
         model_out = model_out.permute(0, 4, 1, 2, 3)  # -> (b, c, f, h, w)
         if self.prediction_type == "noise":
             target = noise
@@ -475,8 +532,11 @@ class GaussianDiffusion(nn.Module):
         return (w * err).mean() / share
 
     def forward(self, x, generator=None, t=None, noise=None, focus_present_mask=None,
-                prob_focus_present: float = 0.0) -> torch.Tensor:
+                prob_focus_present: float = 0.0, cond=None, null_cond_prob: float = 0.0) -> torch.Tensor:
         """Training entry (JAX ``__call__``, :998-1016): draw t, normalize ``x`` from [0, 1], return the loss.
+
+        Draws from ``generator`` in this order: t, the noise, then the denoiser's focus and
+        condition-dropout masks (each only where its probability lies strictly between 0 and 1).
 
         ``x`` (and an injected ``noise``) is the whole clip on every rank of a sequence group; the
         loss is this rank's share, over its frames.
@@ -493,4 +553,5 @@ class GaussianDiffusion(nn.Module):
             frames = group.frames(self.num_frames)
             x, noise = x[:, :, frames], noise[:, :, frames]
         return self.p_losses(normalize_img(x), t, noise=noise, generator=generator,
-                             focus_present_mask=focus_present_mask, prob_focus_present=prob_focus_present)
+                             focus_present_mask=focus_present_mask, prob_focus_present=prob_focus_present,
+                             cond=cond, null_cond_prob=null_cond_prob)

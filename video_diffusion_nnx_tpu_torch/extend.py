@@ -15,8 +15,10 @@ Input: an animated GIF (resized to the model's image size) or a ``.npy``
 sample (``--batch-size`` continuations of the same input with different
 noise). ``--num-steps`` runs DDIM on the ``--grid``; without it the full DDPM
 chain runs. ``--recon-guidance`` w_r > 0 adds reconstruction guidance (DDIM
-only). The checkpoint is this package's file; ``--device cuda`` is the
-default, and a missing card raises unless ``--device cpu`` is given.
+only). A text-conditioned model takes ``--text`` (one prompt, repeated to
+``--batch-size``, or one per sample) and ``--cond-scale``. The checkpoint is
+this package's file; ``--device cuda`` is the default, and a missing card
+raises unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--grid", choices=("linspace", "stride"), default="linspace")
     p.add_argument("--recon-guidance", type=float, default=0.0,
                    help="reconstruction-guidance weight w_r (Ho et al. 2022; needs --num-steps; typical 1-10)")
-    p.add_argument("--text", type=str, action="append", default=None, help="text condition (not ported yet)")
+    p.add_argument("--text", type=str, action="append", default=None,
+                   help="text condition; repeat for per-sample prompts (needs a conditioned model)")
+    p.add_argument("--cond-scale", type=float, default=1.0, help="classifier-free guidance scale")
     p.add_argument("--output-path", type=str, default="outputs/extended")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
@@ -122,13 +126,12 @@ def main(argv=None) -> dict:
     """Run the CLI; returns the GIF paths, the clips (on the CPU), the input clip, the mask, the steps, the
     seconds and the denoiser graphs' captures and replays."""
     args = parse_args(argv)
-    if args.text is not None:
-        raise SystemExit("error: --text (text conditioning) is not ported yet: ROADMAP A10")
     if args.num_steps is not None and args.num_steps < 1:
         raise SystemExit("error: --num-steps must be >= 1")
 
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config, resolve_device
     from video_diffusion_nnx_tpu_torch.convert import load_checkpoint
+    from video_diffusion_nnx_tpu_torch.sample import text_condition
     from video_diffusion_nnx_tpu_torch.utils.media import write_sample_gifs
 
     device = resolve_device(args.device)
@@ -138,6 +141,10 @@ def main(argv=None) -> dict:
     except FileNotFoundError as e:
         raise SystemExit(f"error: {e}") from None
     model.eval()
+    cond = text_condition(args.text, args.batch_size, model)
+    if cond is not None and len(cond) != args.batch_size:
+        raise SystemExit(f"error: --text given {len(args.text)} times but --batch-size is {args.batch_size}; "
+                         "give one prompt or one per sample")
 
     clip, input_frames = load_clip(Path(args.input), model.image_size, model.channels, model.num_frames)
     mask = frame_mask(args, model.num_frames, input_frames)
@@ -149,7 +156,8 @@ def main(argv=None) -> dict:
     try:
         videos = model.sample_conditional_frames(
             known, mask, num_steps=args.num_steps, grid=args.grid,
-            recon_guidance_weight=args.recon_guidance, generator=generator,
+            recon_guidance_weight=args.recon_guidance, generator=generator, cond=cond,
+            cond_scale=args.cond_scale,
         )
     except ValueError as e:
         raise SystemExit(f"error: {e}") from None

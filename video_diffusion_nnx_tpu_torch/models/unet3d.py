@@ -5,12 +5,21 @@ JAX package. Module names and nesting equal the JAX tree (``downs``/``ups``
 as lists of five-element lists, ``Residual -> PreNorm -> ...`` wrappers), so
 a JAX state path maps to one parameter here (``convert.py``).
 
-Both maths are ported, unconditioned: reference-compat
-(``reference_compat=True``: every PreNorm drops its norm, the position bias
-and the focus mask) and fixed (``False``: pre-norms applied, the relative
-position bias on the temporal logits, the spatial q scale, a focus-present
-mask). The options outside raise ``NotImplementedError`` naming their
-ROADMAP item.
+Both maths are ported: reference-compat (``reference_compat=True``: every
+PreNorm drops its norm, the position bias and the focus mask) and fixed
+(``False``: pre-norms applied, the relative position bias on the temporal
+logits, the spatial q scale, a focus-present mask). ``guidance_embed``
+raises ``NotImplementedError`` naming its ROADMAP item.
+
+Conditioning (``cond_dim``, or ``use_bert_text_cond`` for 768-wide text
+embeddings, JAX :185-203): a condition vector per sample is concatenated to
+the time embedding, so every ResNet block's time MLP takes
+``time_dim + cond_dim`` inputs. ``null_cond_emb`` (1, cond_dim) stands in
+for a dropped condition; its values are random integers in [1, cond_dim)
+cast to float32, as in the JAX package (PARITY #5). The time MLP and the
+concatenation stay float32 under the bf16 policy: bf16 cannot hold those
+integers above 256. ``forward_with_cond_scale`` is classifier-free guidance,
+the conditioned and the null forward batched into one of 2b rows.
 
 ``sequence_parallel_mesh`` (a ``parallel.SequenceGroup``, compat math only,
 as in the JAX package; fixed math sets it to None) shards the frames over the
@@ -58,6 +67,7 @@ from video_diffusion_nnx_tpu_torch.models.layers import (
     SinusoidalPosEmb,
     Upsample,
 )
+from video_diffusion_nnx_tpu_torch.models.text import BERT_MODEL_DIM
 from video_diffusion_nnx_tpu_torch.ops import spatial_linear_attention as sla_ops
 from video_diffusion_nnx_tpu_torch.ops import temporal_attention as ta_ops
 from video_diffusion_nnx_tpu_torch.parallel import SequenceGroup, sequence_parallel_temporal_attention
@@ -71,7 +81,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class Unet3D(nn.Module):
-    """3-D U-Net denoiser, unconditioned, in reference-compat or fixed math."""
+    """3-D U-Net denoiser, unconditioned or conditioned, in reference-compat or fixed math."""
 
     def __init__(
         self,
@@ -98,8 +108,6 @@ class Unet3D(nn.Module):
         guidance_embed: bool = False,
     ):
         super().__init__()
-        if cond_dim is not None or use_bert_text_cond:
-            raise _not_ported("conditioning (cond_dim / use_bert_text_cond)", "A10")
         if guidance_embed:
             raise _not_ported("guidance_embed", "A13")
         if block_type != "resnet":
@@ -144,9 +152,16 @@ class Unet3D(nn.Module):
             SinusoidalPosEmb(dim), Linear(dim, time_dim), GELU(), Linear(time_dim, time_dim)
         )
 
+        self.has_cond = cond_dim is not None or use_bert_text_cond
+        cond_dim = BERT_MODEL_DIM if use_bert_text_cond else cond_dim
+        self.cond_dim = cond_dim if self.has_cond else None
+        if self.has_cond:  # redrawn from the caller's generator by reset_parameters
+            self.null_cond_emb = nn.Parameter(self._null_cond_values(torch.Generator().manual_seed(0)))
+        emb_dim = time_dim + (cond_dim if self.has_cond else 0)
+
         def block(din: int, dout: int, time: bool = True) -> ResnetBlock:
             return ResnetBlock(
-                din, dout, time_emb_dim=time_dim if time else None, groups=resnet_groups, dtype=dt
+                din, dout, time_emb_dim=emb_dim if time else None, groups=resnet_groups, dtype=dt
             )
 
         n_res = len(in_out)
@@ -211,12 +226,40 @@ class Unet3D(nn.Module):
                 with torch.no_grad():
                     w = module.weight
                     w.copy_(torch.randn(w.shape, generator=generator) / w.shape[1] ** 0.5)
+        if self.has_cond:
+            with torch.no_grad():
+                self.null_cond_emb.copy_(self._null_cond_values(generator))
 
-    def forward_with_cond_scale(self, x, time, cond=None, cond_scale: float = 1.0):
-        """The unconditioned branch of classifier-free guidance: one plain forward."""
-        if cond is not None:
-            raise _not_ported("conditioning", "A10")
-        return self(x, time)
+    def _null_cond_values(self, generator: torch.Generator) -> torch.Tensor:
+        """Random integers in [1, cond_dim) as float32, shape (1, cond_dim) (JAX :193-201, PARITY #5)."""
+        return torch.randint(1, self.cond_dim, (1, self.cond_dim), generator=generator).float()
+
+    def forward_with_cond_scale(self, x, time, cond=None, cond_scale: float = 1.0, **kwargs) -> torch.Tensor:
+        """Classifier-free guidance, ``null + (cond_out - null) * cond_scale`` in float32 (JAX :315-368).
+
+        Without a condition, or at ``cond_scale == 1``, one forward. Otherwise one
+        forward of 2b rows: ``x``, ``time`` and ``cond`` doubled, the second half
+        given the null embedding (``null_cond_mask = arange(2b) >= b``). A focus
+        mask (fixed math, ``prob_focus_present``) is drawn once for b rows and
+        doubled, so both halves share it. Every tensor is made on x's device, so
+        the call can be captured in a CUDA graph.
+        """
+        if cond_scale == 1 or not self.has_cond:
+            return self(x, time, cond=cond, null_cond_prob=0.0, **kwargs)
+        if cond is None:
+            raise ValueError("cond must be passed in if cond_dim specified")
+        b = x.shape[0]
+        null_mask = torch.arange(2 * b, device=x.device) >= b
+        fpm = kwargs.pop("focus_present_mask", None)
+        prob_fp = kwargs.pop("prob_focus_present", 0.0)
+        if fpm is None and prob_fp != 0.0 and not self.reference_compat:
+            fpm = prob_mask_like((b,), prob_fp, kwargs.get("generator"), x.device)
+        if fpm is not None:
+            fpm = torch.cat([fpm, fpm])
+        out = self(torch.cat([x, x]), torch.cat([time, time]), cond=torch.cat([cond, cond]),
+                   focus_present_mask=fpm, null_cond_mask=null_mask, **kwargs)
+        cond_out, null = out[:b], out[b:]
+        return null + (cond_out - null) * cond_scale
 
     def _resnet(self, block: ResnetBlock, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """A ResNet block of the down, middle or up path (JAX ``_resnet``): checkpointed under ``remat_blocks``.
@@ -298,15 +341,25 @@ class Unet3D(nn.Module):
         xn = block.fn.norm(x.contiguous())
         return x + (sla_ops.fused_spatial_linear_attention_block(xn, wqkv, wo, sla.heads, dim, sla.scale) - xn)
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor, focus_present_mask: torch.Tensor | None = None,
-                prob_focus_present: float = 0.0, generator: torch.Generator | None = None) -> torch.Tensor:
-        """Denoise ``x`` of shape ``(b, c, f, h, w)``; returns ``(b, f, h, w, c)`` float32.
+    def forward(self, x: torch.Tensor, time: torch.Tensor, cond: torch.Tensor | None = None,
+                null_cond_prob: float = 0.0, focus_present_mask: torch.Tensor | None = None,
+                prob_focus_present: float = 0.0, *, generator: torch.Generator | None = None,
+                null_cond_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Denoise ``x`` of shape ``(b, c, f, h, w)``; returns ``(b, f, h, w, c)`` float32 (JAX :517-577).
 
+        ``cond`` (b, cond_dim) is required when the model is conditioned and ignored
+        otherwise. Each sample's condition is swapped for ``null_cond_emb`` where
+        ``null_cond_mask`` (b,) bool is True; without it each sample is dropped with
+        probability ``null_cond_prob`` (all kept at 0, all dropped at 1).
         ``focus_present_mask`` (b,) bool makes a sample's temporal attentions attend only to their
-        own frame; without it each sample is masked with probability ``prob_focus_present``, drawn
-        from ``generator``. Compat math ignores both, as the reference does. The first temporal
-        attention never sees the mask (JAX ``__call__``, :543-552).
+        own frame; without it each sample is masked with probability ``prob_focus_present``. Compat
+        math ignores both focus arguments, as the reference does. The first temporal attention
+        never sees the mask (JAX ``__call__``, :543-552). Both masks are drawn from ``generator``
+        where a probability lies strictly between 0 and 1: the focus mask first, the condition's
+        second.
         """
+        if self.has_cond and cond is None:
+            raise ValueError("cond must be passed in if cond_dim specified")
         if self.reference_compat:
             focus_present_mask = None  # every PreNorm would drop it; nothing is drawn
         elif focus_present_mask is None and prob_focus_present != 0.0:
@@ -318,6 +371,12 @@ class Unet3D(nn.Module):
         x = self._temporal(self.init_temporal_attn, x, pos_bias, None)
         r = x
         t = self.time_mlp(time)
+        if self.has_cond:  # float32 throughout: no cast may come before the concatenation
+            mask = null_cond_mask
+            if mask is None:
+                mask = prob_mask_like((x.shape[0],), null_cond_prob, generator, x.device)
+            cond = torch.where(mask[:, None], self.null_cond_emb, cond.to(t.dtype))
+            t = torch.cat((t, cond), dim=-1)
 
         hs = []
         for block1, block2, spatial_attn, temporal_attn, downsample in self.downs:

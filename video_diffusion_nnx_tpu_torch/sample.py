@@ -6,7 +6,14 @@
 Config -> ``build_models`` -> checkpoint -> sampler -> ``sample_{i}.gif``.
 Samplers: ``ddpm`` (the full chain), ``ddim`` and ``dpm`` (DPM-Solver++(2M)),
 the last two over ``--num-steps``. On the GPU each step replays the
-denoiser's CUDA graph (``diffusion/graphs.py``). The checkpoint is this
+denoiser's CUDA graph (``diffusion/graphs.py``). A text-conditioned model
+(``unet.use_bert_text_cond``) takes ``--text`` (repeat it for one prompt per
+sample; a single prompt is repeated to ``--batch-size``) and
+``--cond-scale``, the classifier-free guidance scale:
+
+    python -m video_diffusion_nnx_tpu_torch.sample --config configs/config_bouncing_digits_cond.yaml \
+        --checkpoint-path step_6000.pt --load-ema-params --sampler ddim --text "two digits" --cond-scale 3
+ The checkpoint is this
 package's file (``convert.save_checkpoint``). It runs on the GPU
 (``--device cuda``, the default) and raises when there is none, unless
 ``--device cpu`` is given.
@@ -39,17 +46,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--eta", type=float, default=0.0, help="DDIM stochasticity")
     p.add_argument("--grid", choices=("linspace", "stride"), default="linspace")
     p.add_argument("--text", type=str, action="append", default=None,
-                   help="text condition (not ported yet)")
+                   help="text condition; repeat for per-sample prompts (needs a conditioned model)")
+    p.add_argument("--cond-scale", type=float, default=1.0, help="classifier-free guidance scale")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
+
+
+def text_condition(text: list[str] | None, batch_size: int, diffusion) -> list[str] | None:
+    """The ``--text`` prompts, one per sample: a single prompt is repeated to ``batch_size`` (JAX root
+    sample.py:98-100). A conditioned model needs them and an unconditioned one refuses them, as the server does."""
+    has_cond = bool(getattr(diffusion.denoise_fn, "has_cond", False))
+    if text is None:
+        if has_cond:
+            raise SystemExit("error: this model is conditioned; give --text")
+        return None
+    if not has_cond:
+        raise SystemExit("error: this model is unconditional; remove --text")
+    if len(text) == 1 and batch_size > 1:
+        text = text * batch_size
+    return text
 
 
 def main(argv=None) -> dict:
     """Run the CLI; returns the GIF paths, the samples (on the CPU), the steps, the seconds and the
     denoiser graphs' captures and replays."""
     args = parse_args(argv)
-    if args.text is not None:
-        raise SystemExit("error: --text (text conditioning) is not ported yet: ROADMAP A10")
 
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config, resolve_device
     from video_diffusion_nnx_tpu_torch.convert import load_checkpoint
@@ -64,6 +85,7 @@ def main(argv=None) -> dict:
         raise SystemExit(f"error: {e}") from None
     diffusion.eval()
     log.info("restored %s (ema=%s)", args.checkpoint_path, args.load_ema_params)
+    cond = text_condition(args.text, args.batch_size, diffusion)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if device.type == "cuda":
@@ -73,16 +95,17 @@ def main(argv=None) -> dict:
         log.info("DDIM sampling: %d steps, eta=%.2f", args.num_steps, args.eta)
         videos = diffusion.ddim_sample(
             batch_size=args.batch_size, num_steps=args.num_steps, eta=args.eta,
-            grid=args.grid, generator=generator,
+            grid=args.grid, generator=generator, cond=cond, cond_scale=args.cond_scale,
         )
         steps = args.num_steps
     elif args.sampler == "dpm":
         log.info("DPM-Solver++(2M) sampling: %d steps", args.num_steps)
         videos = diffusion.dpm_solver_sample(batch_size=args.batch_size, num_steps=args.num_steps,
-                                             generator=generator)
+                                             generator=generator, cond=cond, cond_scale=args.cond_scale)
         steps = args.num_steps
     else:
-        videos = diffusion.sample(batch_size=args.batch_size, generator=generator)
+        videos = diffusion.sample(batch_size=args.batch_size, generator=generator, cond=cond,
+                                  cond_scale=args.cond_scale)
         steps = diffusion.num_timesteps
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -1,8 +1,8 @@
 """Sampling server (counterpart of the JAX package's scripts/serve.py).
 
 Loads a checkpoint once, keeps the denoiser's CUDA graphs warm in the
-sampler's bounded cache (``diffusion/graphs.py``), and serves unconditioned
-video generation over HTTP, standard library only:
+sampler's bounded cache (``diffusion/graphs.py``), and serves video
+generation, unconditioned or text-conditioned, over HTTP, standard library only:
 
     python -m video_diffusion_nnx_tpu_torch.serve --config configs/config_bouncing_digits.yaml \\
         --checkpoint-path ckpt.pt --load-ema-params --port 8080 [--warmup]
@@ -12,7 +12,7 @@ API
 GET  /health  -> {"status": "ok", "device": "cuda", "devices": N, "batching": {...}, "model": {...}}
 POST /sample  (JSON body) ->
     {"batch_size": 2, "sampler": "ddim", "num_steps": 50, "eta": 0.0,
-     "grid": "linspace", "seed": 0}
+     "grid": "linspace", "seed": 0, "text": ["two digits"], "cond_scale": 3.0}
     -> {"gifs": [<base64 GIF per clip>], "time_s": ..., "shape": [...]}
     Default sampler: ddim (the path --warmup captures). "ddpm" runs the
     full T-step chain, "dpm" DPM-Solver++(2M); knobs a sampler would ignore
@@ -20,20 +20,25 @@ POST /sample  (JSON body) ->
 POST /extend  (JSON body) -> frame-conditional generation:
     {"known_npy_b64": <base64 of a .npy (c, f, h, w) float array in [0, 1]>,
      "frame_mask": [true, ..., false], "batch_size": 2, "num_steps": 50,
-     "grid": "linspace", "recon_guidance": 0.0, "seed": 0}
+     "grid": "linspace", "recon_guidance": 0.0, "seed": 0, "text": [...], "cond_scale": 1.0}
     -> the /sample response. num_steps defaults to DDIM-50; an explicit
     null runs the full T-step DDPM chain.
 
-A request with ``text`` gets 400: the port builds no conditioned model yet
-(ROADMAP A10). Device work is serialized behind one lock (one card, one
-sampler at a time): the samplers, the draws of x_T and the graph captures.
+``text`` is a list of prompts: a conditioned model needs it and an
+unconditioned one refuses it (400). One prompt is repeated to
+``batch_size``; a list of several sets the batch size (at most 64), and one
+that disagrees with an explicit ``batch_size`` is refused. Prompts are
+embedded on the host. ``cond_scale`` is the classifier-free guidance scale.
+Device work is serialized behind one lock (one card, one sampler at a time):
+the samplers, the draws of x_T and the graph captures.
 
 Micro-batching: concurrent /sample requests of a deterministic ODE sampler
 (ddim at eta 0, dpm) are coalesced into one batched sampler call. Each
 request's x_T is the first draw of a generator seeded with its seed, exactly
 what a solo ``ddim_sample(generator=...)`` draws, and each output row is a
-function of its own x_T alone, so coalescing changes no request's result
-beyond the arithmetic of another batch size. Coalesced batches pad to the
+function of its own x_T and its own condition alone (a prompt's embedding
+does not depend on the others in its batch), so coalescing changes no
+request's result beyond the arithmetic of another batch size. Coalesced batches pad to the
 next power of two (rows of the batch reused), so each request-shape group
 captures at most log2(max_rows) + 1 graphs. Disable with --no-batching.
 """
@@ -54,6 +59,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from video_diffusion_nnx_tpu_torch.models.text import embed_captions
 
 log = logging.getLogger("serve")
 
@@ -189,8 +196,9 @@ class SamplingService:
 
     def _run_batch(self, group_key, batch) -> np.ndarray:
         """Execute one coalesced sampler call (dispatcher thread); the rows as float32 on the host."""
-        sampler, num_steps, grid, _, _ = group_key
+        sampler, num_steps, grid, cond_scale, _ = group_key
         noise = torch.cat([p.noise for p in batch])
+        cond = None if batch[0].cond is None else torch.cat([p.cond for p in batch])
         n = noise.shape[0]
         # Pad to the next power of two (reusing the batch's own rows) so each
         # group key needs at most log2(max_rows) + 1 graphs.
@@ -199,11 +207,14 @@ class SamplingService:
             if npad > n:
                 reps = -(-(npad - n) // n) + 1
                 noise = torch.cat([noise] * reps)[:npad]
+                if cond is not None:
+                    cond = torch.cat([cond] * reps)[:npad]
             if sampler == "ddim":
                 out = self.model.ddim_sample(batch_size=npad, num_steps=num_steps, eta=0.0, grid=grid,
-                                             init_noise=noise)
+                                             init_noise=noise, cond=cond, cond_scale=cond_scale)
             else:  # dpm
-                out = self.model.dpm_solver_sample(batch_size=npad, num_steps=num_steps, init_noise=noise)
+                out = self.model.dpm_solver_sample(batch_size=npad, num_steps=num_steps, init_noise=noise,
+                                                   cond=cond, cond_scale=cond_scale)
             return out[:n].float().cpu().numpy()
 
     def info(self) -> dict:
@@ -223,16 +234,43 @@ class SamplingService:
                 "channels": m.channels,
                 "timesteps": m.num_timesteps,
                 "prediction_type": m.prediction_type,
-                "has_cond": False,
-                "guidance_embed": False,
+                "has_cond": self._has_cond,
+                "guidance_embed": bool(getattr(m.denoise_fn, "has_guidance_embed", False)),
             },
         }
 
-    @staticmethod
-    def _validate_text(req: dict) -> None:
-        """The port's models are unconditional (text conditioning is ROADMAP A10)."""
-        if req.get("text") is not None:
+    @property
+    def _has_cond(self) -> bool:
+        return bool(getattr(self.model.denoise_fn, "has_cond", False))
+
+    def _validate_text(self, req: dict, batch_size: int) -> tuple[list[str] | None, int]:
+        """The request's prompts and its batch size (JAX ``_validate_text``, scripts/serve.py:270-300).
+
+        A single prompt is broadcast; a prompt list sets the batch size unless the
+        request pinned a conflicting one (the samplers take the batch from the
+        condition, so an unchecked list would bypass the batch cap).
+        """
+        cond = req.get("text")
+        if cond is None:
+            if self._has_cond:
+                raise ValueError("this model is conditioned; provide 'text'")
+            return None, batch_size
+        if not self._has_cond:
             raise ValueError("this model is unconditional; remove 'text'")
+        if not isinstance(cond, list) or not all(isinstance(s, str) for s in cond):
+            raise ValueError("text must be a list of strings")
+        if len(cond) == 1 and batch_size > 1:
+            cond = cond * batch_size
+        if not 1 <= len(cond) <= 64:
+            raise ValueError("text must have 1..64 entries")
+        if len(cond) != batch_size:
+            if "batch_size" in req:
+                raise ValueError(
+                    f"text has {len(cond)} entries but batch_size is {batch_size}; give one prompt, matching "
+                    "prompts, or drop batch_size"
+                )
+            batch_size = len(cond)
+        return cond, batch_size
 
     def _run(self, sample_fn) -> tuple[np.ndarray, float]:
         """Serialize one sampler call; its rows as float32 on the host and its seconds."""
@@ -272,7 +310,7 @@ class SamplingService:
             raise ValueError("grid must be 'linspace' or 'stride'")
         eta = _coerce(req, "eta", float, 0.0)
         seed = _coerce(req, "seed", int, 0)
-        self._validate_text(req)
+        cond, batch_size = self._validate_text(req, batch_size)
         cond_scale = _coerce(req, "cond_scale", float, 1.0)
         # json.loads accepts NaN, which never compares equal to a group key.
         if not (math.isfinite(eta) and math.isfinite(cond_scale)):
@@ -282,21 +320,27 @@ class SamplingService:
         # drawn from the request's seed, as the solo path would draw it.
         if self.batcher is not None and sampler in ("ddim", "dpm") and eta == 0.0:
             m = self.model
+            # The prompts are embedded on the host here; the copy to the card waits for the lock, since a graph
+            # capture in the dispatcher thread allows no other thread's host-to-device copy.
+            embedded = None if cond is None else embed_captions(cond, return_cls_repr=m.text_use_bert_cls)
             with self.lock:
                 noise = torch.randn((batch_size, m.channels, m.num_frames, m.image_size, m.image_size),
                                     generator=self._generator(seed), device=self.device)
+                cond_arr = None if embedded is None else m.embed_cond(embedded)
             t0 = time.perf_counter()
-            rows, group_size, wait_s = self.batcher.submit((sampler, num_steps, grid, cond_scale, False), noise, None)
+            group_key = (sampler, num_steps, grid, cond_scale, cond is not None)
+            rows, group_size, wait_s = self.batcher.submit(group_key, noise, cond_arr)
             return rows, time.perf_counter() - t0, {"coalesced": group_size, "queue_wait_s": round(wait_s, 3)}
 
         def run():
             g = self._generator(seed)
+            kw = {"cond": cond, "cond_scale": cond_scale}
             if sampler == "ddim":
                 return self.model.ddim_sample(batch_size=batch_size, num_steps=num_steps, eta=eta, grid=grid,
-                                              generator=g)
+                                              generator=g, **kw)
             if sampler == "dpm":
-                return self.model.dpm_solver_sample(batch_size=batch_size, num_steps=num_steps, generator=g)
-            return self.model.sample(batch_size=batch_size, generator=g)
+                return self.model.dpm_solver_sample(batch_size=batch_size, num_steps=num_steps, generator=g, **kw)
+            return self.model.sample(batch_size=batch_size, generator=g, **kw)
 
         rows, seconds = self._run(run)
         return rows, seconds, {}
@@ -344,13 +388,15 @@ class SamplingService:
         if wr > 0 and num_steps is None:
             raise ValueError("recon_guidance needs num_steps (the DDIM path)")
         seed = _coerce(req, "seed", int, 0)
-        self._validate_text(req)
+        cond, batch_size = self._validate_text(req, batch_size)
+        if batch_size > 16:
+            raise ValueError("batch_size (incl. inferred from text) must be <= 16")
 
         def run():
             known_b = torch.from_numpy(known.astype(np.float32)).to(self.device)[None]
             return m.sample_conditional_frames(
                 known_b.expand(batch_size, *known.shape), mask, num_steps=num_steps, grid=grid,
-                recon_guidance_weight=wr, generator=self._generator(seed),
+                recon_guidance_weight=wr, generator=self._generator(seed), cond=cond, cond_scale=cond_scale,
             )
 
         return self._run(run)
@@ -441,7 +487,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--host", type=str, default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--warmup", action="store_true",
-                    help="run DDIM-50 at batch 1 (capturing its graph) before accepting traffic")
+                    help="run DDIM-50 at batch 1 (capturing its graph; an empty prompt for a conditioned model) "
+                         "before accepting traffic")
     ap.add_argument("--batch-window", type=float, default=0.05,
                     help="seconds to linger collecting coalescable requests (default 0.05)")
     ap.add_argument("--max-batch-rows", type=int, default=8, help="max samples per coalesced sampler call")
@@ -467,7 +514,9 @@ def build(argv=None) -> ThreadingHTTPServer:
     if args.warmup:
         log.info("warm-up (ddim-50, batch 1)...")
         t0 = time.perf_counter()
-        model.ddim_sample(batch_size=1, num_steps=50, generator=torch.Generator(device=device).manual_seed(0))
+        cond = [""] if getattr(model.denoise_fn, "has_cond", False) else None
+        model.ddim_sample(batch_size=1, num_steps=50, generator=torch.Generator(device=device).manual_seed(0),
+                          cond=cond)
         log.info("warm-up done in %.1fs", time.perf_counter() - t0)
     return create_server(model, args.host, args.port,
                          batch_window_s=None if args.no_batching else args.batch_window,

@@ -1,7 +1,7 @@
 """Trainer: the training loop with Adam, EMA and checkpoints, on one device or one sequence group.
 
 Counterpart of the JAX package's training/trainer.py (:84-475 construction,
-:480-711 the step and the loop) for the unconditioned case, in
+:480-711 the step and the loop), unconditioned or text-conditioned, in
 reference-compat or fixed math, on one device or, in compat math, over a
 sequence-parallel group (``sequence_parallel_size > 1``). Semantics kept
 from it:
@@ -20,7 +20,13 @@ from it:
 * the loss of a step is logged after the next step is queued, so the host
   never waits on the step it has just launched (:656-677).
 * the clips come from a Moving-MNIST ``.npy`` or, where ``dataset_path`` is
-  a folder, from the GIFs under it (``GifVideoDataset``, :334-345).
+  a folder, from the GIFs under it (``GifVideoDataset``, :334-345);
+* with ``use_path_as_cond`` each GIF's file name is its caption, embedded on
+  the host in the loader's thread (``collate_with_text_cond``), and each step
+  passes the embeddings and ``null_cond_prob`` (classifier-free guidance's
+  dropout, drawn from the trainer's generator) to the loss (:227-234,
+  :493-510). ``sample_text`` and ``cond_scale`` are kept for sampling during
+  training, which is not ported (ROADMAP A8).
 
 Full-state Adam (``freeze_schedule_buffers: false``, the default): the ten
 schedule buffers of the diffusion model take part in the loss's autograd
@@ -60,7 +66,7 @@ import torch
 
 from video_diffusion_nnx_tpu_torch.convert import read_checkpoint, save_checkpoint
 from video_diffusion_nnx_tpu_torch.data.gif_dataset import GifVideoDataset
-from video_diffusion_nnx_tpu_torch.data.loader import endless_prefetching_loader
+from video_diffusion_nnx_tpu_torch.data.loader import collate_with_text_cond, endless_prefetching_loader
 from video_diffusion_nnx_tpu_torch.data.moving_mnist import MovingMNIST
 from video_diffusion_nnx_tpu_torch.diffusion.gaussian_diffusion import BUFFER_NAMES
 from video_diffusion_nnx_tpu_torch.training.metrics import create_summary_writer
@@ -162,8 +168,6 @@ class Trainer:
             raise _not_ported("gradient accumulation", "A7")
         if num_model_shards > 1 or param_sharding != "tensor":
             raise _not_ported("model sharding and FSDP", "A15")
-        if use_path_as_cond or sample_text or null_cond_prob:
-            raise _not_ported("text conditioning and its dropout", "A10")
         if flatten_optimizer:
             raise _not_ported("flatten_optimizer (a fused Adam and EMA)", "A7")
         if async_checkpointing:
@@ -185,6 +189,10 @@ class Trainer:
         self.train_num_steps = train_num_steps
         self.batch_size = train_batch_size
         self.max_grad_norm = max_grad_norm
+        self.use_path_as_cond = use_path_as_cond
+        self.null_cond_prob = null_cond_prob
+        self.sample_text = sample_text
+        self.cond_scale = cond_scale
         self.step_start_ema = step_start_ema
         self.update_ema_every = update_ema_every
         self.ema_decay = ema_decay
@@ -210,9 +218,16 @@ class Trainer:
 
         self.image_size = diffusion_model.image_size
         logger.info("Loading dataset from: %s", dataset_path)
-        if Path(dataset_path).is_dir():  # a folder of GIF clips (JAX trainer.py:334-345)
+        collate_fn = None
+        if Path(dataset_path).is_dir():  # a folder of GIF clips, captioned by file name when asked (JAX :334-349)
             self.ds = GifVideoDataset(dataset_path, image_size=self.image_size, channels=diffusion_model.channels,
-                                      num_frames=diffusion_model.num_frames, force_num_frames=True)
+                                      num_frames=diffusion_model.num_frames, force_num_frames=True,
+                                      use_path_as_cond=use_path_as_cond)
+            if use_path_as_cond:
+                collate_fn = collate_with_text_cond
+        elif use_path_as_cond:
+            raise ValueError(f"use_path_as_cond captions clips by their file names: dataset_path {dataset_path} "
+                             "must be a folder of GIFs")
         else:
             self.ds = MovingMNIST(dataset_path, image_size=(self.image_size, self.image_size),
                                   num_frames=diffusion_model.num_frames, force_num_frames=True,
@@ -221,7 +236,7 @@ class Trainer:
         if len(self.ds) < self.batch_size:
             raise ValueError(f"dataset {dataset_path} has {len(self.ds)} clips, fewer than a batch")
         self.dl = endless_prefetching_loader(self.ds, self.batch_size, self.device, seed=rng_seed,
-                                             depth=prefetch_depth)
+                                             depth=prefetch_depth, collate_fn=collate_fn)
 
         self.results_folder = Path(results_folder).resolve()
         self.results_folder.mkdir(exist_ok=True, parents=True)
@@ -268,19 +283,25 @@ class Trainer:
     def checkpoint_path(self, step: int) -> Path:
         return self.checkpoint_dir_path / f"step_{step}.pt"
 
-    def train_step(self, batch: torch.Tensor, t=None, noise=None, prob_focus_present: float = 0.0,
+    def train_step(self, batch, t=None, noise=None, prob_focus_present: float = 0.0,
                    focus_present_mask=None):
-        """One step on ``batch`` ((b, c, f, h, w) in [0, 1]): loss, gradient, clip, Adam, EMA.
+        """One step on ``batch`` ((b, c, f, h, w) in [0, 1], or with ``use_path_as_cond`` the pair of it and the
+        (b, cond_dim) condition): loss, gradient, clip, Adam, EMA.
 
         ``t`` and ``noise`` may be injected; otherwise they come from the
-        trainer's generator, as does the focus mask that ``prob_focus_present``
-        asks for. Under a sequence group ``batch`` (and injected noise) is the
+        trainer's generator, as do the focus mask that ``prob_focus_present``
+        asks for and the condition's dropout (``null_cond_prob``), in that
+        order. Under a sequence group ``batch`` (and injected noise) is the
         whole clip, and the loss returned is summed over the ranks. Returns
         ``(loss, grad_norm)`` as device tensors.
         """
+        cond_kw = {}
+        if self.use_path_as_cond:
+            batch, cond = batch
+            cond_kw = {"cond": cond, "null_cond_prob": self.null_cond_prob}
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.model(batch, generator=self.generator, t=t, noise=noise,
-                          focus_present_mask=focus_present_mask, prob_focus_present=prob_focus_present)
+                          focus_present_mask=focus_present_mask, prob_focus_present=prob_focus_present, **cond_kw)
         loss.backward()
         with torch.no_grad():
             live = [p for p in self.params if p.grad is not None]

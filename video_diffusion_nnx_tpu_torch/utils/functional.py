@@ -1,4 +1,4 @@
-"""Small helpers (counterpart of the JAX package's utils/functional.py:18-45 and :86-108)."""
+"""Small helpers (counterpart of the JAX package's utils/functional.py:18-55, :79-83 and :86-108)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,18 @@ def default(val: T | None, d: T | Callable[[], T]) -> T:
 def is_odd(n: int) -> bool:
     """True iff ``n`` is odd."""
     return n % 2 == 1
+
+
+def is_list_str(x: Any) -> bool:
+    """True iff ``x`` is a list or tuple whose elements are all ``str``."""
+    return isinstance(x, (list, tuple)) and all(type(el) is str for el in x)
+
+
+def get_text_from_path(path: str) -> str:
+    """A caption from a media file's path: its name up to the first dot, with ``-`` and ``_`` as spaces."""
+    out = path.split("/")[-1]
+    out = out.split(".")[0]
+    return out.replace("-", " ").replace("_", " ")
 
 
 def prob_mask_like(shape, prob: float, generator: torch.Generator | None = None, device=None) -> torch.Tensor:
