@@ -82,6 +82,19 @@ in one summary line (``PHASE <name>: ...``):
    with ``--text "two digits" --cond-scale 3``; the extension CLI with text and
    reconstruction guidance 2; the server: a conditioned /sample, two coalesced
    text requests each within 0.02 of its solo run, 400 without text;
+8e. train options (run last, after phase 19): the trainer's options on the flagship recipe
+   through the train CLI, 20-step runs on the train phase's kind of data with a checkpoint every 5
+   steps and the EMA from step 0 (derived keys only): gradient accumulation (A = 2: one step with
+   injected t and noise against the unaccumulated step, the loss within 2% and each gradient tensor
+   within the grads phase's 0.03, exactly twice each kernel's launches, all staged; s/step and peak
+   memory), ``flatten_optimizer`` (the same elementwise step: bit-equal losses, parameters and EMA
+   against the run without it; host launches per step), asynchronous checkpoints (each present and
+   loadable, byte-equal to the synchronous run's, the loop's blocking seconds per save), sampling during training (2 EMA clips
+   at step 10, GIFs checked, losses bit-equal to the run without; also the caption-conditioned
+   recipe with its text at cond_scale 3), the profiler (a Chrome trace of steps 0-4 alone, counted
+   by its kernel events), then all five options together through the CLI with exact launches. The
+   kernels line gives each flagship kernel's launches in one step with and without accumulation
+   (``launches_per_step``, ``launches_per_step_accumulated``) beside the main path's ``launches``;
 9. blockwise: both blockwise (online-softmax) temporal kernels against their
    plain versions at every shape the long-clip Unet3D gives them (batch 1,
    128 frames), at the 256-long bottleneck shape of a 128x128 input and at
@@ -2097,6 +2110,239 @@ def cfg_phase(torch, ops, sample, cond) -> dict:
     return out
 
 
+OPT_STEPS, OPT_CKPT_EVERY, OPT_SAMPLE_AT, OPT_FLUSH, OPT_ACCUMULATE = 20, 5, 10, 5, 2
+# Derived keys of every train options run: a checkpoint every OPT_CKPT_EVERY steps, all kept, the EMA from step 0
+# (so the flat run's EMA is exercised), and no sample or trace unless the run asks for one.
+OPT_BASE = {"step_start_ema": 0, "update_ema_every": 1, "max_to_keep": 0, "save_and_sample_every": 100000,
+            "profile_flush_step": 0}
+TRACE_KERNEL = "temporal_fwd_panel_kernel"  # the staged dense temporal forward: 11 launches per flagship forward
+
+
+def _host_launches(torch, tr, steps: int = 1) -> int:
+    """CUDA kernel launches the host makes in ``steps`` training steps (the runtime's launch calls), after a warm
+    step, counted by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [next(tr.dl) for _ in range(steps + 1)]
+    tr.train_step(batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches[1:]:
+            tr.train_step(b)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel"))
+
+
+def train_options_phase(torch, ops, train) -> dict:
+    """The trainer's options on the flagship recipe at full width (batch 8, bf16, both fused flags), on seeded
+    synthetic data, through the train CLI: gradient accumulation (one step with injected t and noise against the
+    unaccumulated step: the loss within ``LOSS_TOL``, each gradient tensor within ``GRAD_TOL``, exactly twice the
+    launches, all staged; s/step and peak memory over 20 steps), ``flatten_optimizer`` (20 steps bit-equal to the
+    run without it: losses, parameters, EMA; host launches and s/step), asynchronous checkpoints (every 5 steps, each
+    present and loadable, each byte-equal to the synchronous run's; the loop's blocking seconds per save), sampling
+    during training (DDPM of 2 EMA clips at step 10: GIFs of 10 frames of 64x64, the losses bit-equal to the run
+    without; the same for the caption-conditioned recipe at cond_scale 3), the profiler (a trace of steps 0-4 naming
+    the staged temporal forward 55 times), and one run with all five options through the CLI."""
+    import shutil
+
+    import yaml
+    from PIL import Image
+
+    from video_diffusion_nnx_tpu_torch.config import build_trainer, load_config
+    from video_diffusion_nnx_tpu_torch.convert import read_checkpoint
+    from video_diffusion_nnx_tpu_torch.data import bouncing_digits
+
+    raw = yaml.safe_load(CONFIG.read_text())
+    root = SCRATCH / "train_options"
+    if root.is_dir():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    data = bouncing_squares(root / "bouncing_squares.npy")
+    out = {"steps": OPT_STEPS, "batch": B_TRAIN, "checkpoint_every": OPT_CKPT_EVERY, "derived_keys": OPT_BASE}
+
+    def config(name, recipe=raw, dataset=data, **trainer):
+        return _train_config(yaml, recipe, root, dataset, name, steps=OPT_STEPS, ckpt_every=OPT_CKPT_EVERY,
+                             **{**OPT_BASE, **trainer})
+
+    def run(name, recipe=raw, dataset=data, **trainer):
+        path = config(name, recipe, dataset, **trainer)
+        ops.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the reference trainer kept for comparisons
+        tr = train.main(["--config", str(path), "--device", "cuda"])
+        counts, staged = nonzero(ops.launch_counts()), nonzero(ops.staged_launch_counts())
+        losses = tr.loss_trace.tolist()
+        check(len(losses) == OPT_STEPS and all(math.isfinite(v) for v in losses), f"{name}: losses {losses}")
+        sps = (tr.step_starts[-1] - tr.step_starts[5] - sum(v for k, v in tr.save_seconds.items() if k >= 5)
+               - sum(v for k, v in tr.sample_seconds.items() if k >= 5)
+               - (tr.trace_seconds if tr.traced_steps and tr.traced_steps[1] > 5 else 0.0)) / (OPT_STEPS - 5)
+        starts = tr.step_starts
+        step_seconds = [b - a - tr.save_seconds.get(i, 0.0) - tr.sample_seconds.get(i, 0.0)
+                        for i, (a, b) in enumerate(zip(starts, starts[1:]))]
+        info = {"losses": losses, "seconds_per_step": sps, "step_seconds": step_seconds,
+                "peak_memory": torch.cuda.max_memory_allocated() - held, "memory_held_before": held,
+                "launches": counts, "staged_launches": staged,
+                "blocking_save_seconds": {k: v for k, v in tr.save_seconds.items()},
+                "sample_seconds": dict(tr.sample_seconds)}
+        return tr, info
+
+    def same_state(a, b) -> bool:
+        sa, sb = a.model.state_dict(), b.model.state_dict()
+        return (torch.equal(a.loss_trace, b.loss_trace) and all(torch.equal(sa[k], sb[k]) for k in sa)
+                and all(torch.equal(a.ema_state[k], b.ema_state[k]) for k in a.ema_state))
+
+    def largest_gap(a, b) -> float:
+        pairs = [(a.loss_trace, b.loss_trace)] + [(a.ema_state[k], b.ema_state[k]) for k in a.ema_state]
+        return max(((x.float() - y.float()).abs().max() / y.float().abs().max().clamp_min(1e-12)).item()
+                   for x, y in pairs)
+
+    # Gradient accumulation, one step: the same weights, batch, t and noise with and without it.
+    steps1 = {}
+    for name, extra in (("one_step", {}), ("one_step_accumulated", {"enable_gradient_accumulation": True,
+                                                                   "gradient_accumulate_every": OPT_ACCUMULATE})):
+        _, _, tr = build_trainer(load_config(config(name, **extra)), device="cuda")
+        batch = next(tr.dl)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        t = torch.randint(0, tr.model.num_timesteps, (B_TRAIN,), generator=gen, device="cuda")
+        noise = torch.randn(batch.shape, generator=gen, device="cuda")
+        ops.reset_launch_counts()
+        loss, norm = tr.train_step(batch, t=t, noise=noise)
+        torch.cuda.synchronize()
+        steps1[name] = {"loss": loss.item(), "grad_norm": norm.item(), "launches": nonzero(ops.launch_counts()),
+                        "staged": nonzero(ops.staged_launch_counts()),
+                        "grads": {k: p.grad.detach().float().clone() for k, p in tr.model.named_parameters()
+                                  if p.grad is not None}}
+        del tr
+    one, acc = steps1["one_step"], steps1["one_step_accumulated"]
+    floor = GRAD_FLOOR * torch.sqrt(sum(g.square().sum() for g in one["grads"].values())).item()
+    rel = {k: ((acc["grads"][k] - g).norm() / max(g.norm().item(), floor)).item() for k, g in one["grads"].items()}
+    loss_gap = abs(acc["loss"] - one["loss"]) / abs(one["loss"])
+    worst = max(rel, key=rel.get)
+    check(set(acc["grads"]) == set(one["grads"]), "accumulation: the routes give gradients to different tensors")
+    check(loss_gap <= LOSS_TOL, f"accumulation: loss {acc['loss']} against {one['loss']} ({loss_gap} > {LOSS_TOL})")
+    check(rel[worst] <= GRAD_TOL, f"accumulation: gradient of {worst} parts by {rel[worst]} > {GRAD_TOL}")
+    check(one["launches"] == PER_STEP, f"unaccumulated step: launches {one['launches']}, expected {PER_STEP}")
+    check(acc["launches"] == {k: OPT_ACCUMULATE * n for k, n in PER_STEP.items()},
+          f"accumulated step: launches {acc['launches']}, expected {OPT_ACCUMULATE}x {PER_STEP}")
+    for s in (one, acc):
+        check_staged(s["launches"], s["staged"], "train options phase")
+        check(all(s["staged"].get(k, 0) == n for k, n in s["launches"].items()),
+              f"train options phase: staged {s['staged']} of {s['launches']}")
+    out["accumulation_step"] = {"loss": one["loss"], "loss_accumulated": acc["loss"], "loss_gap": loss_gap,
+                                "grad_norm": one["grad_norm"], "grad_norm_accumulated": acc["grad_norm"],
+                                "largest_grad_gap": rel[worst], "largest_grad_gap_tensor": worst,
+                                "launches": one["launches"], "launches_accumulated": acc["launches"]}
+    del steps1, one, acc
+
+    # 20-step runs: the per-tensor synchronous reference, then each option alone.
+    base, out["per_tensor"] = run("per_tensor")
+    accumulated, out["accumulated"] = run("accumulated", enable_gradient_accumulation=True,
+                                          gradient_accumulate_every=OPT_ACCUMULATE)
+    check(out["accumulated"]["launches"] == {k: OPT_ACCUMULATE * n * OPT_STEPS for k, n in PER_STEP.items()},
+          f"accumulated run: launches {out['accumulated']['launches']}")
+    check(out["accumulated"]["staged_launches"] == out["accumulated"]["launches"],
+          f"accumulated run: staged {out['accumulated']['staged_launches']} of {out['accumulated']['launches']}")
+    del accumulated
+
+    flat, out["flat"] = run("flat", flatten_optimizer=True)
+    out["flat"]["bit_equal"] = same_state(flat, base)
+    out["flat"]["largest_relative_gap"] = largest_gap(flat, base)
+    check(out["flat"]["bit_equal"], f"flat optimizer: losses, parameters or EMA differ from the per-tensor run "
+                                    f"(largest relative gap {out['flat']['largest_relative_gap']})")
+    out["flat"]["host_launches_per_step"] = _host_launches(torch, flat, 3) / 3
+    del flat
+    out["per_tensor"]["host_launches_per_step"] = _host_launches(torch, base, 3) / 3
+
+    asynchronous, out["async"] = run("async", async_checkpointing=True)
+    ckpts = list(range(OPT_CKPT_EVERY, OPT_STEPS + 1, OPT_CKPT_EVERY))
+    for tr in (base, asynchronous):
+        check(sorted(int(p.stem[5:]) for p in tr.checkpoint_dir_path.glob("step_*.pt")) == ckpts,
+              f"checkpoints of {tr.checkpoint_dir_path}")
+    for step in ckpts:
+        payload = read_checkpoint(asynchronous.checkpoint_path(step))
+        check(payload["step"] == step, f"async checkpoint {step}: step {payload['step']}")
+        base.model.load_state_dict(payload["model"])  # loadable into the recipe's model
+    check(asynchronous.checkpoint_path(10).read_bytes() == base.checkpoint_path(10).read_bytes(),
+          "async step-10 checkpoint differs from the synchronous one")
+    check(torch.equal(asynchronous.loss_trace, base.loss_trace), "async run: losses differ from the synchronous run")
+    out["async"]["step10_bit_equal"] = True
+    out["async"]["checkpoint_bytes"] = asynchronous.checkpoint_path(10).stat().st_size
+    for name in ("per_tensor", "async"):
+        saves = {k: v for k, v in out[name]["blocking_save_seconds"].items()}
+        out[name]["mean_blocking_save_seconds"] = sum(saves.values()) / len(saves)
+    del asynchronous
+
+    sampled, out["sampled"] = run("sampled", save_and_sample_every=OPT_SAMPLE_AT, num_sample_rows=2)
+    _check_samples(Image, sampled, raw, "sampled run")
+    check(torch.equal(sampled.loss_trace, base.loss_trace), "sampled run: losses differ from the run without")
+    out["sampled"]["peak_added_bytes"] = out["sampled"]["peak_memory"] - out["per_tensor"]["peak_memory"]
+    del sampled
+
+    traced, out["profiled"] = run("profiled", profile_flush_step=OPT_FLUSH)
+    out["profiled"].update(_check_trace(traced, OPT_FLUSH, PER_FORWARD["temporal_attention_fwd"]))
+    check(torch.equal(traced.loss_trace, base.loss_trace), "profiled run: losses differ from the run without")
+    del traced, base
+
+    # The caption-conditioned recipe, sampled with its text at cond_scale 3, against the same run without samples.
+    cond_raw = yaml.safe_load(COND_CONFIG.read_text())
+    gifs = root / "cond_gifs"
+    bouncing_digits.main(["--captioned-gifs", str(gifs), "--frames", str(cond_raw["diffusion"]["num_frames"]),
+                          "--captioned-clips-per-class", str(COND_CLIPS_PER_CLASS)])
+    cond_plain, out["cond"] = run("cond", cond_raw, gifs)
+    cond_sampled, out["cond_sampled"] = run("cond_sampled", cond_raw, gifs, save_and_sample_every=OPT_SAMPLE_AT,
+                                            num_sample_rows=2, sample_text="two digits", cond_scale=3.0)
+    check(cond_sampled.sample_text == "two digits" and cond_sampled.cond_scale == 3.0, "cond sampling keys")
+    _check_samples(Image, cond_sampled, cond_raw, "conditioned sampled run")
+    check(torch.equal(cond_sampled.loss_trace, cond_plain.loss_trace),
+          "conditioned sampled run: losses differ from the run without")
+    del cond_plain, cond_sampled
+
+    # All five options at once, through the train CLI.
+    cli, out["cli_all_options"] = run("all_options", enable_gradient_accumulation=True,
+                                      gradient_accumulate_every=OPT_ACCUMULATE, flatten_optimizer=True,
+                                      async_checkpointing=True, save_and_sample_every=OPT_SAMPLE_AT,
+                                      num_sample_rows=2, profile_flush_step=OPT_FLUSH)
+    check(sorted(int(p.stem[5:]) for p in cli.checkpoint_dir_path.glob("step_*.pt")) == ckpts,
+          "all options: checkpoints")
+    _check_samples(Image, cli, raw, "all options run")
+    out["cli_all_options"].update(_check_trace(cli, OPT_FLUSH, OPT_ACCUMULATE * PER_FORWARD["temporal_attention_fwd"]))
+    # Training launches, then one graph capture of the sample (its warm-up forward and the capture).
+    want = {k: OPT_ACCUMULATE * n * OPT_STEPS + 2 * PER_FORWARD.get(k, 0) for k, n in PER_STEP.items()}
+    check(out["cli_all_options"]["launches"] == want,
+          f"all options: launches {out['cli_all_options']['launches']}, expected {want}")
+    check(sum(out["cli_all_options"]["losses"][-5:]) < sum(out["cli_all_options"]["losses"][:5]),
+          f"all options: the loss did not fall: {out['cli_all_options']['losses']}")
+    del cli
+    return out
+
+
+def _check_samples(Image, tr, recipe: dict, where: str) -> None:
+    d = recipe["diffusion"]
+    check(sorted(tr.sample_paths) == [OPT_SAMPLE_AT] and len(tr.sample_paths[OPT_SAMPLE_AT]) == 2,
+          f"{where}: samples {tr.sample_paths}")
+    for path in tr.sample_paths[OPT_SAMPLE_AT]:
+        img = Image.open(path)
+        check(img.n_frames == d["num_frames"] and img.size == (d["image_size"], d["image_size"]),
+              f"{where}: {path.name} has {img.n_frames} frames of {img.size}")
+    check(len(tr.model.graphs) == 0, f"{where}: a CUDA graph outlived the sample")
+
+
+def _check_trace(tr, flush: int, per_step: int) -> dict:
+    """The run's Chrome trace covers steps 0 to ``flush`` - 1 alone: ``per_step`` launches of the staged temporal
+    forward per step, and a ``train_step#N`` range for each of those steps."""
+    check(tr.trace_path is not None and tr.trace_path.is_file() and tr.traced_steps == (0, flush),
+          f"trace {tr.trace_path}, steps {tr.traced_steps}")
+    events = json.loads(tr.trace_path.read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel" and TRACE_KERNEL in e.get("name", ""))
+    ranges = sorted(e["name"] for e in events  # the host's ranges (the card's projections are gpu_user_annotation)
+                    if e.get("cat") == "user_annotation" and e.get("name", "").startswith("train_step#"))
+    check(kernels == per_step * flush, f"trace: {kernels} launches of {TRACE_KERNEL}, expected {per_step * flush}")
+    check(ranges == [f"train_step#{i}" for i in range(flush)], f"trace: step ranges {ranges}")
+    return {"trace_bytes": tr.trace_path.stat().st_size, "trace_kernel_events": kernels, "traced_steps": flush,
+            "trace_seconds": tr.trace_seconds}
+
+
 def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: dict | None = None,
                      per_step: dict = LONG_PER_STEP, variants=("kernels", "remat_off", "plain")) -> dict:
     """The long-clip recipe (with ``unet`` overrides) through the CLIs: 12 steps at batch 1 on 128-frame
@@ -2593,6 +2839,12 @@ def main(argv: list[str]) -> int:
     seq = timed("seq train", seq_train_phase, torch, train,
                 show=lambda r: {k: v for k, v in r.items() if k != "resumed_losses"})
     timed("seq sample", seq_sample_phase, torch, ops, sample)
+
+    # The trainer's options (gradient accumulation, the flat optimizer, async checkpoints, sampling, the profiler).
+    options = timed("train options", train_options_phase, torch, ops, train, show=lambda r: {
+        "accumulation_step": r["accumulation_step"],
+        **{k: {m: v for m, v in r[k].items() if m not in ("losses", "launches", "staged_launches", "step_seconds")}
+           for k in r if isinstance(r[k], dict) and "seconds_per_step" in r[k]}})
     if only is not None:
         (OUT / "results.json").write_text(json.dumps(results, indent=1, default=str))
         return 0
@@ -2634,6 +2886,9 @@ def main(argv: list[str]) -> int:
         "launches": launches[name], "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"], "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations",
         "library_ms": None, "dtype": dtypes.get(name, "bfloat16"),
+        **({"launches_per_step": options["accumulation_step"]["launches"][name],
+            "launches_per_step_accumulated": options["accumulation_step"]["launches_accumulated"][name]}
+           if name in PER_STEP else {}),
     } for name, a in aggregates.items()]
     check(all(k["launches"] > 0 for k in kernels_line) and len(kernels_line) == len(KERNELS) - len(OFF_PATH) == 16,
           f"a kernel of the main paths was never launched: {[(k['name'], k['launches']) for k in kernels_line]}")

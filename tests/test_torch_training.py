@@ -149,6 +149,11 @@ def test_prefetching_loader_yields_device_tensors(npy_path):
         np.testing.assert_array_equal(batch.numpy(), next(ref))
 
 
+def _group(world: int = 4) -> SequenceGroup:
+    """A rank's view of a group, without a process group behind it: the trainer checks it before any collective."""
+    return SequenceGroup(0, world, "gloo", torch.device("cpu"))
+
+
 def _trainer(model, npy_path, tmp_path, **kw):
     base = dict(dataset_path=npy_path, train_batch_size=2, results_folder=str(tmp_path / "results"),
                 tensorboard_dir=str(tmp_path / "tb"), profile_flush_step=0, freeze_schedule_buffers=True,
@@ -157,16 +162,15 @@ def _trainer(model, npy_path, tmp_path, **kw):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(enable_gradient_accumulation=True), "A7"),
     (dict(num_model_shards=2), "A15"),
     (dict(param_sharding="fsdp"), "A15"),
     (dict(sequence_parallel_size=2, sequence_group=SequenceGroup(0, 4, "gloo", torch.device("cpu"))), "A15"),
-    (dict(flatten_optimizer=True), "A7"),
-    (dict(async_checkpointing=True), "A8"),
-    (dict(freeze_schedule_buffers=False, enable_gradient_accumulation=True, gradient_accumulate_every=4), "A7"),
-    (dict(save_and_sample_every=2), "A8"),
+    (dict(enable_gradient_accumulation=True, sequence_parallel_size=4, sequence_group=_group()), "A15"),
+    (dict(save_and_sample_every=2, sequence_parallel_size=4, sequence_group=_group()), "A15"),
 ])
 def test_unported_options_raise(npy_path, tmp_path, option, item):
+    """Model sharding, FSDP and data parallelism; over a sequence group also gradient accumulation and sampling
+    during training (each of which runs on one device, tests/test_torch_trainer_options.py)."""
     pm = port_model(jax_fixture_model())
     with pytest.raises(NotImplementedError, match=item):
         _trainer(pm, npy_path, tmp_path, **option)
@@ -187,11 +191,6 @@ def test_conditioning_options_of_the_trainer(npy_path, tmp_path, option):
     assert isinstance(batch, torch.Tensor)
     loss, _ = tr.train_step(batch)
     assert bool(torch.isfinite(loss))
-
-
-def _group(world: int = 4) -> SequenceGroup:
-    """A rank's view of a group, without a process group behind it: the trainer checks it before any collective."""
-    return SequenceGroup(0, world, "gloo", torch.device("cpu"))
 
 
 @pytest.mark.parametrize("kw,unet,error", [

@@ -2,15 +2,25 @@
 
 Tolerance: float32 atol 5e-5 on the (b, f, h, w, c) output, for the module
 route and for the fused route (the JAX fused route runs its Pallas kernels in
-interpret mode).
+interpret mode). The bf16 policy (compat math, unconditioned), each route:
+the output within 0.05 of the JAX bf16 result's largest magnitude, and no
+further from the JAX float32 model than 1.5x JAX's own bf16 distance to it
+plus 1% of that magnitude (the gate of tests/test_torch_cond.py; the two bf16
+models part by about 0.1 absolute on an output of largest magnitude 5.06,
+each about 0.1 from float32); the parameter gradients to the same gates in
+norms, over the whole gradient and tensor by tensor (``test_unet_bf16_matches_jax``).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import nnx
 
-from torch_port_helpers import CHANNELS, FRAMES, IMAGE_SIZE, jax_fixture_model, port_model, seeded
+from torch_port_helpers import (CHANNELS, FRAMES, IMAGE_SIZE, flat_nnx_state, jax_fixture_model, port_model,
+                                seeded)
+from video_diffusion_nnx_tpu_torch.convert import state_dict_from_nnx
 from video_diffusion_nnx_tpu.ops import spatial_linear_attention as jsla
 from video_diffusion_nnx_tpu.ops import temporal_attention as jta
 from video_diffusion_nnx_tpu_torch.models import ResnetBlock, Unet3D
@@ -33,6 +43,102 @@ def test_unet_forward_matches_jax(monkeypatch, fused):
     assert got.dtype == torch.float32
     assert tuple(got.shape) == (2, FRAMES, IMAGE_SIZE, IMAGE_SIZE, CHANNELS)
     np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=0)
+
+
+def _jax_output_and_grads(model, x, t, w):
+    """The denoiser's output and the gradient of ``sum(out * w)`` for every parameter, as port keys."""
+    unet = model.denoise_fn
+    graphdef, params, rest = nnx.split(unet, nnx.Param, ...)
+
+    @jax.jit
+    def loss(params):
+        out = nnx.merge(graphdef, params, rest)(jnp.asarray(x), jnp.asarray(t))
+        return (out * jnp.asarray(w)).sum(), out
+
+    (_, out), grads = jax.value_and_grad(loss, has_aux=True)(params)
+    return np.asarray(out), flat_nnx_state(grads)
+
+
+def _as_port(flat_grads, jax_model, port_unet) -> dict[str, np.ndarray]:
+    full = {**flat_nnx_state(nnx.state(jax_model.denoise_fn)), **flat_grads}
+    converted = state_dict_from_nnx(full, port_unet)
+    return {k: converted[k].numpy() for k, _ in port_unet.named_parameters()}
+
+
+def _norm(a: np.ndarray) -> float:
+    return float(np.sqrt(np.square(a.astype(np.float64)).sum()))
+
+
+# The tensors whose bf16 gradient, at this fixture's seeds, lies further than 1.5x JAX's own distance (+1% of the
+# tensor's norm) from float32, with (port, JAX) distances as fractions of the tensor's norm. All are GroupNorm and
+# LayerNorm scales and offsets or a conv bias, of 16-64 elements: per class of tensor the port's distance is a median
+# 0.8-1.3x JAX's (the port closer in about half of each class), so these are the spread of the ratio of two
+# independent rounding errors over few elements, not one cast. Each is held to 2.5x instead.
+BF16_GRAD_OUTLIERS = {
+    False: {"downs.0.0.norm_1.weight": (0.0581, 0.0317), "downs.0.0.norm_2.weight": (0.0399, 0.0166),
+            "downs.1.0.block_1.proj.bias": (0.0897, 0.0375), "downs.1.0.block_1.norm.bias": (0.0617, 0.0303),
+            "downs.1.0.norm_2.bias": (0.0700, 0.0390), "downs.1.1.block_2.norm.bias": (0.0836, 0.0463),
+            "downs.1.1.norm_2.bias": (0.0650, 0.0318), "mid_block2.block_2.norm.weight": (0.0661, 0.0367),
+            "ups.0.0.norm_2.bias": (0.0547, 0.0235), "ups.0.1.norm_2.bias": (0.0410, 0.0196)},
+    True: {"ups.0.0.block_2.norm.bias": (0.0475, 0.0231)},
+}
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["modules", "fused_ops"])
+def test_unet_bf16_matches_jax(monkeypatch, fused):
+    """The compat, unconditioned bf16 policy against JAX's bf16 model and the float32 model (C5).
+
+    The output: within 0.05 of JAX's largest magnitude, and no further from float32 than 1.5x JAX's distance plus
+    1%. The parameter gradients, norm-relative, to the same two gates over the whole gradient, and per tensor each
+    no further from float32 than 1.5x JAX's own bf16 distance for that tensor plus 1% of the tensor's norm (2.5x for
+    the named ``BF16_GRAD_OUTLIERS``). Norms, not max-abs: a tensor's bf16 gradient lies up to 14-17% of its norm
+    from float32 in either package, the errors uncorrelated, so the port and JAX part by more than 5% of a tensor's
+    largest magnitude in a third of the tensors though neither is the nearer to float32. Tensors whose float32
+    gradient is rounding noise (under 1e-4 of the global norm: a key bias under the softmax, a conv bias under a
+    GroupNorm, the pre-norms compat math drops) stay under 1% of the global norm on both sides.
+    """
+    monkeypatch.setattr(jta, "FORCE_INTERPRET", True)
+    monkeypatch.setattr(jsla, "FORCE_INTERPRET", True)
+    flags = dict(use_fused_attention=fused, use_fused_spatial_attention=fused)
+    jm, jm32 = jax_fixture_model(compute_dtype="bfloat16", **flags), jax_fixture_model(**flags)
+    pm = port_model(jm, compute_dtype="bfloat16", **flags)
+    x = seeded((3, CHANNELS, FRAMES, IMAGE_SIZE, IMAGE_SIZE), 4)
+    t = np.array([1, 5, 9], np.int32)
+    w = seeded((3, FRAMES, IMAGE_SIZE, IMAGE_SIZE, CHANNELS), 5)
+    want, j_grads = _jax_output_and_grads(jm, x, t, w)
+    ref, r_grads = _jax_output_and_grads(jm32, x, t, w)
+    out = pm.denoise_fn(torch.from_numpy(x), torch.from_numpy(t).long())
+    (out * torch.from_numpy(w)).sum().backward()
+    got = out.detach().numpy()
+    assert out.dtype == torch.float32
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 0.05 * scale
+    assert np.abs(got - ref).max() <= 1.5 * np.abs(want - ref).max() + 0.01 * scale
+
+    j_grads, r_grads = _as_port(j_grads, jm, pm.denoise_fn), _as_port(r_grads, jm32, pm.denoise_fn)
+    p_grads = {k: np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy()  # off the path in compat math
+               for k, p in pm.denoise_fn.named_parameters()}
+    g, j, r = (np.concatenate([d[k].ravel() for k in p_grads]) for d in (p_grads, j_grads, r_grads))
+    total = _norm(r)
+    assert _norm(g - j) <= 0.05 * _norm(j)
+    assert _norm(g - r) <= 1.5 * _norm(j - r) + 0.01 * total
+    print(f"output: port-jax {np.abs(got - want).max():.4f} on a largest magnitude of {scale:.3f}; to float32: port "
+          f"{np.abs(got - ref).max():.4f}, jax {np.abs(want - ref).max():.4f}. Whole gradient, norm-relative: port-jax "
+          f"{_norm(g - j) / _norm(j):.4f}; to float32: port {_norm(g - r) / total:.4f}, jax {_norm(j - r) / total:.4f}")
+    noise = {k for k in p_grads if _norm(r_grads[k]) < 1e-4 * total}
+    signal = [k for k in p_grads if k not in noise]
+    outliers = BF16_GRAD_OUTLIERS[fused]
+    assert len(signal) > 200 and set(outliers) <= set(signal)
+    readings = {k: (_norm(p_grads[k] - r_grads[k]) / _norm(r_grads[k]),
+                    _norm(j_grads[k] - r_grads[k]) / _norm(r_grads[k])) for k in signal}
+    over = {k: tuple(round(v, 4) for v in pj) for k, pj in readings.items() if pj[0] > 1.5 * pj[1] + 0.01}
+    print(f"per tensor ({len(signal)} with a gradient), to float32 as a fraction of the tensor's norm: largest port "
+          f"{max(p for p, _ in readings.values()):.4f}, jax {max(j for _, j in readings.values()):.4f}; the port "
+          f"closer in {sum(p < j for p, j in readings.values())}; beyond 1.5x JAX + 1%: {over}")
+    for k, (p_rel, j_rel) in readings.items():
+        assert p_rel <= (2.5 if k in outliers else 1.5) * j_rel + 0.01, (k, p_rel, j_rel)
+    for k in noise:
+        assert max(_norm(p_grads[k]), _norm(j_grads[k])) <= 0.01 * total, k
 
 
 def test_unet_bf16_policy_runs_in_bf16_and_returns_f32():
@@ -96,3 +202,4 @@ def test_module_names_follow_the_jax_tree():
     assert "time_mlp.layers.3.weight" in names
     assert "final_conv.layers.0.norm_1.weight" in names
     assert "ups.0.4.weight" in names and "downs.1.4.weight" not in names
+

@@ -83,25 +83,44 @@ def state_dict_from_nnx(flat: Mapping[str, np.ndarray], model: nn.Module) -> dic
     return out
 
 
-def save_checkpoint(path: str | Path, model: nn.Module, ema_state: Mapping | None = None,
-                    optimizer: Mapping | None = None, step: int | None = None) -> Path:
-    """Write ``model``'s state (and optional EMA and optimizer states) as this package's checkpoint file.
+def _to_host(obj):
+    """A copy of ``obj`` with every tensor copied to the CPU (never a view of the original)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, Mapping):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
 
-    The file is written beside its final name and renamed, so a reader never
-    sees half of it.
-    """
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    payload = {
-        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-        "ema_params": None if ema_state is None else {k: v.detach().cpu() for k, v in ema_state.items()},
-        "optimizer": optimizer,
+
+def checkpoint_payload(model: nn.Module, ema_state: Mapping | None = None, optimizer: Mapping | None = None,
+                       step: int | None = None) -> dict:
+    """The contents of a checkpoint file, copied to host memory: later updates of the live tensors leave it as it
+    is, so a background thread may write it."""
+    return {
+        "model": _to_host(model.state_dict()),
+        "ema_params": None if ema_state is None else _to_host(ema_state),
+        "optimizer": _to_host(optimizer),
         "step": step,
     }
+
+
+def write_checkpoint(path: str | Path, payload: Mapping) -> Path:
+    """Write a :func:`checkpoint_payload` to ``path``: beside its final name first, then renamed, so a reader
+    never sees half of it."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(path.name + ".tmp")
-    torch.save(payload, tmp)
+    torch.save(dict(payload), tmp)
     tmp.replace(path)
     return path
+
+
+def save_checkpoint(path: str | Path, model: nn.Module, ema_state: Mapping | None = None,
+                    optimizer: Mapping | None = None, step: int | None = None) -> Path:
+    """Write ``model``'s state (and optional EMA and optimizer states) as this package's checkpoint file."""
+    return write_checkpoint(path, checkpoint_payload(model, ema_state, optimizer, step))
 
 
 def read_checkpoint(path: str | Path) -> dict:

@@ -56,7 +56,10 @@ class DenoiserGraph:
             denoise_fn.forward_with_cond_scale(self.x, self.t, **kw)
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # Thread-local capture: other threads may use the device meanwhile (the trainer's prefetching loader pins
+        # and copies batches while a sample during training captures, the server's request threads while another
+        # request's shape is captured); none of them touches the capturing stream.
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.out = denoise_fn.forward_with_cond_scale(self.x, self.t, **kw)
         self.replays = 0
 

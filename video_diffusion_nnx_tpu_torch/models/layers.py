@@ -1,4 +1,4 @@
-"""Core layers (counterpart of the JAX package's models/layers.py:35-195).
+"""Core layers (counterpart of the JAX package's models/layers.py:35-195, and of its :221 ``Linear`` as ``UniformLinear``).
 
 Activations are channels-last, ``(b, f, h, w, c)``, as in the JAX package.
 Every layer keeps its parameters in float32 and computes in ``dtype`` when
@@ -43,9 +43,23 @@ def compute_dtype(dtype: torch.dtype | None, *tensors: torch.Tensor) -> torch.dt
     return out
 
 
+_TRUNC_STD = 0.87962566103423978  # the std of a unit normal truncated to [-2, 2]
+
+
 def _lecun_normal_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's default kernel init (``jax.nn.initializers.lecun_normal``): a unit normal truncated to [-2, 2], scaled
+    by ``sqrt(1 / fan_in) / 0.8796`` so the variance is ``1 / fan_in``.
+
+    Drawn as ``jax.random.truncated_normal`` draws it: one uniform from ``generator`` per element, mapped through
+    the inverse normal CDF between the bounds' CDFs, then clipped inside the bounds. The draw is float32 on the
+    CPU, so a seed gives the same weights whatever the device and the torch version.
+    """
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
+    z = math.sqrt(2.0) * torch.erfinv(lo + (hi - lo) * u)
+    bound = torch.nextafter(torch.tensor(2.0), torch.tensor(0.0)).item()
     with torch.no_grad():
-        p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+        p.copy_(z.clamp_(-bound, bound) * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
 
 
 class Linear(nn.Module):
@@ -68,6 +82,26 @@ class Linear(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
+
+
+class UniformLinear(nn.Module):
+    """``x @ w + b`` with ``w`` of shape (din, dout) drawn uniform in [0, 1) and a zero bias (the JAX package's
+    ``models/layers.py`` ``Linear``, kept there for API completeness and used only by tests). No compute-dtype
+    policy: the promoted type of ``x`` and ``w``."""
+
+    def __init__(self, din: int, dout: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(din, dout))
+        self.b = nn.Parameter(torch.zeros(dout))
+        self.din, self.dout = din, dout
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.w.copy_(torch.rand(self.w.shape, generator=generator))
+        nn.init.zeros_(self.b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
 
 
 class PointwiseConv(Linear):

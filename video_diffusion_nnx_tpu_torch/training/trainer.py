@@ -1,10 +1,10 @@
 """Trainer: the training loop with Adam, EMA and checkpoints, on one device or one sequence group.
 
 Counterpart of the JAX package's training/trainer.py (:84-475 construction,
-:480-711 the step and the loop), unconditioned or text-conditioned, in
-reference-compat or fixed math, on one device or, in compat math, over a
-sequence-parallel group (``sequence_parallel_size > 1``). Semantics kept
-from it:
+:480-711 the step and the loop, :748-828 checkpoints and samples),
+unconditioned or text-conditioned, in reference-compat or fixed math, on one
+device or, in compat math, over a sequence-parallel group
+(``sequence_parallel_size > 1``). Semantics kept from it:
 
 * Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8) under the
   hold-then-cosine learning rate of ``optax.piecewise_interpolate_schedule``
@@ -13,10 +13,45 @@ from it:
   either way;
 * the EMA ``decay * ema + (1 - decay) * params`` on steps with
   ``step >= step_start_ema and step % update_ema_every == 0`` (:579-595);
+* gradient accumulation (``enable_gradient_accumulation`` with
+  ``gradient_accumulate_every`` A > 1, :521-543): the batch splits into A
+  microbatches of consecutive rows (the condition and any injected t, noise
+  or focus mask with them); each runs its forward and backward, drawing its
+  own t, noise and masks from the trainer's generator in turn, and ``.grad``
+  sums in place; the step then takes the mean loss and the mean gradient
+  (the sum times 1/A) and clips, steps Adam and updates the EMA once;
+* ``flatten_optimizer`` (``optax.flatten``, :204-221, :580-586) is accepted
+  and runs the same step: it changes only how optax lays out Adam's state,
+  and the clip (one global norm), Adam and the EMA are elementwise, so
+  per-tensor ``foreach`` launches compute the flat run's numbers. Parameters,
+  EMA and Adam's moments keep the per-tensor layout in checkpoints either
+  way, so a run with the option resumes from one without it and back;
 * a checkpoint every ``checkpoint_every_steps`` and at the end, one file per
-  step (``convert.save_checkpoint``: parameters, EMA and, with
-  ``save_optimizer_state``, the optimizer), and resume from one; a missing or
-  mismatched optimizer state means a fresh optimizer and a warning;
+  step (``convert.checkpoint_payload``: parameters, EMA and, with
+  ``save_optimizer_state``, the optimizer, copied to host memory), and resume
+  from one; a missing or mismatched optimizer state means a fresh optimizer
+  and a warning. With ``async_checkpointing`` (:748-789) the loop takes the
+  host copy and a background thread writes the file: one write in flight at
+  a time, ``max_to_keep`` pruned after each write. A failed periodic save is
+  logged and training goes on, with or without ``async_checkpointing``; the
+  final save waits for every write and raises if it fails;
+* with ``save_and_sample_every`` in (0, train_num_steps], on steps
+  ``step > 0`` that it divides (:683-693, :795-828), ``num_sample_rows``
+  DDPM samples of the EMA (the whole EMA state, the drifted schedule buffers
+  too under full-state Adam; ``sample_text`` at ``cond_scale`` for a
+  conditioned model) go to ``results/samples/step_{N}/sample_{i}.gif``. The
+  sample draws from a generator of its own (seeded ``rng_seed + 1``), swaps
+  the EMA tensors into the model by reference and back, and drops the CUDA
+  graphs it captured, so the parameters, Adam's state, the trainer's
+  generator and every later loss are what they would have been without it;
+  a failed sample is logged;
+* with ``profile_flush_step > 0`` (:643-654, :697-704) ``torch.profiler``
+  traces the loop from its start until ``step == profile_flush_step`` (or the
+  loop's end, or a sample, which captures CUDA graphs and is not traced),
+  one ``train_step#N`` range around each step, and writes one Chrome trace per
+  run under ``tensorboard_dir``; a profiler that cannot start logs a
+  warning. ``jax.profiler.start_server(9999)`` needs no counterpart: a
+  torch profiler attaches to nothing over the network;
 * the loss of a step is logged after the next step is queued, so the host
   never waits on the step it has just launched (:656-677).
 * the clips come from a Moving-MNIST ``.npy`` or, where ``dataset_path`` is
@@ -25,8 +60,7 @@ from it:
   the host in the loader's thread (``collate_with_text_cond``), and each step
   passes the embeddings and ``null_cond_prob`` (classifier-free guidance's
   dropout, drawn from the trainer's generator) to the loss (:227-234,
-  :493-510). ``sample_text`` and ``cond_scale`` are kept for sampling during
-  training, which is not ported (ROADMAP A8).
+  :493-510).
 
 Full-state Adam (``freeze_schedule_buffers: false``, the default): the ten
 schedule buffers of the diffusion model take part in the loss's autograd
@@ -44,7 +78,9 @@ denoiser, so each rank computes on its own frames and the loss is its
 share. After the backward the gradients are summed over the ranks, before
 the clip, so the norm, Adam and the EMA are bit-equal on every rank; the
 logged loss is the sum of the shares. Rank 0 alone writes checkpoints,
-metrics and logs; every rank reads the checkpoint on resume.
+metrics, logs and the profiler trace; every rank reads the checkpoint on
+resume. Gradient accumulation and sampling during training over a group
+are not ported (ROADMAP A15).
 
 The options this port does not cover raise ``NotImplementedError`` naming
 their ROADMAP item. The batch order comes from
@@ -55,8 +91,11 @@ every rank; timesteps and noise from a ``torch.Generator`` seeded with
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
+import os
+import threading
 import time
 from pathlib import Path
 from typing import Callable
@@ -64,13 +103,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from video_diffusion_nnx_tpu_torch.convert import read_checkpoint, save_checkpoint
+from video_diffusion_nnx_tpu_torch.convert import checkpoint_payload, read_checkpoint, write_checkpoint
 from video_diffusion_nnx_tpu_torch.data.gif_dataset import GifVideoDataset
 from video_diffusion_nnx_tpu_torch.data.loader import collate_with_text_cond, endless_prefetching_loader
 from video_diffusion_nnx_tpu_torch.data.moving_mnist import MovingMNIST
 from video_diffusion_nnx_tpu_torch.diffusion.gaussian_diffusion import BUFFER_NAMES
 from video_diffusion_nnx_tpu_torch.training.metrics import create_summary_writer
 from video_diffusion_nnx_tpu_torch.utils.grad import clip_grad_norm, global_l2_norm
+from video_diffusion_nnx_tpu_torch.utils.media import write_sample_gifs
 
 logger = logging.getLogger(__name__)
 
@@ -112,6 +152,38 @@ class _NullWriter:
 
     def close(self) -> None:
         pass
+
+
+class CheckpointWriter:
+    """Writes checkpoint files from host copies on a background thread, one write in flight at a time."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self.path: Path | None = None  # the file being written, until ``wait`` returns
+
+    def submit(self, path: Path, payload: dict, after: Callable[[], None]) -> None:
+        """Wait for the write in flight, then write ``payload`` to ``path`` and call ``after`` on a thread.
+
+        A failed write is logged (a periodic save never stops training, JAX trainer.py:786-789).
+        """
+        self.wait()
+
+        def run():
+            try:
+                write_checkpoint(path, payload)
+                after()
+                logger.info("Wrote checkpoint %s", path)
+            except Exception as e:
+                logger.error("Error saving checkpoint %s: %s", path, e)
+
+        self.path = path
+        self._thread = threading.Thread(target=run, name=f"checkpoint-{path.stem}")
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+        self._thread, self.path = None, None
 
 
 class Trainer:
@@ -161,29 +233,28 @@ class Trainer:
         async_checkpointing: bool = False,
         null_cond_prob: float = 0.0,
         freeze_schedule_buffers: bool = False,
-        flatten_optimizer: bool = False,
+        flatten_optimizer: bool = False,  # the same step either way: see the module docstring
         sequence_group=None,
     ):
-        if enable_gradient_accumulation and gradient_accumulate_every > 1:
-            raise _not_ported("gradient accumulation", "A7")
         if num_model_shards > 1 or param_sharding != "tensor":
             raise _not_ported("model sharding and FSDP", "A15")
-        if flatten_optimizer:
-            raise _not_ported("flatten_optimizer (a fused Adam and EMA)", "A7")
-        if async_checkpointing:
-            raise _not_ported("asynchronous checkpointing", "A8")
-        # The loop's steps run from 0 to train_num_steps - 1, and a sample is due at a positive multiple
-        # of save_and_sample_every (JAX trainer.py:687-693): the default, 100000 at 100000 steps, asks for none.
-        if save_and_sample_every and 0 < save_and_sample_every < train_num_steps:
-            raise _not_ported("sampling during training (save_and_sample_every)", "A8")
-        if profile_flush_step > 0:
-            logger.info("profile_flush_step=%d: the profiler trace is not ported (ROADMAP A8); "
-                        "scripts/torch_profile_step.py profiles a step", profile_flush_step)
+        self.accumulate = gradient_accumulate_every if enable_gradient_accumulation else 1
+        if self.accumulate > 1 and train_batch_size % self.accumulate:
+            raise ValueError(f"train_batch_size {train_batch_size} must divide into gradient_accumulate_every "
+                             f"{self.accumulate} microbatches")
+        # A sample is due at each positive multiple of save_and_sample_every that the loop's steps, 0 to
+        # train_num_steps - 1, reach (JAX trainer.py:687-693): the default, 100000 at 100000 steps, asks for none.
+        self.save_and_sample_every = save_and_sample_every
+        samples_due = bool(save_and_sample_every) and 0 < save_and_sample_every < train_num_steps
+        grouped = sequence_parallel_size > 1 or sequence_group is not None
+        for on, what in ((self.accumulate > 1, "gradient accumulation"), (samples_due, "sampling during training")):
+            if on and grouped:
+                raise _not_ported(f"{what} over a sequence group", "A15")
 
         self.model = diffusion_model
         self.device = diffusion_model.device
         self.sequence_group = sequence_group
-        if sequence_parallel_size > 1 or sequence_group is not None:
+        if grouped:
             self._attach_sequence_group(sequence_parallel_size)
         self.is_main = sequence_group is None or sequence_group.rank == 0
         self.train_num_steps = train_num_steps
@@ -193,6 +264,8 @@ class Trainer:
         self.null_cond_prob = null_cond_prob
         self.sample_text = sample_text
         self.cond_scale = cond_scale
+        self.num_sample_rows = num_sample_rows
+        self.samples_due = samples_due
         self.step_start_ema = step_start_ema
         self.update_ema_every = update_ema_every
         self.ema_decay = ema_decay
@@ -200,6 +273,8 @@ class Trainer:
         self.checkpoint_every_steps = checkpoint_every_steps
         self.max_to_keep = max_to_keep
         self.save_optimizer_state = save_optimizer_state
+        self.async_checkpointing = async_checkpointing
+        self.profile_flush_step = profile_flush_step
         self.add_loss_plot = add_loss_plot
         self.lr_schedule = lr_schedule(train_lr, lr_decay_start_step, lr_decay_steps, lr_decay_coeff)
 
@@ -210,11 +285,13 @@ class Trainer:
             trained += list(BUFFER_NAMES)
         state = self.model.state_dict(keep_vars=True)
         self.params = [state[k] for k in trained]
-        self.optimizer = self._new_optimizer(train_lr)
-        self.opt_count = 0  # optax's update count, which the learning rate is read at
         self.ema_state = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
         self._ema_params = [self.ema_state[k] for k in trained]
+        self.optimizer = self._new_optimizer(train_lr)
+        self.opt_count = 0  # optax's update count, which the learning rate is read at
         self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
+        # Samples draw from their own stream, as JAX's sample_batch splits self.key and not the loop's key.
+        self.sample_generator = torch.Generator(device=self.device).manual_seed(rng_seed + 1)
 
         self.image_size = diffusion_model.image_size
         logger.info("Loading dataset from: %s", dataset_path)
@@ -247,12 +324,19 @@ class Trainer:
                                 else self.results_folder / "tensorboard")
         self.tensorboard_dir.mkdir(exist_ok=True, parents=True)
         self.writer = create_summary_writer(str(self.tensorboard_dir)) if self.is_main else _NullWriter()
+        self.checkpoint_writer = CheckpointWriter()
 
         self.step = resume_training_step
         if self.step > 0:
             self._resume()
         self.step_starts: list[float] = []  # host clock at the start of each step of the loop
-        self.save_seconds: dict[int, float] = {}  # host seconds of each checkpoint write inside the loop
+        self.save_seconds: dict[int, float] = {}  # host seconds the loop blocked on each checkpoint inside it
+        self.sample_seconds: dict[int, float] = {}  # host seconds of each sample inside the loop
+        self.sample_paths: dict[int, list[Path]] = {}
+        self.profiler = None
+        self.trace_path: Path | None = None  # the Chrome trace of the last run, once written
+        self.traced_steps: tuple[int, int] | None = None  # [first, end) of the steps it covers
+        self.trace_seconds = 0.0  # host seconds to stop the profiler and write the trace
         # Every step's loss, kept on the device (no host sync); NaN for steps not run here.
         self.loss_trace = torch.full((train_num_steps,), float("nan"), device=self.device)
 
@@ -277,8 +361,7 @@ class Trainer:
     # Steps.
 
     def _new_optimizer(self, lr: float) -> torch.optim.Adam:
-        return torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                foreach=self.device.type == "cuda")
+        return torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, foreach=self.device.type == "cuda")
 
     def checkpoint_path(self, step: int) -> Path:
         return self.checkpoint_dir_path / f"step_{step}.pt"
@@ -291,27 +374,42 @@ class Trainer:
         ``t`` and ``noise`` may be injected; otherwise they come from the
         trainer's generator, as do the focus mask that ``prob_focus_present``
         asks for and the condition's dropout (``null_cond_prob``), in that
-        order. Under a sequence group ``batch`` (and injected noise) is the
-        whole clip, and the loss returned is summed over the ranks. Returns
-        ``(loss, grad_norm)`` as device tensors.
+        order, microbatch by microbatch under gradient accumulation. Under a
+        sequence group ``batch`` (and injected noise) is the whole clip, and
+        the loss returned is summed over the ranks. Returns ``(loss,
+        grad_norm)`` as device tensors: the mean over the microbatches, and
+        the norm of the mean gradient before the clip.
         """
-        cond_kw = {}
+        cond = None
         if self.use_path_as_cond:
             batch, cond = batch
-            cond_kw = {"cond": cond, "null_cond_prob": self.null_cond_prob}
+        a = self.accumulate
+        if batch.shape[0] % a:
+            raise ValueError(f"a batch of {batch.shape[0]} rows does not split into {a} microbatches")
+        rows = batch.shape[0] // a
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model(batch, generator=self.generator, t=t, noise=noise,
-                          focus_present_mask=focus_present_mask, prob_focus_present=prob_focus_present, **cond_kw)
-        loss.backward()
+        loss_sum = None
+        for i in range(a):
+            def part(v):
+                return v if v is None or a == 1 else v[i * rows:(i + 1) * rows]
+
+            cond_kw = {} if cond is None else {"cond": part(cond), "null_cond_prob": self.null_cond_prob}
+            loss = self.model(part(batch), generator=self.generator, t=part(t), noise=part(noise),
+                              focus_present_mask=part(focus_present_mask), prob_focus_present=prob_focus_present,
+                              **cond_kw)
+            loss.backward()
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
         with torch.no_grad():
+            loss = loss_sum if a == 1 else loss_sum * (1.0 / a)
             live = [p for p in self.params if p.grad is not None]
-            grads = [p.grad for p in live]
+            if a > 1:
+                torch._foreach_mul_([p.grad for p in live], 1.0 / a)
             if self.sequence_group is not None:  # each rank holds its share of the gradient: sum them
-                flat = self.sequence_group.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
-                grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
-                for p, g in zip(live, grads):
-                    p.grad = g
-                loss = self.sequence_group.all_reduce(loss.detach())
+                flat = self.sequence_group.all_reduce(torch.cat([p.grad.reshape(-1) for p in live]))
+                for p, f in zip(live, flat.split([p.numel() for p in live])):
+                    p.grad = f.view_as(p)
+                loss = self.sequence_group.all_reduce(loss)
+            grads = [p.grad for p in live]
             if self.max_grad_norm is not None:
                 clipped, grad_norm = clip_grad_norm(grads, self.max_grad_norm)
                 for p, g in zip(live, clipped):
@@ -326,7 +424,7 @@ class Trainer:
             if self.step >= self.step_start_ema and self.step % self.update_ema_every == 0:
                 torch._foreach_mul_(self._ema_params, self.ema_decay)
                 torch._foreach_add_(self._ema_params, self.params, alpha=1.0 - self.ema_decay)
-        return loss.detach(), grad_norm
+        return loss, grad_norm
 
     def train(self, prob_focus_present: float = 0.0, log_fn: Callable = lambda _: None) -> None:
         """Run the loop from ``self.step`` to ``train_num_steps``, then save the final checkpoint.
@@ -336,12 +434,16 @@ class Trainer:
         """
         logger.info("Starting training loop from step %d...", self.step)
         self.model.train()
+        if self.profile_flush_step > 0 and self.is_main:
+            self._start_profiler()
         pending = None
         last = time.time()
         while self.step < self.train_num_steps:
             self.step_starts.append(time.perf_counter())
             batch = next(self.dl)
-            loss, grad_norm = self.train_step(batch, prob_focus_present=prob_focus_present)
+            with (torch.profiler.record_function(f"train_step#{self.step}") if self.profiler is not None
+                  else contextlib.nullcontext()):
+                loss, grad_norm = self.train_step(batch, prob_focus_present=prob_focus_present)
             self.loss_trace[self.step] = loss
             now = time.time()
             self.writer.add_scalar("step_time", now - last, self.step)
@@ -353,17 +455,32 @@ class Trainer:
                 pending = (self.step, loss, grad_norm, self.lr_schedule(self.step))
             if self.step > 0 and self.step % self.checkpoint_every_steps == 0:
                 logger.info("Step: %d | Saving checkpoint...", self.step)
-                self._synchronize()  # the save waits on the queued step anyway; time the write alone
+                self._synchronize()  # the save waits on the queued step anyway; time the save alone
                 t0 = time.perf_counter()
-                self.save()
+                try:
+                    self.save(wait=not self.async_checkpointing)
+                except Exception as e:  # a periodic save never stops training (JAX :786-789)
+                    logger.error("Error saving checkpoint at step %d: %s", self.step, e)
                 self.save_seconds[self.step] = time.perf_counter() - t0
+            if self.samples_due and self.step > 0 and self.step % self.save_and_sample_every == 0:
+                if self.profiler is not None:  # a sample captures CUDA graphs: end the trace first
+                    self._stop_profiler()
+                self._synchronize()
+                t0 = time.perf_counter()
+                self._sample_and_save()
+                self.sample_seconds[self.step] = time.perf_counter() - t0
             self.step += 1
+            if self.profiler is not None and self.step == self.profile_flush_step:
+                self._stop_profiler()
         if pending is not None:
             self._log(*pending, log_fn)
+        if self.profiler is not None:
+            self._stop_profiler()
         self._synchronize()
         self.step_starts.append(time.perf_counter())
         logger.info("Training completed! Saving final checkpoint...")
-        self.save()
+        self.checkpoint_writer.wait()
+        self.save()  # a failed final save raises
         self._write_loss_plot()
         self.writer.close()
 
@@ -381,28 +498,108 @@ class Trainer:
         self.writer.add_scalar("lr/train", lr, step)
         self.writer.add_scalar("grad_norm/train", norm_v, step)
 
+    # The profiler trace.
+
+    def _start_profiler(self) -> None:
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            profiler = profile(activities=activities)
+            profiler.start()
+        except Exception as e:  # tracing never stops training
+            logger.warning("profiler trace not started: %s", e)
+            return
+        self.profiler, self._trace_from = profiler, self.step
+        logger.info("Profiler trace started at step %d; flushing at step %d.", self.step, self.profile_flush_step)
+
+    def _stop_profiler(self) -> None:
+        profiler, self.profiler = self.profiler, None
+        t0 = time.perf_counter()
+        try:
+            profiler.stop()
+            path = self.tensorboard_dir / f"trace_{time.strftime('%Y%m%d-%H%M%S')}_{os.getpid()}.json"
+            profiler.export_chrome_trace(str(path))
+        except Exception as e:
+            logger.warning("profiler trace not written: %s", e)
+            return
+        self.trace_seconds = time.perf_counter() - t0
+        self.trace_path, self.traced_steps = path, (self._trace_from, self.step)
+        logger.info("Profiler trace of steps %d-%d written to %s", self._trace_from, self.step - 1, path)
+
+    # Samples.
+
+    def sample_batch(self, batch_size: int, use_ema: bool = True, generator: torch.Generator | None = None):
+        """DDPM samples, (b, c, f, h, w) in [0, 1], of the EMA state (``use_ema``) or the live one (JAX :809-828).
+
+        Draws from ``generator``, else the trainer's own sample generator. The
+        EMA tensors stand in for the live ones by reference (``.data``), and
+        the live ones come back afterwards; the CUDA graphs captured meanwhile
+        are dropped, so none outlives the sample or points at the EMA.
+        """
+        gen = self.sample_generator if generator is None else generator
+        kw = {}
+        if self.sample_text:
+            kw = {"cond": [self.sample_text] * batch_size, "cond_scale": self.cond_scale}
+        state = self.model.state_dict(keep_vars=True)
+        swapped = []
+        try:
+            with torch.no_grad():
+                if use_ema:
+                    for k, ema in self.ema_state.items():
+                        swapped.append((state[k], state[k].data))
+                        state[k].data = ema
+                return self.model.sample(batch_size=batch_size, generator=gen, **kw)
+        finally:
+            for live, data in swapped:
+                live.data = data
+            self.model.graphs.clear()
+
+    def _sample_and_save(self) -> None:
+        """Write ``num_sample_rows`` EMA samples to ``results/samples/step_{N}/sample_{i}.gif``; a failure is
+        logged (JAX ``_sample_and_save``, :795-807)."""
+        try:
+            videos = self.sample_batch(self.num_sample_rows)
+            out_dir = self.results_folder / "samples" / f"step_{self.step}"
+            self.sample_paths[self.step] = write_sample_gifs(videos, out_dir)
+            logger.info("Step: %d | Wrote %d sample GIFs to %s", self.step, self.num_sample_rows, out_dir)
+        except Exception as e:
+            logger.error("Error sampling at step %d: %s", self.step, e)
+
     # Checkpoints.
 
-    def save(self) -> Path | None:
-        """Write this step's checkpoint file, unless it exists (a resumed step); keep ``max_to_keep``.
+    def save(self, wait: bool = True) -> Path | None:
+        """Save this step's checkpoint, unless its file exists or is being written (a resumed step).
 
-        Only rank 0 of a sequence group writes (the ranks' states are bit-equal).
+        The state is copied to host memory here. With ``wait`` the file is
+        written before this returns (after any write in flight); otherwise a
+        background thread writes it. ``max_to_keep`` files are kept, counted
+        after each write. Only rank 0 of a sequence group writes (the ranks'
+        states are bit-equal).
         """
         if not self.is_main:
             return None
         path = self.checkpoint_path(self.step)
-        if path.exists():
+        if path.exists() or self.checkpoint_writer.path == path:
             logger.info("Checkpoint for step %d already exists; skipping save", self.step)
             return None
         optimizer = None
         if self.save_optimizer_state:
             optimizer = {"adam": self.optimizer.state_dict(), "count": self.opt_count}
-        save_checkpoint(path, self.model, self.ema_state, optimizer=optimizer, step=self.step)
+        payload = checkpoint_payload(self.model, self.ema_state, optimizer=optimizer, step=self.step)
+        if wait:
+            self.checkpoint_writer.wait()
+            write_checkpoint(path, payload)
+            self._prune()
+        else:
+            self.checkpoint_writer.submit(path, payload, self._prune)
+        return path
+
+    def _prune(self) -> None:
         if self.max_to_keep:
             kept = sorted(self.checkpoint_dir_path.glob("step_*.pt"), key=lambda p: int(p.stem[5:]))
             for old in kept[:-self.max_to_keep]:
                 old.unlink()
-        return path
 
     def _resume(self) -> None:
         path = self.checkpoint_path(self.step)
