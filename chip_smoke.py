@@ -54,14 +54,14 @@ in one summary line (``PHASE <name>: ...``):
    (batch 8) with the kernels, against the plain modules, both against f32;
    controls: the same checks catch an attention backward that is off;
 8. train: ``video_diffusion_nnx_tpu_torch.train.main`` on the flagship
-   config with a seeded synthetic dataset, 30 steps at batch 8: the loss
+   config with a seeded synthetic dataset, 20 steps at batch 8: the loss
    falls, checkpoints are written, a resume from the middle one continues,
    every kernel's launches per step are exact; seconds per step (checkpoint
    writes left out) and peak memory; the same steps through the plain
    modules (fused flags off), whose losses agree step by step; the trained
    checkpoint samples through the sampling CLI (DDIM-10);
 8b. digits: the flagship eval (``eval_bouncing_digits.evaluate``) on that
-   run's step-30 checkpoint, with 64 train and 16 holdout clips of real
+   run's step-20 checkpoint, with 64 train and 16 holdout clips of real
    handwritten digits from the port's generator (``data/bouncing_digits.py``)
    at the recipe's shape: 8 eval clips, reconstructions at T/8, T/4, T/2 for
    the trained and the untrained model, DDIM-50 at batch 8, no DDPM; every
@@ -83,7 +83,7 @@ in one summary line (``PHASE <name>: ...``):
    reconstruction guidance 2; the server: a conditioned /sample, two coalesced
    text requests each within 0.02 of its solo run, 400 without text;
 8e. train options (run last, after phase 19): the trainer's options on the flagship recipe
-   through the train CLI, 20-step runs on the train phase's kind of data with a checkpoint every 5
+   through the train CLI, 15-step runs on the train phase's kind of data with a checkpoint every 5
    steps and the EMA from step 0 (derived keys only): gradient accumulation (A = 2: one step with
    injected t and noise against the unaccumulated step, the loss within 2% and each gradient tensor
    within the grads phase's 0.03, exactly twice each kernel's launches, all staged; s/step and peak
@@ -95,6 +95,23 @@ in one summary line (``PHASE <name>: ...``):
    by its kernel events), then all five options together through the CLI with exact launches. The
    kernels line gives each flagship kernel's launches in one step with and without accumulation
    (``launches_per_step``, ``launches_per_step_accumulated``) beside the main path's ``launches``;
+8f. dit kernels, dit d1, dit d2, dit train, dit cond (run before train options): the VideoDiT family at
+   two recipes, derived in code: D1, configs/config_bouncing_digits.yaml with the DiT of
+   scripts/ab_dit_fused.py:35-39 (dim 256, depth 6, 8 heads of 32, patch 4) at 16 frames, and D2,
+   bench.py's do_dit shape (dim 384, depth 8, 6 heads of 64, patch 8, 10 frames, batch 4). Every
+   attention of both hands the temporal op float32; each call's kernel and route are
+   ``temporal_plan``'s for this card, and every launch is checked against them. dit kernels: the four
+   attention shapes of each recipe (D1 at batch 8) in float32 against their plain versions, with times
+   and bounds per step; dit d1 / d2: the recipe's forward and one loss with its backward through the
+   kernels against the plain modules and float32 on one batch (the adaLN and output weights drawn at
+   std 0.05 first: they start at zero, and then no attention has a gradient), the loss within 2%, the
+   gradients to the grads phase's gates with its largest control fault caught, every attention weight's
+   gradient nonzero; D2 also DDIM-10 at batch 4, graphed against eager; dit train: D1 through the train
+   CLI (8 steps at batch 8 on 16-frame squares, checkpoints every 4, a resume), the sampling CLI's
+   DDIM-50 and DPM-20 at batch 8 (graphed; DDIM-50 bit-equal to the eager sampler), and the server
+   with 2 batch-1 DDIM-50 clients against their solo runs and against serial; dit cond: D1 on captions
+   (hashed bag of words, dropout 0.2), 10 train CLI steps on 16-frame captioned clips, then the
+   sampling CLI with ``--text`` at cond_scale 3, each kernel launch on 2b rows;
 9. blockwise: both blockwise (online-softmax) temporal kernels against their
    plain versions at every shape the long-clip Unet3D gives them (batch 1,
    128 frames), at the 256-long bottleneck shape of a 128x128 input and at
@@ -163,12 +180,12 @@ in one summary line (``PHASE <name>: ...``):
     C entries report); CUDA-event times per call and per step against the
     bound;
 18. seq train: the train CLI's rank function on that recipe (derived keys
-    only: a seeded 32-frame dataset, 6 steps, a checkpoint every 3): 4 ranks
+    only: a seeded 32-frame dataset, 4 steps, a checkpoint every 2): 4 ranks
     sharing cuda:0 over gloo, named explicitly. First a 4-rank all-gather of a
     (2, 4096, 8, 256) bf16 panel through the group. Then exact launches per
     rank per step (10 + 10 cross kernels, nothing else, all staged), the ranks'
     parameters bit-equal, ``sqrt_alphas_cumprod`` drifted and
-    ``alphas_cumprod`` bit-exact (full-state Adam), a resume from step 3; the
+    ``alphas_cumprod`` bit-exact (full-state Adam), a resume from step 2; the
     per-step loss against a 1-rank run of the same recipe (temporal attention
     through the modules) within a gate derived from a control (the 1-rank
     run with the dense temporal kernels), which the 4-rank losses scaled by
@@ -183,7 +200,10 @@ in one summary line (``PHASE <name>: ...``):
     bf16), "cuda-core" where each ran the first version, both where the
     shapes split, as the C entries reported each launch). The biased wide
     pair, which no recipe reaches, is held in the wide phase and reported in
-    results.json apart from the line.
+    results.json apart from the line. Each entry's ``dit`` field holds its
+    launches in the DiT runs (D1's training, the conditioned D1's, one D2
+    step) and, for the kernels of the DiT path, its float32 times per step
+    at each recipe's shapes.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. ``--only kernels,long sla`` runs the device check, the
@@ -226,7 +246,7 @@ CTX_GAIN = 2.0 ** 12
 HEADS, DIM_HEAD = 8, 32
 B = 2  # the kernel phase's batch
 B_TRAIN = 8  # the flagship training batch
-TRAIN_STEPS, CKPT_EVERY = 30, 10
+TRAIN_STEPS, CKPT_EVERY = 20, 10
 # Unet gradients, relative norms: per tensor (kernels vs plain modules), the margin over 1.5x the plain
 # route's distance to f32 (whole gradient), and the floor of a denominator (share of the whole norm).
 GRAD_TOL, GRAD_MARGIN, GRAD_FLOOR = 0.03, 0.005, 1e-3
@@ -377,7 +397,7 @@ SEQ_WORLD, SEQ_FL, SEQ_FG = 4, 8, 32
 SEQ_CROSS_SHAPES = [(3, (4096, 32)), (1, (1024, 64)), (1, (1024, 32)), (1, (256, 128)), (1, (256, 64)),
                     (2, (64, 256)), (1, (64, 128))]
 SEQ_PER_STEP = {"cross_attention_fwd": 10, "cross_attention_bwd": 10}
-SEQ_STEPS, SEQ_CKPT_EVERY, SEQ_CLIPS = 6, 3, 16
+SEQ_STEPS, SEQ_CKPT_EVERY, SEQ_CLIPS = 4, 2, 16  # 4 steps (a rank-step takes about 3.7 s on one card)
 SEQ_GATHER_PANEL = (2, 4096, 8, 256)  # one rank's K panel at the widest level, bf16
 SEQ_CONTROL_OFF = 0.01  # the 4-rank losses scaled by 1 + this must fail the loss gate
 SEQ_GATE_MARGIN = 0.001  # added to 1.5x the control's relative loss gap
@@ -1702,7 +1722,7 @@ def _seconds_per_step(trainer, warmup: int = 5) -> tuple[float, float]:
 
 def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | None = None,
                 per_step: dict = PER_STEP, ddim_steps: int = 10) -> dict:
-    """The flagship recipe (with ``unet`` overrides) through the CLIs: 30 steps at batch 8, a resume, the
+    """The flagship recipe (with ``unet`` overrides) through the CLIs: 20 steps at batch 8, a resume, the
     same steps through the plain modules, then DDIM from the trained checkpoint."""
     import yaml
     from PIL import Image
@@ -1792,7 +1812,7 @@ DIGITS_CLIPS, DIGITS_HOLDOUT, DIGITS_EVAL_CLIPS = 64, 16, 8
 
 
 def digits_phase(torch, ops) -> dict:
-    """The flagship eval on the train phase's step-30 checkpoint: data from the port's bouncing-digits
+    """The flagship eval on the train phase's step-20 checkpoint: data from the port's bouncing-digits
     generator at the recipe's shape (64 train, 16 holdout clips of 16 frames), ``evaluate`` with 8 clips and
     no DDPM, every stat finite, the GIFs written, every forward launch of its loss, reconstruction and DDIM-50
     counted and staged. The quality claims (``check``) need the full run and are not applied here."""
@@ -2110,7 +2130,9 @@ def cfg_phase(torch, ops, sample, cond) -> dict:
     return out
 
 
-OPT_STEPS, OPT_CKPT_EVERY, OPT_SAMPLE_AT, OPT_FLUSH, OPT_ACCUMULATE = 20, 5, 10, 5, 2
+# 15 steps a run: a checkpoint every 5, a sample at step 10 and a trace of steps 0-4 fit, and the whole script stays
+# within 600 s.
+OPT_STEPS, OPT_CKPT_EVERY, OPT_SAMPLE_AT, OPT_FLUSH, OPT_ACCUMULATE = 15, 5, 10, 5, 2
 # Derived keys of every train options run: a checkpoint every OPT_CKPT_EVERY steps, all kept, the EMA from step 0
 # (so the flat run's EMA is exercised), and no sample or trace unless the run asks for one.
 OPT_BASE = {"step_start_ema": 0, "update_ema_every": 1, "max_to_keep": 0, "save_and_sample_every": 100000,
@@ -2137,7 +2159,7 @@ def train_options_phase(torch, ops, train) -> dict:
     """The trainer's options on the flagship recipe at full width (batch 8, bf16, both fused flags), on seeded
     synthetic data, through the train CLI: gradient accumulation (one step with injected t and noise against the
     unaccumulated step: the loss within ``LOSS_TOL``, each gradient tensor within ``GRAD_TOL``, exactly twice the
-    launches, all staged; s/step and peak memory over 20 steps), ``flatten_optimizer`` (20 steps bit-equal to the
+    launches, all staged; s/step and peak memory over 15 steps), ``flatten_optimizer`` (15 steps bit-equal to the
     run without it: losses, parameters, EMA; host launches and s/step), asynchronous checkpoints (every 5 steps, each
     present and loadable, each byte-equal to the synchronous run's; the loop's blocking seconds per save), sampling
     during training (DDPM of 2 EMA clips at step 10: GIFs of 10 frames of 64x64, the losses bit-equal to the run
@@ -2235,7 +2257,7 @@ def train_options_phase(torch, ops, train) -> dict:
                                 "launches": one["launches"], "launches_accumulated": acc["launches"]}
     del steps1, one, acc
 
-    # 20-step runs: the per-tensor synchronous reference, then each option alone.
+    # OPT_STEPS-step runs: the per-tensor synchronous reference, then each option alone.
     base, out["per_tensor"] = run("per_tensor")
     accumulated, out["accumulated"] = run("accumulated", enable_gradient_accumulation=True,
                                           gradient_accumulate_every=OPT_ACCUMULATE)
@@ -2710,6 +2732,460 @@ def seq_sample_phase(torch, ops, sample) -> dict:
             "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}
 
 
+# The VideoDiT family (A11). D1 is configs/config_bouncing_digits.yaml with its unet block replaced by the DiT of
+# scripts/ab_dit_fused.py:35-39 (dim 256, depth 6, 8 heads of 32, patch 4) and diffusion.num_frames and
+# trainer.num_frames set to 16; D2 is bench.py's do_dit shape (bench.py:515-523 with :137's 1 channel, 64x64 and 250
+# timesteps: dim 384, depth 8, 6 heads of 64, patch 8, 10 frames, l2, noise prediction, batch 4). Both attentions of
+# every block take the temporal op in float32 (the bf16 policy's float32 modulation promotes what they are given):
+# D1 spatial over 256 patches (blockwise), temporal over 16 frames (dense); D2 spatial over 64 patches at c = 384
+# (wide), temporal over 10 frames at head dim 64 (dense, CUDA-core). Which kernel and route each call takes is
+# ``temporal_plan``'s, for the card's SM count (``dit_plan``); every launch is checked against it.
+DIT_D1_UNET = {"arch": "dit", "rngs_seed": 0, "dim": 256, "depth": 6, "channels": 1, "attn_heads": 8,
+               "attn_dim_head": 32, "patch_size": 4, "compute_dtype": "bfloat16", "use_fused_attention": True}
+DIT_D1_FRAMES = 16
+DIT_D2_UNET = {**DIT_D1_UNET, "dim": 384, "depth": 8, "attn_heads": 6, "attn_dim_head": 64, "patch_size": 8}
+DIT_D2_DIFFUSION = {"image_size": 64, "num_frames": 10, "timesteps": 250, "loss_type": "l2", "channels": 1,
+                    "prediction_type": "noise"}
+DIT_BATCH = {"D1": B_TRAIN, "D2": 4}
+DIT_STEPS, DIT_CKPT_EVERY, DIT_CLIPS, DIT_COND_STEPS = 8, 4, 64, 10
+DIT_PERTURB = 0.05  # std of the adaLN and output weights drawn before a gradient check (all zero at init)
+
+
+def dit_raw(recipe: str) -> dict:
+    """The recipe as a config dict: D1 derived from the flagship YAML, D2 from bench.py's do_dit shape."""
+    import yaml
+
+    raw = yaml.safe_load(CONFIG.read_text())
+    if recipe == "D1":
+        raw["unet"] = dict(DIT_D1_UNET)
+        raw["diffusion"]["num_frames"] = raw["trainer"]["num_frames"] = DIT_D1_FRAMES
+    else:
+        raw["unet"] = dict(DIT_D2_UNET)
+        raw["diffusion"] = dict(DIT_D2_DIFFUSION)
+        raw["trainer"]["num_frames"] = DIT_D2_DIFFUSION["num_frames"]
+    return raw
+
+
+def dit_plan(torch, ta, raw: dict, batch: int) -> dict:
+    """Per attention of a DiT forward at ``batch`` rows: its op shape (b, s, f, c), and per direction the kernel
+    and the route ``temporal_plan`` gives it on this card."""
+    u, d = raw["unet"], raw["diffusion"]
+    s, f, c = (d["image_size"] // u["patch_size"]) ** 2, d["num_frames"], u["dim"]
+    heads, dim = u["attn_heads"], u["attn_dim_head"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = {}
+    for att, shape in (("spatial", (batch, f, s, c)), ("temporal", (batch, s, f, c))):
+        row = {"shape": shape, "heads": heads, "dim": dim, "depth": u["depth"]}
+        for way in ("fwd", "bwd"):
+            p = ta.temporal_plan(shape[0] * shape[1], shape[2], c, dim, heads, False, sms, way == "bwd")
+            family = "attention" if p["family"] == "dense" else p["family"]
+            row[way] = {"kernel": f"temporal_{family}_{way}", "route": p["route"], "grid": p["grid"]}
+        plan[att] = row
+    return plan
+
+
+def dit_launches(plan: dict, times: int = 1, ways=("fwd", "bwd")) -> tuple[dict, dict]:
+    """The launches ``times`` forwards (and backwards) of the plan's DiT make, and of them those of a staged or
+    streaming route."""
+    counts, staged = {}, {}
+    for row in plan.values():
+        for way in ways:
+            name, n = row[way]["kernel"], row["depth"] * times
+            counts[name] = counts.get(name, 0) + n
+            staged[name] = staged.get(name, 0) + n * (row[way]["route"] == "staged")
+    return counts, staged
+
+
+def check_dit_launches(ops, plan: dict, where: str, times: int = 1, ways=("fwd", "bwd")) -> dict:
+    """Since the last reset: exactly the plan's launches, each of the route the planner gave it."""
+    counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+    want, want_staged = dit_launches(plan, times, ways)
+    check(counts == want, f"{where}: launches {counts}, expected {want}")
+    got_staged = {k: staged.get(k, 0) for k in want}
+    check(got_staged == want_staged, f"{where}: staged launches {got_staged}, the planner's {want_staged}")
+    return counts
+
+
+def _perturb_dit(torch, dit, seed: int = 5) -> None:
+    """Draw the adaLN, final modulation and output weights at ``DIT_PERTURB`` (they start at zero, and then no
+    attention reaches the output or has a gradient)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for lin in [blk.ada for blk in dit.blocks] + [dit.final_ada, dit.final_proj]:
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen) * DIT_PERTURB)
+
+
+def dit_kernel_phase(torch, ta) -> dict:
+    """Each attention kernel of D1 (batch 8) and D2 (batch 4) at the DiT's own shapes, in float32 (what the DiT
+    hands it), against its plain version: forward max-abs within ``TOL``, every gradient within ``BWD_TOL`` of its
+    largest value; the kernel and route the planner gives; CUDA-event times of kernel and plain version, and the
+    bound at the float32 peak, per step (``depth`` launches of each)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, per_step, grad_names = [], {}, ("dx", "dwqkv", "dbqkv", "dwo", "dbo")
+    for recipe in ("D1", "D2"):
+        plan = dit_plan(torch, ta, dit_raw(recipe), DIT_BATCH[recipe])
+        agg = per_step[recipe] = {}
+        for att, p in plan.items():
+            shape, heads, dim, count = p["shape"], p["heads"], p["dim"], p["depth"]
+            b, s, f, c = shape
+            hd = heads * dim
+            x = rand(torch, shape, 1, 0.5, torch.float32)
+            g = rand(torch, shape, 9, 0.1, torch.float32)
+            w = (rand(torch, (c, 3 * hd), 2, c ** -0.5, torch.float32), rand(torch, (3 * hd,), 3, 0.1, torch.float32),
+                 rand(torch, (hd, c), 4, hd ** -0.5, torch.float32), rand(torch, (c,), 5, 0.1, torch.float32))
+            blockwise = p["fwd"]["kernel"].startswith("temporal_blockwise")
+            plain_f = ((lambda: ta.temporal_attention_blockwise_plain(x, *w, heads, dim, ta.KV_BLOCK)) if blockwise
+                       else (lambda: ta.temporal_attention_plain(x, *w, heads, dim)))
+            plain_b = ((lambda: ta.temporal_attention_blockwise_bwd_plain(x, g, *w, heads, dim, ta.KV_BLOCK))
+                       if blockwise else (lambda: ta.temporal_attention_bwd_plain(x, g, *w, heads, dim)))
+            before = route_counts(ta)
+            got = ta.fused_temporal_attention_block(x, *w, heads, dim)
+            grads = ta.temporal_attention_bwd(x, g, *w, heads, dim)
+            torch.cuda.synchronize()
+            now = route_counts(ta)
+            for way in ("fwd", "bwd"):
+                name = p[way]["kernel"]
+                launched = {k: now[k][0] - before[k][0] for k in now if now[k][0] != before[k][0]}
+                check(launched.get(name) == 1, f"DiT {recipe} {att} {way}: launched {launched}, planned {name}")
+                check(now[name][1] - before[name][1] == (p[way]["route"] == "staged"),
+                      f"DiT {recipe} {att} {way}: the C entry's route is not the planner's {p[way]['route']}")
+            err = _max_abs(got, plain_f())
+            check(math.isfinite(err) and err <= TOL["float32"],
+                  f"DiT {recipe} {att} fwd at {shape}: max-abs error {err} over {TOL['float32']}")
+            want = plain_b()
+            rel = {k: _rel_err(a, v) for k, a, v in zip(grad_names, grads, want)}
+            err_b = max(_max_abs(a, v) for a, v in zip(grads, want))
+            for k, r in rel.items():
+                check(math.isfinite(r) and r <= BWD_TOL["float32"],
+                      f"DiT {recipe} {att} bwd {k} at {shape}: error {r} of its largest value, over {BWD_TOL['float32']}")
+            del want, got, grads
+            rows_n = b * s * f
+            f_bytes = 4 * (2 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c)
+            f_flops = rows_n * (8 * c * hd + 4 * f * hd)
+            b_bytes = 4 * (3 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + 4 * (4 * c * hd + 3 * hd + c)
+            b_flops = rows_n * (22 * c * hd + 12 * f * hd)
+            timings = {
+                "fwd": (err, cuda_ms(torch, lambda: ta.fused_temporal_attention_block(x, *w, heads, dim), 5, 1),
+                        cuda_ms(torch, plain_f, 3, 1), f_bytes, f_flops),
+                "bwd": (err_b, cuda_ms(torch, lambda: ta.temporal_attention_bwd(x, g, *w, heads, dim), 3, 1),
+                        cuda_ms(torch, plain_b, 3, 1), b_bytes, b_flops),
+            }
+            for way, (e, ms, plain_ms, nbytes, flops) in timings.items():
+                name = p[way]["kernel"]
+                row = {"recipe": recipe, "attention": att, "kernel": name, "shape": shape, "heads": heads, "dim": dim,
+                       "dtype": "float32", "route": p[way]["route"], "grid": p[way]["grid"], "per_step": count,
+                       **({"max_abs_err": e, "tol": TOL["float32"]} if way == "fwd"
+                          else {"rel_err": rel, "max_abs_err": e, "tol": BWD_TOL["float32"]})}
+                add_timing(row, agg.setdefault(name, new_totals((name,))[name]), count, e, ms, plain_ms, nbytes,
+                           flops, PEAK_F32_FLOPS)
+                agg[name].update(route=p[way]["route"], shape=shape)
+                rows.append(row)
+                print("  " + json.dumps(row), flush=True)
+            del x, g
+    return {"rows": rows, "per_step": per_step}
+
+
+def dit_model_phase(torch, ops, ta, sla, build_models, recipe: str) -> dict:
+    """One recipe's VideoDiT at full width and depth with seeded weights, its adaLN drawn at ``DIT_PERTURB``: a
+    forward and a loss with its backward through the kernels, against the plain modules (bf16) and float32, on
+    the same batch. Gates: the forward as the unet phase's; the loss within ``LOSS_TOL``; each gradient tensor and
+    the whole gradient as the grads phase's, with its largest control fault caught; every attention weight's
+    gradient nonzero; exact launches on the planner's routes. D2 adds DDIM-10 at batch 4, graphed against eager."""
+    raw, batch = dit_raw(recipe), DIT_BATCH[recipe]
+    plan = dit_plan(torch, ta, raw, batch)
+    _, kernels = build_models(raw, device="cuda")
+    _perturb_dit(torch, kernels.denoise_fn)
+    models = {"kernels": kernels}
+    for name, extra in (("plain", {"use_fused_attention": False}),
+                        ("f32", {"use_fused_attention": False, "compute_dtype": None})):
+        _, models[name] = build_models({**raw, "unet": {**raw["unet"], **extra}}, device="cuda")
+        models[name].load_state_dict(kernels.state_dict())
+    d = raw["diffusion"]
+    shape = (batch, d["channels"], d["num_frames"], d["image_size"], d["image_size"])
+    x = rand(torch, shape, 12, 1.0, torch.float32).sigmoid()
+    noise = rand(torch, shape, 13, 1.0, torch.float32)
+    t = torch.linspace(0, d["timesteps"] - 1, batch, device="cuda").long()
+    out = {"batch": batch, "plan": plan}
+
+    # The forward, on the noised input the loss sees.
+    x_t = rand(torch, shape, 11, 1.0, torch.float32)
+    ys, fwd_ms = {}, {}
+    with torch.no_grad():
+        for name, m in models.items():
+            ops.reset_launch_counts()
+            ys[name] = m.denoise_fn(x_t, t)
+            torch.cuda.synchronize()
+            if name == "kernels":
+                check_dit_launches(ops, plan, f"DiT {recipe} forward", ways=("fwd",))
+            else:
+                check(not nonzero(ops.launch_counts()), f"DiT {recipe} {name} forward launched {ops.launch_counts()}")
+            fwd_ms[name] = cuda_ms(torch, lambda m=m: m.denoise_fn(x_t, t), 3, 1)
+    y_k, y_p, y_32 = ys["kernels"], ys["plain"], ys["f32"]
+    check(tuple(y_k.shape) == (batch, d["num_frames"], d["image_size"], d["image_size"], d["channels"])
+          and y_k.dtype == torch.float32 and bool(torch.isfinite(y_k).all()), f"DiT {recipe}: forward {y_k.shape}")
+    scale = y_32.abs().max().item()
+    diff, err_k, err_p = _max_abs(y_k, y_p), _max_abs(y_k, y_32), _max_abs(y_p, y_32)
+    check(diff <= 0.1 * scale, f"DiT {recipe} kernels vs plain modules: {diff} > {0.1 * scale}")
+    check(err_k <= 1.5 * err_p + 0.01 * scale, f"DiT {recipe} kernel route {err_k} from f32, plain {err_p}")
+    out["forward"] = {"max_abs_kernels_vs_plain": diff, "kernels_vs_f32": err_k, "plain_vs_f32": err_p,
+                      "max_abs_ref": scale, "ms": fwd_ms}
+    del ys, y_k, y_p, y_32
+
+    grads, losses, step_ms, peak = {}, {}, {}, {}
+
+    def run(m):
+        m.zero_grad(set_to_none=True)
+        loss = m(x, t=t, noise=noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: p.grad.detach().float().clone() for k, p in m.named_parameters() if p.grad is not None}
+
+    for name, m in models.items():
+        m.train()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses[name], grads[name] = run(m)
+        peak[name] = torch.cuda.max_memory_allocated()
+        if name == "kernels":
+            out["launches"] = check_dit_launches(ops, plan, f"DiT {recipe} step")
+
+        def step(m=m):
+            m.zero_grad(set_to_none=True)
+            m(x, t=t, noise=noise).backward()
+
+        step_ms[name] = cuda_ms(torch, step, 3, 1)
+    gap = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+    check(all(math.isfinite(v) for v in losses.values()) and gap <= LOSS_TOL,
+          f"DiT {recipe} losses {losses}: kernels vs plain {gap} over {LOSS_TOL}")
+    check(set(grads["kernels"]) == set(grads["plain"]) == set(grads["f32"]), f"DiT {recipe}: gradient sets differ")
+    attn = [k for k in grads["kernels"] if ".attn_" in k and k.endswith("weight")]
+    dead = [k for k in attn if not grads["kernels"][k].abs().max().item() > 0]
+    check(len(attn) == 8 * raw["unet"]["depth"] and not dead, f"DiT {recipe}: zero attention gradients {dead}")
+    floor = {n: GRAD_FLOOR * torch.sqrt(sum(g.square().sum() for g in grads[n].values())).item() for n in grads}
+
+    def rel(a, b, ref):
+        return ((a - b).norm() / max(b.norm().item(), floor[ref])).item()
+
+    def whole(name):
+        num = sum((grads[name][k] - grads["f32"][k]).square().sum() for k in grads["f32"])
+        return torch.sqrt(num).item() / (floor["f32"] / GRAD_FLOOR)
+
+    per = {k: rel(grads["kernels"][k], grads["plain"][k], "plain") for k in grads["f32"]}
+    worst = max(per, key=per.get)
+    check(per[worst] <= GRAD_TOL, f"DiT {recipe} grad of {worst}: kernels vs plain modules {per[worst]} > {GRAD_TOL}")
+    k_whole, p_whole = whole("kernels"), whole("plain")
+    check(k_whole <= 1.5 * p_whole + GRAD_MARGIN, f"DiT {recipe} whole gradient: kernels {k_whole}, plain {p_whole}")
+    saved = ta.temporal_attention_bwd, sla.sla_bwd_q
+    try:
+        ta.temporal_attention_bwd, sla.sla_bwd_q = _faulty_backward(ta, sla, max(CONTROL_FAULTS))
+        _, grads["control"] = run(kernels)
+    finally:
+        ta.temporal_attention_bwd, sla.sla_bwd_q = saved
+    c_tensor = max(rel(grads["control"][k], grads["plain"][k], "plain") for k in per)
+    c_whole = whole("control")
+    caught = c_tensor > GRAD_TOL or c_whole > 1.5 * p_whole + GRAD_MARGIN
+    check(caught, f"DiT {recipe}: the gradient checks miss the control fault ({c_tensor}, {c_whole})")
+    out.update(losses=losses, loss_gap_vs_plain=gap, fwd_bwd_ms=step_ms, peak_memory=peak,
+               attention_weight_tensors=len(attn), max_k_vs_p=per[worst], worst=worst, kernels_vs_f32=k_whole,
+               plain_vs_f32=p_whole, limits={"per_tensor": GRAD_TOL, "whole": 1.5 * p_whole + GRAD_MARGIN},
+               control={"fault": max(CONTROL_FAULTS), "max_k_vs_p": c_tensor, "kernels_vs_f32": c_whole})
+    del grads, models
+
+    if recipe == "D2":  # DDIM-10 at batch 4, graphed against eager from one seed
+        kernels.eval()
+        steps = 10
+        ops.reset_launch_counts()
+        graphed = kernels.ddim_sample(batch_size=batch, num_steps=steps, generator=torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        check(kernels.graphs.captures == 1 and kernels.graphs.replays() == steps,
+              f"DiT D2 DDIM: graphs {kernels.graphs.captures} captures, {kernels.graphs.replays()} replays")
+        check_dit_launches(ops, plan, "DiT D2 DDIM-10 (graphed: a warm-up and a capture)", times=2, ways=("fwd",))
+        eager = kernels.ddim_sample(batch_size=batch, num_steps=steps, generator=torch.Generator("cuda").manual_seed(0),
+                                    graph=False)
+        check(tuple(graphed.shape) == shape and bool(torch.isfinite(graphed).all()), "DiT D2 DDIM: samples")
+        out["ddim10"] = {"bit_equal": bool(torch.equal(graphed, eager)), "max_abs_graphed_vs_eager": _max_abs(graphed, eager)}
+        check(out["ddim10"]["bit_equal"], f"DiT D2 DDIM: graphed and eager part by {out['ddim10']}")
+    return out
+
+
+def dit_train_phase(torch, ops, ta, train, sample, build_models) -> dict:
+    """D1 through the CLIs: ``train.main`` for ``DIT_STEPS`` steps at batch 8 on 16-frame synthetic squares, a
+    checkpoint every ``DIT_CKPT_EVERY``, a resume from the first; ``sample.main`` DDIM-50 at batch 8 (graphed, the
+    result equal to the eager sampler bit for bit) and DPM-20 at batch 8 from the last checkpoint; then the server
+    around those weights with 2 concurrent batch-1 DDIM-50 clients, each within ``SERVE_TOL`` of its solo run, and
+    clips per second coalesced against serial."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import yaml
+    from PIL import Image
+
+    from video_diffusion_nnx_tpu_torch import bench_serve, serve
+    from video_diffusion_nnx_tpu_torch.convert import load_checkpoint
+
+    raw = dit_raw("D1")
+    d = raw["diffusion"]
+    root = SCRATCH / "dit"
+    root.mkdir(parents=True, exist_ok=True)
+    data = bouncing_squares(root / "squares16.npy", clips=DIT_CLIPS, frames=DIT_D1_FRAMES)
+    cfg = _train_config(yaml, raw, root, data, "kernels", steps=DIT_STEPS, ckpt_every=DIT_CKPT_EVERY)
+    for old in (root / "kernels" / "checkpoints").glob("step_*.pt"):
+        old.unlink()
+    plan = dit_plan(torch, ta, raw, B_TRAIN)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tr = train.main(["--config", str(cfg), "--device", "cuda"])
+    counts = check_dit_launches(ops, plan, "DiT D1 train", times=DIT_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = tr.loss_trace.tolist()
+    check(len(losses) == DIT_STEPS and all(math.isfinite(v) for v in losses), f"DiT D1 losses {losses}")
+    ckpts = sorted(int(p.stem[5:]) for p in tr.checkpoint_dir_path.glob("step_*.pt"))
+    check(ckpts == list(range(DIT_CKPT_EVERY, DIT_STEPS + 1, DIT_CKPT_EVERY)), f"DiT D1 checkpoints {ckpts}")
+    sps, save_s = _seconds_per_step(tr, warmup=3)
+    ckpt = tr.checkpoint_dir_path / f"step_{DIT_STEPS}.pt"
+    del tr
+    resumed = train.main(["--config", str(cfg), "--device", "cuda", "--resume_step", str(DIT_CKPT_EVERY)])
+    trace = resumed.loss_trace.tolist()
+    check(all(math.isnan(v) for v in trace[:DIT_CKPT_EVERY]) and all(math.isfinite(v) for v in trace[DIT_CKPT_EVERY:])
+          and resumed.opt_count == DIT_STEPS + 1, f"DiT D1 resume from {DIT_CKPT_EVERY}: {trace}, {resumed.opt_count}")
+    del resumed
+    out = {"steps": DIT_STEPS, "batch": B_TRAIN, "losses": losses, "launches": counts, "plan": plan,
+           "checkpoints": ckpts, "seconds_per_step": sps, "checkpoint_write_seconds": save_s, "peak_memory": peak,
+           "resumed_losses": trace[DIT_CKPT_EVERY:]}
+
+    for name, flags, steps in (("ddim50_b8", ["--sampler", "ddim", "--num-steps", "50"], 50),
+                               ("dpm20_b8", ["--sampler", "dpm", "--num-steps", "20"], 20)):
+        ops.reset_launch_counts()
+        res = sample.main(["--config", str(cfg), "--checkpoint-path", str(ckpt), "--output-path",
+                           str(OUT / "gifs" / f"dit_{name}"), "--batch-size", str(B_TRAIN), "--seed", "0",
+                           "--device", "cuda", *flags])
+        check(res["graph"] == {"captures": 1, "replays": steps}, f"DiT {name}: graphs {res['graph']}")
+        check_dit_launches(ops, plan, f"DiT {name} (a warm-up and a capture)", times=2, ways=("fwd",))
+        videos = res["videos"]
+        check(tuple(videos.shape) == (B_TRAIN, 1, DIT_D1_FRAMES, d["image_size"], d["image_size"])
+              and bool(torch.isfinite(videos).all()), f"DiT {name}: samples {tuple(videos.shape)}")
+        for p in res["paths"]:
+            img = Image.open(p)
+            check(img.n_frames == DIT_D1_FRAMES and img.size == (d["image_size"],) * 2, f"{p.name}: {img.n_frames}")
+        out[name] = {"seconds": res["seconds"], "seconds_per_step": res["seconds"] / steps, "gifs": len(res["paths"])}
+        if name == "ddim50_b8":
+            cli_videos = videos
+
+    # The same DDIM-50 from the same seed: graphed (its capture, then warm) and eager, against the CLI's.
+    _, model = build_models(raw, device="cuda")
+    load_checkpoint(model, ckpt)
+    model.eval()
+    runs = {}
+    for label, graph in (("graphed", True), ("graphed_warm", True), ("eager", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label] = model.ddim_sample(batch_size=B_TRAIN, num_steps=50, generator=torch.Generator("cuda").manual_seed(0),
+                                        graph=graph)
+        torch.cuda.synchronize()
+        out["ddim50_b8"][f"{label}_s_per_step"] = (time.perf_counter() - t0) / 50
+    equal = {k: bool(torch.equal(v.cpu(), cli_videos)) for k, v in runs.items()}
+    out["ddim50_b8"]["bit_equal_to_cli"] = equal
+    check(all(equal.values()), f"DiT DDIM-50 b8: graphed, warm and eager against the CLI's samples: {equal}")
+    del runs
+
+    httpd = serve.create_server(model, host="127.0.0.1", port=0, batch_window_s=0.05)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen("http://%s:%d/health" % httpd.server_address[:2], timeout=60) as r:
+            health = json.loads(r.read())
+        check(health["status"] == "ok" and health["model"]["has_cond"] is False, f"DiT /health: {health}")
+        service = httpd.service
+        results = [None, None]
+
+        def client(i):
+            results[i] = service.sample_rows({"sampler": "ddim", "num_steps": SERVE_STEPS, "seed": i})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(all(r is not None for r in results), "DiT server: a request did not return")
+        errs = []
+        for i, r in enumerate(results):
+            solo = model.ddim_sample(batch_size=1, num_steps=SERVE_STEPS,
+                                     generator=torch.Generator("cuda").manual_seed(i)).float().cpu().numpy()
+            errs.append(float(np.abs(r[0] - solo).max()))
+        groups = sorted({r[2]["coalesced"] for r in results}, reverse=True)
+        check(max(errs) <= SERVE_TOL, f"DiT server: rows part from their solo runs by {max(errs)} (gate {SERVE_TOL})")
+        out["serve"] = {"health": health, "groups": groups, "seconds": [r[1] for r in results],
+                        "max_abs_vs_solo": errs, "tol": SERVE_TOL}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    out["serve"]["throughput"] = bench_serve.compare(model, [2], SERVE_STEPS, 0.05)
+    return out
+
+
+def dit_cond_phase(torch, ops, ta, train, sample) -> dict:
+    """D1 conditioned on captions (``unet.use_bert_text_cond``, ``trainer.null_cond_prob`` 0.2 as
+    configs/config_bouncing_digits_cond.yaml:52 sets it): ``DIT_COND_STEPS`` steps of the train CLI at batch 8 on
+    16-frame captioned clips of the port's generator (8 per class), exact launches on the planner's routes; then the
+    sampling CLI with ``--text "two digits" --cond-scale 3``, DDIM-10 at batch 4: each kernel launch runs 2b rows."""
+    import shutil
+
+    import yaml
+
+    from video_diffusion_nnx_tpu_torch.data import bouncing_digits
+
+    raw = dit_raw("D1")
+    raw["unet"]["use_bert_text_cond"] = True
+    raw["trainer"].update(use_path_as_cond=True, null_cond_prob=0.2)
+    root = SCRATCH / "dit"
+    gifs = root / "cond_gifs"
+    if gifs.is_dir():
+        shutil.rmtree(gifs)
+    bouncing_digits.main(["--captioned-gifs", str(gifs), "--frames", str(DIT_D1_FRAMES),
+                          "--captioned-clips-per-class", str(COND_CLIPS_PER_CLASS)])
+    cfg = _train_config(yaml, raw, root, gifs, "cond", steps=DIT_COND_STEPS, ckpt_every=DIT_COND_STEPS)
+    for old in (root / "cond" / "checkpoints").glob("step_*.pt"):
+        old.unlink()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tr = train.main(["--config", str(cfg), "--device", "cuda"])
+    counts = check_dit_launches(ops, dit_plan(torch, ta, raw, B_TRAIN), "DiT D1 cond train", times=DIT_COND_STEPS)
+    losses = tr.loss_trace.tolist()
+    check(tr.use_path_as_cond and tr.model.denoise_fn.has_cond and all(math.isfinite(v) for v in losses),
+          f"DiT cond: conditioned {tr.model.denoise_fn.has_cond}, losses {losses}")
+    out = {"steps": DIT_COND_STEPS, "losses": losses, "launches": counts, "seconds_per_step": _seconds_per_step(tr, 3)[0],
+           "peak_memory": torch.cuda.max_memory_allocated()}
+    ckpt = tr.checkpoint_path(DIT_COND_STEPS)
+    del tr
+
+    batch, steps, rows, launch = 4, 10, [], ta._launch
+
+    def spy(x, *args, **kwargs):
+        rows.append(x.shape[0])
+        return launch(x, *args, **kwargs)
+
+    ops.reset_launch_counts()
+    ta._launch = spy
+    try:
+        res = sample.main(["--config", str(cfg), "--checkpoint-path", str(ckpt), "--output-path",
+                           str(OUT / "gifs" / "dit_cond_ddim10_b4"), "--batch-size", str(batch), "--seed", "0",
+                           "--device", "cuda", "--sampler", "ddim", "--num-steps", str(steps),
+                           "--text", "two digits", "--cond-scale", "3"])
+    finally:
+        ta._launch = launch
+    check(res["graph"] == {"captures": 1, "replays": steps}, f"DiT cond sample: graphs {res['graph']}")
+    check_dit_launches(ops, dit_plan(torch, ta, raw, 2 * batch), "DiT cond sample", times=2, ways=("fwd",))
+    check(rows and set(rows) == {2 * batch}, f"DiT cond sample: launches ran {sorted(set(rows))} rows, not 2b")
+    check(tuple(res["videos"].shape) == (batch, 1, DIT_D1_FRAMES, 64, 64) and bool(torch.isfinite(res["videos"]).all()),
+          f"DiT cond sample: {tuple(res['videos'].shape)}")
+    out["sample"] = {"seconds": res["seconds"], "seconds_per_step": res["seconds"] / steps, "rows_per_launch": rows[0],
+                     "gifs": len(res["paths"])}
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2840,6 +3316,18 @@ def main(argv: list[str]) -> int:
                 show=lambda r: {k: v for k, v in r.items() if k != "resumed_losses"})
     timed("seq sample", seq_sample_phase, torch, ops, sample)
 
+    # The VideoDiT family: its attention kernels at D1's and D2's shapes, each recipe's forward and step against the
+    # plain modules, D1 through the train and sample CLIs and the server, and the caption-conditioned D1.
+    dit_kern = timed("dit kernels", dit_kernel_phase, torch, ta,
+                     show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL["float32"],
+                                     "backward": BWD_TOL["float32"]},
+                                     **{recipe: per_step({"p": a}, "p")["p"] for recipe, a in r["per_step"].items()}})
+    dit_d1 = timed("dit d1", dit_model_phase, torch, ops, ta, sla, build_models, "D1")
+    dit_d2 = timed("dit d2", dit_model_phase, torch, ops, ta, sla, build_models, "D2")
+    dit_train = timed("dit train", dit_train_phase, torch, ops, ta, train, sample, build_models,
+                      show=lambda r: {k: v for k, v in r.items() if k != "plan"})
+    dit_cond = timed("dit cond", dit_cond_phase, torch, ops, ta, train, sample)
+
     # The trainer's options (gradient accumulation, the flat optimizer, async checkpoints, sampling, the profiler).
     options = timed("train options", train_options_phase, torch, ops, train, show=lambda r: {
         "accumulation_step": r["accumulation_step"],
@@ -2880,6 +3368,21 @@ def main(argv: list[str]) -> int:
         from_path(name, dim128)
     results["off_path_kernels"] = {name: {**wide["per_step"][name], "launches": 0, "source": KERNELS[name]["source"],
                                           "replaces": KERNELS[name]["replaces"]} for name in OFF_PATH}
+    # Each kernel's DiT launches: D1's training run, the conditioned D1's, and one D2 step (forward and backward);
+    # for the kernels of the DiT path also their float32 times at each recipe's shapes, per step.
+    def dit_field(name):
+        out = {"launches": {"d1_train": dit_train["launches"].get(name, 0),
+                            "d1_cond_train": dit_cond["launches"].get(name, 0),
+                            "d2_step": dit_d2["launches"].get(name, 0)},
+               "launches_per_d1_step": dit_d1["launches"].get(name, 0)}
+        for recipe, per in dit_kern["per_step"].items():
+            if name in per:
+                a = per[name]
+                out[recipe] = {"shape": a["shape"], "route": a["route"], "dtype": "float32", "max_abs_err": a["err"],
+                               "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                               "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations"}
+        return out
+
     kernels_line = [{
         "name": name, "route": "cuda", "design": designs[name],
         "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
@@ -2889,6 +3392,7 @@ def main(argv: list[str]) -> int:
         **({"launches_per_step": options["accumulation_step"]["launches"][name],
             "launches_per_step_accumulated": options["accumulation_step"]["launches_accumulated"][name]}
            if name in PER_STEP else {}),
+        "dit": dit_field(name),
     } for name, a in aggregates.items()]
     check(all(k["launches"] > 0 for k in kernels_line) and len(kernels_line) == len(KERNELS) - len(OFF_PATH) == 16,
           f"a kernel of the main paths was never launched: {[(k['name'], k['launches']) for k in kernels_line]}")

@@ -1011,3 +1011,119 @@ def test_batched_guidance_equals_two_forwards_on_the_card(device, fused):
     want = n + (c - n) * 3.0
     assert guided.dtype == torch.float32
     assert (guided - want).abs().max().item() <= 0.02 * want.abs().max().item()
+
+
+# The VideoDiT's attentions (models/dit.py: the fused route hands both ops float32, what the bf16 policy's float32
+# modulation gives them). D1 is scripts/ab_dit_fused.py:35-39's DiT at 16 frames of 64x64 (dim 256, 8 heads of 32,
+# patch 4: spatial attention over 256 patches, temporal over 16 frames), at batch 2; D2 is bench.py's do_dit shape
+# (dim 384, 6 heads of 64, patch 8, 10 frames: spatial over 64 patches, temporal over 10 frames), at batch 4. Each
+# shape launches the family and the route that ``temporal_plan`` gives it, and matches its plain versions.
+DIT_SHAPES = {
+    "d1_spatial": ((2, 16, 256, 256), 8, 32, "blockwise"),
+    "d1_temporal": ((2, 256, 16, 256), 8, 32, "attention"),
+    "d2_spatial": ((4, 10, 64, 384), 6, 64, "wide"),
+    "d2_temporal": ((4, 64, 10, 384), 6, 64, "attention"),
+}
+
+
+@pytest.mark.parametrize("name", list(DIT_SHAPES))
+def test_dit_attention_shapes_match_plain_in_float32(device, name):
+    shape, heads, dim, family = DIT_SHAPES[name]
+    b, s, f, c = shape
+    x, *w = _temporal_args(shape, device, torch.float32, heads, dim)
+    g = _rand(shape, 5, 0.1, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    routes = [ta.temporal_plan(b * s, f, c, dim, heads, False, sms, bwd)["route"] for bwd in (False, True)]
+    ops.reset_launch_counts()
+    got = ta.fused_temporal_attention_block(x, *w, heads, dim)
+    grads = ta.temporal_attention_bwd(x, g, *w, heads, dim)
+    torch.cuda.synchronize()
+    names = [f"temporal_{family}_fwd", f"temporal_{family}_bwd"]
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {n: 1 for n in names}
+    assert [ops.staged_launch_counts()[n] for n in names] == [r == "staged" for r in routes]
+    if family == "blockwise":
+        want = ta.temporal_attention_blockwise_plain(x, *w, heads, dim, ta.KV_BLOCK)
+        want_g = ta.temporal_attention_blockwise_bwd_plain(x, g, *w, heads, dim, ta.KV_BLOCK)
+    else:
+        want = ta.temporal_attention_plain(x, *w, heads, dim)
+        want_g = ta.temporal_attention_bwd_plain(x, g, *w, heads, dim)
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+    for k, a, v in zip(GRADS6, grads, want_g):
+        assert a.shape == v.shape and a.dtype == v.dtype, k
+        assert _rel_err(a, v) <= BWD_TOL[torch.float32], (k, _rel_err(a, v))
+
+
+def _dit_model(device, seed: int = 0, **kw):
+    """A small VideoDiT (dim 64, 2 blocks, 2 heads of 32, patch 4, 6 frames of 16x16) with its adaLN drawn at std
+    0.05, so that every attention reaches the output."""
+    from video_diffusion_nnx_tpu_torch.diffusion import GaussianDiffusion
+    from video_diffusion_nnx_tpu_torch.models import VideoDiT
+
+    dit = VideoDiT(dim=64, depth=2, channels=1, attn_heads=2, attn_dim_head=32, patch_size=4, **kw)
+    dit.reset_parameters(torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for lin in [blk.ada for blk in dit.blocks] + [dit.final_ada, dit.final_proj]:
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen) * 0.05)
+    return GaussianDiffusion(dit, image_size=16, num_frames=6, channels=1, timesteps=10, loss_type="l2",
+                             prediction_type="v").to(device).eval()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dit_kernel_route_matches_the_cpu(device, dtype):
+    """The fused route on the card (both attentions through the dense kernels, in float32 whatever the policy)
+    against the same weights on the CPU (the plain versions): the forward and every parameter's gradient."""
+    model = _dit_model(device, compute_dtype=dtype, use_fused_attention=True)
+    cpu = _dit_model(torch.device("cpu"), compute_dtype=dtype, use_fused_attention=True)
+    x = _rand((2, 1, 6, 16, 16), 1, 1.0, device)
+    t = torch.tensor([2, 7], device=device)
+    outs = {}
+    for where, m in (("cuda", model), ("cpu", cpu)):
+        m.zero_grad()
+        ops.reset_launch_counts()
+        y = m.denoise_fn(x.to(where), t.to(where))
+        (y * x.to(where).permute(0, 2, 3, 4, 1)).sum().backward()
+        outs[where] = (y.detach().cpu(), {k: p.grad.cpu() for k, p in m.named_parameters()})
+        if where == "cuda":
+            assert {k: v for k, v in ops.launch_counts().items() if v} == {
+                "temporal_attention_fwd": 4, "temporal_attention_bwd": 4}
+    tol = 1e-4 if dtype == "float32" else 0.05
+    scale = outs["cpu"][0].abs().max().item()
+    assert (outs["cuda"][0] - outs["cpu"][0]).abs().max().item() <= tol * max(1.0, scale)
+    for k, grad in outs["cpu"][1].items():
+        top = max(1.0, grad.abs().max().item())
+        assert (outs["cuda"][1][k] - grad).abs().max().item() <= (1e-3 if dtype == "float32" else 0.05) * top, k
+    assert all(outs["cuda"][1][k].abs().max() > 0 for k in outs["cuda"][1] if ".attn_" in k and "weight" in k)
+
+
+@pytest.mark.parametrize("sampler", ["ddim3", "dpm3"])
+def test_dit_graph_replay_equals_eager(device, sampler):
+    model = _dit_model(device, compute_dtype="bfloat16", use_fused_attention=True)
+    run = {
+        "ddim3": lambda g, graph: model.ddim_sample(batch_size=2, num_steps=3, generator=g, graph=graph),
+        "dpm3": lambda g, graph: model.dpm_solver_sample(batch_size=2, num_steps=3, generator=g, graph=graph),
+    }[sampler]
+    ops.reset_launch_counts()
+    graphed = run(_gen(1), True)
+    torch.cuda.synchronize()
+    assert model.graphs.captures == 1 and model.graphs.replays() == 3
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {"temporal_attention_fwd": 2 * 4}
+    assert torch.equal(graphed, run(_gen(1), False))
+
+
+def test_dit_guidance_runs_one_forward_of_2b_rows(device, hashed_text):
+    model = _dit_model(device, compute_dtype="bfloat16", use_fused_attention=True, use_bert_text_cond=True)
+    rows, launch = [], ta._launch
+
+    def spy(x, *args, **kwargs):
+        rows.append(x.shape[0])
+        return launch(x, *args, **kwargs)
+
+    ta._launch = spy
+    try:
+        with torch.no_grad():
+            out = model.ddim_sample(num_steps=2, generator=_gen(3), cond=CAPTIONS, cond_scale=3.0, graph=False)
+    finally:
+        ta._launch = launch
+    assert out.shape == (len(CAPTIONS), 1, 6, 16, 16) and bool(torch.isfinite(out).all())
+    assert rows == [2 * len(CAPTIONS)] * (2 * 4)

@@ -43,7 +43,7 @@ def test_port_and_chip_smoke_import_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
-    for name in ("parallel", "parallel.mesh", "parallel.sequence", "ops.cross_attention"):
+    for name in ("parallel", "parallel.mesh", "parallel.sequence", "ops.cross_attention", "models.dit"):
         assert f" video_diffusion_nnx_tpu_torch.{name} " in proc.stdout + " ", name
 
 

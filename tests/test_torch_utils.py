@@ -87,8 +87,10 @@ def test_load_config_matches_jax(tmp_path, caplog):
 def test_build_models_refuses_dit_and_missing_card():
     from video_diffusion_nnx_tpu_torch.config import build_models
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_models({"unet": {"arch": "dit"}}, device="cpu")
+    # arch: dit builds; the VideoDiT's one unported option, guidance_embed, raises naming A13
+    with pytest.raises(NotImplementedError, match="A13"):
+        build_models({"unet": {"arch": "dit", "guidance_embed": True}}, device="cpu")
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            build_models({"unet": {"dim": 8, "dim_mults": [1, 2]}})
+        for unet in ({"dim": 8, "dim_mults": [1, 2]}, {"arch": "dit", "dim": 8, "depth": 1}):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build_models({"unet": unet})

@@ -91,6 +91,12 @@ _UNET_DEFAULTS: dict[str, Any] = {
     "guidance_embed": False,
 }
 
+# The keys that reach VideoDiT (JAX config.py:203-207).
+_DIT_KEYS = (
+    "dim", "depth", "channels", "attn_heads", "attn_dim_head", "patch_size", "mlp_ratio", "cond_dim",
+    "use_bert_text_cond", "compute_dtype", "guidance_embed", "use_fused_attention",
+)
+
 _DIFFUSION_DEFAULTS: dict[str, Any] = {
     "image_size": 64,
     "num_frames": 16,
@@ -155,7 +161,7 @@ def build_models(config: dict[str, Any], device: str | torch.device = "cuda"):
     :func:`video_diffusion_nnx_tpu_torch.convert.load_checkpoint`.
     """
     from video_diffusion_nnx_tpu_torch.diffusion import GaussianDiffusion
-    from video_diffusion_nnx_tpu_torch.models import Unet3D
+    from video_diffusion_nnx_tpu_torch.models import Unet3D, VideoDiT
 
     device = resolve_device(device)
     u = {**_UNET_DEFAULTS, **config.get("unet", {})}
@@ -164,18 +170,18 @@ def build_models(config: dict[str, Any], device: str | torch.device = "cuda"):
     _warn_unknown("diffusion", d, set(_DIFFUSION_DEFAULTS))
 
     arch = u.get("arch", "unet3d")
-    if arch == "dit":
-        raise NotImplementedError("unet.arch 'dit' (VideoDiT) is not ported yet: ROADMAP A11")
-    if arch != "unet3d":
+    if arch == "dit":  # the Unet3D-only keys (reference_compat, remat_blocks, ...) are ignored, as in JAX
+        unet = VideoDiT(**{k: u[k] for k in _DIT_KEYS})
+    elif arch == "unet3d":
+        unet_kwargs = {
+            k: u[k]
+            for k in _UNET_DEFAULTS
+            if k not in ("rngs_seed", "arch", "depth", "patch_size", "mlp_ratio")
+        }
+        unet_kwargs["dim_mults"] = tuple(u["dim_mults"])
+        unet = Unet3D(**unet_kwargs)
+    else:
         raise ValueError(f"unet.arch must be 'unet3d' or 'dit'; got {arch!r}")
-
-    unet_kwargs = {
-        k: u[k]
-        for k in _UNET_DEFAULTS
-        if k not in ("rngs_seed", "arch", "depth", "patch_size", "mlp_ratio")
-    }
-    unet_kwargs["dim_mults"] = tuple(u["dim_mults"])
-    unet = Unet3D(**unet_kwargs)
     unet.reset_parameters(torch.Generator().manual_seed(int(u["rngs_seed"])))
     diffusion = GaussianDiffusion(unet, **{k: d[k] for k in _DIFFUSION_DEFAULTS})
     diffusion.to(device)

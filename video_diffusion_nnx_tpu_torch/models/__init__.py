@@ -4,6 +4,7 @@ from video_diffusion_nnx_tpu_torch.models.attention import (
     SpatialLinearAttention,
 )
 from video_diffusion_nnx_tpu_torch.models.blocks import Block, ResnetBlock
+from video_diffusion_nnx_tpu_torch.models.dit import VideoDiT
 from video_diffusion_nnx_tpu_torch.models.unet3d import Unet3D
 
 __all__ = [
@@ -13,4 +14,5 @@ __all__ = [
     "ResnetBlock",
     "SpatialLinearAttention",
     "Unet3D",
+    "VideoDiT",
 ]
