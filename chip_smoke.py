@@ -112,6 +112,20 @@ in one summary line (``PHASE <name>: ...``):
    with 2 batch-1 DDIM-50 clients against their solo runs and against serial; dit cond: D1 on captions
    (hashed bag of words, dropout 0.2), 10 train CLI steps on 16-frame captioned clips, then the
    sampling CLI with ``--text`` at cond_scale 3, each kernel launch on 2b rows;
+8g. distill, guidance distill, dit guidance (after dit cond): distillation (ROADMAP A13). distill: the
+   train phase's step-20 weights as the teacher, two rounds (N = 8 -> 4) of 5 steps at batch 8 with EMA
+   0.99 through the distill CLI: exact launches (three forwards and a backward a step), all staged; each
+   step's loss within 2% of the same steps through the plain modules; the schedule buffers bit-unchanged,
+   the students parted from the teacher; the EMA against its formula over two library steps; DDIM-4 on
+   the stride grid from the round's file through the sampling CLI, graphed, bit-equal to eager; s/step
+   and peak memory. guidance distill: the cond phase's weights as the teacher; the zero graft bit-equal
+   to the teacher's cond_scale-1 forward at w = 1, 3, 8; 5 steps at batch 8 with w ~ U[1, 8] through the
+   distill_guidance CLI against the plain modules (2%), exact launches; one stage-2 round through the
+   distill CLI on its config_guidance.yaml; DDIM-10 at cond_scale 3 through the sampling CLI, one forward
+   of b rows a step; warm s/step against the teacher's guided step; the server with 2 batch-1 clients at
+   cond_scale 3 against their solo runs. dit guidance: the conditioned D1 (dit cond's weights): the zero
+   graft, 3 guidance steps at batch 8 on the planner's kernels in float32, DDIM-10 at cond_scale 3 on 4
+   rows a launch. The kernels line's ``distill`` field holds each kernel's launches in those runs;
 9. blockwise: both blockwise (online-softmax) temporal kernels against their
    plain versions at every shape the long-clip Unet3D gives them (batch 1,
    128 frames), at the 256-long bottleneck shape of a 128x128 input and at
@@ -208,7 +222,8 @@ in one summary line (``PHASE <name>: ...``):
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. ``--only kernels,long sla`` runs the device check, the
 build and the named phases alone (extend and serve read the clip that dpm
-writes, digits the train phase's checkpoint, cfg the cond phase's), then stops without the kernels line and the
+writes, digits and distill the train phase's checkpoint, cfg and guidance distill the cond phase's, dit guidance
+dit cond's), then stops without the kernels line and the
 ok line (those two phases call only the ops' public wrappers, so a copy of
 this file in another checkout times that checkout's kernels). Outputs go to
 chiprun_out/chip_smoke/ (small) and build/chip_smoke/ (checkpoints and data).
@@ -3183,6 +3198,353 @@ def dit_cond_phase(torch, ops, ta, train, sample) -> dict:
           f"DiT cond sample: {tuple(res['videos'].shape)}")
     out["sample"] = {"seconds": res["seconds"], "seconds_per_step": res["seconds"] / steps, "rows_per_launch": rows[0],
                      "gifs": len(res["paths"])}
+    out.update(config=str(cfg), checkpoint=str(ckpt))
+    return out
+
+
+# Distillation (ROADMAP A13). Progressive: the train phase's step-20 weights (the model, not the EMA, which starts at
+# step 1000) as the teacher, two rounds 8 -> 4 of DISTILL_STEPS steps at batch 8 through the distill CLI, EMA 0.99.
+# Guidance: the cond phase's step-20 weights as the teacher, GUIDANCE_STEPS steps through the distill_guidance CLI
+# with w ~ U[1, 8], then one stage-2 round (4 steps, w ~ U[1, 8]) through the distill CLI. A step of either runs
+# three denoiser forwards (two of the teacher, one of the student) and one backward.
+DISTILL_N, DISTILL_STEPS, DISTILL_EMA = 8, 5, 0.99
+GUIDANCE_STEPS, STAGE2_N, STAGE2_STEPS, DIT_GUIDANCE_STEPS = 5, 4, 3, 3
+DISTILL_PER_STEP = {**{k: 3 * n for k, n in PER_FORWARD.items()},
+                    **{k: n for k, n in PER_STEP.items() if k not in PER_FORWARD}}
+
+
+def _distill_launches(ops, steps: int, where: str) -> dict:
+    """Since the last reset: exactly ``steps`` distillation steps of the flagship's kernels, all staged."""
+    counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+    want = {k: n * steps for k, n in DISTILL_PER_STEP.items()}
+    check(counts == want, f"{where}: launches {counts}, expected {want} ({steps} steps of {DISTILL_PER_STEP})")
+    check(all(staged.get(k, 0) == n for k, n in counts.items()), f"{where}: staged {staged} of {counts}")
+    return counts
+
+
+def _flagship_batch(torch, path: Path, rows: int = B_TRAIN):
+    """The first ``rows`` clips of a (F, B, H, W) uint8 .npy as a (rows, 1, F, H, W) batch in [0, 1] on the card."""
+    import numpy as np
+
+    arr = np.load(path)[:, :rows].astype(np.float32) / 255.0
+    return torch.from_numpy(np.ascontiguousarray(arr.transpose(1, 0, 2, 3)[:, None])).cuda()
+
+
+def _loaded(torch, config: dict, ckpt, ema: bool = False):
+    from video_diffusion_nnx_tpu_torch.config import build_models
+    from video_diffusion_nnx_tpu_torch.convert import read_checkpoint
+
+    _, model = build_models(config, device="cuda")
+    payload = read_checkpoint(ckpt)
+    model.load_state_dict(payload["ema_params"] if ema else payload["model"])
+    return model.eval()
+
+
+def _gap(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def distill_phase(torch, ops, sample) -> dict:
+    """Progressive distillation of the flagship (ROADMAP A13): the train phase's weights as the teacher, two rounds
+    (N = 8 -> 4) of ``DISTILL_STEPS`` steps at batch 8 with EMA 0.99 through the distill CLI: exact launches (three
+    forwards and a backward a step), all staged; each step's loss within ``LOSS_TOL`` of the same steps through the
+    plain modules (same generator); the schedule buffers bit-unchanged and the students parted from the teacher;
+    the EMA against its formula over two library steps; DDIM-4 on the stride grid from the last round's file
+    through the sampling CLI, graphed, bit-equal to the eager sampler; seconds per step and peak memory."""
+    from video_diffusion_nnx_tpu_torch import distill
+    from video_diffusion_nnx_tpu_torch.config import load_config
+    from video_diffusion_nnx_tpu_torch.convert import read_checkpoint
+    from video_diffusion_nnx_tpu_torch.diffusion.gaussian_diffusion import BUFFER_NAMES
+    from video_diffusion_nnx_tpu_torch.training.distill import DistillStep
+
+    root = SCRATCH / "train"
+    teacher_ckpt = root / "kernels" / "checkpoints" / f"step_{TRAIN_STEPS}.pt"
+    check(teacher_ckpt.is_file(), f"distill: no teacher at {teacher_ckpt} (run the train phase first)")
+    out, losses = {"teacher": str(teacher_ckpt), "rounds": f"{DISTILL_N} -> {DISTILL_N // 2}",
+                   "steps_per_round": DISTILL_STEPS, "batch": B_TRAIN, "ema_decay": DISTILL_EMA}, {}
+    for name in ("kernels", "plain"):
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = distill.main(["--config", str(root / f"{name}.yaml"), "--checkpoint-path", str(teacher_ckpt),
+                            "--no-ema", "--initial-steps", str(DISTILL_N), "--rounds", "2", "--steps-per-round",
+                            str(DISTILL_STEPS), "--ema-decay", str(DISTILL_EMA), "--batch-size", str(B_TRAIN),
+                            "--output-path", str(SCRATCH / "distill" / name), "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        losses[name] = [v for r in res["rounds"] for v in r["losses"]]
+        check(res["final_steps"] == DISTILL_N // 2 and sorted(res["paths"]) == [DISTILL_N // 2, DISTILL_N]
+              and all(math.isfinite(v) for v in losses[name]), f"distill {name}: {res}")
+        row = {"seconds": seconds, "peak_memory": torch.cuda.max_memory_allocated(), "losses": losses[name],
+               "seconds_per_step": [r["seconds_per_step"] for r in res["rounds"]]}
+        if name == "kernels":
+            row["launches"] = _distill_launches(ops, 2 * DISTILL_STEPS, "distill")
+            paths = res["paths"]
+        out[name] = row
+    out["loss_gap_vs_plain"] = gap = _gap(losses["kernels"], losses["plain"])
+    check(gap <= LOSS_TOL, f"distill: losses of the kernel route and the plain modules part by {gap} (relative, "
+                           f"over {LOSS_TOL}): {losses['kernels']} against {losses['plain']}")
+
+    teacher = read_checkpoint(teacher_ckpt)["model"]
+    for n, path in paths.items():
+        payload = read_checkpoint(path)
+        check(payload["step"] == n and all(torch.equal(payload["model"][k], teacher[k]) for k in BUFFER_NAMES),
+              f"distill: the {n}-step student's schedule buffers moved")
+        moved = max((payload["model"][k].float() - v.float()).abs().max().item()
+                    for k, v in teacher.items() if k not in BUFFER_NAMES)
+        check(moved > 0 and all(torch.equal(payload["model"][k], v) for k, v in payload["ema_params"].items()),
+              f"distill: the {n}-step student's file (largest change {moved})")
+        out[f"student{n}_largest_change"] = moved
+
+    # The EMA's formula, e <- d e + (1 - d) p after every step from the first, over two library steps.
+    config = load_config(root / "kernels.yaml")
+    step = DistillStep(_loaded(torch, config, teacher_ckpt), DISTILL_N // 2, ema_decay=DISTILL_EMA,
+                       generator=torch.Generator(device="cuda").manual_seed(5))
+    batch = _flagship_batch(torch, root / "bouncing_squares.npy")
+    want = [p.detach().double() for p in step.params]
+    for _ in range(2):
+        step(batch)
+        want = [e * DISTILL_EMA + p.detach().double() * (1 - DISTILL_EMA) for e, p in zip(want, step.params)]
+    ema_err = max(((e.double() - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+                  for e, w in zip(step.ema, want))
+    out["ema_formula_rel_err"] = ema_err
+    check(ema_err <= 1e-6, f"distill: the EMA parts from d e + (1 - d) p by {ema_err} (relative)")
+    del step
+
+    # DDIM-4 on the stride grid from the last round's file: the sampling CLI (graphed) against the eager sampler.
+    n = DISTILL_N // 2
+    ops.reset_launch_counts()
+    res = sample.main(["--config", str(root / "kernels.yaml"), "--checkpoint-path", str(paths[n]), "--output-path",
+                       str(OUT / "gifs" / f"distilled{n}"), "--batch-size", "2", "--seed", "0", "--device", "cuda",
+                       "--sampler", "ddim", "--num-steps", str(n), "--grid", "stride"])
+    counts = nonzero(ops.launch_counts())
+    check_staged(counts, ops.staged_launch_counts(), f"distilled DDIM-{n}")
+    check_graphed(counts, res["graph"], n, f"distilled DDIM-{n}")
+    student = _loaded(torch, config, paths[n])
+    eager = student.ddim_sample(batch_size=2, num_steps=n, grid="stride",
+                                generator=torch.Generator(device="cuda").manual_seed(0), graph=False)
+    check(torch.equal(res["videos"], eager.cpu()) and bool(torch.isfinite(eager).all()),
+          f"distilled DDIM-{n}: graphed and eager part by {_max_abs(res['videos'], eager.cpu())}")
+    out[f"ddim{n}_stride"] = {"seconds": res["seconds"], "bit_equal_to_eager": True,
+                               "range": [float(eager.min()), float(eager.max())]}
+    return out
+
+
+def guidance_distill_phase(torch, ops, ta, sample, cond) -> dict:
+    """Guidance distillation of the conditioned flagship (the cond phase's step-20 weights): the grafted student
+    (output layer zero) at w = 1, 3 and 8 bit-equal to the teacher's cond_scale-1 forward; ``GUIDANCE_STEPS`` steps
+    at batch 8 with w ~ U[1, 8] through the distill_guidance CLI, exact launches, each loss within ``LOSS_TOL`` of
+    the plain modules'; one stage-2 round through the distill CLI on its ``config_guidance.yaml``; DDIM-10 at
+    cond_scale 3 through the sampling CLI on that config, one forward of b rows a step (rows checked at every
+    launch); warm graphed seconds per step of the student at cond_scale 3 against the teacher's guided step; the
+    server with 2 batch-1 clients at cond_scale 3, each coalesced row within ``SERVE_TOL`` of its solo run."""
+    import copy
+    import threading
+
+    import numpy as np
+
+    from video_diffusion_nnx_tpu_torch import distill, distill_guidance, serve
+    from video_diffusion_nnx_tpu_torch.config import build_models, load_config
+    from video_diffusion_nnx_tpu_torch.training.guidance import transfer_teacher_params
+
+    cfg_k, ckpt = cond["kernels"]["config"], cond["kernels"]["checkpoint"]
+    config = load_config(cfg_k)
+    teacher = _loaded(torch, config, ckpt)
+    student_config = copy.deepcopy(config)
+    student_config["unet"]["guidance_embed"] = True
+    _, graft = build_models(student_config, device="cuda")
+    transfer_teacher_params(graft, teacher)
+    d = config["diffusion"]
+    frames, size = d["num_frames"], d["image_size"]
+    x = rand(torch, (B_TRAIN, 1, frames, size, size), 31, 1.0, torch.float32)
+    t = torch.linspace(10, 990, B_TRAIN, device="cuda").long()
+    emb = teacher.embed_cond(COND_PROMPTS * 2)
+    with torch.no_grad():
+        want = teacher.denoise_fn.forward_with_cond_scale(x, t, cond=emb, cond_scale=1.0)
+        graft_equal = {w: bool(torch.equal(graft.denoise_fn.forward_with_cond_scale(x, t, cond=emb, cond_scale=w),
+                                           want)) for w in (1.0, 3.0, 8.0)}
+    check(all(graft_equal.values()), f"guidance distill: the zero graft parts from the teacher at {graft_equal}")
+    del graft
+    out = {"teacher": ckpt, "zero_graft_bit_equal": graft_equal, "steps": GUIDANCE_STEPS, "batch": B_TRAIN,
+           "w_range": [1.0, 8.0]}
+
+    losses = {}
+    for name, cfg in (("kernels", cfg_k), ("plain", str(SCRATCH / "cond" / "plain.yaml"))):
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = distill_guidance.main(["--config", cfg, "--checkpoint-path", ckpt, "--no-ema", "--num-steps",
+                                     str(GUIDANCE_STEPS), "--batch-size", str(B_TRAIN), "--w-min", "1", "--w-max",
+                                     "8", "--output-path", str(SCRATCH / "guidance" / name), "--device", "cuda"])
+        losses[name] = res["losses"]
+        check(len(losses[name]) == GUIDANCE_STEPS and all(math.isfinite(v) for v in losses[name]),
+              f"guidance distill {name}: losses {losses[name]}")
+        row = {"seconds": time.perf_counter() - t0, "peak_memory": torch.cuda.max_memory_allocated(),
+               "losses": losses[name], "seconds_per_step": res["seconds_per_step"]}
+        if name == "kernels":
+            row["launches"] = _distill_launches(ops, GUIDANCE_STEPS, "guidance distill")
+            g_cfg, g_path = str(res["config"]), str(res["path"])
+        out[name] = row
+    out["loss_gap_vs_plain"] = gap = _gap(losses["kernels"], losses["plain"])
+    check(gap <= LOSS_TOL, f"guidance distill: losses of the kernel route and the plain modules part by {gap} "
+                           f"(relative, over {LOSS_TOL}): {losses['kernels']} against {losses['plain']}")
+
+    # Stage 2: one round of the w-conditioned student through the distill CLI.
+    ops.reset_launch_counts()
+    res = distill.main(["--config", g_cfg, "--checkpoint-path", g_path, "--initial-steps", str(STAGE2_N), "--rounds",
+                        "1", "--steps-per-round", str(STAGE2_STEPS), "--batch-size", str(B_TRAIN), "--output-path",
+                        str(SCRATCH / "guidance" / "stage2"), "--device", "cuda"])
+    check(res["conditioned"] and res["w_range"] == (1.0, 8.0) and sorted(res["paths"]) == [STAGE2_N],
+          f"stage 2: {res}")
+    out["stage2"] = {"losses": res["rounds"][0]["losses"], "seconds_per_step": res["rounds"][0]["seconds_per_step"],
+                     "launches": _distill_launches(ops, STAGE2_STEPS, "stage 2")}
+
+    # DDIM-10 at cond_scale 3 from the guidance-distilled file through the sampling CLI: one forward of b rows.
+    steps, batch, rows, launch = 10, 4, [], ta._launch
+
+    def spy(xx, *args, **kwargs):
+        rows.append(xx.shape[0])
+        return launch(xx, *args, **kwargs)
+
+    ops.reset_launch_counts()
+    ta._launch = spy
+    try:
+        res = sample.main(["--config", g_cfg, "--checkpoint-path", g_path, "--output-path",
+                           str(OUT / "gifs" / "guidance_ddim10_b4"), "--batch-size", str(batch), "--seed", "0",
+                           "--device", "cuda", "--sampler", "ddim", "--num-steps", str(steps), "--text", "two digits",
+                           "--cond-scale", "3"])
+    finally:
+        ta._launch = launch
+    counts = nonzero(ops.launch_counts())
+    check_staged(counts, ops.staged_launch_counts(), "guidance-distilled DDIM-10")
+    check_graphed(counts, res["graph"], steps, "guidance-distilled DDIM-10")
+    check(set(rows) == {batch} and tuple(res["videos"].shape) == (batch, 1, frames, size, size)
+          and bool(torch.isfinite(res["videos"]).all()), f"guidance-distilled DDIM-10: rows {sorted(set(rows))}")
+
+    # Warm graphed seconds per step at cond_scale 3: the student's one forward of b rows against the teacher's 2b.
+    student = _loaded(torch, student_config, g_path)
+    prompts = COND_PROMPTS[:batch]
+
+    def warm(model):
+        model.ddim_sample(num_steps=steps, generator=torch.Generator(device="cuda").manual_seed(0), cond=prompts,
+                          cond_scale=3.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = model.ddim_sample(num_steps=steps, generator=torch.Generator(device="cuda").manual_seed(0), cond=prompts,
+                              cond_scale=3.0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps, v
+
+    s_sps, s_videos = warm(student)
+    t_sps, _ = warm(teacher)
+    out["ddim10_b4_cs3"] = {"rows_per_launch": batch, "student_graphed_warm_s_per_step": s_sps,
+                            "teacher_cfg_graphed_warm_s_per_step": t_sps, "student_over_teacher": s_sps / t_sps,
+                            "cli_seconds": res["seconds"]}
+    del teacher
+
+    # The server with two batch-1 clients at cond_scale 3, coalesced, each row against its solo run.
+    httpd = serve.create_server(student, host="127.0.0.1", port=0, batch_window_s=0.5)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        service, clients = httpd.service, ["one digit", "three digits"]
+        results = [None] * len(clients)
+
+        def client(i):
+            results[i] = service.sample_rows({"sampler": "ddim", "num_steps": SERVE_STEPS, "seed": 20 + i,
+                                              "text": [clients[i]], "cond_scale": 3.0})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(clients))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(all(r is not None for r in results), "guidance-distilled server: a request did not return")
+        errs = []
+        for i, r in enumerate(results):
+            gen = torch.Generator(device="cuda").manual_seed(20 + i)
+            solo = student.ddim_sample(num_steps=SERVE_STEPS, generator=gen, cond=[clients[i]], cond_scale=3.0)
+            errs.append(float(np.abs(r[0] - solo.float().cpu().numpy()).max()))
+        groups = [r[2]["coalesced"] for r in results]
+        out["server"] = {"groups": groups, "max_abs_vs_solo": errs, "tol": SERVE_TOL,
+                         "seconds": [r[1] for r in results]}
+        check(min(groups) == 2 and max(errs) <= SERVE_TOL,
+              f"guidance-distilled server: groups {groups}, rows from solo {errs} (gate {SERVE_TOL})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    return out
+
+
+def dit_guidance_phase(torch, ops, ta, sample, dit_cond) -> dict:
+    """Guidance distillation of the conditioned D1 (the dit cond phase's weights): the zero graft bit-equal to the
+    teacher at w = 1, 3 and 8; ``DIT_GUIDANCE_STEPS`` steps at batch 8 through the distill_guidance CLI, every
+    attention on the planner's kernels in float32 (three forwards and a backward a step); then DDIM-10 at
+    cond_scale 3 through the sampling CLI on its ``config_guidance.yaml``, 4 rows a launch."""
+    import copy
+
+    from video_diffusion_nnx_tpu_torch import distill_guidance
+    from video_diffusion_nnx_tpu_torch.config import build_models, load_config
+    from video_diffusion_nnx_tpu_torch.training.guidance import transfer_teacher_params
+
+    cfg, ckpt = dit_cond["config"], dit_cond["checkpoint"]
+    config = load_config(cfg)
+    teacher = _loaded(torch, config, ckpt)
+    student_config = copy.deepcopy(config)
+    student_config["unet"]["guidance_embed"] = True
+    _, graft = build_models(student_config, device="cuda")
+    transfer_teacher_params(graft, teacher)
+    x = rand(torch, (2, 1, DIT_D1_FRAMES, 64, 64), 41, 1.0, torch.float32)
+    t = torch.tensor([100, 800], device="cuda")
+    emb = teacher.embed_cond(COND_PROMPTS[:2])
+    with torch.no_grad():
+        want = teacher.denoise_fn.forward_with_cond_scale(x, t, cond=emb, cond_scale=1.0)
+        graft_equal = {w: bool(torch.equal(graft.denoise_fn.forward_with_cond_scale(x, t, cond=emb, cond_scale=w),
+                                           want)) for w in (1.0, 3.0, 8.0)}
+    check(all(graft_equal.values()), f"DiT guidance: the zero graft parts from the teacher at {graft_equal}")
+    del graft, teacher
+
+    raw = dit_raw("D1")
+    raw["unet"]["use_bert_text_cond"] = True
+    plan = dit_plan(torch, ta, raw, B_TRAIN)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = distill_guidance.main(["--config", cfg, "--checkpoint-path", ckpt, "--no-ema", "--num-steps",
+                                 str(DIT_GUIDANCE_STEPS), "--batch-size", str(B_TRAIN), "--output-path",
+                                 str(SCRATCH / "dit" / "guidance"), "--device", "cuda"])
+    counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+    fwd, fwd_staged = dit_launches(plan, 3 * DIT_GUIDANCE_STEPS, ("fwd",))
+    bwd, bwd_staged = dit_launches(plan, DIT_GUIDANCE_STEPS, ("bwd",))
+    check(counts == {**fwd, **bwd}, f"DiT guidance: launches {counts}, expected {fwd} and {bwd}")
+    check({k: staged.get(k, 0) for k in counts} == {**fwd_staged, **bwd_staged},
+          f"DiT guidance: staged launches {staged}, the planner's {fwd_staged} and {bwd_staged}")
+    check(len(res["losses"]) == DIT_GUIDANCE_STEPS and all(math.isfinite(v) for v in res["losses"]),
+          f"DiT guidance: losses {res['losses']}")
+    out = {"zero_graft_bit_equal": graft_equal, "steps": DIT_GUIDANCE_STEPS, "batch": B_TRAIN, "losses": res["losses"],
+           "launches": counts, "seconds_per_step": res["seconds_per_step"],
+           "peak_memory": torch.cuda.max_memory_allocated()}
+
+    batch, steps, rows, launch = 4, 10, [], ta._launch
+
+    def spy(xx, *args, **kwargs):
+        rows.append(xx.shape[0])
+        return launch(xx, *args, **kwargs)
+
+    ops.reset_launch_counts()
+    ta._launch = spy
+    try:
+        s = sample.main(["--config", str(res["config"]), "--checkpoint-path", str(res["path"]), "--output-path",
+                         str(OUT / "gifs" / "dit_guidance_ddim10_b4"), "--batch-size", str(batch), "--seed", "0",
+                         "--device", "cuda", "--sampler", "ddim", "--num-steps", str(steps), "--text", "two digits",
+                         "--cond-scale", "3"])
+    finally:
+        ta._launch = launch
+    check(s["graph"] == {"captures": 1, "replays": steps}, f"DiT guidance sample: graphs {s['graph']}")
+    check_dit_launches(ops, dit_plan(torch, ta, raw, batch), "DiT guidance sample", times=2, ways=("fwd",))
+    check(rows and set(rows) == {batch}, f"DiT guidance sample: launches ran {sorted(set(rows))} rows, not b")
+    check(tuple(s["videos"].shape) == (batch, 1, DIT_D1_FRAMES, 64, 64) and bool(torch.isfinite(s["videos"]).all()),
+          f"DiT guidance sample: {tuple(s['videos'].shape)}")
+    out["sample"] = {"seconds": s["seconds"], "seconds_per_step": s["seconds"] / steps, "rows_per_launch": batch}
     return out
 
 
@@ -3328,6 +3690,15 @@ def main(argv: list[str]) -> int:
                       show=lambda r: {k: v for k, v in r.items() if k != "plan"})
     dit_cond = timed("dit cond", dit_cond_phase, torch, ops, ta, train, sample)
 
+    # Distillation (A13): progressive on the flagship, guidance on the conditioned flagship and on D1.
+    distilled = timed("distill", distill_phase, torch, ops, sample,
+                      show=lambda r: {k: v for k, v in r.items() if k not in ("kernels", "plain")})
+    guided = timed("guidance distill", guidance_distill_phase, torch, ops, ta, sample, cond,
+                   show=lambda r: {k: v for k, v in r.items() if k not in ("kernels", "plain")}) \
+        if cond is not None else None
+    dit_guided = timed("dit guidance", dit_guidance_phase, torch, ops, ta, sample, dit_cond) \
+        if dit_cond is not None else None
+
     # The trainer's options (gradient accumulation, the flat optimizer, async checkpoints, sampling, the profiler).
     options = timed("train options", train_options_phase, torch, ops, train, show=lambda r: {
         "accumulation_step": r["accumulation_step"],
@@ -3393,6 +3764,10 @@ def main(argv: list[str]) -> int:
             "launches_per_step_accumulated": options["accumulation_step"]["launches_accumulated"][name]}
            if name in PER_STEP else {}),
         "dit": dit_field(name),
+        "distill": {"flagship_progressive": distilled["kernels"]["launches"].get(name, 0),
+                    "flagship_guidance": guided["kernels"]["launches"].get(name, 0),
+                    "flagship_stage2": guided["stage2"]["launches"].get(name, 0),
+                    "d1_guidance": dit_guided["launches"].get(name, 0)},
     } for name, a in aggregates.items()]
     check(all(k["launches"] > 0 for k in kernels_line) and len(kernels_line) == len(KERNELS) - len(OFF_PATH) == 16,
           f"a kernel of the main paths was never launched: {[(k['name'], k['launches']) for k in kernels_line]}")

@@ -1127,3 +1127,109 @@ def test_dit_guidance_runs_one_forward_of_2b_rows(device, hashed_text):
         ta._launch = launch
     assert out.shape == (len(CAPTIONS), 1, 6, 16, 16) and bool(torch.isfinite(out).all())
     assert rows == [2 * len(CAPTIONS)] * (2 * 4)
+
+
+# Distillation (training/distill.py, training/guidance.py): a progressive or guidance step on the card runs three
+# denoiser forwards and one backward through the kernels (a two-level Unet3D: 7 temporal and 4 of each spatial
+# kernel a forward, the same a backward), and matches the same step on the CPU from the same weights and draws
+# (float32, TF32 off: the loss within 1e-4 of it, each gradient within 1e-3 of its largest value, as the DiT's route
+# test); a guidance-distilled student samples with one forward of b rows a step, graphed equal to eager.
+DISTILL_LAUNCHES = {"temporal_attention_fwd": 3 * 7, "sla_context": 3 * 4, "sla_out": 3 * 4,
+                    "temporal_attention_bwd": 7, "sla_bwd_q": 4, "sla_bwd_kv": 4}
+
+
+def _distill_model(device, seed: int = 0, **unet_kwargs):
+    """A float32 two-level Unet3D on both kernels, v-prediction, T = 16, every weight and bias drawn."""
+    from video_diffusion_nnx_tpu_torch.diffusion import GaussianDiffusion
+    from video_diffusion_nnx_tpu_torch.models import Unet3D
+
+    unet = Unet3D(dim=16, dim_mults=(1, 2), channels=1, use_fused_attention=True, use_fused_spatial_attention=True,
+                  **unet_kwargs)
+    unet.reset_parameters(torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if name.endswith("bias") or "guidance_mlp.layers.3" in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    return GaussianDiffusion(unet, image_size=16, num_frames=10, channels=1, timesteps=16, loss_type="l2",
+                             prediction_type="v").to(device).eval()
+
+
+def _step_on(where, kind, device):
+    """One distillation step of ``kind`` ("progressive", "stage2", "guidance") on ``where``, with fixed draws;
+    returns (loss, gradients, launches)."""
+    from video_diffusion_nnx_tpu_torch.training import distill, guidance
+
+    dev = torch.device(where)
+    x = torch.rand(2, 1, 10, 16, 16, generator=torch.Generator().manual_seed(3)).to(dev)
+    eps = _rand((2, 1, 10, 16, 16), 4, 1.0, dev)
+    cond = _rand((2, 768), 5, 1.0, dev)
+    w = torch.tensor([1.5, 6.0], device=dev)
+    if kind == "guidance":
+        teacher = _distill_model(dev, use_bert_text_cond=True)
+        student = _distill_model(dev, seed=7, use_bert_text_cond=True, guidance_embed=True)
+        guidance.transfer_teacher_params(student, teacher)
+        step = guidance.GuidanceStep(teacher, student)
+        args = dict(t=torch.tensor([3, 12], device=dev), eps=eps, w=w)
+    else:
+        stage2 = kind == "stage2"
+        teacher = _distill_model(dev, **({"use_bert_text_cond": True, "guidance_embed": True} if stage2 else {}))
+        step = distill.DistillStep(teacher, 4, w_range=(1.0, 8.0) if stage2 else None)
+        args = dict(i=torch.tensor([0, 3], device=dev), eps=eps, w=w if stage2 else None)
+    ops.reset_launch_counts()
+    loss = step(x, cond if kind != "progressive" else None, **args)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu() for k, p in step.student.named_parameters()}
+    return loss.item(), grads, launches
+
+
+@pytest.mark.parametrize("kind", ["progressive", "stage2", "guidance"])
+def test_distillation_step_runs_the_kernels_and_matches_the_cpu(device, kind):
+    loss, grads, launches = _step_on("cuda", kind, device)
+    cpu_loss, cpu_grads, _ = _step_on("cpu", kind, device)
+    assert launches == DISTILL_LAUNCHES
+    assert abs(loss - cpu_loss) <= 1e-4 * max(1.0, abs(cpu_loss))
+    for k, g in cpu_grads.items():
+        assert (grads[k] - g).abs().max().item() <= 1e-3 * max(1.0, g.abs().max().item()), k
+    assert all(grads[k].abs().max() > 0 for k in grads if "guidance_mlp" in k)
+
+
+@pytest.mark.parametrize("conditioned", [True, False])
+def test_guidance_student_samples_one_forward_of_b_rows(device, hashed_text, conditioned):
+    """A guidance_embed student at cond_scale 3: each step one forward of b rows, graphed equal to eager, one graph
+    per scale, with or without a condition (C7)."""
+    model = _graph_model(device, guidance_embed=True, **({"use_bert_text_cond": True} if conditioned else {}))
+    out_layer = model.denoise_fn.guidance_mlp.layers[3]  # drawn as training leaves it: at zero w changes nothing
+    with torch.no_grad():
+        out_layer.weight.copy_(_rand(tuple(out_layer.weight.shape), 8, 0.05, device))
+    kw = {"cond": CAPTIONS} if conditioned else {"batch_size": 2}
+    rows, launch = [], ta._launch
+
+    def spy(x, *args, **kwargs):
+        rows.append(x.shape[0])
+        return launch(x, *args, **kwargs)
+
+    graphed = model.ddim_sample(num_steps=3, generator=_gen(1), cond_scale=3.0, **kw)
+    ta._launch = spy
+    try:
+        eager = model.ddim_sample(num_steps=3, generator=_gen(1), cond_scale=3.0, graph=False, **kw)
+    finally:
+        ta._launch = launch
+    assert torch.equal(graphed, eager) and rows == [2] * (3 * 7)
+    other = model.ddim_sample(num_steps=3, generator=_gen(1), cond_scale=1.0, **kw)
+    assert model.graphs.captures == 2 and not torch.equal(other, graphed)
+
+
+def test_zero_graft_is_bit_equal_to_the_teacher_on_the_card(device, hashed_text):
+    teacher = _graph_model(device, use_bert_text_cond=True)
+    student = _graph_model(device, use_bert_text_cond=True, guidance_embed=True)
+    from video_diffusion_nnx_tpu_torch.training.guidance import transfer_teacher_params
+
+    transfer_teacher_params(student, teacher)
+    x = _rand((2, 1, 10, 16, 16), 1, 1.0, device)
+    t = torch.tensor([3, 7], device=device)
+    cond = _rand((2, 768), 2, 1.0, device)
+    with torch.no_grad():
+        want = teacher.denoise_fn.forward_with_cond_scale(x, t, cond=cond, cond_scale=1.0)
+        for w in (1.0, 3.0, 8.0):
+            assert torch.equal(student.denoise_fn.forward_with_cond_scale(x, t, cond=cond, cond_scale=w), want)

@@ -340,8 +340,11 @@ def test_build_models_arch_dit_and_bad_arch():
         build_models({"unet": {"arch": "mamba"}}, device="cpu")
 
 
-def test_guidance_embed_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="guidance_embed is not ported yet: ROADMAP A13"):
-        VideoDiT(**ARCH, cond_dim=COND, guidance_embed=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_models({"unet": {"arch": "dit", "dim": 32, "depth": 1, "guidance_embed": True}}, device="cpu")
+def test_guidance_embed_builds_through_build_models():
+    """``guidance_embed`` (ROADMAP A13, JAX :177-184) builds a zero-output ``guidance_mlp``, directly and through
+    ``build_models``; JAX parity is in tests/test_torch_guidance_embed.py."""
+    pm = VideoDiT(**ARCH, cond_dim=COND, guidance_embed=True)
+    pm.reset_parameters(torch.Generator().manual_seed(0))
+    assert pm.has_guidance_embed and not pm.guidance_mlp.layers[3].weight.any()
+    unet, _ = build_models({"unet": {"arch": "dit", "dim": 32, "depth": 1, "guidance_embed": True}}, device="cpu")
+    assert isinstance(unet, VideoDiT) and unet.has_guidance_embed and unet.guidance_mlp.layers[1].weight.std() > 0

@@ -7,8 +7,9 @@ against the JAX package's ``ddim_sample`` from the same x_T.
 embeddings): text and cond_scale over HTTP, each 400 of ``_validate_text``,
 coalesced text requests against their solo runs, and a served DDIM-3 text
 request against JAX ``ddim_sample`` from the same x_T and captions.
-``TestConditionedServer`` of tests/test_serve.py builds a ``guidance_embed``
-model, which waits for ROADMAP A13.
+``TestConditionedServer`` serves a ``guidance_embed`` model: text and
+cond_scale over HTTP, each step one forward of b rows with the request's
+scale folded in, and requests at two scales never coalesced.
 """
 
 import base64
@@ -522,3 +523,40 @@ class TestConditionedServerText:
         want = jm.ddim_sample(jax.random.PRNGKey(0), cond=captions, cond_scale=3.0, num_steps=3, eta=0.0,
                               init_noise=jnp.asarray(x_T))
         np.testing.assert_allclose(rows, np.asarray(want), atol=2e-4, rtol=0)
+
+
+class TestConditionedServer:
+    def test_text_cond_sampling_over_http(self, hashed):
+        """A guidance-distilled (``guidance_embed``) model serves text + cond_scale through the same endpoint, with
+        one forward of b rows a step (tests/test_serve.py:88-103); requests at two scales never share a group."""
+        unet = Unet3D(dim=8, dim_mults=(1,), channels=1, attn_heads=2, cond_dim=text.BERT_MODEL_DIM,
+                      guidance_embed=True)
+        unet.reset_parameters(torch.Generator().manual_seed(0))
+        model = GaussianDiffusion(unet, image_size=8, num_frames=2, channels=1, timesteps=4, loss_type="l2").eval()
+        rows = []
+        unet.register_forward_pre_hook(
+            lambda m, args, kw: rows.append((args[0].shape[0], kw["guidance_scale"].tolist())), with_kwargs=True)
+        httpd, thread, url = _serve(model)
+        try:
+            with urllib.request.urlopen(url + "/health", timeout=30) as r:
+                assert json.loads(r.read())["model"]["guidance_embed"] is True
+            out = _post(url, {"batch_size": 2, "sampler": "ddim", "num_steps": 2, "text": ["a bouncing ball"],
+                              "cond_scale": 3.0})
+            assert out["shape"] == [2, 1, 2, 8, 8] and len(out["gifs"]) == 2
+            assert rows == [(2, [3.0, 3.0])] * 2
+            rows.clear()
+            outs = [None, None]
+
+            def go(i, scale):
+                outs[i] = httpd.service.sample_rows({"sampler": "ddim", "num_steps": 2, "seed": i, "text": ["x"],
+                                                     "cond_scale": scale})
+
+            threads = [threading.Thread(target=go, args=(i, cs)) for i, cs in enumerate((1.0, 3.0))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            assert [o[2]["coalesced"] for o in outs] == [1, 1]
+            assert sorted(rows) == [(1, [1.0])] * 2 + [(1, [3.0])] * 2
+        finally:
+            _stop(httpd, thread)

@@ -152,12 +152,20 @@ def test_unet_bf16_policy_runs_in_bf16_and_returns_f32():
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"guidance_embed": True}, "A13"),
-])
-def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Unet3D(dim=8, dim_mults=(1, 2), channels=1, **kwargs)
+@pytest.mark.parametrize("kwargs", [{"guidance_embed": True}])
+def test_guidance_embed_builds_the_embedding(kwargs):
+    """``guidance_embed`` (ROADMAP A13, JAX :296-313) builds ``guidance_mlp``: a sinusoidal embedding, a drawn
+    ``Linear(dim, 4 dim)``, GELU and a zero ``Linear(4 dim, 4 dim)``, float32; JAX parity is in
+    tests/test_torch_guidance_embed.py."""
+    unet = Unet3D(dim=8, dim_mults=(1, 2), channels=1, **kwargs)
+    unet.reset_parameters(torch.Generator().manual_seed(0))
+    first, last = unet.guidance_mlp.layers[1], unet.guidance_mlp.layers[3]
+    assert unet.has_guidance_embed and first.weight.shape == (32, 8) and last.weight.shape == (32, 32)
+    assert first.weight.std() > 0 and not last.weight.any() and not last.bias.any()
+    x = torch.from_numpy(seeded((2, 1, 4, 16, 16)))
+    with torch.no_grad():
+        out = unet.forward_with_cond_scale(x, torch.tensor([1, 5]), cond_scale=3.0)
+    assert out.shape == (2, 4, 16, 16, 1) and out.dtype == torch.float32
 
 
 @pytest.mark.parametrize("kwargs,cond_dim", [({"cond_dim": 16}, 16), ({"use_bert_text_cond": True}, 768)])

@@ -87,9 +87,9 @@ def test_load_config_matches_jax(tmp_path, caplog):
 def test_build_models_refuses_dit_and_missing_card():
     from video_diffusion_nnx_tpu_torch.config import build_models
 
-    # arch: dit builds; the VideoDiT's one unported option, guidance_embed, raises naming A13
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_models({"unet": {"arch": "dit", "guidance_embed": True}}, device="cpu")
+    # arch: dit builds, guidance_embed too (ROADMAP A13)
+    unet, _ = build_models({"unet": {"arch": "dit", "dim": 32, "depth": 1, "guidance_embed": True}}, device="cpu")
+    assert unet.has_guidance_embed
     if not torch.cuda.is_available():
         for unet in ({"dim": 8, "dim_mults": [1, 2]}, {"arch": "dit", "dim": 8, "depth": 1}):
             with pytest.raises(RuntimeError, match="no CUDA device"):

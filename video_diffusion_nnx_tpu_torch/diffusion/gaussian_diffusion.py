@@ -186,10 +186,11 @@ class GaussianDiffusion(nn.Module):
                  cond_scale: float = 1.0) -> torch.Tensor:
         """The denoiser's (guided) output as (b, c, f, h, w). With ``graph``, for a CUDA ``x`` under ``no_grad``, a
         replay of the cached graph of x's shape, condition and scale: a view of its static output, valid until
-        the next replay."""
+        the next replay. The scale reaches the denoiser wherever it is an input: with a condition, or for a
+        ``guidance_embed`` denoiser, which folds it into its one forward even without one (JAX :322-324)."""
         if graph and x.is_cuda and not torch.is_grad_enabled():
             out = self.graphs.get(self.denoise_fn, x, cond, cond_scale)(x, t, cond)
-        elif cond is None:
+        elif cond is None and not getattr(self.denoise_fn, "has_guidance_embed", False):
             out = self.denoise_fn.forward_with_cond_scale(x, t)  # (b, f, h, w, c)
         else:
             out = self.denoise_fn.forward_with_cond_scale(x, t, cond=cond, cond_scale=cond_scale)

@@ -11,7 +11,9 @@ sample) buffers of one shape; each step copies them in and replays. The
 guidance scale is part of the graph: at a scale other than 1 the doubled
 batch, the null mask and the combination run inside it, all made on the
 device, so a cache entry is keyed by the scale and by whether a condition is
-present, as the JAX package keys its programs. The
+present, as the JAX package keys its programs. A ``guidance_embed`` denoiser
+takes the scale as an input even without a condition (one forward of b
+rows), so its graphs are keyed by the scale in either case. The
 sampler's own arithmetic (a few elementwise launches a step) and its noise
 draws stay eager around the replay, so no schedule coefficient is baked into
 a graph and a graphed chain draws the same numbers as an eager one.
@@ -36,7 +38,7 @@ MAX_GRAPHS = 8  # as the JAX package's _SAMPLE_SCAN_CACHE_MAX
 
 class DenoiserGraph:
     """One captured denoiser forward at one (batch, c, f, h, w) shape and dtype, unconditioned or with a
-    condition of ``cond_shape`` at guidance scale ``cond_scale``.
+    condition of ``cond_shape``, at guidance scale ``cond_scale`` (None: the forward takes no scale).
 
     A forward runs once eagerly on a side stream first: it builds the kernel
     libraries, primes every lookup the wrappers cache (SM counts, plans) and
@@ -44,12 +46,14 @@ class DenoiserGraph:
     """
 
     def __init__(self, denoise_fn: nn.Module, shape: tuple[int, ...], dtype: torch.dtype, device: torch.device,
-                 cond_shape: tuple[int, ...] | None = None, cond_scale: float = 1.0):
+                 cond_shape: tuple[int, ...] | None = None, cond_scale: float | None = None):
         self.shape, self.dtype = tuple(shape), dtype
         self.x = torch.zeros(self.shape, dtype=dtype, device=device)
         self.t = torch.zeros(self.shape[0], dtype=torch.long, device=device)
         self.cond = None if cond_shape is None else torch.zeros(cond_shape, dtype=torch.float32, device=device)
-        kw = {} if self.cond is None else {"cond": self.cond, "cond_scale": cond_scale}
+        kw = {} if self.cond is None else {"cond": self.cond}
+        if cond_scale is not None:
+            kw["cond_scale"] = cond_scale
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -100,18 +104,24 @@ class GraphCache:
         """The graph for ``x``'s shape, ``cond``'s shape (None: no condition) and ``cond_scale``, captured now if the
         cache lacks it (the oldest evicted past the bound)."""
         cond_shape = None if cond is None else tuple(cond.shape)
-        cond_scale = float(cond_scale) if cond is not None else 1.0  # without a condition the scale is unused
-        key = self._key(denoise_fn, x, cond_shape, cond_scale)
+        # Without a condition the scale is unused, except by a guidance_embed denoiser.
+        scaled = cond is not None or getattr(denoise_fn, "has_guidance_embed", False)
+        scale = float(cond_scale) if scaled else None
+        key = self._key(denoise_fn, x, cond_shape, 1.0 if scale is None else scale)
         graph = self._graphs.get(key)
         if graph is not None:
             self._graphs.move_to_end(key)
             return graph
-        graph = DenoiserGraph(denoise_fn, x.shape, x.dtype, x.device, cond_shape, cond_scale)
+        graph = DenoiserGraph(denoise_fn, x.shape, x.dtype, x.device, cond_shape, scale)
         self.captures += 1
         self._graphs[key] = graph
         while len(self._graphs) > self.max_graphs:
             self.retired_replays += self._graphs.popitem(last=False)[1].replays
         return graph
+
+    def __deepcopy__(self, memo) -> "GraphCache":
+        """A copied model starts with no graphs: each graph is bound to the tensors of the module it captured."""
+        return GraphCache(self.max_graphs)
 
     def replays(self) -> int:
         """Replays of every graph this cache has held."""

@@ -24,7 +24,9 @@ package. With ``use_fused_attention`` both attentions go through
 ``ops.temporal_attention`` (``x + MHA(x)`` over the second-to-last axis,
 less ``x``): the dense, wide or blockwise kernels on the card, whichever
 ``temporal_plan`` picks for the shape, and their plain versions on the CPU.
-``guidance_embed`` raises ``NotImplementedError`` naming its ROADMAP item.
+``guidance_embed`` (JAX :177-184, :264-270) adds ``guidance_mlp(100 * w)``
+to the time embedding, its output layer a ``ZeroLinear``, as the Unet3D's;
+``forward_with_cond_scale`` then folds the scale into one forward of b rows.
 """
 
 from __future__ import annotations
@@ -37,19 +39,11 @@ from einops import rearrange
 from torch import nn
 
 from video_diffusion_nnx_tpu_torch.models.attention import MultiheadAttention
-from video_diffusion_nnx_tpu_torch.models.layers import GELU, NORM_EPS, Linear, Sequential, SinusoidalPosEmb
+from video_diffusion_nnx_tpu_torch.models.layers import GELU, NORM_EPS, Linear, Sequential, SinusoidalPosEmb, ZeroLinear
 from video_diffusion_nnx_tpu_torch.models.text import BERT_MODEL_DIM
-from video_diffusion_nnx_tpu_torch.models.unet3d import _DTYPES, _not_ported
+from video_diffusion_nnx_tpu_torch.models.unet3d import _DTYPES
 from video_diffusion_nnx_tpu_torch.ops import temporal_attention as ta_ops
 from video_diffusion_nnx_tpu_torch.utils.functional import prob_mask_like
-
-
-class ZeroLinear(Linear):
-    """A ``Linear`` whose weight and bias start at zero (JAX ``_zero_linear``, :44-48)."""
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        nn.init.zeros_(self.weight)
-        nn.init.zeros_(self.bias)
 
 
 def sincos_1d(dim: int, n: int, device=None) -> torch.Tensor:
@@ -129,8 +123,6 @@ class VideoDiT(nn.Module):
         use_fused_attention: bool = False,
     ):
         super().__init__()
-        if guidance_embed:
-            raise _not_ported("guidance_embed", "A13")
         if isinstance(compute_dtype, str) or compute_dtype is None:
             compute_dtype = _DTYPES[compute_dtype]
         self.channels = channels
@@ -148,6 +140,10 @@ class VideoDiT(nn.Module):
         if self.has_cond:  # redrawn from the caller's generator by reset_parameters
             self.null_cond_emb = nn.Parameter(torch.zeros(1, cond_in))
             self.cond_proj = Linear(cond_in, dim)
+
+        self.has_guidance_embed = guidance_embed
+        if guidance_embed:  # where JAX builds it (:177-184), before the blocks
+            self.guidance_mlp = Sequential(SinusoidalPosEmb(dim), Linear(dim, dim), GELU(), ZeroLinear(dim, dim))
 
         self.blocks = nn.ModuleList([
             DiTBlock(dim, attn_heads, attn_dim_head, mlp_ratio, dim, dtype=compute_dtype,
@@ -173,8 +169,12 @@ class VideoDiT(nn.Module):
 
         Without a condition, or at ``cond_scale == 1``, one forward; otherwise one forward of 2b rows, the second
         half given the null embedding (``null_cond_mask = arange(2b) >= b``), made on x's device so that the call
-        can be captured in a CUDA graph.
+        can be captured in a CUDA graph. A ``guidance_embed`` model folds the scale into one forward of b rows
+        (JAX :209-211).
         """
+        if self.has_guidance_embed:
+            w = torch.full((x.shape[0],), float(cond_scale), dtype=torch.float32, device=x.device)
+            return self(x, time, cond=cond, null_cond_prob=0.0, guidance_scale=w, **kwargs)
         if cond_scale == 1 or not self.has_cond:
             return self(x, time, cond=cond, null_cond_prob=0.0, **kwargs)
         if cond is None:
@@ -189,13 +189,14 @@ class VideoDiT(nn.Module):
     def forward(self, x: torch.Tensor, time: torch.Tensor, cond: torch.Tensor | None = None,
                 null_cond_prob: float = 0.0, focus_present_mask: torch.Tensor | None = None,
                 prob_focus_present: float = 0.0, *, generator: torch.Generator | None = None,
-                null_cond_mask: torch.Tensor | None = None) -> torch.Tensor:
+                null_cond_mask: torch.Tensor | None = None, guidance_scale: torch.Tensor | None = None) -> torch.Tensor:
         """Denoise ``x`` of shape ``(b, c, f, h, w)``; returns ``(b, f, h, w, c)`` float32 (JAX :227-292).
 
         ``cond`` (b, cond_dim) is required when the model is conditioned; each sample's condition is swapped for
         ``null_cond_emb`` where ``null_cond_mask`` is True, else with probability ``null_cond_prob`` (drawn from
         ``generator`` where it lies strictly between 0 and 1). The focus arguments exist for the Unet3D's
-        interface and are ignored, as in the JAX package.
+        interface and are ignored, as in the JAX package. ``guidance_scale`` (b,) is the guidance embedding's w
+        (ones when not given; ignored without the embedding).
         """
         del focus_present_mask, prob_focus_present
         if self.has_cond and cond is None:
@@ -211,6 +212,9 @@ class VideoDiT(nn.Module):
         tokens = tokens + pos.to(tokens.dtype)
 
         t_emb = self.time_mlp(time)
+        if self.has_guidance_embed:
+            w = guidance_scale if guidance_scale is not None else torch.ones(b, device=x.device)
+            t_emb = t_emb + self.guidance_mlp(w.float() * 100.0)
         if self.has_cond:
             mask = null_cond_mask
             if mask is None:

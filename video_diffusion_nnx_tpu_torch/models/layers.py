@@ -84,6 +84,15 @@ class Linear(nn.Module):
         return y
 
 
+class ZeroLinear(Linear):
+    """A ``Linear`` whose weight and bias start at zero, and stay zero through ``reset_parameters`` (JAX
+    ``models/dit.py _zero_linear``, :44-48, and the zeroed ``w_out`` of ``models/unet3d.py``, :307-310)."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.zeros_(self.weight)
+        nn.init.zeros_(self.bias)
+
+
 class UniformLinear(nn.Module):
     """``x @ w + b`` with ``w`` of shape (din, dout) drawn uniform in [0, 1) and a zero bias (the JAX package's
     ``models/layers.py`` ``Linear``, kept there for API completeness and used only by tests). No compute-dtype

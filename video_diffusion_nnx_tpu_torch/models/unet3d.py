@@ -8,8 +8,17 @@ a JAX state path maps to one parameter here (``convert.py``).
 Both maths are ported: reference-compat (``reference_compat=True``: every
 PreNorm drops its norm, the position bias and the focus mask) and fixed
 (``False``: pre-norms applied, the relative position bias on the temporal
-logits, the spatial q scale, a focus-present mask). ``guidance_embed``
-raises ``NotImplementedError`` naming its ROADMAP item.
+logits, the spatial q scale, a focus-present mask).
+
+``guidance_embed`` (JAX :296-313, :557-568) adds a guidance-scale embedding
+``guidance_mlp(100 * w)`` to the time embedding: a sinusoidal embedding, a
+``Linear``, tanh GELU and a ``ZeroLinear``, float32 like ``time_mlp``. ``w``
+is ``forward``'s ``guidance_scale`` (b,) and defaults to ones; the output
+layer starts (and stays, through ``reset_parameters``) at zero, so a freshly
+grafted embedding is a no-op. It is built last, so every other weight draws
+what it draws without it. ``forward_with_cond_scale`` of such a model folds
+the scale into one forward of b rows (guidance distillation,
+``training/guidance.py``).
 
 Conditioning (``cond_dim``, or ``use_bert_text_cond`` for 768-wide text
 embeddings, JAX :185-203): a condition vector per sample is concatenated to
@@ -66,6 +75,7 @@ from video_diffusion_nnx_tpu_torch.models.layers import (
     Sequential,
     SinusoidalPosEmb,
     Upsample,
+    ZeroLinear,
 )
 from video_diffusion_nnx_tpu_torch.models.text import BERT_MODEL_DIM
 from video_diffusion_nnx_tpu_torch.ops import spatial_linear_attention as sla_ops
@@ -74,10 +84,6 @@ from video_diffusion_nnx_tpu_torch.parallel import SequenceGroup, sequence_paral
 from video_diffusion_nnx_tpu_torch.utils.functional import default, is_odd, prob_mask_like
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
 class Unet3D(nn.Module):
@@ -108,8 +114,6 @@ class Unet3D(nn.Module):
         guidance_embed: bool = False,
     ):
         super().__init__()
-        if guidance_embed:
-            raise _not_ported("guidance_embed", "A13")
         if block_type != "resnet":
             raise ValueError(f"block_type must be 'resnet'; got {block_type!r}")
         if isinstance(compute_dtype, str) or compute_dtype is None:
@@ -202,6 +206,12 @@ class Unet3D(nn.Module):
         )
         self.sequence_parallel_mesh = sequence_parallel_mesh
 
+        self.has_guidance_embed = guidance_embed
+        if guidance_embed:  # built last (JAX :296-313): the draws of every other weight stay as they are
+            self.guidance_mlp = Sequential(
+                SinusoidalPosEmb(dim), Linear(dim, time_dim), GELU(), ZeroLinear(time_dim, time_dim)
+            )
+
     @property
     def sequence_parallel_mesh(self) -> SequenceGroup | None:
         """The sequence-parallel group, or None; setting it reaches every GroupNorm (JAX ``__init__`` :136)."""
@@ -218,8 +228,12 @@ class Unet3D(nn.Module):
                 module.sequence_group = group
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Draw every weight from ``generator``: normal with variance 1/fan_in; biases 0, norms 1."""
+        """Draw every weight from ``generator``: normal with variance 1/fan_in; biases 0, norms 1. The guidance
+        embedding draws last, its output layer zero."""
+        guidance = list(self.guidance_mlp.modules()) if self.has_guidance_embed else []
         for module in self.modules():
+            if any(module is g for g in guidance):
+                continue
             if isinstance(module, (Linear, PseudoConv3d, LayerNorm, GroupNorm)):
                 module.reset_parameters(generator)
             elif isinstance(module, nn.Embedding):
@@ -229,21 +243,30 @@ class Unet3D(nn.Module):
         if self.has_cond:
             with torch.no_grad():
                 self.null_cond_emb.copy_(self._null_cond_values(generator))
+        for module in guidance:
+            if isinstance(module, Linear):
+                module.reset_parameters(generator)
 
     def _null_cond_values(self, generator: torch.Generator) -> torch.Tensor:
         """Random integers in [1, cond_dim) as float32, shape (1, cond_dim) (JAX :193-201, PARITY #5)."""
         return torch.randint(1, self.cond_dim, (1, self.cond_dim), generator=generator).float()
 
-    def forward_with_cond_scale(self, x, time, cond=None, cond_scale: float = 1.0, **kwargs) -> torch.Tensor:
-        """Classifier-free guidance, ``null + (cond_out - null) * cond_scale`` in float32 (JAX :315-368).
+    def forward_with_cond_scale(self, x, time, cond=None, cond_scale: float = 2.0, **kwargs) -> torch.Tensor:
+        """Classifier-free guidance, ``null + (cond_out - null) * cond_scale`` in float32 (JAX :315-368; the default
+        scale is JAX's, 2).
 
-        Without a condition, or at ``cond_scale == 1``, one forward. Otherwise one
+        A ``guidance_embed`` model folds the scale into one forward of b rows, ``guidance_scale = cond_scale`` for
+        every sample, with or without a condition (JAX :328-333). Without a condition, or at ``cond_scale == 1``, one
+        forward. Otherwise one
         forward of 2b rows: ``x``, ``time`` and ``cond`` doubled, the second half
         given the null embedding (``null_cond_mask = arange(2b) >= b``). A focus
         mask (fixed math, ``prob_focus_present``) is drawn once for b rows and
         doubled, so both halves share it. Every tensor is made on x's device, so
         the call can be captured in a CUDA graph.
         """
+        if self.has_guidance_embed:
+            w = torch.full((x.shape[0],), float(cond_scale), dtype=torch.float32, device=x.device)
+            return self(x, time, cond=cond, null_cond_prob=0.0, guidance_scale=w, **kwargs)
         if cond_scale == 1 or not self.has_cond:
             return self(x, time, cond=cond, null_cond_prob=0.0, **kwargs)
         if cond is None:
@@ -344,7 +367,7 @@ class Unet3D(nn.Module):
     def forward(self, x: torch.Tensor, time: torch.Tensor, cond: torch.Tensor | None = None,
                 null_cond_prob: float = 0.0, focus_present_mask: torch.Tensor | None = None,
                 prob_focus_present: float = 0.0, *, generator: torch.Generator | None = None,
-                null_cond_mask: torch.Tensor | None = None) -> torch.Tensor:
+                null_cond_mask: torch.Tensor | None = None, guidance_scale: torch.Tensor | None = None) -> torch.Tensor:
         """Denoise ``x`` of shape ``(b, c, f, h, w)``; returns ``(b, f, h, w, c)`` float32 (JAX :517-577).
 
         ``cond`` (b, cond_dim) is required when the model is conditioned and ignored
@@ -356,7 +379,8 @@ class Unet3D(nn.Module):
         math ignores both focus arguments, as the reference does. The first temporal attention
         never sees the mask (JAX ``__call__``, :543-552). Both masks are drawn from ``generator``
         where a probability lies strictly between 0 and 1: the focus mask first, the condition's
-        second.
+        second. ``guidance_scale`` (b,) is the guidance embedding's w (ones when not given); a model without the
+        embedding ignores it, as the reference does.
         """
         if self.has_cond and cond is None:
             raise ValueError("cond must be passed in if cond_dim specified")
@@ -371,6 +395,9 @@ class Unet3D(nn.Module):
         x = self._temporal(self.init_temporal_attn, x, pos_bias, None)
         r = x
         t = self.time_mlp(time)
+        if self.has_guidance_embed:
+            w = guidance_scale if guidance_scale is not None else torch.ones(x.shape[0], device=x.device)
+            t = t + self.guidance_mlp(w.float() * 100.0)
         if self.has_cond:  # float32 throughout: no cast may come before the concatenation
             mask = null_cond_mask
             if mask is None:
