@@ -83,14 +83,14 @@ in one summary line (``PHASE <name>: ...``):
    reconstruction guidance 2; the server: a conditioned /sample, two coalesced
    text requests each within 0.02 of its solo run, 400 without text;
 8e. train options (run last, after phase 19): the trainer's options on the flagship recipe
-   through the train CLI, 15-step runs on the train phase's kind of data with a checkpoint every 5
+   through the train CLI, 10-step runs on the train phase's kind of data with a checkpoint every 5
    steps and the EMA from step 0 (derived keys only): gradient accumulation (A = 2: one step with
    injected t and noise against the unaccumulated step, the loss within 2% and each gradient tensor
    within the grads phase's 0.03, exactly twice each kernel's launches, all staged; s/step and peak
    memory), ``flatten_optimizer`` (the same elementwise step: bit-equal losses, parameters and EMA
    against the run without it; host launches per step), asynchronous checkpoints (each present and
    loadable, byte-equal to the synchronous run's, the loop's blocking seconds per save), sampling during training (2 EMA clips
-   at step 10, GIFs checked, losses bit-equal to the run without; also the caption-conditioned
+   at step 5, GIFs checked, losses bit-equal to the run without; also the caption-conditioned
    recipe with its text at cond_scale 3), the profiler (a Chrome trace of steps 0-4 alone, counted
    by its kernel events), then all five options together through the CLI with exact launches. The
    kernels line gives each flagship kernel's launches in one step with and without accumulation
@@ -207,6 +207,32 @@ in one summary line (``PHASE <name>: ...``):
     seconds in the collectives;
 19. seq sample: the sampling CLI on one rank from rank 0's checkpoint,
     DDIM-10 at batch 1 and 32 frames;
+19b. dp train, tp train, seq dp train: the trainer's multi-device paths. Seq
+    train's spawn of 4 gloo ranks sharing cuda:0 runs, after its own runs,
+    every multi-rank run through the train CLI's rank function (one process
+    start for all), each in a world of its own: the flagship as
+    shipped over 4 data ranks of 2 rows (6 steps, a checkpoint and an EMA
+    sample of 4 rows at step 3, graph-replayed, its GIFs from rank 0 alone),
+    a resume from that file at 2 ranks, the same 6 steps under
+    ``param_sharding: fsdp``; configs/config_tpu_v2_3.yaml as shipped on
+    (data 2 x model 2) (4 steps, Adam's state in an async checkpoint at step
+    2, a resume from it); the seq recipe on (data 2 x seq 2) (4 steps), then
+    at batch 4 under accumulation (A = 2, 2 steps). Per run: exact launches
+    on every rank; the ranks' replicated state bit-equal (and the
+    shards of ranks at one place on the shard axis); each sharded tensor's
+    resident parameter, Adam moments and EMA 1/4 (FSDP) or 1/2 (model axis)
+    of one rank's; peak memory, s/step and collectives per rank. Losses held
+    against one rank's run of the same recipe (the flagship's and the
+    dim-128's here, the dim-128 after JAX's clamp warning; the seq recipe's
+    against seq train's 4-rank run) within 1.5x a control's largest relative
+    gap (the same recipe through the plain modules; seq train's control)
+    plus 0.001, which the losses scaled by 1.01 must fail; FSDP's final state
+    from DP's within 1.5x DP's from one rank's plus 0.001 (distances over the
+    update from the seeded weights); the dim-128 ranks on the routes one rank
+    of the recipe takes (its widest columns on CUDA-core kernels), every other
+    run all staged; the files from shards
+    one-rank files (keys, shapes, whole moments), loadable into a one-rank
+    model;
 20. kernels line: one JSON object per kernel of a driven path (launches over
     its train phase, the wide pair's over the dim-128 step, error, times,
     bound, and ``design``: "staged" where every launch of that run ran its
@@ -231,7 +257,9 @@ chiprun_out/chip_smoke/ (small) and build/chip_smoke/ (checkpoints and data).
 
 from __future__ import annotations
 
+import functools
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -431,6 +459,24 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+class WarningRecords(logging.Handler):
+    """The port's warning messages logged while the block runs (``with WarningRecords() as records``)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("video_diffusion_nnx_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("video_diffusion_nnx_tpu_torch").removeHandler(self)
 
 
 def phase(title: str, **fields) -> None:
@@ -761,6 +807,9 @@ def sample_phase(torch, ops, load_config, build_models, save_checkpoint, sample,
 
 DPM_RUN = (("dpm20_b4", 4, ["--sampler", "dpm", "--num-steps", "20"]),)
 GRAPH_RUNS = (("ddpm1000_b2", "ddpm", 2, 1000), ("ddim50_b4", "ddim", 4, 50), ("dpm20_b4", "dpm", 4, 20))
+# DDPM's eager chain is held against the graphed one over its first 100 steps (the whole 1000 until the multi-rank
+# phases needed the room: some 30 s of eager steps at batch 2).
+GRAPH_EAGER_DDPM_STEPS = 100
 GRAPH_BATCHES = (1, 2, 4, 8)  # the serving batches (padded to powers of two up to max_batch_rows 8)
 GRAPH_TOL = 1e-3  # on [0, 1], where graphed and eager are not bit-equal; never wider
 
@@ -778,9 +827,21 @@ def graph_phase(torch, ops, load_config, build_models) -> dict:
     outputs bit-equal, seconds per step (host clock ending in a synchronize) eager, graphed with its capture and
     graphed warm (DDPM-1000 once graphed: its capture is 1/1000 of the run), exact wrapper launches (eager:
     per forward x steps; graphed: per forward x 2 at the capture, none at a replay), all staged; then peak
-    memory with one cached graph and with four (batches 1, 2, 4, 8)."""
+    memory with one cached graph and with four (batches 1, 2, 4, 8). DDPM's eager chain is its first
+    ``GRAPH_EAGER_DDPM_STEPS`` steps, against the same steps graphed."""
     _, diffusion = build_models(load_config(CONFIG), device="cuda")
     diffusion.eval()
+
+    def ddpm_prefix(g, graph, batch, steps=GRAPH_EAGER_DDPM_STEPS):
+        """The first ``steps`` steps of the DDPM chain from x_T, each step's noise drawn in the sampler's order."""
+        shape = (batch, diffusion.channels, diffusion.num_frames, diffusion.image_size, diffusion.image_size)
+        img = torch.randn(shape, generator=g, device="cuda")
+        with torch.no_grad():
+            for i in reversed(range(diffusion.num_timesteps - steps, diffusion.num_timesteps)):
+                noise = torch.randn(shape, generator=g, device="cuda")
+                t = torch.full((batch,), i, dtype=torch.long, device="cuda")
+                img = diffusion.p_sample(img, t, noise=noise, graph=graph)
+        return img
 
     def gen(seed):
         return torch.Generator(device="cuda").manual_seed(seed)
@@ -805,14 +866,20 @@ def graph_phase(torch, ops, load_config, build_models) -> dict:
         check_graphed(counts, graph, steps, f"graph {name}")
         row.update(graphed_launches=counts, graphed_staged=nonzero(staged), **graph)
         row["graphed_first_s_per_step"] = sec / steps
+        eager_steps = steps
         if kind != "ddpm":
             again, sec, counts, _ = timed_run(fn, seed, True)
             check(not counts and torch.equal(again, graphed), f"graph {name}: a warm replay run launched {counts}")
             row["graphed_warm_s_per_step"] = sec / steps
+        else:  # the first steps of the chain, replayed from the graph just captured, then eager
+            eager_steps = GRAPH_EAGER_DDPM_STEPS
+            fn = functools.partial(ddpm_prefix, batch=batch)
+            graphed, _, counts, _ = timed_run(fn, seed, True)
+            check(not counts, f"graph {name}: the replayed prefix launched {counts}")
         eager, sec, counts, staged = timed_run(fn, seed, False)
         check_staged(counts, staged, f"eager {name}")
-        check(counts == {k: n * steps for k, n in PER_FORWARD.items()}, f"eager {name}: launches {counts}")
-        row["eager_launches"], row["eager_s_per_step"] = counts, sec / steps
+        check(counts == {k: n * eager_steps for k, n in PER_FORWARD.items()}, f"eager {name}: launches {counts}")
+        row["eager_launches"], row["eager_s_per_step"], row["eager_steps"] = counts, sec / eager_steps, eager_steps
         row["max_abs_graphed_vs_eager"] = _max_abs(graphed, eager)
         row["bit_equal"] = bool(torch.equal(graphed, eager))
         check(row["bit_equal"] or row["max_abs_graphed_vs_eager"] <= GRAPH_TOL,
@@ -2145,9 +2212,9 @@ def cfg_phase(torch, ops, sample, cond) -> dict:
     return out
 
 
-# 15 steps a run: a checkpoint every 5, a sample at step 10 and a trace of steps 0-4 fit, and the whole script stays
-# within 600 s.
-OPT_STEPS, OPT_CKPT_EVERY, OPT_SAMPLE_AT, OPT_FLUSH, OPT_ACCUMULATE = 15, 5, 10, 5, 2
+# 10 steps a run (15 until the multi-rank phases came, which the whole script's 600 s had to make room for): a
+# checkpoint every 5, a sample at step 5 and a trace of steps 0-4 fit.
+OPT_STEPS, OPT_CKPT_EVERY, OPT_SAMPLE_AT, OPT_FLUSH, OPT_ACCUMULATE = 10, 5, 5, 5, 2
 # Derived keys of every train options run: a checkpoint every OPT_CKPT_EVERY steps, all kept, the EMA from step 0
 # (so the flat run's EMA is exercised), and no sample or trace unless the run asks for one.
 OPT_BASE = {"step_start_ema": 0, "update_ema_every": 1, "max_to_keep": 0, "save_and_sample_every": 100000,
@@ -2174,10 +2241,10 @@ def train_options_phase(torch, ops, train) -> dict:
     """The trainer's options on the flagship recipe at full width (batch 8, bf16, both fused flags), on seeded
     synthetic data, through the train CLI: gradient accumulation (one step with injected t and noise against the
     unaccumulated step: the loss within ``LOSS_TOL``, each gradient tensor within ``GRAD_TOL``, exactly twice the
-    launches, all staged; s/step and peak memory over 15 steps), ``flatten_optimizer`` (15 steps bit-equal to the
+    launches, all staged; s/step and peak memory over 10 steps), ``flatten_optimizer`` (10 steps bit-equal to the
     run without it: losses, parameters, EMA; host launches and s/step), asynchronous checkpoints (every 5 steps, each
     present and loadable, each byte-equal to the synchronous run's; the loop's blocking seconds per save), sampling
-    during training (DDPM of 2 EMA clips at step 10: GIFs of 10 frames of 64x64, the losses bit-equal to the run
+    during training (DDPM of 2 EMA clips at step 5: GIFs of 10 frames of 64x64, the losses bit-equal to the run
     without; the same for the caption-conditioned recipe at cond_scale 3), the profiler (a trace of steps 0-4 naming
     the staged temporal forward 55 times), and one run with all five options through the CLI."""
     import shutil
@@ -2619,7 +2686,7 @@ def seq_rank(rank: int, world: int, gather_init: str, runs: list, out_dir: str) 
             "launches": nonzero(ops.launch_counts()), "staged_launches": nonzero(ops.staged_launch_counts()),
             "losses": tr.loss_trace.tolist(), "step_starts": tr.step_starts,
             "save_seconds": tr.save_seconds, "peak_memory": torch.cuda.max_memory_allocated(),
-            "comm": dict(tr.sequence_group.stats), "digest": digest.hexdigest(), "device": str(tr.device),
+            "comm": dict(tr.group.stats), "digest": digest.hexdigest(), "device": str(tr.device),
             "opt_count": tr.opt_count, "is_main": tr.is_main,
             "buffer_drift": {k: (state[k].cpu() - getattr(fresh, k)).abs().max().item()
                              for k in ("alphas_cumprod", "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod")},
@@ -2628,8 +2695,11 @@ def seq_rank(rank: int, world: int, gather_init: str, runs: list, out_dir: str) 
     (Path(out_dir) / f"seq_rank{rank}.json").write_text(json.dumps(out))
 
 
-def seq_train_phase(torch, train) -> dict:
-    """configs/config_seq_parallel.yaml through the train CLI's rank function: 4 ranks on cuda:0 over gloo."""
+def seq_train_phase(torch, train, with_mesh: bool = True) -> dict:
+    """configs/config_seq_parallel.yaml through the train CLI's rank function: 4 ranks on cuda:0 over gloo.
+
+    With ``with_mesh`` the spawn then runs the multi-rank phases' runs (one process start for all). Their seconds
+    are taken out of this phase's (``spawn_share_seconds``) and counted in the phases that check them."""
     import torch.multiprocessing as mp
     import yaml
 
@@ -2651,12 +2721,15 @@ def seq_train_phase(torch, train) -> dict:
     argv = ["--config", str(cfgs["ranks4"]), "--device", "cuda", "--dist-backend", "gloo"]
     runs = [("run", f"file://{root / 'store_run'}", argv),
             ("resume", f"file://{root / 'store_resume'}", argv + ["--resume_step", str(SEQ_CKPT_EVERY)])]
+    mesh = mesh_runs(yaml, data) if with_mesh else {"root": str(root), "runs": []}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mp.spawn(seq_rank, args=(SEQ_WORLD, f"file://{root / 'store_gather'}", runs, str(root)), nprocs=SEQ_WORLD,
-             join=True)
-    spawn_seconds = time.perf_counter() - t0
+    mp.spawn(spawned_rank, args=((SEQ_WORLD, f"file://{root / 'store_gather'}", runs, str(root)),
+                                 (mesh["runs"], mesh["root"])), nprocs=SEQ_WORLD, join=True)
     ranks = [json.loads((root / f"seq_rank{r}.json").read_text()) for r in range(SEQ_WORLD)]
+    mesh["ranks"] = [json.loads((Path(mesh["root"]) / f"mesh_rank{r}.json").read_text()) for r in range(MESH_WORLD)]
+    mesh["seconds"] = mesh["ranks"][0]["seconds"]  # rank 0's clock over the mesh runs: the ranks meet at every step
+    spawn_seconds = time.perf_counter() - t0 - mesh["seconds"]  # the process start, the gather and this recipe's runs
 
     for r in ranks:
         check(r["gather"]["correct"] and r["gather"]["device"] == "cuda:0", f"rank {r['rank']}: gather {r['gather']}")
@@ -2718,7 +2791,8 @@ def seq_train_phase(torch, train) -> dict:
             "checkpoints": ckpts, "buffer_drift": drift, "resumed_losses": resumed, "seconds_per_step": sps4,
             "peak_memory_per_rank": [r["run"]["peak_memory"] for r in ranks],
             "collectives_per_rank_per_step": {k: v / steps for k, v in run0["comm"].items()},
-            "gather_panel": ranks[0]["gather"], "spawn_seconds": spawn_seconds,
+            "gather_panel": ranks[0]["gather"], "spawn_seconds": spawn_seconds, "mesh": mesh,
+            "spawn_share_seconds": -mesh["seconds"],
             "one_rank": one, "loss_gate": {"gap_4_ranks": gap4, "control_gap": control, "gate": gate,
                                           "control_1pct_off_gap": off}}
 
@@ -2745,6 +2819,364 @@ def seq_sample_phase(torch, ops, sample) -> dict:
     check(res["graph"] == {"captures": 1, "replays": res["steps"]}, f"seq sampling: graphs {res['graph']}")
     return {"steps": res["steps"], "sample_seconds": res["seconds"], "seconds_per_step": res["seconds"] / res["steps"],
             "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}
+
+
+# The trainer's multi-device paths (A15), three phases over seq train's spawn of 4 gloo ranks sharing cuda:0; each
+# run forms its own world (file:// store) of MESH_WORLD or 2 ranks, and the ranks outside it sit it out.
+# dp train: the flagship as shipped over 4 data ranks of 2 rows (batch 8), MESH_STEPS steps, a checkpoint and one EMA
+# sample of num_sample_rows (4: one row a rank) at MESH_CKPT; a resume from that file at 2 ranks; the same steps
+# under param_sharding fsdp. tp train: configs/config_tpu_v2_3.yaml as shipped (dim 128, batch 4, num_model_shards
+# 2, Adam's state in the files, async checkpoints) on (data 2 x model 2): TP_STEPS steps, a checkpoint at TP_CKPT
+# and a resume from it; in the parent, the same recipe on one rank (the clamp). seq dp train: the seq recipe with
+# sequence_parallel_size 2 on (data 2 x seq 2): SEQ_STEPS steps, then batch 4 under accumulation (A = 2).
+MESH_WORLD, MESH_STEPS, MESH_CKPT = 4, 6, 3
+TP_STEPS, TP_CKPT = 4, 2
+SEQ_DP_ACC_STEPS = 2
+MESH_CONTROL_OFF = 0.01  # each multi-rank run's losses scaled by 1 + this must fail its gate
+MESH_GATE_MARGIN = 0.001  # added to 1.5x the control's largest relative per-step loss gap
+STATE_MARGIN = 1e-3  # FSDP's final update against DP's: within 1.5x DP's distance to one rank's, plus this
+
+
+def _digest(tensors: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(rank: int, runs: list, out_dir: str) -> None:
+    """One rank of the multi-rank phases, in a spawned process: each run of the train CLI's rank function
+    (``train.run_rank``) whose world holds this rank, with its launches, losses, times, memory, collectives,
+    resident sharded state and digests of its replicated state and its shards, written to ``mesh_rank<r>.json``."""
+    import torch
+
+    from video_diffusion_nnx_tpu_torch import ops, train
+
+    out = {"rank": rank}
+    start = time.perf_counter()
+    for name, world, init_method, argv in runs:
+        if rank >= world:
+            continue
+        ops.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with WarningRecords() as records:
+            tr = train.run_rank(rank, world, "gloo", init_method, argv)
+        state = tr.model.state_dict()
+        replicated = {k: v for k, v in state.items() if k not in tr.shards}
+        replicated.update({f"ema.{k}": v for k, v in tr.ema_state.items() if k not in tr.shards})
+        adam = tr.optimizer.state
+        resident = {k: {"param": p.numel() * 4, "ema": tr.ema_state[k].numel() * 4,
+                        "moments": sum(adam[p][m].numel() * 4 for m in ("exp_avg", "exp_avg_sq")) if p in adam else 0,
+                        "full": math.prod(tr.full_shapes[k]) * 4, "adam": p in adam}  # float32 throughout
+                    for k, p in tr.shards.items()}
+        axis = tr.mesh.axis(tr.shard_axis) if tr.shard_axis else None
+        out[name] = {
+            "world": world, "mesh": dict(tr.mesh.shape), "shard_axis": tr.shard_axis,
+            "shard_coord": None if axis is None else axis.rank,
+            "launches": nonzero(ops.launch_counts()), "staged_launches": nonzero(ops.staged_launch_counts()),
+            "losses": tr.loss_trace.tolist(), "step_starts": tr.step_starts, "save_seconds": tr.save_seconds,
+            "sample_seconds": tr.sample_seconds,
+            "sample_paths": {k: [str(p) for p in v] for k, v in tr.sample_paths.items()},
+            "graph": {"captures": tr.model.graphs.captures, "replays": tr.model.graphs.replays()},
+            "peak_memory": torch.cuda.max_memory_allocated(), "comm": dict(tr.group.stats),
+            "replicated_digest": _digest(replicated), "shard_digest": _digest({k: v for k, v in tr.shards.items()}),
+            "resident": resident, "opt_count": tr.opt_count, "is_main": tr.is_main, "device": str(tr.device),
+            "warnings": records.messages,
+        }
+        del tr, state, replicated
+        out[name]["seconds"] = time.perf_counter() - t0  # the run with its digests: this rank's share of the spawn
+    out["seconds"] = time.perf_counter() - start
+    (Path(out_dir) / f"mesh_rank{rank}.json").write_text(json.dumps(out))
+
+
+def _gap(ls: list, ref: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(ls, ref))
+
+
+# The runs of seq train's spawn that each multi-rank phase checks.
+DP_RUNS, TP_RUNS, SEQ_DP_RUNS = ("dp4", "dp_resume2", "fsdp4"), ("tp4", "tp_resume"), ("seqdp", "seqdp_acc")
+
+
+def _spawn_share(ranks: list, names: tuple) -> float:
+    """Rank 0's seconds in seq train's spawn on the runs ``names``: counted in the phase that checks them."""
+    return sum(ranks[0][name]["seconds"] for name in names)
+
+
+def _loss_gate(where: str, losses: list, ref: list, control: float) -> dict:
+    """The multi-rank losses against the one-rank run's within 1.5x the control's gap plus a margin; the same
+    losses 1% off must fall outside."""
+    gate = 1.5 * control + MESH_GATE_MARGIN
+    got = _gap(losses, ref)
+    off = _gap([(1 + MESH_CONTROL_OFF) * v for v in losses], ref)
+    check(all(math.isfinite(v) for v in losses) and len(losses) == len(ref), f"{where}: losses {losses}")
+    check(got <= gate, f"{where}: losses part from the one-rank run's by {got} (relative), over the gate {gate} "
+                       f"(control {control}): {losses} against {ref}")
+    check(off > gate, f"{where}: the loss gate {gate} misses losses {MESH_CONTROL_OFF:.0%} off ({off})")
+    return {"gap": got, "control_gap": control, "gate": gate, "control_1pct_off_gap": off}
+
+
+def _check_run(ranks: list, name: str, per_step: dict, steps: int, extra: dict | None = None,
+               staged_per_step: dict | None = None) -> dict:
+    """Exact launches on every rank of run ``name`` on cuda:0, each staged (or ``staged_per_step`` of them a step:
+    the routes one rank of the recipe takes); the ranks' replicated state bit-equal, and the shards of ranks at one
+    place on the shard axis; returns rank 0's entry."""
+    runs = [r[name] for r in ranks if name in r]
+    want = {k: per * steps + (extra or {}).get(k, 0) for k, per in per_step.items()}
+    want_staged = want if staged_per_step is None else {k: n * steps for k, n in staged_per_step.items() if n}
+    for r, run in enumerate(runs):
+        check(run["launches"] == want and run["device"] == "cuda:0",
+              f"{name} rank {r}: launches {run['launches']} on {run['device']}, expected {want}")
+        check(run["staged_launches"] == want_staged,
+              f"{name} rank {r}: staged launches {run['staged_launches']} of {run['launches']}, expected {want_staged}")
+    check(len({run["replicated_digest"] for run in runs}) == 1, f"{name}: the ranks' replicated states differ")
+    by_coord = {}
+    for run in runs:
+        by_coord.setdefault(run["shard_coord"], set()).add(run["shard_digest"])
+    check(all(len(d) == 1 for d in by_coord.values()), f"{name}: ranks holding one shard hold different values")
+    check(all(run["losses"] == runs[0]["losses"] for run in runs), f"{name}: the ranks' losses differ")
+    return runs[0]
+
+
+def _resident_share(run: dict, size: int, where: str) -> dict:
+    """Each sharded tensor's resident parameter, Adam moments and EMA: 1/size of one rank's, to within one tensor's
+    rounding (the dims divide, so exactly)."""
+    res = run["resident"]
+    check(bool(res), f"{where}: no tensor is sharded")
+    held = sum(v["param"] + v["ema"] + v["moments"] for v in res.values())
+    whole = sum(v["full"] * (4 if v["adam"] else 2) for v in res.values())
+    largest = max((v["full"] for v in res.values()), default=0)
+    check(abs(held * size - whole) <= largest, f"{where}: resident {held} bytes of {whole} over {size} ranks")
+    return {"tensors": len(res), "resident_bytes": held, "one_rank_bytes": whole, "share": held / max(whole, 1)}
+
+
+def _sps(run: dict, warm: int = 2) -> float:
+    """Rank 0's host seconds per step from step ``warm`` on, checkpoint writes and samples left out."""
+    starts = run["step_starts"]
+    skip = sum(v for k, v in {**run["save_seconds"], **run["sample_seconds"]}.items() if int(k) >= warm)
+    return (starts[-1] - starts[warm] - skip) / (len(starts) - 1 - warm)
+
+
+def _one_rank(torch, train, cfg: Path, extra: list | None = None) -> tuple[dict, list]:
+    """The recipe on one rank through the train CLI in this process; its losses, s/step, peak and warnings."""
+    from video_diffusion_nnx_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with WarningRecords() as records:
+        tr = train.main(["--config", str(cfg), "--device", "cuda", "--ranks", "1", *(extra or [])])
+    warm = min(2, len(tr.step_starts) - 2)  # a 2-step run times its second step
+    out = {"losses": tr.loss_trace.tolist(), "seconds_per_step": _seconds_per_step(tr, warmup=warm)[0],
+           "peak_memory": torch.cuda.max_memory_allocated(), "mesh": tr.mesh, "shards": len(tr.shards),
+           "launches": nonzero(ops.launch_counts()), "staged_launches": nonzero(ops.staged_launch_counts())}
+    del tr
+    return out, records.messages
+
+
+def _update_distance(a: dict, b: dict, init: dict) -> float:
+    """The distance of two checkpoints' parameters relative to ``b``'s update from ``init``, all tensors as one
+    vector: what the runs' steps moved, not the weights they started from, sets the scale."""
+    num = sum(float((a[k].double() - b[k].double()).square().sum()) for k in b)
+    den = sum(float((b[k].double() - init[k].double()).square().sum()) for k in b)
+    return math.sqrt(num / den)
+
+
+def spawned_rank(rank: int, seq_args: tuple, mesh_args: tuple) -> None:
+    """One of the 4 spawned ranks: seq train's runs, then the multi-rank phases' runs (one process start for both)."""
+    seq_rank(rank, *seq_args)
+    mesh_rank(rank, *mesh_args)
+
+
+def mesh_runs(yaml, seq_data: Path) -> dict:
+    """The configs of the multi-rank phases (and of their one-rank references) and the spawn's list of runs:
+    (name, world, init_method, argv)."""
+    root = SCRATCH / "mesh"
+    root.mkdir(parents=True, exist_ok=True)
+    for old in [*root.glob("*/checkpoints/step_*.pt"), *root.glob("*/samples/*/*.gif"), *root.glob("store_*"),
+                *root.glob("mesh_rank*.json")]:
+        old.unlink()
+    flag = yaml.safe_load(CONFIG.read_text())
+    check(flag["trainer"]["train_batch_size"] == B_TRAIN, f"the flagship batch is not {B_TRAIN}")
+    flag_data = bouncing_squares(root / "bouncing_squares.npy")
+    common = dict(steps=MESH_STEPS, ckpt_every=MESH_CKPT)
+    cfgs = {"dp4": _train_config(yaml, flag, root, flag_data, "dp4", save_and_sample_every=MESH_CKPT, **common),
+            "dp_resume2": _train_config(yaml, flag, root, flag_data, "dp_resume2", **common,
+                                        checkpoint_dir_path=str(root / "dp4" / "checkpoints")),
+            "fsdp4": _train_config(yaml, flag, root, flag_data, "fsdp4", param_sharding="fsdp", **common),
+            "dp1": _train_config(yaml, flag, root, flag_data, "dp1", **common),
+            "dp1_plain": _train_config(yaml, flag, root, flag_data, "dp1_plain", unet=PLAIN_MODULES, **common)}
+    tp = yaml.safe_load(DIM128_CONFIG.read_text())
+    check(tp["trainer"]["num_model_shards"] == 2 and tp["unet"]["dim"] == 128, f"the dim-128 recipe: {tp['trainer']}")
+    tp_data = bouncing_squares(root / "bouncing_squares_tp.npy", clips=32)
+    tp_common = dict(steps=TP_STEPS, ckpt_every=TP_CKPT)
+    cfgs.update(tp4=_train_config(yaml, tp, root, tp_data, "tp4", **tp_common),
+                tp1=_train_config(yaml, tp, root, tp_data, "tp1", **tp_common),
+                tp1_plain=_train_config(yaml, tp, root, tp_data, "tp1_plain", unet=PLAIN_MODULES, **tp_common))
+    seq = yaml.safe_load(SEQ_CONFIG.read_text())  # on seq train's clips: the same steps as its run
+    acc = dict(train_batch_size=4, enable_gradient_accumulation=True, gradient_accumulate_every=2)
+    cfgs.update(seqdp=_train_config(yaml, seq, root, seq_data, "seqdp", sequence_parallel_size=2, steps=SEQ_STEPS,
+                                    ckpt_every=SEQ_CKPT_EVERY),
+                seqdp_acc=_train_config(yaml, seq, root, seq_data, "seqdp_acc", sequence_parallel_size=2,
+                                        steps=SEQ_DP_ACC_STEPS, ckpt_every=SEQ_CKPT_EVERY, **acc),
+                seq1_acc=_train_config(yaml, seq, root, seq_data, "seq1_acc", sequence_parallel_size=1,
+                                       steps=SEQ_DP_ACC_STEPS, ckpt_every=SEQ_CKPT_EVERY, **acc))
+
+    def argv(name, *extra):
+        return ["--config", str(cfgs[name]), "--device", "cuda", "--dist-backend", "gloo", *extra]
+
+    runs = [("dp4", 4, argv("dp4")), ("dp_resume2", 2, argv("dp_resume2", "--resume_step", str(MESH_CKPT))),
+            ("fsdp4", 4, argv("fsdp4")), ("tp4", 4, argv("tp4")),
+            ("tp_resume", 4, argv("tp4", "--resume_step", str(TP_CKPT))),
+            ("seqdp", 4, argv("seqdp")), ("seqdp_acc", 4, argv("seqdp_acc"))]
+    check([r[0] for r in runs] == [*DP_RUNS, *TP_RUNS, *SEQ_DP_RUNS], "every spawned run belongs to one phase")
+    runs = [(name, world, f"file://{root / ('store_' + name)}", a) for name, world, a in runs]
+    return {"root": str(root), "cfgs": {k: str(v) for k, v in cfgs.items()}, "runs": runs}
+
+
+def dp_train_phase(torch, ops, train, seq: dict) -> dict:
+    """The flagship's multi-rank runs from seq train's spawn, then its one-rank references and the checks."""
+    import yaml
+    from PIL import Image
+
+    from video_diffusion_nnx_tpu_torch.config import build_models, load_config
+    from video_diffusion_nnx_tpu_torch.convert import read_checkpoint
+
+    mesh = seq["mesh"]
+    root, ranks, runs = Path(mesh["root"]), mesh["ranks"], mesh["runs"]
+    cfgs = {k: Path(v) for k, v in mesh["cfgs"].items()}
+    flag = yaml.safe_load(CONFIG.read_text())
+
+    # The flagship over 4 data ranks: exact launches (the sample's capture: each forward wrapper twice), the EMA
+    # sample graph-replayed over the chain's 1000 steps, its GIFs from rank 0 alone; a resume at 2 ranks; FSDP.
+    sample_launches = {k: 2 * n for k, n in PER_FORWARD.items()}
+    dp = _check_run(ranks, "dp4", PER_STEP, MESH_STEPS, sample_launches)
+    steps_t = flag["diffusion"]["timesteps"]
+    check(dp["graph"] == {"captures": 1, "replays": steps_t}, f"dp4: the sample's graphs {dp['graph']}")
+    rows = yaml.safe_load(cfgs["dp4"].read_text())["trainer"].get("num_sample_rows", 4)
+    check(all(not any("does not divide" in m for m in r["dp4"]["warnings"]) for r in ranks),
+          f"dp4: the sample of {rows} rows ran replicated")
+    paths = {int(k): v for k, v in dp["sample_paths"].items()}
+    check(list(paths) == [MESH_CKPT] and len(paths[MESH_CKPT]) == rows
+          and all(not r["dp4"]["sample_paths"] for r in ranks[1:]), f"dp4: sample GIFs {dp['sample_paths']}")
+    gifs = sorted((root / "dp4" / "samples" / f"step_{MESH_CKPT}").glob("*.gif"))
+    check(len(gifs) == rows and all(Image.open(p).n_frames == flag["diffusion"]["num_frames"] for p in gifs),
+          f"dp4: {len(gifs)} GIFs written")
+    ckpts = sorted(int(p.stem[5:]) for p in (root / "dp4" / "checkpoints").glob("step_*.pt"))
+    check(ckpts == [MESH_CKPT, MESH_STEPS], f"dp4: checkpoints at {ckpts}")
+    resumed = _check_run(ranks, "dp_resume2", PER_STEP, MESH_STEPS - MESH_CKPT)
+    r_losses = resumed["losses"]
+    check(all(math.isnan(v) for v in r_losses[:MESH_CKPT]) and all(math.isfinite(v) for v in r_losses[MESH_CKPT:])
+          and resumed["opt_count"] == MESH_STEPS + 1 and resumed["mesh"] == {"data": 2, "model": 1},
+          f"dp resume at 2 ranks: losses {r_losses}, optimizer count {resumed['opt_count']}")
+    fsdp = _check_run(ranks, "fsdp4", PER_STEP, MESH_STEPS)
+    check(fsdp["shard_axis"] == "data" and fsdp["mesh"] == {"data": 4, "model": 1}, f"fsdp4: {fsdp['mesh']}")
+    fsdp_share = _resident_share(fsdp, MESH_WORLD, "fsdp4")
+
+    one, _ = _one_rank(torch, train, cfgs["dp1"])
+    plain, _ = _one_rank(torch, train, cfgs["dp1_plain"])
+    control = _gap(plain["losses"], one["losses"])
+    gates = {"dp4": _loss_gate("dp4", dp["losses"], one["losses"], control),
+             "fsdp4": _loss_gate("fsdp4", fsdp["losses"], one["losses"], control)}
+    files = {n: read_checkpoint(root / n / "checkpoints" / f"step_{MESH_STEPS}.pt") for n in ("dp4", "fsdp4", "dp1")}
+    _, fresh = build_models(load_config(str(cfgs["dp1"])), device="cuda")
+    init = {k: v.cpu() for k, v in fresh.state_dict().items()}
+    del fresh
+    d_fsdp = _update_distance(files["fsdp4"]["model"], files["dp4"]["model"], init)
+    d_dp = _update_distance(files["dp4"]["model"], files["dp1"]["model"], init)
+    check(d_fsdp <= 1.5 * d_dp + STATE_MARGIN, f"FSDP's state is {d_fsdp} of the update from DP's, over 1.5x DP's "
+                                               f"{d_dp} from one rank's + {STATE_MARGIN}")
+    check(set(files["fsdp4"]["model"]) == set(files["dp1"]["model"]) and all(
+        files["fsdp4"][part][k].shape == files["dp1"][part][k].shape for part in ("model", "ema_params")
+        for k in files["dp1"][part]), "the FSDP file is not a one-rank file")
+    adam = files["fsdp4"]["optimizer"]["adam"]["state"]
+    check(all(adam[i]["exp_avg"].shape == files["dp1"]["optimizer"]["adam"]["state"][i]["exp_avg"].shape
+              for i in adam), "FSDP's moments in the file are not whole")
+    del files
+    return {"spawn_share_seconds": _spawn_share(ranks, DP_RUNS), "ranks": ranks, "cfgs": mesh["cfgs"],
+            "run_seconds": {name: ranks[0][name]["seconds"] for name, *_ in runs},
+            "world": MESH_WORLD, "batch": B_TRAIN, "rows_per_rank": B_TRAIN // MESH_WORLD, "steps": MESH_STEPS,
+            "losses": dp["losses"], "fsdp_losses": fsdp["losses"], "one_rank": one, "plain_one_rank": plain,
+            "loss_gates": gates, "update_distance": {"fsdp_to_dp": d_fsdp, "dp_to_one_rank": d_dp},
+            "launches_per_rank": dp["launches"], "fsdp_launches_per_rank": fsdp["launches"],
+            "launches": {k: sum(r["dp4"]["launches"][k] for r in ranks) for k in dp["launches"]},
+            "fsdp_launches": {k: sum(r["fsdp4"]["launches"][k] for r in ranks) for k in fsdp["launches"]},
+            "seconds_per_step": _sps(dp), "fsdp_seconds_per_step": _sps(fsdp),
+            "sample_seconds": dp["sample_seconds"], "resumed_losses": r_losses, "fsdp_resident": fsdp_share,
+            "peak_memory_per_rank": [r["dp4"]["peak_memory"] for r in ranks],
+            "fsdp_peak_memory_per_rank": [r["fsdp4"]["peak_memory"] for r in ranks],
+            "collectives_per_rank_per_step": {k: v / MESH_STEPS for k, v in dp["comm"].items()},
+            "fsdp_collectives_per_rank_per_step": {k: v / MESH_STEPS for k, v in fsdp["comm"].items()}}
+
+
+def tp_train_phase(torch, train, dp: dict) -> dict:
+    """The dim-128 recipe on (data 2 x model 2) from the spawn, then on one rank here (the clamp)."""
+    from video_diffusion_nnx_tpu_torch.config import build_models, load_config
+    from video_diffusion_nnx_tpu_torch.convert import read_checkpoint
+
+    ranks, cfgs = dp["ranks"], {k: Path(v) for k, v in dp["cfgs"].items()}
+    # One rank first: its clamp, and the routes the recipe's shapes take (the wider columns on the CUDA-core kernels).
+    one, warnings = _one_rank(torch, train, cfgs["tp1"])
+    check(any("num_model_shards=2 exceeds the 1 available rank(s); clamping to 1" in m for m in warnings)
+          and one["mesh"] is None and one["shards"] == 0, f"tp on one rank: warnings {warnings}")
+    check(one["launches"] == {k: n * TP_STEPS for k, n in DIM128_PER_STEP.items()},
+          f"tp on one rank: launches {one['launches']}")
+    staged = {k: one["staged_launches"].get(k, 0) // TP_STEPS for k in DIM128_PER_STEP}
+    run = _check_run(ranks, "tp4", DIM128_PER_STEP, TP_STEPS, staged_per_step=staged)
+    check(run["mesh"] == {"data": 2, "model": 2} and run["shard_axis"] == "model", f"tp4: mesh {run['mesh']}")
+    share = _resident_share(run, 2, "tp4")
+    root = cfgs["tp4"].parent
+    ckpts = sorted(int(p.stem[5:]) for p in (root / "tp4" / "checkpoints").glob("step_*.pt"))
+    check(ckpts == [TP_CKPT, TP_STEPS], f"tp4: checkpoints at {ckpts}")
+    resumed = _check_run(ranks, "tp_resume", DIM128_PER_STEP, TP_STEPS - TP_CKPT, staged_per_step=staged)
+    check(resumed["opt_count"] == TP_STEPS + 1 and not any("fresh optimizer" in m for m in resumed["warnings"])
+          and all(math.isfinite(v) for v in resumed["losses"][TP_CKPT:]),
+          f"tp resume: optimizer count {resumed['opt_count']}, warnings {resumed['warnings']}")
+    payload = read_checkpoint(root / "tp4" / "checkpoints" / f"step_{TP_STEPS}.pt")
+    _, model = build_models(load_config(str(cfgs["tp4"])), device="cuda")
+    want = model.state_dict()
+    check({k: tuple(v.shape) for k, v in payload["model"].items()} == {k: tuple(v.shape) for k, v in want.items()},
+          "tp4: the file from shards has other keys or shapes than a one-rank model")
+    model.load_state_dict(payload["model"], strict=True)
+    del payload, model, want
+
+    plain, _ = _one_rank(torch, train, cfgs["tp1_plain"])
+    gate = _loss_gate("tp4", run["losses"], one["losses"], _gap(plain["losses"], one["losses"]))
+    return {"spawn_share_seconds": _spawn_share(ranks, TP_RUNS),
+            "world": MESH_WORLD, "mesh": run["mesh"], "batch": 4, "rows_per_rank": 1, "steps": TP_STEPS,
+            "losses": run["losses"], "one_rank": one, "plain_one_rank": plain, "clamp_warning": True,
+            "staged_per_step": staged,
+            "loss_gate": gate, "resident": share, "launches_per_rank": run["launches"],
+            "launches": {k: sum(r["tp4"]["launches"][k] for r in ranks) for k in run["launches"]},
+            "seconds_per_step": _sps(run, warm=1), "resumed_losses": resumed["losses"],
+            "save_seconds": run["save_seconds"], "peak_memory_per_rank": [r["tp4"]["peak_memory"] for r in ranks],
+            "collectives_per_rank_per_step": {k: v / TP_STEPS for k, v in run["comm"].items()}}
+
+
+def seq_dp_train_phase(torch, train, dp: dict, seq: dict) -> dict:
+    """The seq recipe on (data 2 x seq 2) from the spawn, held against seq train's 4-rank run (the same step) within
+    seq train's gate; then under accumulation against one rank's accumulation."""
+    ranks, cfgs = dp["ranks"], {k: Path(v) for k, v in dp["cfgs"].items()}
+    run = _check_run(ranks, "seqdp", SEQ_PER_STEP, SEQ_STEPS)
+    check(run["mesh"] == {"data": 2, "seq": 2}, f"seqdp: mesh {run['mesh']}")
+    control = seq["loss_gate"]["control_gap"]
+    gate = _loss_gate("seqdp", run["losses"], seq["losses"], control)
+    acc = _check_run(ranks, "seqdp_acc", SEQ_PER_STEP, SEQ_DP_ACC_STEPS * 2)
+    one, _ = _one_rank(torch, train, cfgs["seq1_acc"])
+    acc_gate = _loss_gate("seqdp_acc", acc["losses"], one["losses"], control)
+    return {"spawn_share_seconds": _spawn_share(ranks, SEQ_DP_RUNS),
+            "world": MESH_WORLD, "mesh": run["mesh"], "batch": 2, "frames_per_rank": SEQ_FL * 2, "steps": SEQ_STEPS,
+            "losses": run["losses"], "loss_gate": gate, "accumulation": {
+                "batch": 4, "microbatches": 2, "steps": SEQ_DP_ACC_STEPS, "losses": acc["losses"],
+                "one_rank_losses": one["losses"], "loss_gate": acc_gate, "launches_per_rank": acc["launches"]},
+            "launches_per_rank": run["launches"],
+            "launches": {k: sum(r["seqdp"]["launches"][k] for r in ranks) for k in run["launches"]},
+            "seconds_per_step": _sps(run), "peak_memory_per_rank": [r["seqdp"]["peak_memory"] for r in ranks],
+            "collectives_per_rank_per_step": {k: v / SEQ_STEPS for k, v in run["comm"].items()}}
 
 
 # The VideoDiT family (A11). D1 is configs/config_bouncing_digits.yaml with its unet block replaced by the DiT of
@@ -3588,7 +4020,9 @@ def main(argv: list[str]) -> int:
             return None
         t0 = time.perf_counter()
         results[title] = res = fn(*args, **kwargs)
-        phase(title, seconds=time.perf_counter() - t0, **show(res))
+        # A phase whose work ran in another phase's spawn, or whose spawn ran another's, says so: its seconds are its own.
+        share = res.get("spawn_share_seconds", 0.0) if isinstance(res, dict) else 0.0
+        phase(title, seconds=time.perf_counter() - t0 + share, **show(res))
         return res
 
     def brief(res):
@@ -3674,9 +4108,21 @@ def main(argv: list[str]) -> int:
                   show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
                                   "self_attention_equivalence": r["self_attention_equivalence"],
                                   **per_step(r, "per_step")})
-    seq = timed("seq train", seq_train_phase, torch, train,
-                show=lambda r: {k: v for k, v in r.items() if k != "resumed_losses"})
+    with_mesh = only is None or any(t in only for t in ("dp train", "tp train", "seq dp train"))
+    seq = timed("seq train", seq_train_phase, torch, train, with_mesh,
+                show=lambda r: {k: v for k, v in r.items() if k not in ("resumed_losses", "mesh")})
     timed("seq sample", seq_sample_phase, torch, ops, sample)
+
+    # The trainer's multi-device paths (A15): seq train's spawn of 4 gloo ranks on cuda:0 ran every multi-rank run
+    # after its own; dp train holds the flagship's, tp train the dim-128 recipe's (data 2 x model 2), seq dp train the
+    # seq recipe's (data 2 x seq 2) against seq train's run.
+    def mesh_show(r):
+        return {k: v for k, v in r.items() if k not in ("ranks", "cfgs", "one_rank", "plain_one_rank")}
+
+    dp = timed("dp train", dp_train_phase, torch, ops, train, seq, show=mesh_show) if seq is not None else None
+    tp = timed("tp train", tp_train_phase, torch, train, dp, show=mesh_show) if dp is not None else None
+    seq_dp = timed("seq dp train", seq_dp_train_phase, torch, train, dp, seq, show=mesh_show) \
+        if dp is not None and seq is not None else None
 
     # The VideoDiT family: its attention kernels at D1's and D2's shapes, each recipe's forward and step against the
     # plain modules, D1 through the train and sample CLIs and the server, and the caption-conditioned D1.
@@ -3764,6 +4210,8 @@ def main(argv: list[str]) -> int:
             "launches_per_step_accumulated": options["accumulation_step"]["launches_accumulated"][name]}
            if name in PER_STEP else {}),
         "dit": dit_field(name),
+        "multi_rank": {"dp_train": dp["launches"].get(name, 0), "fsdp_train": dp["fsdp_launches"].get(name, 0),
+                       "tp_train": tp["launches"].get(name, 0), "seq_dp_train": seq_dp["launches"].get(name, 0)},
         "distill": {"flagship_progressive": distilled["kernels"]["launches"].get(name, 0),
                     "flagship_guidance": guided["kernels"]["launches"].get(name, 0),
                     "flagship_stage2": guided["stage2"]["launches"].get(name, 0),

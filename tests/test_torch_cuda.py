@@ -525,6 +525,34 @@ def test_gloo_ranks_share_one_card(device, tmp_path):
         assert res["device"] == "cuda:0" and res["ok"], res
 
 
+@pytest.mark.parametrize("sharding", ["tensor", "fsdp"])
+def test_gloo_ranks_train_data_parallel_on_one_card(device, tmp_path, sharding):
+    """Two gloo ranks on cuda:0, two data-parallel steps of a fused Unet3D from the loader, replicated ("tensor": no
+    model axis) or under FSDP: every launch staged, the ranks' losses and gathered states bit-equal, FSDP's
+    resident state half of each sharded tensor."""
+    import torch.multiprocessing as mp
+
+    import torch_mesh_workers
+
+    data = tmp_path / "clips.npy"
+    np.save(data, np.random.default_rng(0).integers(0, 256, size=(10, 8, 32, 32), dtype=np.uint8))
+    mp.spawn(torch_mesh_workers.card_train_main,
+             args=(2, f"file://{tmp_path / 'store'}", str(data), str(tmp_path), sharding), nprocs=2, join=True)
+    ranks = [torch.load(tmp_path / f"{sharding}{r}.pt") for r in range(2)]
+    for res in ranks:
+        assert res["device"] == "cuda:0" and all(math.isfinite(v) for v in res["losses"])
+        assert res["launches"] and res["staged"] == res["launches"], res["launches"]
+        assert res["launches"]["temporal_attention_fwd"] == res["launches"]["temporal_attention_bwd"] > 0
+    assert ranks[0]["losses"] == ranks[1]["losses"] and ranks[0]["launches"] == ranks[1]["launches"]
+    for k, v in ranks[0]["state"].items():
+        assert torch.equal(ranks[1]["state"][k], v) and torch.equal(ranks[1]["ema"][k], ranks[0]["ema"][k]), k
+    if sharding == "fsdp":
+        assert ranks[0]["resident"] and all(
+            2 * math.prod(s["param"]) == ranks[0]["state"][k].numel() for k, s in ranks[0]["resident"].items())
+    else:
+        assert ranks[0]["resident"] == {}
+
+
 # The staged dense forward (`temporal_fwd_panel_kernel`) and the staged k/v backward (`sla_bwd_kv_panel_kernel`)
 # at every shape the flagship, fixed and long-clip recipes give them (batch 8 for training, batch 2 for the
 # sampler), the long clip's bottleneck, and ragged f, c and n (not multiples of 16).

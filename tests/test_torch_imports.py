@@ -43,8 +43,9 @@ def test_port_and_chip_smoke_import_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
-    for name in ("parallel", "parallel.mesh", "parallel.sequence", "ops.cross_attention", "models.dit", "training.distill",
-                 "training.guidance", "distill", "distill_guidance", "eval_bouncing_digits_distilled"):
+    for name in ("parallel", "parallel.mesh", "parallel.sequence", "parallel.sharding", "ops.cross_attention",
+                 "models.dit", "training.distill", "training.guidance", "distill", "distill_guidance",
+                 "eval_bouncing_digits_distilled"):
         assert f" video_diffusion_nnx_tpu_torch.{name} " in proc.stdout + " ", name
 
 

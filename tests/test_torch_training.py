@@ -161,21 +161,6 @@ def _trainer(model, npy_path, tmp_path, **kw):
     return Trainer(model, folder=str(tmp_path), **{**base, **kw})
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(num_model_shards=2), "A15"),
-    (dict(param_sharding="fsdp"), "A15"),
-    (dict(sequence_parallel_size=2, sequence_group=SequenceGroup(0, 4, "gloo", torch.device("cpu"))), "A15"),
-    (dict(enable_gradient_accumulation=True, sequence_parallel_size=4, sequence_group=_group()), "A15"),
-    (dict(save_and_sample_every=2, sequence_parallel_size=4, sequence_group=_group()), "A15"),
-])
-def test_unported_options_raise(npy_path, tmp_path, option, item):
-    """Model sharding, FSDP and data parallelism; over a sequence group also gradient accumulation and sampling
-    during training (each of which runs on one device, tests/test_torch_trainer_options.py)."""
-    pm = port_model(jax_fixture_model())
-    with pytest.raises(NotImplementedError, match=item):
-        _trainer(pm, npy_path, tmp_path, **option)
-
-
 @pytest.mark.parametrize("option", ["use_path_as_cond", "null_cond_prob"])
 def test_conditioning_options_of_the_trainer(npy_path, tmp_path, option):
     """Filename captions need a folder of GIFs (a ``.npy`` has no file names to read); condition dropout is stored and

@@ -192,8 +192,8 @@ def build_trainer(config: dict[str, Any], device: str | torch.device = "cuda", r
                   rng_seed: int | None = None, sequence_group=None):
     """``(unet, diffusion, trainer)`` from a merged config; seed: ``rng_seed`` > config ``rng_seed`` > 0.
 
-    With a ``sequence_group`` (one rank of a sequence-parallel run) the models are built on the
-    rank's device and the trainer runs over the group.
+    With a ``sequence_group`` (one rank's group of a multi-rank run's whole world) the models are
+    built on the rank's device and the trainer builds its mesh over the group.
     """
     from video_diffusion_nnx_tpu_torch.training.trainer import Trainer
 

@@ -95,11 +95,15 @@ def _to_host(obj):
 
 
 def checkpoint_payload(model: nn.Module, ema_state: Mapping | None = None, optimizer: Mapping | None = None,
-                       step: int | None = None) -> dict:
+                       step: int | None = None, gathered: Mapping | None = None) -> dict:
     """The contents of a checkpoint file, copied to host memory: later updates of the live tensors leave it as it
-    is, so a background thread may write it."""
+    is, so a background thread may write it. ``gathered`` holds whole tensors that stand in for some of
+    ``model``'s (a sharded trainer's parameters, which the module holds only during a step)."""
+    state = model.state_dict()
+    if gathered:
+        state = {k: gathered.get(k, v) for k, v in state.items()}
     return {
-        "model": _to_host(model.state_dict()),
+        "model": _to_host(state),
         "ema_params": None if ema_state is None else _to_host(ema_state),
         "optimizer": _to_host(optimizer),
         "step": step,

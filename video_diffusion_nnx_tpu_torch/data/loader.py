@@ -2,7 +2,9 @@
 
 :class:`DataLoader` draws each epoch's order from ``np.random.default_rng(seed)``
 exactly as the JAX package does, so both packages yield the same batches
-for one seed. :func:`device_prefetch` runs a background thread that pins
+for one seed. A rank of a data-parallel run draws the same order and loads
+only its own rows of each batch (``rows``, from :func:`rank_rows`).
+:func:`device_prefetch` runs a background thread that pins
 each batch (an array, or a tuple of arrays such as the videos and text
 embeddings of :func:`collate_with_text_cond`) and copies it to the device
 without blocking, ``depth`` batches ahead of the training step.
@@ -22,9 +24,10 @@ class DataLoader:
     """Shuffling, drop-last batches over a dataset of numpy items; one iteration is one epoch."""
 
     def __init__(self, dataset: Sequence, batch_size: int, shuffle: bool = True, drop_last: bool = True,
-                 seed: int = 0, collate_fn: Callable[[list], Any] | None = None):
+                 seed: int = 0, collate_fn: Callable[[list], Any] | None = None, rows: Sequence[int] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = None if rows is None else [int(r) for r in rows]  # the positions in each batch to load
         self.shuffle = shuffle
         self.drop_last = drop_last
         self._rng = np.random.default_rng(seed)
@@ -39,7 +42,25 @@ class DataLoader:
         order = self._rng.permutation(n) if self.shuffle else np.arange(n)
         end = (n // self.batch_size) * self.batch_size if self.drop_last else n
         for start in range(0, end, self.batch_size):
-            yield self.collate_fn([self.dataset[int(i)] for i in order[start:start + self.batch_size]])
+            batch = order[start:start + self.batch_size]
+            if self.rows is not None:
+                batch = batch[self.rows]
+            yield self.collate_fn([self.dataset[int(i)] for i in batch])
+
+
+def rank_rows(batch_size: int, ranks: int, rank: int, microbatches: int = 1) -> list[int]:
+    """The positions in each batch that ``rank`` of ``ranks`` data-parallel ranks trains on.
+
+    The batch splits into ``microbatches`` runs of consecutive rows (gradient
+    accumulation's microbatches), and each run into ``ranks`` equal parts;
+    the rank takes its part of every run, in order, so that its own
+    microbatch i is its part of the whole batch's microbatch i.
+    """
+    if batch_size % (ranks * microbatches):
+        raise ValueError(f"a batch of {batch_size} rows does not split into {microbatches} microbatch(es) over "
+                         f"{ranks} data-parallel ranks")
+    micro, per = batch_size // microbatches, batch_size // (microbatches * ranks)
+    return [i * micro + rank * per + j for i in range(microbatches) for j in range(per)]
 
 
 def collate_with_text_cond(items: list) -> tuple[np.ndarray, np.ndarray]:
@@ -100,8 +121,9 @@ def device_prefetch(iterator, device: torch.device, depth: int = 2) -> Iterator[
 
 
 def endless_prefetching_loader(dataset: Sequence, batch_size: int, device, seed: int = 0, depth: int = 2,
-                               collate_fn: Callable[[list], Any] | None = None) -> Iterator[Any]:
-    """The trainer's feed: an endless shuffled stream of batches already on ``device``."""
+                               collate_fn: Callable[[list], Any] | None = None,
+                               rows: Sequence[int] | None = None) -> Iterator[Any]:
+    """The trainer's feed: an endless shuffled stream of batches (or of a rank's ``rows`` of each) on ``device``."""
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, seed=seed,
-                        collate_fn=collate_fn)
+                        collate_fn=collate_fn, rows=rows)
     return device_prefetch(cycle(loader), device, depth)

@@ -19,16 +19,28 @@ guidance scale (``Unet3D.forward_with_cond_scale``: one denoiser forward of
 2b rows when it is not 1); the loss takes ``null_cond_prob``, the
 condition's dropout rate. ``interpolate`` has no condition, as in JAX.
 
-Under a sequence-parallel group (the denoiser's ``sequence_parallel_mesh``)
-each rank trains on its own frames: ``forward`` draws t and the noise for
-the whole clip, exactly as one rank would, and keeps this rank's frames of
-the clip and the noise; ``p_losses`` then returns this rank's share of the
-loss, the mean over its elements divided by the world size. The shares sum
-to the mean over the whole clip, and their gradients to its gradient.
+Over a group of ranks each rank holds a part of the batch: its rows, when
+``data_group`` (set by the trainer) has more than one rank, and its frames,
+under a sequence-parallel group (the denoiser's ``sequence_parallel_mesh``).
+``forward`` draws t, the noise and the denoiser's focus and dropout masks
+for the whole batch and clip, exactly as one rank would, and keeps this
+rank's rows and frames of each; ``p_losses`` then returns this rank's share
+of the loss, the mean over its elements divided by the number of parts.
+The shares sum to the mean over the whole batch, and their gradients to its
+gradient. The samplers ``sample``, ``ddim_sample`` and ``dpm_solver_sample``
+split a batch's rows over the data ranks as the JAX package's
+``_sampler_batch_spec`` does (:87-101: the whole batch on every rank, with a
+warning, when it does not divide) and the frames over the sequence ranks;
+x_T and each step's noise are drawn for the whole batch, and each rank keeps
+its part, so the parts are what one rank would compute. Each rank returns
+its part; :meth:`GaussianDiffusion.gather_batch` joins them. A sampler under
+a sequence group runs its denoiser eagerly: a CUDA graph cannot capture a
+collective that gloo stages through the host.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Sequence
 
 import torch
@@ -39,6 +51,8 @@ from video_diffusion_nnx_tpu_torch.models.text import embed_captions
 from video_diffusion_nnx_tpu_torch.utils.functional import is_list_str
 from video_diffusion_nnx_tpu_torch.utils.image import normalize_img, unnormalize_img
 from video_diffusion_nnx_tpu_torch.utils.schedule import ScheduleBuffers, extract
+
+logger = logging.getLogger(__name__)
 
 BUFFER_NAMES = (
     "alphas_cumprod",
@@ -113,6 +127,7 @@ class GaussianDiffusion(nn.Module):
             self.register_buffer(name, getattr(buf, name))
         # The captured denoiser forwards; dropped when weights are loaded or the module moves.
         self.graphs = GraphCache()
+        self.data_group = None  # the ranks the batch's rows split over (a parallel.SequenceGroup), or None
         self.register_load_state_dict_post_hook(lambda module, _keys: module.graphs.clear())
 
     def _apply(self, fn, recurse: bool = True):
@@ -127,6 +142,47 @@ class GaussianDiffusion(nn.Module):
     def sequence_group(self):
         """The denoiser's sequence-parallel group, or None."""
         return getattr(self.denoise_fn, "sequence_parallel_mesh", None)
+
+    def _split_rows(self, batch_size: int, warn: bool = False) -> slice | None:
+        """This rank's rows of a batch of ``batch_size`` under a data group of more than one rank, else None (every
+        row); a batch that does not divide runs whole on every rank, with a warning when ``warn``."""
+        data = self.data_group
+        if data is None or data.world_size == 1:
+            return None
+        if batch_size % data.world_size == 0:
+            return data.rows(batch_size)
+        if warn:
+            logger.warning("sampling batch %d does not divide across %d data shards; running replicated (no data "
+                           "parallelism). Pad the batch to a multiple of %d to engage all ranks.",
+                           batch_size, data.world_size, data.world_size)
+        return None
+
+    def _mine(self, x: torch.Tensor | None, rows: slice | None, frames: bool = True) -> torch.Tensor | None:
+        """This rank's part of ``x``, a whole batch's tensor: its ``rows``, and its frames (dim 2) when ``frames``
+        under a sequence group."""
+        if x is None:
+            return None
+        if rows is not None:
+            x = x[rows]
+        seq = self.sequence_group
+        if frames and seq is not None:
+            x = x[:, :, seq.frames(self.num_frames)]
+        return x
+
+    def gather_batch(self, x: torch.Tensor, batch_size: int) -> torch.Tensor:
+        """Every rank's part of a sampler's output joined into the whole batch (a collective: every rank calls it)."""
+        if self.sequence_group is not None:
+            x = self.sequence_group.all_gather(x, 2)
+        if self._split_rows(batch_size) is not None:
+            x = self.data_group.all_gather(x, 0)
+        return x
+
+    def _graphable(self, graph: bool) -> bool:
+        if graph and self.sequence_group is not None:
+            logger.info("the sampler runs its denoiser eagerly: a CUDA graph cannot capture the sequence group's "
+                        "collectives")
+            return False
+        return graph
 
     def _x(self, a: torch.Tensor, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return extract(a, t, x.shape)
@@ -201,8 +257,9 @@ class GaussianDiffusion(nn.Module):
         x_recon, _ = self._model_out_to_x0_eps(x, t, self._denoise(x, t, graph, cond, cond_scale))
         if clip_denoised:
             s = 1.0
-            if self.use_dynamic_thres:
-                flat = x_recon.reshape(x_recon.shape[0], -1).abs()
+            if self.use_dynamic_thres:  # a quantile over each whole sample: its frames gathered first
+                whole = x_recon if self.sequence_group is None else self.sequence_group.all_gather(x_recon, 2)
+                flat = whole.reshape(whole.shape[0], -1).abs()
                 s = torch.quantile(flat, self.dynamic_thres_percentile, dim=-1)
                 s = torch.clamp(s, min=1.0).reshape(-1, 1, 1, 1, 1)
                 x_recon = torch.maximum(torch.minimum(x_recon, s), -s) / s
@@ -255,13 +312,16 @@ class GaussianDiffusion(nn.Module):
     @torch.no_grad()
     def p_sample_loop(self, shape, generator=None, init_noise=None, graph: bool = True, cond=None,
                       cond_scale: float = 1.0, step_noise: Sequence[torch.Tensor] | None = None):
-        """The full DDPM reverse chain, T steps; returns images in [0, 1]. ``init_noise`` and ``step_noise`` (each
-        step's noise, in the chain's order) are drawn from ``generator`` where not given."""
-        cond = self.embed_cond(cond)
-        img = self._init(shape, generator, init_noise)
+        """The full DDPM reverse chain, T steps; returns images in [0, 1] (this rank's part under a group).
+        ``init_noise`` and ``step_noise`` (each step's noise, in the chain's order; whole-batch tensors) are drawn
+        from ``generator`` where not given."""
+        rows = self._split_rows(shape[0], warn=True)
+        cond = self._mine(self.embed_cond(cond), rows, frames=False)
+        graph = self._graphable(graph)
+        img = self._mine(self._init(shape, generator, init_noise), rows)
         for step, i in enumerate(reversed(range(self.num_timesteps))):
-            noise = None if step_noise is None else step_noise[step]
-            img = self.p_sample(img, self._t(i, shape[0]), noise=noise, generator=generator, graph=graph, cond=cond,
+            noise = step_noise[step] if step_noise is not None else _normal(shape, generator, self.device)
+            img = self.p_sample(img, self._t(i, img.shape[0]), noise=self._mine(noise, rows), graph=graph, cond=cond,
                                 cond_scale=cond_scale)
         return unnormalize_img(img)
 
@@ -296,15 +356,18 @@ class GaussianDiffusion(nn.Module):
         """
         batch_size, cond = self._batch(batch_size, cond)
         shape = self._shape(batch_size)
+        rows = self._split_rows(batch_size, warn=True)
+        cond = self._mine(cond, rows, frames=False)
+        graph = self._graphable(graph)
         times = sampling_times(self.num_timesteps, num_steps, grid).flip(0).tolist()
         times_prev = times[1:] + [-1]
-        img = self._init(shape, generator, init_noise)
+        img = self._mine(self._init(shape, generator, init_noise), rows)
         for step, (t, t_prev) in enumerate(zip(times, times_prev)):
-            t_arr = self._t(t, batch_size)
+            t_arr = self._t(t, img.shape[0])
             x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph, cond, cond_scale))
             img, sigma = self._ddim_step(img, torch.clamp(x0, -1.0, 1.0), t, t_prev, eta)
             if eta > 0:
-                img = img + sigma * self._draw(step_noise, step, shape, generator)
+                img = img + sigma * self._mine(self._draw(step_noise, step, shape, generator), rows)
         return unnormalize_img(img)
 
     @torch.no_grad()
@@ -331,14 +394,17 @@ class GaussianDiffusion(nn.Module):
         """
         batch_size, cond = self._batch(batch_size, cond)
         shape = self._shape(batch_size)
+        rows = self._split_rows(batch_size, warn=True)
+        cond = self._mine(cond, rows, frames=False)
+        graph = self._graphable(graph)
         times = sampling_times(self.num_timesteps, num_steps).flip(0).tolist()
         times_prev = times[1:] + [-1]
         acp = self.alphas_cumprod
         one = torch.ones((), device=self.device)
-        img = self._init(shape, generator, init_noise)
+        img = self._mine(self._init(shape, generator, init_noise), rows)
         x0_prev, h_prev = None, one
         for step, (t, t_prev) in enumerate(zip(times, times_prev)):
-            t_arr = self._t(t, batch_size)
+            t_arr = self._t(t, img.shape[0])
             x0, _ = self._model_out_to_x0_eps(img, t_arr, self._denoise(img, t_arr, graph, cond, cond_scale))
             x0 = torch.clamp(x0, -1.0, 1.0)
             a_cur = acp[t]
@@ -485,13 +551,15 @@ class GaussianDiffusion(nn.Module):
     # Training.
 
     def p_losses(self, x_start, t, noise=None, generator=None, focus_present_mask=None,
-                 prob_focus_present: float = 0.0, cond=None, null_cond_prob: float = 0.0) -> torch.Tensor:
+                 prob_focus_present: float = 0.0, cond=None, null_cond_prob: float = 0.0,
+                 null_cond_mask=None) -> torch.Tensor:
         """Denoising loss at timesteps ``t`` (JAX ``p_losses``, :923-996); noise from ``generator`` when not given.
 
         ``focus_present_mask`` and ``prob_focus_present`` go to the denoiser, and so do ``cond``
         (captions are embedded here) and ``null_cond_prob``, its dropout rate; the denoiser draws
-        its masks from ``generator`` after the noise, the focus mask first. Under a sequence group
-        ``x_start`` and ``noise`` are this rank's frames and the result is this rank's share of the loss.
+        its masks from ``generator`` after the noise, the focus mask first, unless ``null_cond_mask``
+        gives the condition's. Over a group ``x_start`` and ``noise`` are this rank's rows and frames and
+        the result is this rank's share of the loss.
         """
         if noise is None:
             noise = _normal(x_start.shape, generator, x_start.device)
@@ -499,6 +567,8 @@ class GaussianDiffusion(nn.Module):
         cond_kw = {}
         if cond is not None:
             cond_kw = {"cond": self.embed_cond(cond), "null_cond_prob": null_cond_prob}
+            if null_cond_mask is not None:
+                cond_kw["null_cond_mask"] = null_cond_mask
         model_out = self.denoise_fn(x_noisy, t, focus_present_mask=focus_present_mask,
                                     prob_focus_present=prob_focus_present, generator=generator, **cond_kw)
         model_out = model_out.permute(0, 4, 1, 2, 3)  # -> (b, c, f, h, w)
@@ -514,7 +584,9 @@ class GaussianDiffusion(nn.Module):
             err = (model_out - target) ** 2
         else:
             raise ValueError(f"Unsupported loss type: {self.loss_type}")
-        share = 1 if self.sequence_group is None else self.sequence_group.world_size
+        share = 1
+        for group in (self.sequence_group, self.data_group):
+            share *= 1 if group is None else group.world_size
         if self.min_snr_gamma is None:
             return err.mean() / share
         # Min-SNR-gamma weights in each parameterization's own loss space;
@@ -539,20 +611,31 @@ class GaussianDiffusion(nn.Module):
         Draws from ``generator`` in this order: t, the noise, then the denoiser's focus and
         condition-dropout masks (each only where its probability lies strictly between 0 and 1).
 
-        ``x`` (and an injected ``noise``) is the whole clip on every rank of a sequence group; the
-        loss is this rank's share, over its frames.
+        ``x`` is the whole clip on every rank of a sequence group, and under a data group of D ranks
+        this rank's rows of a batch of D times as many (``cond`` too); an injected ``t``, ``noise`` or
+        ``focus_present_mask`` is the whole batch's. The loss is this rank's share, over its rows and frames.
         """
         want = (x.shape[0], self.channels, self.num_frames, self.image_size, self.image_size)
         if tuple(x.shape) != want:
             raise ValueError(f"x must have shape (b, c, f, h, w) = {want}; got {tuple(x.shape)}")
+        data = self.data_group
+        ranks = 1 if data is None else data.world_size
+        b = x.shape[0] * ranks
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (x.shape[0],), generator=generator, device=x.device)
-        group = self.sequence_group
-        if group is not None:
+            t = torch.randint(0, self.num_timesteps, (b,), generator=generator, device=x.device)
+        null_cond_mask = None
+        if ranks > 1:  # every draw for the whole batch, as one rank would make it; this rank keeps its rows
+            if noise is None:
+                noise = _normal((b, *x.shape[1:]), generator, x.device)
+            focus_present_mask, null_cond_mask = self.denoise_fn.draw_masks(
+                b, prob_focus_present, null_cond_prob, generator, x.device, focus_present_mask)
+            t, noise, focus_present_mask, null_cond_mask = (
+                self._mine(v, data.rows(b), frames=False) for v in (t, noise, focus_present_mask, null_cond_mask))
+        if self.sequence_group is not None:
             if noise is None:
                 noise = _normal(x.shape, generator, x.device)
-            frames = group.frames(self.num_frames)
+            frames = self.sequence_group.frames(self.num_frames)
             x, noise = x[:, :, frames], noise[:, :, frames]
         return self.p_losses(normalize_img(x), t, noise=noise, generator=generator,
                              focus_present_mask=focus_present_mask, prob_focus_present=prob_focus_present,
-                             cond=cond, null_cond_prob=null_cond_prob)
+                             cond=cond, null_cond_prob=null_cond_prob, null_cond_mask=null_cond_mask)

@@ -186,6 +186,18 @@ class VideoDiT(nn.Module):
         cond_out, null = out[:b], out[b:]
         return null + (cond_out - null) * cond_scale
 
+    def draw_masks(self, b: int, prob_focus_present: float, null_cond_prob: float, generator, device,
+                   focus_present_mask: torch.Tensor | None = None,
+                   null_cond_mask: torch.Tensor | None = None) -> tuple[None, torch.Tensor | None]:
+        """``(None, null_cond_mask)`` for b samples (the DiT has no focus mask): the mask given, else drawn from
+        ``generator`` where ``null_cond_prob`` lies strictly between 0 and 1; None for an unconditioned model.
+        ``forward`` takes its mask from here, and so does the data-parallel loss."""
+        del prob_focus_present, focus_present_mask
+        if not self.has_cond:
+            return None, None
+        return None, null_cond_mask if null_cond_mask is not None else prob_mask_like((b,), null_cond_prob, generator,
+                                                                                      device)
+
     def forward(self, x: torch.Tensor, time: torch.Tensor, cond: torch.Tensor | None = None,
                 null_cond_prob: float = 0.0, focus_present_mask: torch.Tensor | None = None,
                 prob_focus_present: float = 0.0, *, generator: torch.Generator | None = None,
@@ -216,9 +228,7 @@ class VideoDiT(nn.Module):
             w = guidance_scale if guidance_scale is not None else torch.ones(b, device=x.device)
             t_emb = t_emb + self.guidance_mlp(w.float() * 100.0)
         if self.has_cond:
-            mask = null_cond_mask
-            if mask is None:
-                mask = prob_mask_like((b,), null_cond_prob, generator, x.device)
+            _, mask = self.draw_masks(b, 0.0, null_cond_prob, generator, x.device, null_cond_mask=null_cond_mask)
             t_emb = t_emb + self.cond_proj(torch.where(mask[:, None], self.null_cond_emb, cond.to(t_emb.dtype)))
 
         for block in self.blocks:

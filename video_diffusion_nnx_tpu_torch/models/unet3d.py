@@ -275,14 +275,32 @@ class Unet3D(nn.Module):
         null_mask = torch.arange(2 * b, device=x.device) >= b
         fpm = kwargs.pop("focus_present_mask", None)
         prob_fp = kwargs.pop("prob_focus_present", 0.0)
-        if fpm is None and prob_fp != 0.0 and not self.reference_compat:
-            fpm = prob_mask_like((b,), prob_fp, kwargs.get("generator"), x.device)
+        fpm, _ = self.draw_masks(b, prob_fp, 0.0, kwargs.get("generator"), x.device, focus_present_mask=fpm)
         if fpm is not None:
             fpm = torch.cat([fpm, fpm])
         out = self(torch.cat([x, x]), torch.cat([time, time]), cond=torch.cat([cond, cond]),
                    focus_present_mask=fpm, null_cond_mask=null_mask, **kwargs)
         cond_out, null = out[:b], out[b:]
         return null + (cond_out - null) * cond_scale
+
+    def draw_masks(self, b: int, prob_focus_present: float, null_cond_prob: float, generator, device,
+                   focus_present_mask: torch.Tensor | None = None,
+                   null_cond_mask: torch.Tensor | None = None) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        """``(focus_present_mask, null_cond_mask)`` for b samples: each mask given is kept, each one missing is drawn
+        from ``generator`` where its probability lies strictly between 0 and 1, the focus mask first. None where the
+        model uses no such mask: compat math's focus mask (every PreNorm would drop it), an unconditioned model's
+        dropout. ``forward`` takes its masks from here, and so does the data-parallel loss, which draws them for the
+        whole batch."""
+        focus = None
+        if not self.reference_compat:
+            focus = focus_present_mask
+            if focus is None and prob_focus_present != 0.0:
+                focus = prob_mask_like((b,), prob_focus_present, generator, device)
+        null = None
+        if self.has_cond:
+            null = null_cond_mask if null_cond_mask is not None else prob_mask_like((b,), null_cond_prob, generator,
+                                                                                     device)
+        return focus, null
 
     def _resnet(self, block: ResnetBlock, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """A ResNet block of the down, middle or up path (JAX ``_resnet``): checkpointed under ``remat_blocks``.
@@ -384,10 +402,8 @@ class Unet3D(nn.Module):
         """
         if self.has_cond and cond is None:
             raise ValueError("cond must be passed in if cond_dim specified")
-        if self.reference_compat:
-            focus_present_mask = None  # every PreNorm would drop it; nothing is drawn
-        elif focus_present_mask is None and prob_focus_present != 0.0:
-            focus_present_mask = prob_mask_like((x.shape[0],), prob_focus_present, generator, x.device)
+        focus_present_mask, null_cond_mask = self.draw_masks(x.shape[0], prob_focus_present, null_cond_prob,
+                                                             generator, x.device, focus_present_mask, null_cond_mask)
         pos_bias = self.time_rel_pos_bias(x.shape[2])
 
         x = x.permute(0, 2, 3, 4, 1)  # b c f h w -> b f h w c
@@ -399,10 +415,7 @@ class Unet3D(nn.Module):
             w = guidance_scale if guidance_scale is not None else torch.ones(x.shape[0], device=x.device)
             t = t + self.guidance_mlp(w.float() * 100.0)
         if self.has_cond:  # float32 throughout: no cast may come before the concatenation
-            mask = null_cond_mask
-            if mask is None:
-                mask = prob_mask_like((x.shape[0],), null_cond_prob, generator, x.device)
-            cond = torch.where(mask[:, None], self.null_cond_emb, cond.to(t.dtype))
+            cond = torch.where(null_cond_mask[:, None], self.null_cond_emb, cond.to(t.dtype))
             t = torch.cat((t, cond), dim=-1)
 
         hs = []

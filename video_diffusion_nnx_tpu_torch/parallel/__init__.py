@@ -1,6 +1,12 @@
-"""Sequence (frame-axis) parallelism: a group of ranks, each holding a share of a clip's frames."""
+"""Groups of ranks and their meshes, the layout rules of sharded state, and sequence (frame-axis) parallelism."""
 
-from video_diffusion_nnx_tpu_torch.parallel.mesh import SequenceGroup, destroy_sequence_group, init_sequence_group
+from video_diffusion_nnx_tpu_torch.parallel.mesh import (
+    Mesh,
+    SequenceGroup,
+    destroy_sequence_group,
+    init_sequence_group,
+    make_mesh,
+)
 from video_diffusion_nnx_tpu_torch.parallel.sequence import (
     all_reduce_sum,
     gather_frames,
@@ -8,10 +14,12 @@ from video_diffusion_nnx_tpu_torch.parallel.sequence import (
 )
 
 __all__ = [
+    "Mesh",
     "SequenceGroup",
     "all_reduce_sum",
     "destroy_sequence_group",
     "gather_frames",
     "init_sequence_group",
+    "make_mesh",
     "sequence_parallel_temporal_attention",
 ]

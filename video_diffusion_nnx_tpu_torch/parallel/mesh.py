@@ -1,31 +1,41 @@
-"""The sequence-parallel group (counterpart of the JAX package's parallel/mesh.py:24 and :53).
+"""Groups of ranks and meshes of named axes over them (counterpart of the JAX package's parallel/mesh.py:53-99).
 
-The JAX package shards the frame axis over a ``'seq'`` mesh axis of one
-program. Here each rank is a process of its own, and a
-:class:`SequenceGroup` is what a rank knows of the others: its rank, the world
-size, the ``torch.distributed`` process group and the device it computes on.
-Data parallelism stays at one: every rank of the group holds the same batch
-and its own share of the frames.
+The JAX package lays one program over a mesh of devices with named axes,
+``('data', 'model')`` or ``('data', 'seq')``. Here each rank is a process of
+its own, and two objects say what a rank knows of the others:
 
-The group is created from an explicit backend and an explicit
+* a :class:`SequenceGroup` is a group of ranks: this rank's place in it, its
+  size, the ``torch.distributed`` process group and the device the rank
+  computes on, with the collectives over the group. A run's whole world is
+  one; so is each axis of a mesh (the name stays from when the sequence axis
+  was the only one: the models consume the ``'seq'`` axis through it);
+* a :class:`Mesh` arranges the world's ranks in a grid of named axes, the
+  first axis the slowest (``make_mesh``: rank ``r`` of a (data, seq) mesh sits
+  at ``(r // seq, r % seq)``), and holds one :class:`SequenceGroup` per axis:
+  the ranks that differ from this one along that axis alone.
+
+The world is created from an explicit backend and an explicit
 ``init_method`` (``tcp://localhost:<port>`` or ``file://<path>``); nothing is
 read from the environment. Rank r computes on ``cuda:(r % device_count)``,
 so several ranks may share one card. ``nccl`` cannot put two ranks on one
 card: there the group raises, and ``gloo`` must be asked for by name.
 
-``gloo`` takes CUDA tensors for only some collectives and types, so the group
+``gloo`` takes CUDA tensors for only some collectives and types, so a group
 stages every CUDA tensor of a ``gloo`` collective through pinned host memory
 itself. ``stats`` counts the collectives, the bytes each rank hands them and
 the host seconds they take, the staging copies included (a staged collective
 first waits for the card's queued work, outside its seconds), so that the
-cost of that route is measured, not hidden.
+cost of that route is measured, not hidden. The axes of a mesh share their
+world's ``stats``. A group of one rank runs no collective and counts none.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -34,7 +44,7 @@ BACKENDS = ("nccl", "gloo")
 
 @dataclass
 class SequenceGroup:
-    """One rank's view of a sequence-parallel group."""
+    """One rank's view of a group of ranks: a run's world, or one axis of a :class:`Mesh`."""
 
     rank: int
     world_size: int
@@ -43,12 +53,18 @@ class SequenceGroup:
     group: dist.ProcessGroup | None = None
     stats: dict = field(default_factory=lambda: {"calls": 0, "bytes": 0, "seconds": 0.0})
 
-    def frames(self, n: int) -> slice:
-        """This rank's slice of ``n`` frames (contiguous, ``n / world_size`` of them)."""
+    def part(self, n: int, what: str = "items") -> slice:
+        """This rank's slice of ``n`` ``what`` (contiguous, ``n / world_size`` of them)."""
         if n % self.world_size:
-            raise ValueError(f"{n} frames do not divide over {self.world_size} ranks")
+            raise ValueError(f"{n} {what} do not divide over {self.world_size} ranks")
         per = n // self.world_size
         return slice(self.rank * per, (self.rank + 1) * per)
+
+    def frames(self, n: int) -> slice:
+        return self.part(n, "frames")
+
+    def rows(self, n: int) -> slice:
+        return self.part(n, "rows")
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
@@ -80,6 +96,8 @@ class SequenceGroup:
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order (a new tensor on t's device)."""
+        if self.world_size == 1:
+            return t.clone()
         t0 = self._start(t)
         src = self._send(t)
         parts = self._buffer((self.world_size, *t.shape), t)
@@ -96,6 +114,8 @@ class SequenceGroup:
         """
         if t.shape[dim] % self.world_size:
             raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not divide over {self.world_size} ranks")
+        if self.world_size == 1:
+            return t.clone()
         t0 = self._start(t)
         send = torch.stack(t.chunk(self.world_size, dim))
         recv = self._buffer(send.shape, t)
@@ -106,6 +126,8 @@ class SequenceGroup:
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``t`` (a new tensor on t's device; every rank gets the same bits)."""
+        if self.world_size == 1:
+            return t.clone()
         t0 = self._start(t)
         buf = self._send(t) if self._staged(t) else t.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
@@ -114,7 +136,8 @@ class SequenceGroup:
         return out
 
     def barrier(self) -> None:
-        dist.barrier(group=self.group)
+        if self.world_size > 1:
+            dist.barrier(group=self.group)
 
     def reset_stats(self) -> None:
         self.stats.update(calls=0, bytes=0, seconds=0.0)
@@ -122,7 +145,7 @@ class SequenceGroup:
 
 def init_sequence_group(rank: int, world_size: int, backend: str, init_method: str,
                         device_type: str = "cuda") -> SequenceGroup:
-    """Join the group as ``rank`` of ``world_size`` (JAX ``initialize_distributed`` and ``make_mesh``).
+    """Join the world as ``rank`` of ``world_size`` (JAX ``initialize_distributed``); returns the world's group.
 
     ``device_type`` ``"cuda"`` puts the rank on ``cuda:(rank % device_count)``;
     ``"cpu"`` on the CPU, where only ``gloo`` runs.
@@ -153,6 +176,53 @@ def init_sequence_group(rank: int, world_size: int, backend: str, init_method: s
 
 
 def destroy_sequence_group() -> None:
-    """Leave the group (the process may join another one after)."""
+    """Leave the world and every group made in it (the process may join another world after)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+@dataclass
+class Mesh:
+    """One rank's view of a mesh of named axes over the ranks of a world (JAX ``jax.sharding.Mesh``)."""
+
+    shape: dict[str, int]  # axis name -> size, in the mesh's order (the first axis the slowest)
+    world: SequenceGroup
+    axes: dict[str, SequenceGroup]  # the group through this rank of each axis of more than one rank
+
+    def axis(self, name: str) -> SequenceGroup:
+        """The group of axis ``name`` through this rank; a group of this rank alone for an axis the mesh lacks."""
+        if name in self.axes:
+            return self.axes[name]
+        w = self.world
+        return SequenceGroup(0, 1, w.backend, w.device, None, w.stats)
+
+
+def make_mesh(world: SequenceGroup, shape: dict[str, int]) -> Mesh:
+    """Arrange ``world``'s ranks in a mesh of ``shape`` (axis name -> size; JAX ``make_mesh``, whose
+    ``data_parallel_mesh`` and ``data_model_mesh`` are the shapes ``{"data": n}`` and ``{"data": n / m, "model": m}``).
+
+    An axis of one rank needs no process group, and an axis as large as the
+    world is the world. Any other axis makes one ``dist.new_group`` for each
+    of its slices: every rank makes every slice's group, in the same order, as
+    ``new_group`` requires, and keeps the one it belongs to.
+    """
+    sizes = [int(v) for v in shape.values()]
+    if math.prod(sizes) != world.world_size:
+        raise ValueError(f"a mesh of {dict(shape)} needs {math.prod(sizes)} ranks; the world has {world.world_size}")
+    grid = np.arange(world.world_size).reshape(sizes)
+    place = np.argwhere(grid == world.rank)[0]
+    axes = {}
+    for i, (name, size) in enumerate(zip(shape, sizes)):
+        if size == 1:  # ``Mesh.axis`` answers for it
+            continue
+        if size == world.world_size:
+            axes[name] = world
+            continue
+        slices = np.moveaxis(grid, i, -1).reshape(-1, size)  # each row: the ranks along this axis, others fixed
+        mine = None
+        for ranks in slices.tolist():
+            group = dist.new_group(ranks)
+            if world.rank in ranks:
+                mine = group
+        axes[name] = SequenceGroup(int(place[i]), size, world.backend, world.device, mine, world.stats)
+    return Mesh(shape=dict(zip(shape, sizes)), world=world, axes=axes)

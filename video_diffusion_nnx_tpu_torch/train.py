@@ -1,19 +1,24 @@
 """Training CLI (counterpart of the JAX package's root train.py).
 
     python -m video_diffusion_nnx_tpu_torch.train --config configs/config_bouncing_digits.yaml \\
-        [--resume_step N] [--rng_seed S] [--device cuda|cpu] [--dist-backend nccl|gloo]
+        [--resume_step N] [--rng_seed S] [--device cuda|cpu] [--ranks N] [--dist-backend nccl|gloo]
 
 The flags of the JAX CLI plus ``--device`` (``cuda``, the default, raises
-when there is no card) and ``--dist-backend``. Seed precedence:
+when there is no card), ``--ranks`` and ``--dist-backend``. Seed precedence:
 ``--rng_seed`` > config ``rng_seed`` > 0. Checkpoints are one file per
 step, ``<results_folder>/checkpoints/step_<N>.pt``, which the sampling CLI
 reads.
 
-A recipe with ``trainer.sequence_parallel_size: N > 1``
-(``configs/config_seq_parallel.yaml``) is the same one command: the CLI
-builds the kernels, then starts N ranks itself (``torch.multiprocessing``,
-spawn), which meet at a free ``tcp://localhost`` port; :func:`run_rank` is
-one rank. Rank r computes on ``cuda:(r % device_count)``. ``nccl`` (the
+``--ranks`` is the counterpart of JAX's local device count: the number of
+ranks the run spans, by default the number of cards (one on the CPU),
+raised to ``trainer.sequence_parallel_size`` where that is larger. The
+trainer lays its mesh over them by the JAX trainer's rules: (data, seq)
+under ``sequence_parallel_size`` > 1, else (data, model) with
+``num_model_shards`` (clamped with a warning on fewer ranks), parameters
+stored by ``param_sharding``. With more than one rank the CLI builds the
+kernels, then starts the ranks itself (``torch.multiprocessing``, spawn),
+which meet at a free ``tcp://localhost`` port; :func:`run_rank` is one
+rank. Rank r computes on ``cuda:(r % device_count)``. ``nccl`` (the
 default) needs a card per rank; ranks that share a card need
 ``--dist-backend gloo``, and ``--device cpu`` runs them on the CPU with gloo.
 """
@@ -35,8 +40,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--resume_step", type=int, default=0, help="Step to resume training from")
     p.add_argument("--rng_seed", type=int, default=None, help="RNG seed to use for training")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--ranks", type=int, default=None,
+                   help="ranks to train over (default: the cards, at least sequence_parallel_size)")
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default="nccl",
-                   help="collective backend of a sequence-parallel run; ranks sharing a card need gloo")
+                   help="collective backend of a multi-rank run; ranks sharing a card need gloo")
     return p.parse_args(argv)
 
 
@@ -48,7 +55,7 @@ def free_init_method() -> str:
 
 
 def run_rank(rank: int, world_size: int, backend: str, init_method: str, argv=None):
-    """One rank of a sequence-parallel run: join the group, train, leave; returns the trainer."""
+    """One rank of a multi-rank run: join the world, train, leave; returns the trainer."""
     from video_diffusion_nnx_tpu_torch.config import build_trainer, load_config
     from video_diffusion_nnx_tpu_torch.parallel import destroy_sequence_group, init_sequence_group
 
@@ -68,22 +75,35 @@ def run_rank(rank: int, world_size: int, backend: str, init_method: str, argv=No
         destroy_sequence_group()
 
 
+def default_ranks(device, sequence_parallel_size: int) -> int:
+    """The cards of ``device``'s kind (one for the CPU), raised to ``sequence_parallel_size``."""
+    import torch
+
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(cards, sequence_parallel_size)
+
+
 def main(argv=None):
-    """Run the CLI; returns the finished trainer (None for a sequence-parallel run, whose ranks keep theirs)."""
+    """Run the CLI; returns the finished trainer (None for a multi-rank run, whose ranks keep theirs)."""
     args = parse_args(argv)
     from video_diffusion_nnx_tpu_torch.config import build_trainer, load_config, resolve_device
 
     logging.info("Loading configuration from: %s", args.config)
     config = load_config(args.config)
-    world = int(config["trainer"]["sequence_parallel_size"])
+    device = resolve_device(args.device)
+    world = args.ranks
+    if world is None:
+        world = default_ranks(device, int(config["trainer"]["sequence_parallel_size"]))
+    if world < 1:
+        raise ValueError(f"--ranks must be at least 1; got {world}")
     if world > 1:
         import torch.multiprocessing as mp
 
-        if resolve_device(args.device).type == "cuda":
+        if device.type == "cuda":
             from video_diffusion_nnx_tpu_torch.ops import _build
 
             _build.build_all()  # once, before the ranks load the libraries
-        logging.info("Starting %d sequence-parallel ranks (%s)...", world, args.dist_backend)
+        logging.info("Starting %d ranks (%s)...", world, args.dist_backend)
         rank_argv = sys.argv[1:] if argv is None else list(argv)
         mp.spawn(run_rank, args=(world, args.dist_backend, free_init_method(), rank_argv), nprocs=world, join=True)
         logging.info("Training finished.")

@@ -1,10 +1,9 @@
-"""Trainer: the training loop with Adam, EMA and checkpoints, on one device or one sequence group.
+"""Trainer: the training loop with Adam, EMA and checkpoints, on one device or one rank of a mesh.
 
 Counterpart of the JAX package's training/trainer.py (:84-475 construction,
 :480-711 the step and the loop, :748-828 checkpoints and samples),
 unconditioned or text-conditioned, in reference-compat or fixed math, on one
-device or, in compat math, over a sequence-parallel group
-(``sequence_parallel_size > 1``). Semantics kept from it:
+device or over a mesh of ranks (below). Semantics kept from it:
 
 * Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8) under the
   hold-then-cosine learning rate of ``optax.piecewise_interpolate_schedule``
@@ -71,22 +70,51 @@ the EMA, as every leaf of the JAX package's state does (:545-577, PARITY
 get no gradient, so Adam leaves them bit-exact; the checkpoint carries the
 drifted values. ``freeze_schedule_buffers: true`` keeps all ten out.
 
-Sequence parallelism: the trainer runs on one rank of a ``SequenceGroup``
-whose world size is ``sequence_parallel_size`` (data parallelism stays at
-one; the train CLI starts the ranks). It attaches the group to the
-denoiser, so each rank computes on its own frames and the loss is its
-share. After the backward the gradients are summed over the ranks, before
-the clip, so the norm, Adam and the EMA are bit-equal on every rank; the
-logged loss is the sum of the shares. Rank 0 alone writes checkpoints,
-metrics, logs and the profiler trace; every rank reads the checkpoint on
-resume. Gradient accumulation and sampling during training over a group
-are not ported (ROADMAP A15).
+Over several ranks (the train CLI's ``--ranks``; ``sequence_group`` is the
+rank's group of the whole world) the trainer builds a mesh by the JAX
+trainer's rules (:154-175, :244-281): ``('data', 'seq')`` when
+``sequence_parallel_size`` S > 1, which composes with data parallelism only
+(the world must divide by S, the batch by the data size, the denoiser must
+be compat math), else ``('data', 'model')`` of ``num_model_shards`` M (the
+batch must divide by the world; a world smaller than M clamps M to
+gcd(world, M) with JAX's warning, one that M does not divide raises).
 
-The options this port does not cover raise ``NotImplementedError`` naming
-their ROADMAP item. The batch order comes from
-``np.random.default_rng(rng_seed)`` as in the JAX package, the same on
-every rank; timesteps and noise from a ``torch.Generator`` seeded with
-``rng_seed`` (JAX's key chain cannot be reproduced).
+The design, deliberately: JAX and its tests treat every mesh as a layout,
+not a change of the maths, so the port computes data-parallel over rows
+and stores state by JAX's PartitionSpecs. Each rank trains on its rows of
+every batch (over the data axis under a seq axis, else over the whole
+world: ``data/loader.py`` ``rank_rows``) and, under a seq axis, on its frames
+of every clip, the seq axis attached to the denoiser. The diffusion model
+draws t, the noise and the masks for the whole batch and keeps the rank's
+part, and the loss is the rank's share. Where GSPMD splits a layer's
+compute over a model axis is XLA's choice, not a declared part of the JAX
+package: here a model axis shards storage, never a matmul, and no layer's
+channels split the Megatron way.
+
+State: under ``param_sharding: fsdp`` over a data axis larger than 1, or
+under a model axis larger than 1 by the last-dim rule (``parallel/
+sharding.py``; a seq mesh replicates, as in JAX), each trained tensor the
+rule shards keeps its float32 parameter, both Adam moments and its EMA only
+as this rank's shard between steps. A step all-gathers the parameters into
+the module, runs every microbatch, then reduces once: the replicated
+gradients summed over the world, the sharded ones reduce-scattered to
+their owners along the shard axis (and summed over the other axis). The
+clip takes the global norm, the replicated tensors' squares plus the
+shards' squares all-reduced along the shard axis; Adam and the EMA update
+the shards, and the gathered weights are released. Replicated state is
+bit-equal on every rank; the logged loss is the sum of the shares.
+
+Rank 0 alone writes checkpoints, metrics, logs, samples and the profiler
+trace. A checkpoint is the file a one-rank run writes (the shards gathered,
+Adam's moments too under ``save_optimizer_state``); every rank reads it and
+takes its shards, so a file written at one world size resumes at any other,
+as Orbax restores into any layout. Sampling during training runs on every
+rank, each on its rows (and frames), and rank 0 gathers the videos.
+
+The batch order comes from ``np.random.default_rng(rng_seed)`` as in the
+JAX package, the same on every rank; timesteps and noise from a
+``torch.Generator`` seeded with ``rng_seed`` (JAX's key chain cannot be
+reproduced), the same stream on every rank.
 """
 
 from __future__ import annotations
@@ -105,18 +133,16 @@ import torch
 
 from video_diffusion_nnx_tpu_torch.convert import checkpoint_payload, read_checkpoint, write_checkpoint
 from video_diffusion_nnx_tpu_torch.data.gif_dataset import GifVideoDataset
-from video_diffusion_nnx_tpu_torch.data.loader import collate_with_text_cond, endless_prefetching_loader
+from video_diffusion_nnx_tpu_torch.data.loader import collate_with_text_cond, endless_prefetching_loader, rank_rows
 from video_diffusion_nnx_tpu_torch.data.moving_mnist import MovingMNIST
 from video_diffusion_nnx_tpu_torch.diffusion.gaussian_diffusion import BUFFER_NAMES
+from video_diffusion_nnx_tpu_torch.parallel.mesh import make_mesh
+from video_diffusion_nnx_tpu_torch.parallel.sharding import state_partition_specs
 from video_diffusion_nnx_tpu_torch.training.metrics import create_summary_writer
-from video_diffusion_nnx_tpu_torch.utils.grad import clip_grad_norm, global_l2_norm
+from video_diffusion_nnx_tpu_torch.utils.grad import clip_grad_norm, global_l2_norm, sum_of_squares
 from video_diffusion_nnx_tpu_torch.utils.media import write_sample_gifs
 
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
 def lr_schedule(train_lr: float, lr_decay_start_step: int, lr_decay_steps: int,
@@ -187,7 +213,7 @@ class CheckpointWriter:
 
 
 class Trainer:
-    """Training runtime for a ``GaussianDiffusion`` on one device or one rank of a sequence group."""
+    """Training runtime for a ``GaussianDiffusion`` on one device or one rank of a mesh."""
 
     def __init__(
         self,
@@ -234,10 +260,13 @@ class Trainer:
         null_cond_prob: float = 0.0,
         freeze_schedule_buffers: bool = False,
         flatten_optimizer: bool = False,  # the same step either way: see the module docstring
-        sequence_group=None,
+        sequence_group=None,  # this rank's group of the whole world (train.run_rank's), or None for one rank
     ):
-        if num_model_shards > 1 or param_sharding != "tensor":
-            raise _not_ported("model sharding and FSDP", "A15")
+        if param_sharding not in ("tensor", "fsdp"):
+            raise ValueError(f"param_sharding must be 'tensor' or 'fsdp'; got {param_sharding!r}")
+        if flatten_optimizer and (num_model_shards != 1 or param_sharding != "tensor"):  # JAX :206-209
+            raise ValueError("flatten_optimizer supports replicated parameters only (num_model_shards=1, "
+                             "param_sharding='tensor'); a flat moment buffer cannot carry per-tensor shardings")
         self.accumulate = gradient_accumulate_every if enable_gradient_accumulation else 1
         if self.accumulate > 1 and train_batch_size % self.accumulate:
             raise ValueError(f"train_batch_size {train_batch_size} must divide into gradient_accumulate_every "
@@ -246,17 +275,23 @@ class Trainer:
         # train_num_steps - 1, reach (JAX trainer.py:687-693): the default, 100000 at 100000 steps, asks for none.
         self.save_and_sample_every = save_and_sample_every
         samples_due = bool(save_and_sample_every) and 0 < save_and_sample_every < train_num_steps
-        grouped = sequence_parallel_size > 1 or sequence_group is not None
-        for on, what in ((self.accumulate > 1, "gradient accumulation"), (samples_due, "sampling during training")):
-            if on and grouped:
-                raise _not_ported(f"{what} over a sequence group", "A15")
 
         self.model = diffusion_model
         self.device = diffusion_model.device
-        self.sequence_group = sequence_group
-        if grouped:
-            self._attach_sequence_group(sequence_parallel_size)
+        self.group = sequence_group
+        shape = self._mesh_shape(sequence_parallel_size, num_model_shards, train_batch_size)
+        self.mesh = None if sequence_group is None else make_mesh(sequence_group, shape)
         self.is_main = sequence_group is None or sequence_group.rank == 0
+        # The ranks a batch's rows split over: the data axis under a seq axis, else the whole world.
+        seq = sequence_parallel_size > 1
+        self.row_group = None
+        if self.mesh is not None:
+            self.row_group = self.mesh.axis("data") if seq else self.mesh.world
+            if seq:
+                self.model.denoise_fn.sequence_parallel_mesh = self.mesh.axis("seq")
+            if self.row_group.world_size > 1:
+                self.model.data_group = self.row_group
+        logger.info("Created mesh with shape: %s", shape)
         self.train_num_steps = train_num_steps
         self.batch_size = train_batch_size
         self.max_grad_norm = max_grad_norm
@@ -284,8 +319,27 @@ class Trainer:
                 getattr(self.model, name).requires_grad_(True)
             trained += list(BUFFER_NAMES)
         state = self.model.state_dict(keep_vars=True)
-        self.params = [state[k] for k in trained]
+        self.live = {k: state[k] for k in trained}  # the module's trained tensors, in Adam's order
         self.ema_state = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+        # Sharded state (JAX :283-313): the shard axis, and each sharded trained tensor's port dim and whole shape.
+        self.shard_axis, self.shard_dims, self.full_shapes = None, {}, {}
+        if not seq and self.mesh is not None:
+            if param_sharding == "fsdp" and shape["data"] > 1:
+                self.shard_axis = "data"
+            elif shape["model"] > 1:
+                self.shard_axis = "model"
+        if self.shard_axis is not None:
+            rule = "fsdp" if self.shard_axis == "data" else "tensor"
+            specs = state_partition_specs(self.model, rule, shape[self.shard_axis], fsdp_min_size_to_shard)
+            self.shard_dims = {k: specs[k] for k in trained if specs[k] is not None}
+        self.shards = {}  # key -> this rank's shard of the float32 parameter: what Adam updates
+        for k, d in self.shard_dims.items():
+            self.full_shapes[k] = tuple(state[k].shape)
+            self.shards[k] = torch.nn.Parameter(self._shard_of(state[k].detach(), k).clone())
+            self.ema_state[k] = self._shard_of(self.ema_state[k], k).clone()
+        self._release()
+        self.opt_params = [self.shards.get(k, p) for k, p in self.live.items()]
         self._ema_params = [self.ema_state[k] for k in trained]
         self.optimizer = self._new_optimizer(train_lr)
         self.opt_count = 0  # optax's update count, which the learning rate is read at
@@ -312,8 +366,11 @@ class Trainer:
         logger.info("Found %d sequences in dataset.", len(self.ds))
         if len(self.ds) < self.batch_size:
             raise ValueError(f"dataset {dataset_path} has {len(self.ds)} clips, fewer than a batch")
+        rows = None
+        if self.row_group is not None and self.row_group.world_size > 1:
+            rows = rank_rows(self.batch_size, self.row_group.world_size, self.row_group.rank, self.accumulate)
         self.dl = endless_prefetching_loader(self.ds, self.batch_size, self.device, seed=rng_seed,
-                                             depth=prefetch_depth, collate_fn=collate_fn)
+                                             depth=prefetch_depth, collate_fn=collate_fn, rows=rows)
 
         self.results_folder = Path(results_folder).resolve()
         self.results_folder.mkdir(exist_ok=True, parents=True)
@@ -340,28 +397,141 @@ class Trainer:
         # Every step's loss, kept on the device (no host sync); NaN for steps not run here.
         self.loss_trace = torch.full((train_num_steps,), float("nan"), device=self.device)
 
-    def _attach_sequence_group(self, size: int) -> None:
-        """Check the group against the recipe and attach it to the denoiser (JAX :155-175)."""
-        group = self.sequence_group
-        if group is None:
-            raise ValueError(f"sequence_parallel_size {size} runs over a group of {size} ranks: start them with "
-                             "the train CLI, or pass each rank's sequence_group")
-        if group.world_size != size:
-            raise _not_ported(f"data parallelism (a group of {group.world_size} ranks for sequence_parallel_size "
-                              f"{size})", "A15")
-        denoiser = self.model.denoise_fn
-        if not getattr(denoiser, "reference_compat", False):
-            raise ValueError("sequence parallelism needs a reference_compat denoiser")
-        if self.model.num_frames % size:
-            raise ValueError(f"num_frames={self.model.num_frames} must divide by sequence_parallel_size={size}")
-        if self.device != group.device:
+    def _mesh_shape(self, seq: int, model_shards: int, batch: int) -> dict[str, int]:
+        """The mesh's axes by the JAX trainer's rules (:154-175, :244-281), checked against the recipe."""
+        group = self.group
+        n = 1 if group is None else group.world_size
+        if group is not None and self.device != group.device:
             raise ValueError(f"the model is on {self.device}, the rank's device is {group.device}")
-        denoiser.sequence_parallel_mesh = group
+        if seq > 1:
+            if group is None:
+                raise ValueError(f"sequence_parallel_size {seq} runs over a group of ranks: start them with the "
+                                 "train CLI, or pass each rank's sequence_group")
+            if model_shards != 1:
+                raise ValueError("sequence parallelism composes with data parallelism only (num_model_shards 1)")
+            if n % seq:
+                raise ValueError(f"{n} ranks must divide by sequence_parallel_size={seq}")
+            if not getattr(self.model.denoise_fn, "reference_compat", False):
+                raise ValueError("sequence parallelism needs a reference_compat denoiser")
+            if self.model.num_frames % seq:
+                raise ValueError(f"num_frames={self.model.num_frames} must divide by sequence_parallel_size={seq}")
+            if batch % (n // seq):
+                raise ValueError(f"train_batch_size {batch} must be divisible by the data-parallel degree {n // seq}")
+            return {"data": n // seq, "seq": seq}
+        if batch % n:
+            raise ValueError(f"train_batch_size {batch} must be divisible by the number of ranks {n}")
+        if n < model_shards:  # a shipped recipe runs on fewer ranks than it shards over (JAX :261-271)
+            feasible = math.gcd(n, model_shards)
+            logger.warning("num_model_shards=%d exceeds the %d available rank(s); clamping to %d (single-host "
+                           "portability fallback)", model_shards, n, feasible)
+            model_shards = feasible
+        elif n % model_shards:
+            raise ValueError(f"num_model_shards={model_shards} does not divide {n} ranks; pick a divisor")
+        return {"data": n // model_shards, "model": model_shards}
+
+    @property
+    def params(self) -> list[torch.Tensor]:
+        """The module's trained tensors in Adam's order (a sharded one is empty between steps)."""
+        return list(self.live.values())
+
+    # Sharded state.
+
+    def _shard_of(self, full: torch.Tensor, key: str) -> torch.Tensor:
+        """This rank's shard of ``key``'s whole tensor: its chunk along the shard dim, by its place on the axis."""
+        axis = self.mesh.axis(self.shard_axis)
+        return full.chunk(axis.world_size, self.shard_dims[key])[axis.rank]
+
+    def _gather(self, shards: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The whole tensors of ``shards`` (key -> this rank's shard), in one all-gather along the shard axis."""
+        if not shards:
+            return {}
+        axis = self.mesh.axis(self.shard_axis)
+        flat = torch.cat([v.detach().reshape(-1) for v in shards.values()])
+        parts = axis.all_gather(flat, 0).view(axis.world_size, -1)
+        out, offset = {}, 0
+        for k, v in shards.items():
+            pieces = parts[:, offset:offset + v.numel()].reshape(axis.world_size, *v.shape)
+            out[k] = torch.cat(pieces.unbind(0), dim=self.shard_dims[k])
+            offset += v.numel()
+        return out
+
+    def _gather_params(self) -> None:
+        """Put the whole parameters into the module for a step (or a sample of the live weights)."""
+        for k, full in self._gather(self.shards).items():
+            self.live[k].data = full
+
+    def _release(self) -> None:
+        """Drop the module's whole copies of the sharded tensors (and their gradients) between steps."""
+        for k in self.shard_dims:
+            p = self.live[k]
+            p.data, p.grad = torch.empty(0, dtype=p.dtype, device=p.device), None
+
+    def _opt_moments(self) -> dict:
+        """Adam's state as a one-rank run holds it: the sharded tensors' moments gathered (a collective)."""
+        opt = self.optimizer.state_dict()
+        if not self.shards:
+            return opt
+        index = {k: i for i, k in enumerate(self.live) if k in self.shards and i in opt["state"]}
+        for name in ("exp_avg", "exp_avg_sq"):
+            whole = self._gather({k: opt["state"][i][name] for k, i in index.items()})
+            for k, i in index.items():
+                opt["state"][i] = {**opt["state"][i], name: whole[k]}
+        return opt
+
+    def full_state(self) -> tuple[dict, dict]:
+        """``(model_state, ema_state)`` as a one-rank run holds them, the shards gathered (a collective: every rank
+        calls it)."""
+        model = {**self.model.state_dict(), **self._gather(self.shards)}
+        ema = {**self.ema_state, **self._gather({k: self.ema_state[k] for k in self.shards})}
+        return model, ema
+
+    def _reduce(self, loss: torch.Tensor) -> tuple[torch.Tensor, list[str]]:
+        """Sum the replicated tensors' gradients and the loss over the world in one all-reduce, then reduce-scatter
+        the sharded gradients; returns the summed loss and the sharded keys with a gradient.
+
+        Where the ranks hold different rows (a data group of more than one rank), a tensor that one rank's rows
+        leave unused (a fixed-math focus mask can leave q and k unused) has a zero share there: the buffer then
+        carries every replicated tensor, zeros where this rank has no gradient, and a flag per trained tensor, so
+        that a tensor no rank used keeps no gradient, as on one rank. Where every rank holds the same rows (a pure
+        seq mesh) the ranks' gradients cover the same tensors, and the buffer carries those alone."""
+        agree = self.row_group.world_size > 1
+        items = list(self.live.items())
+        rep = [(k, p) for k, p in items if k not in self.shards and (agree or p.grad is not None)]
+        parts = [(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1) for _, p in rep]
+        if agree:
+            parts.append(torch.tensor([float(p.grad is not None) for _, p in items], device=self.device))
+        flat = self.group.all_reduce(torch.cat([*parts, loss.reshape(1)]))
+        n = sum(p.numel() for _, p in rep)
+        if agree:
+            used = {k for (k, _), u in zip(items, flat[n:n + len(items)].tolist()) if u}
+        else:
+            used = {k for k, p in items if p.grad is not None}
+        for (k, p), g in zip(rep, flat[:n].split([p.numel() for _, p in rep])):
+            p.grad = g.view_as(p) if k in used else None
+        sharded = [k for k in self.shards if k in used]
+        for k in sharded:
+            if self.live[k].grad is None:
+                self.live[k].grad = torch.zeros_like(self.live[k])
+        if sharded:
+            self._reduce_sharded(sharded)
+        return flat[-1], sharded
+
+    def _reduce_sharded(self, live: list[str]) -> None:
+        """Reduce-scatter the sharded gradients of ``live`` keys to their owners' shards (summed over the world)."""
+        axis = self.mesh.axis(self.shard_axis)
+        k = axis.world_size
+        send = torch.cat([torch.stack([c.reshape(-1) for c in self.live[key].grad.chunk(k, self.shard_dims[key])])
+                          for key in live], dim=1)
+        mine = axis.reduce_scatter(send, 0).reshape(-1)
+        mine = self.mesh.axis("model" if self.shard_axis == "data" else "data").all_reduce(mine)
+        for key, g in zip(live, mine.split([self.shards[key].numel() for key in live])):
+            self.shards[key].grad = g.view_as(self.shards[key])
 
     # Steps.
 
     def _new_optimizer(self, lr: float) -> torch.optim.Adam:
-        return torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, foreach=self.device.type == "cuda")
+        return torch.optim.Adam(self.opt_params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                foreach=self.device.type == "cuda")
 
     def checkpoint_path(self, step: int) -> Path:
         return self.checkpoint_dir_path / f"step_{step}.pt"
@@ -374,11 +544,12 @@ class Trainer:
         ``t`` and ``noise`` may be injected; otherwise they come from the
         trainer's generator, as do the focus mask that ``prob_focus_present``
         asks for and the condition's dropout (``null_cond_prob``), in that
-        order, microbatch by microbatch under gradient accumulation. Under a
-        sequence group ``batch`` (and injected noise) is the whole clip, and
-        the loss returned is summed over the ranks. Returns ``(loss,
-        grad_norm)`` as device tensors: the mean over the microbatches, and
-        the norm of the mean gradient before the clip.
+        order, microbatch by microbatch under gradient accumulation. Over a
+        mesh ``batch`` is this rank's rows (``rank_rows``) of whole clips, an
+        injected ``t``, ``noise`` or focus mask the whole batch's, and the
+        loss returned is summed over the ranks. Returns ``(loss, grad_norm)``
+        as device tensors: the mean over the microbatches, and the norm of the
+        mean gradient before the clip.
         """
         cond = None
         if self.use_path_as_cond:
@@ -386,12 +557,15 @@ class Trainer:
         a = self.accumulate
         if batch.shape[0] % a:
             raise ValueError(f"a batch of {batch.shape[0]} rows does not split into {a} microbatches")
-        rows = batch.shape[0] // a
         self.optimizer.zero_grad(set_to_none=True)
+        self._gather_params()
         loss_sum = None
         for i in range(a):
-            def part(v):
-                return v if v is None or a == 1 else v[i * rows:(i + 1) * rows]
+            def part(v):  # microbatch i of a batch-sized tensor: this rank's rows, or the whole batch's
+                if v is None or a == 1:
+                    return v
+                rows = v.shape[0] // a
+                return v[i * rows:(i + 1) * rows]
 
             cond_kw = {} if cond is None else {"cond": part(cond), "null_cond_prob": self.null_cond_prob}
             loss = self.model(part(batch), generator=self.generator, t=part(t), noise=part(noise),
@@ -401,21 +575,26 @@ class Trainer:
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
         with torch.no_grad():
             loss = loss_sum if a == 1 else loss_sum * (1.0 / a)
-            live = [p for p in self.params if p.grad is not None]
             if a > 1:
-                torch._foreach_mul_([p.grad for p in live], 1.0 / a)
-            if self.sequence_group is not None:  # each rank holds its share of the gradient: sum them
-                flat = self.sequence_group.all_reduce(torch.cat([p.grad.reshape(-1) for p in live]))
-                for p, f in zip(live, flat.split([p.numel() for p in live])):
-                    p.grad = f.view_as(p)
-                loss = self.sequence_group.all_reduce(loss)
-            grads = [p.grad for p in live]
+                torch._foreach_mul_([p.grad for p in self.live.values() if p.grad is not None], 1.0 / a)
+            sharded = []
+            if self.group is not None:  # each rank holds its share of the gradient and the loss: sum them, once
+                loss, sharded = self._reduce(loss)
+            live = [p for k, p in self.live.items() if k not in self.shards and p.grad is not None]
+            self._release()
+            owned = live + [self.shards[k] for k in sharded]  # every tensor Adam steps, as this rank holds it
+            sum_sq = None
+            if sharded:  # the global norm: the replicated squares once, the shards' summed along their axis
+                axis = self.mesh.axis(self.shard_axis)
+                shard_sq = axis.all_reduce(sum_of_squares([self.shards[k].grad for k in sharded]))
+                sum_sq = (sum_of_squares([p.grad for p in live]) if live else 0.0) + shard_sq
+            grads = [p.grad for p in owned]
             if self.max_grad_norm is not None:
-                clipped, grad_norm = clip_grad_norm(grads, self.max_grad_norm)
-                for p, g in zip(live, clipped):
+                clipped, grad_norm = clip_grad_norm(grads, self.max_grad_norm, sum_sq=sum_sq)
+                for p, g in zip(owned, clipped):
                     p.grad = g
             else:
-                grad_norm = global_l2_norm(grads)
+                grad_norm = global_l2_norm(grads) if sum_sq is None else torch.sqrt(sum_sq + 1e-6)
             lr = self.lr_schedule(self.opt_count)
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
@@ -423,7 +602,7 @@ class Trainer:
             self.opt_count += 1
             if self.step >= self.step_start_ema and self.step % self.update_ema_every == 0:
                 torch._foreach_mul_(self._ema_params, self.ema_decay)
-                torch._foreach_add_(self._ema_params, self.params, alpha=1.0 - self.ema_decay)
+                torch._foreach_add_(self._ema_params, self.opt_params, alpha=1.0 - self.ema_decay)
         return loss, grad_norm
 
     def train(self, prob_focus_present: float = 0.0, log_fn: Callable = lambda _: None) -> None:
@@ -535,7 +714,9 @@ class Trainer:
         Draws from ``generator``, else the trainer's own sample generator. The
         EMA tensors stand in for the live ones by reference (``.data``), and
         the live ones come back afterwards; the CUDA graphs captured meanwhile
-        are dropped, so none outlives the sample or points at the EMA.
+        are dropped, so none outlives the sample or points at the EMA. Over a
+        mesh every rank calls it: each samples its rows (and frames) with the
+        sharded tensors gathered, and every rank returns the whole batch.
         """
         gen = self.sample_generator if generator is None else generator
         kw = {}
@@ -546,13 +727,19 @@ class Trainer:
         try:
             with torch.no_grad():
                 if use_ema:
-                    for k, ema in self.ema_state.items():
+                    ema = {**self.ema_state, **self._gather({k: self.ema_state[k] for k in self.shards})}
+                    for k, v in ema.items():
                         swapped.append((state[k], state[k].data))
-                        state[k].data = ema
-                return self.model.sample(batch_size=batch_size, generator=gen, **kw)
+                        state[k].data = v
+                else:
+                    self._gather_params()
+                videos = self.model.sample(batch_size=batch_size, generator=gen, **kw)
+                return self.model.gather_batch(videos, batch_size)
         finally:
             for live, data in swapped:
                 live.data = data
+            if not use_ema:
+                self._release()
             self.model.graphs.clear()
 
     def _sample_and_save(self) -> None:
@@ -560,6 +747,8 @@ class Trainer:
         logged (JAX ``_sample_and_save``, :795-807)."""
         try:
             videos = self.sample_batch(self.num_sample_rows)
+            if not self.is_main:
+                return
             out_dir = self.results_folder / "samples" / f"step_{self.step}"
             self.sample_paths[self.step] = write_sample_gifs(videos, out_dir)
             logger.info("Step: %d | Wrote %d sample GIFs to %s", self.step, self.num_sample_rows, out_dir)
@@ -574,19 +763,29 @@ class Trainer:
         The state is copied to host memory here. With ``wait`` the file is
         written before this returns (after any write in flight); otherwise a
         background thread writes it. ``max_to_keep`` files are kept, counted
-        after each write. Only rank 0 of a sequence group writes (the ranks'
-        states are bit-equal).
+        after each write. Over a mesh every rank calls it: the shards are
+        gathered (unless rank 0 skips the save, which it tells every rank),
+        and rank 0 alone writes (the ranks' replicated states are bit-equal).
         """
+        path = self.checkpoint_path(self.step)
+        skip = self.is_main and (path.exists() or self.checkpoint_writer.path == path)
+        gathered = ema = adam = None
+        if self.shards:
+            skip = bool(self.group.all_reduce(torch.tensor([float(skip)], device=self.device)).item())
+            if not skip:  # every rank takes part in the gathers
+                gathered, ema = self.full_state()
+                if self.save_optimizer_state:
+                    adam = self._opt_moments()
         if not self.is_main:
             return None
-        path = self.checkpoint_path(self.step)
-        if path.exists() or self.checkpoint_writer.path == path:
+        if skip:
             logger.info("Checkpoint for step %d already exists; skipping save", self.step)
             return None
         optimizer = None
         if self.save_optimizer_state:
-            optimizer = {"adam": self.optimizer.state_dict(), "count": self.opt_count}
-        payload = checkpoint_payload(self.model, self.ema_state, optimizer=optimizer, step=self.step)
+            optimizer = {"adam": adam or self.optimizer.state_dict(), "count": self.opt_count}
+        payload = checkpoint_payload(self.model, ema or self.ema_state, optimizer=optimizer, step=self.step,
+                                     gathered=gathered)
         if wait:
             self.checkpoint_writer.wait()
             write_checkpoint(path, payload)
@@ -609,16 +808,22 @@ class Trainer:
             self.step = 0
             return
         payload = read_checkpoint(path)
+        for k, shape in self.full_shapes.items():  # whole tensors to load into, then this rank's shards
+            p = self.live[k]
+            p.data = torch.empty(shape, dtype=p.dtype, device=p.device)
         self.model.load_state_dict(payload["model"], strict=True)
+        for k in self.shards:
+            self.shards[k].data.copy_(self._shard_of(self.live[k].detach(), k))
+        self._release()
         if payload.get("ema_params") is not None:
             for k, v in payload["ema_params"].items():
-                self.ema_state[k].copy_(v)
+                self.ema_state[k].copy_(self._shard_of(v, k) if k in self.shards else v)
         opt = payload.get("optimizer")
         if opt is None:
             logger.warning("No optimizer state for step %d; starting a fresh optimizer", self.step)
             return
         try:
-            self.optimizer.load_state_dict(opt["adam"])
+            self.optimizer.load_state_dict(self._my_moments(opt["adam"]))
             self.opt_count = int(opt["count"])
             logger.info("Restored optimizer state for step %d", self.step)
         except (KeyError, ValueError, RuntimeError) as e:
@@ -627,6 +832,21 @@ class Trainer:
             self.optimizer = self._new_optimizer(self.lr_schedule(0))
             self.opt_count = 0
         logger.info("Successfully loaded checkpoint state for step %d", self.step)
+
+    def _my_moments(self, adam: dict) -> dict:
+        """A one-rank run's Adam state with this rank's shards of the sharded tensors' moments."""
+        if not self.shards:
+            return adam
+        state = dict(adam["state"])
+        for i, k in enumerate(self.live):
+            if k in self.shards and i in state:
+                entry = dict(state[i])
+                for name in ("exp_avg", "exp_avg_sq"):
+                    if tuple(entry[name].shape) != self.full_shapes[k]:
+                        raise ValueError(f"{k}: moment of shape {tuple(entry[name].shape)}, not {self.full_shapes[k]}")
+                    entry[name] = self._shard_of(entry[name], k)
+                state[i] = entry
+        return {**adam, "state": state}
 
     def _write_loss_plot(self) -> None:
         losses = self.loss_trace.tolist()

@@ -11,17 +11,26 @@ from typing import Sequence
 import torch
 
 
+def sum_of_squares(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of every element squared over a non-empty list of tensors (float32)."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    return torch.stack(norms).square().sum()
+
+
 def global_l2_norm(grads: Sequence[torch.Tensor], epsilon: float = 1e-6) -> torch.Tensor:
     """``sqrt(sum of every element squared + epsilon)`` over a list of tensors (float32)."""
-    norms = torch._foreach_norm([g.float() for g in grads])
-    return torch.sqrt(torch.stack(norms).square().sum() + epsilon)
+    return torch.sqrt(sum_of_squares(grads) + epsilon)
 
 
-def clip_grad_norm(grads: Sequence[torch.Tensor], max_grad_norm: float, epsilon: float = 1e-6):
+def clip_grad_norm(grads: Sequence[torch.Tensor], max_grad_norm: float, epsilon: float = 1e-6,
+                   sum_sq: torch.Tensor | None = None):
     """Scale ``grads`` so their global L2 norm is at most ``max_grad_norm``.
 
-    Returns ``(clipped_grads, pre_clip_norm)``, the JAX package's contract.
+    ``sum_sq``, where given, is the global sum of squares to take the norm of
+    in place of ``grads``' own (a sharded gradient's: the ranks' sums of their
+    shards, all-reduced). Returns ``(clipped_grads, pre_clip_norm)``, the JAX
+    package's contract.
     """
-    norm = global_l2_norm(grads, epsilon)
+    norm = global_l2_norm(grads, epsilon) if sum_sq is None else torch.sqrt(sum_sq + epsilon)
     scale = torch.clamp(max_grad_norm / (norm + epsilon), max=1.0)
     return torch._foreach_mul(list(grads), scale), norm
