@@ -28,7 +28,7 @@ in one summary line (``PHASE <name>: ...``):
    (so in every sampler run of the phases below); every launch of the spatial
    forward pair must have run its staged kernel (so in phases 8, 12 and 16);
 5b. dpm: the same CLI with ``--sampler dpm --num-steps 20`` at batch 4;
-5c. graph: DDPM-1000 at batch 2, DDIM-50 and DPM-20 at batch 4, each graphed
+5c. graph: DDPM's first 100 steps at batch 2, DDIM-50 and DPM-20 at batch 4, each graphed
    and eager from the same generator seed: outputs bit-equal (else within
    1e-3 on [0, 1]), seconds per step eager, graphed with its capture and warm,
    exact launches, all staged; peak memory with one cached graph (batch 4)
@@ -41,7 +41,7 @@ in one summary line (``PHASE <name>: ...``):
    around the recipe's seeded weights: /health, a solo DDIM-50 request
    against ``ddim_sample`` with its seed, 8 concurrent batch-1 DDIM-50
    requests coalesced and each held to its solo run (0.02 on [0, 1]), clips
-   per second coalesced against --no-batching at 2 and 8 clients
+   per second coalesced against --no-batching at 8 clients
    (``bench_serve.compare``), and an /extend request;
 6. backward: each backward kernel against its plain version at every shape
    the flagship training step (batch 8) gives it, and at one wide-frame
@@ -54,14 +54,14 @@ in one summary line (``PHASE <name>: ...``):
    (batch 8) with the kernels, against the plain modules, both against f32;
    controls: the same checks catch an attention backward that is off;
 8. train: ``video_diffusion_nnx_tpu_torch.train.main`` on the flagship
-   config with a seeded synthetic dataset, 20 steps at batch 8: the loss
+   config with a seeded synthetic dataset, 14 steps at batch 8: the loss
    falls, checkpoints are written, a resume from the middle one continues,
    every kernel's launches per step are exact; seconds per step (checkpoint
    writes left out) and peak memory; the same steps through the plain
    modules (fused flags off), whose losses agree step by step; the trained
    checkpoint samples through the sampling CLI (DDIM-10);
 8b. digits: the flagship eval (``eval_bouncing_digits.evaluate``) on that
-   run's step-20 checkpoint, with 64 train and 16 holdout clips of real
+   run's step-14 checkpoint, with 64 train and 16 holdout clips of real
    handwritten digits from the port's generator (``data/bouncing_digits.py``)
    at the recipe's shape: 8 eval clips, reconstructions at T/8, T/4, T/2 for
    the trained and the untrained model, DDIM-50 at batch 8, no DDPM; every
@@ -78,20 +78,20 @@ in one summary line (``PHASE <name>: ...``):
    4 and cond_scale 1 and 3, graphed against eager (bit-equal, else within
    1e-3) and graphed warm seconds per step at each scale (guidance doubles a
    forward's rows); the batched guidance forward against a conditioned and a
-   null forward; DPM-20 and the recipe's DDPM chain with text; the sampling CLI
+   null forward; DPM-20 and the first 100 steps of the recipe's DDPM chain with text; the sampling CLI
    with ``--text "two digits" --cond-scale 3``; the extension CLI with text and
    reconstruction guidance 2; the server: a conditioned /sample, two coalesced
    text requests each within 0.02 of its solo run, 400 without text;
 8e. train options (run last, after phase 19): the trainer's options on the flagship recipe
-   through the train CLI, 10-step runs on the train phase's kind of data with a checkpoint every 5
+   through the train CLI, 6-step runs on the train phase's kind of data with a checkpoint every 3
    steps and the EMA from step 0 (derived keys only): gradient accumulation (A = 2: one step with
    injected t and noise against the unaccumulated step, the loss within 2% and each gradient tensor
    within the grads phase's 0.03, exactly twice each kernel's launches, all staged; s/step and peak
    memory), ``flatten_optimizer`` (the same elementwise step: bit-equal losses, parameters and EMA
    against the run without it; host launches per step), asynchronous checkpoints (each present and
    loadable, byte-equal to the synchronous run's, the loop's blocking seconds per save), sampling during training (2 EMA clips
-   at step 5, GIFs checked, losses bit-equal to the run without; also the caption-conditioned
-   recipe with its text at cond_scale 3), the profiler (a Chrome trace of steps 0-4 alone, counted
+   at step 3, GIFs checked, losses bit-equal to the run without; also the caption-conditioned
+   recipe with its text at cond_scale 3), the profiler (a Chrome trace of steps 0-1 alone, counted
    by its kernel events), then all five options together through the CLI with exact launches. The
    kernels line gives each flagship kernel's launches in one step with and without accumulation
    (``launches_per_step``, ``launches_per_step_accumulated``) beside the main path's ``launches``;
@@ -107,13 +107,13 @@ in one summary line (``PHASE <name>: ...``):
    std 0.05 first: they start at zero, and then no attention has a gradient), the loss within 2%, the
    gradients to the grads phase's gates with its largest control fault caught, every attention weight's
    gradient nonzero; D2 also DDIM-10 at batch 4, graphed against eager; dit train: D1 through the train
-   CLI (8 steps at batch 8 on 16-frame squares, checkpoints every 4, a resume), the sampling CLI's
+   CLI (4 steps at batch 8 on 16-frame squares, checkpoints every 2, a resume), the sampling CLI's
    DDIM-50 and DPM-20 at batch 8 (graphed; DDIM-50 bit-equal to the eager sampler), and the server
    with 2 batch-1 DDIM-50 clients against their solo runs and against serial; dit cond: D1 on captions
    (hashed bag of words, dropout 0.2), 10 train CLI steps on 16-frame captioned clips, then the
    sampling CLI with ``--text`` at cond_scale 3, each kernel launch on 2b rows;
 8g. distill, guidance distill, dit guidance (after dit cond): distillation (ROADMAP A13). distill: the
-   train phase's step-20 weights as the teacher, two rounds (N = 8 -> 4) of 5 steps at batch 8 with EMA
+   train phase's step-14 weights as the teacher, two rounds (N = 8 -> 4) of 5 steps at batch 8 with EMA
    0.99 through the distill CLI: exact launches (three forwards and a backward a step), all staged; each
    step's loss within 2% of the same steps through the plain modules; the schedule buffers bit-unchanged,
    the students parted from the teacher; the EMA against its formula over two library steps; DDIM-4 on
@@ -144,7 +144,7 @@ in one summary line (``PHASE <name>: ...``):
 12. long train: ``train.main`` on configs/config_long_clip.yaml as the file
     has it (full-state Adam), reading a folder of 32 seeded synthetic
     128-frame GIFs written through the port's ``utils.media`` (only
-    ``dataset_path``, the output folders and the step counts differ), 12
+    ``dataset_path``, the output folders and the step counts differ), 6
     steps at batch 1: the loss falls, exact launches per step, seconds per
     step, peak memory with ``remat_blocks`` on and off, the plain-modules
     control; then ``sample.main`` from the trained checkpoint, DDIM-50 at
@@ -194,12 +194,12 @@ in one summary line (``PHASE <name>: ...``):
     C entries report); CUDA-event times per call and per step against the
     bound;
 18. seq train: the train CLI's rank function on that recipe (derived keys
-    only: a seeded 32-frame dataset, 4 steps, a checkpoint every 2): 4 ranks
+    only: a seeded 32-frame dataset, 2 steps, a checkpoint every 1): 4 ranks
     sharing cuda:0 over gloo, named explicitly. First a 4-rank all-gather of a
     (2, 4096, 8, 256) bf16 panel through the group. Then exact launches per
     rank per step (10 + 10 cross kernels, nothing else, all staged), the ranks'
     parameters bit-equal, ``sqrt_alphas_cumprod`` drifted and
-    ``alphas_cumprod`` bit-exact (full-state Adam), a resume from step 2; the
+    ``alphas_cumprod`` bit-exact (full-state Adam), a resume from step 1; the
     per-step loss against a 1-rank run of the same recipe (temporal attention
     through the modules) within a gate derived from a control (the 1-rank
     run with the dense temporal kernels), which the 4-rank losses scaled by
@@ -211,12 +211,12 @@ in one summary line (``PHASE <name>: ...``):
     train's spawn of 4 gloo ranks sharing cuda:0 runs, after its own runs,
     every multi-rank run through the train CLI's rank function (one process
     start for all), each in a world of its own: the flagship as
-    shipped over 4 data ranks of 2 rows (6 steps, a checkpoint and an EMA
-    sample of 4 rows at step 3, graph-replayed, its GIFs from rank 0 alone),
-    a resume from that file at 2 ranks, the same 6 steps under
+    shipped over 4 data ranks of 2 rows (4 steps, a checkpoint at step 2), a
+    resume from that file at 2 ranks with an EMA sample of 4 rows at step 2
+    (graph-replayed, its GIFs from rank 0 alone), the same 4 steps under
     ``param_sharding: fsdp``; configs/config_tpu_v2_3.yaml as shipped on
-    (data 2 x model 2) (4 steps, Adam's state in an async checkpoint at step
-    2, a resume from it); the seq recipe on (data 2 x seq 2) (4 steps), then
+    (data 2 x model 2) (2 steps, Adam's state in an async checkpoint at step
+    1, a resume from it); the seq recipe on (data 2 x seq 2) (2 steps), then
     at batch 4 under accumulation (A = 2, 2 steps). Per run: exact launches
     on every rank; the ranks' replicated state bit-equal (and the
     shards of ranks at one place on the shard axis); each sharded tensor's
@@ -233,6 +233,21 @@ in one summary line (``PHASE <name>: ...``):
     run all staged; the files from shards
     one-rank files (keys, shapes, whole moments), loadable into a one-rank
     model;
+19c. dp sample, dp serve, dp distill (the last after phase 8g): data ranks
+    outside the trainer, over the same spawn's 4 ranks of 2 rows, each CLI's
+    ``run_rank``: the sample CLI's DDIM-50 and the extend CLI's (4 known
+    frames) at batch 8 from the train phase's checkpoint, each rank replaying
+    its own graph, rank 0 alone writing the GIFs, every gathered row within
+    0.02 of the one-rank CLI's and the pinned frames equal; the server (rank
+    0 serving HTTP, the others following its calls) with 8 concurrent
+    batch-1 DDIM-50 clients, each row within 0.02 of one rank's
+    ``ddim_sample`` of its seed, /health counting 4 devices, clips per second
+    against the serve phase's one rank; both distillation CLIs, 3 steps at
+    batch 8 (the train phase's weights, the cond phase's), the ranks' losses
+    and students (parameters, EMA, Adam's moments) bit-equal, the files from
+    rank 0 alone, the losses against the distillation phases' first 3 steps
+    within 1.5x the plain-module run's gap plus 0.001 (the losses scaled by
+    1.01 must fail). Exact launches on every rank, all staged;
 20. kernels line: one JSON object per kernel of a driven path (launches over
     its train phase, the wide pair's over the dim-128 step, error, times,
     bound, and ``design``: "staged" where every launch of that run ran its
@@ -243,7 +258,8 @@ in one summary line (``PHASE <name>: ...``):
     results.json apart from the line. Each entry's ``dit`` field holds its
     launches in the DiT runs (D1's training, the conditioned D1's, one D2
     step) and, for the kernels of the DiT path, its float32 times per step
-    at each recipe's shapes.
+    at each recipe's shapes; its ``multi_rank`` field, its launches summed
+    over the ranks of each multi-rank phase's runs.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. ``--only kernels,long sla`` runs the device check, the
@@ -257,6 +273,7 @@ chiprun_out/chip_smoke/ (small) and build/chip_smoke/ (checkpoints and data).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -289,7 +306,7 @@ CTX_GAIN = 2.0 ** 12
 HEADS, DIM_HEAD = 8, 32
 B = 2  # the kernel phase's batch
 B_TRAIN = 8  # the flagship training batch
-TRAIN_STEPS, CKPT_EVERY = 20, 10
+TRAIN_STEPS, CKPT_EVERY = 14, 7  # 20 and 10 before the data-rank phases needed the room
 # Unet gradients, relative norms: per tensor (kernels vs plain modules), the margin over 1.5x the plain
 # route's distance to f32 (whole gradient), and the floor of a denominator (share of the whole norm).
 GRAD_TOL, GRAD_MARGIN, GRAD_FLOOR = 0.03, 0.005, 1e-3
@@ -369,7 +386,7 @@ LONG_TEMPORAL_SHAPES = [
 EXTRA_BLOCKWISE_SHAPES = [(0, (1, 16, 256, 256)), (0, (1, 64, 65, 64)), (0, (1, 64, 100, 32))]
 LONG_PER_STEP = {"temporal_blockwise_fwd": 10, "temporal_blockwise_bwd": 10, "temporal_attention_fwd": 1,
                  "temporal_attention_bwd": 1, "sla_context": 8, "sla_out": 8, "sla_bwd_q": 8, "sla_bwd_kv": 8}
-LONG_STEPS, LONG_CKPT_EVERY, LONG_CLIPS = 12, 6, 32
+LONG_STEPS, LONG_CKPT_EVERY, LONG_CLIPS = 6, 3, 32  # 12 and 6 before the data-rank phases needed the room
 LONG_SLA_SHAPES = [(count, (1, 128, *shape[2:])) for count, shape in SLA_SHAPES]  # the long clip's 8 spatial calls
 REMAT_TOL = 1e-3  # gradients with remat_blocks on against off, relative norm per tensor
 KERNELS.update({
@@ -440,10 +457,11 @@ SEQ_WORLD, SEQ_FL, SEQ_FG = 4, 8, 32
 SEQ_CROSS_SHAPES = [(3, (4096, 32)), (1, (1024, 64)), (1, (1024, 32)), (1, (256, 128)), (1, (256, 64)),
                     (2, (64, 256)), (1, (64, 128))]
 SEQ_PER_STEP = {"cross_attention_fwd": 10, "cross_attention_bwd": 10}
-SEQ_STEPS, SEQ_CKPT_EVERY, SEQ_CLIPS = 4, 2, 16  # 4 steps (a rank-step takes about 3.7 s on one card)
+SEQ_STEPS, SEQ_CKPT_EVERY, SEQ_CLIPS = 2, 1, 16  # 2 steps (4 before the data-rank phases needed the room; a rank-step takes about 3 s on one card)
 SEQ_GATHER_PANEL = (2, 4096, 8, 256)  # one rank's K panel at the widest level, bf16
 SEQ_CONTROL_OFF = 0.01  # the 4-rank losses scaled by 1 + this must fail the loss gate
 SEQ_GATE_MARGIN = 0.001  # added to 1.5x the control's relative loss gap
+SEQ_WARM = 1  # steps before the timed one in the seq recipe's runs (2 at 4 steps)
 KERNELS.update({
     "cross_attention_fwd": {"source": "video_diffusion_nnx_tpu_torch/csrc/cross_attention.cu",
                             "replaces": "video_diffusion_nnx_tpu/ops/cross_attention.py:121"},
@@ -806,17 +824,29 @@ def sample_phase(torch, ops, load_config, build_models, save_checkpoint, sample,
 
 
 DPM_RUN = (("dpm20_b4", 4, ["--sampler", "dpm", "--num-steps", "20"]),)
-GRAPH_RUNS = (("ddpm1000_b2", "ddpm", 2, 1000), ("ddim50_b4", "ddim", 4, 50), ("dpm20_b4", "dpm", 4, 20))
-# DDPM's eager chain is held against the graphed one over its first 100 steps (the whole 1000 until the multi-rank
-# phases needed the room: some 30 s of eager steps at batch 2).
-GRAPH_EAGER_DDPM_STEPS = 100
+# DDPM's chain is held graphed against eager over its first GRAPH_DDPM_STEPS steps (the whole 1000 until the
+# multi-rank phases needed the room: some 30 s of eager steps at batch 2, then 8 s of graphed ones); the sample phase
+# runs the whole graphed chain through the CLI.
+GRAPH_DDPM_STEPS = 100
+GRAPH_RUNS = (("ddpm100_b2", "ddpm", 2, GRAPH_DDPM_STEPS), ("ddim50_b4", "ddim", 4, 50), ("dpm20_b4", "dpm", 4, 20))
 GRAPH_BATCHES = (1, 2, 4, 8)  # the serving batches (padded to powers of two up to max_batch_rows 8)
 GRAPH_TOL = 1e-3  # on [0, 1], where graphed and eager are not bit-equal; never wider
 
 
+def ddpm_prefix(torch, diffusion, generator, graph: bool, batch: int, steps: int, cond=None, cond_scale: float = 1.0):
+    """The first ``steps`` steps of the DDPM chain from x_T (each step's noise drawn in the sampler's order), with an
+    embedded condition at ``cond_scale`` where given; the raw image after them."""
+    shape = (batch, diffusion.channels, diffusion.num_frames, diffusion.image_size, diffusion.image_size)
+    img = torch.randn(shape, generator=generator, device="cuda")
+    with torch.no_grad():
+        for i in reversed(range(diffusion.num_timesteps - steps, diffusion.num_timesteps)):
+            noise = torch.randn(shape, generator=generator, device="cuda")
+            t = torch.full((batch,), i, dtype=torch.long, device="cuda")
+            img = diffusion.p_sample(img, t, noise=noise, graph=graph, cond=cond, cond_scale=cond_scale)
+    return img
+
+
 def _sampler(diffusion, kind: str, batch: int, steps: int):
-    if kind == "ddpm":
-        return lambda g, graph: diffusion.sample(batch_size=batch, generator=g, graph=graph)
     if kind == "ddim":
         return lambda g, graph: diffusion.ddim_sample(batch_size=batch, num_steps=steps, generator=g, graph=graph)
     return lambda g, graph: diffusion.dpm_solver_sample(batch_size=batch, num_steps=steps, generator=g, graph=graph)
@@ -825,23 +855,12 @@ def _sampler(diffusion, kind: str, batch: int, steps: int):
 def graph_phase(torch, ops, load_config, build_models) -> dict:
     """Each sampler of the flagship recipe graphed and eager from the same generator seed, in this call: the
     outputs bit-equal, seconds per step (host clock ending in a synchronize) eager, graphed with its capture and
-    graphed warm (DDPM-1000 once graphed: its capture is 1/1000 of the run), exact wrapper launches (eager:
+    graphed warm (DDPM once graphed: its capture is 1/100 of the run), exact wrapper launches (eager:
     per forward x steps; graphed: per forward x 2 at the capture, none at a replay), all staged; then peak
-    memory with one cached graph and with four (batches 1, 2, 4, 8). DDPM's eager chain is its first
-    ``GRAPH_EAGER_DDPM_STEPS`` steps, against the same steps graphed."""
+    memory with one cached graph and with four (batches 1, 2, 4, 8). DDPM's chain is its first
+    ``GRAPH_DDPM_STEPS`` steps."""
     _, diffusion = build_models(load_config(CONFIG), device="cuda")
     diffusion.eval()
-
-    def ddpm_prefix(g, graph, batch, steps=GRAPH_EAGER_DDPM_STEPS):
-        """The first ``steps`` steps of the DDPM chain from x_T, each step's noise drawn in the sampler's order."""
-        shape = (batch, diffusion.channels, diffusion.num_frames, diffusion.image_size, diffusion.image_size)
-        img = torch.randn(shape, generator=g, device="cuda")
-        with torch.no_grad():
-            for i in reversed(range(diffusion.num_timesteps - steps, diffusion.num_timesteps)):
-                noise = torch.randn(shape, generator=g, device="cuda")
-                t = torch.full((batch,), i, dtype=torch.long, device="cuda")
-                img = diffusion.p_sample(img, t, noise=noise, graph=graph)
-        return img
 
     def gen(seed):
         return torch.Generator(device="cuda").manual_seed(seed)
@@ -856,7 +875,8 @@ def graph_phase(torch, ops, load_config, build_models) -> dict:
 
     runs = {}
     for seed, (name, kind, batch, steps) in enumerate(GRAPH_RUNS):
-        fn = _sampler(diffusion, kind, batch, steps)
+        fn = (functools.partial(ddpm_prefix, torch, diffusion, batch=batch, steps=steps) if kind == "ddpm"
+              else _sampler(diffusion, kind, batch, steps))
         row = {}
         diffusion.graphs.clear()  # each run captures its own graph: its first run pays for the capture
         replays0, captures0 = diffusion.graphs.replays(), diffusion.graphs.captures
@@ -871,11 +891,6 @@ def graph_phase(torch, ops, load_config, build_models) -> dict:
             again, sec, counts, _ = timed_run(fn, seed, True)
             check(not counts and torch.equal(again, graphed), f"graph {name}: a warm replay run launched {counts}")
             row["graphed_warm_s_per_step"] = sec / steps
-        else:  # the first steps of the chain, replayed from the graph just captured, then eager
-            eager_steps = GRAPH_EAGER_DDPM_STEPS
-            fn = functools.partial(ddpm_prefix, batch=batch)
-            graphed, _, counts, _ = timed_run(fn, seed, True)
-            check(not counts, f"graph {name}: the replayed prefix launched {counts}")
         eager, sec, counts, staged = timed_run(fn, seed, False)
         check_staged(counts, staged, f"eager {name}")
         check(counts == {k: n * eager_steps for k, n in PER_FORWARD.items()}, f"eager {name}: launches {counts}")
@@ -1018,7 +1033,7 @@ def serve_phase(torch, ops, load_config, build_models) -> dict:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=60)
-    out["throughput"] = bench_serve.compare(model, [2, SERVE_CLIENTS], SERVE_STEPS, 0.05)
+    out["throughput"] = bench_serve.compare(model, [SERVE_CLIENTS], SERVE_STEPS, 0.05)  # also at 2 clients before
     out["cached_graph_shapes"] = model.graphs.shapes()
     return out
 
@@ -1804,7 +1819,7 @@ def _seconds_per_step(trainer, warmup: int = 5) -> tuple[float, float]:
 
 def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | None = None,
                 per_step: dict = PER_STEP, ddim_steps: int = 10) -> dict:
-    """The flagship recipe (with ``unet`` overrides) through the CLIs: 20 steps at batch 8, a resume, the
+    """The flagship recipe (with ``unet`` overrides) through the CLIs: TRAIN_STEPS steps at batch 8, a resume, the
     same steps through the plain modules, then DDIM from the trained checkpoint."""
     import yaml
     from PIL import Image
@@ -1894,7 +1909,7 @@ DIGITS_CLIPS, DIGITS_HOLDOUT, DIGITS_EVAL_CLIPS = 64, 16, 8
 
 
 def digits_phase(torch, ops) -> dict:
-    """The flagship eval on the train phase's step-20 checkpoint: data from the port's bouncing-digits
+    """The flagship eval on the train phase's last checkpoint: data from the port's bouncing-digits
     generator at the recipe's shape (64 train, 16 holdout clips of 16 frames), ``evaluate`` with 8 clips and
     no DDPM, every stat finite, the GIFs written, every forward launch of its loss, reconstruction and DDIM-50
     counted and staged. The quality claims (``check``) need the full run and are not applied here."""
@@ -2021,8 +2036,8 @@ def cond_phase(torch, ops, train) -> dict:
 def cfg_phase(torch, ops, sample, cond) -> dict:
     """Classifier-free guidance from the cond phase's step-20 checkpoint (its trained weights): DDIM-10 at batch 4
     and cond_scale 3 graphed against eager (bit-equal, else within ``GRAPH_TOL``); the batched guidance forward
-    against a conditioned and a null forward (the flagship unet gate); DPM-20 and the recipe's DDPM chain with
-    text; warm graphed seconds per step at cond_scale 1 and 3; the sampling CLI with ``--text "two digits"
+    against a conditioned and a null forward (the flagship unet gate); DPM-20 and the first GRAPH_DDPM_STEPS steps
+    of the recipe's DDPM chain with text; warm graphed seconds per step at cond_scale 1 and 3; the sampling CLI with ``--text "two digits"
     --cond-scale 3``; the extension CLI with text and reconstruction guidance 2; the server with text: a /sample,
     two coalesced requests each held to its solo run (``SERVE_TOL``), and 400 for a request without text."""
     import threading
@@ -2104,13 +2119,15 @@ def cfg_phase(torch, ops, sample, cond) -> dict:
     check(guided.dtype == torch.float32 and diff <= 0.1 * scale,
           f"cfg: the batched guidance forward parts from two forwards by {diff} (gate {0.1 * scale})")
 
-    # DPM-20 and the recipe's DDPM chain (T steps) with text, graphed, each capturing its own graph (DPM-20 would
-    # otherwise replay the DDIM graph of its shape, condition and scale).
+    # DPM-20 and the first GRAPH_DDPM_STEPS steps of the recipe's DDPM chain with text, graphed, each capturing its
+    # own graph (DPM-20 would otherwise replay the DDIM graph of its shape, condition and scale). The whole chain with
+    # text at cond_scale 3 runs in train options (the conditioned run's sample during training).
     for name, fn, n_steps, batch in (
             ("dpm20_b4", lambda g: model.dpm_solver_sample(num_steps=20, generator=g, cond=COND_PROMPTS,
                                                            cond_scale=3.0), 20, b),
-            (f"ddpm{model.num_timesteps}_b2", lambda g: model.sample(generator=g, cond=COND_PROMPTS[1:3],
-                                                                      cond_scale=3.0), model.num_timesteps, 2)):
+            (f"ddpm{GRAPH_DDPM_STEPS}_b2", lambda g: ddpm_prefix(torch, model, g, True, 2, GRAPH_DDPM_STEPS,
+                                                                   cond=model.embed_cond(COND_PROMPTS[1:3]),
+                                                                   cond_scale=3.0), GRAPH_DDPM_STEPS, 2)):
         model.graphs.clear()
         videos, sec, counts, staged, graph = run(lambda graph: fn(gen(1)), True)
         check_graphed(counts, graph, n_steps, f"cfg {name}")
@@ -2212,9 +2229,9 @@ def cfg_phase(torch, ops, sample, cond) -> dict:
     return out
 
 
-# 10 steps a run (15 until the multi-rank phases came, which the whole script's 600 s had to make room for): a
-# checkpoint every 5, a sample at step 5 and a trace of steps 0-4 fit.
-OPT_STEPS, OPT_CKPT_EVERY, OPT_SAMPLE_AT, OPT_FLUSH, OPT_ACCUMULATE = 10, 5, 5, 5, 2
+# 6 steps a run (15, then 10, until the multi-rank phases came, which the whole script's 600 s had to make room
+# for): a checkpoint every 3, a sample at step 3 and a trace of steps 0-1 fit, and s/step from step 3.
+OPT_STEPS, OPT_CKPT_EVERY, OPT_SAMPLE_AT, OPT_FLUSH, OPT_ACCUMULATE, OPT_WARM = 6, 3, 3, 2, 2, 3
 # Derived keys of every train options run: a checkpoint every OPT_CKPT_EVERY steps, all kept, the EMA from step 0
 # (so the flat run's EMA is exercised), and no sample or trace unless the run asks for one.
 OPT_BASE = {"step_start_ema": 0, "update_ema_every": 1, "max_to_keep": 0, "save_and_sample_every": 100000,
@@ -2241,12 +2258,13 @@ def train_options_phase(torch, ops, train) -> dict:
     """The trainer's options on the flagship recipe at full width (batch 8, bf16, both fused flags), on seeded
     synthetic data, through the train CLI: gradient accumulation (one step with injected t and noise against the
     unaccumulated step: the loss within ``LOSS_TOL``, each gradient tensor within ``GRAD_TOL``, exactly twice the
-    launches, all staged; s/step and peak memory over 10 steps), ``flatten_optimizer`` (10 steps bit-equal to the
-    run without it: losses, parameters, EMA; host launches and s/step), asynchronous checkpoints (every 5 steps, each
-    present and loadable, each byte-equal to the synchronous run's; the loop's blocking seconds per save), sampling
-    during training (DDPM of 2 EMA clips at step 5: GIFs of 10 frames of 64x64, the losses bit-equal to the run
-    without; the same for the caption-conditioned recipe at cond_scale 3), the profiler (a trace of steps 0-4 naming
-    the staged temporal forward 55 times), and one run with all five options through the CLI."""
+    launches, all staged; s/step and peak memory over OPT_STEPS steps), ``flatten_optimizer`` (OPT_STEPS steps
+    bit-equal to the run without it: losses, parameters, EMA; host launches and s/step), asynchronous checkpoints
+    (every OPT_CKPT_EVERY steps, each present and loadable, each byte-equal to the synchronous run's; the loop's
+    blocking seconds per save), sampling during training (DDPM of 2 EMA clips at step OPT_SAMPLE_AT: GIFs of 10
+    frames of 64x64, the losses bit-equal to the run without; the same for the caption-conditioned recipe at
+    cond_scale 3), the profiler (a trace of the first OPT_FLUSH steps naming the staged temporal forward 11 times a
+    step), and one run with all five options through the CLI."""
     import shutil
 
     import yaml
@@ -2278,9 +2296,10 @@ def train_options_phase(torch, ops, train) -> dict:
         counts, staged = nonzero(ops.launch_counts()), nonzero(ops.staged_launch_counts())
         losses = tr.loss_trace.tolist()
         check(len(losses) == OPT_STEPS and all(math.isfinite(v) for v in losses), f"{name}: losses {losses}")
-        sps = (tr.step_starts[-1] - tr.step_starts[5] - sum(v for k, v in tr.save_seconds.items() if k >= 5)
-               - sum(v for k, v in tr.sample_seconds.items() if k >= 5)
-               - (tr.trace_seconds if tr.traced_steps and tr.traced_steps[1] > 5 else 0.0)) / (OPT_STEPS - 5)
+        sps = (tr.step_starts[-1] - tr.step_starts[OPT_WARM]
+               - sum(v for k, v in tr.save_seconds.items() if k >= OPT_WARM)
+               - sum(v for k, v in tr.sample_seconds.items() if k >= OPT_WARM)
+               - (tr.trace_seconds if tr.traced_steps and tr.traced_steps[1] > OPT_WARM else 0.0)) / (OPT_STEPS - OPT_WARM)
         starts = tr.step_starts
         step_seconds = [b - a - tr.save_seconds.get(i, 0.0) - tr.sample_seconds.get(i, 0.0)
                         for i, (a, b) in enumerate(zip(starts, starts[1:]))]
@@ -2354,9 +2373,9 @@ def train_options_phase(torch, ops, train) -> dict:
     out["flat"]["largest_relative_gap"] = largest_gap(flat, base)
     check(out["flat"]["bit_equal"], f"flat optimizer: losses, parameters or EMA differ from the per-tensor run "
                                     f"(largest relative gap {out['flat']['largest_relative_gap']})")
-    out["flat"]["host_launches_per_step"] = _host_launches(torch, flat, 3) / 3
+    out["flat"]["host_launches_per_step"] = _host_launches(torch, flat)  # one step: every step launches the same
     del flat
-    out["per_tensor"]["host_launches_per_step"] = _host_launches(torch, base, 3) / 3
+    out["per_tensor"]["host_launches_per_step"] = _host_launches(torch, base)
 
     asynchronous, out["async"] = run("async", async_checkpointing=True)
     ckpts = list(range(OPT_CKPT_EVERY, OPT_STEPS + 1, OPT_CKPT_EVERY))
@@ -2367,11 +2386,11 @@ def train_options_phase(torch, ops, train) -> dict:
         payload = read_checkpoint(asynchronous.checkpoint_path(step))
         check(payload["step"] == step, f"async checkpoint {step}: step {payload['step']}")
         base.model.load_state_dict(payload["model"])  # loadable into the recipe's model
-    check(asynchronous.checkpoint_path(10).read_bytes() == base.checkpoint_path(10).read_bytes(),
-          "async step-10 checkpoint differs from the synchronous one")
+    check(asynchronous.checkpoint_path(OPT_STEPS).read_bytes() == base.checkpoint_path(OPT_STEPS).read_bytes(),
+          f"async step-{OPT_STEPS} checkpoint differs from the synchronous one")
     check(torch.equal(asynchronous.loss_trace, base.loss_trace), "async run: losses differ from the synchronous run")
-    out["async"]["step10_bit_equal"] = True
-    out["async"]["checkpoint_bytes"] = asynchronous.checkpoint_path(10).stat().st_size
+    out["async"]["last_checkpoint_bit_equal"] = True
+    out["async"]["checkpoint_bytes"] = asynchronous.checkpoint_path(OPT_STEPS).stat().st_size
     for name in ("per_tensor", "async"):
         saves = {k: v for k, v in out[name]["blocking_save_seconds"].items()}
         out[name]["mean_blocking_save_seconds"] = sum(saves.values()) / len(saves)
@@ -2415,7 +2434,8 @@ def train_options_phase(torch, ops, train) -> dict:
     want = {k: OPT_ACCUMULATE * n * OPT_STEPS + 2 * PER_FORWARD.get(k, 0) for k, n in PER_STEP.items()}
     check(out["cli_all_options"]["launches"] == want,
           f"all options: launches {out['cli_all_options']['launches']}, expected {want}")
-    check(sum(out["cli_all_options"]["losses"][-5:]) < sum(out["cli_all_options"]["losses"][:5]),
+    half = OPT_STEPS // 2
+    check(sum(out["cli_all_options"]["losses"][-half:]) < sum(out["cli_all_options"]["losses"][:half]),
           f"all options: the loss did not fall: {out['cli_all_options']['losses']}")
     del cli
     return out
@@ -2492,8 +2512,9 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
                   "the long-clip trainer lost remat_blocks or max_grad_norm")
         del tr
     k = runs["kernels"]
-    first, last = sum(k["losses"][:4]) / 4, sum(k["losses"][-4:]) / 4
-    check(last < first, f"long-clip loss did not fall: first 4 steps {first}, last 4 {last}")
+    half = LONG_STEPS // 2
+    first, last = sum(k["losses"][:half]) / half, sum(k["losses"][-half:]) / half
+    check(last < first, f"long-clip loss did not fall: first {half} steps {first}, last {half} {last}")
     check(k["checkpoints"] == list(range(LONG_CKPT_EVERY, LONG_STEPS + 1, LONG_CKPT_EVERY)),
           f"long-clip checkpoints at steps {k['checkpoints']}")
     for variant in variants:
@@ -2695,10 +2716,10 @@ def seq_rank(rank: int, world: int, gather_init: str, runs: list, out_dir: str) 
     (Path(out_dir) / f"seq_rank{rank}.json").write_text(json.dumps(out))
 
 
-def seq_train_phase(torch, train, with_mesh: bool = True) -> dict:
+def seq_train_phase(torch, train, mesh_phases) -> dict:
     """configs/config_seq_parallel.yaml through the train CLI's rank function: 4 ranks on cuda:0 over gloo.
 
-    With ``with_mesh`` the spawn then runs the multi-rank phases' runs (one process start for all). Their seconds
+    The spawn then runs the runs of the multi-rank phases ``mesh_phases`` (one process start for all). Their seconds
     are taken out of this phase's (``spawn_share_seconds``) and counted in the phases that check them."""
     import torch.multiprocessing as mp
     import yaml
@@ -2712,8 +2733,9 @@ def seq_train_phase(torch, train, with_mesh: bool = True) -> dict:
     data = bouncing_squares(root / "bouncing_squares_32.npy", clips=SEQ_CLIPS, frames=d["num_frames"],
                             size=d["image_size"])
     common = dict(steps=SEQ_STEPS, ckpt_every=SEQ_CKPT_EVERY)
+    last = dict(steps=SEQ_STEPS, ckpt_every=SEQ_STEPS)  # a one-rank reference writes its final checkpoint alone
     cfgs = {"ranks4": _train_config(yaml, raw, root, data, "ranks4", **common),
-            "rank1": _train_config(yaml, raw, root, data, "rank1", sequence_parallel_size=1, **common),
+            "rank1": _train_config(yaml, raw, root, data, "rank1", sequence_parallel_size=1, **last),
             "rank1_fused": _train_config(yaml, raw, root, data, "rank1_fused", unet={"use_fused_attention": True},
                                          sequence_parallel_size=1, **common)}
     for old in [*root.glob("*/checkpoints/step_*.pt"), *root.glob("store_*"), *root.glob("seq_rank*.json")]:
@@ -2721,14 +2743,16 @@ def seq_train_phase(torch, train, with_mesh: bool = True) -> dict:
     argv = ["--config", str(cfgs["ranks4"]), "--device", "cuda", "--dist-backend", "gloo"]
     runs = [("run", f"file://{root / 'store_run'}", argv),
             ("resume", f"file://{root / 'store_resume'}", argv + ["--resume_step", str(SEQ_CKPT_EVERY)])]
-    mesh = mesh_runs(yaml, data) if with_mesh else {"root": str(root), "runs": []}
+    mesh = mesh_runs(yaml, data, mesh_phases)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    from video_diffusion_nnx_tpu_torch.models import text
+
     mp.spawn(spawned_rank, args=((SEQ_WORLD, f"file://{root / 'store_gather'}", runs, str(root)),
-                                 (mesh["runs"], mesh["root"])), nprocs=SEQ_WORLD, join=True)
+                                 (mesh["runs"], mesh["root"], text._hf is False)), nprocs=SEQ_WORLD, join=True)
     ranks = [json.loads((root / f"seq_rank{r}.json").read_text()) for r in range(SEQ_WORLD)]
     mesh["ranks"] = [json.loads((Path(mesh["root"]) / f"mesh_rank{r}.json").read_text()) for r in range(MESH_WORLD)]
-    mesh["seconds"] = mesh["ranks"][0]["seconds"]  # rank 0's clock over the mesh runs: the ranks meet at every step
+    mesh["seconds"] = mesh["ranks"][0]["seconds"]  # rank 0's clock over the mesh runs: the ranks meet in every run
     spawn_seconds = time.perf_counter() - t0 - mesh["seconds"]  # the process start, the gather and this recipe's runs
 
     for r in ranks:
@@ -2762,7 +2786,7 @@ def seq_train_phase(torch, train, with_mesh: bool = True) -> dict:
     for name in ("rank1", "rank1_fused"):
         torch.cuda.reset_peak_memory_stats()
         tr = train.main(["--config", str(cfgs[name]), "--device", "cuda"])
-        sps, _ = _seconds_per_step(tr, warmup=2)
+        sps, _ = _seconds_per_step(tr, warmup=SEQ_WARM)
         one[name] = {"losses": tr.loss_trace.tolist(), "seconds_per_step": sps,
                      "peak_memory": torch.cuda.max_memory_allocated()}
         del tr
@@ -2780,7 +2804,7 @@ def seq_train_phase(torch, train, with_mesh: bool = True) -> dict:
     check(off > gate, f"the loss gate {gate} misses losses {SEQ_CONTROL_OFF:.0%} off ({off})")
 
     starts, saves = run0["step_starts"], run0["save_seconds"]
-    warm = 2
+    warm = SEQ_WARM
     sps4 = (starts[-1] - starts[warm] - sum(v for k, v in saves.items() if int(k) >= warm)) / (len(starts) - 1 - warm)
     steps = SEQ_STEPS
     return {"world": SEQ_WORLD, "backend": "gloo", "device": run0["device"], "steps": steps,
@@ -2823,14 +2847,15 @@ def seq_sample_phase(torch, ops, sample) -> dict:
 
 # The trainer's multi-device paths (A15), three phases over seq train's spawn of 4 gloo ranks sharing cuda:0; each
 # run forms its own world (file:// store) of MESH_WORLD or 2 ranks, and the ranks outside it sit it out.
-# dp train: the flagship as shipped over 4 data ranks of 2 rows (batch 8), MESH_STEPS steps, a checkpoint and one EMA
-# sample of num_sample_rows (4: one row a rank) at MESH_CKPT; a resume from that file at 2 ranks; the same steps
+# dp train: the flagship as shipped over 4 data ranks of 2 rows (batch 8), MESH_STEPS steps and a checkpoint at
+# MESH_CKPT; a resume from that file at 2 ranks with one EMA sample of num_sample_rows (4: two rows a rank; on the 4
+# ranks until the data-rank phases needed the room, where each DDPM step took four turns on the card); the same steps
 # under param_sharding fsdp. tp train: configs/config_tpu_v2_3.yaml as shipped (dim 128, batch 4, num_model_shards
 # 2, Adam's state in the files, async checkpoints) on (data 2 x model 2): TP_STEPS steps, a checkpoint at TP_CKPT
 # and a resume from it; in the parent, the same recipe on one rank (the clamp). seq dp train: the seq recipe with
 # sequence_parallel_size 2 on (data 2 x seq 2): SEQ_STEPS steps, then batch 4 under accumulation (A = 2).
-MESH_WORLD, MESH_STEPS, MESH_CKPT = 4, 6, 3
-TP_STEPS, TP_CKPT = 4, 2
+MESH_WORLD, MESH_STEPS, MESH_CKPT = 4, 4, 2  # 6 and 3 before the data-rank phases needed the room
+TP_STEPS, TP_CKPT = 2, 1  # 4 and 2 before: the resume runs one step
 SEQ_DP_ACC_STEPS = 2
 MESH_CONTROL_OFF = 0.01  # each multi-rank run's losses scaled by 1 + this must fail its gate
 MESH_GATE_MARGIN = 0.001  # added to 1.5x the control's largest relative per-step loss gap
@@ -2847,48 +2872,162 @@ def _digest(tensors: dict) -> str:
     return h.hexdigest()
 
 
-def mesh_rank(rank: int, runs: list, out_dir: str) -> None:
-    """One rank of the multi-rank phases, in a spawned process: each run of the train CLI's rank function
-    (``train.run_rank``) whose world holds this rank, with its launches, losses, times, memory, collectives,
-    resident sharded state and digests of its replicated state and its shards, written to ``mesh_rank<r>.json``."""
+def _train_record(torch, ops, rank: int, world: int, init_method: str, argv: list) -> dict:
+    """One run of the train CLI's rank function: launches, losses, times, memory, collectives, resident sharded state
+    and digests of the replicated state and of the shards."""
+    from video_diffusion_nnx_tpu_torch import train
+
+    with WarningRecords() as records:
+        tr = train.run_rank(rank, world, "gloo", init_method, argv)
+    state = tr.model.state_dict()
+    replicated = {k: v for k, v in state.items() if k not in tr.shards}
+    replicated.update({f"ema.{k}": v for k, v in tr.ema_state.items() if k not in tr.shards})
+    adam = tr.optimizer.state
+    resident = {k: {"param": p.numel() * 4, "ema": tr.ema_state[k].numel() * 4,
+                    "moments": sum(adam[p][m].numel() * 4 for m in ("exp_avg", "exp_avg_sq")) if p in adam else 0,
+                    "full": math.prod(tr.full_shapes[k]) * 4, "adam": p in adam}  # float32 throughout
+                for k, p in tr.shards.items()}
+    axis = tr.mesh.axis(tr.shard_axis) if tr.shard_axis else None
+    return {
+        "world": world, "mesh": dict(tr.mesh.shape), "shard_axis": tr.shard_axis,
+        "shard_coord": None if axis is None else axis.rank,
+        "launches": nonzero(ops.launch_counts()), "staged_launches": nonzero(ops.staged_launch_counts()),
+        "losses": tr.loss_trace.tolist(), "step_starts": tr.step_starts, "save_seconds": tr.save_seconds,
+        "sample_seconds": tr.sample_seconds,
+        "sample_paths": {k: [str(p) for p in v] for k, v in tr.sample_paths.items()},
+        "graph": {"captures": tr.model.graphs.captures, "replays": tr.model.graphs.replays()},
+        "peak_memory": torch.cuda.max_memory_allocated(), "comm": dict(tr.group.stats),
+        "replicated_digest": _digest(replicated), "shard_digest": _digest({k: v for k, v in tr.shards.items()}),
+        "resident": resident, "opt_count": tr.opt_count, "is_main": tr.is_main, "device": str(tr.device),
+        "warnings": records.messages,
+    }
+
+
+@contextlib.contextmanager
+def _student_digests(digests: list):
+    """Within the block every finished distillation round (``StudentOptimizer.finish``) appends a digest of its
+    student's parameters, EMA and Adam moments to ``digests``."""
+    from video_diffusion_nnx_tpu_torch.training.distill import StudentOptimizer
+
+    finish = StudentOptimizer.finish
+
+    def recorded(self):
+        finish(self)
+        adam = self.optimizer.state
+        digests.append(_digest({**{f"p{i}": p for i, p in enumerate(self.params)},
+                                **{f"ema{i}": e for i, e in enumerate(self.ema or [])},
+                                **{f"{m}{i}": adam[p][m] for i, p in enumerate(self.params) if p in adam
+                                   for m in ("exp_avg", "exp_avg_sq")}}))
+
+    StudentOptimizer.finish = recorded
+    try:
+        yield
+    finally:
+        StudentOptimizer.finish = finish
+
+
+def _serve_record(torch, rank: int, world: int, init_method: str, argv: list, out_dir: str) -> dict:
+    """The server over the world (``serve.run_rank``'s pieces): rank 0 serves HTTP around the model and drains
+    SERVE_CLIENTS concurrent batch-1 DDIM-SERVE_STEPS requests, first as float rows (seeds 0.., saved for the phase's
+    check), then through ``bench_serve.measure`` (best of two drains after warm-ups, as the serve phase measures one
+    rank); the other ranks follow its calls until it shuts down."""
+    import threading
+    import urllib.request
+
+    from video_diffusion_nnx_tpu_torch import bench_serve, serve
+    from video_diffusion_nnx_tpu_torch.parallel import joined
+
+    args = serve.parse_args(argv)
+    with joined(rank, world, "gloo", init_method, args.device.split(":")[0]) as group:
+        model = serve.load_model(args, group.device)
+        if rank != 0:
+            model.data_group = group
+            serve.follow(model, group)
+            return {"graph": {"captures": model.graphs.captures, "replays": model.graphs.replays()}}
+        httpd = serve.create_server(model, host="127.0.0.1", port=0, batch_window_s=0.05, group=group)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = "http://%s:%d" % httpd.server_address[:2]
+            with urllib.request.urlopen(url + "/health", timeout=60) as r:
+                health = json.loads(r.read())
+            results = [None] * SERVE_CLIENTS
+
+            def client(i):
+                results[i] = httpd.service.sample_rows({"sampler": "ddim", "num_steps": SERVE_STEPS, "seed": i})
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            check(all(r is not None for r in results), "dp serve: a request did not return")
+            torch.save([torch.from_numpy(r[0]) for r in results], Path(out_dir) / "dp_serve_rows.pt")
+            rec = {"health": health, "groups": [r[2]["coalesced"] for r in results],
+                   "request_seconds": [r[1] for r in results],
+                   "throughput": bench_serve.measure(url, "ranks", [SERVE_CLIENTS], SERVE_STEPS, batched=True)}
+        finally:
+            httpd.shutdown()
+            httpd.server_close()  # releases the other ranks
+            thread.join(timeout=60)
+        rec["graph"] = {"captures": model.graphs.captures, "replays": model.graphs.replays()}
+        return rec
+
+
+def _cli_record(torch, rank: int, world: int, init_method: str, cli: str, argv: list, out_dir: str, name: str) -> dict:
+    """One run of a sampling, extension or distillation CLI's ``run_rank`` (or the server's pieces)."""
+    import importlib
+
+    if cli == "serve":
+        return _serve_record(torch, rank, world, init_method, argv, out_dir)
+    module = importlib.import_module(f"video_diffusion_nnx_tpu_torch.{cli}")
+    if cli in ("sample", "extend"):
+        with WarningRecords() as records:
+            res = module.run_rank(rank, world, "gloo", init_method, argv)
+        if rank == 0:
+            torch.save(res["videos"], Path(out_dir) / f"{name}_videos.pt")
+        return {"videos_digest": _digest({"v": res["videos"]}), "sampler_seconds": res["seconds"], "graph": res["graph"],
+                "paths": [str(p) for p in res["paths"]], "warnings": records.messages}
+    digests = []
+    with _student_digests(digests), WarningRecords() as records:
+        res = module.run_rank(rank, world, "gloo", init_method, argv)
+    rounds = res["rounds"] if cli == "distill" else [res]
+    return {"losses": [v for r in rounds for v in r["losses"]], "seconds_per_step": [r["seconds_per_step"] for r in rounds],
+            "student_digests": digests, "warnings": records.messages,
+            "paths": sorted(str(p) for p in (res["paths"].values() if cli == "distill" else [res["path"]]) if p)}
+
+
+def mesh_rank(rank: int, runs: list, out_dir: str, no_hf: bool = False) -> None:
+    """One rank of the multi-rank phases, in a spawned process: each run (the train CLI's rank function, or a
+    sampling, extension, distillation or serving CLI's) whose world holds this rank, with its launches, peak memory,
+    seconds and the run's own record (``_train_record``, ``_cli_record``), written to ``mesh_rank<r>.json``. With
+    ``no_hf`` (the parent process found no cached BERT), captions take the hashed bag of words without a try of
+    their own (importing transformers to find none takes each process seconds)."""
     import torch
 
-    from video_diffusion_nnx_tpu_torch import ops, train
+    from video_diffusion_nnx_tpu_torch import ops
+    from video_diffusion_nnx_tpu_torch.models import text
+
+    if no_hf:
+        text._hf = False
 
     out = {"rank": rank}
     start = time.perf_counter()
-    for name, world, init_method, argv in runs:
+    for name, world, init_method, argv, cli in runs:
         if rank >= world:
             continue
         ops.reset_launch_counts()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with WarningRecords() as records:
-            tr = train.run_rank(rank, world, "gloo", init_method, argv)
-        state = tr.model.state_dict()
-        replicated = {k: v for k, v in state.items() if k not in tr.shards}
-        replicated.update({f"ema.{k}": v for k, v in tr.ema_state.items() if k not in tr.shards})
-        adam = tr.optimizer.state
-        resident = {k: {"param": p.numel() * 4, "ema": tr.ema_state[k].numel() * 4,
-                        "moments": sum(adam[p][m].numel() * 4 for m in ("exp_avg", "exp_avg_sq")) if p in adam else 0,
-                        "full": math.prod(tr.full_shapes[k]) * 4, "adam": p in adam}  # float32 throughout
-                    for k, p in tr.shards.items()}
-        axis = tr.mesh.axis(tr.shard_axis) if tr.shard_axis else None
-        out[name] = {
-            "world": world, "mesh": dict(tr.mesh.shape), "shard_axis": tr.shard_axis,
-            "shard_coord": None if axis is None else axis.rank,
-            "launches": nonzero(ops.launch_counts()), "staged_launches": nonzero(ops.staged_launch_counts()),
-            "losses": tr.loss_trace.tolist(), "step_starts": tr.step_starts, "save_seconds": tr.save_seconds,
-            "sample_seconds": tr.sample_seconds,
-            "sample_paths": {k: [str(p) for p in v] for k, v in tr.sample_paths.items()},
-            "graph": {"captures": tr.model.graphs.captures, "replays": tr.model.graphs.replays()},
-            "peak_memory": torch.cuda.max_memory_allocated(), "comm": dict(tr.group.stats),
-            "replicated_digest": _digest(replicated), "shard_digest": _digest({k: v for k, v in tr.shards.items()}),
-            "resident": resident, "opt_count": tr.opt_count, "is_main": tr.is_main, "device": str(tr.device),
-            "warnings": records.messages,
-        }
-        del tr, state, replicated
+        if cli == "train":
+            out[name] = _train_record(torch, ops, rank, world, init_method, argv)
+        else:
+            rec = _cli_record(torch, rank, world, init_method, cli, argv, out_dir, name)
+            torch.cuda.synchronize()
+            out[name] = {**rec, "launches": nonzero(ops.launch_counts()),
+                         "staged_launches": nonzero(ops.staged_launch_counts()),
+                         "peak_memory": torch.cuda.max_memory_allocated(), "device": f"cuda:{torch.cuda.current_device()}"}
         out[name]["seconds"] = time.perf_counter() - t0  # the run with its digests: this rank's share of the spawn
     out["seconds"] = time.perf_counter() - start
     (Path(out_dir) / f"mesh_rank{rank}.json").write_text(json.dumps(out))
@@ -2900,6 +3039,9 @@ def _gap(ls: list, ref: list) -> float:
 
 # The runs of seq train's spawn that each multi-rank phase checks.
 DP_RUNS, TP_RUNS, SEQ_DP_RUNS = ("dp4", "dp_resume2", "fsdp4"), ("tp4", "tp_resume"), ("seqdp", "seqdp_acc")
+DP_SAMPLE_RUNS, DP_DISTILL_RUNS, DP_SERVE_RUNS = ("dp_sample", "dp_extend"), ("dp_distill", "dp_guidance"), ("dp_serve",)
+MESH_PHASES = {"dp train": DP_RUNS, "tp train": TP_RUNS, "seq dp train": SEQ_DP_RUNS, "dp sample": DP_SAMPLE_RUNS,
+               "dp distill": DP_DISTILL_RUNS, "dp serve": DP_SERVE_RUNS}
 
 
 def _spawn_share(ranks: list, names: tuple) -> float:
@@ -2992,31 +3134,34 @@ def spawned_rank(rank: int, seq_args: tuple, mesh_args: tuple) -> None:
     mesh_rank(rank, *mesh_args)
 
 
-def mesh_runs(yaml, seq_data: Path) -> dict:
-    """The configs of the multi-rank phases (and of their one-rank references) and the spawn's list of runs:
-    (name, world, init_method, argv)."""
+def mesh_runs(yaml, seq_data: Path, phases) -> dict:
+    """The configs of the multi-rank phases (and of their one-rank references) and the spawn's list of the runs of
+    ``phases``: (name, world, init_method, argv, CLI)."""
     root = SCRATCH / "mesh"
     root.mkdir(parents=True, exist_ok=True)
     for old in [*root.glob("*/checkpoints/step_*.pt"), *root.glob("*/samples/*/*.gif"), *root.glob("store_*"),
-                *root.glob("mesh_rank*.json")]:
+                *root.glob("mesh_rank*.json"), *root.glob("dp_*.pt")]:
         old.unlink()
     flag = yaml.safe_load(CONFIG.read_text())
     check(flag["trainer"]["train_batch_size"] == B_TRAIN, f"the flagship batch is not {B_TRAIN}")
     flag_data = bouncing_squares(root / "bouncing_squares.npy")
     common = dict(steps=MESH_STEPS, ckpt_every=MESH_CKPT)
-    cfgs = {"dp4": _train_config(yaml, flag, root, flag_data, "dp4", save_and_sample_every=MESH_CKPT, **common),
-            "dp_resume2": _train_config(yaml, flag, root, flag_data, "dp_resume2", **common,
+    cfgs = {"dp4": _train_config(yaml, flag, root, flag_data, "dp4", **common),
+            "dp_resume2": _train_config(yaml, flag, root, flag_data, "dp_resume2", save_and_sample_every=MESH_CKPT,
+                                        **common,
                                         checkpoint_dir_path=str(root / "dp4" / "checkpoints")),
             "fsdp4": _train_config(yaml, flag, root, flag_data, "fsdp4", param_sharding="fsdp", **common),
-            "dp1": _train_config(yaml, flag, root, flag_data, "dp1", **common),
-            "dp1_plain": _train_config(yaml, flag, root, flag_data, "dp1_plain", unet=PLAIN_MODULES, **common)}
+            "dp1": _train_config(yaml, flag, root, flag_data, "dp1", steps=MESH_STEPS, ckpt_every=MESH_STEPS),
+            "dp1_plain": _train_config(yaml, flag, root, flag_data, "dp1_plain", unet=PLAIN_MODULES, steps=MESH_STEPS,
+                                       ckpt_every=MESH_STEPS)}
     tp = yaml.safe_load(DIM128_CONFIG.read_text())
     check(tp["trainer"]["num_model_shards"] == 2 and tp["unet"]["dim"] == 128, f"the dim-128 recipe: {tp['trainer']}")
     tp_data = bouncing_squares(root / "bouncing_squares_tp.npy", clips=32)
     tp_common = dict(steps=TP_STEPS, ckpt_every=TP_CKPT)
     cfgs.update(tp4=_train_config(yaml, tp, root, tp_data, "tp4", **tp_common),
-                tp1=_train_config(yaml, tp, root, tp_data, "tp1", **tp_common),
-                tp1_plain=_train_config(yaml, tp, root, tp_data, "tp1_plain", unet=PLAIN_MODULES, **tp_common))
+                tp1=_train_config(yaml, tp, root, tp_data, "tp1", steps=TP_STEPS, ckpt_every=TP_STEPS),
+                tp1_plain=_train_config(yaml, tp, root, tp_data, "tp1_plain", unet=PLAIN_MODULES, steps=TP_STEPS,
+                                        ckpt_every=TP_STEPS))
     seq = yaml.safe_load(SEQ_CONFIG.read_text())  # on seq train's clips: the same steps as its run
     acc = dict(train_batch_size=4, enable_gradient_accumulation=True, gradient_accumulate_every=2)
     cfgs.update(seqdp=_train_config(yaml, seq, root, seq_data, "seqdp", sequence_parallel_size=2, steps=SEQ_STEPS,
@@ -3029,12 +3174,21 @@ def mesh_runs(yaml, seq_data: Path) -> dict:
     def argv(name, *extra):
         return ["--config", str(cfgs[name]), "--device", "cuda", "--dist-backend", "gloo", *extra]
 
-    runs = [("dp4", 4, argv("dp4")), ("dp_resume2", 2, argv("dp_resume2", "--resume_step", str(MESH_CKPT))),
-            ("fsdp4", 4, argv("fsdp4")), ("tp4", 4, argv("tp4")),
-            ("tp_resume", 4, argv("tp4", "--resume_step", str(TP_CKPT))),
-            ("seqdp", 4, argv("seqdp")), ("seqdp_acc", 4, argv("seqdp_acc"))]
-    check([r[0] for r in runs] == [*DP_RUNS, *TP_RUNS, *SEQ_DP_RUNS], "every spawned run belongs to one phase")
-    runs = [(name, world, f"file://{root / ('store_' + name)}", a) for name, world, a in runs]
+    runs = [("dp4", 4, argv("dp4"), "train"),
+            ("dp_resume2", 2, argv("dp_resume2", "--resume_step", str(MESH_CKPT)), "train"),
+            ("fsdp4", 4, argv("fsdp4"), "train"), ("tp4", 4, argv("tp4"), "train"),
+            ("tp_resume", 4, argv("tp4", "--resume_step", str(TP_CKPT)), "train"),
+            ("seqdp", 4, argv("seqdp"), "train"), ("seqdp_acc", 4, argv("seqdp_acc"), "train")]
+    import numpy as np
+
+    np.save(root / "extend_clip.npy", np.load(flag_data)[:, 0])  # one clip (f, h, w), as the extend CLI reads a .npy
+    dp_argv = dp_cli_argv(root)
+    runs += [(name, MESH_WORLD, dp_argv[name] + (["--output-path", str(root / name)] if cli != "serve" else []), cli)
+             for name, cli in DP_CLIS.items()]
+    check(sorted(r[0] for r in runs) == sorted(n for names in MESH_PHASES.values() for n in names),
+          "every spawned run belongs to one phase")
+    mine = {n for p in phases for n in MESH_PHASES[p]}
+    runs = [(name, world, f"file://{root / ('store_' + name)}", a, cli) for name, world, a, cli in runs if name in mine]
     return {"root": str(root), "cfgs": {k: str(v) for k, v in cfgs.items()}, "runs": runs}
 
 
@@ -3051,24 +3205,25 @@ def dp_train_phase(torch, ops, train, seq: dict) -> dict:
     cfgs = {k: Path(v) for k, v in mesh["cfgs"].items()}
     flag = yaml.safe_load(CONFIG.read_text())
 
-    # The flagship over 4 data ranks: exact launches (the sample's capture: each forward wrapper twice), the EMA
-    # sample graph-replayed over the chain's 1000 steps, its GIFs from rank 0 alone; a resume at 2 ranks; FSDP.
-    sample_launches = {k: 2 * n for k, n in PER_FORWARD.items()}
-    dp = _check_run(ranks, "dp4", PER_STEP, MESH_STEPS, sample_launches)
-    steps_t = flag["diffusion"]["timesteps"]
-    check(dp["graph"] == {"captures": 1, "replays": steps_t}, f"dp4: the sample's graphs {dp['graph']}")
-    rows = yaml.safe_load(cfgs["dp4"].read_text())["trainer"].get("num_sample_rows", 4)
-    check(all(not any("does not divide" in m for m in r["dp4"]["warnings"]) for r in ranks),
-          f"dp4: the sample of {rows} rows ran replicated")
-    paths = {int(k): v for k, v in dp["sample_paths"].items()}
-    check(list(paths) == [MESH_CKPT] and len(paths[MESH_CKPT]) == rows
-          and all(not r["dp4"]["sample_paths"] for r in ranks[1:]), f"dp4: sample GIFs {dp['sample_paths']}")
-    gifs = sorted((root / "dp4" / "samples" / f"step_{MESH_CKPT}").glob("*.gif"))
-    check(len(gifs) == rows and all(Image.open(p).n_frames == flag["diffusion"]["num_frames"] for p in gifs),
-          f"dp4: {len(gifs)} GIFs written")
+    # The flagship over 4 data ranks: exact launches; a resume at 2 ranks with the EMA sample (the sample's capture:
+    # each forward wrapper twice) graph-replayed over the chain's 1000 steps, its GIFs from rank 0 alone; FSDP.
+    dp = _check_run(ranks, "dp4", PER_STEP, MESH_STEPS)
     ckpts = sorted(int(p.stem[5:]) for p in (root / "dp4" / "checkpoints").glob("step_*.pt"))
     check(ckpts == [MESH_CKPT, MESH_STEPS], f"dp4: checkpoints at {ckpts}")
-    resumed = _check_run(ranks, "dp_resume2", PER_STEP, MESH_STEPS - MESH_CKPT)
+    sample_launches = {k: 2 * n for k, n in PER_FORWARD.items()}
+    resumed = _check_run(ranks, "dp_resume2", PER_STEP, MESH_STEPS - MESH_CKPT, sample_launches)
+    steps_t = flag["diffusion"]["timesteps"]
+    check(resumed["graph"] == {"captures": 1, "replays": steps_t}, f"dp_resume2: the sample's graphs {resumed['graph']}")
+    rows = yaml.safe_load(cfgs["dp_resume2"].read_text())["trainer"].get("num_sample_rows", 4)
+    check(all(not any("does not divide" in m for m in r["dp_resume2"]["warnings"]) for r in ranks if "dp_resume2" in r),
+          f"dp_resume2: the sample of {rows} rows ran replicated")
+    paths = {int(k): v for k, v in resumed["sample_paths"].items()}
+    check(list(paths) == [MESH_CKPT] and len(paths[MESH_CKPT]) == rows
+          and all(not r["dp_resume2"]["sample_paths"] for r in ranks[1:] if "dp_resume2" in r),
+          f"dp_resume2: sample GIFs {resumed['sample_paths']}")
+    gifs = sorted((root / "dp_resume2" / "samples" / f"step_{MESH_CKPT}").glob("*.gif"))
+    check(len(gifs) == rows and all(Image.open(p).n_frames == flag["diffusion"]["num_frames"] for p in gifs),
+          f"dp_resume2: {len(gifs)} GIFs written")
     r_losses = resumed["losses"]
     check(all(math.isnan(v) for v in r_losses[:MESH_CKPT]) and all(math.isfinite(v) for v in r_losses[MESH_CKPT:])
           and resumed["opt_count"] == MESH_STEPS + 1 and resumed["mesh"] == {"data": 2, "model": 1},
@@ -3106,19 +3261,19 @@ def dp_train_phase(torch, ops, train, seq: dict) -> dict:
             "launches": {k: sum(r["dp4"]["launches"][k] for r in ranks) for k in dp["launches"]},
             "fsdp_launches": {k: sum(r["fsdp4"]["launches"][k] for r in ranks) for k in fsdp["launches"]},
             "seconds_per_step": _sps(dp), "fsdp_seconds_per_step": _sps(fsdp),
-            "sample_seconds": dp["sample_seconds"], "resumed_losses": r_losses, "fsdp_resident": fsdp_share,
+            "sample_seconds": resumed["sample_seconds"], "resumed_losses": r_losses, "fsdp_resident": fsdp_share,
             "peak_memory_per_rank": [r["dp4"]["peak_memory"] for r in ranks],
             "fsdp_peak_memory_per_rank": [r["fsdp4"]["peak_memory"] for r in ranks],
             "collectives_per_rank_per_step": {k: v / MESH_STEPS for k, v in dp["comm"].items()},
             "fsdp_collectives_per_rank_per_step": {k: v / MESH_STEPS for k, v in fsdp["comm"].items()}}
 
 
-def tp_train_phase(torch, train, dp: dict) -> dict:
+def tp_train_phase(torch, train, mesh: dict) -> dict:
     """The dim-128 recipe on (data 2 x model 2) from the spawn, then on one rank here (the clamp)."""
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config
     from video_diffusion_nnx_tpu_torch.convert import read_checkpoint
 
-    ranks, cfgs = dp["ranks"], {k: Path(v) for k, v in dp["cfgs"].items()}
+    ranks, cfgs = mesh["ranks"], {k: Path(v) for k, v in mesh["cfgs"].items()}
     # One rank first: its clamp, and the routes the recipe's shapes take (the wider columns on the CUDA-core kernels).
     one, warnings = _one_rank(torch, train, cfgs["tp1"])
     check(any("num_model_shards=2 exceeds the 1 available rank(s); clamping to 1" in m for m in warnings)
@@ -3157,10 +3312,10 @@ def tp_train_phase(torch, train, dp: dict) -> dict:
             "collectives_per_rank_per_step": {k: v / TP_STEPS for k, v in run["comm"].items()}}
 
 
-def seq_dp_train_phase(torch, train, dp: dict, seq: dict) -> dict:
+def seq_dp_train_phase(torch, train, mesh: dict, seq: dict) -> dict:
     """The seq recipe on (data 2 x seq 2) from the spawn, held against seq train's 4-rank run (the same step) within
     seq train's gate; then under accumulation against one rank's accumulation."""
-    ranks, cfgs = dp["ranks"], {k: Path(v) for k, v in dp["cfgs"].items()}
+    ranks, cfgs = mesh["ranks"], {k: Path(v) for k, v in mesh["cfgs"].items()}
     run = _check_run(ranks, "seqdp", SEQ_PER_STEP, SEQ_STEPS)
     check(run["mesh"] == {"data": 2, "seq": 2}, f"seqdp: mesh {run['mesh']}")
     control = seq["loss_gate"]["control_gap"]
@@ -3175,8 +3330,151 @@ def seq_dp_train_phase(torch, train, dp: dict, seq: dict) -> dict:
                 "one_rank_losses": one["losses"], "loss_gate": acc_gate, "launches_per_rank": acc["launches"]},
             "launches_per_rank": run["launches"],
             "launches": {k: sum(r["seqdp"]["launches"][k] for r in ranks) for k in run["launches"]},
-            "seconds_per_step": _sps(run), "peak_memory_per_rank": [r["seqdp"]["peak_memory"] for r in ranks],
+            "seconds_per_step": _sps(run, warm=SEQ_WARM),
+            "peak_memory_per_rank": [r["seqdp"]["peak_memory"] for r in ranks],
             "collectives_per_rank_per_step": {k: v / SEQ_STEPS for k, v in run["comm"].items()}}
+
+
+# Data ranks outside the trainer (A15's last part), three phases over seq train's spawn: the sample and extend CLIs
+# (DDIM-DP_SAMPLE_STEPS at batch DP_BATCH from the train phase's checkpoint, DP_KEEP known frames for extend), both
+# distillation CLIs (DP_DISTILL_STEPS steps at batch 8: progressive from the train phase's weights, guidance from the
+# cond phase's) and the server (SERVE_CLIENTS concurrent batch-1 DDIM-SERVE_STEPS clients), each over MESH_WORLD
+# ranks of 2 rows. The one-rank references run here (sampling, serving) or are the distillation phases' first
+# DP_DISTILL_STEPS steps (the same flags, seed and data), whose plain-module run is the loss gate's control.
+DP_CLIS = {"dp_sample": "sample", "dp_extend": "extend", "dp_distill": "distill", "dp_guidance": "distill_guidance",
+           "dp_serve": "serve"}
+DP_BATCH, DP_SAMPLE_STEPS, DP_KEEP, DP_DISTILL_STEPS = B_TRAIN, 50, 4, 3
+
+
+def dp_cli_argv(root: Path) -> dict:
+    """Each data-rank CLI run's arguments (the spawned runs add ``--output-path``)."""
+    flag, cond = SCRATCH / "train", SCRATCH / "cond"
+    common = ["--config", str(flag / "kernels.yaml"), "--device", "cuda", "--checkpoint-path",
+              str(flag / "kernels" / "checkpoints" / f"step_{TRAIN_STEPS}.pt")]
+    sampling = [*common, "--batch-size", str(DP_BATCH), "--num-steps", str(DP_SAMPLE_STEPS)]
+    return {"dp_sample": [*sampling, "--sampler", "ddim", "--seed", "0"],
+            "dp_extend": [*sampling, "--input", str(root / "extend_clip.npy"), "--keep-frames", str(DP_KEEP),
+                          "--seed", "1"],
+            "dp_distill": [*common, "--no-ema", "--initial-steps", str(DISTILL_N), "--rounds", "1",
+                           "--steps-per-round", str(DP_DISTILL_STEPS), "--batch-size", str(B_TRAIN)],
+            "dp_guidance": ["--config", str(cond / "kernels.yaml"), "--device", "cuda", "--checkpoint-path",
+                            str(cond / "kernels" / "checkpoints" / f"step_{COND_STEPS}.pt"), "--no-ema",
+                            "--num-steps", str(DP_DISTILL_STEPS), "--batch-size", str(B_TRAIN), "--w-min", "1",
+                            "--w-max", "8"],
+            "dp_serve": common}
+
+
+def _dp_runs(ranks: list, name: str, want: dict | None) -> list:
+    """Run ``name`` on every rank: on cuda:0, exactly ``want`` launches (None: two per capture of each forward kernel,
+    the run's own captures), all staged."""
+    runs = [r[name] for r in ranks]
+    for r, run in enumerate(runs):
+        expect = want if want is not None else {k: 2 * n * run["graph"]["captures"] for k, n in PER_FORWARD.items()}
+        check(run["launches"] == expect and run["staged_launches"] == expect and run["device"] == "cuda:0",
+              f"{name} rank {r}: launches {run['launches']}, staged {run['staged_launches']} on {run['device']}, "
+              f"expected {expect}")
+    return runs
+
+
+def _launch_sum(runs_by_name: dict) -> dict:
+    out = {}
+    for runs in runs_by_name.values():
+        for run in runs:
+            for k, v in run["launches"].items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def dp_sample_phase(torch, sample, extend, seq: dict) -> dict:
+    """The sample and extend CLIs over 4 ranks from seq train's spawn: exact launches per rank (one capture of the
+    rows' shape each, the replays none), the gathered batch bit-equal over the ranks, GIFs from rank 0 alone, every
+    row within ``SERVE_TOL`` of the one-rank CLI's (run here), the pinned frames equal; s per clip against one rank."""
+    mesh = seq["mesh"]
+    ranks, root = mesh["ranks"], Path(mesh["root"])
+    argv = dp_cli_argv(root)
+    out, runs = {"spawn_share_seconds": _spawn_share(ranks, DP_SAMPLE_RUNS), "world": MESH_WORLD, "batch": DP_BATCH,
+                 "rows_per_rank": DP_BATCH // MESH_WORLD, "steps": DP_SAMPLE_STEPS}, {}
+    for name, module in (("dp_sample", sample), ("dp_extend", extend)):
+        runs[name] = _dp_runs(ranks, name, {k: 2 * n for k, n in PER_FORWARD.items()})
+        for r, run in enumerate(runs[name]):
+            check(run["graph"] == {"captures": 1, "replays": DP_SAMPLE_STEPS} and not run["warnings"],
+                  f"{name} rank {r}: graphs {run['graph']}, warnings {run['warnings']}")
+        check(len({run["videos_digest"] for run in runs[name]}) == 1, f"{name}: the ranks' gathered batches differ")
+        check(len(runs[name][0]["paths"]) == DP_BATCH and not any(run["paths"] for run in runs[name][1:]),
+              f"{name}: GIFs {[run['paths'] for run in runs[name]]}")
+        got = torch.load(root / f"{name}_videos.pt")
+        one = module.main(argv[name] + ["--output-path", str(root / f"{name}_one")])
+        errs = [float((a - b).abs().max()) for a, b in zip(got, one["videos"])]
+        check(tuple(got.shape) == tuple(one["videos"].shape) and max(errs) <= SERVE_TOL,
+              f"{name}: rows part from the one-rank run's by {errs} (gate {SERVE_TOL})")
+        if name == "dp_extend":
+            check(torch.equal(got[:, :, :DP_KEEP], one["videos"][:, :, :DP_KEEP]), "dp_extend: the pinned frames")
+        sampler = runs[name][0]["sampler_seconds"]
+        out[name] = {"max_abs_vs_one_rank": errs, "run_seconds": runs[name][0]["seconds"], "sampler_seconds": sampler,
+                     "one_rank_sampler_seconds": one["seconds"], "seconds_per_clip": sampler / DP_BATCH,
+                     "one_rank_seconds_per_clip": one["seconds"] / DP_BATCH,
+                     "peak_memory_per_rank": [run["peak_memory"] for run in runs[name]]}
+    out["launches"] = _launch_sum(runs)
+    out["launches_per_rank"] = runs["dp_sample"][0]["launches"]
+    return out
+
+
+def dp_distill_phase(torch, seq: dict, distilled: dict, guided: dict) -> dict:
+    """Both distillation CLIs over 4 ranks from seq train's spawn: exact launches per rank (three forwards and a
+    backward a step), all staged; the ranks' losses and students (parameters, EMA, Adam's moments) bit-equal; the
+    files from rank 0 alone; the losses against the one-rank run's (the distillation phases' first steps) within
+    1.5x the gap of its plain-module run plus 0.001, which the losses scaled by 1.01 must fail."""
+    mesh = seq["mesh"]
+    ranks = mesh["ranks"]
+    out, runs = {"spawn_share_seconds": _spawn_share(ranks, DP_DISTILL_RUNS), "world": MESH_WORLD, "batch": B_TRAIN,
+                 "rows_per_rank": B_TRAIN // MESH_WORLD, "steps": DP_DISTILL_STEPS}, {}
+    for name, ref in (("dp_distill", distilled), ("dp_guidance", guided)):
+        runs[name] = _dp_runs(ranks, name, {k: n * DP_DISTILL_STEPS for k, n in DISTILL_PER_STEP.items()})
+        first = runs[name][0]
+        check(all(run["losses"] == first["losses"] and run["student_digests"] == first["student_digests"]
+                  and len(run["student_digests"]) == 1 for run in runs[name]),
+              f"{name}: the ranks' losses or students differ")
+        check(len(first["paths"]) == 1 and not any(run["paths"] for run in runs[name][1:]),
+              f"{name}: files {[run['paths'] for run in runs[name]]}")
+        one = ref["kernels"]["losses"][:DP_DISTILL_STEPS]
+        control = _gap(ref["plain"]["losses"][:DP_DISTILL_STEPS], one)
+        out[name] = {"losses": first["losses"], "one_rank_losses": one,
+                     "loss_gate": _loss_gate(name, first["losses"], one, control),
+                     "seconds_per_step": first["seconds_per_step"],
+                     "one_rank_seconds_per_step": ref["kernels"]["seconds_per_step"],
+                     "peak_memory_per_rank": [run["peak_memory"] for run in runs[name]]}
+    out["launches"] = _launch_sum(runs)
+    return out
+
+
+def dp_serve_phase(torch, seq: dict, served: dict | None) -> dict:
+    """The server over 4 ranks from seq train's spawn: /health counts the ranks; every rank's launches exact for its
+    captures, all staged; each of SERVE_CLIENTS concurrent batch-1 DDIM-SERVE_STEPS rows within ``SERVE_TOL`` of one
+    rank sampling the same seeds' x_T as one batch (here); clips per second against the serve phase's one rank."""
+    from video_diffusion_nnx_tpu_torch import serve
+
+    mesh = seq["mesh"]
+    ranks, root = mesh["ranks"], Path(mesh["root"])
+    runs = _dp_runs(ranks, "dp_serve", None)
+    rec = runs[0]
+    check(rec["health"]["devices"] == MESH_WORLD and rec["health"]["status"] == "ok", f"dp serve: /health {rec['health']}")
+    rows = torch.load(root / "dp_serve_rows.pt")
+    args = serve.parse_args(dp_cli_argv(root)["dp_serve"])
+    model = serve.load_model(args, torch.device(args.device))
+    shape = (1, model.channels, model.num_frames, model.image_size, model.image_size)
+    x_T = torch.cat([torch.randn(shape, generator=torch.Generator(device=model.device).manual_seed(i),
+                                 device=model.device) for i in range(len(rows))])  # each request's, as served
+    want = model.ddim_sample(batch_size=len(rows), num_steps=SERVE_STEPS, init_noise=x_T).float().cpu()
+    errs = [float((got - w).abs().max()) for got, w in zip(rows, want)]
+    check(max(rec["groups"]) >= 2 and max(errs) <= SERVE_TOL,
+          f"dp serve: groups {rec['groups']}, rows from one rank's {errs} (gate {SERVE_TOL})")
+    tput = rec["throughput"]
+    one = None if served is None else served["throughput"][f"batched_n{SERVE_CLIENTS}_clips_per_s"]
+    return {"spawn_share_seconds": _spawn_share(ranks, DP_SERVE_RUNS), "world": MESH_WORLD, "clients": SERVE_CLIENTS,
+            "steps": SERVE_STEPS, "groups": rec["groups"], "max_abs_vs_one_rank": errs, "throughput": tput,
+            "clips_per_s": tput[f"ranks_n{SERVE_CLIENTS}_clips_per_s"], "one_rank_clips_per_s": one,
+            "captures_per_rank": [run["graph"]["captures"] for run in runs],
+            "launches": _launch_sum({"dp_serve": runs}), "peak_memory_per_rank": [run["peak_memory"] for run in runs]}
 
 
 # The VideoDiT family (A11). D1 is configs/config_bouncing_digits.yaml with its unet block replaced by the DiT of
@@ -3194,7 +3492,7 @@ DIT_D2_UNET = {**DIT_D1_UNET, "dim": 384, "depth": 8, "attn_heads": 6, "attn_dim
 DIT_D2_DIFFUSION = {"image_size": 64, "num_frames": 10, "timesteps": 250, "loss_type": "l2", "channels": 1,
                     "prediction_type": "noise"}
 DIT_BATCH = {"D1": B_TRAIN, "D2": 4}
-DIT_STEPS, DIT_CKPT_EVERY, DIT_CLIPS, DIT_COND_STEPS = 8, 4, 64, 10
+DIT_STEPS, DIT_CKPT_EVERY, DIT_CLIPS, DIT_COND_STEPS = 4, 2, 64, 10  # 8 and 4 before the data-rank phases
 DIT_PERTURB = 0.05  # std of the adaLN and output weights drawn before a gradient check (all zero at init)
 
 
@@ -3634,7 +3932,7 @@ def dit_cond_phase(torch, ops, ta, train, sample) -> dict:
     return out
 
 
-# Distillation (ROADMAP A13). Progressive: the train phase's step-20 weights (the model, not the EMA, which starts at
+# Distillation (ROADMAP A13). Progressive: the train phase's last weights (the model, not the EMA, which starts at
 # step 1000) as the teacher, two rounds 8 -> 4 of DISTILL_STEPS steps at batch 8 through the distill CLI, EMA 0.99.
 # Guidance: the cond phase's step-20 weights as the teacher, GUIDANCE_STEPS steps through the distill_guidance CLI
 # with w ~ U[1, 8], then one stage-2 round (4 steps, w ~ U[1, 8]) through the distill CLI. A step of either runs
@@ -3997,7 +4295,7 @@ def main(argv: list[str]) -> int:
         print("FAIL: the port package is not beside chip_smoke.py", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from video_diffusion_nnx_tpu_torch import ops, sample, train
+    from video_diffusion_nnx_tpu_torch import extend, ops, sample, train
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config
     from video_diffusion_nnx_tpu_torch.convert import save_checkpoint
     from video_diffusion_nnx_tpu_torch.ops import _build
@@ -4051,7 +4349,7 @@ def main(argv: list[str]) -> int:
     timed("dpm", sample_phase, torch, ops, load_config, build_models, save_checkpoint, sample, runs_spec=DPM_RUN)
     timed("graph", graph_phase, torch, ops, load_config, build_models)
     timed("extend", extend_phase, torch, ops, load_config, build_models, save_checkpoint)
-    timed("serve", serve_phase, torch, ops, load_config, build_models)
+    served = timed("serve", serve_phase, torch, ops, load_config, build_models)
     bwd = timed("backward", backward_phase, torch, ta, sla,
                 show=lambda r: {"checks": len(r["rows"]), "tolerance": BWD_TOL, **per_step(r, "per_step"),
                                 "forward_per_step": per_step(r, "fwd_per_step")["fwd_per_step"],
@@ -4108,8 +4406,8 @@ def main(argv: list[str]) -> int:
                   show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
                                   "self_attention_equivalence": r["self_attention_equivalence"],
                                   **per_step(r, "per_step")})
-    with_mesh = only is None or any(t in only for t in ("dp train", "tp train", "seq dp train"))
-    seq = timed("seq train", seq_train_phase, torch, train, with_mesh,
+    mesh_phases = {p for p in MESH_PHASES if only is None or p in only}
+    seq = timed("seq train", seq_train_phase, torch, train, mesh_phases,
                 show=lambda r: {k: v for k, v in r.items() if k not in ("resumed_losses", "mesh")})
     timed("seq sample", seq_sample_phase, torch, ops, sample)
 
@@ -4120,9 +4418,12 @@ def main(argv: list[str]) -> int:
         return {k: v for k, v in r.items() if k not in ("ranks", "cfgs", "one_rank", "plain_one_rank")}
 
     dp = timed("dp train", dp_train_phase, torch, ops, train, seq, show=mesh_show) if seq is not None else None
-    tp = timed("tp train", tp_train_phase, torch, train, dp, show=mesh_show) if dp is not None else None
-    seq_dp = timed("seq dp train", seq_dp_train_phase, torch, train, dp, seq, show=mesh_show) \
-        if dp is not None and seq is not None else None
+    tp = timed("tp train", tp_train_phase, torch, train, seq["mesh"], show=mesh_show) if seq is not None else None
+    seq_dp = timed("seq dp train", seq_dp_train_phase, torch, train, seq["mesh"], seq, show=mesh_show) \
+        if seq is not None else None
+    # Data ranks outside the trainer: the sample and extend CLIs and the server over the spawn's 4 ranks.
+    dp_sampled = timed("dp sample", dp_sample_phase, torch, sample, extend, seq) if seq is not None else None
+    dp_served = timed("dp serve", dp_serve_phase, torch, seq, served) if seq is not None else None
 
     # The VideoDiT family: its attention kernels at D1's and D2's shapes, each recipe's forward and step against the
     # plain modules, D1 through the train and sample CLIs and the server, and the caption-conditioned D1.
@@ -4144,6 +4445,9 @@ def main(argv: list[str]) -> int:
         if cond is not None else None
     dit_guided = timed("dit guidance", dit_guidance_phase, torch, ops, ta, sample, dit_cond) \
         if dit_cond is not None else None
+    # Both distillation CLIs over the spawn's 4 ranks, against the distillation phases' first steps.
+    dp_distilled = timed("dp distill", dp_distill_phase, torch, seq, distilled, guided) \
+        if seq is not None and distilled is not None and guided is not None else None
 
     # The trainer's options (gradient accumulation, the flat optimizer, async checkpoints, sampling, the profiler).
     options = timed("train options", train_options_phase, torch, ops, train, show=lambda r: {
@@ -4211,7 +4515,10 @@ def main(argv: list[str]) -> int:
            if name in PER_STEP else {}),
         "dit": dit_field(name),
         "multi_rank": {"dp_train": dp["launches"].get(name, 0), "fsdp_train": dp["fsdp_launches"].get(name, 0),
-                       "tp_train": tp["launches"].get(name, 0), "seq_dp_train": seq_dp["launches"].get(name, 0)},
+                       "tp_train": tp["launches"].get(name, 0), "seq_dp_train": seq_dp["launches"].get(name, 0),
+                       "dp_sample": dp_sampled["launches"].get(name, 0),
+                       "dp_distill": dp_distilled["launches"].get(name, 0),
+                       "dp_serve": dp_served["launches"].get(name, 0)},
         "distill": {"flagship_progressive": distilled["kernels"]["launches"].get(name, 0),
                     "flagship_guidance": guided["kernels"]["launches"].get(name, 0),
                     "flagship_stage2": guided["stage2"]["launches"].get(name, 0),

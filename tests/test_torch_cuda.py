@@ -553,6 +553,52 @@ def test_gloo_ranks_train_data_parallel_on_one_card(device, tmp_path, sharding):
         assert ranks[0]["resident"] == {}
 
 
+@pytest.mark.parametrize("what", ["ddim", "distill"])
+def test_gloo_ranks_sample_and_distill_on_one_card(device, tmp_path, what):
+    """Two gloo ranks on cuda:0, two rows each of a batch of 4 of a fused bf16 Unet3D: DDIM-5, each rank replaying
+    its own graph (each forward kernel twice at the one capture), the gathered batch bit-equal over the ranks and
+    within the graph phase's 1e-3 on [0, 1] of one rank sampling each rank's rows from the same x_T (a kernel's bf16
+    rounding depends on the rows it is given, so the whole batch on one rank is no reference); or two distillation
+    steps (three forwards and a backward a step), the ranks' losses and parameters bit-equal. Every launch staged."""
+    import torch.multiprocessing as mp
+
+    import torch_mesh_workers
+    from video_diffusion_nnx_tpu_torch.diffusion import GaussianDiffusion
+    from video_diffusion_nnx_tpu_torch.models import Unet3D
+
+    mp.spawn(torch_mesh_workers.card_dp_main, args=(2, f"file://{tmp_path / 'store'}", str(tmp_path), what),
+             nprocs=2, join=True)
+    ranks = [torch.load(tmp_path / f"{what}{r}.pt") for r in range(2)]
+    unet = Unet3D(dim=32, dim_mults=(1, 2), channels=1, compute_dtype="bfloat16", use_fused_attention=True,
+                  use_fused_spatial_attention=True)
+    unet.reset_parameters(torch.Generator().manual_seed(0))
+    one = GaussianDiffusion(unet, image_size=32, num_frames=10, channels=1, timesteps=100, loss_type="l2",
+                            prediction_type="v").to(device).eval()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        one.denoise_fn.forward_with_cond_scale(torch.zeros((2, 1, 10, 32, 32), device=device),
+                                               torch.zeros(2, dtype=torch.long, device=device))
+    per_forward = {k: v for k, v in ops.launch_counts().items() if v}
+    if what == "ddim":
+        want = {k: 2 * n for k, n in per_forward.items()}
+    else:  # two steps of three forwards (two of the teacher, one of the student) and the student's backward
+        want = {k: 2 * 3 * n for k, n in per_forward.items()}
+        want.update({k[:-3] + "bwd": 2 * n for k, n in per_forward.items() if k.endswith("_fwd")})
+        want.update({"sla_bwd_q": 2 * per_forward["sla_out"], "sla_bwd_kv": 2 * per_forward["sla_out"]})
+    for res in ranks:
+        assert res["device"] == "cuda:0" and res["launches"] == res["staged"] == want, (res["launches"], want)
+    if what == "ddim":
+        assert all(res["graph"] == {"captures": 1, "replays": 5} for res in ranks)
+        assert torch.equal(ranks[0]["videos"], ranks[1]["videos"])
+        x_T = torch.randn((4, 1, 10, 32, 32), generator=torch.Generator(device=device).manual_seed(1), device=device)
+        solo = torch.cat([one.ddim_sample(batch_size=2, num_steps=5, init_noise=x_T[rows]) for rows in (slice(0, 2),
+                                                                                                       slice(2, 4))])
+        assert (ranks[0]["videos"] - solo.float().cpu()).abs().max().item() <= 1e-3
+    else:
+        assert all(math.isfinite(v) for v in ranks[0]["losses"]) and ranks[0]["losses"] == ranks[1]["losses"]
+        assert all(torch.equal(a, b) for a, b in zip(ranks[0]["params"], ranks[1]["params"]))
+
+
 # The staged dense forward (`temporal_fwd_panel_kernel`) and the staged k/v backward (`sla_bwd_kv_panel_kernel`)
 # at every shape the flagship, fixed and long-clip recipes give them (batch 8 for training, batch 2 for the
 # sampler), the long clip's bottleneck, and ragged f, c and n (not multiples of 16).

@@ -144,12 +144,13 @@ def test_a_sampler_batch_that_does_not_divide_runs_replicated(case):
 
 
 def test_train_cli_spawns_the_ranks_it_is_asked_for(tmp_path, monkeypatch):
-    """``--ranks N`` spawns N ranks of ``run_rank`` (tests/test_torch_seq_parallel.py drives a spawn of the CLI to
-    its end); without the flag the CPU runs one rank, or ``sequence_parallel_size`` ranks."""
+    """``--ranks N`` spawns N ranks of ``run_rank`` through the launcher every CLI shares (tests/test_torch_seq_parallel.py
+    drives a spawn of the CLI to its end); without the flag the CPU runs one rank, or ``sequence_parallel_size`` ranks."""
     import torch.multiprocessing as mp
     import yaml
 
     from video_diffusion_nnx_tpu_torch import train
+    from video_diffusion_nnx_tpu_torch.parallel import mesh
 
     spec = mesh_recipe_spec(tmp_path)
     cfg = {"unet": {"dim": 8, "dim_mults": [1, 2], "channels": CHANNELS}, "diffusion": {**spec["diffusion"]},
@@ -157,10 +158,10 @@ def test_train_cli_spawns_the_ranks_it_is_asked_for(tmp_path, monkeypatch):
     path = tmp_path / "dp.yaml"
     path.write_text(yaml.safe_dump(cfg))
     spawned = []
-    monkeypatch.setattr(mp, "spawn", lambda fn, args, nprocs, join: spawned.append((fn, args[0], args[1], nprocs)))
+    monkeypatch.setattr(mp, "spawn", lambda fn, args, nprocs, join: spawned.append((fn, *args[:3], nprocs)))
     argv = ["--config", str(path), "--device", "cpu", "--ranks", "2", "--dist-backend", "gloo"]
     assert train.main(argv) is None
-    assert spawned == [(train.run_rank, 2, "gloo", 2)]
-    assert train.default_ranks(torch.device("cpu"), 1) == 1 and train.default_ranks(torch.device("cpu"), 4) == 4
+    assert spawned == [(mesh._spawned, train._spawned_rank, 2, "gloo", 2)]
+    assert mesh.default_ranks(torch.device("cpu"), 1) == 1 and mesh.default_ranks(torch.device("cpu"), 4) == 4
     with pytest.raises(ValueError, match="--ranks must be at least 1"):
         train.main(["--config", str(path), "--device", "cpu", "--ranks", "0"])

@@ -45,7 +45,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert "imported" in proc.stdout
     for name in ("parallel", "parallel.mesh", "parallel.sequence", "parallel.sharding", "ops.cross_attention",
                  "models.dit", "training.distill", "training.guidance", "distill", "distill_guidance",
-                 "eval_bouncing_digits_distilled"):
+                 "eval_bouncing_digits_distilled", "sample", "extend", "serve", "train"):
         assert f" video_diffusion_nnx_tpu_torch.{name} " in proc.stdout + " ", name
 
 

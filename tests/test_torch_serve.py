@@ -210,9 +210,9 @@ class TestMicroBatcher:
     @staticmethod
     def _make(calls, max_rows=8, window_s=0.15):
         def run_batch(key, batch):
-            rows = sum(p.noise.shape[0] for p in batch)
+            rows = sum(p.n for p in batch)
             calls.append((key, rows, len(batch)))
-            return np.concatenate([np.asarray(p.noise) for p in batch])
+            return np.concatenate([np.asarray(p.item) for p in batch])
 
         return serve_mod.MicroBatcher(run_batch, max_rows=max_rows, window_s=window_s)
 
@@ -229,7 +229,7 @@ class TestMicroBatcher:
         b = self._make(calls)
 
         def go(i):
-            outs[i] = b.submit(("k",), np.full((1, 2), float(i), np.float32), None)
+            outs[i] = b.submit(("k",), np.full((1, 2), float(i), np.float32), 1)
 
         self._join([threading.Thread(target=go, args=(i,)) for i in range(3)])
         b.close()
@@ -246,7 +246,7 @@ class TestMicroBatcher:
         b = self._make(calls, window_s=0.05)
 
         def go(key):
-            done.append(b.submit(key, np.zeros((1, 2), np.float32), None))
+            done.append(b.submit(key, np.zeros((1, 2), np.float32), 1))
 
         self._join([threading.Thread(target=go, args=(("ddim", n),)) for n in (2, 3)])
         b.close()
@@ -256,7 +256,7 @@ class TestMicroBatcher:
     def test_max_rows_splits_batches(self):
         calls = []
         b = self._make(calls, max_rows=2, window_s=0.15)
-        self._join([threading.Thread(target=lambda: b.submit(("k",), np.zeros((1, 2), np.float32), None))
+        self._join([threading.Thread(target=lambda: b.submit(("k",), np.zeros((1, 2), np.float32), 1))
                     for _ in range(4)])
         b.close()
         assert len(calls) >= 2
@@ -266,7 +266,7 @@ class TestMicroBatcher:
     def test_oversize_request_runs_alone(self):
         calls = []
         b = self._make(calls, max_rows=2, window_s=0.01)
-        rows, group, _ = b.submit(("k",), np.zeros((5, 2), np.float32), None)
+        rows, group, _ = b.submit(("k",), np.zeros((5, 2), np.float32), 5)
         b.close()
         assert rows.shape == (5, 2)
         assert group == 1
@@ -281,7 +281,7 @@ class TestMicroBatcher:
 
         def go():
             try:
-                b.submit(("k",), np.zeros((1, 2), np.float32), None)
+                b.submit(("k",), np.zeros((1, 2), np.float32), 1)
             except RuntimeError as e:
                 errs.append(str(e))
 

@@ -1,4 +1,5 @@
-"""Rank functions of tests/test_torch_data_parallel.py and tests/test_torch_sharded_state.py, run in spawned processes.
+"""Rank functions of tests/test_torch_data_parallel.py, tests/test_torch_sharded_state.py,
+tests/test_torch_dp_sampling.py and tests/test_torch_dp_distill.py, run in spawned processes.
 
 This module imports the port alone, never JAX: a spawned rank imports it to
 find its target. The test process saves a spec (the fixture recipe's
@@ -144,6 +145,124 @@ def build_case(group, spec: dict, name: str, world: int = 1, config: str = "") -
         trainer_module.create_summary_writer = writer
 
 
+def sampler_model(spec: dict, group=None) -> GaussianDiffusion:
+    """The sampling tests' model (the fixture recipe with the JAX model's weights) on ``group``'s rows."""
+    m = GaussianDiffusion(Unet3D(**spec["unet"]), **spec["diffusion"])
+    m.load_state_dict(spec["state"])
+    m.eval().data_group = group
+    return m
+
+
+def sampler_case(group, spec: dict, name: str, world: int = 1, call: str = "ddim", rows: int = 4,
+                 kwargs: dict | None = None) -> dict:
+    """One sampler call of ``rows`` rows over ``group`` (``call``: "ddim", or "cond" on the spec's known frames),
+    with ``kwargs`` (a generator seeded with ``seed`` where one is given); the gathered batch and the warnings."""
+    del name, world
+    kw = dict(kwargs or {})
+    if "seed" in kw:
+        kw["generator"] = torch.Generator().manual_seed(kw.pop("seed"))
+    m = sampler_model(spec, group)
+    records = _Records()
+    logging.getLogger("video_diffusion_nnx_tpu_torch").addHandler(records)
+    try:
+        if call == "ddim":
+            out = m.ddim_sample(batch_size=rows, **kw)
+        else:
+            out = m.sample_conditional_frames(spec["known"][:rows], spec["mask"], **kw)
+        return {"out": m.gather_batch(out, rows), "part": tuple(out.shape), "warnings": records.messages}
+    finally:
+        logging.getLogger("video_diffusion_nnx_tpu_torch").removeHandler(records)
+
+
+def serve_case(group, spec: dict, name: str, world: int = 1) -> dict:
+    """The server over ``group``: rank 0 serves HTTP around the model and runs ``spec["requests"]`` (a /sample
+    request from each of several threads at once, then each /extend request), the other ranks follow its calls;
+    rank 0 returns /health and each request's rows."""
+    import json
+    import threading
+    import urllib.request
+
+    from video_diffusion_nnx_tpu_torch import serve
+
+    del name, world
+    model = sampler_model(spec)
+    if group is not None and group.rank != 0:
+        model.data_group = group
+        serve.follow(model, group)
+        return {}
+    httpd = serve.create_server(model, port=0, batch_window_s=0.5, group=group)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen("http://%s:%d/health" % httpd.server_address[:2], timeout=60) as r:
+            health = json.loads(r.read())
+        service, reqs = httpd.service, spec["requests"]
+        rows = [None] * len(reqs["sample"])
+
+        def client(i):
+            rows[i] = service.sample_rows(dict(reqs["sample"][i]))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(rows))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        return {"health": health, "sample": [(r[0], r[2]) for r in rows],
+                "extend": [service.extend_rows(dict(req))[0] for req in reqs["extend"]]}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()  # releases the other ranks
+        thread.join(timeout=60)
+
+
+def distill_case(group, spec: dict, name: str, world: int = 1) -> dict:
+    """Three steps of a distillation run ``spec["distill"][name]`` (progressive, stage 2 with w, or guidance) over
+    ``group``, each rank on its rows of the batch and the condition with the whole batch's injected draws: every
+    step's loss, the student's parameters and EMA, the first step's summed gradients and Adam's moments."""
+    from video_diffusion_nnx_tpu_torch.training.distill import DistillStep
+    from video_diffusion_nnx_tpu_torch.training.guidance import GuidanceStep
+
+    del world
+    d = spec["distill"][name]
+    teacher = GaussianDiffusion(Unet3D(**d["unet"]), **d["diffusion"])
+    teacher.load_state_dict(d["teacher"])
+    teacher.eval()
+    if "student" in d:
+        student = GaussianDiffusion(Unet3D(**d["student_unet"]), **d["diffusion"])
+        student.load_state_dict(d["student"])
+        step = GuidanceStep(teacher, student.eval(), learning_rate=d["lr"], w_range=d["w_range"], group=group)
+    else:
+        step = DistillStep(teacher, d["n"], learning_rate=d["lr"], w_range=d["w_range"], ema_decay=d["ema_decay"],
+                           group=group)
+    names = [k for k, p in step.student.named_parameters() if p.requires_grad]
+    out = {"losses": [], "states": [], "emas": []}
+    for n, (x, cond, draws) in enumerate(d["steps"]):
+        rows = slice(None) if group is None else group.rows(x.shape[0])
+        loss = step(x[rows], None if cond is None else cond[rows], **draws)
+        if n == 0:
+            out["grads"] = {k: p.grad.clone() for k, p in zip(names, step.params) if p.grad is not None}
+        out["losses"].append(loss.item())
+        out["states"].append({k: p.detach().clone() for k, p in zip(names, step.params)})
+        if step.ema is not None:
+            out["emas"].append({k: e.clone() for k, e in zip(names, step.ema)})
+    adam = step.optimizer.state
+    out["adam"] = {k: [adam[p][m].clone() for m in ("exp_avg", "exp_avg_sq")] for k, p in zip(names, step.params)
+                   if p in adam}
+    return out
+
+
+def cli_case(rank: int, spec: dict, name: str, world: int, init_method: str, module: str, argv: list) -> dict:
+    """A CLI's ``run_rank`` (it joins and leaves its world itself), captions embedded by the hashed bag of words."""
+    del spec, name
+    import importlib
+
+    from video_diffusion_nnx_tpu_torch.models import text
+
+    text._hf = False  # no cached BERT here: skip the transformers import each process would try
+    return importlib.import_module(f"video_diffusion_nnx_tpu_torch.{module}").run_rank(rank, world, "gloo",
+                                                                                       init_method, argv)
+
+
 def rank_main(rank: int, spec_path: str, out_dir: str) -> None:
     """One of four ranks: join each run's world that holds this rank, run it, leave; save the results."""
     torch.set_num_threads(1)
@@ -152,11 +271,16 @@ def rank_main(rank: int, spec_path: str, out_dir: str) -> None:
     for case in spec["runs"]:
         if rank >= case["world"]:
             continue
-        group = init_sequence_group(rank, case["world"], "gloo", f"file://{Path(out_dir) / ('store_' + case['name'])}",
-                                    device_type="cpu")
+        case = dict(case)
+        kind = case.pop("kind", "run")
+        store = f"file://{Path(out_dir) / ('store_' + case['name'])}"
+        if kind == "cli":
+            results[case["name"]] = cli_case(rank, spec, init_method=store, **case)
+            continue
+        group = init_sequence_group(rank, case["world"], "gloo", store, device_type="cpu")
         try:
-            case = dict(case)
-            fn = {"run": run, "loss": loss_case, "build": build_case}[case.pop("kind", "run")]
+            fn = {"run": run, "loss": loss_case, "build": build_case, "sampler": sampler_case,
+                  "serve": serve_case, "distill": distill_case}[kind]
             results[case["name"]] = fn(group, spec, **case)
         finally:
             destroy_sequence_group()
@@ -193,4 +317,38 @@ def card_train_main(rank: int, world: int, init_method: str, data: str, out_dir:
                     "ema": {k: v.cpu() for k, v in ema.items()}}, Path(out_dir) / f"{sharding}{rank}.pt")
     finally:
         trainer_module.create_summary_writer = writer
+        destroy_sequence_group()
+
+
+def card_dp_main(rank: int, world: int, init_method: str, out_dir: str, what: str) -> None:
+    """One gloo rank on cuda:0 (every rank shares the card), its rows of a batch of 4 of a fused bf16 Unet3D (dim 32,
+    mults (1, 2), 10 frames of 32x32): DDIM-5 sampled (``what`` "ddim", each rank replaying its own graph, the batch
+    gathered) or two progressive-distillation steps (``what`` "distill", the whole batch's draws from one generator,
+    one all-reduce a step); saves the kernels' launches and the result."""
+    from video_diffusion_nnx_tpu_torch import ops
+    from video_diffusion_nnx_tpu_torch.training.distill import DistillStep
+
+    group = init_sequence_group(rank, world, "gloo", init_method, device_type="cuda")
+    try:
+        unet = Unet3D(dim=32, dim_mults=(1, 2), channels=1, compute_dtype="bfloat16", use_fused_attention=True,
+                      use_fused_spatial_attention=True)
+        unet.reset_parameters(torch.Generator().manual_seed(0))
+        model = GaussianDiffusion(unet, image_size=32, num_frames=10, channels=1, timesteps=100, loss_type="l2",
+                                  prediction_type="v").to(group.device).eval()
+        gen = torch.Generator(device=group.device).manual_seed(1)
+        ops.reset_launch_counts()
+        if what == "ddim":
+            model.data_group = group
+            out = {"videos": model.gather_batch(model.ddim_sample(batch_size=4, num_steps=5, generator=gen), 4).cpu(),
+                   "graph": {"captures": model.graphs.captures, "replays": model.graphs.replays()}}
+        else:
+            step = DistillStep(model, 4, generator=gen, group=group)
+            x = torch.rand((4, 1, 10, 32, 32), generator=torch.Generator().manual_seed(2)).to(group.device)
+            losses = [step(x[group.rows(4)]).item() for _ in range(2)]
+            out = {"losses": losses, "params": [p.detach().cpu() for p in step.params]}
+        torch.cuda.synchronize(group.device)
+        out.update(device=str(group.device), launches={k: v for k, v in ops.launch_counts().items() if v},
+                   staged={k: v for k, v in ops.staged_launch_counts().items() if v})
+        torch.save(out, Path(out_dir) / f"{what}{rank}.pt")
+    finally:
         destroy_sequence_group()

@@ -27,12 +27,13 @@ for the whole batch and clip, exactly as one rank would, and keeps this
 rank's rows and frames of each; ``p_losses`` then returns this rank's share
 of the loss, the mean over its elements divided by the number of parts.
 The shares sum to the mean over the whole batch, and their gradients to its
-gradient. The samplers ``sample``, ``ddim_sample`` and ``dpm_solver_sample``
-split a batch's rows over the data ranks as the JAX package's
+gradient. The samplers ``sample``, ``ddim_sample``, ``dpm_solver_sample`` and
+``sample_conditional_frames`` split a batch's rows over the data ranks as the JAX package's
 ``_sampler_batch_spec`` does (:87-101: the whole batch on every rank, with a
 warning, when it does not divide) and the frames over the sequence ranks;
-x_T and each step's noise are drawn for the whole batch, and each rank keeps
-its part, so the parts are what one rank would compute. Each rank returns
+x_T and each step's noise (and the pinned frames' forward noise) are drawn
+for the whole batch, and each rank keeps its part, so the parts are what one
+rank would compute. Each rank returns
 its part; :meth:`GaussianDiffusion.gather_batch` joins them. A sampler under
 a sequence group runs its denoiser eagerly: a CUDA graph cannot capture a
 collective that gloo stages through the host.
@@ -469,7 +470,8 @@ class GaussianDiffusion(nn.Module):
         ``generator`` unless injected: ``init_noise``, then per step ``step_noise``
         (DDPM) and ``mix_noise`` (the pinned frames' forward noise; the last step
         reads none). ``cond`` (one row per clip) and ``cond_scale`` reach every
-        denoiser forward, the guided ones too. Returns images in [0, 1].
+        denoiser forward, the guided ones too. Returns images in [0, 1] (this
+        rank's rows under a data group, each row's guidance gradient its own).
         """
         cond = self.embed_cond(cond)
         shape = tuple(known.shape)
@@ -480,24 +482,28 @@ class GaussianDiffusion(nn.Module):
             raise ValueError("recon_guidance_weight needs the DDIM path (num_steps)")
         if num_steps is not None and not 1 <= int(num_steps) <= self.num_timesteps:
             raise ValueError(f"num_steps must be in [1, {self.num_timesteps}]; got {num_steps}")
-        batch_size = shape[0]
-        mask = torch.as_tensor(frame_mask, dtype=torch.bool, device=self.device).reshape(1, 1, -1, 1, 1)
-        x0_known = normalize_img(known)
-        img = self._init(shape, generator, init_noise)
+        rows = self._split_rows(shape[0], warn=True)
+        cond = self._mine(cond, rows, frames=False)
+        graph = self._graphable(graph)
+        mask = self._mine(torch.as_tensor(frame_mask, dtype=torch.bool, device=self.device).reshape(1, 1, -1, 1, 1),
+                          None)
+        x0_known = self._mine(normalize_img(known), rows)
+        img = self._mine(self._init(shape, generator, init_noise), rows)
+        batch_size = img.shape[0]
 
         def replace_known(img, t_to: int, step: int):
             """Swap the pinned frames for their forward-noised values at level ``t_to`` (clean when < 0)."""
             known_t = x0_known
             if t_to >= 0:
                 known_t = self.q_sample(x0_known, self._t(t_to, batch_size),
-                                        self._draw(mix_noise, step, shape, generator))
+                                        self._mine(self._draw(mix_noise, step, shape, generator), rows))
             return torch.where(mask, known_t, img)
 
         if num_steps is None:
             for step, i in enumerate(reversed(range(self.num_timesteps))):
-                noise = None if step_noise is None else step_noise[step]
-                img = self.p_sample(img, self._t(i, batch_size), noise=noise, generator=generator, graph=graph,
-                                    cond=cond, cond_scale=cond_scale)
+                noise = self._mine(self._draw(step_noise, step, shape, generator), rows)
+                img = self.p_sample(img, self._t(i, batch_size), noise=noise, graph=graph, cond=cond,
+                                    cond_scale=cond_scale)
                 img = replace_known(img, i - 1, step)
             return unnormalize_img(img)
 

@@ -18,7 +18,10 @@ chain runs. ``--recon-guidance`` w_r > 0 adds reconstruction guidance (DDIM
 only). A text-conditioned model takes ``--text`` (one prompt, repeated to
 ``--batch-size``, or one per sample) and ``--cond-scale``. The checkpoint is
 this package's file; ``--device cuda`` is the default, and a missing card
-raises unless ``--device cpu`` is given.
+raises unless ``--device cpu`` is given. ``--ranks N`` (``--dist-backend gloo``
+for ranks that share a card) splits the batch's rows over N data ranks as the
+sampling CLI does: every rank samples its rows, rank 0 gathers them and alone
+writes the GIFs.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from video_diffusion_nnx_tpu_torch.parallel.mesh import add_rank_args, joined, launch, world_size
 
 log = logging.getLogger("extend")
 
@@ -58,6 +63,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cond-scale", type=float, default=1.0, help="classifier-free guidance scale")
     p.add_argument("--output-path", type=str, default="outputs/extended")
     p.add_argument("--device", type=str, default="cuda")
+    add_rank_args(p)
     return p.parse_args(argv)
 
 
@@ -122,25 +128,22 @@ def frame_mask(args: argparse.Namespace, num_frames: int, input_frames: int) -> 
     return mask
 
 
-def main(argv=None) -> dict:
-    """Run the CLI; returns the GIF paths, the clips (on the CPU), the input clip, the mask, the steps, the
-    seconds and the denoiser graphs' captures and replays."""
-    args = parse_args(argv)
-    if args.num_steps is not None and args.num_steps < 1:
-        raise SystemExit("error: --num-steps must be >= 1")
-
+def run(args: argparse.Namespace, group=None) -> dict:
+    """Extend as the CLI asks, on one rank or as ``group``'s rank; returns the GIF paths (rank 0's), the whole batch
+    (on the CPU), the input clip, the mask, the steps, the seconds and the denoiser graphs' captures and replays."""
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config, resolve_device
     from video_diffusion_nnx_tpu_torch.convert import load_checkpoint
     from video_diffusion_nnx_tpu_torch.sample import text_condition
     from video_diffusion_nnx_tpu_torch.utils.media import write_sample_gifs
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if group is None else group.device
     _, model = build_models(load_config(args.config), device=device)
     try:
         load_checkpoint(model, args.checkpoint_path, load_ema_params=args.load_ema_params)
     except FileNotFoundError as e:
         raise SystemExit(f"error: {e}") from None
     model.eval()
+    model.data_group = group
     cond = text_condition(args.text, args.batch_size, model)
     if cond is not None and len(cond) != args.batch_size:
         raise SystemExit(f"error: --text given {len(args.text)} times but --batch-size is {args.batch_size}; "
@@ -161,16 +164,40 @@ def main(argv=None) -> dict:
         )
     except ValueError as e:
         raise SystemExit(f"error: {e}") from None
+    videos = model.gather_batch(videos, args.batch_size)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - start
     steps = args.num_steps if args.num_steps is not None else model.num_timesteps
     log.info("generated %d clips in %.3f s (%d steps)", videos.shape[0], seconds, steps)
-    paths = write_sample_gifs(videos, Path(args.output_path))
-    for p in paths:
-        log.info("wrote %s", p)
+    paths = []
+    if group is None or group.rank == 0:
+        paths = write_sample_gifs(videos, Path(args.output_path))
+        for p in paths:
+            log.info("wrote %s", p)
     return {"paths": paths, "videos": videos.cpu(), "known": clip, "mask": mask, "steps": steps,
             "seconds": seconds, "graph": {"captures": model.graphs.captures, "replays": model.graphs.replays()}}
+
+
+def run_rank(rank: int, world: int, backend: str, init_method: str, argv=None) -> dict:
+    """One rank of a multi-rank run (:func:`run` on the world's group)."""
+    args = parse_args(argv)
+    with joined(rank, world, backend, init_method, args.device.split(":")[0]) as group:
+        return run(args, group)
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns :func:`run`'s record (rank 0's over several ranks)."""
+    args = parse_args(argv)
+    if args.num_steps is not None and args.num_steps < 1:
+        raise SystemExit("error: --num-steps must be >= 1")
+    from video_diffusion_nnx_tpu_torch.config import resolve_device
+
+    device = resolve_device(args.device)
+    world = world_size(args.ranks, device)
+    if world > 1:
+        return launch(run_rank, world, args.dist_backend, device, argv)
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,15 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC --split-compile=0
 
 The library is built at first use into ``build/kernels/`` at the repository
 root (listed in ``.gitignore``), named by a hash of its source and flags, so
 an edited source is rebuilt and an unchanged one is reused.
-:func:`build_all` starts one ``nvcc`` per source at once and waits for all.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all;
+``--split-compile=0`` lets each run its optimization passes over its source's
+kernels on every core, which halves the build where one source has most of
+the kernels (PERF.md).
 Nothing here runs when a module is imported.
 """
 
@@ -27,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("temporal_attention", "temporal_blockwise", "spatial_linear_attention", "cross_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 ]
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -27,13 +27,25 @@ the host seconds they take, the staging copies included (a staged collective
 first waits for the card's queued work, outside its seconds), so that the
 cost of that route is measured, not hidden. The axes of a mesh share their
 world's ``stats``. A group of one rank runs no collective and counts none.
+
+Every CLI starts its ranks the same way (:func:`launch`): ``--ranks N``
+(:func:`add_rank_args`; by default the cards, one on the CPU, as JAX's
+``data_parallel_mesh`` takes every local device) spawns N processes, each
+running the CLI's ``run_rank(rank, world_size, backend, init_method, argv)``,
+which joins the world (:func:`joined`) at a free ``tcp://localhost`` port.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import math
+import socket
+import sys
+import tempfile
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -179,6 +191,74 @@ def destroy_sequence_group() -> None:
     """Leave the world and every group made in it (the process may join another world after)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def joined(rank: int, world_size: int, backend: str, init_method: str, device_type: str = "cuda"):
+    """This rank's world group (:func:`init_sequence_group`) for the body of a ``with``; the world is left after it.
+    Logging is set up for a rank that has none: rank 0 at INFO, the others at WARNING."""
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
+                            format=f"%(levelname)s:rank {rank}:%(name)s:%(message)s")
+    group = init_sequence_group(rank, world_size, backend, init_method, device_type=device_type)
+    try:
+        yield group
+    finally:
+        destroy_sequence_group()
+
+
+def add_rank_args(parser) -> None:
+    """A CLI's ``--ranks`` and ``--dist-backend``."""
+    parser.add_argument("--ranks", type=int, default=None,
+                        help="ranks to run over (default: the cards, one on the CPU)")
+    parser.add_argument("--dist-backend", choices=BACKENDS, default="nccl",
+                        help="collective backend of a multi-rank run; ranks sharing a card need gloo")
+
+
+def free_init_method() -> str:
+    """A ``tcp://localhost`` address with a port that is free now."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return f"tcp://localhost:{s.getsockname()[1]}"
+
+
+def default_ranks(device: torch.device, at_least: int = 1) -> int:
+    """The cards of ``device``'s kind (one for the CPU: JAX's local device count), at least ``at_least``."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(cards, at_least)
+
+
+def world_size(ranks: int | None, device: torch.device, at_least: int = 1) -> int:
+    """The ranks a CLI runs over: ``--ranks``, else :func:`default_ranks`."""
+    world = default_ranks(device, at_least) if ranks is None else ranks
+    if world < 1:
+        raise ValueError(f"--ranks must be at least 1; got {world}")
+    return world
+
+
+def _spawned(rank: int, rank_fn, world: int, backend: str, init_method: str, argv: list, out: str) -> None:
+    result = rank_fn(rank, world, backend, init_method, argv)
+    if rank == 0 and result is not None:
+        torch.save(result, out)
+
+
+def launch(rank_fn, world: int, backend: str, device: torch.device, argv: list | None = None):
+    """Run ``rank_fn(rank, world, backend, init_method, argv)`` in ``world`` spawned processes (``argv`` None: this
+    process's arguments) and return what rank 0's call returned. On CUDA the kernels are built first, once, so that
+    the ranks only load them."""
+    import torch.multiprocessing as mp
+
+    if device.type == "cuda":
+        from video_diffusion_nnx_tpu_torch.ops import _build
+
+        _build.build_all()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    logging.getLogger(__name__).info("starting %d ranks (%s)", world, backend)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "rank0.pt"
+        mp.spawn(_spawned, args=(rank_fn, world, backend, free_init_method(), argv, str(out)), nprocs=world,
+                 join=True)
+        return torch.load(out, weights_only=False) if out.exists() else None
 
 
 @dataclass

@@ -13,10 +13,18 @@ sample; a single prompt is repeated to ``--batch-size``) and
 
     python -m video_diffusion_nnx_tpu_torch.sample --config configs/config_bouncing_digits_cond.yaml \
         --checkpoint-path step_6000.pt --load-ema-params --sampler ddim --text "two digits" --cond-scale 3
- The checkpoint is this
-package's file (``convert.save_checkpoint``). It runs on the GPU
-(``--device cuda``, the default) and raises when there is none, unless
-``--device cpu`` is given.
+
+The checkpoint is this package's file (``convert.save_checkpoint``). It runs
+on the GPU (``--device cuda``, the default) and raises when there is none,
+unless ``--device cpu`` is given.
+
+``--ranks N`` samples over N data ranks (``parallel.launch``; by default the
+cards), as the JAX package's samplers take every local device: each rank
+builds the model, loads the checkpoint and samples its rows of the batch
+(x_T drawn for the whole batch from the seed, each rank keeping its rows;
+a batch that does not divide runs whole on every rank, with a warning),
+replaying its own CUDA graphs; rank 0 gathers the batch and alone writes the
+GIFs. Ranks that share a card need ``--dist-backend gloo``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from video_diffusion_nnx_tpu_torch.parallel.mesh import add_rank_args, joined, launch, world_size
 
 log = logging.getLogger("sample")
 
@@ -49,6 +59,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="text condition; repeat for per-sample prompts (needs a conditioned model)")
     p.add_argument("--cond-scale", type=float, default=1.0, help="classifier-free guidance scale")
     p.add_argument("--device", type=str, default="cuda")
+    add_rank_args(p)
     return p.parse_args(argv)
 
 
@@ -67,16 +78,14 @@ def text_condition(text: list[str] | None, batch_size: int, diffusion) -> list[s
     return text
 
 
-def main(argv=None) -> dict:
-    """Run the CLI; returns the GIF paths, the samples (on the CPU), the steps, the seconds and the
-    denoiser graphs' captures and replays."""
-    args = parse_args(argv)
-
+def run(args: argparse.Namespace, group=None) -> dict:
+    """Sample as the CLI asks, on one rank or as ``group``'s rank; returns the GIF paths (rank 0's), the whole batch
+    (on the CPU), the steps, the seconds and the denoiser graphs' captures and replays."""
     from video_diffusion_nnx_tpu_torch.config import build_models, load_config, resolve_device
     from video_diffusion_nnx_tpu_torch.convert import load_checkpoint
     from video_diffusion_nnx_tpu_torch.utils.media import write_sample_gifs
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if group is None else group.device
     config = load_config(args.config)
     _, diffusion = build_models(config, device=device)
     try:
@@ -84,8 +93,10 @@ def main(argv=None) -> dict:
     except FileNotFoundError as e:
         raise SystemExit(f"error: {e}") from None
     diffusion.eval()
+    diffusion.data_group = group
     log.info("restored %s (ema=%s)", args.checkpoint_path, args.load_ema_params)
     cond = text_condition(args.text, args.batch_size, diffusion)
+    batch_size = args.batch_size if cond is None else len(cond)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if device.type == "cuda":
@@ -107,16 +118,38 @@ def main(argv=None) -> dict:
         videos = diffusion.sample(batch_size=args.batch_size, generator=generator, cond=cond,
                                   cond_scale=args.cond_scale)
         steps = diffusion.num_timesteps
+    videos = diffusion.gather_batch(videos, batch_size)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - start
     log.info("generated %d clips in %.3f s", videos.shape[0], seconds)
 
-    paths = write_sample_gifs(videos, Path(args.output_path))
-    for p in paths:
-        log.info("wrote %s", p)
+    paths = []
+    if group is None or group.rank == 0:
+        paths = write_sample_gifs(videos, Path(args.output_path))
+        for p in paths:
+            log.info("wrote %s", p)
     return {"paths": paths, "videos": videos.cpu(), "steps": steps, "seconds": seconds,
             "graph": {"captures": diffusion.graphs.captures, "replays": diffusion.graphs.replays()}}
+
+
+def run_rank(rank: int, world: int, backend: str, init_method: str, argv=None) -> dict:
+    """One rank of a multi-rank run (:func:`run` on the world's group)."""
+    args = parse_args(argv)
+    with joined(rank, world, backend, init_method, args.device.split(":")[0]) as group:
+        return run(args, group)
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns :func:`run`'s record (rank 0's over several ranks)."""
+    args = parse_args(argv)
+    from video_diffusion_nnx_tpu_torch.config import resolve_device
+
+    device = resolve_device(args.device)
+    world = world_size(args.ranks, device)
+    if world > 1:
+        return launch(run_rank, world, args.dist_backend, device, argv)
+    return run(args)
 
 
 if __name__ == "__main__":

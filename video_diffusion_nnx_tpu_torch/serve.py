@@ -9,7 +9,7 @@ generation, unconditioned or text-conditioned, over HTTP, standard library only:
 
 API
 ---
-GET  /health  -> {"status": "ok", "device": "cuda", "devices": N, "batching": {...}, "model": {...}}
+GET  /health  -> {"status": "ok", "device": "cuda", "devices": N (the ranks), "batching": {...}, "model": {...}}
 POST /sample  (JSON body) ->
     {"batch_size": 2, "sampler": "ddim", "num_steps": 50, "eta": 0.0,
      "grid": "linspace", "seed": 0, "text": ["two digits"], "cond_scale": 3.0}
@@ -30,7 +30,8 @@ unconditioned one refuses it (400). One prompt is repeated to
 that disagrees with an explicit ``batch_size`` is refused. Prompts are
 embedded on the host. ``cond_scale`` is the classifier-free guidance scale.
 Device work is serialized behind one lock (one card, one sampler at a time):
-the samplers, the draws of x_T and the graph captures.
+every device call (the draws of x_T, the samplers and their graph captures)
+is a small description (:func:`execute`) run under it.
 
 Micro-batching: concurrent /sample requests of a deterministic ODE sampler
 (ddim at eta 0, dpm) are coalesced into one batched sampler call. Each
@@ -41,6 +42,16 @@ does not depend on the others in its batch), so coalescing changes no
 request's result beyond the arithmetic of another batch size. Coalesced batches pad to the
 next power of two (rows of the batch reused), so each request-shape group
 captures at most log2(max_rows) + 1 graphs. Disable with --no-batching.
+
+Over ranks (``--ranks N``; ``--dist-backend gloo`` for ranks sharing a card)
+every device call runs on all of them, as the JAX server's samplers run over
+``data_parallel_mesh()``: rank 0 alone serves HTTP, validates and coalesces,
+and broadcasts each call's description (its kind, the rows' seeds, the
+steps, eta, grid, cond_scale, the prompts and the known frames) to the other
+ranks, which loop on :func:`follow` until rank 0 shuts down. Every rank makes
+the whole batch's x_T from the seeds, samples its rows of the batch (a batch
+that does not divide runs whole on every rank, with a warning) and the batch
+is gathered; ``devices`` in /health is the number of ranks.
 """
 
 from __future__ import annotations
@@ -59,8 +70,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from video_diffusion_nnx_tpu_torch.models.text import embed_captions
+from video_diffusion_nnx_tpu_torch.parallel.mesh import add_rank_args, joined, launch, world_size
 
 log = logging.getLogger("serve")
 
@@ -77,13 +89,13 @@ def _coerce(req: dict, key: str, cast, default):
 
 
 class _Pending:
-    """One request's share of a (possibly coalesced) batch."""
+    """One request's share of a (possibly coalesced) batch: its ``n`` rows, described by ``item``."""
 
-    __slots__ = ("noise", "cond", "event", "rows", "group_size", "error", "t_enq", "wait_s")
+    __slots__ = ("item", "n", "event", "rows", "group_size", "error", "t_enq", "wait_s")
 
-    def __init__(self, noise, cond):
-        self.noise = noise
-        self.cond = cond
+    def __init__(self, item, n: int):
+        self.item = item
+        self.n = n
         self.event = threading.Event()
         self.rows = None
         self.group_size = 1
@@ -114,9 +126,10 @@ class MicroBatcher:
         self._thread = threading.Thread(target=self._loop, name="micro-batcher", daemon=True)
         self._thread.start()
 
-    def submit(self, group_key, noise, cond):
-        """Block until this request's rows are sampled; returns ``(rows, group_size, queue_wait_s)``."""
-        p = _Pending(noise, cond)
+    def submit(self, group_key, item, n: int):
+        """Block until the ``n`` rows that ``item`` describes are sampled; returns ``(rows, group_size,
+        queue_wait_s)``."""
+        p = _Pending(item, n)
         with self._cv:
             self._buckets.setdefault(group_key, []).append(p)
             self._cv.notify_all()
@@ -137,17 +150,17 @@ class MicroBatcher:
         key = min((k for k, b in self._buckets.items() if b), key=lambda k: self._buckets[k][0].t_enq)
         deadline = self._buckets[key][0].t_enq + self.window_s
         while not self._stop:
-            rows = sum(p.noise.shape[0] for p in self._buckets[key])
+            rows = sum(p.n for p in self._buckets[key])
             now = time.monotonic()
             if rows >= self.max_rows or now >= deadline:
                 break
             self._cv.wait(timeout=deadline - now)
         bucket = self._buckets[key]
         batch, taken = [], 0
-        while bucket and taken + bucket[0].noise.shape[0] <= self.max_rows:
+        while bucket and taken + bucket[0].n <= self.max_rows:
             p = bucket.pop(0)
             batch.append(p)
-            taken += p.noise.shape[0]
+            taken += p.n
         if not batch:  # single request larger than max_rows: run it alone
             batch.append(bucket.pop(0))
         if not bucket:
@@ -167,11 +180,10 @@ class MicroBatcher:
                 out = self._run_batch(key, batch)
                 off = 0
                 for p in batch:
-                    n = p.noise.shape[0]
-                    p.rows = out[off : off + n]
+                    p.rows = out[off : off + p.n]
                     p.group_size = len(batch)
                     p.wait_s = t_run - p.t_enq
-                    off += n
+                    off += p.n
             except Exception as e:  # noqa: BLE001 — deliver to every waiter
                 for p in batch:
                     p.error = e
@@ -180,49 +192,104 @@ class MicroBatcher:
                     p.event.set()
 
 
-class SamplingService:
-    """Owns the model and serializes the device work."""
+def _generator(device: torch.device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
 
-    def __init__(self, model, batch_window_s: float | None = 0.05, max_batch_rows: int = 8):
+
+def execute(model, call: dict) -> np.ndarray:
+    """One device call of the service, as every rank runs it; the whole batch's rows as float32 on the host.
+
+    ``call["kind"]`` is ``"batch"`` (coalesced ODE requests: ``requests`` lists each one's seed, rows and prompts;
+    its x_T is the first draw of a generator seeded with its seed, and the batch pads to the next power of two
+    with its own rows, so that a group key needs at most log2(max_rows) + 1 graphs), ``"sample"`` (one request
+    through its sampler, the draws from a generator seeded with its seed) or ``"extend"`` (frame-conditional
+    sampling of the known frames). Under the model's data group each rank samples its rows and the batch is
+    gathered."""
+    m, kind = model, call["kind"]
+    g = None if kind == "batch" else _generator(m.device, call["seed"])
+    kw = {"cond": call["text"], "cond_scale": call["cond_scale"]}
+    if kind == "batch":
+        shape = (m.channels, m.num_frames, m.image_size, m.image_size)
+        noise = torch.cat([torch.randn((n, *shape), generator=_generator(m.device, seed), device=m.device)
+                           for seed, n, _ in call["requests"]])
+        texts = [t for _, _, t in call["requests"]]
+        cond = None if texts[0] is None else torch.cat([m.embed_cond(t) for t in texts])  # each request's alone
+        n = noise.shape[0]
+        batch = 1 << (n - 1).bit_length()
+        if batch > n:
+            reps = -(-(batch - n) // n) + 1
+            noise = torch.cat([noise] * reps)[:batch]
+            if cond is not None:
+                cond = torch.cat([cond] * reps)[:batch]
+        kw["cond"] = cond
+        if call["sampler"] == "ddim":
+            out = m.ddim_sample(batch_size=batch, num_steps=call["num_steps"], eta=0.0, grid=call["grid"],
+                                init_noise=noise, **kw)
+        else:  # dpm
+            out = m.dpm_solver_sample(batch_size=batch, num_steps=call["num_steps"], init_noise=noise, **kw)
+    elif kind == "sample":
+        batch = n = call["batch_size"]
+        if call["sampler"] == "ddim":
+            out = m.ddim_sample(batch_size=batch, num_steps=call["num_steps"], eta=call["eta"], grid=call["grid"],
+                                generator=g, **kw)
+        elif call["sampler"] == "dpm":
+            out = m.dpm_solver_sample(batch_size=batch, num_steps=call["num_steps"], generator=g, **kw)
+        else:
+            out = m.sample(batch_size=batch, generator=g, **kw)
+    elif kind == "extend":
+        known = torch.from_numpy(call["known"].astype(np.float32)).to(m.device)[None]
+        batch = n = call["batch_size"]
+        out = m.sample_conditional_frames(known.expand(batch, *known.shape[1:]), call["frame_mask"],
+                                          num_steps=call["num_steps"], grid=call["grid"],
+                                          recon_guidance_weight=call["recon_guidance"], generator=g, **kw)
+    else:
+        raise ValueError(f"unknown call kind {kind!r}")
+    return m.gather_batch(out, batch)[:n].float().cpu().numpy()
+
+
+def follow(model, group) -> None:
+    """A rank other than 0 of a multi-rank server: run every call rank 0 broadcasts, until it sends None."""
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=group.group)
+        if box[0] is None:
+            return
+        execute(model, box[0])
+
+
+class SamplingService:
+    """Owns the model and serializes the device work; rank 0's service under a ``group`` of ranks, which
+    broadcasts each device call to the others (:func:`follow`)."""
+
+    def __init__(self, model, batch_window_s: float | None = 0.05, max_batch_rows: int = 8, group=None):
         self.model = model
         self.device = model.device
+        self.group = group if group is not None and group.world_size > 1 else None
+        model.data_group = self.group
         self.lock = threading.Lock()
         self.batcher = (
             MicroBatcher(self._run_batch, max_batch_rows, batch_window_s) if batch_window_s is not None else None
         )
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def _call(self, call: dict) -> np.ndarray:
+        """Run one device call on every rank (this thread holds the lock across it); its rows."""
+        with self.lock:
+            if self.group is not None:
+                dist.broadcast_object_list([call], src=0, group=self.group.group)
+            return execute(self.model, call)
 
     def _run_batch(self, group_key, batch) -> np.ndarray:
         """Execute one coalesced sampler call (dispatcher thread); the rows as float32 on the host."""
         sampler, num_steps, grid, cond_scale, _ = group_key
-        noise = torch.cat([p.noise for p in batch])
-        cond = None if batch[0].cond is None else torch.cat([p.cond for p in batch])
-        n = noise.shape[0]
-        # Pad to the next power of two (reusing the batch's own rows) so each
-        # group key needs at most log2(max_rows) + 1 graphs.
-        npad = 1 << (n - 1).bit_length()
-        with self.lock:
-            if npad > n:
-                reps = -(-(npad - n) // n) + 1
-                noise = torch.cat([noise] * reps)[:npad]
-                if cond is not None:
-                    cond = torch.cat([cond] * reps)[:npad]
-            if sampler == "ddim":
-                out = self.model.ddim_sample(batch_size=npad, num_steps=num_steps, eta=0.0, grid=grid,
-                                             init_noise=noise, cond=cond, cond_scale=cond_scale)
-            else:  # dpm
-                out = self.model.dpm_solver_sample(batch_size=npad, num_steps=num_steps, init_noise=noise,
-                                                   cond=cond, cond_scale=cond_scale)
-            return out[:n].float().cpu().numpy()
+        return self._call({"kind": "batch", "sampler": sampler, "num_steps": num_steps, "grid": grid,
+                           "cond_scale": cond_scale, "text": None, "requests": [p.item for p in batch]})
 
     def info(self) -> dict:
         m = self.model
         return {
             "status": "ok",
             "device": self.device.type,
-            "devices": torch.cuda.device_count() if self.device.type == "cuda" else 1,
+            "devices": 1 if self.group is None else self.group.world_size,
             "batching": (
                 {"window_s": self.batcher.window_s, "max_rows": self.batcher.max_rows}
                 if self.batcher is not None
@@ -272,12 +339,11 @@ class SamplingService:
             batch_size = len(cond)
         return cond, batch_size
 
-    def _run(self, sample_fn) -> tuple[np.ndarray, float]:
-        """Serialize one sampler call; its rows as float32 on the host and its seconds."""
+    def _run(self, call: dict) -> tuple[np.ndarray, float]:
+        """One solo device call; its rows and its seconds."""
         t0 = time.perf_counter()
-        with self.lock:
-            arr = sample_fn().float().cpu().numpy()  # materializes inside the lock
-        return arr, time.perf_counter() - t0
+        rows = self._call(call)
+        return rows, time.perf_counter() - t0
 
     @staticmethod
     def _encode(rows: np.ndarray, seconds: float, **extra) -> dict:
@@ -319,30 +385,14 @@ class SamplingService:
         # Deterministic-ODE requests go through the micro-batcher with x_T
         # drawn from the request's seed, as the solo path would draw it.
         if self.batcher is not None and sampler in ("ddim", "dpm") and eta == 0.0:
-            m = self.model
-            # The prompts are embedded on the host here; the copy to the card waits for the lock, since a graph
-            # capture in the dispatcher thread allows no other thread's host-to-device copy.
-            embedded = None if cond is None else embed_captions(cond, return_cls_repr=m.text_use_bert_cls)
-            with self.lock:
-                noise = torch.randn((batch_size, m.channels, m.num_frames, m.image_size, m.image_size),
-                                    generator=self._generator(seed), device=self.device)
-                cond_arr = None if embedded is None else m.embed_cond(embedded)
             t0 = time.perf_counter()
             group_key = (sampler, num_steps, grid, cond_scale, cond is not None)
-            rows, group_size, wait_s = self.batcher.submit(group_key, noise, cond_arr)
+            rows, group_size, wait_s = self.batcher.submit(group_key, (seed, batch_size, cond), batch_size)
             return rows, time.perf_counter() - t0, {"coalesced": group_size, "queue_wait_s": round(wait_s, 3)}
 
-        def run():
-            g = self._generator(seed)
-            kw = {"cond": cond, "cond_scale": cond_scale}
-            if sampler == "ddim":
-                return self.model.ddim_sample(batch_size=batch_size, num_steps=num_steps, eta=eta, grid=grid,
-                                              generator=g, **kw)
-            if sampler == "dpm":
-                return self.model.dpm_solver_sample(batch_size=batch_size, num_steps=num_steps, generator=g, **kw)
-            return self.model.sample(batch_size=batch_size, generator=g, **kw)
-
-        rows, seconds = self._run(run)
+        rows, seconds = self._run({"kind": "sample", "sampler": sampler, "batch_size": batch_size,
+                                   "num_steps": num_steps, "eta": eta, "grid": grid, "seed": seed, "text": cond,
+                                   "cond_scale": cond_scale})
         return rows, seconds, {}
 
     def sample(self, req: dict) -> dict:
@@ -392,21 +442,21 @@ class SamplingService:
         if batch_size > 16:
             raise ValueError("batch_size (incl. inferred from text) must be <= 16")
 
-        def run():
-            known_b = torch.from_numpy(known.astype(np.float32)).to(self.device)[None]
-            return m.sample_conditional_frames(
-                known_b.expand(batch_size, *known.shape), mask, num_steps=num_steps, grid=grid,
-                recon_guidance_weight=wr, generator=self._generator(seed), cond=cond, cond_scale=cond_scale,
-            )
-
-        return self._run(run)
+        return self._run({"kind": "extend", "known": known, "frame_mask": mask, "batch_size": batch_size,
+                          "num_steps": num_steps, "grid": grid, "recon_guidance": wr, "seed": seed, "text": cond,
+                          "cond_scale": cond_scale})
 
     def extend(self, req: dict) -> dict:
         return self._encode(*self.extend_rows(req))
 
     def close(self) -> None:
+        """Stop the micro-batcher, then release the other ranks from :func:`follow`."""
         if self.batcher is not None:
             self.batcher.close()
+        if self.group is not None:
+            with self.lock:
+                dist.broadcast_object_list([None], src=0, group=self.group.group)
+            self.group = None
 
 
 def _encode_gifs(videos) -> list[bytes]:
@@ -469,10 +519,11 @@ class _Server(ThreadingHTTPServer):
 
 
 def create_server(model, host: str = "127.0.0.1", port: int = 8080, batch_window_s: float | None = 0.05,
-                  max_batch_rows: int = 8) -> ThreadingHTTPServer:
+                  max_batch_rows: int = 8, group=None) -> ThreadingHTTPServer:
     """The HTTP server around a loaded diffusion model (apart from :func:`main` so that a test or a benchmark
-    runs it in-process on an ephemeral port). ``batch_window_s=None`` disables request coalescing."""
-    service = SamplingService(model, batch_window_s, max_batch_rows)
+    runs it in-process on an ephemeral port). ``batch_window_s=None`` disables request coalescing. Under ``group``
+    (rank 0's world group) every device call runs on all the ranks, the others in :func:`follow`."""
+    service = SamplingService(model, batch_window_s, max_batch_rows, group)
     httpd = _Server((host, port), make_handler(service))
     httpd.service = service  # for tests, benchmarks and shutdown
     return httpd
@@ -494,17 +545,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-batch-rows", type=int, default=8, help="max samples per coalesced sampler call")
     ap.add_argument("--no-batching", action="store_true", help="disable request coalescing (every request solo)")
     ap.add_argument("--device", type=str, default="cuda")
+    add_rank_args(ap)
     return ap.parse_args(argv)
 
 
-def build(argv=None) -> ThreadingHTTPServer:
-    """The server the CLI runs: the config's model with the checkpoint loaded, warmed up if asked, not yet
-    serving."""
-    args = parse_args(argv)
-    from video_diffusion_nnx_tpu_torch.config import build_models, load_config, resolve_device
+def load_model(args: argparse.Namespace, device: torch.device):
+    """The config's model with the checkpoint loaded, in eval mode, warmed up if asked."""
+    from video_diffusion_nnx_tpu_torch.config import build_models, load_config
     from video_diffusion_nnx_tpu_torch.convert import load_checkpoint
 
-    device = resolve_device(args.device)
     _, model = build_models(load_config(args.config), device=device)
     try:
         load_checkpoint(model, args.checkpoint_path, load_ema_params=args.load_ema_params)
@@ -515,16 +564,25 @@ def build(argv=None) -> ThreadingHTTPServer:
         log.info("warm-up (ddim-50, batch 1)...")
         t0 = time.perf_counter()
         cond = [""] if getattr(model.denoise_fn, "has_cond", False) else None
-        model.ddim_sample(batch_size=1, num_steps=50, generator=torch.Generator(device=device).manual_seed(0),
-                          cond=cond)
+        model.ddim_sample(batch_size=1, num_steps=50, generator=_generator(device, 0), cond=cond)
         log.info("warm-up done in %.1fs", time.perf_counter() - t0)
-    return create_server(model, args.host, args.port,
+    return model
+
+
+def build(argv=None, group=None) -> ThreadingHTTPServer:
+    """The server the CLI runs (rank 0's under ``group``): the config's model with the checkpoint loaded, warmed
+    up if asked, not yet serving."""
+    from video_diffusion_nnx_tpu_torch.config import resolve_device
+
+    args = parse_args(argv)
+    device = resolve_device(args.device) if group is None else group.device
+    return create_server(load_model(args, device), args.host, args.port,
                          batch_window_s=None if args.no_batching else args.batch_window,
-                         max_batch_rows=args.max_batch_rows)
+                         max_batch_rows=args.max_batch_rows, group=group)
 
 
-def main(argv=None) -> None:
-    server = build(argv)
+def serve(server: ThreadingHTTPServer) -> None:
+    """Serve until interrupted, then close the server (and release the other ranks)."""
     host, port = server.server_address[:2]
     log.info("serving on http://%s:%d (GET /health, POST /sample, POST /extend)", host, port)
     try:
@@ -533,6 +591,30 @@ def main(argv=None) -> None:
         log.info("shutting down")
     finally:
         server.server_close()
+
+
+def run_rank(rank: int, world: int, backend: str, init_method: str, argv=None) -> None:
+    """One rank of a multi-rank server: rank 0 serves HTTP, the others follow its device calls."""
+    args = parse_args(argv)
+    with joined(rank, world, backend, init_method, args.device.split(":")[0]) as group:
+        if rank == 0:
+            serve(build(argv, group))
+        else:
+            model = load_model(args, group.device)
+            model.data_group = group
+            follow(model, group)
+
+
+def main(argv=None) -> None:
+    from video_diffusion_nnx_tpu_torch.config import resolve_device
+
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    world = world_size(args.ranks, device)
+    if world > 1:
+        launch(run_rank, world, args.dist_backend, device, argv)
+        return
+    serve(build(argv))
 
 
 if __name__ == "__main__":

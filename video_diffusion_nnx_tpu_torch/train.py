@@ -15,11 +15,10 @@ raised to ``trainer.sequence_parallel_size`` where that is larger. The
 trainer lays its mesh over them by the JAX trainer's rules: (data, seq)
 under ``sequence_parallel_size`` > 1, else (data, model) with
 ``num_model_shards`` (clamped with a warning on fewer ranks), parameters
-stored by ``param_sharding``. With more than one rank the CLI builds the
-kernels, then starts the ranks itself (``torch.multiprocessing``, spawn),
-which meet at a free ``tcp://localhost`` port; :func:`run_rank` is one
-rank. Rank r computes on ``cuda:(r % device_count)``. ``nccl`` (the
-default) needs a card per rank; ranks that share a card need
+stored by ``param_sharding``. With more than one rank the CLI starts the
+ranks itself (``parallel.launch``, as every CLI of this package does);
+:func:`run_rank` is one rank. Rank r computes on ``cuda:(r % device_count)``.
+``nccl`` (the default) needs a card per rank; ranks that share a card need
 ``--dist-backend gloo``, and ``--device cpu`` runs them on the CPU with gloo.
 """
 
@@ -27,9 +26,9 @@ from __future__ import annotations
 
 import argparse
 import logging
-import socket
-import sys
 from pathlib import Path
+
+from video_diffusion_nnx_tpu_torch.parallel.mesh import add_rank_args, joined, launch, world_size
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -40,47 +39,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--resume_step", type=int, default=0, help="Step to resume training from")
     p.add_argument("--rng_seed", type=int, default=None, help="RNG seed to use for training")
     p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--ranks", type=int, default=None,
-                   help="ranks to train over (default: the cards, at least sequence_parallel_size)")
-    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default="nccl",
-                   help="collective backend of a multi-rank run; ranks sharing a card need gloo")
+    add_rank_args(p)
     return p.parse_args(argv)
 
 
-def free_init_method() -> str:
-    """A ``tcp://localhost`` address with a port that is free now."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return f"tcp://localhost:{s.getsockname()[1]}"
-
-
-def run_rank(rank: int, world_size: int, backend: str, init_method: str, argv=None):
+def run_rank(rank: int, world: int, backend: str, init_method: str, argv=None):
     """One rank of a multi-rank run: join the world, train, leave; returns the trainer."""
     from video_diffusion_nnx_tpu_torch.config import build_trainer, load_config
-    from video_diffusion_nnx_tpu_torch.parallel import destroy_sequence_group, init_sequence_group
 
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
-                            format=f"%(levelname)s:rank {rank}:%(name)s:%(message)s")
     args = parse_args(argv)
     config = load_config(args.config)
-    group = init_sequence_group(rank, world_size, backend, init_method, device_type=args.device.split(":")[0])
-    try:
+    with joined(rank, world, backend, init_method, args.device.split(":")[0]) as group:
         _, _, trainer = build_trainer(config, resume_step=args.resume_step, rng_seed=args.rng_seed,
                                       sequence_group=group)
         trainer.train()
         group.barrier()  # rank 0's final checkpoint is written before any rank leaves
         return trainer
-    finally:
-        destroy_sequence_group()
 
 
-def default_ranks(device, sequence_parallel_size: int) -> int:
-    """The cards of ``device``'s kind (one for the CPU), raised to ``sequence_parallel_size``."""
-    import torch
-
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    return max(cards, sequence_parallel_size)
+def _spawned_rank(*args) -> None:
+    """The CLI's rank: its trainer stays in its process."""
+    run_rank(*args)
 
 
 def main(argv=None):
@@ -91,21 +70,9 @@ def main(argv=None):
     logging.info("Loading configuration from: %s", args.config)
     config = load_config(args.config)
     device = resolve_device(args.device)
-    world = args.ranks
-    if world is None:
-        world = default_ranks(device, int(config["trainer"]["sequence_parallel_size"]))
-    if world < 1:
-        raise ValueError(f"--ranks must be at least 1; got {world}")
+    world = world_size(args.ranks, device, int(config["trainer"]["sequence_parallel_size"]))
     if world > 1:
-        import torch.multiprocessing as mp
-
-        if device.type == "cuda":
-            from video_diffusion_nnx_tpu_torch.ops import _build
-
-            _build.build_all()  # once, before the ranks load the libraries
-        logging.info("Starting %d ranks (%s)...", world, args.dist_backend)
-        rank_argv = sys.argv[1:] if argv is None else list(argv)
-        mp.spawn(run_rank, args=(world, args.dist_backend, free_init_method(), rank_argv), nprocs=world, join=True)
+        launch(_spawned_rank, world, args.dist_backend, device, argv)
         logging.info("Training finished.")
         return None
     _, _, trainer = build_trainer(config, device=args.device, resume_step=args.resume_step,

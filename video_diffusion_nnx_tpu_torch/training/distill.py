@@ -35,6 +35,14 @@ from an explicit ``torch.Generator``, in that order; each can be injected
 instead, which is how the tests feed both packages the same numbers. The
 step runs the denoiser's own routes, so on the card every forward and the
 backward go through the ported kernels.
+
+Over a data group (JAX: the batch sharded over ``'data'``, :12-16) each rank
+holds its rows of the batch and of the condition, draws ``i``, ``eps`` and
+``w`` for the whole batch, as one rank would, and keeps its rows; the
+teacher's jumps and the student's forward run on those rows alone. Its loss
+is its share, the mean over its rows divided by the ranks, and one
+all-reduce sums the shares and the gradients before Adam, so the update,
+the EMA and the reported loss are one rank's, bit-equal over the ranks.
 """
 
 from __future__ import annotations
@@ -146,10 +154,13 @@ class StudentOptimizer:
     """A student's Adam (optax's defaults: b1 0.9, b2 0.999, eps 1e-8; no clipping, a constant rate) over its
     parameters only, and optionally the EMA ``d * e + (1 - d) * p`` after every step. Each step's loss stays on
     the device in ``losses``; ``step_starts`` holds the host clock at the start of each step, and ``end`` (set by
-    :meth:`finish`) the host clock once the device has finished the last one."""
+    :meth:`finish`) the host clock once the device has finished the last one. Under ``group`` (a
+    ``parallel.SequenceGroup`` of data ranks) each step's loss is this rank's share, and :meth:`update` sums the
+    shares and the gradients over the ranks."""
 
-    def __init__(self, student: nn.Module, learning_rate: float, ema_decay: float | None = None):
+    def __init__(self, student: nn.Module, learning_rate: float, ema_decay: float | None = None, group=None):
         self.student = student
+        self.group = group if group is not None and group.world_size > 1 else None
         # Parameters only (JAX ``split_trainable``, :71-80): the schedule buffers are constants of the noising process.
         self.params = [p for p in student.parameters() if p.requires_grad]
         device = self.params[0].device
@@ -161,10 +172,32 @@ class StudentOptimizer:
         self.step_starts: list[float] = []
         self.end: float | None = None
 
+    def draw_rows(self, rows: int) -> tuple[int, slice | None]:
+        """The whole batch's size for this rank's ``rows``, and this rank's slice of it (None on one rank)."""
+        if self.group is None:
+            return rows, None
+        n = rows * self.group.world_size
+        return n, self.group.rows(n)
+
+    def share(self, loss: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the batch's loss, its rows' mean over the ranks."""
+        return loss if self.group is None else loss / self.group.world_size
+
+    def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        """Sum the gradients and the loss over the ranks in one all-reduce; returns the summed loss. The ranks
+        reach the same parameters (no mask is drawn), so each sends the same list."""
+        live = [p for p in self.params if p.grad is not None]
+        flat = self.group.all_reduce(torch.cat([*(p.grad.reshape(-1) for p in live), loss.detach().reshape(1)]))
+        for p, g in zip(live, flat[:-1].split([p.numel() for p in live])):
+            p.grad = g.view_as(p)
+        return flat[-1]
+
     def update(self, loss: torch.Tensor) -> torch.Tensor:
-        """Backward, one Adam update, the EMA; returns the detached loss."""
+        """Backward, the reduction over the ranks, one Adam update, the EMA; returns the detached loss."""
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.group is not None:
+            loss = self._reduce(loss)
         self.optimizer.step()
         if self.ema is not None:
             with torch.no_grad():
@@ -195,9 +228,9 @@ class DistillStep(StudentOptimizer):
 
     def __init__(self, teacher: nn.Module, student_steps: int, learning_rate: float = 1e-4,
                  clip_denoised: bool = True, w_range: tuple[float, float] | None = None,
-                 ema_decay: float | None = None, generator: torch.Generator | None = None):
+                 ema_decay: float | None = None, generator: torch.Generator | None = None, group=None):
         self.teacher = teacher
-        super().__init__(copy_state(teacher), learning_rate, ema_decay)
+        super().__init__(copy_state(teacher), learning_rate, ema_decay, group)
         self.student_steps = student_steps
         self.grids = tuple(g.to(self.params[0].device) for g in nested_grids(teacher.num_timesteps, student_steps))
         self.clip_denoised = clip_denoised
@@ -206,21 +239,26 @@ class DistillStep(StudentOptimizer):
 
     def __call__(self, batch: torch.Tensor, cond: torch.Tensor | None = None, i: torch.Tensor | None = None,
                  eps: torch.Tensor | None = None, w: torch.Tensor | None = None) -> torch.Tensor:
-        """One step on raw data ``batch`` in [0, 1] (normalized here); returns the loss. ``i``, ``eps`` and ``w``
-        are drawn from the generator, in that order, where not given."""
+        """One step on raw data ``batch`` in [0, 1] (normalized here; this rank's rows under a group, ``cond``
+        too); returns the batch's loss. ``i``, ``eps`` and ``w`` are the whole batch's, drawn from the generator,
+        in that order, where not given."""
         self.step_starts.append(time.perf_counter())
         x0 = normalize_img(batch.float())
-        b, dev = x0.shape[0], x0.device
+        dev = x0.device
+        b, rows = self.draw_rows(x0.shape[0])
         if i is None:
             i = torch.randint(0, self.student_steps, (b,), generator=self.generator, device=dev)
         if eps is None:
-            eps = torch.randn(x0.shape, generator=self.generator, device=dev)
-        if self.w_range is not None and w is None:
+            eps = torch.randn((b, *x0.shape[1:]), generator=self.generator, device=dev)
+        if self.w_range is None:
+            w = None
+        elif w is None:
             lo, hi = (float(v) for v in self.w_range)
             w = lo + (hi - lo) * torch.rand(b, generator=self.generator, device=dev)
-        loss = distill_loss(self.student, self.teacher, x0, i.to(dev), eps, self.grids, self.clip_denoised, cond,
-                            w if self.w_range is not None else None)
-        return self.update(loss)
+        if rows is not None:
+            i, eps, w = i[rows], eps[rows], None if w is None else w[rows]
+        loss = distill_loss(self.student, self.teacher, x0, i.to(dev), eps, self.grids, self.clip_denoised, cond, w)
+        return self.update(self.share(loss))
 
 
 def _split(batch, conditioned: bool):
@@ -231,11 +269,12 @@ def distill_round(teacher: nn.Module, data_iter: Iterator, *, student_steps: int
                   generator: torch.Generator | None = None, learning_rate: float = 1e-4, clip_denoised: bool = True,
                   conditioned: bool = False, w_range: tuple[float, float] | None = None,
                   ema_decay: float | None = None, log_every: int = 50,
-                  on_done: Callable[[DistillStep], None] | None = None) -> nn.Module:
+                  on_done: Callable[[DistillStep], None] | None = None, group=None) -> nn.Module:
     """One halving round (JAX :295-353): ``num_train_steps`` steps of a student copied from ``teacher``; returns
     the student with its EMA in place (or the raw student without ``ema_decay``). ``data_iter`` yields raw
-    batches, or ``(batch, cond)`` pairs when ``conditioned``. ``on_done`` sees the round's step after it."""
-    step = DistillStep(teacher, student_steps, learning_rate, clip_denoised, w_range, ema_decay, generator)
+    batches, or ``(batch, cond)`` pairs when ``conditioned`` (this rank's rows under ``group``). ``on_done`` sees
+    the round's step after it."""
+    step = DistillStep(teacher, student_steps, learning_rate, clip_denoised, w_range, ema_decay, generator, group)
     for n in range(num_train_steps):
         batch, cond = _split(next(data_iter), conditioned)
         loss = step(batch, cond)
@@ -252,11 +291,12 @@ def progressive_distill(teacher: nn.Module, data_iter: Iterator, *, initial_step
                         learning_rate: float = 1e-4, clip_denoised: bool = True, conditioned: bool = False,
                         w_range: tuple[float, float] | None = None, ema_decay: float | None = None,
                         on_round_end: Callable[[int, nn.Module], None] | None = None,
-                        on_done: Callable[[DistillStep], None] | None = None) -> tuple[nn.Module, int]:
+                        on_done: Callable[[DistillStep], None] | None = None, group=None) -> tuple[nn.Module, int]:
     """The whole schedule (JAX :356-410): students at ``initial_steps``, half that, ... for ``rounds`` halvings,
     each round's student the next round's teacher. ``on_round_end(student_steps, student)`` fires after each
-    round; an odd step count stops the halving early. Returns ``(student, final_steps)``: sample it with
-    ``ddim_sample(num_steps=final_steps, grid="stride")``."""
+    round; an odd step count stops the halving early. Under ``group`` every round splits its batches' rows over
+    the data ranks. Returns ``(student, final_steps)``: sample it with ``ddim_sample(num_steps=final_steps,
+    grid="stride")``."""
     steps, model = initial_steps, teacher
     for r in range(rounds):
         logger.info("progressive distillation round %d/%d: %d-step teacher -> %d-step student",
@@ -264,7 +304,7 @@ def progressive_distill(teacher: nn.Module, data_iter: Iterator, *, initial_step
         model = distill_round(model, data_iter, student_steps=steps, num_train_steps=steps_per_round,
                               generator=generator, learning_rate=learning_rate, clip_denoised=clip_denoised,
                               conditioned=conditioned, w_range=w_range, ema_decay=ema_decay,
-                              on_done=on_done)
+                              on_done=on_done, group=group)
         if on_round_end is not None:
             on_round_end(steps, model)
         if r + 1 < rounds:

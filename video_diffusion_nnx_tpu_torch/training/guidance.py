@@ -19,6 +19,9 @@ output-space loss over-weights the low-noise steps for v and eps
 parameterizations). The optimizer is ``distill.StudentOptimizer``'s Adam over
 the student's parameters; stage 2, progressively distilling the
 w-conditioned student, is ``distill.progressive_distill`` with ``w_range``.
+Over a data group (JAX :149-160: the batch and condition sharded over
+``'data'``) the step splits rows as ``distill.DistillStep`` does: the whole
+batch's draws, this rank's rows of them, one all-reduce before Adam.
 """
 
 from __future__ import annotations
@@ -82,41 +85,47 @@ class GuidanceStep(StudentOptimizer):
     holding the teacher's weights, ``transfer_teacher_params``) against ``teacher``."""
 
     def __init__(self, teacher: nn.Module, student: nn.Module, learning_rate: float = 1e-4,
-                 w_range: tuple[float, float] = (1.0, 8.0), generator: torch.Generator | None = None):
+                 w_range: tuple[float, float] = (1.0, 8.0), generator: torch.Generator | None = None, group=None):
         if not getattr(student.denoise_fn, "has_guidance_embed", False):
             raise ValueError("student must be built with guidance_embed=True")
         if not getattr(teacher.denoise_fn, "has_cond", False):
             raise ValueError("guidance distillation needs a conditioned teacher")
-        super().__init__(student, learning_rate)
+        super().__init__(student, learning_rate, group=group)
         self.teacher = teacher
         self.w_range = (float(w_range[0]), float(w_range[1]))
         self.generator = generator
 
     def __call__(self, batch: torch.Tensor, cond: torch.Tensor, t: torch.Tensor | None = None,
                  eps: torch.Tensor | None = None, w: torch.Tensor | None = None) -> torch.Tensor:
-        """One step on raw data ``batch`` in [0, 1] with its condition; returns the loss. ``t``, ``eps`` and ``w``
-        are drawn from the generator, in that order, where not given."""
+        """One step on raw data ``batch`` in [0, 1] with its condition (this rank's rows of both under a group);
+        returns the batch's loss. ``t``, ``eps`` and ``w`` are the whole batch's, drawn from the generator, in that
+        order, where not given."""
         self.step_starts.append(time.perf_counter())
         x0 = normalize_img(batch.float())
-        b, dev = x0.shape[0], x0.device
+        dev = x0.device
+        b, rows = self.draw_rows(x0.shape[0])
         if t is None:
             t = torch.randint(0, self.teacher.num_timesteps, (b,), generator=self.generator, device=dev)
         if eps is None:
-            eps = torch.randn(x0.shape, generator=self.generator, device=dev)
+            eps = torch.randn((b, *x0.shape[1:]), generator=self.generator, device=dev)
         if w is None:
             lo, hi = self.w_range
             w = lo + (hi - lo) * torch.rand(b, generator=self.generator, device=dev)
-        return self.update(guidance_loss(self.student, self.teacher, x0, cond.float(), t.to(dev), eps, w))
+        if rows is not None:
+            t, eps, w = t[rows], eps[rows], w[rows]
+        loss = guidance_loss(self.student, self.teacher, x0, cond.float(), t.to(dev), eps, w)
+        return self.update(self.share(loss))
 
 
 def guidance_distill(teacher: nn.Module, student: nn.Module, data_iter: Iterator, *, num_train_steps: int,
                      generator: torch.Generator | None = None, learning_rate: float = 1e-4,
                      w_range: tuple[float, float] = (1.0, 8.0), log_every: int = 50,
-                     on_done: Callable[[GuidanceStep], None] | None = None) -> nn.Module:
+                     on_done: Callable[[GuidanceStep], None] | None = None, group=None) -> nn.Module:
     """Distill the teacher's guidance into ``student`` (the teacher's recipe with ``guidance_embed``), in place
-    (JAX :161-211): the teacher's weights are copied in first. ``data_iter`` yields ``(batch, cond)`` pairs.
-    Returns the trained student; sample it at any ``cond_scale`` with one forward a step."""
-    step = GuidanceStep(teacher, student, learning_rate, w_range, generator)
+    (JAX :161-211): the teacher's weights are copied in first. ``data_iter`` yields ``(batch, cond)`` pairs (this
+    rank's rows under ``group``). Returns the trained student; sample it at any ``cond_scale`` with one forward a
+    step."""
+    step = GuidanceStep(teacher, student, learning_rate, w_range, generator, group)
     transfer_teacher_params(student, teacher)
     for n in range(num_train_steps):
         batch, cond = next(data_iter)
