@@ -102,7 +102,9 @@ in one summary line (``PHASE <name>: ...``):
    attention of both hands the temporal op float32; each call's kernel and route are
    ``temporal_plan``'s for this card, and every launch is checked against them. dit kernels: the four
    attention shapes of each recipe (D1 at batch 8) in float32 against their plain versions, with times
-   and bounds per step; dit d1 / d2: the recipe's forward and one loss with its backward through the
+   and bounds per step (D1's spatial and both of D2's backwards take the float32 tensor-core design of
+   csrc/temporal_tf32x3.cu, route "tf32x3", also bounded at 495 / 3 TFLOP/s); dit d1 / d2: the recipe's
+   forward and one loss with its backward through the
    kernels against the plain modules and float32 on one batch (the adaLN and output weights drawn at
    std 0.05 first: they start at zero, and then no attention has a gradient), the loss within 2%, the
    gradients to the grads phase's gates with its largest control fault caught, every attention weight's
@@ -253,7 +255,10 @@ in one summary line (``PHASE <name>: ...``):
     bound, and ``design``: "staged" where every launch of that run ran its
     staged or streaming kernel (panels in shared memory, tensor cores in
     bf16), "cuda-core" where each ran the first version, both where the
-    shapes split, as the C entries reported each launch). The biased wide
+    shapes split, as the C entries reported each launch; the two temporal
+    backwards and the wide one add "float32: 3xtf32" and ``tf32x3_launches``,
+    the driven paths where the float32 tensor-core design ran: the fixed
+    recipes' bottleneck, D1's spatial and D2's attentions). The biased wide
     pair, which no recipe reaches, is held in the wide phase and reported in
     results.json apart from the line. Each entry's ``dit`` field holds its
     launches in the DiT runs (D1's training, the conditioned D1's, one D2
@@ -293,6 +298,7 @@ SCRATCH = REPO / "build" / "chip_smoke"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores: the bound of a kernel's f32 instantiation
+PEAK_TF32X3_FLOPS = 495e12 / 3  # float32 products as three TF32 tensor-core products (csrc/temporal_tf32x3.cu)
 
 TOL = {"bfloat16": 0.05, "float32": 1e-4}
 # Backward kernels against their plain versions: max-abs error over the largest magnitude of
@@ -545,19 +551,23 @@ def add_timing(row: dict, total: dict, count: int, err: float, ms: float, plain_
 
 
 def route_counts(*mods) -> dict:
-    """Per kernel of the op modules ``mods``: (launches, of them those that ran the staged kernel)."""
-    return {k: (n, getattr(m, "staged", {}).get(k, 0)) for m in mods for k, n in m.launches.items()}
+    """Per kernel of the op modules ``mods``: (launches, of them those that ran the staged kernel, those that ran
+    the float32 tensor-core backward)."""
+    return {k: (n, getattr(m, "staged", {}).get(k, 0), getattr(m, "tf32x3", {}).get(k, 0))
+            for m in mods for k, n in m.launches.items()}
 
 
-def design(launches: int, staged: int) -> str:
+def design(launches: int, staged: int, tf32x3: int = 0) -> str:
     """The kernel ``launches`` ran, from the route each launch's C entry reported: "staged" (panels in x's
-    type, the products on the tensor cores in bf16), "cuda-core" (the first version), or both."""
-    return "staged" if launches and staged == launches else "cuda-core" if staged == 0 else "staged/cuda-core"
+    type, the products on the tensor cores in bf16), "3xtf32" (the float32 backward of csrc/temporal_tf32x3.cu:
+    split-precision TF32 on the tensor cores), "cuda-core" (the first version), or several of them."""
+    parts = [n for n, k in (("staged", staged), ("3xtf32", tf32x3), ("cuda-core", launches - staged - tf32x3)) if k]
+    return "/".join(parts) or "cuda-core"
 
 
 def design_since(before: dict, now: dict, name: str) -> str:
     """The design of ``name``'s launches between two :func:`route_counts`."""
-    return design(now[name][0] - before[name][0], now[name][1] - before[name][1])
+    return design(*(a - b for a, b in zip(now[name], before[name])))
 
 
 def check_staged(counts: dict, staged: dict, where: str) -> None:
@@ -1055,6 +1065,8 @@ def backward_phase(torch, ta, sla) -> dict:
     fwd_err = {k: 0.0 for k in PER_FORWARD}  # the forward kernels at the training batch
     fwd_step = new_totals(("temporal_attention_fwd",))  # the dense forward's bf16 times per training step
     kv_f32 = new_totals(("sla_bwd_kv",))  # sla_bwd_kv in float32, what the fixed recipe hands it (one pass)
+    # the dense backward in float32 where it takes the tensor-core design (the fixed recipe's unbiased bottleneck)
+    tf32x3_f32 = new_totals(("temporal_attention_bwd",))
 
     def record_fwd(name, shape, dtype, err, tol, what="max-abs"):
         check(math.isfinite(err) and err <= tol, f"{name} at {shape} in {dtype}: {what} error {err} over {tol}")
@@ -1110,13 +1122,18 @@ def backward_phase(torch, ta, sla) -> dict:
             want = ta.temporal_attention_bwd_plain(*args)
             torch.cuda.synchronize()
             outs = dict(zip(("dx", "dwqkv", "dbqkv", "dwo", "dbo"), zip(got, want)))
-            if timed:
-                rows_n = b * s * f
-                nbytes = elt * (3 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + 4 * (4 * c * hd + 3 * hd + c)
-                flops = rows_n * (22 * c * hd + 12 * f * hd)
+            rows_n = b * s * f
+            nbytes = elt * (3 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + 4 * (4 * c * hd + 3 * hd + c)
+            flops = rows_n * (22 * c * hd + 12 * f * hd)
+            tf32x3 = route_counts(ta)["temporal_attention_bwd"][2] > before["temporal_attention_bwd"][2]
+            if timed or tf32x3:
                 ms = cuda_ms(torch, lambda: ta.temporal_attention_bwd(*args), 5, 1)
                 plain = cuda_ms(torch, lambda: ta.temporal_attention_bwd_plain(*args), 5, 1)
-                record("temporal_attention_bwd", (b, s, f, c), dtype_name, outs, count, ms, plain, nbytes, flops)
+                record("temporal_attention_bwd", (b, s, f, c), dtype_name, outs, count, ms, plain, nbytes, flops,
+                       None if timed else tf32x3_f32["temporal_attention_bwd"], PEAK_BF16_FLOPS if timed else PEAK_F32_FLOPS)
+                if tf32x3:  # also at the tensor cores' 3xTF32 rate (results.json)
+                    b3, by3 = bound_ms(nbytes, flops, PEAK_TF32X3_FLOPS)
+                    rows[-1].update(bound_ms_3xtf32=b3, bound_by_3xtf32=by3, bound_share_3xtf32=b3 / ms)
             else:
                 record("temporal_attention_bwd", (b, s, f, c), dtype_name, outs, count)
             del x, g, got, want, outs
@@ -1170,7 +1187,8 @@ def backward_phase(torch, ta, sla) -> dict:
                 record("sla_bwd_kv", shape_r, dtype_name, outs_kv, count, ms_kv, pl_kv, kv_bytes, kv_flops,
                        kv_f32["sla_bwd_kv"], PEAK_F32_FLOPS)
             del x, g, got_q, want_q, got_kv, want_kv, outs_q, outs_kv
-    return {"rows": rows, "per_step": agg, "fwd_err": fwd_err, "fwd_per_step": fwd_step, "f32_per_step": kv_f32}
+    return {"rows": rows, "per_step": agg, "fwd_err": fwd_err, "fwd_per_step": fwd_step, "f32_per_step": kv_f32,
+            "tf32x3_per_step": tf32x3_f32}
 
 
 def blockwise_phase(torch, ta) -> dict:
@@ -1373,7 +1391,8 @@ def _one_ulp(got, want) -> bool:
 
 
 def wide_phase(torch, ta) -> dict:
-    """The wide pair (mode DENSE of the streaming kernels) against the dense plain versions at f = 64 and
+    """The wide pair (mode DENSE of the streaming kernels; the float32 backward the tensor-core design of
+    csrc/temporal_tf32x3.cu) against the dense plain versions at f = 64 and
     c of ``WIDE_SHAPES`` (batch 2), bf16 and f32, TF32 off, unbiased and biased (dbias held like the weight gradients).
 
     Each output is held to the gates of PERF.md section 2 and, in bf16, to the standard the staged dense kernels
@@ -1413,7 +1432,9 @@ def wide_phase(torch, ta) -> dict:
                 check(ta.launches[fwd] == before[fwd] + 1 and ta.launches[bwd] == before[bwd] + 1,
                       f"{shape} {dtype_name}: {fwd} / {bwd} were not launched: {nonzero(ta.launches)}")
                 design = tuple(design_since(routes, route_counts(ta), k) for k in (fwd, bwd))
-                check(family == "attention" or (design[1] == "staged" and (design[0] == "staged" or f_family == "attention")),
+                # the streaming kernels, but for the float32 backward: the tensor-core design (csrc/temporal_tf32x3.cu)
+                want_bwd = "staged" if bf16 else "3xtf32"
+                check(family == "attention" or (design[1] == want_bwd and (design[0] == "staged" or f_family == "attention")),
                       f"{shape} {dtype_name}: {fwd} / {bwd} ran {design}")
                 want_f = ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD, **kw)
                 want = ta.temporal_attention_bwd_plain(x, g, *w, HEADS, DIM_HEAD, **kw)
@@ -1838,7 +1859,11 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
     torch.cuda.reset_peak_memory_stats()
     tr = train.main(["--config", str(fused_cfg), "--device", "cuda"])
     counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+    tf32x3 = nonzero(ops.tf32x3_launch_counts())
     check_staged(counts, staged, f"{name} phase")
+    # in fixed math the one unbiased dense backward a step is the bottleneck's, in float32: the tensor-core design
+    want_tf32x3 = {} if unet is None else {"temporal_attention_bwd": counts.get("temporal_attention_bwd", 0)}
+    check(tf32x3 == want_tf32x3, f"{name} phase: 3xtf32 launches {tf32x3}, expected {want_tf32x3}")
     peak = torch.cuda.max_memory_allocated()
     losses = tr.loss_trace.tolist()
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
@@ -1895,7 +1920,8 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
         check(img.n_frames == d["num_frames"] and img.size == (d["image_size"], d["image_size"]),
               f"{p.name}: {img.n_frames} frames of {img.size}")
     return {"steps": TRAIN_STEPS, "batch": B_TRAIN, "losses": losses, "first5": first, "last5": last,
-            "launches": counts, "staged_launches": staged, "checkpoints": ckpts, "seconds_per_step": sps,
+            "launches": counts, "staged_launches": staged, "tf32x3_launches": tf32x3, "checkpoints": ckpts,
+            "seconds_per_step": sps,
             "peak_memory": peak,
             "checkpoint_write_seconds": save_s, "plain_checkpoint_write_seconds": plain_save_s,
             "loss_gap_vs_plain": loss_gap,
@@ -2498,12 +2524,14 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
         torch.cuda.reset_peak_memory_stats()
         tr = train.main(["--config", str(cfg), "--device", "cuda"])
         counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
+        tf32x3 = nonzero(ops.tf32x3_launch_counts())
         if variant != "plain":
             check_staged(counts, staged, f"{name} phase, {variant}")
         losses = tr.loss_trace.tolist()
         check(len(losses) == LONG_STEPS and all(math.isfinite(v) for v in losses), f"{variant}: losses {losses}")
         sps, save_s = _seconds_per_step(tr, warmup=3)
-        runs[variant] = {"losses": losses, "launches": counts, "staged_launches": staged, "seconds_per_step": sps,
+        runs[variant] = {"losses": losses, "launches": counts, "staged_launches": staged, "tf32x3_launches": tf32x3,
+                         "seconds_per_step": sps,
                          "checkpoint_write_seconds": save_s, "peak_memory": torch.cuda.max_memory_allocated(),
                          "checkpoints": sorted(int(p.stem[5:]) for p in tr.checkpoint_dir_path.glob("step_*.pt"))}
         if variant == "kernels":
@@ -2545,7 +2573,7 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
             "dataset": {"gif_folder": str(data), "clips": LONG_CLIPS, "frames_per_gif": gif_frames},
             "freeze_schedule_buffers": raw["trainer"].get("freeze_schedule_buffers", False),
             "first4": first, "last4": last, "runs": runs, "loss_gaps_vs_kernels": gaps,
-            "launches": k["launches"], "staged_launches": k["staged_launches"],
+            "launches": k["launches"], "staged_launches": k["staged_launches"], "tf32x3_launches": k["tf32x3_launches"],
             "sample": {"steps": res["steps"], "seconds": res["seconds"],
                        "seconds_per_step": res["seconds"] / res["steps"], "launches": s_counts,
                        "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}}
@@ -3529,25 +3557,28 @@ def dit_plan(torch, ta, raw: dict, batch: int) -> dict:
     return plan
 
 
-def dit_launches(plan: dict, times: int = 1, ways=("fwd", "bwd")) -> tuple[dict, dict]:
+def dit_launches(plan: dict, times: int = 1, ways=("fwd", "bwd")) -> tuple[dict, dict, dict]:
     """The launches ``times`` forwards (and backwards) of the plan's DiT make, and of them those of a staged or
-    streaming route."""
-    counts, staged = {}, {}
+    streaming route and those of the float32 tensor-core backward."""
+    counts, staged, tf32x3 = {}, {}, {}
     for row in plan.values():
         for way in ways:
             name, n = row[way]["kernel"], row["depth"] * times
             counts[name] = counts.get(name, 0) + n
             staged[name] = staged.get(name, 0) + n * (row[way]["route"] == "staged")
-    return counts, staged
+            tf32x3[name] = tf32x3.get(name, 0) + n * (row[way]["route"] == "tf32x3")
+    return counts, staged, tf32x3
 
 
 def check_dit_launches(ops, plan: dict, where: str, times: int = 1, ways=("fwd", "bwd")) -> dict:
     """Since the last reset: exactly the plan's launches, each of the route the planner gave it."""
-    counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
-    want, want_staged = dit_launches(plan, times, ways)
+    counts, staged, tf32x3 = nonzero(ops.launch_counts()), ops.staged_launch_counts(), ops.tf32x3_launch_counts()
+    want, want_staged, want_tf32x3 = dit_launches(plan, times, ways)
     check(counts == want, f"{where}: launches {counts}, expected {want}")
     got_staged = {k: staged.get(k, 0) for k in want}
     check(got_staged == want_staged, f"{where}: staged launches {got_staged}, the planner's {want_staged}")
+    got_tf32x3 = {k: tf32x3.get(k, 0) for k in want}
+    check(got_tf32x3 == want_tf32x3, f"{where}: 3xtf32 launches {got_tf32x3}, the planner's {want_tf32x3}")
     return counts
 
 
@@ -3593,7 +3624,8 @@ def dit_kernel_phase(torch, ta) -> dict:
                 name = p[way]["kernel"]
                 launched = {k: now[k][0] - before[k][0] for k in now if now[k][0] != before[k][0]}
                 check(launched.get(name) == 1, f"DiT {recipe} {att} {way}: launched {launched}, planned {name}")
-                check(now[name][1] - before[name][1] == (p[way]["route"] == "staged"),
+                check(now[name][1] - before[name][1] == (p[way]["route"] == "staged")
+                      and now[name][2] - before[name][2] == (p[way]["route"] == "tf32x3"),
                       f"DiT {recipe} {att} {way}: the C entry's route is not the planner's {p[way]['route']}")
             err = _max_abs(got, plain_f())
             check(math.isfinite(err) and err <= TOL["float32"],
@@ -3624,6 +3656,10 @@ def dit_kernel_phase(torch, ta) -> dict:
                           else {"rel_err": rel, "max_abs_err": e, "tol": BWD_TOL["float32"]})}
                 add_timing(row, agg.setdefault(name, new_totals((name,))[name]), count, e, ms, plain_ms, nbytes,
                            flops, PEAK_F32_FLOPS)
+                if p[way]["route"] == "tf32x3":  # also at the tensor cores' 3xTF32 rate, so no share reads over 1
+                    b3, by3 = bound_ms(nbytes, flops, PEAK_TF32X3_FLOPS)
+                    row.update(bound_ms_3xtf32=b3, bound_by_3xtf32=by3, bound_share_3xtf32=b3 / ms)
+                    agg[name]["bound_ms_3xtf32"] = count * b3
                 agg[name].update(route=p[way]["route"], shape=shape)
                 rows.append(row)
                 print("  " + json.dumps(row), flush=True)
@@ -4243,11 +4279,14 @@ def dit_guidance_phase(torch, ops, ta, sample, dit_cond) -> dict:
                                  str(DIT_GUIDANCE_STEPS), "--batch-size", str(B_TRAIN), "--output-path",
                                  str(SCRATCH / "dit" / "guidance"), "--device", "cuda"])
     counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
-    fwd, fwd_staged = dit_launches(plan, 3 * DIT_GUIDANCE_STEPS, ("fwd",))
-    bwd, bwd_staged = dit_launches(plan, DIT_GUIDANCE_STEPS, ("bwd",))
+    tf32x3 = ops.tf32x3_launch_counts()
+    fwd, fwd_staged, _ = dit_launches(plan, 3 * DIT_GUIDANCE_STEPS, ("fwd",))
+    bwd, bwd_staged, bwd_tf32x3 = dit_launches(plan, DIT_GUIDANCE_STEPS, ("bwd",))
     check(counts == {**fwd, **bwd}, f"DiT guidance: launches {counts}, expected {fwd} and {bwd}")
     check({k: staged.get(k, 0) for k in counts} == {**fwd_staged, **bwd_staged},
           f"DiT guidance: staged launches {staged}, the planner's {fwd_staged} and {bwd_staged}")
+    check({k: tf32x3.get(k, 0) for k in bwd} == bwd_tf32x3,
+          f"DiT guidance: 3xtf32 launches {tf32x3}, the planner's {bwd_tf32x3}")
     check(len(res["losses"]) == DIT_GUIDANCE_STEPS and all(math.isfinite(v) for v in res["losses"]),
           f"DiT guidance: losses {res['losses']}")
     out = {"zero_graft_bit_equal": graft_equal, "steps": DIT_GUIDANCE_STEPS, "batch": B_TRAIN, "losses": res["losses"],
@@ -4353,7 +4392,8 @@ def main(argv: list[str]) -> int:
     bwd = timed("backward", backward_phase, torch, ta, sla,
                 show=lambda r: {"checks": len(r["rows"]), "tolerance": BWD_TOL, **per_step(r, "per_step"),
                                 "forward_per_step": per_step(r, "fwd_per_step")["fwd_per_step"],
-                                "float32_per_step": per_step(r, "f32_per_step")["f32_per_step"]})
+                                "float32_per_step": per_step(r, "f32_per_step")["f32_per_step"],
+                                "float32_3xtf32_per_step": per_step(r, "tf32x3_per_step")["tf32x3_per_step"]})
     timed("grads", grads_phase, torch, ops, ta, sla, load_config, build_models,
           show=brief)
     trained = timed("train", train_phase, torch, ops, train, sample)
@@ -4430,7 +4470,9 @@ def main(argv: list[str]) -> int:
     dit_kern = timed("dit kernels", dit_kernel_phase, torch, ta,
                      show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL["float32"],
                                      "backward": BWD_TOL["float32"]},
-                                     **{recipe: per_step({"p": a}, "p")["p"] for recipe, a in r["per_step"].items()}})
+                                     **{recipe: {k: {m: v[m] for m in ("route", "ms", "plain_ms", "bound_ms",
+                                                                       "bound_ms_3xtf32", "err") if m in v}
+                                                 for k, v in a.items()} for recipe, a in r["per_step"].items()}})
     dit_d1 = timed("dit d1", dit_model_phase, torch, ops, ta, sla, build_models, "D1")
     dit_d2 = timed("dit d2", dit_model_phase, torch, ops, ta, sla, build_models, "D2")
     dit_train = timed("dit train", dit_train_phase, torch, ops, ta, train, sample, build_models,
@@ -4504,8 +4546,21 @@ def main(argv: list[str]) -> int:
                                "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations"}
         return out
 
+    # Where the float32 tensor-core backward (csrc/temporal_tf32x3.cu) ran on the driven paths: the fixed recipes'
+    # bottleneck, D1's spatial and D2's attentions.
+    tf32x3_paths = {"fixed_train": fixed_trained["tf32x3_launches"], "long_fixed_train": long_fixed_trained["tf32x3_launches"],
+                    "d1_train": dit_launches(dit_train["plan"], DIT_STEPS)[2], "d2_step": dit_launches(dit_d2["plan"])[2]}
+
+    def tf32x3_field(name):
+        return {path: n[name] for path, n in tf32x3_paths.items() if n.get(name)}
+
+    for name in ("temporal_attention_bwd", "temporal_blockwise_bwd", "temporal_wide_bwd"):
+        check(tf32x3_field(name), f"{name}: the float32 tensor-core backward never ran on a driven path")
     kernels_line = [{
-        "name": name, "route": "cuda", "design": designs[name],
+        "name": name, "route": "cuda",
+        "design": designs[name] + ("; float32: 3xtf32" if tf32x3_field(name) else ""),
+        **({"tf32x3_launches": tf32x3_field(name),
+            "tf32x3_source": "video_diffusion_nnx_tpu_torch/csrc/temporal_tf32x3.cu"} if tf32x3_field(name) else {}),
         "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],
         "launches": launches[name], "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"], "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"] else "operations",

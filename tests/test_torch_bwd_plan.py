@@ -56,9 +56,13 @@ def test_temporal_plan_fits_and_pads(shape, bf16):
     elt = 2 if bf16 else 4
     plan = ta.bwd_plan(tokens, f, c, DIM, HEADS, bf16, SMS)
     # every flagship and long-clip shape takes the tensor cores in bf16; in float32 the f = 64, c = 256
-    # column is too wide for the staged tile and keeps the CUDA-core kernel
-    assert plan["route"] == ("simt" if not bf16 and (f, c) == (64, 256) else "staged")
-    assert 1 <= plan["bt"] <= 64 and plan["smem"] <= SMEM_MAX
+    # column is too wide for the staged tile and takes the float32 tensor-core design (csrc/temporal_tf32x3.cu)
+    assert plan["route"] == ("tf32x3" if not bf16 and (f, c) == (64, 256) else "staged")
+    assert plan["smem"] <= SMEM_MAX
+    if plan["route"] == "tf32x3":  # one (token, head) per CTA of the attention core; no tile of tokens
+        assert plan == ta.tf32x3_plan(tokens, f, c, DIM, HEADS, SMS) and plan["grid"] == tokens
+        return
+    assert 1 <= plan["bt"] <= 64
     if plan["route"] == "staged":
         assert plan["rows_padded"] % 16 == 0 and plan["rows_padded"] >= plan["rows"] == plan["bt"] * f
         assert plan["smem"] == ta._tc_bwd_bytes(plan["bt"], f, c, DIM, elt)
@@ -84,8 +88,13 @@ def test_temporal_plan_raises_where_the_old_tile_raised(f, c, dim, bf16):
         return
     plan = ta.bwd_plan(16, f, c, dim, 2, bf16, SMS)
     assert plan["smem"] <= SMEM_MAX
-    # the wide shapes keep the CUDA-core kernel; the C launcher picks the route by the same rule
-    assert (plan["route"] == "staged") == ta._tc_bwd_fits(plan["bt"], f, c, dim, 2 if bf16 else 4)
+    # the wide shapes keep the CUDA-core kernel in bf16 and take the float32 tensor-core design in float32
+    # (head dims up to 64); the C launchers pick the route by the same rule
+    elt = 2 if bf16 else 4
+    staged = ta._tc_bwd_fits(1, f, c, dim, elt)
+    assert plan["route"] == ("staged" if staged else "tf32x3" if not bf16 and ta._tf32x3_fits(f, dim) else "simt")
+    if plan["route"] != "tf32x3":
+        assert (plan["route"] == "staged") == ta._tc_bwd_fits(plan["bt"], f, c, dim, elt)
 
 
 def test_temporal_plan_spreads_the_flagship_top_level():

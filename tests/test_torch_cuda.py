@@ -896,7 +896,10 @@ def test_wide_columns_take_the_dense_rounding_points(device, c, dtype, bias):
     counts, (x, w, kw, g, grads, want_g) = _dense_errors((2, 10, 64, c), device, dtype, bias)
     fwd = f"temporal_wide{tag}_fwd" if c >= 374 else f"temporal_attention{tag}_fwd"  # the dense forward holds c < 374
     assert counts == {fwd: 1, f"temporal_wide{tag}_bwd": 1}
-    assert all(ops.staged_launch_counts()[k] == 1 for k in counts if "wide" in k)
+    # the streaming kernels, but for the float32 backward: the tensor-core design of csrc/temporal_tf32x3.cu
+    f32_bwd = f"temporal_wide{tag}_bwd" if dtype == torch.float32 else None
+    assert all(ops.staged_launch_counts()[k] == (k != f32_bwd) for k in counts if "wide" in k)
+    assert all(ops.tf32x3_launch_counts()[k] == (k == f32_bwd) for k in counts if "wide" in k)
     if dtype == torch.bfloat16:
         blk_g = ta.temporal_attention_blockwise_bwd_plain(x, g, *w, 8, 32, ta.KV_BLOCK, **kw)
         for keys in (("dwo",), ("dwqkv", "dbqkv", "dbias")):
@@ -913,7 +916,7 @@ def test_wide_route_is_the_planners(device):
     for bwd in (False, True):
         for bf16 in (True, False):
             plan = ta.temporal_plan(20, 64, 1024, 32, 8, bf16, _sms(), bwd)
-            assert plan["family"] == "wide" and plan["route"] == "staged"
+            assert plan["family"] == "wide" and plan["route"] == ("tf32x3" if bwd and not bf16 else "staged")
 
 
 def test_cuda_core_context_rounds_s(device):
@@ -1115,6 +1118,9 @@ def test_dit_attention_shapes_match_plain_in_float32(device, name):
     names = [f"temporal_{family}_fwd", f"temporal_{family}_bwd"]
     assert {k: v for k, v in ops.launch_counts().items() if v} == {n: 1 for n in names}
     assert [ops.staged_launch_counts()[n] for n in names] == [r == "staged" for r in routes]
+    # every backward but D1's temporal (whose staged tile fits) takes the float32 tensor-core design
+    assert routes[1] == ("staged" if name == "d1_temporal" else "tf32x3")
+    assert [ops.tf32x3_launch_counts()[n] for n in names] == [r == "tf32x3" for r in routes]
     if family == "blockwise":
         want = ta.temporal_attention_blockwise_plain(x, *w, heads, dim, ta.KV_BLOCK)
         want_g = ta.temporal_attention_blockwise_bwd_plain(x, g, *w, heads, dim, ta.KV_BLOCK)
@@ -1307,3 +1313,67 @@ def test_zero_graft_is_bit_equal_to_the_teacher_on_the_card(device, hashed_text)
         want = teacher.denoise_fn.forward_with_cond_scale(x, t, cond=cond, cond_scale=1.0)
         for w in (1.0, 3.0, 8.0):
             assert torch.equal(student.denoise_fn.forward_with_cond_scale(x, t, cond=cond, cond_scale=w), want)
+
+
+# The float32 tensor-core backward (csrc/temporal_tf32x3.cu: 3xTF32 GEMMs and a per-(token, head) attention
+# core), which both families take in float32 where the staged dense tile or the streaming plan does not fit: at
+# D1's, D2's and the fixed flagship's shapes, and at edges (f = 10, 17, 64, 145, 256 and the streaming plan's
+# last length, 144; widths that are not multiples of 4 or of a tile; head dims 20, 32 and 64), biased too. Each
+# output within the float32 gate of its plain version, the route and the launch counts the planner's, two runs
+# bit-equal.
+TF32X3_SHAPES = {
+    "d1_spatial": ((8, 16, 256, 256), 8, 32), "d2_temporal": ((4, 64, 10, 384), 6, 64),
+    "fixed_bottleneck": ((8, 10, 64, 256), 8, 32), "f10_d64": ((1, 3, 10, 384), 6, 64),
+    "f16_d64": ((1, 4, 16, 320), 4, 64), "f17_c301": ((1, 3, 17, 301), 3, 32),
+    "f33_c301_d20": ((1, 2, 33, 301), 3, 20), "f64_c258": ((2, 2, 64, 258), 2, 32),
+    "f144_streaming": ((1, 2, 144, 256), 8, 32), "f145": ((1, 3, 145, 40), 2, 32), "f256": ((1, 2, 256, 72), 2, 32),
+}
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("name", list(TF32X3_SHAPES))
+def test_tf32x3_backward_matches_plain(device, name, bias):
+    shape, heads, dim = TF32X3_SHAPES[name]
+    b, s, f, c = shape
+    x, *w = _temporal_args(shape, device, torch.float32, heads, dim)
+    g = _rand(shape, 5, 0.1, device)
+    pos_bias = _rand((heads, f, f), 6, 0.5, device) if bias else None
+    plan = ta.temporal_plan(b * s, f, c, dim, heads, False, _sms(), True)
+    assert plan["route"] == ("staged" if name == "f144_streaming" else "tf32x3")
+    kernel = f"temporal_{'attention' if f <= ta.MAX_FRAMES else 'blockwise'}{'_biased' if bias else ''}_bwd"
+    ops.reset_launch_counts()
+    grads = ta.temporal_attention_bwd(x, g, *w, heads, dim, pos_bias=pos_bias)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {kernel: 1}
+    assert ops.tf32x3_launch_counts()[kernel] == (plan["route"] == "tf32x3")
+    assert ops.staged_launch_counts()[kernel] == (plan["route"] == "staged")
+    want = (ta.temporal_attention_bwd_plain(x, g, *w, heads, dim, pos_bias=pos_bias) if f <= ta.MAX_FRAMES
+            else ta.temporal_attention_blockwise_bwd_plain(x, g, *w, heads, dim, ta.KV_BLOCK, pos_bias=pos_bias))
+    assert len(grads) == len(want)
+    for k, a, v in zip(GRADS6, grads, want):
+        assert a.shape == v.shape and a.dtype == v.dtype, k
+        assert _rel_err(a, v) <= BWD_TOL[torch.float32], (k, _rel_err(a, v))
+    again = ta.temporal_attention_bwd(x, g, *w, heads, dim, pos_bias=pos_bias)
+    assert all(torch.equal(u, v) for u, v in zip(grads, again))
+
+
+@pytest.mark.parametrize("dtype,shape,heads,dim", [(torch.float32, (1, 3, 128, 64), 4, 64),
+                                                   (torch.bfloat16, (2, 16, 256, 256), 8, 32),
+                                                   (torch.float32, (1, 4, 16, 512), 2, 128)])
+def test_first_designs_still_take_their_shapes(device, dtype, shape, heads, dim):
+    """The first-design backwards stay where the new design does not reach: blockwise head dims over 32, bf16
+    beyond f = 192 at c >= 128, and dense head dims over 64 in float32."""
+    b, s, f, c = shape
+    assert ta.temporal_plan(b * s, f, c, dim, heads, dtype == torch.bfloat16, _sms(), True)["route"] == "simt"
+    x, *w = _temporal_args(shape, device, dtype, heads, dim)
+    g = _rand(shape, 5, 0.1, device, dtype)
+    ops.reset_launch_counts()
+    grads = ta.temporal_attention_bwd(x, g, *w, heads, dim)
+    torch.cuda.synchronize()
+    kernel = f"temporal_{'attention' if f <= ta.MAX_FRAMES else 'blockwise'}_bwd"
+    assert ops.launch_counts()[kernel] == 1
+    assert ops.staged_launch_counts()[kernel] == ops.tf32x3_launch_counts()[kernel] == 0
+    want = (ta.temporal_attention_bwd_plain(x, g, *w, heads, dim) if f <= ta.MAX_FRAMES
+            else ta.temporal_attention_blockwise_bwd_plain(x, g, *w, heads, dim, ta.KV_BLOCK))
+    for k, a, v in zip(GRADS6, grads, want):
+        assert _rel_err(a, v) <= BWD_TOL[dtype], (k, _rel_err(a, v))

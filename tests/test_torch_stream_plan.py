@@ -63,6 +63,9 @@ def test_every_long_clip_and_wide_shape_takes_the_streaming_kernel(shape, bf16, 
     if f <= 64 and not ta.wide_needed(f, c, DIM, backward):  # the dense forward still holds c = 320
         assert plan["family"] == "dense" and not backward and c < 374
         return
+    if f <= 64 and backward and not bf16:  # the float32 wide backward takes the tensor-core design
+        assert plan == {"family": "wide", **ta.tf32x3_plan(tokens, f, c, DIM, HEADS, SMS)}
+        return
     assert plan["family"] == ("blockwise" if f > 64 else "wide") and plan["route"] == "staged"
     assert plan == {**plan, **_first_fit(f, c, DIM, elt, backward, f <= 64)}
     assert plan["smem"] <= ta._SMEM_MAX and plan["smem"] % 16 == 0
@@ -90,17 +93,22 @@ def test_the_long_clip_top_level_fills_the_card():
 @pytest.mark.parametrize("f", [65, 72, 96, 128, 192, 256, 300, 321])
 def test_first_design_only_where_no_streaming_plan_fits(f, bf16):
     """Every c of the long clip at every f the card tests use: the first design runs exactly where the streaming
-    plan does not fit (float32: the backward beyond f = 144, the forward beyond 256; bf16: the backward beyond
-    f = 192 at c >= 128), and never at f <= 128."""
+    plan does not fit (float32: the forward beyond f = 256; bf16: the backward beyond f = 192 at c >= 128), and
+    never at f <= 128; the float32 backward beyond f = 144 takes the tensor-core design of
+    csrc/temporal_tf32x3.cu instead."""
     elt = 2 if bf16 else 4
     for c in (32, 64, 128, 256):
         for backward in (False, True):
             plan = ta.temporal_plan(3, f, c, DIM, HEADS, bf16, SMS, backward)
             fits = ta.stream_plan(f, c, DIM, elt, backward, False) is not None
-            assert plan["route"] == ("staged" if fits else "simt")
+            other = "tf32x3" if backward and not bf16 else "simt"
+            assert plan["route"] == ("staged" if fits else other)
             assert fits or f > 128
-            if not fits:
+            if not fits and other == "simt":
                 assert plan["scratch"] == plan["grid"] * f * (4 if backward else 1) * HEADS * DIM * elt
+            if not fits and other == "tf32x3":
+                assert plan["family"] == "blockwise"
+                assert {k: v for k, v in plan.items() if k != "family"} == ta.tf32x3_plan(3, f, c, DIM, HEADS, SMS)
 
 
 def test_blockwise_head_dims_over_32_take_the_first_design():

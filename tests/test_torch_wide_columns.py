@@ -2,8 +2,8 @@
 
 The bottleneck of a dim-128 Unet3D attends 8x8 = 64 tokens at c = 1024 through the temporal op. The
 JAX package keeps every f <= 64 on its dense Pallas kernels, whatever c; on the card the port takes
-the streaming kernel in mode DENSE there (``temporal_plan`` family "wide"), which has the dense
-kernels' rounding points; on the CPU it takes the dense plain versions. Covered: the route choice as a
+the streaming kernel in mode DENSE there (``temporal_plan`` family "wide"; the float32 backward takes the
+tensor-core design of csrc/temporal_tf32x3.cu), which has the dense kernels' rounding points; on the CPU it takes the dense plain versions. Covered: the route choice as a
 pure function of (f, c, D, dtype, SMs), never a plain version; the dense plain versions (forward by
 autograd, and the backward oracle) against the JAX dense Pallas kernels in interpret mode at f = 64,
 c = 320, all gradients, biased too. Tolerances as tests/test_ops.py: float32 forward atol 5e-5,
@@ -39,13 +39,16 @@ def _t(a) -> torch.Tensor:
 @pytest.mark.parametrize("c", [320, 512, 1024])
 def test_wide_route_is_the_dense_streaming_mode(c, bf16, sms):
     """At f = 64 and head dim 32 the dense tile holds no token from c = 309 (backward) and c = 374 (forward):
-    there the plan is the wide family, whose route is the streaming kernel, in either type."""
+    there the plan is the wide family, whose route is the streaming kernel, in either type; the float32
+    backward takes the tensor-core design of csrc/temporal_tf32x3.cu instead."""
     for backward in (False, True):
         plan = pta.temporal_plan(2 * 10, 64, c, 32, 8, bf16, sms, backward)
         wide = pta.wide_needed(64, c, 32, backward)
         assert wide == (c >= (309 if backward else 374))
         assert plan["family"] == ("wide" if wide else "dense")
-        if wide:
+        if wide and backward and not bf16:
+            assert plan["route"] == "tf32x3" and plan["smem"] <= pta._SMEM_MAX and plan["grid"] == 20
+        elif wide:
             assert plan["route"] == "staged" and plan["smem"] <= pta._SMEM_MAX
             assert plan["kv_block"] == 64 and plan["grid"] == min(20, sms)
         else:
@@ -56,12 +59,18 @@ def test_wide_route_is_the_dense_streaming_mode(c, bf16, sms):
 @pytest.mark.parametrize("f,c,dim", [(64, 1024, 32), (64, 1024, 64), (40, 2048, 16), (64, 4096, 32), (10, 3000, 32)])
 def test_wide_plans_cover_the_widths_the_dense_tile_refuses(f, c, dim):
     """Every width the dense planners refuse has a streaming plan, in both types and directions: the c-chunks
-    keep shared memory independent of c. Head dims pad to 32 or 64."""
+    keep shared memory independent of c. Head dims pad to 32 or 64. The op launches it but for the float32
+    backward, which takes the tensor-core design (its shared memory independent of c too)."""
     for bf16 in (True, False):
         for backward in (False, True):
             plan = pta.temporal_plan(8, f, c, dim, 2, bf16, 132, backward)
-            assert plan["family"] == "wide" and plan["route"] == "staged"
-            assert plan["dim_padded"] == (32 if dim <= 32 else 64) and plan["ck"] % 16 == 0 and plan["ck"] < c
+            stream = pta.stream_plan(f, c, dim, 2 if bf16 else 4, backward, True)
+            assert plan["family"] == "wide"
+            assert stream["dim_padded"] == (32 if dim <= 32 else 64) and stream["ck"] % 16 == 0 and stream["ck"] < c
+            if backward and not bf16:
+                assert plan == {"family": "wide", **pta.tf32x3_plan(8, f, c, dim, 2, 132)}
+            else:
+                assert plan == {**plan, **stream} and plan["route"] == "staged"
 
 
 def test_wide_plan_refuses_head_dims_over_64():

@@ -23,7 +23,13 @@ def staged_launch_counts() -> dict[str, int]:
     return out
 
 
+def tf32x3_launch_counts() -> dict[str, int]:
+    """Of the launches since the last reset, those of the temporal backward that ran its float32 tensor-core
+    design (csrc/temporal_tf32x3.cu), by kernel name."""
+    return dict(temporal_attention.tf32x3)
+
+
 def reset_launch_counts() -> None:
-    for counter in _COUNTERS + _STAGED:
+    for counter in _COUNTERS + _STAGED + (temporal_attention.tf32x3,):
         for name in counter:
             counter[name] = 0

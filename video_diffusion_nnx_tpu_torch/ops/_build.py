@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("temporal_attention", "temporal_blockwise", "spatial_linear_attention", "cross_attention")
+SOURCES = ("temporal_attention", "temporal_blockwise", "temporal_tf32x3", "spatial_linear_attention",
+           "cross_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",

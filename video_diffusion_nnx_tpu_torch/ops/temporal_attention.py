@@ -25,7 +25,11 @@ family of ``csrc/temporal_blockwise.cu``, which walks K/V in blocks of
 ``KV_BLOCK`` frames: the streaming kernels wherever their plan fits
 (``blockwise_plan``, ``stream_plan``: x, g and the weights staged in c-chunks,
 a token's q|k|v in shared memory, the products on the tensor cores in bf16),
-else the first design.
+else the first design. In float32 the backward of either family takes a design
+of its own where the staged dense tile or the streaming plan does not fit
+(``tf32x3_plan``; ``csrc/temporal_tf32x3.cu``): the width-scaling products as
+GEMMs and the attention core per (token, head), all on the tensor cores in
+split-precision TF32 (three TF32 products per float32 product).
 
 Dispatch has no hidden fallback. A CPU tensor takes the family's plain
 version, differentiated by autograd; a CUDA tensor goes through
@@ -35,8 +39,9 @@ take. ``temporal_attention_bwd_plain`` and
 ``temporal_attention_blockwise_bwd_plain`` are the backward kernels'
 oracles, with their rounding points; the wide family's are the dense ones.
 Every plain version and every kernel takes the bias; a launch with it is
-counted under a name of its own (``..._biased_fwd``, ``..._biased_bwd``), and
-``staged`` counts the launches that ran the staged or streaming kernel.
+counted under a name of its own (``..._biased_fwd``, ``..._biased_bwd``),
+``staged`` counts the launches that ran the staged or streaming kernel and
+``tf32x3`` those that ran the float32 tensor-core backward.
 
 dbias crosses CTAs like the weight gradients: each CTA of a backward kernel
 adds into a float32 (H, f, f) partial of its own and ``reduce_partials_kernel``
@@ -74,6 +79,8 @@ launches = {"temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
 # Launches that ran the staged (dense) or streaming (blockwise, wide) kernel, as the C entry reports (the rest ran
 # the first design; the wide kernels have no other).
 staged = {name: 0 for name in launches}
+# Backward launches that ran the float32 design of csrc/temporal_tf32x3.cu (its C entry reports route 2).
+tf32x3 = {name: 0 for name in launches}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -335,8 +342,9 @@ def blockwise_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool
     """The launch of a blockwise (or, with ``dense``, wide) kernel for ``sms`` SMs: route, grid, scratch.
 
     ``route`` "staged": the streaming kernel (panels staged in x's type, warp-owned query rows, the products
-    on the tensor cores in bf16), with its ``stream_plan`` fields; "simt": the first design, where the
-    streaming plan does not fit (mode BLOCKWISE only; a wide shape that does not fit raises). ``scratch`` is
+    on the tensor cores in bf16), with its ``stream_plan`` fields; where the streaming plan does not fit
+    (mode BLOCKWISE only; a wide shape that does not fit raises), "tf32x3" for a float32 backward at head
+    dims up to 32 (``tf32x3_plan``), else "simt", the first design. ``scratch`` is
     the bytes of device scratch the launch needs (the C entry checks it). The forward of mode BLOCKWISE puts
     two CTAs on an SM where shared memory allows; the rest take one. The backward's grid keeps its partials
     within ``_WORKSPACE_MAX`` (and ``_DBIAS_WORKSPACE_MAX``, which the caller applies with a bias).
@@ -345,6 +353,8 @@ def blockwise_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool
     if not dense:  # the first design's limit holds either way, so that no shape runs forward and then fails backward
         _check_blockwise(f, dim)
     plan = stream_plan(f, c, dim, elt, backward, dense)
+    if plan is None and backward and not (bf16 or dense) and dim <= 32 and _tf32x3_fits(f, dim):
+        return tf32x3_plan(tokens, f, c, dim, heads, sms)
     if plan is None:
         if dense:
             raise NotImplementedError(f"temporal attention kernel: one token's panels exceed shared memory at f={f}, "
@@ -369,14 +379,59 @@ def _scratch_bytes(plan: dict, grid: int, f: int, heads: int, dim: int, elt: int
     return grid * f * (4 if backward else 1) * heads * dim * elt
 
 
+_TF_TILE, _TF_BK, _TF_COLSUM_ROWS = 128, 32, 256  # tf::BM = BN, BK and COLSUM_ROWS in csrc/temporal_tf32x3.cu
+
+
+def _tf32x3_smem(f: int, dim: int) -> int:
+    """``attn_smem``: the attention core's q, k, v and do panels (round32(f) rows, head dim padded to 32 or
+    64, plus 4) and its row statistics, in bytes."""
+    fk, dp = -(-f // 32) * 32, 32 if dim <= 32 else 64
+    return 4 * (4 * fk * (dp + 4) + 2 * fk)
+
+
+def _tf32x3_fits(f: int, dim: int) -> bool:
+    """``tf32x3_fits``: head dims up to 64 and the attention core within 227 KB (f <= 384 at 32, 192 at 64)."""
+    return 1 <= dim <= 64 and f >= 1 and _tf32x3_smem(f, dim) <= _SMEM_MAX
+
+
+def _tf32x3_splits(tiles: int, k: int, sms: int) -> int:
+    """``splits_for``: K splits of a weight-gradient GEMM of ``tiles`` output tiles, about two CTAs per SM."""
+    kt = -(-k // _TF_BK)
+    s = max(1, min(max(1, -(-2 * sms // tiles)), kt))
+    per = -(-kt // s)
+    return -(-kt // per)
+
+
+def _al64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def tf32x3_plan(tokens: int, f: int, c: int, dim: int, heads: int, sms: int) -> dict:
+    """The float32 tensor-core backward's launch (``layout`` in csrc/temporal_tf32x3.cu): the attention
+    core's grid (``grid`` tokens by ``heads``, ``smem`` bytes), the K splits of the two weight-gradient
+    GEMMs and of the bias gradients' column sums, and the device scratch in bytes."""
+    rows, hd = tokens * f, heads * dim
+    t = _TF_TILE
+    s_w = _tf32x3_splits(-(-c // t) * -(-3 * hd // t), rows, sms)
+    s_o = _tf32x3_splits(-(-hd // t) * -(-c // t), rows, sms)
+    s_b = -(-rows // _TF_COLSUM_ROWS)
+    floats = (_al64(rows * 3 * hd) + _al64(rows * hd) + _al64(s_w * c * 3 * hd) + _al64(s_o * hd * c)
+              + _al64(s_b * 3 * hd) + _al64(s_b * c))
+    return {"route": "tf32x3", "grid": tokens, "heads": heads, "smem": _tf32x3_smem(f, dim),
+            "splits": (s_w, s_o, s_b), "scratch": 4 * floats}
+
+
 def temporal_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms: int,
                   backward: bool) -> dict:
     """The kernel a CUDA call of the op launches: ``family`` "dense" (``fwd_plan`` / ``bwd_plan``), "wide"
     (f <= 64 where the dense tile cannot hold one token: the streaming kernel in mode DENSE, with the dense
-    kernels' rounding points) or "blockwise" (f > 64), with that family's plan. Never a plain version."""
+    kernels' rounding points; the float32 backward takes ``tf32x3_plan``) or "blockwise" (f > 64), with that
+    family's plan. Never a plain version."""
     if f > MAX_FRAMES:
         return {"family": "blockwise", **blockwise_plan(tokens, f, c, dim, heads, bf16, sms, backward)}
     if wide_needed(f, c, dim, backward):
+        if backward and not bf16 and _tf32x3_fits(f, dim):  # float32: the tensor-core design, as dense shapes
+            return {"family": "wide", **tf32x3_plan(tokens, f, c, dim, heads, sms)}
         return {"family": "wide", **blockwise_plan(tokens, f, c, dim, heads, bf16, sms, backward, dense=True)}
     planner = bwd_plan if backward else fwd_plan
     return {"family": "dense", **planner(tokens, f, c, dim, heads, bf16, sms)}
@@ -488,9 +543,10 @@ def bwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms:
     """The dense backward's launch: route, tokens per tile, shared memory and grid, for ``sms`` SMs.
 
     The staged kernel (``route`` "staged": panels in x's type, the products on the tensor cores in
-    bf16) takes every shape whose one-token tile fits; the rest the CUDA-core kernel ("simt").
-    Raises where the CUDA-core kernel cannot hold one token, which is where the staged one cannot
-    either. The C launcher makes the same choice from ``bt`` (``tc_bwd_fits``).
+    bf16) takes every shape whose one-token tile fits; in float32 the rest take the tensor-core
+    design of ``tf32x3_plan`` ("tf32x3") up to head dim 64, and what is left the CUDA-core kernel
+    ("simt"). Raises where the CUDA-core kernel cannot hold one token, which is where the staged one
+    cannot either. The C launcher makes the same choice from ``bt`` (``tc_bwd_fits``).
     """
     if dim % 4:
         raise NotImplementedError(f"the temporal backward kernel takes head dims divisible by 4, not {dim}")
@@ -501,6 +557,8 @@ def bwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms:
         route = "staged"
         bt = _staged_tile(tokens, f, sms, lambda n: _tc_bwd_bytes(n, f, c, dim, elt))
         smem = _tc_bwd_bytes(bt, f, c, dim, elt)
+    elif not bf16 and _tf32x3_fits(f, dim):
+        return tf32x3_plan(tokens, f, c, dim, heads, sms)
     # two CTAs per SM where shared memory allows, except the float32 staged kernel, whose launch
     # bounds leave it more than the 128 registers a thread that two CTAs would
     per_sm = 2 if 2 * (smem + 1024) <= 228 * 1024 and (bf16 or route == "simt") else 1
@@ -617,15 +675,28 @@ def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_b
                    torch.empty(heads, f, f, device=x.device, dtype=torch.float32))
         return tensors, [t.data_ptr() for t in tensors]
 
-    plan = temporal_plan(tokens, f, c, dim, heads, x.dtype == torch.bfloat16, _sms(x.device), True)
+    sms = _sms(x.device)
+    plan = temporal_plan(tokens, f, c, dim, heads, x.dtype == torch.bfloat16, sms, True)
     grid = plan["grid"]
-    if pos_bias is not None and plan["family"] != "dense":  # at most 128 KB per CTA in the dense family
+    if pos_bias is not None:  # binds only where the grid follows the tokens (the dense grid stays under it)
         grid = min(grid, max(1, _DBIAS_WORKSPACE_MAX // (4 * panel)))
     x, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, g))  # copied in 8-byte chunks
-    partial = torch.empty(grid, total, device=x.device, dtype=torch.float32)
     bias_t, bias_ptrs = bias_buffers(grid)
     route = ctypes.c_int(0)
-    if plan["family"] == "dense":
+    if plan["route"] == "tf32x3":  # float32: the tensor-core GEMMs and attention core, 16-byte aligned operands
+        wqkv_c, wo_c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (wqkv_c, wo_c))
+        work = torch.empty(plan["scratch"], device=x.device, dtype=torch.uint8)
+        fn = _build.library("temporal_tf32x3").temporal_tf32x3_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_size_t] + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        err = fn(
+            x.data_ptr(), g.data_ptr(), wqkv_c.data_ptr(), bqkv_f.data_ptr(), wo_c.data_ptr(), *bias_ptrs,
+            dx.data_ptr(), grads.data_ptr(), work.data_ptr(), work.numel(), tokens, f, c, heads, dim, sms, grid,
+            scale, stream, ctypes.byref(route),
+        )
+    elif plan["family"] == "dense":
+        partial = torch.empty(grid, total, device=x.device, dtype=torch.float32)
         fn = _build.library("temporal_attention").temporal_attention_bwd
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
@@ -636,6 +707,7 @@ def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_b
             heads, dim, plan["bt"], grid, scale, stream, ctypes.byref(route),
         )
     else:
+        partial = torch.empty(grid, total, device=x.device, dtype=torch.float32)
         scratch_size = _scratch_bytes(plan, grid, f, heads, dim, x.element_size(), True)
         scratch = torch.empty(max(scratch_size, 16), device=x.device, dtype=torch.uint8)
         # the first design reads the weights transposed, so that its dx and dW_o products read along rows
@@ -656,7 +728,8 @@ def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_b
     name = f"temporal_{'attention' if plan['family'] == 'dense' else plan['family']}{tag}_bwd"
     _build.check(err, name)
     launches[name] += 1
-    staged[name] += route.value
+    staged[name] += route.value == 1
+    tf32x3[name] += route.value == 2
     dwqkv, dbqkv, dwo, dbo = grads.split([c * 3 * hd, 3 * hd, hd * c, c])
     out = (dx, dwqkv.view(c, 3 * hd), dbqkv, dwo.view(hd, c), dbo)
     return out if pos_bias is None else (*out, bias_t[2].to(pos_bias.dtype))
