@@ -47,7 +47,9 @@ in one summary line (``PHASE <name>: ...``):
    the flagship training step (batch 8) gives it, and at one wide-frame
    shape, in bf16 and f32, TF32 off; CUDA-event times, each timed row's share
    of its bound (``bound_share``) and per-step totals (``sla_bwd_kv`` also in
-   f32, what fixed math hands it); at the same inputs the forward kernels and
+   f32, what fixed math hands it; the dense temporal backward in f32 where a
+   3xTF32 design takes it, each row with its route (``design``) and its bound
+   at 67 and at 495 / 3 TFLOP/s); at the same inputs the forward kernels and
    the context kernel's softmax statistics against their plain versions, and
    the dense temporal forward's bf16 times per training step;
 7. grads: one ``p_losses`` and ``backward`` of the flagship Unet3D in bf16
@@ -102,8 +104,9 @@ in one summary line (``PHASE <name>: ...``):
    attention of both hands the temporal op float32; each call's kernel and route are
    ``temporal_plan``'s for this card, and every launch is checked against them. dit kernels: the four
    attention shapes of each recipe (D1 at batch 8) in float32 against their plain versions, with times
-   and bounds per step (D1's spatial and both of D2's backwards take the float32 tensor-core design of
-   csrc/temporal_tf32x3.cu, route "tf32x3", also bounded at 495 / 3 TFLOP/s); dit d1 / d2: the recipe's
+   and bounds per step (every backward of both takes the float32 tensor-core design of
+   csrc/temporal_tf32x3.cu, route "tf32x3", D1's temporal one by the measured rule; also bounded at 495 / 3
+   TFLOP/s); dit d1 / d2: the recipe's
    forward and one loss with its backward through the
    kernels against the plain modules and float32 on one batch (the adaLN and output weights drawn at
    std 0.05 first: they start at zero, and then no attention has a gradient), the loss within 2%, the
@@ -133,7 +136,10 @@ in one summary line (``PHASE <name>: ...``):
    128 frames), at the 256-long bottleneck shape of a 128x128 input and at
    two ragged lengths (65, 100), in bf16 and f32, TF32 off; in f32 also
    against the dense plain versions; every long-clip shape must run the
-   streaming kernels (as the C entries report); CUDA-event times;
+   streaming kernels (as the C entries report), but the f32 backward the
+   planner's 3xTF32 design (the streaming kernel up to c = 32, the tf32x3
+   chain above); CUDA-event times (the f32 backward's at the long clip's
+   shapes, with its bound at 67 and at 495 / 3 TFLOP/s);
 9b. long sla: both spatial kernels at the long clip's eight calls (batch 1, 128
     frames, bf16 and f32) against their plain versions, as in phase 3; the
     spatial forward's time per step in each type;
@@ -172,7 +178,9 @@ in one summary line (``PHASE <name>: ...``):
     c = 256, the blockwise pair at the ten long-clip shapes, the 256-long
     shape and f = 65 and 100; bf16 and f32, TF32 off; a zero bias must
     reproduce the unbiased kernel bit for bit; in f32 the blockwise pair
-    also against the dense plain versions; CUDA-event times in both types;
+    also against the dense plain versions; each backward on the design the
+    planner gives it; CUDA-event times in both types, the f32 backward's
+    also bounded at 495 / 3 TFLOP/s;
 14. sla scale: the spatial output and q-path backward kernels at the fixed
     math's ``scale = 32 ** -0.5`` against their plain versions, and the q-path
     backward's times per shape in both types (float32 is what fixed math hands
@@ -185,7 +193,10 @@ in one summary line (``PHASE <name>: ...``):
     norm have gradients; a live focus mask against the plain modules;
 16. fixed train, long fixed train: phases 8 and 12 for those recipes (the
     kernel route and the plain modules), with DDIM-50 from each trained
-    checkpoint;
+    checkpoint; every float32 temporal backward launch on the design the
+    planner gives its shape (the staged dense kernel in 3xTF32 up to c = 64,
+    the streaming one up to c = 32, the tf32x3 chain above: exact counts of
+    each a step);
 17. cross: both cross-attention kernels of the sequence-parallel recipe
     (configs/config_seq_parallel.yaml: 32 frames over 4 ranks, batch 2)
     against their plain versions at the ten calls' shapes (x (2, s, 8, c),
@@ -255,10 +266,12 @@ in one summary line (``PHASE <name>: ...``):
     bound, and ``design``: "staged" where every launch of that run ran its
     staged or streaming kernel (panels in shared memory, tensor cores in
     bf16), "cuda-core" where each ran the first version, both where the
-    shapes split, as the C entries reported each launch; the two temporal
-    backwards and the wide one add "float32: 3xtf32" and ``tf32x3_launches``,
-    the driven paths where the float32 tensor-core design ran: the fixed
-    recipes' bottleneck, D1's spatial and D2's attentions). The biased wide
+    shapes split, as the C entries reported each launch, "staged-3xtf32"
+    where the staged or streaming float32 backward ran with its products in
+    3xTF32, "3xtf32" where the tf32x3 chain ran; the temporal backwards add
+    "float32: ..." and ``staged_tf32x3_launches`` / ``tf32x3_launches``, the
+    driven paths where each float32 tensor-core design ran: the fixed
+    recipes' biased backwards, their bottleneck, D1's and D2's attentions). The biased wide
     pair, which no recipe reaches, is held in the wide phase and reported in
     results.json apart from the line. Each entry's ``dit`` field holds its
     launches in the DiT runs (D1's training, the conditioned D1's, one D2
@@ -378,6 +391,7 @@ BWD_KERNELS = ("temporal_attention_bwd", "sla_bwd_q", "sla_bwd_kv")
 # temporal attention over the frames; the bottleneck's spatial attention, (1, 128, 64, 256), attends 64
 # tokens and stays on the dense kernels.
 LONG_CONFIG = REPO / "configs" / "config_long_clip.yaml"
+LONG_DENSE_SHAPE = (1, 128, 64, 256)  # the long clip's bottleneck spatial attention, unbiased in both maths
 LONG_TEMPORAL_SHAPES = [
     (3, (1, 4096, 128, 32)),   # init block, down 0, up 3
     (1, (1, 1024, 128, 64)),   # down 1
@@ -552,17 +566,48 @@ def add_timing(row: dict, total: dict, count: int, err: float, ms: float, plain_
 
 def route_counts(*mods) -> dict:
     """Per kernel of the op modules ``mods``: (launches, of them those that ran the staged kernel, those that ran
-    the float32 tensor-core backward)."""
-    return {k: (n, getattr(m, "staged", {}).get(k, 0), getattr(m, "tf32x3", {}).get(k, 0))
+    the float32 tensor-core backward of csrc/temporal_tf32x3.cu, those of the staged ones that ran the staged or
+    streaming float32 backward in 3xTF32)."""
+    return {k: (n, getattr(m, "staged", {}).get(k, 0), getattr(m, "tf32x3", {}).get(k, 0),
+                getattr(m, "staged_tf32x3", {}).get(k, 0))
             for m in mods for k, n in m.launches.items()}
 
 
-def design(launches: int, staged: int, tf32x3: int = 0) -> str:
+def design(launches: int, staged: int, tf32x3: int = 0, staged3: int = 0) -> str:
     """The kernel ``launches`` ran, from the route each launch's C entry reported: "staged" (panels in x's
-    type, the products on the tensor cores in bf16), "3xtf32" (the float32 backward of csrc/temporal_tf32x3.cu:
-    split-precision TF32 on the tensor cores), "cuda-core" (the first version), or several of them."""
-    parts = [n for n, k in (("staged", staged), ("3xtf32", tf32x3), ("cuda-core", launches - staged - tf32x3)) if k]
+    type, the products on the tensor cores in bf16), "staged-3xtf32" (the staged dense or streaming float32
+    backward, its products on the tensor cores in split-precision TF32), "3xtf32" (the float32 backward of
+    csrc/temporal_tf32x3.cu, in 3xTF32 too), "cuda-core" (the first version), or several of them."""
+    parts = [n for n, k in (("staged", staged - staged3), ("staged-3xtf32", staged3), ("3xtf32", tf32x3),
+                            ("cuda-core", launches - staged - tf32x3)) if k]
     return "/".join(parts) or "cuda-core"
+
+
+# The design names of the planner's routes (``temporal_plan``), as ``design`` writes them.
+ROUTE_DESIGN = {"staged": "staged", "staged-3xtf32": "staged-3xtf32", "tf32x3": "3xtf32", "simt": "cuda-core"}
+
+
+def add_3xtf32_bound(row: dict, total: dict | None, count: int, nbytes: float, flops: float) -> None:
+    """Beside a float32 backward on the tensor cores (either 3xTF32 design), its bound at the 3xTF32 rate (495 / 3
+    TFLOP/s) as well as at 67 TFLOP/s, so that no share reads over 1; summed into ``total`` per step."""
+    b3, by3 = bound_ms(nbytes, flops, PEAK_TF32X3_FLOPS)
+    row.update(bound_ms_3xtf32=b3, bound_by_3xtf32=by3, bound_share_3xtf32=b3 / row["ms"])
+    if total is not None and count:
+        total["bound_ms_3xtf32"] = total.get("bound_ms_3xtf32", 0.0) + count * b3
+
+
+def f32_bwd_routes(ta, shapes, sms: int) -> tuple[dict, dict]:
+    """Per step, of the float32 backward launches at ``shapes`` ((count, (b, s, f, c), biased) each), those the planner
+    gives the tf32x3 design and those it gives the staged or streaming 3xTF32 kernel, by kernel name."""
+    tf, st = {}, {}
+    for count, (b, s, f, c), biased in shapes:
+        plan = ta.temporal_plan(b * s, f, c, DIM_HEAD, HEADS, False, sms, True)
+        family = "attention" if plan["family"] == "dense" else plan["family"]
+        name = f"temporal_{family}{'_biased' if biased else ''}_bwd"
+        for want, route in ((tf, "tf32x3"), (st, ta.STAGED_3XTF32)):
+            if plan["route"] == route:
+                want[name] = want.get(name, 0) + count
+    return tf, st
 
 
 def design_since(before: dict, now: dict, name: str) -> str:
@@ -1065,7 +1110,8 @@ def backward_phase(torch, ta, sla) -> dict:
     fwd_err = {k: 0.0 for k in PER_FORWARD}  # the forward kernels at the training batch
     fwd_step = new_totals(("temporal_attention_fwd",))  # the dense forward's bf16 times per training step
     kv_f32 = new_totals(("sla_bwd_kv",))  # sla_bwd_kv in float32, what the fixed recipe hands it (one pass)
-    # the dense backward in float32 where it takes the tensor-core design (the fixed recipe's unbiased bottleneck)
+    # the dense backward in float32 where it takes a tensor-core design (3xTF32): the staged kernel up to c = 64,
+    # the tf32x3 chain above (the fixed recipe's unbiased bottleneck among them)
     tf32x3_f32 = new_totals(("temporal_attention_bwd",))
 
     def record_fwd(name, shape, dtype, err, tol, what="max-abs"):
@@ -1125,15 +1171,15 @@ def backward_phase(torch, ta, sla) -> dict:
             rows_n = b * s * f
             nbytes = elt * (3 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + 4 * (4 * c * hd + 3 * hd + c)
             flops = rows_n * (22 * c * hd + 12 * f * hd)
-            tf32x3 = route_counts(ta)["temporal_attention_bwd"][2] > before["temporal_attention_bwd"][2]
-            if timed or tf32x3:
+            now = route_counts(ta)["temporal_attention_bwd"]
+            tc3 = any(now[i] > before["temporal_attention_bwd"][i] for i in (2, 3))  # either 3xTF32 design
+            if timed or tc3:
                 ms = cuda_ms(torch, lambda: ta.temporal_attention_bwd(*args), 5, 1)
                 plain = cuda_ms(torch, lambda: ta.temporal_attention_bwd_plain(*args), 5, 1)
                 record("temporal_attention_bwd", (b, s, f, c), dtype_name, outs, count, ms, plain, nbytes, flops,
                        None if timed else tf32x3_f32["temporal_attention_bwd"], PEAK_BF16_FLOPS if timed else PEAK_F32_FLOPS)
-                if tf32x3:  # also at the tensor cores' 3xTF32 rate (results.json)
-                    b3, by3 = bound_ms(nbytes, flops, PEAK_TF32X3_FLOPS)
-                    rows[-1].update(bound_ms_3xtf32=b3, bound_by_3xtf32=by3, bound_share_3xtf32=b3 / ms)
+                if tc3:  # also at the tensor cores' 3xTF32 rate
+                    add_3xtf32_bound(rows[-1], tf32x3_f32["temporal_attention_bwd"], count, nbytes, flops)
             else:
                 record("temporal_attention_bwd", (b, s, f, c), dtype_name, outs, count)
             del x, g, got, want, outs
@@ -1202,7 +1248,9 @@ def blockwise_phase(torch, ta) -> dict:
     hd = HEADS * DIM_HEAD
     names = ("temporal_blockwise_fwd", "temporal_blockwise_bwd")
     rows, agg = [], new_totals(names)
+    agg_f32 = new_totals(names[1:])  # the float32 backward on the long clip's path shapes (3xTF32 designs)
     grad_names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def record(name, shape, dtype, count, row, err, ms=None, plain_ms=None, nbytes=0.0, flops=0.0):
         row = {"kernel": name, "shape": shape, "dtype": dtype, "per_step": count, **row}
@@ -1229,7 +1277,11 @@ def blockwise_phase(torch, ta) -> dict:
                   and ta.launches["temporal_attention_fwd"] == before["temporal_attention_fwd"],
                   f"f = {f} did not take the blockwise kernels: {ta.launches}")
             designs = {k: design_since(routes, route_counts(ta), k) for k in names}
-            check(not count or set(designs.values()) == {"staged"},
+            # the streaming kernels, but for the float32 backward the planner's 3xTF32 design (the streaming kernel
+            # up to c = 32, the tf32x3 chain above)
+            want_bwd = ROUTE_DESIGN[ta.temporal_plan(b * s, f, c, DIM_HEAD, HEADS, timed, sms, True)["route"]]
+            check(not count or designs == dict(zip(names, ("staged", "staged" if timed else want_bwd)))
+                  and want_bwd in ("staged", "staged-3xtf32", "3xtf32"),
                   f"the long clip's shape {shape} in {dtype_name} did not take the streaming kernels: {designs}")
             err = _max_abs(got, ta.temporal_attention_blockwise_plain(x, *w, HEADS, DIM_HEAD, kb))
             check(math.isfinite(err) and err <= TOL[dtype_name],
@@ -1256,7 +1308,20 @@ def blockwise_phase(torch, ta) -> dict:
                 fwd_row["vs_dense_plain"] = dense
                 bwd_row["vs_dense_oracle"] = rel_d
                 record(names[0], shape, dtype_name, count, fwd_row, err)
-                record(names[1], shape, dtype_name, count, bwd_row, err_b)
+                if count:  # the path's shapes: the float32 backward's time, bound at 67 and 495 / 3 TFLOP/s
+                    rows_n = b * s * f
+                    b_bytes = elt * (3 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c) + 4 * (4 * c * hd + 3 * hd + c)
+                    b_flops = rows_n * (22 * c * hd + 12 * f * hd)
+                    ms_b = cuda_ms(torch, lambda: ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD), 3, 1)
+                    pl_b = cuda_ms(torch, lambda: ta.temporal_attention_blockwise_bwd_plain(x, g, *w, HEADS, DIM_HEAD,
+                                                                                           kb), 3, 1)
+                    bwd_row = {"kernel": names[1], "shape": shape, "dtype": dtype_name, "per_step": count, **bwd_row}
+                    add_timing(bwd_row, agg_f32[names[1]], count, err_b, ms_b, pl_b, b_bytes, b_flops, PEAK_F32_FLOPS)
+                    add_3xtf32_bound(bwd_row, agg_f32[names[1]], count, b_bytes, b_flops)
+                    rows.append(bwd_row)
+                    print("  " + json.dumps(bwd_row), flush=True)
+                else:
+                    record(names[1], shape, dtype_name, count, bwd_row, err_b)
             else:
                 rows_n = b * s * f
                 f_bytes = elt * (2 * rows_n * c + 4 * c * hd) + 4 * (3 * hd + c)
@@ -1270,7 +1335,7 @@ def blockwise_phase(torch, ta) -> dict:
                 record(names[0], shape, dtype_name, count, fwd_row, err, ms_f, pl_f, f_bytes, f_flops)
                 record(names[1], shape, dtype_name, count, bwd_row, err_b, ms_b, pl_b, b_bytes, b_flops)
             del x, g, got, grads
-    return {"rows": rows, "per_step": agg}
+    return {"rows": rows, "per_step": agg, "f32_per_step": agg_f32}
 
 
 def biased_phase(torch, ta) -> dict:
@@ -1281,7 +1346,9 @@ def biased_phase(torch, ta) -> dict:
     the bf16 instantiation is part of the op and is held and timed too. Per shape: forward
     (the dense family at the sampling batch) and backward with dbias (at the training batch)
     against the family's plain versions, in f32 the blockwise pair also against the dense ones, and a zero
-    bias against the unbiased kernel, bit for bit.
+    bias against the unbiased kernel, bit for bit. The float32 backward takes the planner's 3xTF32 design (the
+    staged dense kernel up to c = 64, the streaming one up to c = 32, the tf32x3 chain above), also bounded at
+    the 3xTF32 rate.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1294,6 +1361,7 @@ def biased_phase(torch, ta) -> dict:
         return (rand(torch, (c, 3 * hd), 2, c ** -0.5, torch.float32), rand(torch, (3 * hd,), 3, 0.1, torch.float32),
                 rand(torch, (hd, c), 4, hd ** -0.5, torch.float32), rand(torch, (c,), 5, 0.1, torch.float32))
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = [("attention", n, sh, (B_TRAIN, *sh[1:])) for n, sh in BIASED_DENSE_SHAPES]
     shapes += [("blockwise", n, sh, sh) for n, sh in [*LONG_TEMPORAL_SHAPES, *EXTRA_BLOCKWISE_SHAPES]]
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -1357,8 +1425,10 @@ def biased_phase(torch, ta) -> dict:
             row = {"kernel": names[1], "shape": b_shape, "dtype": dtype_name, "per_step": count, "rel_err": rel,
                    "max_abs_err": err_b, "tol": BWD_TOL[dtype_name],
                    "design": design_since(routes, route_counts(ta), names[1])}
-            check(dense or not count or row["design"] == "staged",
-                  f"{names[1]} at the long clip's {b_shape} in {dtype_name} ran the {row['design']} design")
+            planned = ta.temporal_plan(b_shape[0] * b_shape[1], f, c, DIM_HEAD, HEADS, dtype_name == "bfloat16", sms,
+                                       True)["route"]
+            check(row["design"] == ROUTE_DESIGN[planned] and (dense or not count or planned != "simt"),
+                  f"{names[1]} at {b_shape} in {dtype_name} ran the {row['design']} design, planned {planned}")
             if not dense and dtype_name == "float32":
                 want_d = ta.temporal_attention_bwd_plain(x, g, *w, HEADS, DIM_HEAD, pos_bias=bias)
                 row["vs_dense_oracle"] = {k: _rel_err(a, v) for k, a, v in zip(grad_names, grads, want_d)}
@@ -1376,6 +1446,8 @@ def biased_phase(torch, ta) -> dict:
             ms = cuda_ms(torch, lambda: ta.temporal_attention_bwd(x, g, *w, HEADS, DIM_HEAD, pos_bias=bias), 3, 1)
             pl = cuda_ms(torch, lambda: plain_b(x, g, *w, HEADS, DIM_HEAD, *kb, pos_bias=bias), 3, 1)
             add_timing(row, agg[dtype_name][names[1]], count, err_b, ms, pl, nbytes, flops, peak)
+            if "3xtf32" in row["design"]:
+                add_3xtf32_bound(row, agg[dtype_name][names[1]], count, nbytes, flops)
             rows.append(row)
             print("  " + json.dumps(row), flush=True)
             del x, g, grads
@@ -1839,9 +1911,10 @@ def _seconds_per_step(trainer, warmup: int = 5) -> tuple[float, float]:
 
 
 def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | None = None,
-                per_step: dict = PER_STEP, ddim_steps: int = 10) -> dict:
+                per_step: dict = PER_STEP, ddim_steps: int = 10, f32_bwd: tuple = ({}, {})) -> dict:
     """The flagship recipe (with ``unet`` overrides) through the CLIs: TRAIN_STEPS steps at batch 8, a resume, the
-    same steps through the plain modules, then DDIM from the trained checkpoint."""
+    same steps through the plain modules, then DDIM from the trained checkpoint. ``f32_bwd``: per step, the float32
+    backward launches of the tf32x3 design and of the staged 3xTF32 kernel (``f32_bwd_routes``)."""
     import yaml
     from PIL import Image
 
@@ -1859,11 +1932,12 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
     torch.cuda.reset_peak_memory_stats()
     tr = train.main(["--config", str(fused_cfg), "--device", "cuda"])
     counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
-    tf32x3 = nonzero(ops.tf32x3_launch_counts())
+    tf32x3, staged3 = nonzero(ops.tf32x3_launch_counts()), nonzero(ops.staged_tf32x3_launch_counts())
     check_staged(counts, staged, f"{name} phase")
-    # in fixed math the one unbiased dense backward a step is the bottleneck's, in float32: the tensor-core design
-    want_tf32x3 = {} if unet is None else {"temporal_attention_bwd": counts.get("temporal_attention_bwd", 0)}
-    check(tf32x3 == want_tf32x3, f"{name} phase: 3xtf32 launches {tf32x3}, expected {want_tf32x3}")
+    # in fixed math every temporal backward is float32: each launch took the design the planner gave its shape
+    for got, want, what in ((tf32x3, f32_bwd[0], "3xtf32"), (staged3, f32_bwd[1], "staged-3xtf32")):
+        want = {k: n * TRAIN_STEPS for k, n in want.items()}
+        check(got == want, f"{name} phase: {what} launches {got}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
     losses = tr.loss_trace.tolist()
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
@@ -1920,8 +1994,8 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
         check(img.n_frames == d["num_frames"] and img.size == (d["image_size"], d["image_size"]),
               f"{p.name}: {img.n_frames} frames of {img.size}")
     return {"steps": TRAIN_STEPS, "batch": B_TRAIN, "losses": losses, "first5": first, "last5": last,
-            "launches": counts, "staged_launches": staged, "tf32x3_launches": tf32x3, "checkpoints": ckpts,
-            "seconds_per_step": sps,
+            "launches": counts, "staged_launches": staged, "tf32x3_launches": tf32x3,
+            "staged_tf32x3_launches": staged3, "checkpoints": ckpts, "seconds_per_step": sps,
             "peak_memory": peak,
             "checkpoint_write_seconds": save_s, "plain_checkpoint_write_seconds": plain_save_s,
             "loss_gap_vs_plain": loss_gap,
@@ -2494,9 +2568,10 @@ def _check_trace(tr, flush: int, per_step: int) -> dict:
 
 
 def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: dict | None = None,
-                     per_step: dict = LONG_PER_STEP, variants=("kernels", "remat_off", "plain")) -> dict:
+                     per_step: dict = LONG_PER_STEP, variants=("kernels", "remat_off", "plain"),
+                     f32_bwd: tuple = ({}, {})) -> dict:
     """The long-clip recipe (with ``unet`` overrides) through the CLIs: 12 steps at batch 1 on 128-frame
-    clips by each of ``variants``, then DDIM-50."""
+    clips by each of ``variants``, then DDIM-50. ``f32_bwd`` as for ``train_phase``."""
     import yaml
     from PIL import Image
 
@@ -2524,14 +2599,17 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
         torch.cuda.reset_peak_memory_stats()
         tr = train.main(["--config", str(cfg), "--device", "cuda"])
         counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
-        tf32x3 = nonzero(ops.tf32x3_launch_counts())
+        tf32x3, staged3 = nonzero(ops.tf32x3_launch_counts()), nonzero(ops.staged_tf32x3_launch_counts())
         if variant != "plain":
             check_staged(counts, staged, f"{name} phase, {variant}")
+            for got, want, what in ((tf32x3, f32_bwd[0], "3xtf32"), (staged3, f32_bwd[1], "staged-3xtf32")):
+                want = {k: n * LONG_STEPS for k, n in want.items()}
+                check(got == want, f"{name} phase, {variant}: {what} launches {got}, expected {want}")
         losses = tr.loss_trace.tolist()
         check(len(losses) == LONG_STEPS and all(math.isfinite(v) for v in losses), f"{variant}: losses {losses}")
         sps, save_s = _seconds_per_step(tr, warmup=3)
         runs[variant] = {"losses": losses, "launches": counts, "staged_launches": staged, "tf32x3_launches": tf32x3,
-                         "seconds_per_step": sps,
+                         "staged_tf32x3_launches": staged3, "seconds_per_step": sps,
                          "checkpoint_write_seconds": save_s, "peak_memory": torch.cuda.max_memory_allocated(),
                          "checkpoints": sorted(int(p.stem[5:]) for p in tr.checkpoint_dir_path.glob("step_*.pt"))}
         if variant == "kernels":
@@ -2574,6 +2652,7 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
             "freeze_schedule_buffers": raw["trainer"].get("freeze_schedule_buffers", False),
             "first4": first, "last4": last, "runs": runs, "loss_gaps_vs_kernels": gaps,
             "launches": k["launches"], "staged_launches": k["staged_launches"], "tf32x3_launches": k["tf32x3_launches"],
+            "staged_tf32x3_launches": k["staged_tf32x3_launches"],
             "sample": {"steps": res["steps"], "seconds": res["seconds"],
                        "seconds_per_step": res["seconds"] / res["steps"], "launches": s_counts,
                        "max_memory_allocated": torch.cuda.max_memory_allocated(), "gifs": len(res["paths"])}}
@@ -3557,28 +3636,33 @@ def dit_plan(torch, ta, raw: dict, batch: int) -> dict:
     return plan
 
 
-def dit_launches(plan: dict, times: int = 1, ways=("fwd", "bwd")) -> tuple[dict, dict, dict]:
+def dit_launches(plan: dict, times: int = 1, ways=("fwd", "bwd")) -> tuple[dict, dict, dict, dict]:
     """The launches ``times`` forwards (and backwards) of the plan's DiT make, and of them those of a staged or
-    streaming route and those of the float32 tensor-core backward."""
-    counts, staged, tf32x3 = {}, {}, {}
+    streaming route, those of the float32 tensor-core backward of csrc/temporal_tf32x3.cu, and those of the staged
+    or streaming float32 backward in 3xTF32."""
+    counts, staged, tf32x3, staged3 = {}, {}, {}, {}
     for row in plan.values():
         for way in ways:
-            name, n = row[way]["kernel"], row["depth"] * times
+            name, n, route = row[way]["kernel"], row["depth"] * times, row[way]["route"]
             counts[name] = counts.get(name, 0) + n
-            staged[name] = staged.get(name, 0) + n * (row[way]["route"] == "staged")
-            tf32x3[name] = tf32x3.get(name, 0) + n * (row[way]["route"] == "tf32x3")
-    return counts, staged, tf32x3
+            staged[name] = staged.get(name, 0) + n * (route in ("staged", "staged-3xtf32"))
+            tf32x3[name] = tf32x3.get(name, 0) + n * (route == "tf32x3")
+            staged3[name] = staged3.get(name, 0) + n * (route == "staged-3xtf32")
+    return counts, staged, tf32x3, staged3
 
 
 def check_dit_launches(ops, plan: dict, where: str, times: int = 1, ways=("fwd", "bwd")) -> dict:
     """Since the last reset: exactly the plan's launches, each of the route the planner gave it."""
     counts, staged, tf32x3 = nonzero(ops.launch_counts()), ops.staged_launch_counts(), ops.tf32x3_launch_counts()
-    want, want_staged, want_tf32x3 = dit_launches(plan, times, ways)
+    staged3 = ops.staged_tf32x3_launch_counts()
+    want, want_staged, want_tf32x3, want_staged3 = dit_launches(plan, times, ways)
     check(counts == want, f"{where}: launches {counts}, expected {want}")
     got_staged = {k: staged.get(k, 0) for k in want}
     check(got_staged == want_staged, f"{where}: staged launches {got_staged}, the planner's {want_staged}")
     got_tf32x3 = {k: tf32x3.get(k, 0) for k in want}
     check(got_tf32x3 == want_tf32x3, f"{where}: 3xtf32 launches {got_tf32x3}, the planner's {want_tf32x3}")
+    got_staged3 = {k: staged3.get(k, 0) for k in want}
+    check(got_staged3 == want_staged3, f"{where}: staged-3xtf32 launches {got_staged3}, the planner's {want_staged3}")
     return counts
 
 
@@ -3624,8 +3708,9 @@ def dit_kernel_phase(torch, ta) -> dict:
                 name = p[way]["kernel"]
                 launched = {k: now[k][0] - before[k][0] for k in now if now[k][0] != before[k][0]}
                 check(launched.get(name) == 1, f"DiT {recipe} {att} {way}: launched {launched}, planned {name}")
-                check(now[name][1] - before[name][1] == (p[way]["route"] == "staged")
-                      and now[name][2] - before[name][2] == (p[way]["route"] == "tf32x3"),
+                check(now[name][1] - before[name][1] == (p[way]["route"] in ("staged", "staged-3xtf32"))
+                      and now[name][2] - before[name][2] == (p[way]["route"] == "tf32x3")
+                      and now[name][3] - before[name][3] == (p[way]["route"] == "staged-3xtf32"),
                       f"DiT {recipe} {att} {way}: the C entry's route is not the planner's {p[way]['route']}")
             err = _max_abs(got, plain_f())
             check(math.isfinite(err) and err <= TOL["float32"],
@@ -3656,10 +3741,8 @@ def dit_kernel_phase(torch, ta) -> dict:
                           else {"rel_err": rel, "max_abs_err": e, "tol": BWD_TOL["float32"]})}
                 add_timing(row, agg.setdefault(name, new_totals((name,))[name]), count, e, ms, plain_ms, nbytes,
                            flops, PEAK_F32_FLOPS)
-                if p[way]["route"] == "tf32x3":  # also at the tensor cores' 3xTF32 rate, so no share reads over 1
-                    b3, by3 = bound_ms(nbytes, flops, PEAK_TF32X3_FLOPS)
-                    row.update(bound_ms_3xtf32=b3, bound_by_3xtf32=by3, bound_share_3xtf32=b3 / ms)
-                    agg[name]["bound_ms_3xtf32"] = count * b3
+                if p[way]["route"] in ("tf32x3", "staged-3xtf32"):  # also at the 3xTF32 rate
+                    add_3xtf32_bound(row, agg[name], count, nbytes, flops)
                 agg[name].update(route=p[way]["route"], shape=shape)
                 rows.append(row)
                 print("  " + json.dumps(row), flush=True)
@@ -4280,8 +4363,8 @@ def dit_guidance_phase(torch, ops, ta, sample, dit_cond) -> dict:
                                  str(SCRATCH / "dit" / "guidance"), "--device", "cuda"])
     counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
     tf32x3 = ops.tf32x3_launch_counts()
-    fwd, fwd_staged, _ = dit_launches(plan, 3 * DIT_GUIDANCE_STEPS, ("fwd",))
-    bwd, bwd_staged, bwd_tf32x3 = dit_launches(plan, DIT_GUIDANCE_STEPS, ("bwd",))
+    fwd, fwd_staged, _, _ = dit_launches(plan, 3 * DIT_GUIDANCE_STEPS, ("fwd",))
+    bwd, bwd_staged, bwd_tf32x3, _ = dit_launches(plan, DIT_GUIDANCE_STEPS, ("bwd",))
     check(counts == {**fwd, **bwd}, f"DiT guidance: launches {counts}, expected {fwd} and {bwd}")
     check({k: staged.get(k, 0) for k in counts} == {**fwd_staged, **bwd_staged},
           f"DiT guidance: staged launches {staged}, the planner's {fwd_staged} and {bwd_staged}")
@@ -4404,7 +4487,7 @@ def main(argv: list[str]) -> int:
         timed("cfg", cfg_phase, torch, ops, sample, cond)
     blk = timed("blockwise", blockwise_phase, torch, ta,
                 show=lambda r: {"checks": len(r["rows"]), "tolerance": {"forward": TOL, "backward": BWD_TOL},
-                                **per_step(r, "per_step")})
+                                **per_step(r, "per_step"), "float32_per_step": per_step(r, "f32_per_step")["f32_per_step"]})
     timed("long sla", long_sla_phase, torch, sla,
           show=lambda r: {"checks": len(r["rows"]), "tolerance": TOL, "relative": r["rel_err"],
                           "per_step": {dt: sla_totals(a) for dt, a in r["per_step"].items()}})
@@ -4431,15 +4514,22 @@ def main(argv: list[str]) -> int:
     timed("fixed unet", unet_phase, torch, load_config, build_models, unet=FIXED)
     timed("fixed grads", grads_phase, torch, ops, ta, sla, load_config, build_models, unet=FIXED,
           per_step=FIXED_PER_STEP, show=brief)
+    # The fixed recipes' float32 backwards a step: the biased ones over the frames and the unbiased bottleneck.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fixed_f32 = f32_bwd_routes(ta, [*((n, (B_TRAIN, *sh[1:]), True) for n, sh in BIASED_DENSE_SHAPES if n),
+                                    (1, (B_TRAIN, *MID_SPATIAL[1:]), False)], sms)
+    long_fixed_f32 = f32_bwd_routes(ta, [*((n, sh, True) for n, sh in LONG_TEMPORAL_SHAPES), (1, LONG_DENSE_SHAPE, False)],
+                                    sms)
+    results["fixed_f32_backward_routes"] = {"fixed": fixed_f32, "long_fixed": long_fixed_f32}
     fixed_trained = timed("fixed train", train_phase, torch, ops, train, sample, name="fixed_train", unet=FIXED,
-                          per_step=FIXED_PER_STEP, ddim_steps=50)
+                          per_step=FIXED_PER_STEP, ddim_steps=50, f32_bwd=fixed_f32)
     timed("long fixed unet", unet_phase, torch, load_config, build_models, config_path=LONG_CONFIG, batch=1,
           unet=FIXED)
     timed("long fixed grads", grads_phase, torch, ops, ta, sla, load_config, build_models, config_path=LONG_CONFIG,
           batch=1, long_clip=True, unet=FIXED, per_step=FIXED_LONG_PER_STEP, show=brief)
     long_fixed_trained = timed("long fixed train", long_train_phase, torch, ops, train, sample,
                                name="long_fixed_train", unet=FIXED, per_step=FIXED_LONG_PER_STEP,
-                               variants=("kernels", "plain"))
+                               variants=("kernels", "plain"), f32_bwd=long_fixed_f32)
 
     # The sequence-parallel recipe: its cross-attention kernels, then 4 ranks training on the one card.
     cross = timed("cross", cross_phase, torch, xa, ta,
@@ -4509,7 +4599,8 @@ def main(argv: list[str]) -> int:
 
     def from_path(name, path):
         launches[name] = path["launches"][name]
-        designs[name] = design(launches[name], path.get("staged_launches", {}).get(name, 0))
+        designs[name] = design(launches[name], *(path.get(k, {}).get(name, 0) for k in (
+            "staged_launches", "tf32x3_launches", "staged_tf32x3_launches")))
 
     for name in PER_STEP:
         a = dict((kern["per_forward"] if name in PER_FORWARD else bwd["per_step"])[name])
@@ -4554,11 +4645,25 @@ def main(argv: list[str]) -> int:
     def tf32x3_field(name):
         return {path: n[name] for path, n in tf32x3_paths.items() if n.get(name)}
 
+    # Where the staged dense or streaming float32 backward ran in 3xTF32 (route "staged-3xtf32"): the fixed recipes'
+    # biased backwards at c = 32 (and the dense one at c = 64), as the measured rule gives them.
+    staged3_paths = {"fixed_train": fixed_trained["staged_tf32x3_launches"],
+                     "long_fixed_train": long_fixed_trained["staged_tf32x3_launches"],
+                     "d1_train": dit_launches(dit_train["plan"], DIT_STEPS)[3], "d2_step": dit_launches(dit_d2["plan"])[3]}
+
+    def staged3_field(name):
+        return {path: n[name] for path, n in staged3_paths.items() if n.get(name)}
+
     for name in ("temporal_attention_bwd", "temporal_blockwise_bwd", "temporal_wide_bwd"):
         check(tf32x3_field(name), f"{name}: the float32 tensor-core backward never ran on a driven path")
+    for name in ("temporal_attention_biased_bwd", "temporal_blockwise_biased_bwd"):
+        check(staged3_field(name), f"{name}: the staged float32 backward in 3xTF32 never ran on a driven path")
     kernels_line = [{
         "name": name, "route": "cuda",
-        "design": designs[name] + ("; float32: 3xtf32" if tf32x3_field(name) else ""),
+        "design": designs[name] + "".join(f"; float32: {d}" for d, field in (("staged-3xtf32", staged3_field),
+                                                                           ("3xtf32", tf32x3_field)) if field(name)
+                                          and d not in designs[name]),
+        **({"staged_tf32x3_launches": staged3_field(name)} if staged3_field(name) else {}),
         **({"tf32x3_launches": tf32x3_field(name),
             "tf32x3_source": "video_diffusion_nnx_tpu_torch/csrc/temporal_tf32x3.cu"} if tf32x3_field(name) else {}),
         "source": KERNELS[name]["source"], "replaces": KERNELS[name]["replaces"],

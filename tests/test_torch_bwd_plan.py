@@ -55,19 +55,21 @@ def test_temporal_plan_fits_and_pads(shape, bf16):
     tokens = b * s
     elt = 2 if bf16 else 4
     plan = ta.bwd_plan(tokens, f, c, DIM, HEADS, bf16, SMS)
-    # every flagship and long-clip shape takes the tensor cores in bf16; in float32 the f = 64, c = 256
-    # column is too wide for the staged tile and takes the float32 tensor-core design (csrc/temporal_tf32x3.cu)
-    assert plan["route"] == ("tf32x3" if not bf16 and (f, c) == (64, 256) else "staged")
+    # every flagship and long-clip shape takes the tensor cores in bf16; in float32 the staged kernel (its products
+    # in 3xTF32) up to c = 64, the measured rule, and wider columns (the f = 64, c = 256 one too wide for the staged
+    # tile) the float32 tensor-core design of csrc/temporal_tf32x3.cu
+    assert plan["route"] == ("staged" if bf16 else "tf32x3" if c > 64 else ta.STAGED_3XTF32)
     assert plan["smem"] <= SMEM_MAX
     if plan["route"] == "tf32x3":  # one (token, head) per CTA of the attention core; no tile of tokens
         assert plan == ta.tf32x3_plan(tokens, f, c, DIM, HEADS, SMS) and plan["grid"] == tokens
         return
     assert 1 <= plan["bt"] <= 64
-    if plan["route"] == "staged":
+    if plan["route"] in ("staged", ta.STAGED_3XTF32):
         assert plan["rows_padded"] % 16 == 0 and plan["rows_padded"] >= plan["rows"] == plan["bt"] * f
         assert plan["smem"] == ta._tc_bwd_bytes(plan["bt"], f, c, DIM, elt)
     total = c * 3 * HEADS * DIM + 3 * HEADS * DIM + HEADS * DIM * c + c
-    assert plan["grid"] * 4 * total <= ta._WORKSPACE_MAX
+    cap = ta._F32_WORKSPACE_MAX if plan["route"] == ta.STAGED_3XTF32 else ta._WORKSPACE_MAX
+    assert plan["grid"] * 4 * total <= cap
     assert plan["grid"] * 4 * HEADS * f * f <= ta._DBIAS_WORKSPACE_MAX
     assert plan["grid"] <= -(-tokens // plan["bt"]) and plan["grid"] <= 2 * SMS
     per_sm = 2 if 2 * (plan["smem"] + 1024) <= 228 * 1024 and (bf16 or plan["route"] == "simt") else 1
@@ -89,12 +91,14 @@ def test_temporal_plan_raises_where_the_old_tile_raised(f, c, dim, bf16):
     plan = ta.bwd_plan(16, f, c, dim, 2, bf16, SMS)
     assert plan["smem"] <= SMEM_MAX
     # the wide shapes keep the CUDA-core kernel in bf16 and take the float32 tensor-core design in float32
-    # (head dims up to 64); the C launchers pick the route by the same rule
+    # (head dims up to 64), which also takes float32 columns over 64 wide (the measured rule); the C launchers pick
+    # the route by the same rules
     elt = 2 if bf16 else 4
     staged = ta._tc_bwd_fits(1, f, c, dim, elt)
-    assert plan["route"] == ("staged" if staged else "tf32x3" if not bf16 and ta._tf32x3_fits(f, dim) else "simt")
+    tf = not bf16 and ta._tf32x3_fits(f, dim) and (not staged or c > 64)
+    assert plan["route"] == ("tf32x3" if tf else ("staged" if bf16 else ta.STAGED_3XTF32) if staged else "simt")
     if plan["route"] != "tf32x3":
-        assert (plan["route"] == "staged") == ta._tc_bwd_fits(plan["bt"], f, c, dim, elt)
+        assert (plan["route"] != "simt") == ta._tc_bwd_fits(plan["bt"], f, c, dim, elt)
 
 
 def test_temporal_plan_spreads_the_flagship_top_level():

@@ -11,6 +11,7 @@ f32 (sums in another order), 0.02 in bf16 (an intermediate rounded to bf16
 may land one ulp apart when its float32 sum was taken in another order).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from video_diffusion_nnx_tpu_torch import ops
+from video_diffusion_nnx_tpu_torch.ops import _build
 from video_diffusion_nnx_tpu_torch.ops import spatial_linear_attention as sla
 from video_diffusion_nnx_tpu_torch.ops import temporal_attention as ta
 
@@ -826,15 +828,18 @@ def test_streaming_blockwise_kernels_match_plain(device, f, c, dtype, bias):
     kw = {"pos_bias": pos_bias}
     tag = "_biased" if bias else ""
     routes = [ta.temporal_plan(3, f, c, 32, 8, dtype == torch.bfloat16, _sms(), bwd)["route"] for bwd in (False, True)]
-    if f == 128:  # every width of the long clip takes the streaming kernels, in either type
-        assert routes == ["staged", "staged"]
+    if f == 128:  # every width of the long clip takes the streaming kernels, in either type, but the float32 backward
+        # (its products and attention fragments in 3xTF32) only up to c = 32, the measured rule; wider, tf32x3
+        f32_bwd = ta.STAGED_3XTF32 if c <= 32 else "tf32x3"
+        assert routes == ["staged", "staged" if dtype == torch.bfloat16 else f32_bwd]
     ops.reset_launch_counts()
     got = ta._block(x, *w, pos_bias, 8, 32)
     grads = ta.temporal_attention_bwd(x, g, *w, 8, 32, **kw)
     torch.cuda.synchronize()
     names = (f"temporal_blockwise{tag}_fwd", f"temporal_blockwise{tag}_bwd")
     assert {k: v for k, v in ops.launch_counts().items() if v} == {n: 1 for n in names}
-    assert [ops.staged_launch_counts()[n] for n in names] == [r == "staged" for r in routes]
+    assert [ops.staged_launch_counts()[n] for n in names] == [r in ("staged", ta.STAGED_3XTF32) for r in routes]
+    assert [ops.staged_tf32x3_launch_counts()[n] for n in names] == [r == ta.STAGED_3XTF32 for r in routes]
     want = ta.temporal_attention_blockwise_plain(x, *w, 8, 32, ta.KV_BLOCK, **kw)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     want_grads = ta.temporal_attention_blockwise_bwd_plain(x, g, *w, 8, 32, ta.KV_BLOCK, **kw)
@@ -1117,9 +1122,11 @@ def test_dit_attention_shapes_match_plain_in_float32(device, name):
     torch.cuda.synchronize()
     names = [f"temporal_{family}_fwd", f"temporal_{family}_bwd"]
     assert {k: v for k, v in ops.launch_counts().items() if v} == {n: 1 for n in names}
-    assert [ops.staged_launch_counts()[n] for n in names] == [r == "staged" for r in routes]
-    # every backward but D1's temporal (whose staged tile fits) takes the float32 tensor-core design
-    assert routes[1] == ("staged" if name == "d1_temporal" else "tf32x3")
+    assert [ops.staged_launch_counts()[n] for n in names] == [r in ("staged", ta.STAGED_3XTF32) for r in routes]
+    # every backward takes the float32 tensor-core design of csrc/temporal_tf32x3.cu; D1's temporal one (whose
+    # staged tile fits) by the measured rule (c = 256 > 64)
+    assert routes[1] == "tf32x3"
+    assert [ops.staged_tf32x3_launch_counts()[n] for n in names] == [r == ta.STAGED_3XTF32 for r in routes]
     assert [ops.tf32x3_launch_counts()[n] for n in names] == [r == "tf32x3" for r in routes]
     if family == "blockwise":
         want = ta.temporal_attention_blockwise_plain(x, *w, heads, dim, ta.KV_BLOCK)
@@ -1316,9 +1323,10 @@ def test_zero_graft_is_bit_equal_to_the_teacher_on_the_card(device, hashed_text)
 
 
 # The float32 tensor-core backward (csrc/temporal_tf32x3.cu: 3xTF32 GEMMs and a per-(token, head) attention
-# core), which both families take in float32 where the staged dense tile or the streaming plan does not fit: at
-# D1's, D2's and the fixed flagship's shapes, and at edges (f = 10, 17, 64, 145, 256 and the streaming plan's
-# last length, 144; widths that are not multiples of 4 or of a tile; head dims 20, 32 and 64), biased too. Each
+# core), which both families take in float32 where the staged dense tile or the streaming plan does not fit, or
+# where the measured rule gives them the shape (c over 64 dense, over 32 streaming): at D1's, D2's and the fixed
+# flagship's shapes, and at edges (f = 10, 17, 64, 145, 256, and 144 at c = 256, which the streaming plan holds;
+# widths that are not multiples of 4 or of a tile; head dims 20, 32 and 64), biased too. Each
 # output within the float32 gate of its plain version, the route and the launch counts the planner's, two runs
 # bit-equal.
 TF32X3_SHAPES = {
@@ -1339,7 +1347,8 @@ def test_tf32x3_backward_matches_plain(device, name, bias):
     g = _rand(shape, 5, 0.1, device)
     pos_bias = _rand((heads, f, f), 6, 0.5, device) if bias else None
     plan = ta.temporal_plan(b * s, f, c, dim, heads, False, _sms(), True)
-    assert plan["route"] == ("staged" if name == "f144_streaming" else "tf32x3")
+    # f = 144 at c = 256 fits the streaming plan, and the measured rule gives it to this design (c > 32)
+    assert plan["route"] == "tf32x3"
     kernel = f"temporal_{'attention' if f <= ta.MAX_FRAMES else 'blockwise'}{'_biased' if bias else ''}_bwd"
     ops.reset_launch_counts()
     grads = ta.temporal_attention_bwd(x, g, *w, heads, dim, pos_bias=pos_bias)
@@ -1377,3 +1386,97 @@ def test_first_designs_still_take_their_shapes(device, dtype, shape, heads, dim)
             else ta.temporal_attention_blockwise_bwd_plain(x, g, *w, heads, dim, ta.KV_BLOCK))
     for k, a, v in zip(GRADS6, grads, want):
         assert _rel_err(a, v) <= BWD_TOL[dtype], (k, _rel_err(a, v))
+
+
+# The float32 staged dense backward and the float32 streaming backward, whose products (and the streaming kernel's
+# attention fragments) run on the tensor cores in split-precision TF32 (route "staged-3xtf32", C route 3): D1's
+# temporal backward, a fixed flagship level and the fixed long clip's top and bottleneck levels, and edges (f = 1,
+# 10, 16, 17, 64 dense; 65, 128, 144, 160 streaming, the last the float32 plan's longest; widths that are not
+# multiples of 16 or of the streaming chunk; head dims 16, 20 and 32), biased and not. Where the measured rule
+# (`_f32_takes_tf32x3`: dense up to c = 64, streaming up to c = 32) gives the shape to tf32x3, the planner says so
+# and the C entry refuses the kernel; a build with VDT_ANY_F32_ROUTE defined, a measurement's control, leaves that
+# check out, and the kernel runs there all the same. Each output within the float32 gate of its plain version, dbias included; the launch
+# counts the route's; two runs bit-equal.
+STAGED3_SHAPES = {
+    "d1_temporal": ((8, 256, 16, 256), 8, 32), "fixed_c256": ((8, 64, 10, 256), 8, 32),
+    "long_top": ((1, 1024, 128, 32), 8, 32), "long_c256": ((1, 64, 128, 256), 8, 32),
+    "f1": ((1, 5, 1, 40), 2, 16), "f10_c24": ((2, 3, 10, 24), 2, 16), "f16_c36": ((1, 4, 16, 36), 2, 32),
+    "f17_c52_d20": ((1, 3, 17, 52), 3, 20), "f64_c40": ((1, 2, 64, 40), 2, 32), "f65_c48": ((1, 3, 65, 48), 2, 32),
+    "f128_c72": ((1, 2, 128, 72), 2, 32), "f144_c100": ((1, 2, 144, 100), 2, 32), "f160_c40": ((1, 2, 160, 40), 2, 32),
+}
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("name", list(STAGED3_SHAPES))
+def test_staged_3xtf32_backward_matches_plain(device, monkeypatch, name, bias):
+    shape, heads, dim = STAGED3_SHAPES[name]
+    b, s, f, c = shape
+    x, *w = _temporal_args(shape, device, torch.float32, heads, dim)
+    g = _rand(shape, 5, 0.1, device)
+    pos_bias = _rand((heads, f, f), 6, 0.5, device) if bias else None
+    plan = ta.temporal_plan(b * s, f, c, dim, heads, False, _sms(), True)
+    off_rule = ta._f32_takes_tf32x3(f, c, dim)
+    assert plan["route"] == ("tf32x3" if off_rule else ta.STAGED_3XTF32)
+    kernel = f"temporal_{'attention' if f <= ta.MAX_FRAMES else 'blockwise'}{'_biased' if bias else ''}_bwd"
+    if off_rule:  # the C entry holds the planner's rule
+        monkeypatch.setattr(ta, "_f32_takes_tf32x3", lambda *_: False)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ta.temporal_attention_bwd(x, g, *w, heads, dim, pos_bias=pos_bias)
+        monkeypatch.setattr(_build, "library", functools.partial(_build.library, defines=("VDT_ANY_F32_ROUTE",)))
+    plan = ta.temporal_plan(b * s, f, c, dim, heads, False, _sms(), True)
+    assert plan["route"] == ta.STAGED_3XTF32
+    assert plan["family"] == ("dense" if f <= ta.MAX_FRAMES else "blockwise")
+    ops.reset_launch_counts()
+    grads = ta.temporal_attention_bwd(x, g, *w, heads, dim, pos_bias=pos_bias)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {kernel: 1}
+    assert ops.staged_launch_counts()[kernel] == ops.staged_tf32x3_launch_counts()[kernel] == 1
+    assert ops.tf32x3_launch_counts()[kernel] == 0
+    want = (ta.temporal_attention_bwd_plain(x, g, *w, heads, dim, pos_bias=pos_bias) if f <= ta.MAX_FRAMES
+            else ta.temporal_attention_blockwise_bwd_plain(x, g, *w, heads, dim, ta.KV_BLOCK, pos_bias=pos_bias))
+    assert len(grads) == len(want)
+    for k, a, v in zip(GRADS6, grads, want):
+        assert a.shape == v.shape and a.dtype == v.dtype, k
+        assert _rel_err(a, v) <= BWD_TOL[torch.float32], (k, _rel_err(a, v))
+    again = ta.temporal_attention_bwd(x, g, *w, heads, dim, pos_bias=pos_bias)
+    assert all(torch.equal(u, v) for u, v in zip(grads, again))
+
+
+# A NaN in the input or in the incoming gradient comes out of both 3xTF32 designs where it comes out of the plain
+# version, in every output, dbias included: the split's low part keeps a NaN. The NaNs are the GPU's own
+# (0x7fffffff, what 0 / 0 gives there, and its negation), whose high part the rounding's integer add carries into -0.
+NAN_SHAPES = {
+    "dense_staged": ((2, 3, 10, 24), 2, 16), "stream_staged": ((1, 3, 72, 32), 2, 16),
+    "dense_tf32x3": ((2, 3, 10, 96), 2, 32), "stream_tf32x3": ((1, 2, 72, 48), 2, 32),
+}
+
+
+@pytest.mark.parametrize("where", ["x", "g"])
+@pytest.mark.parametrize("name", list(NAN_SHAPES))
+def test_3xtf32_backwards_keep_nan(device, name, where):
+    shape, heads, dim = NAN_SHAPES[name]
+    b, s, f, c = shape
+    x, *w = _temporal_args(shape, device, torch.float32, heads, dim)
+    g = _rand(shape, 5, 0.1, device)
+    pos_bias = _rand((heads, f, f), 6, 0.5, device)
+    nan = torch.tensor(0x7FFFFFFF if where == "x" else -1, dtype=torch.int32, device=device).view(torch.float32)
+    if where == "x":
+        x[0, 1, 3, 5] = nan
+    else:
+        g[b - 1, s - 1, 2, 1] = nan
+    route = ta.STAGED_3XTF32 if name.endswith("staged") else "tf32x3"
+    assert ta.temporal_plan(b * s, f, c, dim, heads, False, _sms(), True)["route"] == route
+    ops.reset_launch_counts()
+    grads = ta.temporal_attention_bwd(x, g, *w, heads, dim, pos_bias=pos_bias)
+    torch.cuda.synchronize()
+    kernel = f"temporal_{'attention' if f <= ta.MAX_FRAMES else 'blockwise'}_biased_bwd"
+    counts = ops.staged_tf32x3_launch_counts() if route == ta.STAGED_3XTF32 else ops.tf32x3_launch_counts()
+    assert ops.launch_counts()[kernel] == counts[kernel] == 1
+    want = (ta.temporal_attention_bwd_plain(x, g, *w, heads, dim, pos_bias=pos_bias) if f <= ta.MAX_FRAMES
+            else ta.temporal_attention_blockwise_bwd_plain(x, g, *w, heads, dim, ta.KV_BLOCK, pos_bias=pos_bias))
+    assert torch.isnan(grads[0]).any() and torch.isnan(grads[1]).any()
+    for k, a, v in zip(GRADS6, grads, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(v)), (k, int(torch.isnan(a).sum()), int(torch.isnan(v).sum()))
+        keep = ~torch.isnan(v)
+        if keep.any():
+            assert _rel_err(a[keep], v[keep]) <= BWD_TOL[torch.float32], (k, _rel_err(a[keep], v[keep]))

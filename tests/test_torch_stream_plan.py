@@ -66,7 +66,12 @@ def test_every_long_clip_and_wide_shape_takes_the_streaming_kernel(shape, bf16, 
     if f <= 64 and backward and not bf16:  # the float32 wide backward takes the tensor-core design
         assert plan == {"family": "wide", **ta.tf32x3_plan(tokens, f, c, DIM, HEADS, SMS)}
         return
-    assert plan["family"] == ("blockwise" if f > 64 else "wide") and plan["route"] == "staged"
+    f32_bwd = backward and not bf16
+    if f32_bwd and c > 32:  # the measured rule: the float32 streaming backward up to c = 32, tf32x3 above
+        assert plan == {"family": "blockwise", **ta.tf32x3_plan(tokens, f, c, DIM, HEADS, SMS)}
+        return
+    assert plan["family"] == ("blockwise" if f > 64 else "wide")
+    assert plan["route"] == (ta.STAGED_3XTF32 if f32_bwd else "staged")
     assert plan == {**plan, **_first_fit(f, c, DIM, elt, backward, f <= 64)}
     assert plan["smem"] <= ta._SMEM_MAX and plan["smem"] % 16 == 0
     assert plan["ck"] % 16 == 0 and plan["chunks"] == -(-ta._round16(c) // plan["ck"])
@@ -76,7 +81,7 @@ def test_every_long_clip_and_wide_shape_takes_the_streaming_kernel(shape, bf16, 
     assert plan["grid"] <= min(tokens, per_sm * SMS)
     if backward:
         total = c * 3 * HEADS * DIM + 3 * HEADS * DIM + HEADS * DIM * c + c
-        assert plan["grid"] * 4 * total <= ta._WORKSPACE_MAX
+        assert plan["grid"] * 4 * total <= (ta._F32_WORKSPACE_MAX if f32_bwd else ta._WORKSPACE_MAX)
     fp, cp = ta._round16(f), ta._round16(c)
     assert plan["scratch"] == (0 if plan["acc_smem"] else 4 * plan["grid"] * fp * (cp + 4))
 
@@ -94,19 +99,21 @@ def test_the_long_clip_top_level_fills_the_card():
 def test_first_design_only_where_no_streaming_plan_fits(f, bf16):
     """Every c of the long clip at every f the card tests use: the first design runs exactly where the streaming
     plan does not fit (float32: the forward beyond f = 256; bf16: the backward beyond f = 192 at c >= 128), and
-    never at f <= 128; the float32 backward beyond f = 144 takes the tensor-core design of
-    csrc/temporal_tf32x3.cu instead."""
+    never at f <= 128; the float32 backward beyond f = 160, and by the measured rule at c over 32, takes the
+    tensor-core design of csrc/temporal_tf32x3.cu instead."""
     elt = 2 if bf16 else 4
     for c in (32, 64, 128, 256):
         for backward in (False, True):
             plan = ta.temporal_plan(3, f, c, DIM, HEADS, bf16, SMS, backward)
             fits = ta.stream_plan(f, c, DIM, elt, backward, False) is not None
-            other = "tf32x3" if backward and not bf16 else "simt"
-            assert plan["route"] == ("staged" if fits else other)
+            f32_bwd = backward and not bf16
+            other = "tf32x3" if f32_bwd else "simt"
+            tf = f32_bwd and (not fits or c > 32)
+            assert plan["route"] == ("tf32x3" if tf else (ta.STAGED_3XTF32 if f32_bwd else "staged") if fits else other)
             assert fits or f > 128
             if not fits and other == "simt":
                 assert plan["scratch"] == plan["grid"] * f * (4 if backward else 1) * HEADS * DIM * elt
-            if not fits and other == "tf32x3":
+            if tf:
                 assert plan["family"] == "blockwise"
                 assert {k: v for k, v in plan.items() if k != "family"} == ta.tf32x3_plan(3, f, c, DIM, HEADS, SMS)
 

@@ -2,8 +2,8 @@
 
 In float32 both temporal backward families take this design where the staged dense tile or the streaming
 plan does not fit: q|k|v, do, the weight gradients and dx as GEMMs whose products are split-precision TF32
-(each operand a = hi + lo, hi = tf32(a), lo = tf32(a - hi), three TF32 products lo*hi + hi*lo + hi*hi with
-float32 sums), and the attention core per (token, head) in 16-row blocks. Here, without a card:
+(each operand a = hi + lo, hi = tf32(a), lo = a - hi as the tensor cores read it, truncated to TF32, three TF32
+products lo*hi + hi*lo + hi*hi with float32 sums), and the attention core per (token, head) in 16-row blocks. Here, without a card:
 
 - the planner routes D1's spatial backward (8, 16, 256, 256), D2's temporal backward (4, 64, 10, 384), D2's
   spatial (wide) backward (4, 10, 64, 384) and the fixed flagship's bottleneck (8, 10, 64, 256) to it, within
@@ -27,7 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_helpers import mm3 as _mm3
 from torch_port_helpers import seeded
+from torch_port_helpers import tf32 as _tf32
 from video_diffusion_nnx_tpu.ops import temporal_attention as jta
 from video_diffusion_nnx_tpu_torch.ops import temporal_attention as ta
 
@@ -46,19 +48,6 @@ TARGETS = {
     "fixed_bottleneck": ((8, 10, 64, 256), 8, 32, "dense"),
     "long_fixed_bottleneck": ((1, 128, 64, 256), 8, 32, "dense"),
 }
-
-
-def _tf32(t: torch.Tensor) -> torch.Tensor:
-    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, by masking the low 13 bits."""
-    bits = t.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The kernels' split product: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), each term exact, summed in float32."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
 
 
 def _tf32x3_bwd(x, g, wqkv, bqkv, wo, heads, dim, pos_bias=None):
@@ -170,11 +159,17 @@ def test_bf16_keeps_its_routes(name):
 
 
 @pytest.mark.parametrize("f,c,dim,route", [
-    (144, 256, 32, "staged"), (145, 256, 32, "tf32x3"), (160, 256, 32, "tf32x3"), (192, 256, 32, "tf32x3"),
+    (144, 256, 32, "tf32x3"), (145, 256, 32, "tf32x3"), (160, 256, 32, "tf32x3"), (192, 256, 32, "tf32x3"),
     (321, 256, 32, "tf32x3"), (256, 32, 16, "tf32x3"), (128, 64, 64, "simt"), (150, 64, 48, "simt"),
-    (64, 256, 32, "tf32x3"), (10, 384, 64, "tf32x3"), (10, 256, 64, "tf32x3"), (10, 160, 64, "staged"), (16, 512, 128, "simt")])
+    (64, 256, 32, "tf32x3"), (10, 384, 64, "tf32x3"), (10, 256, 64, "tf32x3"), (10, 160, 64, "tf32x3"),
+    (16, 512, 128, "simt"), (144, 32, 32, "staged-3xtf32"), (160, 32, 32, "staged-3xtf32"),
+    (161, 32, 32, "tf32x3"), (128, 33, 32, "tf32x3"), (10, 64, 64, "staged-3xtf32"), (10, 65, 64, "tf32x3"),
+    (16, 64, 128, "staged-3xtf32")])
 def test_route_boundaries(f, c, dim, route):
-    """Blockwise head dims over 32 keep the first design; dense head dims over 64 keep the CUDA-core kernel."""
+    """Blockwise head dims over 32 keep the first design; dense head dims over 64 keep the CUDA-core kernel. Where the
+    staged dense (f <= 64) or the streaming (f > 64) float32 backward also fits, the measured rule decides: the staged
+    kernel up to c = 64, the streaming one up to c = 32 (and f = 160, its longest plan); head dims over 64 stay
+    staged, beyond this design's reach."""
     assert ta.temporal_plan(8, f, c, dim, 2, False, SMS, True)["route"] == route
 
 
@@ -187,14 +182,19 @@ def test_fit_rule():
 
 
 def test_planner_constants_are_the_sources():
+    """Each constant where its source now holds it: the GEMM tiles and splits in temporal_tf32x3.cu; the attention
+    core's shared memory, the fit rule and the measured rule in common.cuh, which all three float32 backward sources
+    share."""
     src = SOURCE.read_text()
+    common = (SOURCE.parent / "common.cuh").read_text()
     tiles = re.search(r"constexpr int BM = (\d+), BN = (\d+), BK = (\d+)", src)
     rows = re.search(r"constexpr int COLSUM_ROWS = (\d+);", src)
     assert tiles and rows
     assert (int(tiles[1]), int(tiles[2]), int(tiles[3]), int(rows[1])) == (ta._TF_TILE, ta._TF_TILE, ta._TF_BK,
                                                                           ta._TF_COLSUM_ROWS)
-    assert "2 * round32(f)" in src and "4 * round32(f) * (dp + 4)" in src  # attn_smem, as _tf32x3_smem
+    assert "2 * round32(f)" in common and "4 * round32(f) * (dp + 4)" in common  # attn_smem, as _tf32x3_smem
     assert "(2 * sms + tiles - 1) / tiles" in src  # splits_for, as _tf32x3_splits
+    assert "c > (f <= 64 ? 64 : 32)" in common  # f32_takes_tf32x3, as _f32_takes_tf32x3
 
 
 # ---- the split product ----

@@ -58,6 +58,31 @@ def seeded(shape, seed: int = 0, scale: float = 1.0) -> np.ndarray:
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 
 
+# The float32 temporal backwards' split-precision TF32 ("3xTF32") products, emulated on the CPU
+# (tests/test_torch_tf32x3.py, tests/test_torch_staged_3xtf32.py).
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, by masking the low 13 bits."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_read(t: torch.Tensor) -> torch.Tensor:
+    """float32 as the tensor cores read a TF32 operand: its top 19 bits (truncated toward zero; a NaN stays one)."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' split (``split`` in csrc/common.cuh): hi = tf32(t), lo = t - hi as the tensor cores read it."""
+    hi = tf32(t)
+    return hi, tf32_read(t - hi)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernels' split product: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), each term exact, summed in float32."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
 # Distillation (tests/test_torch_distill*.py, tests/test_torch_guidance.py): the teacher kinds, each a JAX
 # GaussianDiffusion and the port's with the same weights. Every bias is drawn nonzero (Adam's first step moves each
 # element by about lr whatever its gradient, so a zero tensor would be compared where rounding decides it), the

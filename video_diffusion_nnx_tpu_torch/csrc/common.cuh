@@ -1,8 +1,9 @@
 // Shared helpers for the port's CUDA kernels: float <-> storage-type
 // conversion and rounding through the storage type (bf16 or float), the
 // register-blocked product `mm` of the online-softmax kernels, the tensor-core
-// products and staging of the bf16 backward kernels, and the reduction of
-// per-CTA weight-gradient partials.
+// products and staging of the staged kernels (bf16 through mma.sync m16n8k16,
+// float32 in the backward kernels in split-precision TF32), the warp-level
+// attention fragments, and the reduction of per-CTA weight-gradient partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -261,6 +262,294 @@ __device__ __forceinline__ void panel_mma_add(const float* A, int lda, const flo
   });
 }
 
+// ---------------------------------------------------------------------------
+// Split-precision TF32 ("3xTF32") on the tensor cores, for float32 operands.
+//
+// `mma.sync.m16n8k8` in TF32 with float32 accumulators; each operand a is split into a_hi = tf32(a)
+// (round to nearest) and a_lo = a - a_hi, which the tensor cores read to TF32 by truncation, and a
+// product takes three TF32 products lo*hi + hi*lo + hi*hi. What is left out (lo*lo and lo's
+// truncation) is about 2^-21 of each product, inside the float32 gates; single-pass TF32 (2^-11) is not. The m16n8k8 accumulator fragment has
+// the m16n8k16 one's layout: element e of n8 block j at row (lane >> 2) + 8 * (e >> 1), column
+// 8 * j + 2 * (lane & 3) + (e & 1).
+
+// v rounded to TF32 (10 mantissa bits; round to nearest, ties away from zero): the bits of
+// `cvt.rna.tf32.f32` for every finite v, in two integer operations (half a TF32 unit added, the 13
+// low bits cleared), which cost the kernels less than the conversion. Not for a NaN: the GPU's NaN
+// 0x7fffffff carries into the sign bit and comes out -0.
+__device__ __forceinline__ unsigned tf32(float v) { return (__float_as_uint(v) + 0x1000u) & 0xffffe000u; }
+
+// lo is left whole: rounding it too cost the split-bound kernels 2-5% (PERF.md §6, PR 22), and a guard
+// for NaN on both halves 24-55%. A NaN v gives a NaN lo (v - hi), so every product with it is a NaN.
+__device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
+  hi = tf32(v);
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: the two small terms first, then hi * hi, into a fresh accumulator that is then added to
+// c on the CUDA cores. The tensor cores round toward zero where they add into an accumulator, so a sum kept
+// in one over a long K drifts by up to an ulp a step; added here, each 8-deep step rounds to nearest.
+__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4], const unsigned (&al)[4],
+                                     const unsigned (&bh)[2], const unsigned (&bl)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, al, bh[0], bh[1]);
+  mma_tf32(t, ah, bl[0], bl[1]);
+  mma_tf32(t, ah, bh[0], bh[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+__device__ __forceinline__ void split4(const float (&v)[4], unsigned (&hi)[4], unsigned (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(v[e], hi[e], lo[e]);
+}
+
+// An A fragment (16 x 8) of a row-major float panel at (row 0, column 0 of `a`), split.
+__device__ __forceinline__ void frag_a(const float* a, int ld, unsigned (&hi)[4], unsigned (&lo)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float v[4] = {a[g * ld + t], a[(g + 8) * ld + t], a[g * ld + t + 4], a[(g + 8) * ld + t + 4]};
+  split4(v, hi, lo);
+}
+
+// The same fragment with the k index of the 8-step permuted (k = t taken from column 2t, k = t + 4 from
+// 2t + 1): each row's two values are one 8-byte load (ld even, `a` 8-byte aligned). The other operand of the
+// product takes the same order.
+__device__ __forceinline__ void frag_a_pair(const float* a, int ld, unsigned (&hi)[4], unsigned (&lo)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float2 r0 = *reinterpret_cast<const float2*>(a + g * ld + 2 * t);
+  const float2 r1 = *reinterpret_cast<const float2*>(a + (g + 8) * ld + 2 * t);
+  const float v[4] = {r0.x, r1.x, r0.y, r1.y};
+  split4(v, hi, lo);
+}
+
+// s (16 x 8NJ) = A (16 rows at `a`) B^T, B's 8NJ rows at `b`, over DP columns of both (row-major panels).
+// PAIR: the k order of `frag_a_pair`, for panels whose leading dimensions are 8 mod 32 floats (no bank
+// conflict for the 8-byte loads, where one-float loads at row stride 8 mod 32 would conflict two ways).
+template <int NJ, int DP, bool PAIR = false>
+__device__ __forceinline__ void nt3(float (&s)[NJ][4], const float* a, int lda, const float* b, int ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < DP; k0 += 8) {
+    unsigned ah[4], al[4];
+    if (PAIR) frag_a_pair(a + k0, lda, ah, al);
+    else frag_a(a + k0, lda, ah, al);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      unsigned bh[2], bl[2];
+      if (PAIR) {
+        const float2 v = *reinterpret_cast<const float2*>(b + (8 * j + g) * ldb + k0 + 2 * t);
+        split(v.x, bh[0], bl[0]);
+        split(v.y, bh[1], bl[1]);
+      } else {
+        split(b[(8 * j + g) * ldb + k0 + t], bh[0], bl[0]);
+        split(b[(8 * j + g) * ldb + k0 + t + 4], bh[1], bl[1]);
+      }
+      mma3(s[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// o (16 x 8NB) += P (16 x 8KC, accumulator fragments) B, B's 8KC rows at `b` (row-major, 8NB columns).
+// The k index of each 8-step is taken in the accumulator's column order (lane quad t holds columns
+// 2t and 2t + 1), so P's fragments serve as the A operand as they are and B's rows are read alike.
+template <int NB, int KC>
+__device__ __forceinline__ void pv3(float (&o)[NB][4], const float (&p)[KC][4], const float* b, int ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    const float v[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+    unsigned ah[4], al[4];
+    split4(v, ah, al);
+    const float* b0 = b + (8 * j + 2 * t) * ld + g;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      unsigned bh[2], bl[2];
+      split(b0[8 * n], bh[0], bl[0]);
+      split(b0[ld + 8 * n], bh[1], bl[1]);
+      mma3(o[n], ah, al, bh, bl);
+    }
+  }
+}
+
+// One warp's 16 x 8NJ strip (m0, n0) of C = A B in 3xTF32, the float32 counterpart of `mma_block` (NJ = 2):
+// A stored (M, K) with leading dimension lda, or with AT as (K, M); B stored (K, N) with BK, or (N, K)
+// without; K a multiple of 8. Where A is stored along k (not AT) the k order of `frag_a_pair` is taken, so A's
+// rows load 8 bytes at a time, and B's too where it is stored (N, K); the panels' leading dimensions are 8
+// mod 32 floats (`pad_ld`), where these loads, and the one-float loads along M or N, do not conflict. The NJ
+// n8 blocks share each split A fragment and are NJ independent chains of products.
+template <bool AT, bool BK, int NJ>
+__device__ __forceinline__ void mma3_strip(const float* A, int lda, const float* B, int ldb, int m0, int n0,
+                                           int K, float (&acc)[NJ][4]) {
+  constexpr bool PAIR = !AT;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kl = PAIR ? 2 * t : t, kh = PAIR ? 2 * t + 1 : t + 4;  // the fragments' two k of the lane
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    unsigned ah[4], al[4];
+    if (AT) {
+      const float* a = A + (size_t)k0 * lda + m0 + g;
+      const float v[4] = {a[kl * lda], a[kl * lda + 8], a[kh * lda], a[kh * lda + 8]};
+      split4(v, ah, al);
+    } else {
+      frag_a_pair(A + (size_t)m0 * lda + k0, lda, ah, al);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = n0 + 8 * j + g;
+      float b0, b1;
+      if (BK) {
+        b0 = B[(size_t)(k0 + kl) * ldb + n];
+        b1 = B[(size_t)(k0 + kh) * ldb + n];
+      } else if (PAIR) {
+        const float2 v = *reinterpret_cast<const float2*>(B + (size_t)n * ldb + k0 + 2 * t);
+        b0 = v.x;
+        b1 = v.y;
+      } else {
+        b0 = B[(size_t)n * ldb + k0 + t];
+        b1 = B[(size_t)n * ldb + k0 + t + 4];
+      }
+      unsigned bh[2], bl[2];
+      split(b0, bh[0], bl[0]);
+      split(b1, bh[1], bl[1]);
+      mma3(acc[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// C = A B in 3xTF32 by all the warps of the block, each owning 16 x 8NJ strips round robin; every pair of
+// neighbouring outputs goes to `epi(row, col, v0, v1)` exactly once (as tc_mma). M, N multiples of 16.
+template <bool AT, bool BK, int NJ, class Epi>
+__device__ __forceinline__ void tf3_strips(const float* A, int lda, const float* B, int ldb, int M, int N, int K,
+                                           Epi epi) {
+  constexpr int BN = 8 * NJ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int blk = warp; blk < (M / 16) * (N / BN); blk += nwarps) {
+    const int m0 = (blk / (N / BN)) * 16, n0 = (blk % (N / BN)) * BN;
+    float acc[NJ][4];
+    mma3_strip<AT, BK, NJ>(A, lda, B, ldb, m0, n0, K, acc);
+    const int r = m0 + (lane >> 2), c = n0 + (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      epi(r, c + 8 * j, acc[j][0], acc[j][1]);
+      epi(r + 8, c + 8 * j, acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// tc_mma for float32 panels in 3xTF32: strips of 16 x 32 where they still give every warp one, else 16 x 16.
+template <bool AT, bool BK, class Epi>
+__device__ __forceinline__ void tf3_mma(const float* A, int lda, const float* B, int ldb, int M, int N, int K,
+                                        Epi epi) {
+  if (N % 32 == 0 && (M / 16) * (N / 32) >= (int)(blockDim.x >> 5)) tf3_strips<AT, BK, 4>(A, lda, B, ldb, M, N, K, epi);
+  else tf3_strips<AT, BK, 2>(A, lda, B, ldb, M, N, K, epi);
+}
+
+// tc_mma_add for float32 panels: dst(r, c) += (A B)(r, c) for r < Mv, c < Nv (shared or device memory; each
+// element belongs to one thread).
+template <bool AT, bool BK>
+__device__ __forceinline__ void tf3_mma_add(const float* A, int lda, const float* B, int ldb, int M, int N,
+                                            int K, float* dst, size_t ldd, int Mv, int Nv) {
+  tf3_mma<AT, BK>(A, lda, B, ldb, M, N, K, [=](int r, int c, float v0, float v1) {
+    if (r < Mv && c < Nv) dst[(size_t)r * ldd + c] += v0;
+    if (r < Mv && c + 1 < Nv) dst[(size_t)r * ldd + c + 1] += v1;
+  });
+}
+
+// *p += v in device memory without waiting for it (`red`: the warp goes on; the add completes in L2). Where
+// each element of a CTA's partial is added to by one thread only, its adds take that thread's program order,
+// so the sums stay in a fixed order and two runs are bit-equal.
+__device__ __forceinline__ void red_add(float* p, float v) {
+  asm volatile("red.global.add.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
+}
+
+// tf3_mma_add into a CTA's float32 partial in device memory, through `red_add`: the read-modify-write of each
+// element no longer stalls the warp that owns it. A given (M, N) gives each element the same thread at every
+// call, so each element's adds keep one order.
+template <bool AT, bool BK>
+__device__ __forceinline__ void tf3_mma_red(const float* A, int lda, const float* B, int ldb, int M, int N,
+                                            int K, float* dst, size_t ldd, int Mv, int Nv) {
+  tf3_mma<AT, BK>(A, lda, B, ldb, M, N, K, [=](int r, int c, float v0, float v1) {
+    if (r < Mv && c < Nv) red_add(dst + (size_t)r * ldd + c, v0);
+    if (r < Mv && c + 1 < Nv) red_add(dst + (size_t)r * ldd + c + 1, v1);
+  });
+}
+
+// The attention core of temporal_tf32x3.cu (`attn_bwd_kernel`): shared memory for one (token, head) at f frames
+// and head dim padded to dp, its four (round32(f), dp + 4) panels and its row statistics.
+__host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }
+
+__host__ __device__ inline size_t attn_smem(int f, int dp) {
+  return sizeof(float) * ((size_t)4 * round32(f) * (dp + 4) + 2 * round32(f));
+}
+
+// The float32 backward design of temporal_tf32x3.cu takes head dims up to 64 and lengths whose attention core
+// fits (ops/temporal_attention.py `_tf32x3_fits`).
+__host__ __device__ inline bool tf32x3_fits(int f, int dim) {
+  return f >= 1 && dim >= 1 && dim <= 64 && attn_smem(f, dim <= 32 ? 32 : 64) <= kSmemMax;
+}
+
+// Where both 3xTF32 designs take a float32 backward, the faster by measurement on the H100 (PERF.md, PR 22):
+// the staged dense kernel up to c = 64 at f <= 64, the streaming kernel up to c = 32 at f > 64; wider columns
+// the chain of temporal_tf32x3.cu, whose GEMMs keep no c-wide panel and whose grid follows tokens x heads.
+// Measured at the recipes' shapes alone (PERF.md §6): off them (few tokens at a small c) it may pick the slower.
+// ops/temporal_attention.py `_f32_takes_tf32x3` is the same rule; the staged and streaming C entries refuse a
+// float32 shape it gives to the other design, except in a build with VDT_ANY_F32_ROUTE defined, which
+// scripts/torch_f32_bwd_routes.py makes to time each design at every shape (`_build.library(name, defines)`).
+__host__ __device__ inline bool f32_takes_tf32x3(int f, int c, int dim) {
+  return tf32x3_fits(f, dim) && c > (f <= 64 ? 64 : 32);
+}
+#ifdef VDT_ANY_F32_ROUTE
+constexpr bool kF32RuleChecked = false;
+#else
+constexpr bool kF32RuleChecked = true;
+#endif
+
+// The backward kernels' width-scaling products, on the tensor cores in either type: bf16 panels through
+// tc_mma / tc_mma_add, float32 panels in 3xTF32. (The forward kernels keep `panel_mma`, whose float32
+// products run on the CUDA cores.)
+template <bool AT, bool BK, class Epi>
+__device__ __forceinline__ void bwd_mma(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
+                                        Epi epi) {
+  tc_mma<AT, BK>(A, lda, B, ldb, M, N, K, epi);
+}
+template <bool AT, bool BK, class Epi>
+__device__ __forceinline__ void bwd_mma(const float* A, int lda, const float* B, int ldb, int M, int N, int K,
+                                        Epi epi) {
+  tf3_mma<AT, BK>(A, lda, B, ldb, M, N, K, epi);
+}
+template <bool AT, bool BK>
+__device__ __forceinline__ void bwd_mma_add(const bf16* A, int lda, const bf16* B, int ldb, int M, int N,
+                                            int K, float* dst, size_t ldd, int Mv, int Nv) {
+  tc_mma_add<AT, BK>(A, lda, B, ldb, M, N, K, dst, ldd, Mv, Nv);
+}
+template <bool AT, bool BK>
+__device__ __forceinline__ void bwd_mma_add(const float* A, int lda, const float* B, int ldb, int M, int N,
+                                            int K, float* dst, size_t ldd, int Mv, int Nv) {
+  tf3_mma_add<AT, BK>(A, lda, B, ldb, M, N, K, dst, ldd, Mv, Nv);
+}
+// bwd_mma_add into a CTA's float32 weight-gradient partial in device memory: bf16 as tc_mma_add, float32
+// through `tf3_mma_red`.
+template <bool AT, bool BK>
+__device__ __forceinline__ void bwd_mma_red(const bf16* A, int lda, const bf16* B, int ldb, int M, int N,
+                                            int K, float* dst, size_t ldd, int Mv, int Nv) {
+  tc_mma_add<AT, BK>(A, lda, B, ldb, M, N, K, dst, ldd, Mv, Nv);
+}
+template <bool AT, bool BK>
+__device__ __forceinline__ void bwd_mma_red(const float* A, int lda, const float* B, int ldb, int M, int N,
+                                            int K, float* dst, size_t ldd, int Mv, int Nv) {
+  tf3_mma_red<AT, BK>(A, lda, B, ldb, M, N, K, dst, ldd, Mv, Nv);
+}
+
 // Asynchronous 8-byte copy from device to shared memory; `valid` false fills the 8 bytes with zeros.
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
@@ -475,13 +764,34 @@ __device__ __forceinline__ void column_sums(const float (&a)[NB][4], float (&cs)
     }
 }
 
+// The backward kernels' attention fragments: bf16 as warp_nt / warp_pv, float32 in 3xTF32 with P kept in
+// registers (no scratch). K is the depth of s = A B^T (a multiple of 8); the float32 panels' leading
+// dimensions are even and 8 mod 32 floats (`pad_ld`), for `nt3`'s 8-byte loads.
+template <int NB, int K>
+__device__ __forceinline__ void bwd_nt(float (&s)[NB][4], const bf16* A, int lda, const bf16* B, int ldb) {
+  warp_nt<NB>(s, A, lda, B, ldb, K);
+}
+template <int NB, int K>
+__device__ __forceinline__ void bwd_nt(float (&s)[NB][4], const float* A, int lda, const float* B, int ldb) {
+  nt3<NB, K, true>(s, A, lda, B, ldb);
+}
+template <int NB, int KC>
+__device__ __forceinline__ void bwd_pv(float (&o)[NB][4], const float (&p)[KC][4], const bf16* B, int ldb) {
+  warp_pv<NB, KC>(o, p, B, ldb, nullptr);
+}
+template <int NB, int KC>
+__device__ __forceinline__ void bwd_pv(float (&o)[NB][4], const float (&p)[KC][4], const float* B, int ldb) {
+  pv3<NB, KC>(o, p, B, ldb);
+}
+
 // The online-softmax sweep of one head for 16 query rows (one warp): q (16 rows, leading dimension ldq)
 // against the F keys k and values v (rows of leading dimension ldkv; whole KV blocks of rows, zero past
 // F). On return o holds sum_j round(exp(s_j - m)) v_j with l the row sums of the unrounded exp
 // (BLOCKWISE, KV blocks of 32), or round(P) V with P = exp(s - m) / l normalised before its rounding
 // (DENSE, one block of all keys); m and l for the lane's rows g and g + 8. `bias_h` (F, F), where given,
-// is added to the logits of rows m0 + g and m0 + g + 8 below F.
-template <typename T, bool DENSE, int DP>
+// is added to the logits of rows m0 + g and m0 + g + 8 below F. BWD takes the backward kernels' fragments
+// (`bwd_nt`, `bwd_pv`: float32 in 3xTF32, no scratch); the forward kernels keep `warp_nt` / `warp_pv`.
+template <typename T, bool DENSE, int DP, bool BWD = false>
 __device__ __forceinline__ void sweep_rows(const T* q, int ldq, const T* k, const T* v, int ldkv, int F,
                                            int m0, const float* bias_h, float (&o)[DP / 8][4],
                                            float (&m)[2], float (&l)[2], float* scr) {
@@ -493,7 +803,8 @@ __device__ __forceinline__ void sweep_rows(const T* q, int ldq, const T* k, cons
   l[0] = l[1] = 0.f;
   for (int kb0 = 0; kb0 < F; kb0 += KB) {
     float s[KC][4];
-    warp_nt<KC>(s, q, ldq, k + (size_t)kb0 * ldkv, ldkv, DP);
+    if (BWD) bwd_nt<KC, DP>(s, q, ldq, k + (size_t)kb0 * ldkv, ldkv);
+    else warp_nt<KC>(s, q, ldq, k + (size_t)kb0 * ldkv, ldkv, DP);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < KC; ++j)
@@ -548,7 +859,8 @@ __device__ __forceinline__ void sweep_rows(const T* q, int ldq, const T* k, cons
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
     }
-    warp_pv<NB, KC>(o, s, v + (size_t)kb0 * ldkv, ldkv, scr);
+    if (BWD) bwd_pv<NB, KC>(o, s, v + (size_t)kb0 * ldkv, ldkv);
+    else warp_pv<NB, KC>(o, s, v + (size_t)kb0 * ldkv, ldkv, scr);
   }
 }
 

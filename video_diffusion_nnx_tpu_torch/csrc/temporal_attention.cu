@@ -187,7 +187,8 @@ __global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(
 //             rounding, and scaling q in x's type;
 //     y += o_h W_o,h into a float32 shared accumulator (`panel_mma_add`);
 // on the tensor cores for bf16 panels, on the CUDA cores in float32 for
-// float32 ones (TF32 would miss the float32 gates). With those moved, the
+// float32 ones (one TF32 product would miss the float32 gates; the backward
+// below takes them in split-precision 3xTF32). With those moved, the
 // per-token f x f products set the time at the top level (f = 10, c = 32),
 // so in bf16 they run on the tensor cores too: a 16-row block of query rows
 // takes its logits against a window of keys, the whole tokens its rows touch
@@ -798,24 +799,32 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Backward with staged panels: the kernel above, redesigned (tensor cores in bf16).
+// Backward with staged panels: the kernel above, redesigned (tensor cores in bf16, and in float32 in
+// 3xTF32).
 //
 // The same function and rounding points as `temporal_bwd_kernel<T, BIAS>`.
 // Every operand of the products that scale with c is already rounded to x's
 // type in the TPU kernel's math (x, g, W_qkv, W_o, q|k|v, o, do, dqkv), so in
 // bf16 `mma.sync` with float32 accumulators reproduces the rounding points;
 // only the order of the sums changes. Per head h the five width-scaling
-// products, through `panel_mma` (common.cuh):
+// products:
 //     q|k|v = x W_qkv,h (+ b, rounded),  do = round(g W_o,h^T),
 //     dW_o,h += o^T g,  dW_qkv,h += x^T dqkv,  dx += dqkv W_qkv,h^T,
-// run on the tensor cores for bf16 panels and on the CUDA cores in float32
-// for float32 ones (TF32 would miss the float32 gates). The per-token f x f
+// run on the tensor cores in either type (`bwd_mma`, common.cuh): bf16 panels
+// through mma.sync m16n8k16, float32 ones in split-precision TF32 (3xTF32:
+// each operand split into a TF32 high and low part, three m16n8k8 products
+// lo*hi + hi*lo + hi*hi per 8-deep step, each step summed in a fresh
+// accumulator and added to the float32 total on the CUDA cores), which holds
+// the float32 gates where one TF32 product would not. The per-token f x f
 // attention products (logits, P V, P^T do, do V^T, ds k, ds^T q) are 12 f HD
 // of the 22 c HD + 12 f HD FLOPs per row; they stay on the CUDA cores in
 // float32, as do the softmax, its VJP and db_qkv from the unrounded dqkv: the
 // logits with their softmax, and do V^T with the VJP, take eight lanes per
 // row (shuffles for the row's maximum and sums); the other four one output
-// per thread.
+// per thread in bf16, four neighbouring columns a thread (float4 loads, four
+// independent sums) in float32. (The float32 f x f products were tried on
+// the tensor cores too, in 3xTF32 over 16-row key windows: at f = 10 the
+// windows' masked columns and the recomputed logits made the kernel slower.)
 //
 // Staging. The tile's x and g rows go to shared memory once, in x's type
 // (`stage`, asynchronous 8-byte copies), padded with zeros to 16 rows and to
@@ -827,12 +836,16 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
 // (rows, f), and two float32 column-sum slots per thread (db_qkv, summed in a
 // fixed order) are float32 in both types. In bf16 the bottleneck (f = 64,
 // c = 256) takes 226 KB for one token; smaller shapes aim at two CTAs per SM.
+// In float32 one CTA holds an SM (the 3xTF32 fragments want its registers),
+// its tile as many tokens as 227 KB holds, in any number of rows.
 //
 // Weight gradients: each head's dW_qkv,h and dW_o,h are one product over the
 // tile's rows each, in registers, read-modify-written into the CTA's float32
-// partial once per head and tile (`panel_mma_add`: a thread reads its eight
-// elements before it writes them); the partials and `reduce_partials_kernel`
-// are as before, so runs stay bit-equal. Heads stay inside the tile loop:
+// partial once per head and tile (`bwd_mma_red`: in bf16 a thread reads its
+// eight elements before it writes them; in float32 each element is added with
+// `red.global.add`, which does not stall the warp, by the one thread that owns
+// it, in its program order); the partials and `reduce_partials_kernel` are as
+// before, so runs stay bit-equal. Heads stay inside the tile loop:
 // splitting heads over CTAs would need a cross-CTA sum of dx as well.
 //
 // A shape whose one-token tile does not fit (in bf16 c above about 260 at
@@ -872,6 +885,30 @@ __host__ __device__ inline TcBwdPlan tc_bwd_plan(int rows, int F, int C, int D, 
 // thread of the block is left for every column-sum slot (head dims up to 128).
 __host__ __device__ inline bool tc_bwd_fits(int bt, int F, int C, int D, int elt) {
   return 2 * round16(D) <= kThreads && tc_bwd_plan(bt * F, F, C, D, elt).bytes <= kSmemMax;
+}
+
+// The backward's per-row dot products over a head's D columns: bf16 rows as `dot_rows`; float32 rows
+// (16-byte aligned, D a multiple of 4) over float4 loads into four partial sums, four independent chains.
+__device__ __forceinline__ float bdot(const bf16* a, const bf16* b, int D) { return dot_rows(a, b, D); }
+__device__ __forceinline__ float bdot(const float* a, const float* b, int D) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int d = 0; d < D; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + d), y = *reinterpret_cast<const float4*>(b + d);
+    s.x += x.x * y.x;
+    s.y += x.y * y.y;
+    s.z += x.z * y.z;
+    s.w += x.w * y.w;
+  }
+  return (s.x + s.y) + (s.z + s.w);
+}
+
+// acc += w * v for the four floats of v (float32 rows of the per-token products, four columns a thread).
+__device__ __forceinline__ void fma4(float4& acc, float w, const float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(v);
+  acc.x += w * x.x;
+  acc.y += w * x.y;
+  acc.z += w * x.z;
+  acc.w += w * x.w;
 }
 
 // Two CTAs per SM in bf16 (128 registers a thread); float32 tiles mostly fill an SM alone.
@@ -944,7 +981,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
         load_part(h, part + 1, i0 + part + 1);
         const float* bb = bqkv + part * HD + h * D;
         T* dst = qkv + part * Dp;
-        panel_mma<false, true>(xs, LDC, w, LDD, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
+        bwd_mma<false, true>(xs, LDC, w, LDD, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
           float a = 0.f, b = 0.f;
           if (c < D) {
             a = rnd<T>(v0 + bb[c]);
@@ -963,7 +1000,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
       {
         const T* w = part_ready(i0 + 3);
         load_part(h, 4, i0 + 4);
-        panel_mma<false, false>(gs, LDC, w, LDC, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
+        bwd_mma<false, false>(gs, LDC, w, LDC, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
           st2(dos + (size_t)r * LDD + c, v0, v1);
         });
         // Eight lanes per row, each taking the frames j = lane, lane + 8, ... (F <= 64).
@@ -980,7 +1017,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
             const int j = sub + 8 * u;
             sv[u] = 0.f;
             if (live && j < F) {
-              sv[u] = dot_rows(q, kb + (size_t)j * LDQ, D) + (BIAS ? brow[j] : 0.f);
+              sv[u] = bdot(q, kb + (size_t)j * LDQ, D) + (BIAS ? brow[j] : 0.f);
               m = fmaxf(m, sv[u]);
             }
           }
@@ -1001,40 +1038,61 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
 
       // 3. o_h = round(round(P) V) and dv = round(P)^T do (unrounded dv summed per column in a
       // slot of its own, then rounded); padded rows and columns are written as zeros.
-      for (int item = tid; item < Rp * Dp; item += nth) {
-        const int row = item / Dp, d = item - row * Dp;
-        float s = 0.f;
-        if (row < rows && d < D) {
-          const int tk = row / F;
-          const float* p = pr + (size_t)row * PS;
-          const T* vb = qkv + (size_t)tk * F * LDQ + 2 * Dp + d;
-          for (int j = 0; j < F; ++j) s += rnd<T>(p[j]) * to_f(vb[(size_t)j * LDQ]);
+      if constexpr (sizeof(T) == 4) {  // float32: four columns a thread, o and dv together
+        const int DQ = Dp / 4;
+        for (int item = tid; item < Rp * DQ; item += nth) {
+          const int row = item / DQ, d = (item - row * DQ) * 4;
+          float4 o4 = make_float4(0.f, 0.f, 0.f, 0.f), v4 = o4;
+          if (row < rows && d < D) {
+            const int tk = row / F, j0 = row - tk * F;
+            const float* p = pr + (size_t)row * PS;
+            const float* pc = pr + (size_t)tk * F * PS + j0;
+            const T* vb = qkv + (size_t)tk * F * LDQ + 2 * Dp + d;
+            const T* ob = dos + (size_t)tk * F * LDD + d;
+            for (int j = 0; j < F; ++j) {
+              fma4(o4, p[j], vb + (size_t)j * LDQ);
+              fma4(v4, pc[(size_t)j * PS], ob + (size_t)j * LDD);
+            }
+          }
+          *reinterpret_cast<float4*>(os + (size_t)row * LDD + d) = o4;
+          *reinterpret_cast<float4*>(dqk + (size_t)row * LDQ + 2 * Dp + d) = v4;
         }
-        os[(size_t)row * LDD + d] = from_f<T>(s);
-      }
-      if (tid < Gv * Dp) {
-        const int grp = tid / Dp, d = tid - grp * Dp;
-        float cs = 0.f;
-        for (int row = grp; row < Rp; row += Gv) {
+      } else {
+        for (int item = tid; item < Rp * Dp; item += nth) {
+          const int row = item / Dp, d = item - row * Dp;
           float s = 0.f;
           if (row < rows && d < D) {
-            const int tk = row / F, j = row - tk * F;
-            const float* pc = pr + (size_t)tk * F * PS + j;
-            const T* ob = dos + (size_t)tk * F * LDD + d;
-            for (int i = 0; i < F; ++i) s += rnd<T>(pc[(size_t)i * PS]) * to_f(ob[(size_t)i * LDD]);
+            const int tk = row / F;
+            const float* p = pr + (size_t)row * PS;
+            const T* vb = qkv + (size_t)tk * F * LDQ + 2 * Dp + d;
+            for (int j = 0; j < F; ++j) s += rnd<T>(p[j]) * to_f(vb[(size_t)j * LDQ]);
           }
-          cs += s;
-          dqk[(size_t)row * LDQ + 2 * Dp + d] = from_f<T>(s);
+          os[(size_t)row * LDD + d] = from_f<T>(s);
         }
-        csum[tid] = cs;
+        if (tid < Gv * Dp) {
+          const int grp = tid / Dp, d = tid - grp * Dp;
+          float cs = 0.f;
+          for (int row = grp; row < Rp; row += Gv) {
+            float s = 0.f;
+            if (row < rows && d < D) {
+              const int tk = row / F, j = row - tk * F;
+              const float* pc = pr + (size_t)tk * F * PS + j;
+              const T* ob = dos + (size_t)tk * F * LDD + d;
+              for (int i = 0; i < F; ++i) s += rnd<T>(pc[(size_t)i * PS]) * to_f(ob[(size_t)i * LDD]);
+            }
+            cs += s;
+            dqk[(size_t)row * LDQ + 2 * Dp + d] = from_f<T>(s);
+          }
+          csum[tid] = cs;
+        }
       }
       __syncthreads();
 
       // 4. dW_o,h += o_h^T g on the tensor cores, once per head and tile; and, per row,
       // ds = P * (dattn - sum_j dattn P) with dattn = do V^T, over P (rounded unless a bias
       // needs the unrounded ds for dbias).
-      panel_mma_add<true, true>(os, LDD, gs, LDC, Dp, Cp, Rp, pw + (size_t)C * W3 + W3 + (size_t)h * D * C, C,
-                             D, C);  // dW_o,h
+      bwd_mma_red<true, true>(os, LDD, gs, LDC, Dp, Cp, Rp, pw + (size_t)C * W3 + W3 + (size_t)h * D * C, C,
+                              D, C);  // dW_o,h
       for (int r0 = 0; r0 < rows; r0 += nth / 8) {  // eight lanes per row, as for the softmax
         const int row = r0 + (tid >> 3), sub = tid & 7;
         const bool live = row < rows;
@@ -1048,7 +1106,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
           const int j = sub + 8 * u;
           da[u] = 0.f;
           if (live && j < F) {
-            da[u] = dot_rows(dob, vb + (size_t)j * LDQ, D);
+            da[u] = bdot(dob, vb + (size_t)j * LDQ, D);
             sum += da[u] * p[j];
           }
         }
@@ -1082,29 +1140,53 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
 
       // 5. dq = (ds k) * scale and dk = ds^T q, by (group, column): the unrounded values summed
       // per column into the thread's slot, the rounded ones into dq|dk.
-      if (tid < Gqk * 2 * Dp) {
-        const int grp = tid / (2 * Dp), j = tid - grp * 2 * Dp;
-        const int d = j < Dp ? j : j - Dp;
-        float cs = 0.f;
-        for (int row = grp; row < Rp; row += Gqk) {
-          float s = 0.f;
+      if constexpr (sizeof(T) == 4) {  // float32: four columns a thread
+        const int DQ = Dp / 4;
+        for (int item = tid; item < Rp * 2 * DQ; item += nth) {
+          const int row = item / (2 * DQ), jq = item - row * 2 * DQ;
+          const bool dq = jq < DQ;
+          const int d = (dq ? jq : jq - DQ) * 4;
+          float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
           if (row < rows && d < D) {
             const int tk = row / F, i0r = row - tk * F;
-            if (j < Dp) {
+            if (dq) {
               const float* p = pr + (size_t)row * PS;
               const T* kb = qkv + (size_t)tk * F * LDQ + Dp + d;
-              for (int jj = 0; jj < F; ++jj) s += p[jj] * to_f(kb[(size_t)jj * LDQ]);
-              s *= scale;
+              for (int jj = 0; jj < F; ++jj) fma4(s4, p[jj], kb + (size_t)jj * LDQ);
+              s4 = make_float4(s4.x * scale, s4.y * scale, s4.z * scale, s4.w * scale);
             } else {
               const float* pc = pr + (size_t)tk * F * PS + i0r;
               const T* qb = qkv + (size_t)tk * F * LDQ + d;
-              for (int i = 0; i < F; ++i) s += pc[(size_t)i * PS] * to_f(qb[(size_t)i * LDQ]);
+              for (int i = 0; i < F; ++i) fma4(s4, pc[(size_t)i * PS], qb + (size_t)i * LDQ);
             }
           }
-          cs += s;
-          dqk[(size_t)row * LDQ + j] = from_f<T>(s);
+          *reinterpret_cast<float4*>(dqk + (size_t)row * LDQ + (dq ? 0 : Dp) + d) = s4;
         }
-        csum[kThreads + tid] = cs;
+      } else {
+        if (tid < Gqk * 2 * Dp) {
+          const int grp = tid / (2 * Dp), j = tid - grp * 2 * Dp;
+          const int d = j < Dp ? j : j - Dp;
+          float cs = 0.f;
+          for (int row = grp; row < Rp; row += Gqk) {
+            float s = 0.f;
+            if (row < rows && d < D) {
+              const int tk = row / F, i0r = row - tk * F;
+              if (j < Dp) {
+                const float* p = pr + (size_t)row * PS;
+                const T* kb = qkv + (size_t)tk * F * LDQ + Dp + d;
+                for (int jj = 0; jj < F; ++jj) s += p[jj] * to_f(kb[(size_t)jj * LDQ]);
+                s *= scale;
+              } else {
+                const float* pc = pr + (size_t)tk * F * PS + i0r;
+                const T* qb = qkv + (size_t)tk * F * LDQ + d;
+                for (int i = 0; i < F; ++i) s += pc[(size_t)i * PS] * to_f(qb[(size_t)i * LDQ]);
+              }
+            }
+            cs += s;
+            dqk[(size_t)row * LDQ + j] = from_f<T>(s);
+          }
+          csum[kThreads + tid] = cs;
+        }
       }
 
       // 6. Per part of dqkv (W_q, W_k, W_v again): dW_part,h += x^T dpart and dx += dpart W_part^T,
@@ -1117,7 +1199,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
           for (int j = tid; j < D3; j += nth) {
             const int pt = j / D, d = j - pt * D;
             float s = 0.f;
-            if (pt < 2) {
+            if constexpr (sizeof(T) == 4) {  // the unrounded dq|dk|dv, summed over the rows in order
+              for (int r = 0; r < rows; ++r) s += dqk[(size_t)r * LDQ + pt * Dp + d];
+            } else if (pt < 2) {
               for (int grp = 0; grp < Gqk; ++grp) s += csum[kThreads + grp * 2 * Dp + pt * Dp + d];
             } else {
               for (int grp = 0; grp < Gv; ++grp) s += csum[grp * Dp + d];
@@ -1126,8 +1210,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
           }
         }
         const T* dp = dqk + part * Dp;
-        panel_mma_add<true, true>(xs, LDC, dp, LDQ, Cp, Dp, Rp, pw + part * HD + h * D, W3, C, D);
-        panel_mma_add<false, false>(dp, LDQ, w, LDD, Rp, Cp, Dp, dxs, LDF, Rp, Cp);
+        bwd_mma_red<true, true>(xs, LDC, dp, LDQ, Cp, Dp, Rp, pw + part * HD + h * D, W3, C, D);
+        bwd_mma_add<false, false>(dp, LDQ, w, LDD, Rp, Cp, Dp, dxs, LDF, Rp, Cp);
       }
     }
     __syncthreads();
@@ -1151,8 +1235,9 @@ static int launch_bwd(const void* x, const void* g, const void* wqkv, const void
                       void* partial, void* grads, int tokens, int f, int c, int heads, int dim,
                       int bt, int grid, float scale, cudaStream_t stream, int* staged) {
   cudaError_t err;
-  *staged = tc_bwd_fits(bt, f, c, dim, sizeof(T));
-  if (*staged) {
+  const bool fits = tc_bwd_fits(bt, f, c, dim, sizeof(T));
+  *staged = fits ? (sizeof(T) == 4 ? 3 : 1) : 0;  // 3: the staged kernel with its float32 products in 3xTF32
+  if (fits) {
     const size_t smem = tc_bwd_plan(bt * f, f, c, dim, sizeof(T)).bytes;
     err = cudaFuncSetAttribute(temporal_bwd_panel_kernel<T, BIAS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1190,7 +1275,7 @@ static int launch_bwd(const void* x, const void* g, const void* wqkv, const void
 
 // dtype: 0 = float32, 1 = bfloat16. `bias` is (heads, f, f) float32 or null (the unbiased
 // instantiation). Returns the cudaError_t of the launch; `*staged` is set to 1 where the staged
-// kernel ran, 0 where the CUDA-core one did (both entries).
+// kernel ran, 0 where the CUDA-core one did (the backward below also reports 3).
 extern "C" int temporal_attention_fwd(int dtype, const void* x, const void* wqkv,
                                       const void* bqkv, const void* wo, const void* bo,
                                       const void* bias, void* out, int tokens, int f, int c,
@@ -1210,6 +1295,9 @@ extern "C" int temporal_attention_fwd(int dtype, const void* x, const void* wqkv
 // partials in `partial` (grid x that size, float32). With `bias`, `dbias`
 // (heads, f, f) float32 receives the sum of the CTAs' `dbias_partial`
 // (grid x heads*f*f, float32); all three are null for the unbiased instantiation.
+// `*staged` is 1 where the staged kernel ran in bf16, 3 where it ran in float32
+// (its products in 3xTF32), 0 where the CUDA-core kernel did. A float32 shape that
+// `f32_takes_tf32x3` gives to temporal_tf32x3.cu is refused (see kF32RuleChecked).
 extern "C" int temporal_attention_bwd(int dtype, const void* x, const void* g, const void* wqkv,
                                       const void* bqkv, const void* wo, const void* bias,
                                       void* dbias_partial, void* dbias, void* dx, void* partial,
@@ -1217,6 +1305,7 @@ extern "C" int temporal_attention_bwd(int dtype, const void* x, const void* g, c
                                       int bt, int grid, float scale, void* stream, int* staged) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias && !(dbias_partial && dbias)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && vdt::kF32RuleChecked && vdt::f32_takes_tf32x3(f, c, dim)) return (int)cudaErrorInvalidValue;
 #define VDT_BWD(T, B)                                                                           \
   vdt::launch_bwd<T, B>(x, g, wqkv, bqkv, wo, bias, dbias_partial, dbias, dx, partial, grads, \
                         tokens, f, c, heads, dim, bt, grid, scale, s, staged)

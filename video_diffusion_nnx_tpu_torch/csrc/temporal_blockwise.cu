@@ -420,7 +420,7 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
 
 // ---------------------------------------------------------------------------
 // Streaming redesign: the kernels above, with staged panels and warp-owned
-// query rows (tensor cores in bf16).
+// query rows (tensor cores in bf16; the float32 backward's in 3xTF32).
 //
 // The same functions and rounding points as `temporal_blockwise_fwd_kernel`
 // and `temporal_blockwise_bwd_kernel` (mode BLOCKWISE), and, in mode DENSE,
@@ -434,9 +434,12 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
 // Design. One CTA owns one token column at a time (a persistent grid walks
 // the tokens) and runs the heads in turn. Per head:
 //   1. q|k|v = x W_qkv,h (+ b, rounded) and, in the backward, do = g W_o,h^T
-//      (float32) through `panel_mma` / `panel_mma_add` (common.cuh): on the
-//      tensor cores for bf16 panels, on the CUDA cores in float32 (TF32 would
-//      miss the float32 gates). x, g and the head's weights are staged in
+//      (float32): on the tensor cores for bf16 panels; float32 panels on the
+//      CUDA cores in the forward (`panel_mma`, common.cuh) and in the
+//      backward on the tensor cores in split-precision TF32 (`bwd_mma`:
+//      3xTF32, three m16n8k8 TF32 products per float32 product, each 8-deep
+//      step summed in a fresh accumulator and added on the CUDA cores, which
+//      holds the float32 gates). x, g and the head's weights are staged in
 //      shared memory in x's type, in c-chunks of CK columns, through a ring
 //      of NS slots (`sw_plan`: the widest chunk that fits, then two slots),
 //      so shared memory follows f and CK and never c.
@@ -450,16 +453,20 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
 //      dP = round(do) v^T, and dbias from the unrounded dS; then (phase A,
 //      key rows, 16 at a time) dv += round(P)^T round(do) and
 //      dk += round(dS)^T q over all query blocks. K|V of the head stay in
-//      shared memory, so nothing is projected twice. In float32 the same
-//      fragments are computed on the CUDA cores (`warp_nt`, `warp_pv`), P
-//      passing through a per-warp scratch.
+//      shared memory, so nothing is projected twice. In float32 the forward
+//      computes the same fragments on the CUDA cores (`warp_nt`, `warp_pv`),
+//      P passing through a per-warp scratch; the backward on the tensor cores
+//      in 3xTF32 (`bwd_nt`, `bwd_pv`: `nt3`, `pv3`), P and dS staying in
+//      registers as in bf16, so its layout holds no scratch.
 //   3. The width-scaling products after attention, per c-chunk: forward
 //      y += round(o_h) W_o,h into a float32 accumulator; backward
 //      dW_o,h += o^T g, dW_qkv,h += x^T dqkv and dx += dqkv W_qkv,h^T (one
-//      product over the packed dq|dk|dv). The accumulator (rows, c) lives in
-//      shared memory where it fits beside the panels, else in a float32
-//      scratch of the CTA's own in device memory, read and written by the
-//      same thread.
+//      product over the packed dq|dk|dv; `bwd_mma_red` into the weight
+//      partials, in float32 dW_qkv,h as one product over the three parts'
+//      columns; `bwd_mma_add` into dx, as in 1). The
+//      accumulator (rows, c) lives in shared memory where it fits beside the
+//      panels, else in a float32 scratch of the CTA's own in device memory,
+//      read and written by the same thread.
 // Weight gradients and dbias cross CTAs only through per-CTA float32
 // partials reduced in a fixed order (`reduce_partials_kernel`), as above, so
 // runs are bit-equal; db_qkv sums each warp's rows in registers and the
@@ -508,7 +515,7 @@ __host__ __device__ inline SwPlan sw_layout(int F, int C, int D, int elt, bool b
   p.cs = at;   if (bwd) at = al16(at + (size_t)(kThreads / 32) * 3 * p.Dp * 4);
   p.acc3 = at; if (p.nch > 1 && elt == 2) at = al16(at + (size_t)p.Fp * p.LDA * 4);
   p.y = at;    if (acc_smem) at = al16(at + (size_t)p.Fp * p.LDY * 4);
-  p.scr = at;  if (elt == 4) at = al16(at + (size_t)(kThreads / 32) * 16 * (p.KB + 4) * 4);
+  p.scr = at;  if (elt == 4 && !bwd) at = al16(at + (size_t)(kThreads / 32) * 16 * (p.KB + 4) * 4);
   p.bytes = at;
   return p;
 }
@@ -600,8 +607,9 @@ __device__ __forceinline__ void qkv_store(T* qkv, int LDQ, int Dp, int F, int D,
 }
 
 // Phase 1 of a head: q|k|v into the panel (one product with its epilogue where c is one chunk, else summed
-// over the chunks in float32, then stored), and with `dof` (backward) do = g W_o,h^T added into it.
-template <typename T, bool DENSE>
+// over the chunks in float32, then stored), and with `dof` (backward) do = g W_o,h^T added into it. TC takes
+// the backward's products (`bwd_mma`: float32 in 3xTF32); the forward keeps `panel_mma`.
+template <typename T, bool DENSE, bool TC = false>
 __device__ void project_head(const SwRing<T>& rg, int& gi, T* qkv, float* acc3, float* dof, int F, int D,
                              int HD, int h, const float* bqkv, float scale, float scale_q) {
   const SwPlan& pl = rg.pl;
@@ -617,9 +625,16 @@ __device__ void project_head(const SwRing<T>& rg, int& gi, T* qkv, float* acc3, 
     for (int i = threadIdx.x; i < Fp * Dp; i += blockDim.x) dof[(i / Dp) * pl.LDF + i % Dp] = 0.f;
   for (int ch = 0; ch < pl.nch; ++ch) {
     const T* sl = rg.ready(gi++);
-    if (pl.nch == 1) panel_mma<false, true>(sl + pl.sx, pl.LDX, sl + pl.swq, LDQ, Fp, 3 * Dp, pl.CK, epi);
-    else panel_mma_add<false, true>(sl + pl.sx, pl.LDX, sl + pl.swq, LDQ, Fp, 3 * Dp, pl.CK, acc3, pl.LDA, Fp, 3 * Dp);
-    if (dof) panel_mma_add<false, false>(sl + pl.sg, pl.LDX, sl + pl.swo, pl.LDX, Fp, Dp, pl.CK, dof, pl.LDF, Fp, Dp);
+    const T *xs = sl + pl.sx, *ws = sl + pl.swq;
+    if (TC) {
+      if (pl.nch == 1) bwd_mma<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, epi);
+      else bwd_mma_add<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, acc3, pl.LDA, Fp, 3 * Dp);
+      if (dof) bwd_mma_add<false, false>(sl + pl.sg, pl.LDX, sl + pl.swo, pl.LDX, Fp, Dp, pl.CK, dof, pl.LDF, Fp, Dp);
+    } else {
+      if (pl.nch == 1) panel_mma<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, epi);
+      else panel_mma_add<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, acc3, pl.LDA, Fp, 3 * Dp);
+      if (dof) panel_mma_add<false, false>(sl + pl.sg, pl.LDX, sl + pl.swo, pl.LDX, Fp, Dp, pl.CK, dof, pl.LDF, Fp, Dp);
+    }
   }
   if (pl.nch > 1) {
     __syncthreads();
@@ -701,7 +716,7 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
     const float* __restrict__ bqkv, const T* __restrict__ wo, const float* __restrict__ bias,
     float* dbias_partial, T* __restrict__ dx, float* __restrict__ partial, float* dxscr, int tokens, int F,
     int C, int H, int D, float scale, int CK, int NS, int acc_smem) {
-  constexpr int NB = DP / 8, KB = DENSE ? 64 : 32;
+  constexpr int NB = DP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const SwPlan pl = sw_layout(F, C, D, sizeof(T), true, DENSE, CK, NS, acc_smem);
   T* qkv = reinterpret_cast<T*>(smem_raw + pl.qkv);    // (Fk, 3Dp) q|k|v of head h; then dq|dk|dv, rounded
@@ -715,7 +730,6 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
   float* acc3 = reinterpret_cast<float*>(smem_raw + (sizeof(T) == 4 ? pl.qkv : pl.acc3));
   float* dxa = acc_smem ? reinterpret_cast<float*>(smem_raw + pl.y) : dxscr + (size_t)blockIdx.x * pl.Fp * pl.LDY;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5, gq = lane >> 2, q = lane & 3;
-  float* scr = reinterpret_cast<float*>(smem_raw + pl.scr) + warp * 16 * (KB + 4);
   const int HD = H * D, W3 = 3 * HD, Fp = pl.Fp, LDQ = pl.LDQ, LDD = pl.LDD, LDF = pl.LDF, LDY = pl.LDY;
   const float scale_q = rnd<T>(scale);
   const SwRing<T> rg{pl, reinterpret_cast<T*>(smem_raw + pl.ring), x, g, wqkv, wo, tokens, F, C, H, D,
@@ -736,14 +750,14 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
     for (int h = 0; h < H; ++h) {
       const float* bias_h = bias ? bias + (size_t)h * F * F : nullptr;
       float* pdb_h = bias ? pdb + (size_t)h * F * F : nullptr;
-      project_head<T, DENSE>(rg, gi, qkv, acc3, dof, F, D, HD, h, bqkv, scale, scale_q);
+      project_head<T, DENSE, true>(rg, gi, qkv, acc3, dof, F, D, HD, h, bqkv, scale, scale_q);
 
       // Sweep 1 (query rows): o_h, the row statistics, di (BLOCKWISE: rowsum(do * o) from the unrounded
       // values) and do rounded.
       for (int rb = warp; rb < Fp / 16; rb += nw) {
         float o[NB][4], m[2], l[2], dsum[2] = {0.f, 0.f};
-        sweep_rows<T, DENSE, DP>(qkv + (size_t)rb * 16 * LDQ, LDQ, qkv + DP, qkv + 2 * DP, LDQ, F, rb * 16, bias_h, o,
-                                 m, l, scr);
+        sweep_rows<T, DENSE, DP, true>(qkv + (size_t)rb * 16 * LDQ, LDQ, qkv + DP, qkv + 2 * DP, LDQ, F, rb * 16,
+                                       bias_h, o, m, l, nullptr);
 #pragma unroll
         for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -782,8 +796,8 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
         for (int j = 0; j < NB; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
         // P and dP of one KV block (keys from kb0), P in s.
         auto block = [&](int kb0, float (&s)[4][4], float (&dp)[4][4]) {
-          warp_nt<4>(s, qkv + (size_t)q0 * LDQ, LDQ, qkv + (size_t)kb0 * LDQ + DP, LDQ, DP);
-          warp_nt<4>(dp, dob + (size_t)q0 * LDD, LDD, qkv + (size_t)kb0 * LDQ + 2 * DP, LDQ, DP);
+          bwd_nt<4, DP>(s, qkv + (size_t)q0 * LDQ, LDQ, qkv + (size_t)kb0 * LDQ + DP, LDQ);
+          bwd_nt<4, DP>(dp, dob + (size_t)q0 * LDD, LDD, qkv + (size_t)kb0 * LDQ + 2 * DP, LDQ);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -823,10 +837,13 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
             for (int e = 0; e < 4; ++e) {
               const int row = q0 + gq + 8 * (e >> 1), key = kb0 + 8 * j + 2 * q + (e & 1);
               const float ds = s[j][e] * (dp[j][e] - di[e >> 1]);
-              if (pdb_h && key < F && row < F) pdb_h[(size_t)row * F + key] += ds;
+              if (pdb_h && key < F && row < F) {  // float32: one thread per element, in its program order
+                if (sizeof(T) == 4) red_add(pdb_h + (size_t)row * F + key, ds);
+                else pdb_h[(size_t)row * F + key] += ds;
+              }
               dp[j][e] = rnd<T>(ds);
             }
-          warp_pv<NB, 4>(dq, dp, qkv + (size_t)kb0 * LDQ + DP, LDQ, scr);
+          bwd_pv<NB, 4>(dq, dp, qkv + (size_t)kb0 * LDQ + DP, LDQ);
         }
         float cs[NB][2];
 #pragma unroll
@@ -862,8 +879,8 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
           for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
         for (int q0 = 0; q0 < Fp; q0 += 16) {
           float s[2][4], dp[2][4];
-          warp_nt<2>(s, qkv + (size_t)k0 * LDQ + DP, LDQ, qkv + (size_t)q0 * LDQ, LDQ, DP);
-          warp_nt<2>(dp, qkv + (size_t)k0 * LDQ + 2 * DP, LDQ, dob + (size_t)q0 * LDD, LDD, DP);
+          bwd_nt<2, DP>(s, qkv + (size_t)k0 * LDQ + DP, LDQ, qkv + (size_t)q0 * LDQ, LDQ);
+          bwd_nt<2, DP>(dp, qkv + (size_t)k0 * LDQ + 2 * DP, LDQ, dob + (size_t)q0 * LDD, LDD);
 #pragma unroll
           for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -878,8 +895,8 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
               s[j][e] = rnd<T>(p);
               dp[j][e] = rnd<T>(ds);
             }
-          warp_pv<NB, 2>(dv, s, dob + (size_t)q0 * LDD, LDD, scr);
-          warp_pv<NB, 2>(dk, dp, qkv + (size_t)q0 * LDQ, LDQ, scr);
+          bwd_pv<NB, 2>(dv, s, dob + (size_t)q0 * LDD, LDD);
+          bwd_pv<NB, 2>(dk, dp, qkv + (size_t)q0 * LDQ, LDQ);
         }
         float cs[NB][2];
         column_sums<NB>(dk, cs);
@@ -924,12 +941,22 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
       for (int ch = 0; ch < pl.nch; ++ch) {
         const T* sl = pl.nch == 1 ? rg.slot(gi - 1) : rg.ready(gi++);
         const int c0 = ch * pl.CK, cw = min(pl.CK, C - c0);
-        panel_mma_add<true, true>(os, LDD, sl + pl.sg, pl.LDX, DP, pl.CK, Fp,
-                                  pw + (size_t)C * W3 + W3 + (size_t)h * D * C + c0, C, D, cw);
-        for (int part = 0; part < 3; ++part)
-          panel_mma_add<true, true>(sl + pl.sx, pl.LDX, qkv + part * DP, LDQ, pl.CK, DP, Fp,
+        bwd_mma_red<true, true>(os, LDD, sl + pl.sg, pl.LDX, DP, pl.CK, Fp,
+                                pw + (size_t)C * W3 + W3 + (size_t)h * D * C + c0, C, D, cw);
+        if constexpr (sizeof(T) == 4) {  // float32: the three parts as one product over dq|dk|dv's 3DP columns
+          float* dst = pw + (size_t)c0 * W3 + h * D;
+          tf3_mma<true, true>(sl + pl.sx, pl.LDX, qkv, LDQ, pl.CK, 3 * DP, Fp, [=](int r, int c, float v0, float v1) {
+            const int part = c / DP, d = c - part * DP;  // c even, DP a multiple of 8: c + 1 in the same part
+            float* at = dst + (size_t)r * W3 + part * HD + d;
+            if (r < cw && d < D) red_add(at, v0);
+            if (r < cw && d + 1 < D) red_add(at + 1, v1);
+          });
+        } else {
+          for (int part = 0; part < 3; ++part)
+            bwd_mma_red<true, true>(sl + pl.sx, pl.LDX, qkv + part * DP, LDQ, pl.CK, DP, Fp,
                                     pw + (size_t)c0 * W3 + part * HD + h * D, W3, cw, D);
-        panel_mma_add<false, false>(qkv, LDQ, sl + pl.swq, LDQ, Fp, pl.CK, 3 * DP, dxa + c0, LDY, Fp, cw);
+        }
+        bwd_mma_add<false, false>(qkv, LDQ, sl + pl.swq, LDQ, Fp, pl.CK, 3 * DP, dxa + c0, LDY, Fp, cw);
       }
     }
     __syncthreads();
@@ -1025,7 +1052,8 @@ static size_t scratch_bytes(bool staged, const SwPlan& p, int grid, int f, int h
 }
 
 // The route of a launch: 1 = the streaming kernel (mode DENSE where `dense`), 0 = the first design
-// (mode BLOCKWISE only, where the streaming plan does not fit), -1 = none (DENSE that does not fit).
+// (mode BLOCKWISE only, where the streaming plan does not fit), -1 = none (DENSE that does not fit). The C
+// entries report the streaming float32 backward as 3 (its products in 3xTF32).
 static int choose(int f, int c, int dim, int elt, bool bwd, bool dense, SwPlan* p) {
   if (sw_plan(f, c, dim, elt, bwd, dense, p)) return 1;
   return dense ? -1 : 0;
@@ -1074,7 +1102,9 @@ extern "C" int temporal_blockwise_fwd(int dtype, int dense, const void* x, const
 // float32). `wqkv_t` (3HD, c) and `wo_t` (c, HD), the weights transposed, are read by the first design
 // alone (null otherwise); the streaming kernel reads `wo` (HD, c). With `bias`, `dbias` (heads, f, f)
 // float32 receives the sum of the CTAs' `dbias_partial` (grid x heads*f*f, float32); all three are null
-// for the unbiased instantiation. `dense`, `scratch`, `scratch_size` and `*staged` as in the forward.
+// for the unbiased instantiation. `dense`, `scratch` and `scratch_size` as in the forward; `*staged` as
+// there, but 3 where the streaming kernel ran in float32 (its products in 3xTF32). A float32 shape for the
+// streaming kernel that `f32_takes_tf32x3` gives to temporal_tf32x3.cu is refused (see kF32RuleChecked).
 extern "C" int temporal_blockwise_bwd(int dtype, int dense, const void* x, const void* g, const void* wqkv,
                                       const void* wqkv_t, const void* bqkv, const void* wo,
                                       const void* wo_t, const void* bias, void* dbias_partial, void* dbias,
@@ -1090,7 +1120,9 @@ extern "C" int temporal_blockwise_bwd(int dtype, int dense, const void* x, const
   if (route < 0 || vdt::scratch_bytes(route == 1, p, grid, f, heads, dim, elt, true) > scratch_size)
     return (int)cudaErrorInvalidValue;
   if (route == 0 && !(wqkv_t && wo_t)) return (int)cudaErrorInvalidValue;
-  *staged = route;
+  if (route == 1 && dtype == 0 && vdt::kF32RuleChecked && vdt::f32_takes_tf32x3(f, c, dim))
+    return (int)cudaErrorInvalidValue;
+  *staged = route == 1 && dtype == 0 ? 3 : route;
   int rc;
   if (route == 1) {
 #define VDT_SBWD(T, DN, DP)                                                                               \

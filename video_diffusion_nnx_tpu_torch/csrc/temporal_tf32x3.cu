@@ -25,9 +25,11 @@
 //
 // Design.
 // - Products: `mma.sync.m16n8k8` in TF32 with float32 accumulators, each operand a split into
-//   a_hi = tf32(a) and a_lo = tf32(a - a_hi) (round to nearest), and three products lo*hi + hi*lo +
-//   hi*hi per step. What is left out (lo*lo and the rounding of lo) is about 2^-22 of each product,
-//   inside the float32 gates; single-pass TF32 (2^-11) is not.
+//   a_hi = tf32(a) (round to nearest) and a_lo = a - a_hi (read to TF32 by truncation), and three
+//   products lo*hi + hi*lo + hi*hi per step. What is left out (lo*lo and lo's truncation) is about
+//   2^-21 of each product, inside the float32 gates; single-pass TF32 (2^-11) is not. The split, the
+//   product and the warp fragments (`split`, `mma3`, `nt3`, `pv3`) live in common.cuh, shared with the
+//   staged dense and the streaming backwards, whose float32 products take the same math.
 // - The width-scaling products are GEMMs through device memory (`gemm3_kernel`): q|k|v = x W_qkv + b,
 //   do = g W_o^T, dW_qkv = x^T dqkv, dW_o = o^T g and dx = g + dqkv W_qkv^T. Each streams its K
 //   dimension through a three-slot `cp.async` ring of 128 x 32 float32 tiles, so no panel of c columns
@@ -43,8 +45,10 @@
 //   in device memory: each (token, head) reads its panels before it writes the same addresses.
 // - Deterministic: every sum runs in a fixed order (splits and dbias partials reduced in index order).
 //
-// Fit rule (`tf32x3_fits`, ops/temporal_attention.py `_tf32x3_fits` alike): head dim <= 64 and the
-// attention core's four (round32(f), D + 4) panels fit 227 KB: f <= 384 at head dim 32, f <= 192 at 64.
+// Fit rule (`tf32x3_fits` in common.cuh, ops/temporal_attention.py `_tf32x3_fits` alike): head dim <= 64
+// and the attention core's four (round32(f), D + 4) panels fit 227 KB: f <= 384 at head dim 32, f <= 192 at
+// 64. Where the staged dense or the streaming float32 backward also takes a shape, `f32_takes_tf32x3` (the
+// measured rule, common.cuh) decides.
 // The GEMMs take any shape; a leading dimension that is not a multiple of 4 floats loads by element.
 
 #include "common.cuh"
@@ -58,43 +62,6 @@ constexpr int LD_COL = BN + 8;   // a (BK, 128) tile: A stored (K, M), B stored 
 constexpr int TILE = BM * LD_ROW > BK * LD_COL ? BM * LD_ROW : BK * LD_COL;
 constexpr size_t GEMM_SMEM = sizeof(float) * NSTAGE * 2 * TILE;
 constexpr int COLSUM_ROWS = 256;  // rows per partial of the bias gradients' column sums
-
-__device__ __forceinline__ unsigned tf32(float v) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b in 3xTF32: the two small terms first, then hi * hi, into a fresh accumulator that is then added to
-// c on the CUDA cores. The tensor cores round toward zero where they add into an accumulator, so a sum kept
-// in one over a long K drifts by up to an ulp a step; added here, each 8-deep step rounds to nearest.
-__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4], const unsigned (&al)[4],
-                                     const unsigned (&bh)[2], const unsigned (&bl)[2]) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, al, bh[0], bh[1]);
-  mma_tf32(t, ah, bl[0], bl[1]);
-  mma_tf32(t, ah, bh[0], bh[1]);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += t[e];
-}
-
-__device__ __forceinline__ void split4(const float (&v)[4], unsigned (&hi)[4], unsigned (&lo)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split(v[e], hi[e], lo[e]);
-}
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
@@ -241,61 +208,6 @@ __global__ void __launch_bounds__(256) colsum_kernel(const float* __restrict__ A
 
 // --- the attention core -------------------------------------------------------------------------------
 
-// An A fragment (16 x 8) of a row-major float panel at (row 0, column 0 of `a`), split.
-__device__ __forceinline__ void frag_a(const float* a, int ld, unsigned (&hi)[4], unsigned (&lo)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float v[4] = {a[g * ld + t], a[(g + 8) * ld + t], a[g * ld + t + 4], a[(g + 8) * ld + t + 4]};
-  split4(v, hi, lo);
-}
-
-// s (16 x 8NJ) = A (16 rows at `a`) B^T, B's 8NJ rows at `b`, over DP columns of both (row-major panels).
-template <int NJ, int DP>
-__device__ __forceinline__ void nt3(float (&s)[NJ][4], const float* a, const float* b, int ld) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int k0 = 0; k0 < DP; k0 += 8) {
-    unsigned ah[4], al[4];
-    frag_a(a + k0, ld, ah, al);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      unsigned bh[2], bl[2];
-      split(b[(8 * j + g) * ld + k0 + t], bh[0], bl[0]);
-      split(b[(8 * j + g) * ld + k0 + t + 4], bh[1], bl[1]);
-      mma3(s[j], ah, al, bh, bl);
-    }
-  }
-}
-
-// o (16 x 8NB) += P (16 x 8KC, accumulator fragments) B, B's 8KC rows at `b` (row-major, 8NB columns).
-// The k index of each 8-step is taken in the accumulator's column order (lane quad t holds columns
-// 2t and 2t + 1), so P's fragments serve as the A operand as they are and B's rows are read alike.
-template <int NB, int KC>
-__device__ __forceinline__ void pv3(float (&o)[NB][4], const float (&p)[KC][4], const float* b, int ld) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < KC; ++j) {
-    const float v[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
-    unsigned ah[4], al[4];
-    split4(v, ah, al);
-    const float* b0 = b + (8 * j + 2 * t) * ld + g;
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      unsigned bh[2], bl[2];
-      split(b0[8 * n], bh[0], bl[0]);
-      split(b0[ld + 8 * n], bh[1], bl[1]);
-      mma3(o[n], ah, al, bh, bl);
-    }
-  }
-}
-
-__host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }
-
-__host__ __device__ inline size_t attn_smem(int f, int dp) {
-  return sizeof(float) * ((size_t)4 * round32(f) * (dp + 4) + 2 * round32(f));
-}
-
 __host__ __device__ inline int attn_warps(int f) { return round16(f) / 16 < 8 ? round16(f) / 16 : 8; }
 
 // One (token, head) per CTA; a CTA walks tokens blockIdx.x, + gridDim.x, ... of head blockIdx.y.
@@ -347,7 +259,7 @@ __global__ void __launch_bounds__(256) attn_bwd_kernel(float* __restrict__ P, fl
       for (int n = 0; n < NB; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
       for (int kb0 = 0; kb0 < Fk; kb0 += 32) {
         float s[4][4];
-        nt3<4, DP>(s, qs + r0 * LD, ks + kb0 * LD, LD);
+        nt3<4, DP>(s, qs + r0 * LD, LD, ks + kb0 * LD, LD);
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -409,8 +321,8 @@ __global__ void __launch_bounds__(256) attn_bwd_kernel(float* __restrict__ P, fl
       for (int n = 0; n < NB; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
       for (int kb0 = 0; kb0 < Fk; kb0 += 32) {
         float s[4][4], dp[4][4];
-        nt3<4, DP>(s, qs + r0 * LD, ks + kb0 * LD, LD);
-        nt3<4, DP>(dp, dos + r0 * LD, vs + kb0 * LD, LD);
+        nt3<4, DP>(s, qs + r0 * LD, LD, ks + kb0 * LD, LD);
+        nt3<4, DP>(dp, dos + r0 * LD, LD, vs + kb0 * LD, LD);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -443,8 +355,8 @@ __global__ void __launch_bounds__(256) attn_bwd_kernel(float* __restrict__ P, fl
         for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
       for (int q0 = 0; q0 < Fk; q0 += 32) {
         float st[4][4], dpt[4][4];
-        nt3<4, DP>(st, ks + k0 * LD, qs + q0 * LD, LD);   // s^T: rows keys, columns queries
-        nt3<4, DP>(dpt, vs + k0 * LD, dos + q0 * LD, LD);  // (do v^T)^T
+        nt3<4, DP>(st, ks + k0 * LD, LD, qs + q0 * LD, LD);   // s^T: rows keys, columns queries
+        nt3<4, DP>(dpt, vs + k0 * LD, LD, dos + q0 * LD, LD);  // (do v^T)^T
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -545,10 +457,6 @@ static int attn(float* P, float* Q, const float* bias, float* dbias_partial, int
 }
 
 }  // namespace tf
-
-__host__ __device__ inline bool tf32x3_fits(int f, int dim) {
-  return f >= 1 && dim >= 1 && dim <= 64 && tf::attn_smem(f, dim <= 32 ? 32 : 64) <= kSmemMax;
-}
 
 }  // namespace vdt
 

@@ -29,7 +29,13 @@ def tf32x3_launch_counts() -> dict[str, int]:
     return dict(temporal_attention.tf32x3)
 
 
+def staged_tf32x3_launch_counts() -> dict[str, int]:
+    """Of the staged launches since the last reset, those of the temporal backward that ran the staged dense or
+    the streaming kernel in float32, its products on the tensor cores in 3xTF32 (design "staged-3xtf32")."""
+    return dict(temporal_attention.staged_tf32x3)
+
+
 def reset_launch_counts() -> None:
-    for counter in _COUNTERS + _STAGED + (temporal_attention.tf32x3,):
+    for counter in _COUNTERS + _STAGED + (temporal_attention.tf32x3, temporal_attention.staged_tf32x3):
         for name in counter:
             counter[name] = 0

@@ -7,7 +7,9 @@ Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 
 The library is built at first use into ``build/kernels/`` at the repository
 root (listed in ``.gitignore``), named by a hash of its source and flags, so
-an edited source is rebuilt and an unchanged one is reused.
+an edited source is rebuilt and an unchanged one is reused. ``library(name,
+defines)`` builds a variant with ``-D`` macros of its own beside it (a
+measurement's control build; nothing in the package asks for one).
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all;
 ``--split-compile=0`` lets each run its optimization passes over its source's
 kernels on every core, which halves the build where one source has most of
@@ -34,7 +36,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 ]
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 build_logs: dict[str, str] = {}
 
@@ -46,20 +48,24 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
-    target = _target(name)
+def _start(name: str, defines: tuple[str, ...] = ()) -> tuple[Path, Path, subprocess.Popen] | None:
+    target = _target(name, defines)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return target, tmp, proc
 
@@ -83,14 +89,14 @@ def build_all() -> None:
             _finish(name, s)
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
+def library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed, with the macros ``defines`` set."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_target(name)))
-            _libs[name] = lib
+            _finish(name, _start(name, defines))
+            lib = ctypes.CDLL(str(_target(name, defines)))
+            _libs[name, defines] = lib
         return lib
 
 

@@ -29,7 +29,9 @@ else the first design. In float32 the backward of either family takes a design
 of its own where the staged dense tile or the streaming plan does not fit
 (``tf32x3_plan``; ``csrc/temporal_tf32x3.cu``): the width-scaling products as
 GEMMs and the attention core per (token, head), all on the tensor cores in
-split-precision TF32 (three TF32 products per float32 product).
+split-precision TF32 (three TF32 products per float32 product). Where they fit,
+the staged and streaming backwards take the same split products in float32
+(route "staged-3xtf32").
 
 Dispatch has no hidden fallback. A CPU tensor takes the family's plain
 version, differentiated by autograd; a CUDA tensor goes through
@@ -40,8 +42,10 @@ take. ``temporal_attention_bwd_plain`` and
 oracles, with their rounding points; the wide family's are the dense ones.
 Every plain version and every kernel takes the bias; a launch with it is
 counted under a name of its own (``..._biased_fwd``, ``..._biased_bwd``),
-``staged`` counts the launches that ran the staged or streaming kernel and
-``tf32x3`` those that ran the float32 tensor-core backward.
+``staged`` counts the launches that ran the staged or streaming kernel (of
+them, ``staged_tf32x3`` those of the float32 backward, whose products run in
+3xTF32) and ``tf32x3`` those that ran the float32 tensor-core backward of
+``csrc/temporal_tf32x3.cu``.
 
 dbias crosses CTAs like the weight gradients: each CTA of a backward kernel
 adds into a float32 (H, f, f) partial of its own and ``reduce_partials_kernel``
@@ -66,6 +70,11 @@ KV_BLOCK = 32  # KV frames per block of the blockwise kernels, forward and backw
 _SMEM_TARGET = 100 * 1024  # two CTAs per SM where a tile allows it
 _SMEM_MAX = 227 * 1024
 _WORKSPACE_MAX = 128 * 2**20  # bytes of per-CTA weight-gradient partials in one backward
+# The float32 staged and streaming backwards run one CTA per SM (their 3xTF32 products want the registers two
+# CTAs would split); their partials may take twice the workspace, so that the partials' size never caps the grid
+# under the SM count (262,400 floats a CTA at D1's temporal shape: 127 CTAs under the cap above).
+_F32_WORKSPACE_MAX = 256 * 2**20
+STAGED_3XTF32 = "staged-3xtf32"  # the route of the float32 staged and streaming backwards (C route 3)
 _DBIAS_WORKSPACE_MAX = 256 * 2**20  # bytes of per-CTA dbias partials (H*f*f floats each) in one backward
 _THREADS = 256  # threads of every CTA (kThreads in csrc/common.cuh)
 _TC_SMEM_TARGET = 113 * 1024  # two staged CTAs per SM where a tile allows it
@@ -81,6 +90,9 @@ launches = {"temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
 staged = {name: 0 for name in launches}
 # Backward launches that ran the float32 design of csrc/temporal_tf32x3.cu (its C entry reports route 2).
 tf32x3 = {name: 0 for name in launches}
+# Backward launches that ran the staged dense or the streaming kernel in float32, whose products run on the
+# tensor cores in 3xTF32 (route 3; counted in ``staged`` too): the design "staged-3xtf32".
+staged_tf32x3 = {name: 0 for name in launches}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -299,7 +311,7 @@ def _stream_layout(f: int, c: int, dim: int, elt: int, backward: bool, dense: bo
         at += _al16(fp * (3 * dp + 4) * 4)
     if acc_smem:  # y (forward) or dx (backward), float32
         at += _al16(fp * (cp + 4) * 4)
-    if elt == 4:  # each warp's scratch for P on the CUDA cores
+    if elt == 4 and not backward:  # each warp's scratch for P on the CUDA cores (the backward's stays in registers)
         at += _al16(8 * 16 * (kb + 4) * 4)
     return {"ck": ck, "chunks": nch, "slots": ns, "acc_smem": acc_smem, "smem": at, "rows_padded": fp,
             "kv_rows": fk, "dim_padded": dp, "kv_block": kb, "acc_floats": fp * (cp + 4)}
@@ -342,9 +354,11 @@ def blockwise_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool
     """The launch of a blockwise (or, with ``dense``, wide) kernel for ``sms`` SMs: route, grid, scratch.
 
     ``route`` "staged": the streaming kernel (panels staged in x's type, warp-owned query rows, the products
-    on the tensor cores in bf16), with its ``stream_plan`` fields; where the streaming plan does not fit
-    (mode BLOCKWISE only; a wide shape that does not fit raises), "tf32x3" for a float32 backward at head
-    dims up to 32 (``tf32x3_plan``), else "simt", the first design. ``scratch`` is
+    on the tensor cores in bf16), with its ``stream_plan`` fields; "staged-3xtf32" for its float32 backward,
+    whose products and attention fragments run on the tensor cores in 3xTF32, one CTA per SM whose partials
+    take up to ``_F32_WORKSPACE_MAX``, up to c = 32 (``_f32_takes_tf32x3``; wider, "tf32x3"); where the
+    streaming plan does not fit (mode BLOCKWISE only; a wide shape that does not fit raises), "tf32x3" for a
+    float32 backward at head dims up to 32 (``tf32x3_plan``), else "simt", the first design. ``scratch`` is
     the bytes of device scratch the launch needs (the C entry checks it). The forward of mode BLOCKWISE puts
     two CTAs on an SM where shared memory allows; the rest take one. The backward's grid keeps its partials
     within ``_WORKSPACE_MAX`` (and ``_DBIAS_WORKSPACE_MAX``, which the caller applies with a bias).
@@ -353,7 +367,8 @@ def blockwise_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool
     if not dense:  # the first design's limit holds either way, so that no shape runs forward and then fails backward
         _check_blockwise(f, dim)
     plan = stream_plan(f, c, dim, elt, backward, dense)
-    if plan is None and backward and not (bf16 or dense) and dim <= 32 and _tf32x3_fits(f, dim):
+    if (backward and not (bf16 or dense) and dim <= 32 and _tf32x3_fits(f, dim)
+            and (plan is None or _f32_takes_tf32x3(f, c, dim))):
         return tf32x3_plan(tokens, f, c, dim, heads, sms)
     if plan is None:
         if dense:
@@ -364,17 +379,18 @@ def blockwise_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool
     else:
         per_sm = 2 if not dense and not backward and 2 * (plan["smem"] + 1024) <= 228 * 1024 else 1
         grid = max(1, min(tokens, sms * per_sm))
-        plan = {"route": "staged", **plan}
+        plan = {"route": STAGED_3XTF32 if backward and not bf16 else "staged", **plan}
     if backward:
         total = c * 3 * heads * dim + 3 * heads * dim + heads * dim * c + c
-        grid = min(grid, max(1, _WORKSPACE_MAX // (4 * total)))
+        cap = _F32_WORKSPACE_MAX if plan["route"] == STAGED_3XTF32 else _WORKSPACE_MAX
+        grid = min(grid, max(1, cap // (4 * total)))
     return {**plan, "grid": grid, "scratch": _scratch_bytes(plan, grid, f, heads, dim, elt, backward)}
 
 
 def _scratch_bytes(plan: dict, grid: int, f: int, heads: int, dim: int, elt: int, backward: bool) -> int:
     """``scratch_bytes``: the streaming kernels' float32 accumulator per CTA where it is not in shared memory,
     the first design's column of x's type per CTA."""
-    if plan["route"] == "staged":
+    if plan["route"] in ("staged", STAGED_3XTF32):
         return 0 if plan["acc_smem"] else 4 * grid * plan["acc_floats"]
     return grid * f * (4 if backward else 1) * heads * dim * elt
 
@@ -392,6 +408,14 @@ def _tf32x3_smem(f: int, dim: int) -> int:
 def _tf32x3_fits(f: int, dim: int) -> bool:
     """``tf32x3_fits``: head dims up to 64 and the attention core within 227 KB (f <= 384 at 32, 192 at 64)."""
     return 1 <= dim <= 64 and f >= 1 and _tf32x3_smem(f, dim) <= _SMEM_MAX
+
+
+def _f32_takes_tf32x3(f: int, c: int, dim: int) -> bool:
+    """``f32_takes_tf32x3`` in csrc/common.cuh: where a 3xTF32 staged dense (f <= 64) or streaming (f > 64) float32
+    backward and the tf32x3 design both take a shape, the faster by measurement on the H100 (PERF.md, PR 22): the
+    staged kernel up to c = 64, the streaming one up to c = 32, the tf32x3 chain above. Measured at the recipes'
+    shapes alone: off them (few tokens at a small c) it may pick the slower design."""
+    return _tf32x3_fits(f, dim) and c > (64 if f <= MAX_FRAMES else 32)
 
 
 def _tf32x3_splits(tiles: int, k: int, sms: int) -> int:
@@ -501,19 +525,23 @@ def _tc_fwd_fits(bt: int, f: int, c: int, dim: int, elt: int) -> bool:
     return _tc_fwd_bytes(bt, f, c, dim, elt) <= _SMEM_MAX
 
 
-def _staged_tile(tokens: int, f: int, sms: int, nbytes) -> int:
+def _staged_tile(tokens: int, f: int, sms: int, nbytes, per_sm: int = 2) -> int:
     """Tokens per staged tile: as many as fit two CTAs per SM (or one CTA, where that leaves fewer
-    than 64 rows), spread over the SMs, in whole 16-row blocks where the tile allows it."""
+    than 64 rows), spread over the SMs, in whole 16-row blocks where the tile allows it. With ``per_sm``
+    1 (the float32 backward, one CTA per SM): as many as fit one CTA, spread over one CTA per SM, in any
+    number of rows (fewer, larger tiles measured faster than whole 16-row blocks, PERF.md, PR 22)."""
     def fit(target: int) -> int:
         n = 1
         while n < 64 and nbytes(n + 1) <= target:
             n += 1
         return n
 
+    if per_sm == 1:
+        return max(1, min(fit(_SMEM_MAX - 1024), -(-tokens // sms)))
     bt = fit(_TC_SMEM_TARGET)
     if bt * f < 64:  # two CTAs per SM would leave tiles of few rows: one CTA of a larger tile instead
         bt = fit(_SMEM_MAX - 1024)
-    bt = max(1, min(bt, -(-tokens // (2 * sms))))
+    bt = max(1, min(bt, -(-tokens // (per_sm * sms))))
     unit = 16 // math.gcd(f, 16)
     return bt - bt % unit if bt >= unit else bt
 
@@ -543,19 +571,24 @@ def bwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms:
     """The dense backward's launch: route, tokens per tile, shared memory and grid, for ``sms`` SMs.
 
     The staged kernel (``route`` "staged": panels in x's type, the products on the tensor cores in
-    bf16) takes every shape whose one-token tile fits; in float32 the rest take the tensor-core
-    design of ``tf32x3_plan`` ("tf32x3") up to head dim 64, and what is left the CUDA-core kernel
-    ("simt"). Raises where the CUDA-core kernel cannot hold one token, which is where the staged one
-    cannot either. The C launcher makes the same choice from ``bt`` (``tc_bwd_fits``).
+    bf16; "staged-3xtf32" in float32, its width-scaling products on the tensor cores in 3xTF32, one
+    CTA per SM whose partials take up to ``_F32_WORKSPACE_MAX``) takes every shape whose one-token
+    tile fits, in float32 up to c = 64 (``_f32_takes_tf32x3``); in float32 the rest take the
+    tensor-core design of ``tf32x3_plan`` ("tf32x3") up to head dim 64, and what is left the
+    CUDA-core kernel ("simt"). Raises where the CUDA-core kernel cannot hold one token, which is
+    where the staged one cannot either. The C launcher makes the same choice from ``bt``
+    (``tc_bwd_fits``) and holds the same rule (``f32_takes_tf32x3``).
     """
     if dim % 4:
         raise NotImplementedError(f"the temporal backward kernel takes head dims divisible by 4, not {dim}")
     bt = _tile(tokens, f, c, dim, sms, True)  # raises where one token does not fit
     smem = 4 * bt * f * _dense_row_floats(f, c, dim, True)
     route, elt = "simt", 2 if bf16 else 4
+    if not bf16 and _tc_bwd_fits(1, f, c, dim, elt) and _f32_takes_tf32x3(f, c, dim):
+        return tf32x3_plan(tokens, f, c, dim, heads, sms)
     if _tc_bwd_fits(1, f, c, dim, elt):
-        route = "staged"
-        bt = _staged_tile(tokens, f, sms, lambda n: _tc_bwd_bytes(n, f, c, dim, elt))
+        route = "staged" if bf16 else STAGED_3XTF32
+        bt = _staged_tile(tokens, f, sms, lambda n: _tc_bwd_bytes(n, f, c, dim, elt), 2 if bf16 else 1)
         smem = _tc_bwd_bytes(bt, f, c, dim, elt)
     elif not bf16 and _tf32x3_fits(f, dim):
         return tf32x3_plan(tokens, f, c, dim, heads, sms)
@@ -563,9 +596,10 @@ def bwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms:
     # bounds leave it more than the 128 registers a thread that two CTAs would
     per_sm = 2 if 2 * (smem + 1024) <= 228 * 1024 and (bf16 or route == "simt") else 1
     total = c * 3 * heads * dim + 3 * heads * dim + heads * dim * c + c
-    grid = max(1, min(-(-tokens // bt), sms * per_sm, _WORKSPACE_MAX // (4 * total)))
+    cap = _F32_WORKSPACE_MAX if route == STAGED_3XTF32 else _WORKSPACE_MAX
+    grid = max(1, min(-(-tokens // bt), sms * per_sm, cap // (4 * total)))
     return {"route": route, "bt": bt, "smem": smem, "grid": grid, "rows": bt * f,
-            "rows_padded": _round16(bt * f) if route == "staged" else bt * f}
+            "rows_padded": bt * f if route == "simt" else _round16(bt * f)}
 
 
 def _check(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> None:
@@ -728,8 +762,9 @@ def temporal_attention_bwd(x, g, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_b
     name = f"temporal_{'attention' if plan['family'] == 'dense' else plan['family']}{tag}_bwd"
     _build.check(err, name)
     launches[name] += 1
-    staged[name] += route.value == 1
+    staged[name] += route.value in (1, 3)
     tf32x3[name] += route.value == 2
+    staged_tf32x3[name] += route.value == 3
     dwqkv, dbqkv, dwo, dbo = grads.split([c * 3 * hd, 3 * hd, hd * c, c])
     out = (dx, dwqkv.view(c, 3 * hd), dbqkv, dwo.view(hd, c), dbo)
     return out if pos_bias is None else (*out, bias_t[2].to(pos_bias.dtype))
