@@ -105,7 +105,8 @@ in one summary line (``PHASE <name>: ...``):
    ``temporal_plan``'s for this card, and every launch is checked against them. dit kernels: the four
    attention shapes of each recipe (D1 at batch 8) in float32 against their plain versions, with times
    and bounds per step (every backward of both takes the float32 tensor-core design of
-   csrc/temporal_tf32x3.cu, route "tf32x3", D1's temporal one by the measured rule; also bounded at 495 / 3
+   csrc/temporal_tf32x3.cu, route "tf32x3", D1's temporal one by the measured rule; every forward but D2's
+   temporal one the staged or streaming kernel in 3xTF32, route "staged-3xtf32"; both also bounded at 495 / 3
    TFLOP/s); dit d1 / d2: the recipe's
    forward and one loss with its backward through the
    kernels against the plain modules and float32 on one batch (the adaLN and output weights drawn at
@@ -267,11 +268,11 @@ in one summary line (``PHASE <name>: ...``):
     staged or streaming kernel (panels in shared memory, tensor cores in
     bf16), "cuda-core" where each ran the first version, both where the
     shapes split, as the C entries reported each launch, "staged-3xtf32"
-    where the staged or streaming float32 backward ran with its products in
-    3xTF32, "3xtf32" where the tf32x3 chain ran; the temporal backwards add
+    where the staged or streaming kernel ran in float32 with its products in
+    3xTF32, "3xtf32" where the tf32x3 chain ran; the temporal kernels add
     "float32: ..." and ``staged_tf32x3_launches`` / ``tf32x3_launches``, the
     driven paths where each float32 tensor-core design ran: the fixed
-    recipes' biased backwards, their bottleneck, D1's and D2's attentions). The biased wide
+    recipes' biased forwards and backwards, their bottleneck, D1's and D2's attentions). The biased wide
     pair, which no recipe reaches, is held in the wide phase and reported in
     results.json apart from the line. Each entry's ``dit`` field holds its
     launches in the DiT runs (D1's training, the conditioned D1's, one D2
@@ -453,10 +454,12 @@ OFF_PATH = ("temporal_wide_biased_fwd", "temporal_wide_biased_bwd")
 # kernels; the bottleneck's spatial attention stays unbiased; the spatial kernels get scale = 32 ** -0.5.
 FIXED = {"reference_compat": False}
 SLA_PER_STEP = {"sla_context": 8, "sla_out": 8, "sla_bwd_q": 8, "sla_bwd_kv": 8}
+# The unbiased bottleneck (f = 64, c = 256), float32 in fixed math, whose staged tile holds no token: its forward takes
+# the streaming kernel in mode DENSE (``temporal_wide_fwd``) by the measured rule ``_f32_fwd_takes_stream``.
 FIXED_PER_STEP = {"temporal_attention_biased_fwd": 10, "temporal_attention_biased_bwd": 10,
-                  "temporal_attention_fwd": 1, "temporal_attention_bwd": 1, **SLA_PER_STEP}
+                  "temporal_wide_fwd": 1, "temporal_attention_bwd": 1, **SLA_PER_STEP}
 FIXED_LONG_PER_STEP = {"temporal_blockwise_biased_fwd": 10, "temporal_blockwise_biased_bwd": 10,
-                       "temporal_attention_fwd": 1, "temporal_attention_bwd": 1, **SLA_PER_STEP}
+                       "temporal_wide_fwd": 1, "temporal_attention_bwd": 1, **SLA_PER_STEP}
 MID_SPATIAL = (B, 10, 64, 256)  # unbiased in both maths; as a biased shape it is the f = 64, wide-c check
 BIASED_DENSE_SHAPES = [*((n, sh) for n, sh in TEMPORAL_SHAPES if sh != MID_SPATIAL), (0, MID_SPATIAL)]
 BIASED_KERNELS = {
@@ -575,8 +578,8 @@ def route_counts(*mods) -> dict:
 
 def design(launches: int, staged: int, tf32x3: int = 0, staged3: int = 0) -> str:
     """The kernel ``launches`` ran, from the route each launch's C entry reported: "staged" (panels in x's
-    type, the products on the tensor cores in bf16), "staged-3xtf32" (the staged dense or streaming float32
-    backward, its products on the tensor cores in split-precision TF32), "3xtf32" (the float32 backward of
+    type, the products on the tensor cores in bf16), "staged-3xtf32" (the staged dense or streaming kernel in
+    float32, forward or backward, its products on the tensor cores in split-precision TF32), "3xtf32" (the float32 backward of
     csrc/temporal_tf32x3.cu, in 3xTF32 too), "cuda-core" (the first version), or several of them."""
     parts = [n for n, k in (("staged", staged - staged3), ("staged-3xtf32", staged3), ("3xtf32", tf32x3),
                             ("cuda-core", launches - staged - tf32x3)) if k]
@@ -588,7 +591,7 @@ ROUTE_DESIGN = {"staged": "staged", "staged-3xtf32": "staged-3xtf32", "tf32x3": 
 
 
 def add_3xtf32_bound(row: dict, total: dict | None, count: int, nbytes: float, flops: float) -> None:
-    """Beside a float32 backward on the tensor cores (either 3xTF32 design), its bound at the 3xTF32 rate (495 / 3
+    """Beside a float32 kernel on the tensor cores (either 3xTF32 design), its bound at the 3xTF32 rate (495 / 3
     TFLOP/s) as well as at 67 TFLOP/s, so that no share reads over 1; summed into ``total`` per step."""
     b3, by3 = bound_ms(nbytes, flops, PEAK_TF32X3_FLOPS)
     row.update(bound_ms_3xtf32=b3, bound_by_3xtf32=by3, bound_share_3xtf32=b3 / row["ms"])
@@ -596,17 +599,19 @@ def add_3xtf32_bound(row: dict, total: dict | None, count: int, nbytes: float, f
         total["bound_ms_3xtf32"] = total.get("bound_ms_3xtf32", 0.0) + count * b3
 
 
-def f32_bwd_routes(ta, shapes, sms: int) -> tuple[dict, dict]:
-    """Per step, of the float32 backward launches at ``shapes`` ((count, (b, s, f, c), biased) each), those the planner
-    gives the tf32x3 design and those it gives the staged or streaming 3xTF32 kernel, by kernel name."""
+def f32_routes(ta, shapes, sms: int) -> tuple[dict, dict]:
+    """Per step, of the float32 launches at ``shapes`` ((count, (b, s, f, c), biased) each, one forward and one
+    backward), those the planner gives the tf32x3 design (backward) and those it gives the staged or streaming
+    3xTF32 kernel (forward or backward), by kernel name."""
     tf, st = {}, {}
     for count, (b, s, f, c), biased in shapes:
-        plan = ta.temporal_plan(b * s, f, c, DIM_HEAD, HEADS, False, sms, True)
-        family = "attention" if plan["family"] == "dense" else plan["family"]
-        name = f"temporal_{family}{'_biased' if biased else ''}_bwd"
-        for want, route in ((tf, "tf32x3"), (st, ta.STAGED_3XTF32)):
-            if plan["route"] == route:
-                want[name] = want.get(name, 0) + count
+        for way in ("fwd", "bwd"):
+            plan = ta.temporal_plan(b * s, f, c, DIM_HEAD, HEADS, False, sms, way == "bwd")
+            family = "attention" if plan["family"] == "dense" else plan["family"]
+            name = f"temporal_{family}{'_biased' if biased else ''}_{way}"
+            for want, route in ((tf, "tf32x3"), (st, ta.STAGED_3XTF32)):
+                if plan["route"] == route:
+                    want[name] = want.get(name, 0) + count
     return tf, st
 
 
@@ -659,6 +664,7 @@ def kernel_phase(torch, ta, sla) -> dict:
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         timed = dtype_name == "bfloat16"
         elt = 2 if timed else 4
@@ -675,6 +681,11 @@ def kernel_phase(torch, ta, sla) -> dict:
             want = ta.temporal_attention_plain(*args)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
+            plan = ta.temporal_plan(b * s, f, c, DIM_HEAD, HEADS, timed, sms, False)
+            name = "temporal_attention_fwd" if plan["family"] == "dense" else f"temporal_{plan['family']}_fwd"
+            ran = design_since(before, route_counts(ta, sla), name)
+            check(ran == ROUTE_DESIGN[plan["route"]], f"{name} at {shape} in {dtype_name} ran {ran}, "
+                                                      f"planned {plan['route']}")
             if timed:
                 tokens = b * s
                 nbytes = elt * (2 * tokens * f * c + 3 * c * hd + hd * c) + 4 * (3 * hd + c)
@@ -683,7 +694,7 @@ def kernel_phase(torch, ta, sla) -> dict:
                 plain = cuda_ms(torch, lambda: ta.temporal_attention_plain(*args), 10)
                 record("temporal_attention_fwd", shape, dtype_name, err, count, (ms, plain, nbytes, flops))
             else:
-                record("temporal_attention_fwd", shape, dtype_name, err, count)
+                record(name, shape, dtype_name, err, count)
 
         for batch in (B, B_TRAIN):
             for count, shape in SLA_SHAPES:
@@ -1109,6 +1120,7 @@ def backward_phase(torch, ta, sla) -> dict:
     rows, agg = [], new_totals(BWD_KERNELS)
     fwd_err = {k: 0.0 for k in PER_FORWARD}  # the forward kernels at the training batch
     fwd_step = new_totals(("temporal_attention_fwd",))  # the dense forward's bf16 times per training step
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     kv_f32 = new_totals(("sla_bwd_kv",))  # sla_bwd_kv in float32, what the fixed recipe hands it (one pass)
     # the dense backward in float32 where it takes a tensor-core design (3xTF32): the staged kernel up to c = 64,
     # the tf32x3 chain above (the fixed recipe's unbiased bottleneck among them)
@@ -1116,7 +1128,7 @@ def backward_phase(torch, ta, sla) -> dict:
 
     def record_fwd(name, shape, dtype, err, tol, what="max-abs"):
         check(math.isfinite(err) and err <= tol, f"{name} at {shape} in {dtype}: {what} error {err} over {tol}")
-        if what == "max-abs":
+        if what == "max-abs" and name in fwd_err:
             fwd_err[name] = max(fwd_err[name], err)
         row = {"kernel": name, "shape": shape, "dtype": dtype, "what": what, "err": err, "tol": tol}
         rows.append(row)
@@ -1151,7 +1163,9 @@ def backward_phase(torch, ta, sla) -> dict:
             before = route_counts(ta, sla)
             y = ta.fused_temporal_attention_block(*fwd_args)
             err_f = _max_abs(y, ta.temporal_attention_plain(*fwd_args))
-            record_fwd("temporal_attention_fwd", (b, s, f, c), dtype_name, err_f, TOL[dtype_name])
+            family = ta.temporal_plan(b * s, f, c, DIM_HEAD, HEADS, timed, sms, False)["family"]  # f32 (64, 256): wide
+            record_fwd(f"temporal_{'attention' if family == 'dense' else family}_fwd", (b, s, f, c), dtype_name, err_f,
+                       TOL[dtype_name])
             del y
             if timed:  # the forward at the training batch, as the step runs it
                 row = {"kernel": "temporal_attention_fwd", "shape": (b, s, f, c), "dtype": dtype_name,
@@ -1277,11 +1291,13 @@ def blockwise_phase(torch, ta) -> dict:
                   and ta.launches["temporal_attention_fwd"] == before["temporal_attention_fwd"],
                   f"f = {f} did not take the blockwise kernels: {ta.launches}")
             designs = {k: design_since(routes, route_counts(ta), k) for k in names}
-            # the streaming kernels, but for the float32 backward the planner's 3xTF32 design (the streaming kernel
-            # up to c = 32, the tf32x3 chain above)
-            want_bwd = ROUTE_DESIGN[ta.temporal_plan(b * s, f, c, DIM_HEAD, HEADS, timed, sms, True)["route"]]
-            check(not count or designs == dict(zip(names, ("staged", "staged" if timed else want_bwd)))
-                  and want_bwd in ("staged", "staged-3xtf32", "3xtf32"),
+            # the streaming kernels (in float32 in 3xTF32), but for the float32 backward the planner's 3xTF32 design
+            # (the streaming kernel up to c = 32, the tf32x3 chain above)
+            want = tuple(ROUTE_DESIGN[ta.temporal_plan(b * s, f, c, DIM_HEAD, HEADS, timed, sms, bwd)["route"]]
+                         for bwd in (False, True))
+            check(designs == dict(zip(names, want)) and (not count or (
+                      want[0] == ("staged" if timed else "staged-3xtf32")
+                      and want[1] in ("staged", "staged-3xtf32", "3xtf32"))),
                   f"the long clip's shape {shape} in {dtype_name} did not take the streaming kernels: {designs}")
             err = _max_abs(got, ta.temporal_attention_blockwise_plain(x, *w, HEADS, DIM_HEAD, kb))
             check(math.isfinite(err) and err <= TOL[dtype_name],
@@ -1367,7 +1383,10 @@ def biased_phase(torch, ta) -> dict:
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         elt, peak = (4, PEAK_F32_FLOPS) if dtype_name == "float32" else (2, PEAK_BF16_FLOPS)
         for family, count, f_shape, b_shape in shapes:
-            names = (f"temporal_{family}_biased_fwd", f"temporal_{family}_biased_bwd")
+            f_plan = ta.temporal_plan(f_shape[0] * f_shape[1], f_shape[2], f_shape[3], DIM_HEAD, HEADS,
+                                      dtype_name == "bfloat16", sms, False)
+            f_family = "attention" if f_plan["family"] == "dense" else f_plan["family"]  # f32 (64, 256): wide
+            names = (f"temporal_{f_family}_biased_fwd", f"temporal_{family}_biased_bwd")
             dense = family == "attention"
             f, c = f_shape[2], f_shape[3]
             w = weights(c)
@@ -1392,8 +1411,9 @@ def biased_phase(torch, ta) -> dict:
                   f"{names[0]} at {f_shape} in {dtype_name}: a zero bias does not reproduce the unbiased kernel")
             row = {"kernel": names[0], "shape": f_shape, "dtype": dtype_name, "per_step": count, "max_abs_err": err,
                    "tol": TOL[dtype_name], "design": design_since(routes, route_counts(ta), names[0])}
-            check(dense or not count or row["design"] == "staged",
-                  f"{names[0]} at the long clip's {f_shape} in {dtype_name} ran the {row['design']} design")
+            planned = f_plan["route"]
+            check(row["design"] == ROUTE_DESIGN[planned] and (not count or planned != "simt"),
+                  f"{names[0]} at {f_shape} in {dtype_name} ran the {row['design']} design, planned {planned}")
             if not dense and dtype_name == "float32":
                 row["vs_dense_plain"] = _max_abs(got, ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD, pos_bias=bias))
                 check(row["vs_dense_plain"] <= TOL[dtype_name], f"{names[0]} at {f_shape} against the dense plain version: {row}")
@@ -1402,7 +1422,10 @@ def biased_phase(torch, ta) -> dict:
             flops = rows_n * (8 * c * hd + 4 * f * hd + HEADS * f)  # the unbiased count and one add per logit
             ms = cuda_ms(torch, lambda: ta.fused_temporal_attention_block_biased(x, *w, bias, HEADS, DIM_HEAD), 5, 1)
             pl = cuda_ms(torch, lambda: plain_f(x, *w, HEADS, DIM_HEAD, *kb, pos_bias=bias), 3, 1)
-            add_timing(row, agg[dtype_name][names[0]], count, err, ms, pl, nbytes, flops, peak)
+            total = agg[dtype_name].get(names[0], new_totals(names[:1])[names[0]])  # off path: a total of its own
+            add_timing(row, total, count, err, ms, pl, nbytes, flops, peak)
+            if "3xtf32" in row["design"]:
+                add_3xtf32_bound(row, total, count, nbytes, flops)
             rows.append(row)
             print("  " + json.dumps(row), flush=True)
             del got
@@ -1480,6 +1503,7 @@ def wide_phase(torch, ta) -> dict:
     grad_names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dbias")
     names = ("temporal_wide_fwd", "temporal_wide_bwd", "temporal_wide_biased_fwd", "temporal_wide_biased_bwd")
     rows, agg = [], new_totals(names)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         elt, peak = (4, PEAK_F32_FLOPS) if dtype_name == "float32" else (2, PEAK_BF16_FLOPS)
         bf16 = dtype_name == "bfloat16"
@@ -1488,8 +1512,10 @@ def wide_phase(torch, ta) -> dict:
             for biased in (False, True):
                 tag = "_biased" if biased else ""
                 family = "attention" if shape == WIDE_DENSE_REF else "wide"
-                # the dense forward still holds c = 320 (its tile refuses c >= 374; the backward's c >= 309)
-                f_family = "wide" if family == "wide" and ta.wide_needed(f, c, DIM_HEAD, False) else "attention"
+                # the dense forward still holds c = 320 in bf16 (its tile refuses c >= 374; the backward's c >= 309); in
+                # float32 the streaming kernel takes the forward at f = 64 from c = 256 (the measured rule)
+                f_plan = ta.temporal_plan(b * s, f, c, DIM_HEAD, HEADS, bf16, sms, False)
+                f_family = "attention" if f_plan["family"] == "dense" else "wide"
                 fwd, bwd = f"temporal_{f_family}{tag}_fwd", f"temporal_{family}{tag}_bwd"
                 x = rand(torch, shape, 1, 0.5, dtype)
                 g = rand(torch, shape, 9, 0.1, dtype)
@@ -1504,9 +1530,10 @@ def wide_phase(torch, ta) -> dict:
                 check(ta.launches[fwd] == before[fwd] + 1 and ta.launches[bwd] == before[bwd] + 1,
                       f"{shape} {dtype_name}: {fwd} / {bwd} were not launched: {nonzero(ta.launches)}")
                 design = tuple(design_since(routes, route_counts(ta), k) for k in (fwd, bwd))
-                # the streaming kernels, but for the float32 backward: the tensor-core design (csrc/temporal_tf32x3.cu)
-                want_bwd = "staged" if bf16 else "3xtf32"
-                check(family == "attention" or (design[1] == want_bwd and (design[0] == "staged" or f_family == "attention")),
+                # the streaming kernels (in float32 in 3xTF32), but for the float32 backward: the tensor-core design
+                # (csrc/temporal_tf32x3.cu)
+                want_fwd, want_bwd = ("staged", "staged") if bf16 else ("staged-3xtf32", "3xtf32")
+                check(family == "attention" or (design[1] == want_bwd and (design[0] == want_fwd or f_family == "attention")),
                       f"{shape} {dtype_name}: {fwd} / {bwd} ran {design}")
                 want_f = ta.temporal_attention_plain(x, *w, HEADS, DIM_HEAD, **kw)
                 want = ta.temporal_attention_bwd_plain(x, g, *w, HEADS, DIM_HEAD, **kw)
@@ -1911,10 +1938,10 @@ def _seconds_per_step(trainer, warmup: int = 5) -> tuple[float, float]:
 
 
 def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | None = None,
-                per_step: dict = PER_STEP, ddim_steps: int = 10, f32_bwd: tuple = ({}, {})) -> dict:
+                per_step: dict = PER_STEP, ddim_steps: int = 10, f32: tuple = ({}, {})) -> dict:
     """The flagship recipe (with ``unet`` overrides) through the CLIs: TRAIN_STEPS steps at batch 8, a resume, the
-    same steps through the plain modules, then DDIM from the trained checkpoint. ``f32_bwd``: per step, the float32
-    backward launches of the tf32x3 design and of the staged 3xTF32 kernel (``f32_bwd_routes``)."""
+    same steps through the plain modules, then DDIM from the trained checkpoint. ``f32``: per step, the float32
+    launches of the tf32x3 design and of the staged 3xTF32 kernels, forward and backward (``f32_routes``)."""
     import yaml
     from PIL import Image
 
@@ -1934,8 +1961,9 @@ def train_phase(torch, ops, train, sample, name: str = "train", unet: dict | Non
     counts, staged = nonzero(ops.launch_counts()), ops.staged_launch_counts()
     tf32x3, staged3 = nonzero(ops.tf32x3_launch_counts()), nonzero(ops.staged_tf32x3_launch_counts())
     check_staged(counts, staged, f"{name} phase")
-    # in fixed math every temporal backward is float32: each launch took the design the planner gave its shape
-    for got, want, what in ((tf32x3, f32_bwd[0], "3xtf32"), (staged3, f32_bwd[1], "staged-3xtf32")):
+    # in fixed math every temporal attention is float32: each launch, forward and backward, took the design the
+    # planner gave its shape
+    for got, want, what in ((tf32x3, f32[0], "3xtf32"), (staged3, f32[1], "staged-3xtf32")):
         want = {k: n * TRAIN_STEPS for k, n in want.items()}
         check(got == want, f"{name} phase: {what} launches {got}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
@@ -2569,9 +2597,9 @@ def _check_trace(tr, flush: int, per_step: int) -> dict:
 
 def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: dict | None = None,
                      per_step: dict = LONG_PER_STEP, variants=("kernels", "remat_off", "plain"),
-                     f32_bwd: tuple = ({}, {})) -> dict:
+                     f32: tuple = ({}, {})) -> dict:
     """The long-clip recipe (with ``unet`` overrides) through the CLIs: 12 steps at batch 1 on 128-frame
-    clips by each of ``variants``, then DDIM-50. ``f32_bwd`` as for ``train_phase``."""
+    clips by each of ``variants``, then DDIM-50. ``f32`` as for ``train_phase``."""
     import yaml
     from PIL import Image
 
@@ -2602,7 +2630,7 @@ def long_train_phase(torch, ops, train, sample, name: str = "long_train", unet: 
         tf32x3, staged3 = nonzero(ops.tf32x3_launch_counts()), nonzero(ops.staged_tf32x3_launch_counts())
         if variant != "plain":
             check_staged(counts, staged, f"{name} phase, {variant}")
-            for got, want, what in ((tf32x3, f32_bwd[0], "3xtf32"), (staged3, f32_bwd[1], "staged-3xtf32")):
+            for got, want, what in ((tf32x3, f32[0], "3xtf32"), (staged3, f32[1], "staged-3xtf32")):
                 want = {k: n * LONG_STEPS for k, n in want.items()}
                 check(got == want, f"{name} phase, {variant}: {what} launches {got}, expected {want}")
         losses = tr.loss_trace.tolist()
@@ -4514,22 +4542,23 @@ def main(argv: list[str]) -> int:
     timed("fixed unet", unet_phase, torch, load_config, build_models, unet=FIXED)
     timed("fixed grads", grads_phase, torch, ops, ta, sla, load_config, build_models, unet=FIXED,
           per_step=FIXED_PER_STEP, show=brief)
-    # The fixed recipes' float32 backwards a step: the biased ones over the frames and the unbiased bottleneck.
+    # The fixed recipes' float32 temporal attentions a step: the biased ones over the frames and the unbiased
+    # bottleneck, forward and backward.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    fixed_f32 = f32_bwd_routes(ta, [*((n, (B_TRAIN, *sh[1:]), True) for n, sh in BIASED_DENSE_SHAPES if n),
-                                    (1, (B_TRAIN, *MID_SPATIAL[1:]), False)], sms)
-    long_fixed_f32 = f32_bwd_routes(ta, [*((n, sh, True) for n, sh in LONG_TEMPORAL_SHAPES), (1, LONG_DENSE_SHAPE, False)],
-                                    sms)
-    results["fixed_f32_backward_routes"] = {"fixed": fixed_f32, "long_fixed": long_fixed_f32}
+    fixed_f32 = f32_routes(ta, [*((n, (B_TRAIN, *sh[1:]), True) for n, sh in BIASED_DENSE_SHAPES if n),
+                                (1, (B_TRAIN, *MID_SPATIAL[1:]), False)], sms)
+    long_fixed_f32 = f32_routes(ta, [*((n, sh, True) for n, sh in LONG_TEMPORAL_SHAPES), (1, LONG_DENSE_SHAPE, False)],
+                                sms)
+    results["fixed_f32_routes"] = {"fixed": fixed_f32, "long_fixed": long_fixed_f32}
     fixed_trained = timed("fixed train", train_phase, torch, ops, train, sample, name="fixed_train", unet=FIXED,
-                          per_step=FIXED_PER_STEP, ddim_steps=50, f32_bwd=fixed_f32)
+                          per_step=FIXED_PER_STEP, ddim_steps=50, f32=fixed_f32)
     timed("long fixed unet", unet_phase, torch, load_config, build_models, config_path=LONG_CONFIG, batch=1,
           unet=FIXED)
     timed("long fixed grads", grads_phase, torch, ops, ta, sla, load_config, build_models, config_path=LONG_CONFIG,
           batch=1, long_clip=True, unet=FIXED, per_step=FIXED_LONG_PER_STEP, show=brief)
     long_fixed_trained = timed("long fixed train", long_train_phase, torch, ops, train, sample,
                                name="long_fixed_train", unet=FIXED, per_step=FIXED_LONG_PER_STEP,
-                               variants=("kernels", "plain"), f32_bwd=long_fixed_f32)
+                               variants=("kernels", "plain"), f32=long_fixed_f32)
 
     # The sequence-parallel recipe: its cross-attention kernels, then 4 ranks training on the one card.
     cross = timed("cross", cross_phase, torch, xa, ta,
@@ -4645,8 +4674,9 @@ def main(argv: list[str]) -> int:
     def tf32x3_field(name):
         return {path: n[name] for path, n in tf32x3_paths.items() if n.get(name)}
 
-    # Where the staged dense or streaming float32 backward ran in 3xTF32 (route "staged-3xtf32"): the fixed recipes'
-    # biased backwards at c = 32 (and the dense one at c = 64), as the measured rule gives them.
+    # Where the staged dense or streaming kernel ran in float32 in 3xTF32 (route "staged-3xtf32"): every float32
+    # forward the staged tile or the streaming plan holds (the fixed recipes', D1's, D2's spatial), and the fixed
+    # recipes' biased backwards at c = 32 (and the dense one at c = 64), as the measured rule gives them.
     staged3_paths = {"fixed_train": fixed_trained["staged_tf32x3_launches"],
                      "long_fixed_train": long_fixed_trained["staged_tf32x3_launches"],
                      "d1_train": dit_launches(dit_train["plan"], DIT_STEPS)[3], "d2_step": dit_launches(dit_d2["plan"])[3]}
@@ -4656,8 +4686,9 @@ def main(argv: list[str]) -> int:
 
     for name in ("temporal_attention_bwd", "temporal_blockwise_bwd", "temporal_wide_bwd"):
         check(tf32x3_field(name), f"{name}: the float32 tensor-core backward never ran on a driven path")
-    for name in ("temporal_attention_biased_bwd", "temporal_blockwise_biased_bwd"):
-        check(staged3_field(name), f"{name}: the staged float32 backward in 3xTF32 never ran on a driven path")
+    for name in ("temporal_attention_biased_fwd", "temporal_attention_biased_bwd", "temporal_blockwise_biased_fwd",
+                 "temporal_blockwise_biased_bwd", "temporal_attention_fwd", "temporal_blockwise_fwd", "temporal_wide_fwd"):
+        check(staged3_field(name), f"{name}: the staged float32 kernel in 3xTF32 never ran on a driven path")
     kernels_line = [{
         "name": name, "route": "cuda",
         "design": designs[name] + "".join(f"; float32: {d}" for d, field in (("staged-3xtf32", staged3_field),

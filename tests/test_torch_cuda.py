@@ -42,6 +42,15 @@ def _rand(shape, seed, scale, device, dtype=torch.float32):
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
+def _fwd_kernel(tokens, f, c, dim, heads, bf16, bias=False):
+    """The forward kernel's launch name as ``temporal_plan`` gives it on this card (a float32 forward the staged tile
+    cannot hold may take the wide family, by the measured rule)."""
+    plan = ta.temporal_plan(tokens, f, c, dim, heads, bf16, torch.cuda.get_device_properties(0).multi_processor_count,
+                            False)
+    family = "attention" if plan["family"] == "dense" else plan["family"]
+    return f"temporal_{family}{'_biased' if bias else ''}_fwd"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,f,c", [(2, 64, 10, 32), (1, 16, 64, 256), (3, 5, 7, 48)])
 def test_temporal_kernel_matches_plain(device, dtype, b, s, f, c):
@@ -54,7 +63,7 @@ def test_temporal_kernel_matches_plain(device, dtype, b, s, f, c):
     ops.reset_launch_counts()
     got = ta.fused_temporal_attention_block(x, wqkv, bqkv, wo, bo, heads, dim)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["temporal_attention_fwd"] == 1
+    assert ops.launch_counts()[_fwd_kernel(b * s, f, c, dim, heads, dtype == torch.bfloat16)] == 1
     want = ta.temporal_attention_plain(x, wqkv, bqkv, wo, bo, heads, dim)
     assert got.dtype == dtype and got.shape == x.shape
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
@@ -357,8 +366,8 @@ def test_biased_kernels_match_plain(device, dtype, shape):
     got = ta.fused_temporal_attention_block_biased(x, *w, bias, 8, 32)
     grads = ta.temporal_attention_bwd(x, g, *w, 8, 32, pos_bias=bias)
     torch.cuda.synchronize()
-    assert {k: v for k, v in ops.launch_counts().items() if v} == {
-        f"temporal_{family}_biased_fwd": 1, f"temporal_{family}_biased_bwd": 1}
+    fwd = _fwd_kernel(shape[0] * shape[1], f, shape[3], 32, 8, dtype == torch.bfloat16, True)  # f32 (64, 256): wide
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {fwd: 1, f"temporal_{family}_biased_bwd": 1}
     if family == "attention":
         want = ta.temporal_attention_plain(x, *w, 8, 32, pos_bias=bias)
         want_grads = ta.temporal_attention_bwd_plain(x, g, *w, 8, 32, pos_bias=bias)
@@ -624,18 +633,22 @@ def _sms():
 @pytest.mark.parametrize("shape", STAGED_FWD_SHAPES, ids=str)
 def test_staged_temporal_fwd_matches_plain(device, shape, dtype, bias):
     """The dense forward against its plain version; every shape but f = 64, c = 256 in float32 takes the staged
-    kernel; a zero bias reproduces the unbiased kernel bit for bit."""
+    kernel (in float32 its products in 3xTF32), and that one the streaming kernel in mode DENSE by the measured
+    rule (`_f32_fwd_takes_stream`); a zero bias reproduces the unbiased kernel bit for bit."""
     b, s, f, c = shape
-    plan = ta.fwd_plan(b * s, f, c, 32, 8, dtype == torch.bfloat16, _sms())
-    assert plan["route"] == ("simt" if dtype == torch.float32 and (f, c) == (64, 256) else "staged")
+    plan = ta.temporal_plan(b * s, f, c, 32, 8, dtype == torch.bfloat16, _sms(), False)
+    staged = "staged" if dtype == torch.bfloat16 else ta.STAGED_3XTF32
+    assert plan["route"] == staged
+    assert plan["family"] == ("wide" if dtype == torch.float32 and (f, c) == (64, 256) else "dense")
     x, wqkv, bqkv, wo, bo = _temporal_args(shape, device, dtype)
     pos_bias = _rand((8, f, f), 6, 0.5, device) if bias else None
     ops.reset_launch_counts()
     got = ta._block(x, wqkv, bqkv, wo, bo, pos_bias, 8, 32)
     torch.cuda.synchronize()
-    name = "temporal_attention_biased_fwd" if bias else "temporal_attention_fwd"
+    name = _fwd_kernel(b * s, f, c, 32, 8, dtype == torch.bfloat16, bias)
     assert {k: v for k, v in ops.launch_counts().items() if v} == {name: 1}
-    assert ops.staged_launch_counts()[name] == (plan["route"] == "staged")  # the C launcher chose as the planner
+    assert ops.staged_launch_counts()[name] == 1  # the C launcher chose as the planner
+    assert ops.staged_tf32x3_launch_counts()[name] == (plan["route"] == ta.STAGED_3XTF32)
     want = ta.temporal_attention_plain(x, wqkv, bqkv, wo, bo, 8, 32, pos_bias=pos_bias)
     assert got.dtype == dtype and got.shape == x.shape
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
@@ -831,7 +844,7 @@ def test_streaming_blockwise_kernels_match_plain(device, f, c, dtype, bias):
     if f == 128:  # every width of the long clip takes the streaming kernels, in either type, but the float32 backward
         # (its products and attention fragments in 3xTF32) only up to c = 32, the measured rule; wider, tf32x3
         f32_bwd = ta.STAGED_3XTF32 if c <= 32 else "tf32x3"
-        assert routes == ["staged", "staged" if dtype == torch.bfloat16 else f32_bwd]
+        assert routes == (["staged", "staged"] if dtype == torch.bfloat16 else [ta.STAGED_3XTF32, f32_bwd])
     ops.reset_launch_counts()
     got = ta._block(x, *w, pos_bias, 8, 32)
     grads = ta.temporal_attention_bwd(x, g, *w, 8, 32, **kw)
@@ -896,10 +909,13 @@ def _dense_errors(shape, device, dtype, bias):
 @pytest.mark.parametrize("c", [320, 512, 1024])
 def test_wide_columns_take_the_dense_rounding_points(device, c, dtype, bias):
     tag = "_biased" if bias else ""
+    bf16 = dtype == torch.bfloat16
     counts, _ = _dense_errors((2, 10, 64, 256), device, dtype, bias)  # the dense kernels meet the standard
-    assert counts == {f"temporal_attention{tag}_fwd": 1, f"temporal_attention{tag}_bwd": 1}
+    # (in float32 the forward takes the streaming kernel there too, by the measured rule)
+    assert counts == {_fwd_kernel(20, 64, 256, 32, 8, bf16, bias): 1, f"temporal_attention{tag}_bwd": 1}
     counts, (x, w, kw, g, grads, want_g) = _dense_errors((2, 10, 64, c), device, dtype, bias)
-    fwd = f"temporal_wide{tag}_fwd" if c >= 374 else f"temporal_attention{tag}_fwd"  # the dense forward holds c < 374
+    fwd = _fwd_kernel(20, 64, c, 32, 8, bf16, bias)  # the dense forward holds c < 374 in bf16
+    assert fwd == f"temporal_{'wide' if c >= 374 or not bf16 else 'attention'}{tag}_fwd"
     assert counts == {fwd: 1, f"temporal_wide{tag}_bwd": 1}
     # the streaming kernels, but for the float32 backward: the tensor-core design of csrc/temporal_tf32x3.cu
     f32_bwd = f"temporal_wide{tag}_bwd" if dtype == torch.float32 else None
@@ -921,7 +937,8 @@ def test_wide_route_is_the_planners(device):
     for bwd in (False, True):
         for bf16 in (True, False):
             plan = ta.temporal_plan(20, 64, 1024, 32, 8, bf16, _sms(), bwd)
-            assert plan["family"] == "wide" and plan["route"] == ("tf32x3" if bwd and not bf16 else "staged")
+            f32 = "tf32x3" if bwd else ta.STAGED_3XTF32
+            assert plan["family"] == "wide" and plan["route"] == ("staged" if bf16 else f32)
 
 
 def test_cuda_core_context_rounds_s(device):
@@ -1480,3 +1497,152 @@ def test_3xtf32_backwards_keep_nan(device, name, where):
         keep = ~torch.isnan(v)
         if keep.any():
             assert _rel_err(a[keep], v[keep]) <= BWD_TOL[torch.float32], (k, _rel_err(a[keep], v[keep]))
+
+
+# The float32 staged dense forward and the float32 streaming forward, whose products and attention fragments run on
+# the tensor cores in split-precision TF32 (route "staged-3xtf32", C route 3): at the shapes of every recipe that
+# hands them float32 (D1's temporal and spatial attention at batch 8, the fixed flagship's four f = 10 levels at
+# batch 8 and its top level at batch 2, the fixed long clip's four f = 128 levels, D2's spatial attention in mode
+# DENSE) and at edges (f = 7, 16, 64 dense; 65 and 288, the float32 plan's longest, streaming; head dims 20, 32, 64;
+# widths that are not multiples of 16), biased and not. Each output within FWD3_TOL of its plain version (TF32 off
+# there), a tenth of the float32 gate, which one TF32 product would miss at every target shape
+# (tests/test_torch_fwd_3xtf32.py::test_one_tf32_product_would_miss_the_gate); a zero bias bit-equal to the unbiased
+# kernel, two runs bit-equal, the launch counts the route's.
+FWD3_TOL = 1e-5
+FWD3_SHAPES = {
+    "d1_temporal": ((8, 256, 16, 256), 8, 32), "d1_spatial": ((8, 16, 256, 256), 8, 32),
+    "d2_spatial": ((4, 10, 64, 384), 6, 64), "fixed_c32": ((8, 4096, 10, 32), 8, 32),
+    "fixed_c64": ((8, 1024, 10, 64), 8, 32), "fixed_c128": ((8, 256, 10, 128), 8, 32),
+    "fixed_c256": ((8, 64, 10, 256), 8, 32), "fixed_b2_c32": ((2, 4096, 10, 32), 8, 32),
+    "long_c32": ((1, 4096, 128, 32), 8, 32), "long_c64": ((1, 1024, 128, 64), 8, 32),
+    "long_c128": ((1, 256, 128, 128), 8, 32), "long_c256": ((1, 64, 128, 256), 8, 32),
+    "f7_c48_d20": ((3, 5, 7, 48), 3, 20), "f16_c36": ((1, 4, 16, 36), 2, 32), "f64_c40": ((1, 2, 64, 40), 2, 32),
+    "f65_c48": ((1, 3, 65, 48), 2, 32), "f288_c40": ((1, 2, 288, 40), 2, 32),
+    "fixed_bottleneck": ((8, 10, 64, 256), 8, 32), "long_bottleneck": ((1, 128, 64, 256), 8, 32),
+}
+
+
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("name", list(FWD3_SHAPES))
+def test_staged_3xtf32_forward_matches_plain(device, name, bias):
+    shape, heads, dim = FWD3_SHAPES[name]
+    b, s, f, c = shape
+    x, *w = _temporal_args(shape, device, torch.float32, heads, dim)
+    pos_bias = _rand((heads, f, f), 6, 0.5, device) if bias else None
+    plan = ta.temporal_plan(b * s, f, c, dim, heads, False, _sms(), False)
+    assert plan["route"] == ta.STAGED_3XTF32
+    kernel = _fwd_kernel(b * s, f, c, dim, heads, False, bias)
+    ops.reset_launch_counts()
+    got = ta._block(x, *w, pos_bias, heads, dim)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {kernel: 1}
+    assert ops.staged_launch_counts()[kernel] == ops.staged_tf32x3_launch_counts()[kernel] == 1
+    want = (ta.temporal_attention_plain(x, *w, heads, dim, pos_bias=pos_bias) if f <= ta.MAX_FRAMES
+            else ta.temporal_attention_blockwise_plain(x, *w, heads, dim, ta.KV_BLOCK, pos_bias=pos_bias))
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert (got - want).abs().max().item() <= FWD3_TOL
+    assert torch.equal(ta._block(x, *w, pos_bias, heads, dim), got)
+    if bias:
+        assert torch.equal(ta._block(x, *w, torch.zeros_like(pos_bias), heads, dim), ta._block(x, *w, None, heads, dim))
+
+
+# The staged float32 forward's per-token products over key windows at f = 7, 10, 16 and 64 (a 16-row block spans up
+# to three tokens, is one token, or a quarter of one), biased: within FWD3_TOL, two runs bit-equal.
+@pytest.mark.parametrize("shape", [(3, 5, 7, 48), (2, 64, 10, 32), (2, 16, 16, 256), (1, 3, 64, 40)], ids=str)
+def test_staged_3xtf32_forward_key_windows(device, shape):
+    b, s, f, c = shape
+    x, *w = _temporal_args(shape, device, torch.float32, 4, 32)
+    pos_bias = _rand((4, f, f), 6, 0.5, device)
+    assert ta.temporal_plan(b * s, f, c, 32, 4, False, _sms(), False)["route"] == ta.STAGED_3XTF32
+    ops.reset_launch_counts()
+    got = ta._block(x, *w, pos_bias, 4, 32)
+    torch.cuda.synchronize()
+    assert ops.staged_tf32x3_launch_counts()["temporal_attention_biased_fwd"] == 1
+    want = ta.temporal_attention_plain(x, *w, 4, 32, pos_bias=pos_bias)
+    assert (got - want).abs().max().item() <= FWD3_TOL
+    assert torch.equal(ta._block(x, *w, pos_bias, 4, 32), got)
+
+
+# A NaN in the input comes out of both 3xTF32 forwards where it comes out of the plain version (the whole token it
+# lies in), and nowhere else: the split's low part keeps a NaN, and at f = 10 and 7, where a 16-row block spans
+# tokens, the staged kernel's P V runs per token over that token's keys alone (the tile holds a V that is not
+# finite). The GPU's own NaN (0x7fffffff).
+@pytest.mark.parametrize("name", ["fixed_c32", "d1_temporal", "f7_c48_d20", "d2_spatial", "f65_c48"])
+def test_3xtf32_forwards_keep_nan(device, name):
+    shape, heads, dim = FWD3_SHAPES[name]
+    b, s, f, c = shape
+    x, *w = _temporal_args(shape, device, torch.float32, heads, dim)
+    pos_bias = _rand((heads, f, f), 6, 0.5, device)
+    x[0, 1, f // 2, c // 3] = torch.tensor(0x7FFFFFFF, dtype=torch.int32, device=device).view(torch.float32)
+    ops.reset_launch_counts()
+    got = ta._block(x, *w, pos_bias, heads, dim)
+    torch.cuda.synchronize()
+    kernel = _fwd_kernel(b * s, f, c, dim, heads, False, True)
+    assert ops.launch_counts()[kernel] == ops.staged_tf32x3_launch_counts()[kernel] == 1
+    want = (ta.temporal_attention_plain(x, *w, heads, dim, pos_bias=pos_bias) if f <= ta.MAX_FRAMES
+            else ta.temporal_attention_blockwise_plain(x, *w, heads, dim, ta.KV_BLOCK, pos_bias=pos_bias))
+    assert torch.isnan(want[0, 1]).all() and not torch.isnan(want[0, 0]).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    assert (got[keep] - want[keep]).abs().max().item() <= FWD3_TOL
+
+
+# The same in bf16 on the staged kernel (route "staged"), whose P V runs per token of a 16-row block over that token's
+# keys alone too where a V is not finite (`mma_keys`: the other tokens' V halves cleared in the ldmatrix fragments):
+# at f = 10 (the compat flagship's sampler and trainer) and 7 a block spans tokens, at f = 16 it is one. Two runs
+# bit-equal, NaN for NaN.
+@pytest.mark.parametrize("name", ["fixed_c32", "fixed_c256", "f7_c48_d20", "d1_temporal"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_bf16_staged_forward_keeps_nan(device, name, bias):
+    shape, heads, dim = FWD3_SHAPES[name]
+    b, s, f, c = shape
+    x, *w = _temporal_args(shape, device, torch.bfloat16, heads, dim)
+    pos_bias = _rand((heads, f, f), 6, 0.5, device) if bias else None
+    x[0, 1, f // 2, c // 3] = float("nan")
+    assert ta.temporal_plan(b * s, f, c, dim, heads, True, _sms(), False)["route"] == "staged"
+    ops.reset_launch_counts()
+    got = ta._block(x, *w, pos_bias, heads, dim)
+    torch.cuda.synchronize()
+    kernel = _fwd_kernel(b * s, f, c, dim, heads, True, bias)
+    assert ops.launch_counts()[kernel] == ops.staged_launch_counts()[kernel] == 1
+    want = ta.temporal_attention_plain(x, *w, heads, dim, pos_bias=pos_bias)
+    assert torch.isnan(want[0, 1]).all() and not torch.isnan(want[0, 0]).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    assert (got[keep].float() - want[keep].float()).abs().max().item() <= TOL[torch.bfloat16]
+    assert torch.equal(ta._block(x, *w, pos_bias, heads, dim).view(torch.int16), got.view(torch.int16))
+
+
+# The float32 forwards the staged tile cannot hold: by the measured rule (`_f32_fwd_takes_stream`, f = 64) the fixed
+# bottleneck takes the streaming kernel in mode DENSE, and D2's temporal attention (f = 10) keeps the CUDA-core kernel.
+# The dense C entry refuses a shape the rule gives to the streaming kernel; a build with VDT_ANY_F32_ROUTE defined, a
+# measurement's control, runs the CUDA-core kernel there all the same. Each within the float32 gate.
+@pytest.mark.parametrize("shape,heads,dim", [((8, 10, 64, 256), 8, 32), ((4, 64, 10, 384), 6, 64)], ids=str)
+def test_float32_forwards_beyond_the_staged_tile_take_the_measured_kernel(device, monkeypatch, shape, heads, dim):
+    b, s, f, c = shape
+    x, *w = _temporal_args(shape, device, torch.float32, heads, dim)
+    want = ta.temporal_attention_plain(x, *w, heads, dim)
+    stream = ta._f32_fwd_takes_stream(f, c, dim)
+    assert stream == (f == 64)
+    plan = ta.temporal_plan(b * s, f, c, dim, heads, False, _sms(), False)
+    assert (plan["family"], plan["route"]) == (("wide", ta.STAGED_3XTF32) if stream else ("dense", "simt"))
+    ops.reset_launch_counts()
+    got = ta.fused_temporal_attention_block(x, *w, heads, dim)
+    torch.cuda.synchronize()
+    kernel = _fwd_kernel(b * s, f, c, dim, heads, False)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {kernel: 1}
+    assert ops.staged_tf32x3_launch_counts()[kernel] == int(stream)
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+    if stream:  # the dense C entry holds the rule; the control build runs the CUDA-core kernel
+        dense = {"family": "dense", **ta.fwd_plan(b * s, f, c, dim, heads, False, _sms())}
+        monkeypatch.setattr(ta, "temporal_plan", lambda *_: dense)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ta.fused_temporal_attention_block(x, *w, heads, dim)
+        monkeypatch.setattr(_build, "library", functools.partial(_build.library, defines=("VDT_ANY_F32_ROUTE",)))
+        ops.reset_launch_counts()
+        ctrl = ta.fused_temporal_attention_block(x, *w, heads, dim)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["temporal_attention_fwd"] == 1 and ops.staged_launch_counts()["temporal_attention_fwd"] == 0
+        assert (ctrl - want).abs().max().item() <= TOL[torch.float32]

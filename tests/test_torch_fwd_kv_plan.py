@@ -60,18 +60,22 @@ def test_fwd_plan_fits_and_pads(shape, bf16):
     tokens = b * s
     elt = 2 if bf16 else 4
     plan = ta.fwd_plan(tokens, f, c, DIM, HEADS, bf16, SMS)
-    # every shape takes the tensor cores in bf16; in float32 the f = 64, c = 256 column is too wide for the
-    # staged tile (260 KB) and keeps the CUDA-core kernel
-    assert plan["route"] == ("simt" if not bf16 and (f, c) == (64, 256) else "staged")
-    assert (plan["route"] == "staged") == ta._tc_fwd_fits(plan["bt"], f, c, DIM, elt)  # the C launcher's rule
+    # every shape takes the tensor cores (float32 in 3xTF32); in float32 the f = 64, c = 256 column is too wide
+    # for the staged tile (260 KB) and keeps the CUDA-core kernel
+    staged = "staged" if bf16 else ta.STAGED_3XTF32
+    assert plan["route"] == ("simt" if not bf16 and (f, c) == (64, 256) else staged)
+    assert (plan["route"] != "simt") == ta._tc_fwd_fits(plan["bt"], f, c, DIM, elt)  # the C launcher's rule
     assert 1 <= plan["bt"] <= 64 and plan["smem"] <= SMEM_MAX
     assert plan["grid"] == -(-tokens // plan["bt"]) and plan["rows"] == plan["bt"] * f
-    if plan["route"] == "staged":
+    if plan["route"] != "simt":
         assert plan["rows_padded"] % 16 == 0 and 0 <= plan["rows_padded"] - plan["rows"] < 16
         assert plan["smem"] == ta._tc_fwd_bytes(plan["bt"], f, c, DIM, elt)
-        # whole 16-row blocks wherever the tile holds a multiple of 16 // gcd(f, 16) tokens
-        if plan["bt"] >= 16 // math.gcd(f, 16):
-            assert plan["rows"] == plan["rows_padded"]
+        if bf16:  # whole 16-row blocks wherever the tile holds a multiple of 16 // gcd(f, 16) tokens
+            if plan["bt"] >= 16 // math.gcd(f, 16):
+                assert plan["rows"] == plan["rows_padded"]
+        else:  # one CTA an SM: as many tokens as fit it, spread over the SMs
+            fit = max(n for n in range(1, 65) if n == 1 or ta._tc_fwd_bytes(n, f, c, DIM, elt) <= SMEM_MAX - 1024)
+            assert plan["bt"] == max(1, min(fit, -(-tokens // SMS)))
     else:
         assert plan["smem"] == 4 * plan["bt"] * f * (2 * c + 3 * DIM + 1 + f + 1)
 
@@ -103,7 +107,7 @@ def test_fwd_plan_raises_where_the_old_tile_raised(f, c, dim, bf16):
         return
     plan = ta.fwd_plan(16, f, c, dim, 2, bf16, SMS)
     assert plan["smem"] <= SMEM_MAX
-    assert (plan["route"] == "staged") == ta._tc_fwd_fits(1, f, c, dim, 2 if bf16 else 4)
+    assert (plan["route"] != "simt") == ta._tc_fwd_fits(1, f, c, dim, 2 if bf16 else 4)
 
 
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])

@@ -80,8 +80,8 @@ def test_targets_take_the_measured_route_and_fill_the_card(shape):
     else:  # the streaming plan, scratch-free for P, one CTA per SM or per token
         assert plan == {**plan, **ta.stream_plan(f, c, DIM, 4, True, False)}
         assert plan["grid"] == min(SMS, tokens)
-    # the forward keeps its route
-    assert ta.temporal_plan(tokens, f, c, DIM, HEADS, False, SMS, False)["route"] == "staged"
+    # the forward takes the same route, in 3xTF32 too
+    assert ta.temporal_plan(tokens, f, c, DIM, HEADS, False, SMS, False)["route"] == ta.STAGED_3XTF32
 
 
 def test_the_rule_off_the_targets():
@@ -106,14 +106,13 @@ def test_bf16_keeps_its_plans(shape):
 
 
 def test_streaming_float32_backward_holds_no_p_scratch():
-    """The float32 streaming backward keeps P and dS in registers: its layout drops the warps' scratch for P, which
-    the float32 forward keeps, in Python as in C (``sw_layout``); its longest plan at head dim 32 is f = 160."""
+    """The float32 streaming backward keeps P and dS in registers, and so does the forward: neither layout holds
+    a warp's scratch for P, in Python as in C (``sw_layout``); the backward's longest plan at head dim 32 is
+    f = 160."""
     src = (CSRC / "temporal_blockwise.cu").read_text()
-    assert "if (elt == 4 && !bwd) at = al16(at + (size_t)(kThreads / 32) * 16 * (p.KB + 4) * 4);" in src
-    scratch = 8 * 16 * (32 + 4) * 4
+    assert "scr" not in src[src.index("struct SwPlan"):src.index("// The plan a launch takes")]
     for f in (72, 128, 160):
-        fwd = ta._stream_layout(f, 32, DIM, 4, False, False, 32, 1, True)
-        bare = {**fwd, "smem": fwd["smem"] - scratch}  # the forward less its scratch ...
+        bare = ta._stream_layout(f, 32, DIM, 4, False, False, 32, 1, True)  # the forward, without a scratch ...
         assert ta._stream_layout(f, 32, DIM, 2, False, False, 32, 1, True)["smem"] < bare["smem"]
         # ... and the backward's panels on top of it, without a scratch
         bwd = ta._stream_layout(f, 32, DIM, 4, True, False, 32, 1, True)["smem"]

@@ -60,7 +60,8 @@ def test_every_long_clip_and_wide_shape_takes_the_streaming_kernel(shape, bf16, 
     b, s, f, c = shape
     tokens, elt = b * s, 2 if bf16 else 4
     plan = ta.temporal_plan(tokens, f, c, DIM, HEADS, bf16, SMS, backward)
-    if f <= 64 and not ta.wide_needed(f, c, DIM, backward):  # the dense forward still holds c = 320
+    f32_fwd_stream = not (bf16 or backward) and ta._f32_fwd_takes_stream(f, c, DIM)  # float32: the measured rule
+    if f <= 64 and not (ta.wide_needed(f, c, DIM, backward) or f32_fwd_stream):  # the dense forward holds c = 320
         assert plan["family"] == "dense" and not backward and c < 374
         return
     if f <= 64 and backward and not bf16:  # the float32 wide backward takes the tensor-core design
@@ -71,13 +72,13 @@ def test_every_long_clip_and_wide_shape_takes_the_streaming_kernel(shape, bf16, 
         assert plan == {"family": "blockwise", **ta.tf32x3_plan(tokens, f, c, DIM, HEADS, SMS)}
         return
     assert plan["family"] == ("blockwise" if f > 64 else "wide")
-    assert plan["route"] == (ta.STAGED_3XTF32 if f32_bwd else "staged")
+    assert plan["route"] == ("staged" if bf16 else ta.STAGED_3XTF32)  # float32 in 3xTF32, both directions
     assert plan == {**plan, **_first_fit(f, c, DIM, elt, backward, f <= 64)}
     assert plan["smem"] <= ta._SMEM_MAX and plan["smem"] % 16 == 0
     assert plan["ck"] % 16 == 0 and plan["chunks"] == -(-ta._round16(c) // plan["ck"])
     assert plan["rows_padded"] % 16 == 0 and plan["kv_rows"] % plan["kv_block"] == 0
     assert plan["kv_block"] == (64 if f <= 64 else 32)
-    per_sm = 2 if f > 64 and not backward and 2 * (plan["smem"] + 1024) <= 228 * 1024 else 1
+    per_sm = 2 if bf16 and f > 64 and not backward and 2 * (plan["smem"] + 1024) <= 228 * 1024 else 1
     assert plan["grid"] <= min(tokens, per_sm * SMS)
     if backward:
         total = c * 3 * HEADS * DIM + 3 * HEADS * DIM + HEADS * DIM * c + c
@@ -98,7 +99,7 @@ def test_the_long_clip_top_level_fills_the_card():
 @pytest.mark.parametrize("f", [65, 72, 96, 128, 192, 256, 300, 321])
 def test_first_design_only_where_no_streaming_plan_fits(f, bf16):
     """Every c of the long clip at every f the card tests use: the first design runs exactly where the streaming
-    plan does not fit (float32: the forward beyond f = 256; bf16: the backward beyond f = 192 at c >= 128), and
+    plan does not fit (float32: the forward beyond f = 288; bf16: the backward beyond f = 192 at c >= 128), and
     never at f <= 128; the float32 backward beyond f = 160, and by the measured rule at c over 32, takes the
     tensor-core design of csrc/temporal_tf32x3.cu instead."""
     elt = 2 if bf16 else 4
@@ -109,7 +110,7 @@ def test_first_design_only_where_no_streaming_plan_fits(f, bf16):
             f32_bwd = backward and not bf16
             other = "tf32x3" if f32_bwd else "simt"
             tf = f32_bwd and (not fits or c > 32)
-            assert plan["route"] == ("tf32x3" if tf else (ta.STAGED_3XTF32 if f32_bwd else "staged") if fits else other)
+            assert plan["route"] == ("tf32x3" if tf else ("staged" if bf16 else ta.STAGED_3XTF32) if fits else other)
             assert fits or f > 128
             if not fits and other == "simt":
                 assert plan["scratch"] == plan["grid"] * f * (4 if backward else 1) * HEADS * DIM * elt

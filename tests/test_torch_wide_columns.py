@@ -45,11 +45,13 @@ def test_wide_route_is_the_dense_streaming_mode(c, bf16, sms):
         plan = pta.temporal_plan(2 * 10, 64, c, 32, 8, bf16, sms, backward)
         wide = pta.wide_needed(64, c, 32, backward)
         assert wide == (c >= (309 if backward else 374))
+        # a float32 forward the staged tile cannot hold takes the streaming kernel by the measured rule
+        wide = wide or (not (bf16 or backward) and pta._f32_fwd_takes_stream(64, c, 32))
         assert plan["family"] == ("wide" if wide else "dense")
         if wide and backward and not bf16:
             assert plan["route"] == "tf32x3" and plan["smem"] <= pta._SMEM_MAX and plan["grid"] == 20
-        elif wide:
-            assert plan["route"] == "staged" and plan["smem"] <= pta._SMEM_MAX
+        elif wide:  # the streaming kernel, in float32 in 3xTF32
+            assert plan["route"] == ("staged" if bf16 else pta.STAGED_3XTF32) and plan["smem"] <= pta._SMEM_MAX
             assert plan["kv_block"] == 64 and plan["grid"] == min(20, sms)
         else:
             with pytest.raises(NotImplementedError):  # what the dense planner alone would say at the wide widths
@@ -70,7 +72,7 @@ def test_wide_plans_cover_the_widths_the_dense_tile_refuses(f, c, dim):
             if backward and not bf16:
                 assert plan == {"family": "wide", **pta.tf32x3_plan(8, f, c, dim, 2, 132)}
             else:
-                assert plan == {**plan, **stream} and plan["route"] == "staged"
+                assert plan == {**plan, **stream} and plan["route"] == ("staged" if bf16 else pta.STAGED_3XTF32)
 
 
 def test_wide_plan_refuses_head_dims_over_64():

@@ -2,7 +2,7 @@
 // conversion and rounding through the storage type (bf16 or float), the
 // register-blocked product `mm` of the online-softmax kernels, the tensor-core
 // products and staging of the staged kernels (bf16 through mma.sync m16n8k16,
-// float32 in the backward kernels in split-precision TF32), the warp-level
+// float32 in the temporal kernels in split-precision TF32), the warp-level
 // attention fragments, and the reduction of per-CTA weight-gradient partials.
 #pragma once
 
@@ -154,6 +154,32 @@ __device__ __forceinline__ void mma_block(const bf16* A, int lda, const bf16* B,
   }
 }
 
+// The halves of a bf16 pair of B rows (k, k + 1) to keep where only the keys [kb, ke) enter a sum.
+__device__ __forceinline__ unsigned key_mask(int k, int kb, int ke) {
+  return (k >= kb && k < ke ? 0x0000ffffu : 0u) | (k + 1 >= kb && k + 1 < ke ? 0xffff0000u : 0u);
+}
+
+// mma_block<false, true> over the keys [kb, ke) alone: B's rows outside them are read as zeros (their halves of
+// the ldmatrix fragments cleared), so that no product reaches them (0 x NaN would be a NaN). The 16-deep steps are
+// mma_block's from k = 0, the ones that meet [kb, ke); for finite B the sums equal mma_block's over the whole K.
+__device__ __forceinline__ void mma_keys(const bf16* A, int lda, const bf16* B, int ldb, int m0, int n0, int kb,
+                                         int ke, float (&acc)[2][4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int a_r = lane & 15, a_c = (lane >> 4) << 3;
+  const int b_r = (lane & 7) + (((lane >> 3) & 1) << 3), b_c = (lane >> 4) << 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int k0 = kb & ~15; k0 < ke; k0 += 16) {
+    unsigned a[4], b[4];
+    ldsm_x4(a, A + (size_t)(m0 + a_r) * lda + k0 + a_c);
+    ldsm_x4_t(b, B + (size_t)(k0 + b_r) * ldb + n0 + b_c);
+    // b[0] and b[2] hold the keys k0 + 2t and k0 + 2t + 1 (low and high half), b[1] and b[3] those 8 further
+    const unsigned lo = key_mask(k0 + 2 * t, kb, ke), hi = key_mask(k0 + 8 + 2 * t, kb, ke);
+    mma_bf16(acc[0], a, b[0] & lo, b[1] & hi);
+    mma_bf16(acc[1], a, b[2] & lo, b[3] & hi);
+  }
+}
+
 // C = A B over M x N x K by all the warps of the block, each owning 16 x 16 blocks round
 // robin; every pair of neighbouring outputs goes to `epi(row, col, v0, v1)` (columns col and
 // col + 1) exactly once. M, N and K are multiples of 16. (Blocks of 16 x 32, which load A
@@ -205,7 +231,8 @@ __device__ __forceinline__ void tc_mma_add(const bf16* A, int lda, const bf16* B
   }
 }
 
-// The same two products for float32 panels, on the CUDA cores: each thread owns four rows
+// The same two products for float32 panels, on the CUDA cores (the spatial and cross kernels' float32 products;
+// the temporal kernels take `tensor_mma`, below, in 3xTF32): each thread owns four rows
 // (m, m + M/4, ...) by two neighbouring columns, sums over K in order, and hands the pairs to
 // `epi` as tc_mma does. M a multiple of 4, N of 2.
 template <bool AT, bool BK, class Epi>
@@ -426,6 +453,32 @@ __device__ __forceinline__ void mma3_strip(const float* A, int lda, const float*
   }
 }
 
+// One warp's 16 x 16 block (m0, n0) of A B in 3xTF32 over the keys [kb, ke) alone: A (16 rows at m0, row-major,
+// leading dimension lda; the k order of `frag_a_pair`) times B (K, N) row-major, whose rows outside [kb, ke) are read
+// as zeros, so that no product reaches them (0 x NaN would be a NaN). The 8-deep steps are those of `mma3_strip`
+// from k = 0, the ones that meet [kb, ke); for finite B the sums equal `mma3_strip`'s over the whole K.
+__device__ __forceinline__ void mma3_keys(const float* A, int lda, const float* B, int ldb, int m0, int n0, int kb,
+                                          int ke, float (&acc)[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int k0 = kb & ~7; k0 < ke; k0 += 8) {
+    unsigned ah[4], al[4];
+    frag_a_pair(A + (size_t)m0 * lda + k0, lda, ah, al);
+    const int k_lo = k0 + 2 * t, k_hi = k_lo + 1;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + 8 * j + g;
+      const float b0 = k_lo >= kb && k_lo < ke ? B[(size_t)k_lo * ldb + n] : 0.f;
+      const float b1 = k_hi >= kb && k_hi < ke ? B[(size_t)k_hi * ldb + n] : 0.f;
+      unsigned bh[2], bl[2];
+      split(b0, bh[0], bl[0]);
+      split(b1, bh[1], bl[1]);
+      mma3(acc[j], ah, al, bh, bl);
+    }
+  }
+}
+
 // C = A B in 3xTF32 by all the warps of the block, each owning 16 x 8NJ strips round robin; every pair of
 // neighbouring outputs goes to `epi(row, col, v0, v1)` exactly once (as tc_mma). M, N multiples of 16.
 template <bool AT, bool BK, int NJ, class Epi>
@@ -514,40 +567,62 @@ constexpr bool kF32RuleChecked = false;
 constexpr bool kF32RuleChecked = true;
 #endif
 
-// The backward kernels' width-scaling products, on the tensor cores in either type: bf16 panels through
-// tc_mma / tc_mma_add, float32 panels in 3xTF32. (The forward kernels keep `panel_mma`, whose float32
-// products run on the CUDA cores.)
+// The temporal kernels' width-scaling products, forward and backward, on the tensor cores in either type: bf16
+// panels through tc_mma / tc_mma_add, float32 panels in 3xTF32. (The spatial and cross kernels keep `panel_mma`,
+// whose float32 products run on the CUDA cores.)
 template <bool AT, bool BK, class Epi>
-__device__ __forceinline__ void bwd_mma(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
+__device__ __forceinline__ void tensor_mma(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
                                         Epi epi) {
   tc_mma<AT, BK>(A, lda, B, ldb, M, N, K, epi);
 }
 template <bool AT, bool BK, class Epi>
-__device__ __forceinline__ void bwd_mma(const float* A, int lda, const float* B, int ldb, int M, int N, int K,
+__device__ __forceinline__ void tensor_mma(const float* A, int lda, const float* B, int ldb, int M, int N, int K,
                                         Epi epi) {
   tf3_mma<AT, BK>(A, lda, B, ldb, M, N, K, epi);
 }
 template <bool AT, bool BK>
-__device__ __forceinline__ void bwd_mma_add(const bf16* A, int lda, const bf16* B, int ldb, int M, int N,
+__device__ __forceinline__ void tensor_mma_add(const bf16* A, int lda, const bf16* B, int ldb, int M, int N,
                                             int K, float* dst, size_t ldd, int Mv, int Nv) {
   tc_mma_add<AT, BK>(A, lda, B, ldb, M, N, K, dst, ldd, Mv, Nv);
 }
 template <bool AT, bool BK>
-__device__ __forceinline__ void bwd_mma_add(const float* A, int lda, const float* B, int ldb, int M, int N,
+__device__ __forceinline__ void tensor_mma_add(const float* A, int lda, const float* B, int ldb, int M, int N,
                                             int K, float* dst, size_t ldd, int Mv, int Nv) {
   tf3_mma_add<AT, BK>(A, lda, B, ldb, M, N, K, dst, ldd, Mv, Nv);
 }
-// bwd_mma_add into a CTA's float32 weight-gradient partial in device memory: bf16 as tc_mma_add, float32
+// tensor_mma_add into a CTA's float32 weight-gradient partial in device memory: bf16 as tc_mma_add, float32
 // through `tf3_mma_red`.
 template <bool AT, bool BK>
-__device__ __forceinline__ void bwd_mma_red(const bf16* A, int lda, const bf16* B, int ldb, int M, int N,
+__device__ __forceinline__ void tensor_mma_red(const bf16* A, int lda, const bf16* B, int ldb, int M, int N,
                                             int K, float* dst, size_t ldd, int Mv, int Nv) {
   tc_mma_add<AT, BK>(A, lda, B, ldb, M, N, K, dst, ldd, Mv, Nv);
 }
 template <bool AT, bool BK>
-__device__ __forceinline__ void bwd_mma_red(const float* A, int lda, const float* B, int ldb, int M, int N,
+__device__ __forceinline__ void tensor_mma_red(const float* A, int lda, const float* B, int ldb, int M, int N,
                                             int K, float* dst, size_t ldd, int Mv, int Nv) {
   tf3_mma_red<AT, BK>(A, lda, B, ldb, M, N, K, dst, ldd, Mv, Nv);
+}
+// One warp's 16 x 16 block (m0, n0) of A B, A stored (M, K) row-major, B stored (K, N) with BK, else (N, K): bf16
+// panels through mma_block, float32 ones in 3xTF32 (`mma3_strip`). K a multiple of 16.
+template <bool BK>
+__device__ __forceinline__ void tensor_block(const bf16* A, int lda, const bf16* B, int ldb, int m0, int n0, int K,
+                                             float (&acc)[2][4]) {
+  mma_block<false, BK>(A, lda, B, ldb, m0, n0, K, acc);
+}
+template <bool BK>
+__device__ __forceinline__ void tensor_block(const float* A, int lda, const float* B, int ldb, int m0, int n0, int K,
+                                             float (&acc)[2][4]) {
+  mma3_strip<false, BK, 2>(A, lda, B, ldb, m0, n0, K, acc);
+}
+// One warp's 16 x 16 block (m0, n0) of A B over the keys [kb, ke) alone, B (K, N) row-major with its other rows
+// read as zeros: bf16 panels through mma_keys, float32 ones in 3xTF32 (`mma3_keys`).
+__device__ __forceinline__ void tensor_keys(const bf16* A, int lda, const bf16* B, int ldb, int m0, int n0, int kb,
+                                            int ke, float (&acc)[2][4]) {
+  mma_keys(A, lda, B, ldb, m0, n0, kb, ke, acc);
+}
+__device__ __forceinline__ void tensor_keys(const float* A, int lda, const float* B, int ldb, int m0, int n0, int kb,
+                                            int ke, float (&acc)[2][4]) {
+  mma3_keys(A, lda, B, ldb, m0, n0, kb, ke, acc);
 }
 
 // Asynchronous 8-byte copy from device to shared memory; `valid` false fills the 8 bytes with zeros.
@@ -626,16 +701,11 @@ __device__ __forceinline__ float dot_rows(const bf16* a, const bf16* b, int D) {
   return s;
 }
 
-__device__ __forceinline__ float dot_rows(const float* a, const float* b, int D) {
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) s += a[d] * b[d];
-  return s;
-}
-
 // ---------------------------------------------------------------------------
 // Warp-level attention fragments (flash-attention style), shared by the streaming temporal kernels
 // and the cross-attention kernels: each warp owns 16 query rows and keeps S, P and its accumulators in
-// m16n8k16 fragments; in float32 the same fragments are computed on the CUDA cores.
+// m16n8k16 fragments. In float32 `warp_nt` / `warp_pv` compute the same fragments on the CUDA cores (the
+// cross kernels); the temporal kernels take `tensor_nt` / `tensor_pv`, in 3xTF32.
 
 // Per-lane place of an m16n8k16 accumulator fragment: element e of n8 block j lies at row
 // (lane >> 2) + 8 * (e >> 1), column 8 * j + 2 * (lane & 3) + (e & 1).
@@ -764,23 +834,23 @@ __device__ __forceinline__ void column_sums(const float (&a)[NB][4], float (&cs)
     }
 }
 
-// The backward kernels' attention fragments: bf16 as warp_nt / warp_pv, float32 in 3xTF32 with P kept in
-// registers (no scratch). K is the depth of s = A B^T (a multiple of 8); the float32 panels' leading
+// The streaming temporal kernels' attention fragments, forward and backward: bf16 as warp_nt / warp_pv, float32
+// in 3xTF32 with P kept in registers (no scratch). K is the depth of s = A B^T (a multiple of 8); the float32 panels' leading
 // dimensions are even and 8 mod 32 floats (`pad_ld`), for `nt3`'s 8-byte loads.
 template <int NB, int K>
-__device__ __forceinline__ void bwd_nt(float (&s)[NB][4], const bf16* A, int lda, const bf16* B, int ldb) {
+__device__ __forceinline__ void tensor_nt(float (&s)[NB][4], const bf16* A, int lda, const bf16* B, int ldb) {
   warp_nt<NB>(s, A, lda, B, ldb, K);
 }
 template <int NB, int K>
-__device__ __forceinline__ void bwd_nt(float (&s)[NB][4], const float* A, int lda, const float* B, int ldb) {
+__device__ __forceinline__ void tensor_nt(float (&s)[NB][4], const float* A, int lda, const float* B, int ldb) {
   nt3<NB, K, true>(s, A, lda, B, ldb);
 }
 template <int NB, int KC>
-__device__ __forceinline__ void bwd_pv(float (&o)[NB][4], const float (&p)[KC][4], const bf16* B, int ldb) {
+__device__ __forceinline__ void tensor_pv(float (&o)[NB][4], const float (&p)[KC][4], const bf16* B, int ldb) {
   warp_pv<NB, KC>(o, p, B, ldb, nullptr);
 }
 template <int NB, int KC>
-__device__ __forceinline__ void bwd_pv(float (&o)[NB][4], const float (&p)[KC][4], const float* B, int ldb) {
+__device__ __forceinline__ void tensor_pv(float (&o)[NB][4], const float (&p)[KC][4], const float* B, int ldb) {
   pv3<NB, KC>(o, p, B, ldb);
 }
 
@@ -789,9 +859,10 @@ __device__ __forceinline__ void bwd_pv(float (&o)[NB][4], const float (&p)[KC][4
 // F). On return o holds sum_j round(exp(s_j - m)) v_j with l the row sums of the unrounded exp
 // (BLOCKWISE, KV blocks of 32), or round(P) V with P = exp(s - m) / l normalised before its rounding
 // (DENSE, one block of all keys); m and l for the lane's rows g and g + 8. `bias_h` (F, F), where given,
-// is added to the logits of rows m0 + g and m0 + g + 8 below F. BWD takes the backward kernels' fragments
-// (`bwd_nt`, `bwd_pv`: float32 in 3xTF32, no scratch); the forward kernels keep `warp_nt` / `warp_pv`.
-template <typename T, bool DENSE, int DP, bool BWD = false>
+// is added to the logits of rows m0 + g and m0 + g + 8 below F. TF3 takes the temporal kernels' fragments
+// (`tensor_nt`, `tensor_pv`: float32 in 3xTF32, no scratch); the cross kernels keep `warp_nt` / `warp_pv`, whose
+// float32 P goes through `scr`.
+template <typename T, bool DENSE, int DP, bool TF3 = false>
 __device__ __forceinline__ void sweep_rows(const T* q, int ldq, const T* k, const T* v, int ldkv, int F,
                                            int m0, const float* bias_h, float (&o)[DP / 8][4],
                                            float (&m)[2], float (&l)[2], float* scr) {
@@ -803,7 +874,7 @@ __device__ __forceinline__ void sweep_rows(const T* q, int ldq, const T* k, cons
   l[0] = l[1] = 0.f;
   for (int kb0 = 0; kb0 < F; kb0 += KB) {
     float s[KC][4];
-    if (BWD) bwd_nt<KC, DP>(s, q, ldq, k + (size_t)kb0 * ldkv, ldkv);
+    if (TF3) tensor_nt<KC, DP>(s, q, ldq, k + (size_t)kb0 * ldkv, ldkv);
     else warp_nt<KC>(s, q, ldq, k + (size_t)kb0 * ldkv, ldkv, DP);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -859,7 +930,7 @@ __device__ __forceinline__ void sweep_rows(const T* q, int ldq, const T* k, cons
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
     }
-    if (BWD) bwd_pv<NB, KC>(o, s, v + (size_t)kb0 * ldkv, ldkv);
+    if (TF3) tensor_pv<NB, KC>(o, s, v + (size_t)kb0 * ldkv, ldkv);
     else warp_pv<NB, KC>(o, s, v + (size_t)kb0 * ldkv, ldkv, scr);
   }
 }

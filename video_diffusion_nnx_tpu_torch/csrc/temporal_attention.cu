@@ -36,11 +36,13 @@
 // the H100's ~295 FLOP/byte ridge (989 TFLOP/s over 3.35 TB/s), so the
 // bound is the bf16 tensor-core rate. The projections are 8c of the 8c + 4f
 // FLOPs per row and head (86% at f = 10, c = 32). `temporal_fwd_panel_kernel`
-// (below) puts them, and then the per-token products too, on the tensor cores
-// in bf16; `temporal_fwd_kernel`, the first version, multiplies everything on
-// the CUDA cores in float32, with the weights read from device memory one
-// element at a time, and now runs only where the staged tile does not fit
-// (`fwd_plan` in ops/temporal_attention.py and `tc_fwd_fits` choose alike).
+// (below) puts them on the tensor cores, in bf16 or for float32 in
+// split-precision TF32 (3xTF32), and the per-token products too;
+// `temporal_fwd_kernel`, the first version, multiplies
+// everything on the CUDA cores in float32, with the weights read from device
+// memory one element at a time, and now runs only where the staged tile does
+// not fit (`fwd_plan` in ops/temporal_attention.py and `tc_fwd_fits` choose
+// alike) and `f32_fwd_takes_stream` keeps a float32 shape here.
 
 #include "common.cuh"
 
@@ -176,29 +178,40 @@ __global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Forward with staged panels: the kernel above, redesigned (tensor cores in bf16).
+// Forward with staged panels: the kernel above, redesigned (tensor cores in bf16, and in float32 in 3xTF32).
 //
 // The same function and rounding points as `temporal_fwd_kernel<T, BIAS>`.
 // The operands of the two width-scaling products are already rounded to x's
 // type in the TPU kernel's math (x, W_qkv, W_o, o_h), so in bf16 `mma.sync`
 // with float32 accumulators keeps the rounding points; only the order of the
-// sums changes. Per head h, through `panel_mma` (common.cuh):
+// sums changes. Per head h, through `tensor_mma` (common.cuh):
 //     q|k|v = x W_part,h, one part at a time, the epilogue adding b_qkv,
 //             rounding, and scaling q in x's type;
-//     y += o_h W_o,h into a float32 shared accumulator (`panel_mma_add`);
-// on the tensor cores for bf16 panels, on the CUDA cores in float32 for
-// float32 ones (one TF32 product would miss the float32 gates; the backward
-// below takes them in split-precision 3xTF32). With those moved, the
-// per-token f x f products set the time at the top level (f = 10, c = 32),
-// so in bf16 they run on the tensor cores too: a 16-row block of query rows
-// takes its logits against a window of keys, the whole tokens its rows touch
-// (`key_window`: 32 keys at f = 10, 64 at f = 64), and keeps each row's own
-// token's keys; the softmax (float32, eight lanes per row, the bias joining
-// the logits before the row maximum) writes the rounded probabilities into
-// the row's place in that window, zero elsewhere, and o_h = P V runs per
-// block over the window. q and the probabilities are rounded to x's type in
-// the TPU kernel's math as well, so this changes only the order of sums. In
-// float32 the logits with the softmax and P V stay on the CUDA cores. o_h is
+//     y += o_h W_o,h into a float32 shared accumulator (`tensor_mma_add`);
+// on the tensor cores in either type: bf16 panels through mma.sync m16n8k16,
+// float32 ones in split-precision TF32 (3xTF32: each operand split into a
+// TF32 high and low part, three m16n8k8 products lo*hi + hi*lo + hi*hi per
+// 8-deep step, each step summed in a fresh accumulator and added to the
+// float32 total on the CUDA cores), which holds the float32 gates where one
+// TF32 product would not. With those moved, the per-token f x f products set
+// the time at the top level (f = 10, c = 32), so they run on the tensor cores
+// too, in both types (in float32 faster than a CUDA-core branch at f = 10 and
+// 16 on the H100, PERF.md §6): a 16-row block of query rows takes its logits
+// against a window of keys, the whole tokens its rows touch (`key_window`: 32
+// keys at f = 10, 16 at f = 16, 64 at f = 64), and keeps each row's own
+// token's keys (`tensor_block`); the softmax (float32, eight lanes per row,
+// the bias joining the logits before the row maximum) writes the rounded
+// probabilities into the row's place in that window, zero elsewhere. q and
+// the probabilities are rounded to x's type in the TPU kernel's math as well,
+// so this changes only the order of sums. o_h = P V runs per block over its
+// window. Where a block spans tokens (f = 10) that multiplies the other
+// tokens' V rows by zero, and 0 x NaN (or infinity) would carry a NaN in one
+// token into its neighbours' rows: so where the projection wrote a V that is
+// not finite (`vbad`, or'ed over the CTA at the barrier before P V), P V runs
+// once per token of the block over that token's keys alone, the other keys' V
+// read as zeros (`tensor_keys`), each row keeping its own token's pass. For
+// finite V the two give the same sums; the passes per token cost 10-11% of
+// the bf16 kernel at f = 10 (PERF.md §6), so finite tiles take one. o_h is
 // written over the q slots (q is no longer read).
 //
 // Staging. The tile's x rows go to shared memory once, in x's type (`stage`,
@@ -206,11 +219,13 @@ __global__ void __launch_bounds__(kThreads) temporal_fwd_kernel(
 // up to 16 columns. A head's weights go through a ring of two buffers, one
 // (c, D) or (D, c) part at a time in the order W_q, W_k, W_v, W_o: part i+1
 // is copied while part i is multiplied, one barrier per part and two more
-// per head. out = x + round(y + b_o) is written once. Tiles aim at two CTAs
-// per SM; the bottleneck (f = 64, c = 256) takes 185 KB in bf16 for one
-// token, and in float32 (260 KB) keeps the CUDA-core kernel above, as does
-// any one-token tile over 227 KB (at f = 64 and head dim 32: c above 336 in
-// bf16, above 208 in float32).
+// per head. out = x + round(y + b_o) is written once. bf16 tiles aim at two
+// CTAs per SM; a float32 CTA holds an SM (the 3xTF32 fragments want its
+// registers), its tile as many tokens as 227 KB holds. The bottleneck (f = 64,
+// c = 256) takes 185 KB in bf16 for one token; a one-token tile over 227 KB
+// (at f = 64 and head dim 32: c above 336 in bf16, above 208 in float32)
+// keeps the CUDA-core kernel above, but in float32 where
+// `f32_fwd_takes_stream` gives the shape to the streaming kernel.
 
 // The widest window of keys a 16-row block of query rows attends to, rounded to 16: the whole tokens
 // its rows touch. Blocks start at multiples of 16, so a block's first row lies at an offset into its
@@ -231,11 +246,10 @@ struct TcFwdPlan {
   size_t x, y, qkv, p, pw, w, bytes;
 };
 
-// bf16 tiles also hold the probabilities in x's type by key window (pw) and 16 zero rows past the
-// q|k|v panel, which the last block's window may reach.
+// Tiles also hold the probabilities in x's type by key window (pw) and 16 zero rows past the q|k|v panel,
+// which the last block's window may reach.
 __host__ __device__ inline TcFwdPlan tc_fwd_plan(int rows, int F, int C, int D, int elt) {
   TcFwdPlan p;
-  const bool tc = elt == 2;
   p.Rp = round16(rows);
   p.Cp = round16(C);
   p.Dp = round16(D);
@@ -244,14 +258,14 @@ __host__ __device__ inline TcFwdPlan tc_fwd_plan(int rows, int F, int C, int D, 
   p.LDD = pad_ld(D);
   p.LDQ = pad_ld(3 * p.Dp);
   p.WS = p.Cp * p.LDD > p.Dp * p.LDC ? p.Cp * p.LDD : p.Dp * p.LDC;
-  p.LW = tc ? key_window(F) : 0;
+  p.LW = key_window(F);
   p.LDP = pad_ld(p.LW);
   size_t at = 0;
   p.x = at;   at += (size_t)elt * p.Rp * p.LDC;
   p.y = at;   at += (size_t)4 * p.Rp * p.LDF;
-  p.qkv = at; at += (size_t)elt * (p.Rp + (tc ? 16 : 0)) * p.LDQ;
+  p.qkv = at; at += (size_t)elt * (p.Rp + 16) * p.LDQ;
   p.p = at;   at += (size_t)4 * p.Rp * (F + 1);
-  p.pw = at;  at += tc ? (size_t)elt * p.Rp * p.LDP : 0;
+  p.pw = at;  at += (size_t)elt * p.Rp * p.LDP;
   p.w = at;   at += (size_t)2 * elt * p.WS;
   p.bytes = at;
   return p;
@@ -262,8 +276,20 @@ __host__ __device__ inline bool tc_fwd_fits(int bt, int F, int C, int D, int elt
   return tc_fwd_plan(bt * F, F, C, D, elt).bytes <= kSmemMax;
 }
 
+// A float32 forward whose staged tile holds no token takes the streaming kernel of temporal_blockwise.cu in mode
+// DENSE (3xTF32) rather than the CUDA-core kernel above where a token fills that kernel's one 64-key block (f = 64)
+// and the head dim is at most 64. Measured on the H100 (PERF.md §6): faster at f = 64 (the fixed bottleneck, c =
+// 256, head dim 32; c = 128, head dim 64), slower at f = 10, 16, 24, 32, 40 and 48 (head dims 32 and 64);
+// f = 49-63 is not measured and keeps the CUDA-core kernel. ops/temporal_attention.py `_f32_fwd_takes_stream` is
+// the same rule; the C entry below refuses a float32 shape it gives to the streaming kernel, except in a build with
+// VDT_ANY_F32_ROUTE defined (kF32RuleChecked).
+__host__ __device__ inline bool f32_fwd_takes_stream(int F, int C, int D) {
+  return F == 64 && D <= 64 && !tc_fwd_fits(1, F, C, D, 4);
+}
+
+// Two CTAs per SM in bf16 (128 registers a thread); a float32 CTA holds an SM.
 template <typename T, bool BIAS>
-__global__ void __launch_bounds__(kThreads, 2) temporal_fwd_panel_kernel(
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_fwd_panel_kernel(
     const T* __restrict__ x, const T* __restrict__ wqkv, const float* __restrict__ bqkv,
     const T* __restrict__ wo, const float* __restrict__ bo, const float* __restrict__ bias,
     T* __restrict__ out, int tokens, int F, int C, int H, int D, int BT, float scale_in) {
@@ -272,8 +298,8 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fwd_panel_kernel(
   T* xs = reinterpret_cast<T*>(smem_raw + pl.x);          // (Rp, Cp) x
   float* ys = reinterpret_cast<float*>(smem_raw + pl.y);  // (Rp, Cp) float32 sum of o_h W_o,h
   T* qkv = reinterpret_cast<T*>(smem_raw + pl.qkv);       // (Rp, 3Dp) q|k|v of head h; o_h over q
-  float* pr = reinterpret_cast<float*>(smem_raw + pl.p);  // (Rp, F+1) logits (bf16) or probabilities
-  T* pw = reinterpret_cast<T*>(smem_raw + pl.pw);         // bf16: (Rp, LW) probabilities by key window
+  float* pr = reinterpret_cast<float*>(smem_raw + pl.p);  // (Rp, F+1) logits
+  T* pw = reinterpret_cast<T*>(smem_raw + pl.pw);         // (Rp, LW) probabilities by key window
   T* wbuf = reinterpret_cast<T*>(smem_raw + pl.w);        // 2 x WS, the weight ring
   const int Rp = pl.Rp, Cp = pl.Cp, Dp = pl.Dp, LDC = pl.LDC, LDF = pl.LDF, LDD = pl.LDD,
             LDQ = pl.LDQ, WS = pl.WS, LW = pl.LW, LDP = pl.LDP, PS = F + 1;
@@ -301,26 +327,28 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fwd_panel_kernel(
   stage(xs, LDC, x + base, C, rows, C, Rp, Cp);
   load_part(0, 0, 0);
   for (int i = tid; i < Rp * Cp; i += nth) ys[(i / Cp) * LDF + i % Cp] = 0.f;
-  if constexpr (sizeof(T) == 2) {  // the zeros of the windows (other tokens' keys) and of the rows past the q|k|v panel
-    for (int i = tid; i < Rp * LW; i += nth) pw[(i / LW) * LDP + i % LW] = from_f<T>(0.f);
-    for (int i = tid; i < 16 * LDQ; i += nth) qkv[(size_t)Rp * LDQ + i] = from_f<T>(0.f);
-  }
+  // the zeros of the windows (other tokens' keys) and of the rows past the q|k|v panel
+  for (int i = tid; i < Rp * LW; i += nth) pw[(i / LW) * LDP + i % LW] = from_f<T>(0.f);
+  for (int i = tid; i < 16 * LDQ; i += nth) qkv[(size_t)Rp * LDQ + i] = from_f<T>(0.f);
 
   for (int h = 0; h < H; ++h) {
     const int i0 = 4 * h;
-    // 1. q|k|v = round(x W_part + b) (q then scaled and rounded again); zeros past D.
+    // 1. q|k|v = round(x W_part + b) (q then scaled and rounded again); zeros past D. vbad: the thread wrote
+    // a V that is not finite.
+    int vbad = 0;
     for (int part = 0; part < 3; ++part) {
       const T* w = part_ready(i0 + part);
       load_part(h, part + 1, i0 + part + 1);
       const float* bb = bqkv + part * HD + h * D;
       T* dst = qkv + part * Dp;
-      panel_mma<false, true>(xs, LDC, w, LDD, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
+      tensor_mma<false, true>(xs, LDC, w, LDD, Rp, Dp, Cp, [=, &vbad](int r, int c, float v0, float v1) {
         float a = c < D ? rnd<T>(v0 + bb[c]) : 0.f;
         float b = c + 1 < D ? rnd<T>(v1 + bb[c + 1]) : 0.f;
         if (part == 0) {
           a = a * scale_q;
           b = b * scale_q;
         }
+        if (part == 2 && !(isfinite(a) && isfinite(b))) vbad = 1;
         st2(dst + (size_t)r * LDQ + c, a, b);
       });
     }
@@ -330,121 +358,85 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fwd_panel_kernel(
     // The softmax takes eight lanes per row, each taking the frames j = lane, lane + 8, ... (F <= 64).
     const T* w = part_ready(i0 + 3);
     if (h + 1 < H) load_part(h + 1, 0, i0 + 4);
-    if constexpr (sizeof(T) == 2) {
-      // bf16: each 16-row block's logits against its key window (the whole tokens its rows touch) on the
-      // tensor cores, keeping a row's own token's keys (float32, into pr); the softmax writes the rounded
-      // probabilities into the row's window of pw, whose other keys stay zero; then o_h = P V per block
-      // over its window on the tensor cores.
-      const int nb = LW / 16;
-      for (int item = warp; item < (Rp / 16) * nb; item += nwarps) {
-        const int m0 = (item / nb) * 16, n0 = (item % nb) * 16;
-        if (m0 >= rows) continue;
+    // Each 16-row block's logits against its key window (the whole tokens its rows touch) on the tensor
+    // cores, keeping a row's own token's keys (float32, into pr); the softmax writes the rounded
+    // probabilities into the row's window of pw, whose other keys stay zero; then o_h = P V per block on
+    // the tensor cores over its window, or, where a V of the tile is not finite, once per token of the block
+    // over that token's keys alone (`tensor_keys`).
+    const int nb = LW / 16;
+    for (int item = warp; item < (Rp / 16) * nb; item += nwarps) {
+      const int m0 = (item / nb) * 16, n0 = (item % nb) * 16;
+      if (m0 >= rows) continue;
+      const int2 win = block_window(m0, rows, F);
+      if (n0 >= win.y) continue;
+      float acc[2][4];
+      tensor_block<false>(qkv, LDQ, qkv + (size_t)win.x * LDQ + Dp, LDQ, m0, n0, Dp, acc);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = m0 + (lane >> 2) + (e >> 1) * 8, key = win.x + n0 + (lane & 3) * 2 + 8 * j + (e & 1);
+          const int tk = r / F;
+          if (r < rows && key / F == tk) pr[(size_t)r * PS + key - tk * F] = acc[j][e];
+        }
+    }
+    __syncthreads();
+    for (int r0 = 0; r0 < rows; r0 += nth / 8) {
+      const int row = r0 + (tid >> 3), sub = tid & 7;
+      const bool live = row < rows;
+      const int rr = live ? row : rows - 1, tk = rr / F;
+      const float* brow = BIAS ? bias + ((size_t)h * F + (rr - tk * F)) * F : nullptr;
+      T* prow = pw + (size_t)rr * LDP + tk * F - block_window(rr & ~15, rows, F).x;
+      float sv[8], m = -INFINITY, sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int j = sub + 8 * u;
+        sv[u] = 0.f;
+        if (live && j < F) {
+          sv[u] = pr[(size_t)rr * PS + j] + (BIAS ? brow[j] : 0.f);
+          m = fmaxf(m, sv[u]);
+        }
+      }
+      m = max8(m);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (live && sub + 8 * u < F) {
+          sv[u] = expf(sv[u] - m);
+          sum += sv[u];
+        }
+      sum = sum8(sum);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (live && sub + 8 * u < F) prow[sub + 8 * u] = from_f<T>(sv[u] / sum);
+    }
+    const bool one_pass = !__syncthreads_or(vbad);
+    const int db = Dp / 16;
+    for (int item = warp; item < (Rp / 16) * db; item += nwarps) {
+      const int m0 = (item / db) * 16, n0 = (item % db) * 16;
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      if (m0 < rows) {
         const int2 win = block_window(m0, rows, F);
-        if (n0 >= win.y) continue;
-        float acc[2][4];
-        mma_block<false, false>(qkv, LDQ, qkv + (size_t)win.x * LDQ + Dp, LDQ, m0, n0, Dp, acc);
+        const T* vw = qkv + (size_t)win.x * LDQ + 2 * Dp;
+        if (one_pass) tensor_block<true>(pw, LDP, vw, LDQ, m0, n0, round16(win.y), acc);
+        else  // one pass per token of the block over its keys alone; each row keeps its own token's
+          for (int tk = m0 / F; tk * F < min(m0 + 16, rows); ++tk) {
+            float part[2][4];
+            tensor_keys(pw, LDP, vw, LDQ, m0, n0, tk * F - win.x, (tk + 1) * F - win.x, part);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = m0 + (lane >> 2) + (e >> 1) * 8, key = win.x + n0 + (lane & 3) * 2 + 8 * j + (e & 1);
-            const int tk = r / F;
-            if (r < rows && key / F == tk) pr[(size_t)r * PS + key - tk * F] = acc[j][e];
+            for (int e = 0; e < 4; ++e)
+              if ((m0 + (lane >> 2) + 8 * (e >> 1)) / F == tk) acc[0][e] = part[0][e], acc[1][e] = part[1][e];
           }
       }
-      __syncthreads();
-      for (int r0 = 0; r0 < rows; r0 += nth / 8) {
-        const int row = r0 + (tid >> 3), sub = tid & 7;
-        const bool live = row < rows;
-        const int rr = live ? row : rows - 1, tk = rr / F;
-        const float* brow = BIAS ? bias + ((size_t)h * F + (rr - tk * F)) * F : nullptr;
-        T* prow = pw + (size_t)rr * LDP + tk * F - block_window(rr & ~15, rows, F).x;
-        float sv[8], m = -INFINITY, sum = 0.f;
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int j = sub + 8 * u;
-          sv[u] = 0.f;
-          if (live && j < F) {
-            sv[u] = pr[(size_t)rr * PS + j] + (BIAS ? brow[j] : 0.f);
-            m = fmaxf(m, sv[u]);
-          }
-        }
-        m = max8(m);
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (live && sub + 8 * u < F) {
-            sv[u] = expf(sv[u] - m);
-            sum += sv[u];
-          }
-        sum = sum8(sum);
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (live && sub + 8 * u < F) prow[sub + 8 * u] = from_f<T>(sv[u] / sum);
-      }
-      __syncthreads();
-      const int db = Dp / 16;
-      for (int item = warp; item < (Rp / 16) * db; item += nwarps) {
-        const int m0 = (item / db) * 16, n0 = (item % db) * 16;
-        float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        if (m0 < rows) {
-          const int2 win = block_window(m0, rows, F);
-          mma_block<false, true>(pw, LDP, qkv + (size_t)win.x * LDQ + 2 * Dp, LDQ, m0, n0, round16(win.y), acc);
-        }
-        const int r = m0 + (lane >> 2), c = n0 + (lane & 3) * 2;
-        st2(qkv + (size_t)r * LDQ + c, acc[0][0], acc[0][1]);
-        st2(qkv + (size_t)(r + 8) * LDQ + c, acc[0][2], acc[0][3]);
-        st2(qkv + (size_t)r * LDQ + c + 8, acc[1][0], acc[1][1]);
-        st2(qkv + (size_t)(r + 8) * LDQ + c + 8, acc[1][2], acc[1][3]);
-      }
-    } else {  // float32: the products on the CUDA cores, the logits fused with the softmax
-      for (int r0 = 0; r0 < rows; r0 += nth / 8) {
-        const int row = r0 + (tid >> 3), sub = tid & 7;
-        const bool live = row < rows;
-        const int rr = live ? row : rows - 1, tk = rr / F;
-        const T* q = qkv + (size_t)rr * LDQ;
-        const T* kb = qkv + (size_t)tk * F * LDQ + Dp;
-        const float* brow = BIAS ? bias + ((size_t)h * F + (rr - tk * F)) * F : nullptr;
-        float sv[8], m = -INFINITY, sum = 0.f;
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int j = sub + 8 * u;
-          sv[u] = 0.f;
-          if (live && j < F) {
-            sv[u] = dot_rows(q, kb + (size_t)j * LDQ, D) + (BIAS ? brow[j] : 0.f);
-            m = fmaxf(m, sv[u]);
-          }
-        }
-        m = max8(m);
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (live && sub + 8 * u < F) {
-            sv[u] = expf(sv[u] - m);
-            sum += sv[u];
-          }
-        sum = sum8(sum);
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (live && sub + 8 * u < F) pr[(size_t)rr * PS + sub + 8 * u] = rnd<T>(sv[u] / sum);
-      }
-      __syncthreads();
-
-      // o_h = round(P V) over the q slots; padded rows and columns are written as zeros.
-      for (int item = tid; item < Rp * Dp; item += nth) {
-        const int row = item / Dp, d = item - row * Dp;
-        float s = 0.f;
-        if (row < rows && d < D) {
-          const int tk = row / F;
-          const float* p = pr + (size_t)row * PS;
-          const T* vb = qkv + (size_t)tk * F * LDQ + 2 * Dp + d;
-          for (int j = 0; j < F; ++j) s += p[j] * to_f(vb[(size_t)j * LDQ]);
-        }
-        qkv[(size_t)row * LDQ + d] = from_f<T>(s);
-      }
+      const int r = m0 + (lane >> 2), c = n0 + (lane & 3) * 2;
+      st2(qkv + (size_t)r * LDQ + c, acc[0][0], acc[0][1]);
+      st2(qkv + (size_t)(r + 8) * LDQ + c, acc[0][2], acc[0][3]);
+      st2(qkv + (size_t)r * LDQ + c + 8, acc[1][0], acc[1][1]);
+      st2(qkv + (size_t)(r + 8) * LDQ + c + 8, acc[1][2], acc[1][3]);
     }
     __syncthreads();
 
     // 4. y += o_h W_o,h; the next head's first barrier protects o_h and the W_o slot.
-    panel_mma_add<false, true>(qkv, LDQ, w, LDC, Rp, Cp, Dp, ys, LDF, Rp, Cp);
+    tensor_mma_add<false, true>(qkv, LDQ, w, LDC, Rp, Cp, Dp, ys, LDF, Rp, Cp);
   }
   __syncthreads();
 
@@ -470,7 +462,7 @@ static int launch(const void* x, const void* wqkv, const void* bqkv, const void*
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
       static_cast<const T*>(wo), static_cast<const float*>(bo), static_cast<const float*>(bias),
       static_cast<T*>(out), tokens, f, c, heads, dim, bt, scale);
-  *staged_out = staged;
+  *staged_out = staged ? (sizeof(T) == 4 ? 3 : 1) : 0;  // 3: the staged kernel in float32, its products in 3xTF32
   return (int)cudaGetLastError();
 }
 
@@ -810,7 +802,7 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
 // products:
 //     q|k|v = x W_qkv,h (+ b, rounded),  do = round(g W_o,h^T),
 //     dW_o,h += o^T g,  dW_qkv,h += x^T dqkv,  dx += dqkv W_qkv,h^T,
-// run on the tensor cores in either type (`bwd_mma`, common.cuh): bf16 panels
+// run on the tensor cores in either type (`tensor_mma`, common.cuh): bf16 panels
 // through mma.sync m16n8k16, float32 ones in split-precision TF32 (3xTF32:
 // each operand split into a TF32 high and low part, three m16n8k8 products
 // lo*hi + hi*lo + hi*hi per 8-deep step, each step summed in a fresh
@@ -841,7 +833,7 @@ __global__ void __launch_bounds__(kThreads) temporal_bwd_kernel(
 //
 // Weight gradients: each head's dW_qkv,h and dW_o,h are one product over the
 // tile's rows each, in registers, read-modify-written into the CTA's float32
-// partial once per head and tile (`bwd_mma_red`: in bf16 a thread reads its
+// partial once per head and tile (`tensor_mma_red`: in bf16 a thread reads its
 // eight elements before it writes them; in float32 each element is added with
 // `red.global.add`, which does not stall the warp, by the one thread that owns
 // it, in its program order); the partials and `reduce_partials_kernel` are as
@@ -981,7 +973,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
         load_part(h, part + 1, i0 + part + 1);
         const float* bb = bqkv + part * HD + h * D;
         T* dst = qkv + part * Dp;
-        bwd_mma<false, true>(xs, LDC, w, LDD, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
+        tensor_mma<false, true>(xs, LDC, w, LDD, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
           float a = 0.f, b = 0.f;
           if (c < D) {
             a = rnd<T>(v0 + bb[c]);
@@ -1000,7 +992,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
       {
         const T* w = part_ready(i0 + 3);
         load_part(h, 4, i0 + 4);
-        bwd_mma<false, false>(gs, LDC, w, LDC, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
+        tensor_mma<false, false>(gs, LDC, w, LDC, Rp, Dp, Cp, [=](int r, int c, float v0, float v1) {
           st2(dos + (size_t)r * LDD + c, v0, v1);
         });
         // Eight lanes per row, each taking the frames j = lane, lane + 8, ... (F <= 64).
@@ -1091,7 +1083,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
       // 4. dW_o,h += o_h^T g on the tensor cores, once per head and tile; and, per row,
       // ds = P * (dattn - sum_j dattn P) with dattn = do V^T, over P (rounded unless a bias
       // needs the unrounded ds for dbias).
-      bwd_mma_red<true, true>(os, LDD, gs, LDC, Dp, Cp, Rp, pw + (size_t)C * W3 + W3 + (size_t)h * D * C, C,
+      tensor_mma_red<true, true>(os, LDD, gs, LDC, Dp, Cp, Rp, pw + (size_t)C * W3 + W3 + (size_t)h * D * C, C,
                               D, C);  // dW_o,h
       for (int r0 = 0; r0 < rows; r0 += nth / 8) {  // eight lanes per row, as for the softmax
         const int row = r0 + (tid >> 3), sub = tid & 7;
@@ -1210,8 +1202,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1) temporal_bwd
           }
         }
         const T* dp = dqk + part * Dp;
-        bwd_mma_red<true, true>(xs, LDC, dp, LDQ, Cp, Dp, Rp, pw + part * HD + h * D, W3, C, D);
-        bwd_mma_add<false, false>(dp, LDQ, w, LDD, Rp, Cp, Dp, dxs, LDF, Rp, Cp);
+        tensor_mma_red<true, true>(xs, LDC, dp, LDQ, Cp, Dp, Rp, pw + part * HD + h * D, W3, C, D);
+        tensor_mma_add<false, false>(dp, LDQ, w, LDD, Rp, Cp, Dp, dxs, LDF, Rp, Cp);
       }
     }
     __syncthreads();
@@ -1275,13 +1267,15 @@ static int launch_bwd(const void* x, const void* g, const void* wqkv, const void
 
 // dtype: 0 = float32, 1 = bfloat16. `bias` is (heads, f, f) float32 or null (the unbiased
 // instantiation). Returns the cudaError_t of the launch; `*staged` is set to 1 where the staged
-// kernel ran, 0 where the CUDA-core one did (the backward below also reports 3).
+// kernel ran in bf16, 3 where it ran in float32 (its products in 3xTF32), 0 where the CUDA-core one
+// did. A float32 shape that `f32_fwd_takes_stream` gives to the streaming kernel is refused.
 extern "C" int temporal_attention_fwd(int dtype, const void* x, const void* wqkv,
                                       const void* bqkv, const void* wo, const void* bo,
                                       const void* bias, void* out, int tokens, int f, int c,
                                       int heads, int dim, int bt, float scale, void* stream,
                                       int* staged) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vdt::kF32RuleChecked && vdt::f32_fwd_takes_stream(f, c, dim)) return (int)cudaErrorInvalidValue;
 #define VDT_FWD(T, B) \
   vdt::launch<T, B>(x, wqkv, bqkv, wo, bo, bias, out, tokens, f, c, heads, dim, bt, scale, s, staged)
   if (dtype == 0) return bias ? VDT_FWD(float, true) : VDT_FWD(float, false);

@@ -26,12 +26,13 @@
 // Two designs. The streaming kernels (`temporal_stream_fwd_kernel`,
 // `temporal_stream_bwd_kernel`, below the first design; see their note) stage
 // x, g and the weights in c-chunks, keep a token's q|k|v in shared memory and
-// run every product on the tensor cores in bf16; in mode DENSE they also carry
+// run every product on the tensor cores (bf16, or float32 in split-precision
+// TF32); in mode DENSE they also carry
 // the wide columns of f <= 64 that the dense kernels cannot hold, with the
 // dense kernels' rounding points. They take every shape whose plan fits; the
 // first design (`temporal_blockwise_fwd_kernel`, `..._bwd_kernel`) runs only
-// where it does not: head dims over 32; in float32 the forward beyond f = 256
-// and the backward beyond f = 144; in bf16 the forward beyond f = 288 at
+// where it does not: head dims over 32; in float32 the forward beyond f = 288
+// and the backward beyond f = 160; in bf16 the forward beyond f = 288 at
 // c >= 256 and the backward beyond f = 192 at c >= 128 (256 at c = 64, 320 at
 // c = 32). `choose` and `sw_plan` decide, and
 // ops/temporal_attention.py's `blockwise_plan` / `stream_plan` decide alike.
@@ -420,7 +421,7 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
 
 // ---------------------------------------------------------------------------
 // Streaming redesign: the kernels above, with staged panels and warp-owned
-// query rows (tensor cores in bf16; the float32 backward's in 3xTF32).
+// query rows (tensor cores in bf16, and in float32 in 3xTF32).
 //
 // The same functions and rounding points as `temporal_blockwise_fwd_kernel`
 // and `temporal_blockwise_bwd_kernel` (mode BLOCKWISE), and, in mode DENSE,
@@ -434,10 +435,9 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
 // Design. One CTA owns one token column at a time (a persistent grid walks
 // the tokens) and runs the heads in turn. Per head:
 //   1. q|k|v = x W_qkv,h (+ b, rounded) and, in the backward, do = g W_o,h^T
-//      (float32): on the tensor cores for bf16 panels; float32 panels on the
-//      CUDA cores in the forward (`panel_mma`, common.cuh) and in the
-//      backward on the tensor cores in split-precision TF32 (`bwd_mma`:
-//      3xTF32, three m16n8k8 TF32 products per float32 product, each 8-deep
+//      (float32): on the tensor cores (`tensor_mma`, common.cuh), bf16 panels
+//      through mma.sync m16n8k16, float32 ones in split-precision TF32
+//      (3xTF32, three m16n8k8 TF32 products per float32 product, each 8-deep
 //      step summed in a fresh accumulator and added on the CUDA cores, which
 //      holds the float32 gates). x, g and the head's weights are staged in
 //      shared memory in x's type, in c-chunks of CK columns, through a ring
@@ -453,17 +453,16 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
 //      dP = round(do) v^T, and dbias from the unrounded dS; then (phase A,
 //      key rows, 16 at a time) dv += round(P)^T round(do) and
 //      dk += round(dS)^T q over all query blocks. K|V of the head stay in
-//      shared memory, so nothing is projected twice. In float32 the forward
-//      computes the same fragments on the CUDA cores (`warp_nt`, `warp_pv`),
-//      P passing through a per-warp scratch; the backward on the tensor cores
-//      in 3xTF32 (`bwd_nt`, `bwd_pv`: `nt3`, `pv3`), P and dS staying in
-//      registers as in bf16, so its layout holds no scratch.
+//      shared memory, so nothing is projected twice. In float32 both kernels
+//      compute the same fragments on the tensor cores in 3xTF32 (`tensor_nt`,
+//      `tensor_pv`: `nt3`, `pv3`), P and dS staying in registers as in bf16,
+//      so no layout holds a scratch for them.
 //   3. The width-scaling products after attention, per c-chunk: forward
 //      y += round(o_h) W_o,h into a float32 accumulator; backward
 //      dW_o,h += o^T g, dW_qkv,h += x^T dqkv and dx += dqkv W_qkv,h^T (one
-//      product over the packed dq|dk|dv; `bwd_mma_red` into the weight
+//      product over the packed dq|dk|dv; `tensor_mma_red` into the weight
 //      partials, in float32 dW_qkv,h as one product over the three parts'
-//      columns; `bwd_mma_add` into dx, as in 1). The
+//      columns; `tensor_mma_add` into dx, as in 1). The
 //      accumulator (rows, c) lives in shared memory where it fits beside the
 //      panels, else in a float32 scratch of the CTA's own in device memory,
 //      read and written by the same thread.
@@ -479,7 +478,7 @@ __global__ void __launch_bounds__(kThreads) temporal_blockwise_bwd_kernel(
 struct SwPlan {
   int Fp, Fk, Cp, Dp, KB, CK, nch, NS, acc_smem, LDQ, LDD, LDX, LDF, LDA, LDY;
   size_t sx, sg, swq, swo, slot;  // elements of T: x, g, W_qkv,h and W_o,h chunks within a ring slot
-  size_t ring, qkv, o, dob, dof, st, cs, acc3, y, scr, bytes;  // byte offsets
+  size_t ring, qkv, o, dob, dof, st, cs, acc3, y, bytes;  // byte offsets
 };
 
 __host__ __device__ inline SwPlan sw_layout(int F, int C, int D, int elt, bool bwd, bool dense, int CK, int NS,
@@ -515,7 +514,6 @@ __host__ __device__ inline SwPlan sw_layout(int F, int C, int D, int elt, bool b
   p.cs = at;   if (bwd) at = al16(at + (size_t)(kThreads / 32) * 3 * p.Dp * 4);
   p.acc3 = at; if (p.nch > 1 && elt == 2) at = al16(at + (size_t)p.Fp * p.LDA * 4);
   p.y = at;    if (acc_smem) at = al16(at + (size_t)p.Fp * p.LDY * 4);
-  p.scr = at;  if (elt == 4 && !bwd) at = al16(at + (size_t)(kThreads / 32) * 16 * (p.KB + 4) * 4);
   p.bytes = at;
   return p;
 }
@@ -607,9 +605,9 @@ __device__ __forceinline__ void qkv_store(T* qkv, int LDQ, int Dp, int F, int D,
 }
 
 // Phase 1 of a head: q|k|v into the panel (one product with its epilogue where c is one chunk, else summed
-// over the chunks in float32, then stored), and with `dof` (backward) do = g W_o,h^T added into it. TC takes
-// the backward's products (`bwd_mma`: float32 in 3xTF32); the forward keeps `panel_mma`.
-template <typename T, bool DENSE, bool TC = false>
+// over the chunks in float32, then stored), and with `dof` (backward) do = g W_o,h^T added into it; on the
+// tensor cores (`tensor_mma`: float32 in 3xTF32).
+template <typename T, bool DENSE>
 __device__ void project_head(const SwRing<T>& rg, int& gi, T* qkv, float* acc3, float* dof, int F, int D,
                              int HD, int h, const float* bqkv, float scale, float scale_q) {
   const SwPlan& pl = rg.pl;
@@ -626,15 +624,9 @@ __device__ void project_head(const SwRing<T>& rg, int& gi, T* qkv, float* acc3, 
   for (int ch = 0; ch < pl.nch; ++ch) {
     const T* sl = rg.ready(gi++);
     const T *xs = sl + pl.sx, *ws = sl + pl.swq;
-    if (TC) {
-      if (pl.nch == 1) bwd_mma<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, epi);
-      else bwd_mma_add<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, acc3, pl.LDA, Fp, 3 * Dp);
-      if (dof) bwd_mma_add<false, false>(sl + pl.sg, pl.LDX, sl + pl.swo, pl.LDX, Fp, Dp, pl.CK, dof, pl.LDF, Fp, Dp);
-    } else {
-      if (pl.nch == 1) panel_mma<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, epi);
-      else panel_mma_add<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, acc3, pl.LDA, Fp, 3 * Dp);
-      if (dof) panel_mma_add<false, false>(sl + pl.sg, pl.LDX, sl + pl.swo, pl.LDX, Fp, Dp, pl.CK, dof, pl.LDF, Fp, Dp);
-    }
+    if (pl.nch == 1) tensor_mma<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, epi);
+    else tensor_mma_add<false, true>(xs, pl.LDX, ws, LDQ, Fp, 3 * Dp, pl.CK, acc3, pl.LDA, Fp, 3 * Dp);
+    if (dof) tensor_mma_add<false, false>(sl + pl.sg, pl.LDX, sl + pl.swo, pl.LDX, Fp, Dp, pl.CK, dof, pl.LDF, Fp, Dp);
   }
   if (pl.nch > 1) {
     __syncthreads();
@@ -647,8 +639,9 @@ __device__ void project_head(const SwRing<T>& rg, int& gi, T* qkv, float* acc3, 
   __syncthreads();
 }
 
+// Two CTAs per SM in bf16 mode BLOCKWISE (128 registers a thread); a float32 CTA holds an SM.
 template <typename T, bool DENSE, int DP>
-__global__ void __launch_bounds__(kThreads, DENSE ? 1 : 2) temporal_stream_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && !DENSE ? 2 : 1) temporal_stream_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ wqkv, const float* __restrict__ bqkv,
     const T* __restrict__ wo, const float* __restrict__ bo, const float* __restrict__ bias,
     T* __restrict__ out, float* yscr, int tokens, int F, int C, int H, int D, float scale, int CK, int NS,
@@ -661,7 +654,6 @@ __global__ void __launch_bounds__(kThreads, DENSE ? 1 : 2) temporal_stream_fwd_k
   float* acc3 = reinterpret_cast<float*>(smem_raw + (sizeof(T) == 4 ? pl.qkv : pl.acc3));
   float* y = acc_smem ? reinterpret_cast<float*>(smem_raw + pl.y) : yscr + (size_t)blockIdx.x * pl.Fp * pl.LDY;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5, g = lane >> 2, q = lane & 3;
-  float* scr = reinterpret_cast<float*>(smem_raw + pl.scr) + warp * 16 * (pl.KB + 4);
   const int HD = H * D, Fp = pl.Fp, LDQ = pl.LDQ, LDD = pl.LDD, LDY = pl.LDY;
   const float scale_q = rnd<T>(scale);
   const SwRing<T> rg{pl, reinterpret_cast<T*>(smem_raw + pl.ring), x, nullptr, wqkv, wo, tokens, F, C, H, D,
@@ -678,8 +670,8 @@ __global__ void __launch_bounds__(kThreads, DENSE ? 1 : 2) temporal_stream_fwd_k
       const float* bias_h = bias ? bias + (size_t)h * F * F : nullptr;
       for (int rb = warp; rb < Fp / 16; rb += nw) {
         float o[NB][4], m[2], l[2];
-        sweep_rows<T, DENSE, DP>(qkv + (size_t)rb * 16 * LDQ, LDQ, qkv + DP, qkv + 2 * DP, LDQ, F, rb * 16, bias_h, o,
-                                 m, l, scr);
+        sweep_rows<T, DENSE, DP, true>(qkv + (size_t)rb * 16 * LDQ, LDQ, qkv + DP, qkv + 2 * DP, LDQ, F, rb * 16,
+                                       bias_h, o, m, l, nullptr);
 #pragma unroll
         for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -693,7 +685,7 @@ __global__ void __launch_bounds__(kThreads, DENSE ? 1 : 2) temporal_stream_fwd_k
       for (int ch = 0; ch < pl.nch; ++ch) {
         const T* sl = pl.nch == 1 ? rg.slot(gi - 1) : rg.ready(gi++);
         const int c0 = ch * pl.CK;
-        panel_mma_add<false, true>(os, LDD, sl + pl.swo, pl.LDX, Fp, pl.CK, DP, y + c0, LDY, Fp, min(pl.CK, C - c0));
+        tensor_mma_add<false, true>(os, LDD, sl + pl.swo, pl.LDX, Fp, pl.CK, DP, y + c0, LDY, Fp, min(pl.CK, C - c0));
       }
     }
     __syncthreads();
@@ -750,7 +742,7 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
     for (int h = 0; h < H; ++h) {
       const float* bias_h = bias ? bias + (size_t)h * F * F : nullptr;
       float* pdb_h = bias ? pdb + (size_t)h * F * F : nullptr;
-      project_head<T, DENSE, true>(rg, gi, qkv, acc3, dof, F, D, HD, h, bqkv, scale, scale_q);
+      project_head<T, DENSE>(rg, gi, qkv, acc3, dof, F, D, HD, h, bqkv, scale, scale_q);
 
       // Sweep 1 (query rows): o_h, the row statistics, di (BLOCKWISE: rowsum(do * o) from the unrounded
       // values) and do rounded.
@@ -796,8 +788,8 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
         for (int j = 0; j < NB; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
         // P and dP of one KV block (keys from kb0), P in s.
         auto block = [&](int kb0, float (&s)[4][4], float (&dp)[4][4]) {
-          bwd_nt<4, DP>(s, qkv + (size_t)q0 * LDQ, LDQ, qkv + (size_t)kb0 * LDQ + DP, LDQ);
-          bwd_nt<4, DP>(dp, dob + (size_t)q0 * LDD, LDD, qkv + (size_t)kb0 * LDQ + 2 * DP, LDQ);
+          tensor_nt<4, DP>(s, qkv + (size_t)q0 * LDQ, LDQ, qkv + (size_t)kb0 * LDQ + DP, LDQ);
+          tensor_nt<4, DP>(dp, dob + (size_t)q0 * LDD, LDD, qkv + (size_t)kb0 * LDQ + 2 * DP, LDQ);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -843,7 +835,7 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
               }
               dp[j][e] = rnd<T>(ds);
             }
-          bwd_pv<NB, 4>(dq, dp, qkv + (size_t)kb0 * LDQ + DP, LDQ);
+          tensor_pv<NB, 4>(dq, dp, qkv + (size_t)kb0 * LDQ + DP, LDQ);
         }
         float cs[NB][2];
 #pragma unroll
@@ -879,8 +871,8 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
           for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
         for (int q0 = 0; q0 < Fp; q0 += 16) {
           float s[2][4], dp[2][4];
-          bwd_nt<2, DP>(s, qkv + (size_t)k0 * LDQ + DP, LDQ, qkv + (size_t)q0 * LDQ, LDQ);
-          bwd_nt<2, DP>(dp, qkv + (size_t)k0 * LDQ + 2 * DP, LDQ, dob + (size_t)q0 * LDD, LDD);
+          tensor_nt<2, DP>(s, qkv + (size_t)k0 * LDQ + DP, LDQ, qkv + (size_t)q0 * LDQ, LDQ);
+          tensor_nt<2, DP>(dp, qkv + (size_t)k0 * LDQ + 2 * DP, LDQ, dob + (size_t)q0 * LDD, LDD);
 #pragma unroll
           for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -895,8 +887,8 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
               s[j][e] = rnd<T>(p);
               dp[j][e] = rnd<T>(ds);
             }
-          bwd_pv<NB, 2>(dv, s, dob + (size_t)q0 * LDD, LDD);
-          bwd_pv<NB, 2>(dk, dp, qkv + (size_t)q0 * LDQ, LDQ);
+          tensor_pv<NB, 2>(dv, s, dob + (size_t)q0 * LDD, LDD);
+          tensor_pv<NB, 2>(dk, dp, qkv + (size_t)q0 * LDQ, LDQ);
         }
         float cs[NB][2];
         column_sums<NB>(dk, cs);
@@ -941,7 +933,7 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
       for (int ch = 0; ch < pl.nch; ++ch) {
         const T* sl = pl.nch == 1 ? rg.slot(gi - 1) : rg.ready(gi++);
         const int c0 = ch * pl.CK, cw = min(pl.CK, C - c0);
-        bwd_mma_red<true, true>(os, LDD, sl + pl.sg, pl.LDX, DP, pl.CK, Fp,
+        tensor_mma_red<true, true>(os, LDD, sl + pl.sg, pl.LDX, DP, pl.CK, Fp,
                                 pw + (size_t)C * W3 + W3 + (size_t)h * D * C + c0, C, D, cw);
         if constexpr (sizeof(T) == 4) {  // float32: the three parts as one product over dq|dk|dv's 3DP columns
           float* dst = pw + (size_t)c0 * W3 + h * D;
@@ -953,10 +945,10 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_stream_bwd_kernel(
           });
         } else {
           for (int part = 0; part < 3; ++part)
-            bwd_mma_red<true, true>(sl + pl.sx, pl.LDX, qkv + part * DP, LDQ, pl.CK, DP, Fp,
+            tensor_mma_red<true, true>(sl + pl.sx, pl.LDX, qkv + part * DP, LDQ, pl.CK, DP, Fp,
                                     pw + (size_t)c0 * W3 + part * HD + h * D, W3, cw, D);
         }
-        bwd_mma_add<false, false>(qkv, LDQ, sl + pl.swq, LDQ, Fp, pl.CK, 3 * DP, dxa + c0, LDY, Fp, cw);
+        tensor_mma_add<false, false>(qkv, LDQ, sl + pl.swq, LDQ, Fp, pl.CK, 3 * DP, dxa + c0, LDY, Fp, cw);
       }
     }
     __syncthreads();
@@ -1053,7 +1045,7 @@ static size_t scratch_bytes(bool staged, const SwPlan& p, int grid, int f, int h
 
 // The route of a launch: 1 = the streaming kernel (mode DENSE where `dense`), 0 = the first design
 // (mode BLOCKWISE only, where the streaming plan does not fit), -1 = none (DENSE that does not fit). The C
-// entries report the streaming float32 backward as 3 (its products in 3xTF32).
+// entries report the streaming kernel in float32 as 3 (its products in 3xTF32).
 static int choose(int f, int c, int dim, int elt, bool bwd, bool dense, SwPlan* p) {
   if (sw_plan(f, c, dim, elt, bwd, dense, p)) return 1;
   return dense ? -1 : 0;
@@ -1065,7 +1057,7 @@ static int choose(int f, int c, int dim, int elt, bool bwd, bool dense, SwPlan* 
 // rounding points, for widths the dense kernels cannot hold), 0 the blockwise kernels. `grid` CTAs walk
 // the tokens; `scratch` (scratch_size bytes) is the launch's device scratch (`scratch_bytes`). `bias` is
 // (heads, f, f) float32 or null. Returns the cudaError_t of the launch; `*staged` is set to 1 where the
-// streaming kernel ran, 0 where the first design did.
+// streaming kernel ran in bf16, 3 where it ran in float32 (its products in 3xTF32), 0 where the first design did.
 extern "C" int temporal_blockwise_fwd(int dtype, int dense, const void* x, const void* wqkv,
                                       const void* bqkv, const void* wo, const void* bo,
                                       const void* bias, void* out, void* scratch, size_t scratch_size,
@@ -1078,7 +1070,7 @@ extern "C" int temporal_blockwise_fwd(int dtype, int dense, const void* x, const
   const int route = vdt::choose(f, c, dim, elt, false, dense != 0, &p);
   if (route < 0 || vdt::scratch_bytes(route == 1, p, grid, f, heads, dim, elt, false) > scratch_size)
     return (int)cudaErrorInvalidValue;
-  *staged = route;
+  *staged = route == 1 && dtype == 0 ? 3 : route;
   if (route == 1) {
 #define VDT_SFWD(T, DN, DP)                                                                            \
   vdt::launch_stream_fwd<T, DN, DP>(p, x, wqkv, bqkv, wo, bo, bias, out, scratch, tokens, f, c, heads, \

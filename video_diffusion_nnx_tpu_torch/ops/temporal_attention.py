@@ -30,8 +30,10 @@ of its own where the staged dense tile or the streaming plan does not fit
 (``tf32x3_plan``; ``csrc/temporal_tf32x3.cu``): the width-scaling products as
 GEMMs and the attention core per (token, head), all on the tensor cores in
 split-precision TF32 (three TF32 products per float32 product). Where they fit,
-the staged and streaming backwards take the same split products in float32
-(route "staged-3xtf32").
+the staged and streaming kernels, forward and backward, take the same split
+products in float32 (route "staged-3xtf32"); a float32 forward that the
+staged tile cannot hold takes the streaming kernel in mode DENSE where
+``_f32_fwd_takes_stream`` says so.
 
 Dispatch has no hidden fallback. A CPU tensor takes the family's plain
 version, differentiated by autograd; a CUDA tensor goes through
@@ -43,8 +45,8 @@ oracles, with their rounding points; the wide family's are the dense ones.
 Every plain version and every kernel takes the bias; a launch with it is
 counted under a name of its own (``..._biased_fwd``, ``..._biased_bwd``),
 ``staged`` counts the launches that ran the staged or streaming kernel (of
-them, ``staged_tf32x3`` those of the float32 backward, whose products run in
-3xTF32) and ``tf32x3`` those that ran the float32 tensor-core backward of
+them, ``staged_tf32x3`` those in float32, whose products run in 3xTF32) and
+``tf32x3`` those that ran the float32 tensor-core backward of
 ``csrc/temporal_tf32x3.cu``.
 
 dbias crosses CTAs like the weight gradients: each CTA of a backward kernel
@@ -74,7 +76,7 @@ _WORKSPACE_MAX = 128 * 2**20  # bytes of per-CTA weight-gradient partials in one
 # CTAs would split); their partials may take twice the workspace, so that the partials' size never caps the grid
 # under the SM count (262,400 floats a CTA at D1's temporal shape: 127 CTAs under the cap above).
 _F32_WORKSPACE_MAX = 256 * 2**20
-STAGED_3XTF32 = "staged-3xtf32"  # the route of the float32 staged and streaming backwards (C route 3)
+STAGED_3XTF32 = "staged-3xtf32"  # the route of the float32 staged and streaming kernels (C route 3)
 _DBIAS_WORKSPACE_MAX = 256 * 2**20  # bytes of per-CTA dbias partials (H*f*f floats each) in one backward
 _THREADS = 256  # threads of every CTA (kThreads in csrc/common.cuh)
 _TC_SMEM_TARGET = 113 * 1024  # two staged CTAs per SM where a tile allows it
@@ -90,8 +92,8 @@ launches = {"temporal_attention_fwd": 0, "temporal_attention_bwd": 0,
 staged = {name: 0 for name in launches}
 # Backward launches that ran the float32 design of csrc/temporal_tf32x3.cu (its C entry reports route 2).
 tf32x3 = {name: 0 for name in launches}
-# Backward launches that ran the staged dense or the streaming kernel in float32, whose products run on the
-# tensor cores in 3xTF32 (route 3; counted in ``staged`` too): the design "staged-3xtf32".
+# Launches, forward and backward, that ran the staged dense or the streaming kernel in float32, whose products run
+# on the tensor cores in 3xTF32 (route 3; counted in ``staged`` too): the design "staged-3xtf32".
 staged_tf32x3 = {name: 0 for name in launches}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -311,8 +313,6 @@ def _stream_layout(f: int, c: int, dim: int, elt: int, backward: bool, dense: bo
         at += _al16(fp * (3 * dp + 4) * 4)
     if acc_smem:  # y (forward) or dx (backward), float32
         at += _al16(fp * (cp + 4) * 4)
-    if elt == 4 and not backward:  # each warp's scratch for P on the CUDA cores (the backward's stays in registers)
-        at += _al16(8 * 16 * (kb + 4) * 4)
     return {"ck": ck, "chunks": nch, "slots": ns, "acc_smem": acc_smem, "smem": at, "rows_padded": fp,
             "kv_rows": fk, "dim_padded": dp, "kv_block": kb, "acc_floats": fp * (cp + 4)}
 
@@ -354,12 +354,12 @@ def blockwise_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool
     """The launch of a blockwise (or, with ``dense``, wide) kernel for ``sms`` SMs: route, grid, scratch.
 
     ``route`` "staged": the streaming kernel (panels staged in x's type, warp-owned query rows, the products
-    on the tensor cores in bf16), with its ``stream_plan`` fields; "staged-3xtf32" for its float32 backward,
-    whose products and attention fragments run on the tensor cores in 3xTF32, one CTA per SM whose partials
-    take up to ``_F32_WORKSPACE_MAX``, up to c = 32 (``_f32_takes_tf32x3``; wider, "tf32x3"); where the
+    on the tensor cores in bf16), with its ``stream_plan`` fields; "staged-3xtf32" in float32, whose products
+    and attention fragments run on the tensor cores in 3xTF32 (the backward one CTA per SM whose partials
+    take up to ``_F32_WORKSPACE_MAX``, up to c = 32: ``_f32_takes_tf32x3``; wider, "tf32x3"); where the
     streaming plan does not fit (mode BLOCKWISE only; a wide shape that does not fit raises), "tf32x3" for a
     float32 backward at head dims up to 32 (``tf32x3_plan``), else "simt", the first design. ``scratch`` is
-    the bytes of device scratch the launch needs (the C entry checks it). The forward of mode BLOCKWISE puts
+    the bytes of device scratch the launch needs (the C entry checks it). The bf16 forward of mode BLOCKWISE puts
     two CTAs on an SM where shared memory allows; the rest take one. The backward's grid keeps its partials
     within ``_WORKSPACE_MAX`` (and ``_DBIAS_WORKSPACE_MAX``, which the caller applies with a bias).
     """
@@ -377,9 +377,11 @@ def blockwise_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool
         grid = _blockwise_grid(tokens, f, dim, backward, sms)
         plan = {"route": "simt", "smem": 4 * _blockwise_floats(f, dim, KV_BLOCK, backward)}
     else:
-        per_sm = 2 if not dense and not backward and 2 * (plan["smem"] + 1024) <= 228 * 1024 else 1
+        # two bf16 forward CTAs per SM where shared memory allows (the float32 kernels' 3xTF32 fragments want
+        # the registers of one CTA an SM)
+        per_sm = 2 if bf16 and not dense and not backward and 2 * (plan["smem"] + 1024) <= 228 * 1024 else 1
         grid = max(1, min(tokens, sms * per_sm))
-        plan = {"route": STAGED_3XTF32 if backward and not bf16 else "staged", **plan}
+        plan = {"route": "staged" if bf16 else STAGED_3XTF32, **plan}
     if backward:
         total = c * 3 * heads * dim + 3 * heads * dim + heads * dim * c + c
         cap = _F32_WORKSPACE_MAX if plan["route"] == STAGED_3XTF32 else _WORKSPACE_MAX
@@ -448,12 +450,13 @@ def tf32x3_plan(tokens: int, f: int, c: int, dim: int, heads: int, sms: int) -> 
 def temporal_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms: int,
                   backward: bool) -> dict:
     """The kernel a CUDA call of the op launches: ``family`` "dense" (``fwd_plan`` / ``bwd_plan``), "wide"
-    (f <= 64 where the dense tile cannot hold one token: the streaming kernel in mode DENSE, with the dense
-    kernels' rounding points; the float32 backward takes ``tf32x3_plan``) or "blockwise" (f > 64), with that
-    family's plan. Never a plain version."""
+    (f <= 64 where the dense tile cannot hold one token, or a float32 forward that ``_f32_fwd_takes_stream`` gives
+    it: the streaming kernel in mode DENSE, with the dense kernels' rounding points; the float32 backward takes
+    ``tf32x3_plan``) or "blockwise" (f > 64), with that family's plan. Never a plain version."""
     if f > MAX_FRAMES:
         return {"family": "blockwise", **blockwise_plan(tokens, f, c, dim, heads, bf16, sms, backward)}
-    if wide_needed(f, c, dim, backward):
+    f32_fwd_stream = not (backward or bf16) and _f32_fwd_takes_stream(f, c, dim)
+    if wide_needed(f, c, dim, backward) or f32_fwd_stream:
         if backward and not bf16 and _tf32x3_fits(f, dim):  # float32: the tensor-core design, as dense shapes
             return {"family": "wide", **tf32x3_plan(tokens, f, c, dim, heads, sms)}
         return {"family": "wide", **blockwise_plan(tokens, f, c, dim, heads, bf16, sms, backward, dense=True)}
@@ -510,13 +513,12 @@ def _key_window(f: int) -> int:
 def _tc_fwd_bytes(bt: int, f: int, c: int, dim: int, elt: int) -> int:
     """Shared memory of the staged forward at ``bt`` tokens per tile and ``elt``-byte panels (``tc_fwd_plan``).
 
-    bf16 tiles also hold the probabilities by key window and 16 zero rows past the q|k|v panel.
+    Tiles also hold the probabilities by key window and 16 zero rows past the q|k|v panel.
     """
     rp, cp, dp = _round16(bt * f), _round16(c), _round16(dim)
     ldc, ldd, ldq = _pad_ld(c), _pad_ld(dim), _pad_ld(3 * dp)
     ws = max(cp * ldd, dp * ldc)
-    tc = elt == 2
-    windows = rp * _pad_ld(_key_window(f)) + 16 * ldq if tc else 0
+    windows = rp * _pad_ld(_key_window(f)) + 16 * ldq
     return elt * (rp * ldc + rp * ldq + 2 * ws + windows) + 4 * rp * (cp + 8) + 4 * rp * (f + 1)
 
 
@@ -525,10 +527,19 @@ def _tc_fwd_fits(bt: int, f: int, c: int, dim: int, elt: int) -> bool:
     return _tc_fwd_bytes(bt, f, c, dim, elt) <= _SMEM_MAX
 
 
+def _f32_fwd_takes_stream(f: int, c: int, dim: int) -> bool:
+    """``f32_fwd_takes_stream`` in csrc/temporal_attention.cu: a float32 forward whose staged tile holds no token
+    takes the streaming kernel in mode DENSE (family "wide", 3xTF32) rather than the CUDA-core kernel where a token
+    fills its one 64-key block (f = 64), head dims up to 64. Measured on the H100 (PERF.md §6): faster at f = 64 (the
+    fixed bottleneck, c = 256, head dim 32; c = 128, head dim 64), slower at f = 10 (D2's temporal attention), 16,
+    24, 32, 40 and 48; f = 49-63 is not measured and keeps the CUDA-core kernel."""
+    return f == MAX_FRAMES and dim <= 64 and not _tc_fwd_fits(1, f, c, dim, 4)
+
+
 def _staged_tile(tokens: int, f: int, sms: int, nbytes, per_sm: int = 2) -> int:
     """Tokens per staged tile: as many as fit two CTAs per SM (or one CTA, where that leaves fewer
     than 64 rows), spread over the SMs, in whole 16-row blocks where the tile allows it. With ``per_sm``
-    1 (the float32 backward, one CTA per SM): as many as fit one CTA, spread over one CTA per SM, in any
+    1 (the float32 kernels, one CTA per SM): as many as fit one CTA, spread over one CTA per SM, in any
     number of rows (fewer, larger tiles measured faster than whole 16-row blocks, PERF.md, PR 22)."""
     def fit(target: int) -> int:
         n = 1
@@ -549,9 +560,10 @@ def _staged_tile(tokens: int, f: int, sms: int, nbytes, per_sm: int = 2) -> int:
 def fwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms: int) -> dict:
     """The dense forward's launch: route, tokens per tile, shared memory and grid, for ``sms`` SMs.
 
-    The staged kernel (``route`` "staged": panels in x's type; in bf16 the projections and the
-    per-token products on the tensor cores) takes every shape whose one-token tile fits; the rest
-    the CUDA-core kernel ("simt").
+    The staged kernel (``route`` "staged": panels in x's type, the projections and the per-token
+    products on the tensor cores in bf16; "staged-3xtf32" in float32, both in 3xTF32, one CTA per SM holding
+    as many tokens as 227 KB does) takes every shape whose one-token tile fits; the rest the CUDA-core kernel
+    ("simt"), in float32 where ``temporal_plan`` does not give them the streaming kernel instead.
     Raises where the CUDA-core kernel cannot hold one token, as it always did. The C launcher makes
     the same choice from ``bt`` (``tc_fwd_fits``). ``heads`` does not change the tile: each head
     runs over the same tile in turn.
@@ -560,11 +572,11 @@ def fwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms:
     smem = 4 * bt * f * _dense_row_floats(f, c, dim, False)
     route, elt = "simt", 2 if bf16 else 4
     if _tc_fwd_fits(1, f, c, dim, elt):
-        route = "staged"
-        bt = _staged_tile(tokens, f, sms, lambda n: _tc_fwd_bytes(n, f, c, dim, elt))
+        route = "staged" if bf16 else STAGED_3XTF32
+        bt = _staged_tile(tokens, f, sms, lambda n: _tc_fwd_bytes(n, f, c, dim, elt), 2 if bf16 else 1)
         smem = _tc_fwd_bytes(bt, f, c, dim, elt)
     return {"route": route, "bt": bt, "smem": smem, "grid": -(-tokens // bt), "rows": bt * f,
-            "rows_padded": _round16(bt * f) if route == "staged" else bt * f}
+            "rows_padded": bt * f if route == "simt" else _round16(bt * f)}
 
 
 def bwd_plan(tokens: int, f: int, c: int, dim: int, heads: int, bf16: bool, sms: int) -> dict:
@@ -668,7 +680,8 @@ def _launch(x, wqkv, bqkv, wo, bo, heads: int, dim: int, pos_bias=None) -> torch
     name = f"temporal_{'attention' if plan['family'] == 'dense' else plan['family']}{tag}_fwd"
     _build.check(err, name)
     launches[name] += 1
-    staged[name] += route.value
+    staged[name] += route.value in (1, 3)
+    staged_tf32x3[name] += route.value == 3
     return out
 
 
